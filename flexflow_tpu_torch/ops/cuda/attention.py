@@ -1,10 +1,12 @@
 """The serve path's attention kernels: CUDA wrappers and their plain versions.
 
 ``decode_attention`` replaces the Pallas kernel of the same name
-(``flexflow_tpu/ops/pallas/attention.py:209``) and ``prefill_attention``
-replaces ``prefill_attention`` (:444), both on their fp, slot-contiguous,
-no-ALiBi paths.  The kernels are hand-written CUDA C++ for sm_90a
-(``flexflow_tpu_torch/csrc/``), built by ``nvcc`` on first use
+(``flexflow_tpu/ops/pallas/attention.py:209``), ``prefill_attention``
+replaces ``prefill_attention`` (:444), and ``tree_attention`` /
+``tree_attention_batched`` replace the two layouts of the tree kernel
+(:790, :836, both through ``_tree_call`` :675), all on their fp,
+slot-contiguous, no-ALiBi paths.  The kernels are hand-written CUDA C++ for
+sm_90a (``flexflow_tpu_torch/csrc/``), built by ``nvcc`` on first use
 (:mod:`.build`) and called through a plain C interface.
 
 Each wrapper launches its kernel for CUDA tensors, or raises: there is no
@@ -42,13 +44,21 @@ _ARGTYPES = {
     # q, k, v, rows, pstart, out, n_tiles, bq, num_kv, gq, r1, s_len,
     # head_dim, scale, dtype, stream
     "prefill_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, sk, sv, rows, clens, amask, out, n_tokens, num_kv, gq, r1,
+    # s_len, p_len, head_dim, scale, dtype, stream
+    "tree_attention": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, sk, sv, rows, clens, amask, out, n_req, p_tok, num_kv, gq,
+    # r1, s_len, p_len, head_dim, scale, dtype, stream
+    "tree_attention_batched": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
 }
+# the library (csrc/<source>.cu) each entry point lives in
+_SOURCE = {"tree_attention_batched": "tree_attention"}
 
 
 def _kernel(name: str):
     fn = _FNS.get(name)
     if fn is None:
-        fn = getattr(build.load(name), f"ff_{name}")
+        fn = getattr(build.load(_SOURCE.get(name, name)), f"ff_{name}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -216,3 +226,144 @@ def prefill_attention(q, k_cache, v_cache, rows, pstart, scale: float):
 
 
 prefill_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: tree attention (committed cache + speculation-tree buffer)
+# ---------------------------------------------------------------------------
+def tree_attention_plain(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
+                         amask, scale):
+    """Plain version of :func:`tree_attention` (any device).  It follows
+    the Pallas kernel, not the JAX gather path: a row with no live key
+    gives zeros (masked weights are 0, the denominator is clamped at
+    1e-30), where one softmax over the concatenated scores would give a
+    uniform average."""
+    t, qh, d = q.shape
+    r1, kv, s, _ = k_cache.shape
+    p = k_spec.shape[2]
+    gq = qh // kv
+    rows = rows.long().clamp(0, r1 - 1)
+    clens = clens.long().clamp(0, s)
+    key_pos = torch.arange(s, device=q.device)
+    out = torch.empty_like(q)
+    step = max(1, _GATHER_ELEMS // (kv * (s + p) * d))
+    for lo in range(0, t, step):
+        sl = slice(lo, lo + step)
+        r = rows[sl]
+        k_tok = torch.cat([k_cache[r], k_spec[r]], dim=2).float()
+        v_tok = torch.cat([v_cache[r], v_spec[r]], dim=2).float()
+        live = torch.cat([key_pos[None, :] < clens[sl, None], amask[sl]],
+                         dim=1)[:, None, None, :]           # [t', 1, 1, S+P]
+        qr = q[sl].float().reshape(-1, kv, gq, d)
+        scores = torch.einsum("tkgd,tksd->tkgs", qr, k_tok) * scale
+        scores = scores.masked_fill(~live, NEG_INF)
+        w = torch.exp(scores - scores.amax(-1, keepdim=True)) * live
+        o = torch.einsum("tkgs,tksd->tkgd", w, v_tok) \
+            / w.sum(-1, keepdim=True).clamp_min(1e-30)
+        out[sl] = o.reshape(-1, qh, d).to(q.dtype)
+    return out
+
+
+def tree_attention_batched_plain(q, k_cache, v_cache, k_spec, v_spec, rows,
+                                 clens, amask, scale):
+    """Plain version of :func:`tree_attention_batched` (any device): the
+    per-token function with each request's row, depth and mask rows
+    repeated over its P tree tokens."""
+    r, p, qh, d = q.shape
+    out = tree_attention_plain(
+        q.reshape(r * p, qh, d), k_cache, v_cache, k_spec, v_spec,
+        rows.repeat_interleave(p), clens.repeat_interleave(p),
+        amask.reshape(r * p, -1), scale)
+    return out.reshape(r, p, qh, d)
+
+
+def _check_spec_args(name, k_cache, k_spec, v_spec, amask, mask_shape):
+    r1, kv, _, d = k_cache.shape
+    if (k_spec.dim() != 4 or v_spec.shape != k_spec.shape
+            or k_spec.shape[:2] != (r1, kv) or k_spec.shape[3] != d
+            or k_spec.shape[2] < 1):
+        raise ValueError(f"{name}: spec buffers must both be [R+1, KV, P, D]"
+                         " beside caches [R+1, KV, S, D]")
+    if k_spec.dtype != k_cache.dtype or v_spec.dtype != k_cache.dtype:
+        raise TypeError(f"{name}: spec buffers must share the caches' dtype")
+    if amask.dtype != torch.bool or tuple(amask.shape) != mask_shape:
+        raise ValueError(f"{name}: ancestor mask must be "
+                         f"bool{list(mask_shape)}")
+    for t in (k_spec, v_spec, amask):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def tree_attention(q, k_cache, v_cache, k_spec, v_spec, rows, clens, amask,
+                   scale: float):
+    """Tree attention of flat tokens (one kernel row per token).
+
+    ``q [T, QH, D]`` (RoPE applied); ``k_cache, v_cache [R+1, KV, S, D]``
+    the committed caches (after this step's commit); ``k_spec, v_spec
+    [R+1, KV, P, D]`` the speculation-tree buffers holding this step's K/V;
+    ``rows, clens int32[T]``; ``amask bool[T, P]``.  Token t attends over
+    row ``rows[t]``: committed keys at positions ``< clens[t]`` and spec
+    keys j with ``amask[t, j]``.  Returns ``[T, QH, D]`` in q's dtype.
+    """
+    name = "tree_attention"
+    if _on_cpu(name, q, k_cache, v_cache, k_spec, v_spec, rows, clens,
+               amask):
+        return tree_attention_plain(q, k_cache, v_cache, k_spec, v_spec,
+                                    rows, clens, amask, scale)
+    t, qh, d = q.shape
+    r1, kv, s, _ = k_cache.shape
+    p = k_spec.shape[2]
+    if qh % kv:
+        raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
+    gq = qh // kv
+    _check_kernel_args(name, q, k_cache, v_cache, rows, clens, t, gq,
+                       DECODE_GROUPS)
+    _check_spec_args(name, k_cache, k_spec, v_spec, amask, (t, p))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), k_spec.data_ptr(), v_spec.data_ptr(),
+            rows.data_ptr(), clens.data_ptr(), amask.data_ptr(),
+            out.data_ptr(), t, kv, gq, r1, s, p, d, float(scale),
+            _DTYPE_CODES[q.dtype], stream)
+    tree_attention.launches += 1
+    return out
+
+
+tree_attention.launches = 0
+
+
+def tree_attention_batched(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
+                           amask, scale: float):
+    """Tree attention for a fixed ``[requests x tree slots]`` layout (one
+    kernel row per request, so its committed prefix streams once).
+
+    ``q [R, P, QH, D]``: the P tree tokens of request r; caches and spec
+    buffers as :func:`tree_attention` (spec length ``Pb``); ``rows, clens
+    int32[R]``; ``amask bool[R, P, Pb]``.  Returns ``[R, P, QH, D]``.
+    """
+    name = "tree_attention_batched"
+    if _on_cpu(name, q, k_cache, v_cache, k_spec, v_spec, rows, clens,
+               amask):
+        return tree_attention_batched_plain(q, k_cache, v_cache, k_spec,
+                                            v_spec, rows, clens, amask, scale)
+    r, p, qh, d = q.shape
+    r1, kv, s, _ = k_cache.shape
+    pb = k_spec.shape[2]
+    if qh % kv:
+        raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
+    gq = qh // kv
+    _check_kernel_args(name, q, k_cache, v_cache, rows, clens, r, gq)
+    _check_spec_args(name, k_cache, k_spec, v_spec, amask, (r, p, pb))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), k_spec.data_ptr(), v_spec.data_ptr(),
+            rows.data_ptr(), clens.data_ptr(), amask.data_ptr(),
+            out.data_ptr(), r, p, kv, gq, r1, s, pb, d, float(scale),
+            _DTYPE_CODES[q.dtype], stream)
+    tree_attention_batched.launches += 1
+    return out
+
+
+tree_attention_batched.launches = 0

@@ -1,8 +1,10 @@
 """flexflow_tpu_torch.serve: Llama serving on one CUDA device.
 
-Port of ``flexflow_tpu/serve`` (slice 1: incremental decoding with
-continuous batching, prefill and decode through hand-written CUDA
-attention kernels).
+Port of ``flexflow_tpu/serve``: incremental decoding with continuous
+batching, prefill and decode through hand-written CUDA attention kernels
+(slice 1), and SpecInfer tree speculative decoding, on the host
+(``SpecInferManager``) and on the device (``SpecDecodeScan``), through the
+hand-written tree-attention kernel (slice 2).
 """
 
 from . import models  # noqa: F401  (registers the model builders)
@@ -12,6 +14,8 @@ from .batch_config import (
     BatchConfig,
     InferenceResult,
     PrefillBatchConfig,
+    TreeSearchBatchConfig,
+    TreeVerifyBatchConfig,
 )
 from .convert import params_from_jax
 from .inference_manager import (
@@ -28,10 +32,14 @@ from .request_manager import (
     RequestManager,
     RequestStatus,
 )
+from .spec_infer import SpecInferManager, SpecRequest, TokenTreeNode
+from .spec_scan import SpecDecodeScan
 
 __all__ = [
     "BatchConfig",
     "PrefillBatchConfig",
+    "TreeSearchBatchConfig",
+    "TreeVerifyBatchConfig",
     "InferenceResult",
     "MAX_NUM_REQUESTS",
     "MAX_NUM_TOKENS",
@@ -43,6 +51,10 @@ __all__ = [
     "Request",
     "RequestStatus",
     "GenerationConfig",
+    "SpecInferManager",
+    "SpecRequest",
+    "TokenTreeNode",
+    "SpecDecodeScan",
     "ServeModelConfig",
     "build_model",
     "MODEL_REGISTRY",

@@ -156,9 +156,62 @@ class PrefillBatchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TreeSearchBatchConfig:
+    """Draft-model (SSM) tree-expansion step (reference :308).
+
+    The step's tokens are nodes added to each request's speculation tree:
+    ``spec_index`` is a token's node slot in its request's spec buffer and
+    ``ancestor_mask[r, i, j]`` says node i of request r may attend node j
+    (its root-path ancestors and itself).  Committed-cache attention sees
+    positions below ``committed_lens``.
+    """
+
+    base: BatchConfig
+    spec_index: torch.Tensor      # i32[max_tokens] tree-node slot per token
+    ancestor_mask: torch.Tensor   # bool[max_requests, max_spec, max_spec]
+    committed_lens: torch.Tensor  # i32[max_requests] committed cache depth
+
+    @property
+    def max_spec_tokens(self) -> int:
+        return self.ancestor_mask.shape[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeVerifyBatchConfig:
+    """LLM verification step over flattened speculation trees (reference
+    :331): the tree-attention fields of :class:`TreeSearchBatchConfig` plus
+    the commit descriptor, the tokens accepted in the previous macro-step
+    whose K/V (kept in the spec buffer) is copied into the committed cache
+    before the step attends (``commit_request_index == -1``: pad).
+
+    ``tree_layout = (R, P)`` says flat token ``r*P + j`` is node j of slot
+    r's tree for every r < R (the on-device scan's fixed layout): the
+    attention then runs the batched tree kernel, one kernel row per
+    request.  None: any flat layout (the host-built batches).
+    """
+
+    base: BatchConfig
+    spec_index: torch.Tensor      # i32[max_tokens]
+    ancestor_mask: torch.Tensor   # bool[max_requests, max_spec, max_spec]
+    committed_lens: torch.Tensor  # i32[max_requests]
+    commit_request_index: torch.Tensor   # i32[max_commit]
+    commit_src_spec_index: torch.Tensor  # i32[max_commit] spec-buffer slot
+    commit_dst_position: torch.Tensor    # i32[max_commit] cache position
+    tree_layout: Optional[Tuple[int, int]] = None
+
+    @property
+    def max_spec_tokens(self) -> int:
+        return self.ancestor_mask.shape[-1]
+
+
+@dataclasses.dataclass(frozen=True)
 class InferenceResult:
-    """Per-step device output: the next token per flat slot and its logit."""
+    """Per-step device output: the next token per flat slot and its logit;
+    with ``topk > 0`` on the manager, the top-k token ids and their
+    log-probabilities (the draft model's beam candidates)."""
 
     token_ids: torch.Tensor            # i32[max_tokens]
     logits_max: torch.Tensor           # f32[max_tokens]
     logits: Optional[torch.Tensor] = None  # f32[max_tokens, vocab]
+    topk_ids: Optional[torch.Tensor] = None        # i32[max_tokens, k]
+    topk_logprobs: Optional[torch.Tensor] = None   # f32[max_tokens, k]

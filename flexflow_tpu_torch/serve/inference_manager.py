@@ -2,7 +2,8 @@
 
 Port of ``flexflow_tpu/serve/inference_manager.py`` for one device:
 ``pick_prefill_tile`` (:184), ``sample_tokens`` (:197), ``__init__``,
-``init_operators_inference``, ``step`` (:612) and ``decode_scan`` (:757).
+``init_operators_inference``, ``step`` (:612) with the draft model's
+top-k (:596), and ``decode_scan`` (:757).
 PyTorch runs eagerly, so the reference's jitted step is a plain call and
 its donated caches are caches updated in place.  ``decode_scan`` is a loop
 of steps whose batch advances on the device: nothing inside it reads a
@@ -93,18 +94,29 @@ def sample_tokens(logits: torch.Tensor,
 class InferenceManager:
     def __init__(self, model: torch.nn.Module, max_requests: int = 8,
                  max_tokens_per_batch: int = 64, max_seq_len: int = 512,
-                 device=None):
+                 device=None, max_spec_tokens: int = 0, topk: int = 0):
         """``model``: a serve model from ``build_model`` (parameters on
-        ``meta`` until :meth:`init_operators_inference` fills them).
-        ``device=None`` is the CUDA card; pass ``"cpu"`` to run the plain
-        versions of the kernels on the CPU."""
+        ``meta`` until :meth:`init_operators_inference` fills them; a
+        model whose parameters already lie on ``device`` keeps them, so
+        two managers can share modules).  ``device=None`` is the CUDA
+        card; pass ``"cpu"`` to run the plain versions of the kernels on
+        the CPU.  ``max_spec_tokens > 0`` allocates the speculation-tree
+        buffers; ``topk > 0`` makes every step return the top-k token ids
+        and log-probabilities (a draft model's beam candidates)."""
         self.device = resolve_device(device)
         self.max_requests = max_requests
         self.max_tokens = max_tokens_per_batch
         self.max_seq_len = max_seq_len
-        self.model = model.to_empty(device=self.device).eval()
+        self.max_spec_tokens = max_spec_tokens
+        self.topk = topk
+        if any(p.is_meta for p in model.parameters()):
+            model = model.to_empty(device=self.device)
+        elif any(p.device.type != self.device.type
+                 for p in model.parameters()):
+            raise ValueError(f"model parameters are not on {self.device}")
+        self.model = model.eval()
         self.kv = KVAllocator(self.model, max_requests, max_seq_len,
-                              self.device)
+                              self.device, max_spec_tokens)
         self.prefill_tile = pick_prefill_tile(max_tokens_per_batch,
                                               max_seq_len)
         self.ready = False
@@ -151,10 +163,18 @@ class InferenceManager:
 
     @torch.no_grad()
     def step(self, bc, sample: Optional[Sample] = None) -> InferenceResult:
-        """Run one serving step (argmax when ``sample`` is None)."""
+        """Run one serving step (argmax when ``sample`` is None); with
+        ``topk``, also the top-k of the log-softmax of the float32 logits
+        (reference :596-600)."""
         logits = self.forward(bc)
+        topk_ids = topk_lp = None
+        if self.topk:
+            topk_lp, topk_ids = torch.log_softmax(logits, dim=-1).topk(
+                self.topk, dim=-1)
+            topk_ids = topk_ids.to(torch.int32)
         return InferenceResult(sample_tokens(logits, sample),
-                               logits.amax(dim=-1), logits)
+                               logits.amax(dim=-1), logits, topk_ids,
+                               topk_lp)
 
     @torch.no_grad()
     def decode_scan(self, bc: BatchConfig, n_steps: int,

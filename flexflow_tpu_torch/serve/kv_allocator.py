@@ -4,7 +4,10 @@ Port of ``flexflow_tpu/serve/kv_allocator.py`` for the slot-contiguous
 cache of one device: one ``[R+1, KV, S_pad, D]`` K and V buffer per
 attention layer (row ``R`` is the pad tokens' scratch row), with the seq
 dim rounded up to a multiple of 128 as the reference pads it
-(kv_allocator.py:84,107), plus the per-request attribution the
+(kv_allocator.py:84,107), with ``max_spec_tokens > 0`` a
+``[R+1, KV, max_spec_tokens, D]`` speculation-tree buffer ``sk``/``sv``
+per layer in the compute dtype (reference ``serve/ops.py:271-279``), plus
+the per-request attribution the
 RequestManager drives (``bind`` when a request takes a slot, ``release``
 on every path it leaves one).
 """
@@ -26,9 +29,11 @@ def padded_seq_len(max_seq_len: int) -> int:
 
 class KVAllocator:
     def __init__(self, model: torch.nn.Module, max_requests: int,
-                 max_seq_len: int, device: torch.device):
+                 max_seq_len: int, device: torch.device,
+                 max_spec_tokens: int = 0):
         self.max_requests = max_requests
         self.max_seq_len = max_seq_len
+        self.max_spec_tokens = max_spec_tokens
         self.device = device
         # (cache key, kv heads, head dim, dtype) per attention layer
         self.layers: List[Tuple[str, int, int, torch.dtype]] = [
@@ -42,17 +47,20 @@ class KVAllocator:
         """(Re)allocate zeroed caches; returns the state dict."""
         self.state = None   # free the old buffers before the new ones land
         s_pad = padded_seq_len(self.max_seq_len)
+        lens = {"k": s_pad, "v": s_pad}    # buffer -> its seq length
+        if self.max_spec_tokens:
+            lens["sk"] = lens["sv"] = self.max_spec_tokens
         self.state = {
-            name: {buf: torch.zeros(self.max_requests + 1, kv, s_pad, d,
+            name: {buf: torch.zeros(self.max_requests + 1, kv, n, d,
                                     dtype=dt, device=self.device)
-                   for buf in ("k", "v")}
+                   for buf, n in lens.items()}
             for name, kv, d, dt in self.layers}
         self._bound.clear()
         return self.state
 
     def allocated_bytes(self) -> int:
-        """Bytes held by the cache buffers (scratch row and seq pad
-        included); 0 before :meth:`allocate`."""
+        """Bytes held by the cache buffers (scratch row, seq pad and spec
+        buffers included); 0 before :meth:`allocate`."""
         if not self.state:
             return 0
         return sum(t.numel() * t.element_size()

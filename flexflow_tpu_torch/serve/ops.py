@@ -1,17 +1,19 @@
 """Serving attention: fused QKV, RoPE, KV-cache write, attention, o_proj.
 
 Port of ``flexflow_tpu/serve/ops.py``'s ``IncMultiHeadSelfAttention`` for
-the incremental (``BatchConfig``) and tiled-prefill
-(``PrefillBatchConfig``) modes on one device: no tensor parallelism, no
-int8 or paged KV, no ALiBi.  Layouts are the reference's: the fused QKV
+the incremental (``BatchConfig``), tiled-prefill (``PrefillBatchConfig``)
+and speculation-tree (``TreeSearchBatchConfig``, ``TreeVerifyBatchConfig``)
+modes on one device: no tensor parallelism, no int8 or paged KV, no
+ALiBi.  Layouts are the reference's: the fused QKV
 weight is ``[E, KV, gq + 2, D]`` (per KV head, its gq query heads, then K,
 then V), ``o_proj`` is ``[QH*D, E]`` and the caches are kv-head-major
 ``[R+1, KV, S, D]`` with row ``R`` the pad tokens' scratch row.
 
 The caches are updated IN PLACE (``index_put_``): the reference threads
 them functionally through a jitted step with donated buffers, which is the
-same memory behaviour.  Attention goes through the hand-written CUDA
-kernels of :mod:`flexflow_tpu_torch.ops.cuda.attention`.
+same memory behaviour; so are the spec buffers ``sk``/``sv``.  Attention
+goes through the hand-written CUDA kernels of
+:mod:`flexflow_tpu_torch.ops.cuda.attention`.
 """
 
 from __future__ import annotations
@@ -22,8 +24,18 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.cuda.attention import decode_attention, prefill_attention
-from .batch_config import BatchConfig, PrefillBatchConfig
+from ..ops.cuda.attention import (
+    decode_attention,
+    prefill_attention,
+    tree_attention,
+    tree_attention_batched,
+)
+from .batch_config import (
+    BatchConfig,
+    PrefillBatchConfig,
+    TreeSearchBatchConfig,
+    TreeVerifyBatchConfig,
+)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -80,7 +92,14 @@ class IncMultiHeadSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, bc, state: Dict[str, torch.Tensor]
                 ) -> torch.Tensor:
         q, k, v = self._project(x, bc)
-        if isinstance(bc, PrefillBatchConfig):
+        if isinstance(bc, TreeVerifyBatchConfig):
+            # last macro-step's accepted K/V joins the committed cache
+            # before this step's tree overwrites the spec buffer
+            self._commit(state, bc)
+            out = self._tree_attend(q, k, v, state, bc)
+        elif isinstance(bc, TreeSearchBatchConfig):
+            out = self._tree_attend(q, k, v, state, bc)
+        elif isinstance(bc, PrefillBatchConfig):
             out = self._prefill_attend(q, k, v, state, bc)
         else:
             out = self._inc_attend(q, k, v, state, bc)
@@ -90,7 +109,7 @@ class IncMultiHeadSelfAttention(nn.Module):
 
     def _project(self, x, bc) -> Tuple[torch.Tensor, ...]:
         """One GEMM for Q, K and V, then RoPE (reference :359-375)."""
-        base = bc.base if isinstance(bc, PrefillBatchConfig) else bc
+        base = bc if isinstance(bc, BatchConfig) else bc.base
         t = x.shape[0]
         qkv = torch.matmul(x, self.qkv.reshape(self.embed_dim, -1)).reshape(
             t, self.num_kv_heads, self.q_per_kv + 2, self.head_dim)
@@ -163,3 +182,51 @@ class IncMultiHeadSelfAttention(nn.Module):
             kc, vc, tile_rows.to(torch.int32).contiguous(),
             pstart.to(torch.int32).contiguous(), self.scaling_factor)
         return out.reshape(t, self.num_q_heads, self.head_dim)
+
+    def _commit(self, state, bc: TreeVerifyBatchConfig) -> None:
+        """Copy accepted speculative K/V (spec buffer -> committed cache),
+        in place (reference :786).  Pad entries read and write the scratch
+        row."""
+        kc, sk, sv = state["k"], state["sk"], state["sv"]
+        nreq = kc.shape[0] - 1
+        ri = bc.commit_request_index
+        rows = torch.where(ri >= 0, ri, nreq).long()
+        src = bc.commit_src_spec_index.long().clamp(0, sk.shape[2] - 1)
+        self._write_kv(state, rows, bc.commit_dst_position,
+                       sk[rows, :, src], sv[rows, :, src])
+
+    def _tree_attend(self, q, k, v, state, bc):
+        """Attention over the committed cache (positions below the
+        request's committed depth) plus the spec buffer (ancestor mask),
+        after this step's K/V lands in the spec buffer at ``spec_index``
+        (reference :815).  Pad tokens use the scratch row with committed
+        depth 0 and an empty mask, so they read no key."""
+        base = bc.base
+        kc, vc, sk, sv = state["k"], state["v"], state["sk"], state["sv"]
+        nreq = kc.shape[0] - 1
+        rows = self._rows(base, nreq).long()
+        spec_idx = bc.spec_index.long().clamp(0, sk.shape[2] - 1)
+        sk[rows, :, spec_idx] = k.to(sk.dtype)
+        sv[rows, :, spec_idx] = v.to(sv.dtype)
+        real = rows < nreq
+        req = rows.clamp(max=nreq - 1)
+        clens = torch.where(real, bc.committed_lens[req], 0).to(torch.int32)
+        amask = bc.ancestor_mask[req, spec_idx] & real[:, None]
+        t = q.shape[0]
+        qf = q.reshape(t, self.num_q_heads, self.head_dim)
+        layout = getattr(bc, "tree_layout", None)
+        if layout is None:
+            return tree_attention(
+                qf.contiguous(), kc, vc, sk, sv,
+                rows.to(torch.int32).contiguous(), clens.contiguous(),
+                amask.contiguous(), self.scaling_factor)
+        # fixed [R, P] layout of exactly R*P tokens: token r*P + j is node
+        # j of slot r, so one kernel row per request streams its committed
+        # prefix once
+        r_t, p_t = layout
+        return tree_attention_batched(
+            qf.reshape(r_t, p_t, self.num_q_heads, self.head_dim).contiguous(),
+            kc, vc, sk, sv, rows[::p_t].to(torch.int32).contiguous(),
+            clens[::p_t].contiguous(),
+            amask.reshape(r_t, p_t, -1).contiguous(),
+            self.scaling_factor).reshape(t, self.num_q_heads, self.head_dim)

@@ -7,7 +7,9 @@ with its tiled pure-prefill branch (:1086-1138) and tile-aligned prefill
 chunking (:1140-), the prefill stretch (:1414), ``serve_incr_decoding``
 (:2574) and ``generate`` (:2610).  A prefill stretch feeds whole prompts
 as tiled steps; a pure-decode stretch is one
-``InferenceManager.decode_scan``; each reads back once at its end.
+``InferenceManager.decode_scan``; each reads back once at its end.  The
+hooks the speculative manager builds on (``request_cls``,
+``_seq_len_needed``, ``_kv_bind``, ``_tick``) leave this path as it is.
 
 Left out of this slice: telemetry and profiling, fault injection and
 retries, SLO lanes, migration, KV spill, preemption, deadlines and
@@ -64,6 +66,7 @@ class GenerationConfig:
 
 
 class RequestManager:
+    request_cls = Request  # subclasses (SpecInferManager) extend the record
     scan_chunk = 32        # most decode steps per stretch (one read-back)
     # mixed steps whose tiled budget rounds a prefill take to 0 before
     # the starved request takes an unaligned flat chunk
@@ -95,12 +98,16 @@ class RequestManager:
                 float(self.gen.top_p),
                 torch.from_numpy(folds).to(self.im.device))
 
+    def _seq_len_needed(self, req: Request) -> int:
+        """Cache depth a request may reach (speculation adds headroom)."""
+        return len(req.prompt) + req.max_new_tokens
+
     def _validate_request(self, req: Request) -> Optional[str]:
         if not req.prompt:
             return "empty prompt"
         if req.max_new_tokens < 0:
             return f"max_new_tokens {req.max_new_tokens} < 0"
-        need = len(req.prompt) + req.max_new_tokens
+        need = self._seq_len_needed(req)
         if need > self.im.max_seq_len:
             return (f"request needs {need} cache slots (prompt "
                     f"{len(req.prompt)} + max_new_tokens "
@@ -113,9 +120,10 @@ class RequestManager:
         """Queue a request; returns its rid.  A prompt that cannot fit the
         cache raises ``ValueError``; ``max_new_tokens=0`` completes at
         once."""
-        req = Request(-1, [int(t) for t in prompt_tokens],
-                      self.gen.max_new_tokens if max_new_tokens is None
-                      else int(max_new_tokens))
+        req = self.request_cls(-1, [int(t) for t in prompt_tokens],
+                               self.gen.max_new_tokens
+                               if max_new_tokens is None
+                               else int(max_new_tokens))
         err = self._validate_request(req)
         if err is not None:
             raise ValueError(err)
@@ -137,7 +145,10 @@ class RequestManager:
                 req.slot = i
                 req.status = RequestStatus.PREFILLING
                 self.slots[i] = req.rid
-                self.im.kv.bind(req.rid)
+                self._kv_bind(req.rid)
+
+    def _kv_bind(self, rid: int) -> None:
+        self.im.kv.bind(rid)
 
     def _release_slot(self, req: Request) -> None:
         self.im.kv.release(req.rid, req.seq_len)
@@ -383,10 +394,14 @@ class RequestManager:
         self.process_result(result, sample_points)
         self.steps += 1
 
+    def _tick(self) -> None:
+        """One serving tick (the speculative manager overrides it)."""
+        self._serve_tick()
+
     def serve_incr_decoding(self) -> Dict[int, List[int]]:
         """Serve until every request completes; ``{rid: tokens}``."""
         while self.has_work():
-            self._serve_tick()
+            self._tick()
         return {rid: r.generated for rid, r in self.requests.items()}
 
     def generate(self, prompts: Sequence[Sequence[int]],

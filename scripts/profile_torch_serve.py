@@ -4,13 +4,16 @@
     python scripts/profile_torch_serve.py [--layers 32] [--new-tokens 16]
 
 Builds the Llama-2-7B serve shape (bfloat16, seeded random weights; depth
-cut by ``--layers``), admits 8 prompts of 256-1800 tokens, and times two
+cut by ``--layers``), admits 8 prompts of 256-1800 tokens, and times
 windows, first bare and then under ``torch.profiler``: the prefill stretch
-(every prompt, tiled steps) and the first decode stretch.  For each traced
-window it prints the wall time, the device time summed over kernels, the
-busy share (device time / wall), the device time by kernel class, and the
-top kernels.  Needs a CUDA device; the numbers are the card's, with its
-name and power limit printed first.
+(every prompt, tiled steps), the first decode stretch, and, with a draft
+of llama-68m's published shape (width 2, depth 3), one steady speculative
+macro step of ``SpecInferManager`` (host loop) and ``--macro-steps`` of
+``SpecDecodeScan`` (device loop).  For each traced window it prints the
+wall time, the device time summed over kernels, the busy share (device
+time / wall), the device time by kernel class, and the top kernels.
+Needs a CUDA device; the numbers are the card's, with its name and power
+limit printed first.
 """
 
 import argparse
@@ -23,6 +26,8 @@ from collections import defaultdict
 CLASSES = (   # (class, substrings of the kernel name), first match wins
     ("attention K1 decode", ("decode_kernel",)),
     ("attention K2 prefill", ("prefill_kernel",)),
+    ("attention K3 tree batched", ("tree_batched_kernel",)),
+    ("attention K3 tree per-token", ("tree_token_kernel",)),
     ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "sm90")),
     ("index / copy", ("index", "copy", "gather", "scatter", "cat")),
     ("elementwise / reduce", ("elementwise", "reduce", "softmax", "norm")),
@@ -81,6 +86,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--macro-steps", type=int, default=8)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -93,7 +99,8 @@ def main(argv=None):
     im = serve.InferenceManager(
         serve.build_model(serve.ServeModelConfig(
             dtype="bfloat16", num_hidden_layers=args.layers)),
-        max_requests=8, max_tokens_per_batch=512, max_seq_len=2048)
+        max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
+        max_spec_tokens=8)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -132,7 +139,66 @@ def main(argv=None):
            wall, kern)
     print(f"decode step: {wall / n * 1e3:.3f} ms profiled, "
           f"{bare / n * 1e3:.3f} ms unprofiled")
+    profile_spec(args, torch, serve, im, prompts)
     return 0
+
+
+def profile_spec(args, torch, serve, im, prompts):
+    """One steady host macro step and a window of device macro steps."""
+    draft = serve.InferenceManager(
+        serve.build_model(serve.ServeModelConfig(
+            hidden_size=768, intermediate_size=3072, num_hidden_layers=2,
+            num_attention_heads=12, dtype="bfloat16")),
+        max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
+        max_spec_tokens=8, topk=2)
+    draft.init_operators_inference(seed=1)
+    gen = serve.GenerationConfig(max_new_tokens=64)
+
+    def steady_sm():
+        im.reset()
+        draft.reset()
+        sm = serve.SpecInferManager(im, draft, gen, width=2, depth=3)
+        for p in prompts:
+            sm.register_new_request(p)
+        sm._tick()        # admission + prefill stretch
+        sm._tick()        # first macro step: the draft's prompt prefill
+        return sm
+
+    sm = steady_sm()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sm._tick()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"unprofiled: spec host macro step {ms:.3f} ms")
+    wall, kern = profile_window(torch, steady_sm()._tick)
+    report(f"spec host macro step (8 trees of 7, {args.layers} layers)",
+           wall, kern)
+
+    def carry():
+        im.reset()
+        draft.reset()
+        lens = [len(p) for p in prompts]
+        firsts = [[o[0] for o in serve.RequestManager(
+            m, serve.GenerationConfig(max_new_tokens=1)).generate(prompts)]
+            for m in (im, draft)][0]
+        sc = serve.SpecDecodeScan(im, draft, width=2, depth=3)
+        return sc, sc.init_carry(firsts, lens, lens, [False] * len(prompts))
+
+    n = args.macro_steps
+    sc, c = carry()
+    _, c = sc.run(c, 1)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc.run(c, n)
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    sc, c = carry()
+    wall, kern = profile_window(torch, lambda: sc.run(c, n))
+    report(f"spec device window ({n} macro steps, {args.layers} layers)",
+           wall, kern)
+    print(f"spec device macro step: {wall / n * 1e3:.3f} ms profiled, "
+          f"{bare / n * 1e3:.3f} ms unprofiled")
 
 
 if __name__ == "__main__":

@@ -154,3 +154,130 @@ def test_serving_on_card_matches_cpu(dev):
                      for f in dataclasses.fields(pbc.base)}))
     torch.testing.assert_close(gpu.forward(pbc_gpu).cpu(), cpu.forward(pbc),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qh,kv,d,s,p", [
+    (4, 2, 8, 40, 8),        # GQA, tiny head dim
+    (4, 4, 16, 64, 8),       # MHA
+    (8, 1, 16, 64, 16),      # MQA, deeper tree buffer
+    (32, 32, 128, 2048, 8),  # Llama-2-7B verify shape
+    (12, 12, 64, 300, 8),    # llama-68m draft shape
+    (32, 8, 128, 300, 70),   # spec buffer longer than a key block
+])
+def test_tree_kernel_matches_plain(dev, dtype, qh, kv, d, s, p):
+    g = torch.Generator().manual_seed(2)
+    r = 3
+    rows = [0, 0, 1, 2, 1, 0, 3, 3, 2]        # 3 = the scratch row
+    clens = [5, 5, 0, s, 0, 17, 0, 0, s - 1]
+    t = len(rows)
+    q = torch.randn(t, qh, d, generator=g).to(dev, dtype)
+    kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
+              for _ in range(2))
+    sk, sv = (torch.randn(r + 1, kv, p, d, generator=g).to(dev, dtype)
+              for _ in range(2))
+    amask = torch.rand(t, p, generator=g) < 0.4
+    amask[:, 0] = True
+    amask[6:8] = False                        # pads: no live key at all
+    args = (q, kc, vc, sk, sv,
+            torch.tensor(rows, dtype=torch.int32, device=dev),
+            torch.tensor(clens, dtype=torch.int32, device=dev),
+            amask.to(dev), d ** -0.5)
+    n0 = att.tree_attention.launches
+    got = att.tree_attention(*args)
+    torch.cuda.synchronize()
+    assert att.tree_attention.launches == n0 + 1
+    _close(got, att.tree_attention_plain(*args), dtype)
+    assert not got[6:8].float().abs().sum()   # zeros, not NaN
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qh,kv,d,s,p,pb", [
+    (4, 2, 8, 32, 4, 8),        # GQA, tree smaller than buffer
+    (8, 1, 16, 64, 7, 8),       # MQA: 56 folded rows, 64-row chunk
+    (32, 32, 128, 2048, 7, 8),  # Llama-2-7B verify: 7 rows, 16-row chunk
+    (32, 8, 128, 300, 7, 8),    # GQA: 28 folded rows
+    (4, 1, 32, 100, 20, 80),    # 80 folded rows: two chunks, two spec blocks
+])
+def test_batched_tree_kernel_matches_plain(dev, dtype, qh, kv, d, s, p, pb):
+    g = torch.Generator().manual_seed(3)
+    r = 3
+    q = torch.randn(r, p, qh, d, generator=g).to(dev, dtype)
+    kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
+              for _ in range(2))
+    sk, sv = (torch.randn(r + 1, kv, pb, d, generator=g).to(dev, dtype)
+              for _ in range(2))
+    amask = torch.rand(r, p, pb, generator=g) < 0.4
+    amask[:, :, 0] = True
+    amask[2] = False            # the scratch-row pad request: no live key
+    args = (q, kc, vc, sk, sv,
+            torch.tensor([0, 2, 3], dtype=torch.int32, device=dev),
+            torch.tensor([7, s, 0], dtype=torch.int32, device=dev),
+            amask.to(dev), d ** -0.5)
+    n0 = att.tree_attention_batched.launches
+    got = att.tree_attention_batched(*args)
+    torch.cuda.synchronize()
+    assert att.tree_attention_batched.launches == n0 + 1
+    _close(got, att.tree_attention_batched_plain(*args), dtype)
+    assert not got[2].float().abs().sum()
+
+
+SMALL_SSM = ServeModelConfig(vocab_size=97, hidden_size=32,
+                             intermediate_size=64, num_hidden_layers=1,
+                             num_attention_heads=2)
+
+
+def test_spec_serving_on_card_matches_incremental(dev):
+    """Greedy speculative serving in float32 on the card, host loop and
+    device loop, equals incremental decoding on the card and the host
+    loop on the CPU; both tree kernels launch."""
+    from flexflow_tpu_torch.serve import (
+        BatchConfig,
+        SpecDecodeScan,
+        SpecInferManager,
+    )
+
+    def pair(cfg, seed, topk):
+        kw = dict(max_requests=2, max_tokens_per_batch=32, max_seq_len=96,
+                  max_spec_tokens=8, topk=topk)
+        cpu = InferenceManager(build_model(cfg), device="cpu",
+                               **kw).init_operators_inference(seed=seed)
+        gpu = InferenceManager(build_model(cfg), device=dev, **kw)
+        gpu.init_operators_inference(dict(cpu.model.named_parameters()))
+        return cpu, gpu
+
+    llm_c, llm_g = pair(SMALL, 3, 0)
+    ssm_c, ssm_g = pair(SMALL_SSM, 4, 2)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 97, size=n).tolist() for n in (5, 19, 3)]
+    gen = GenerationConfig(max_new_tokens=10)
+    want = RequestManager(llm_g, gen).generate(prompts)
+    llm_g.reset()
+    n0 = att.tree_attention.launches
+    got = SpecInferManager(llm_g, ssm_g, gen, width=2, depth=3).generate(
+        prompts)
+    assert att.tree_attention.launches > n0
+    assert got == want
+    assert SpecInferManager(llm_c, ssm_c, gen, width=2,
+                            depth=3).generate(prompts) == want
+
+    llm_g.reset()
+    ssm_g.reset()
+    lens = [len(p) for p in prompts[:2]]
+    bc = BatchConfig.build(prompts[0] + prompts[1], [0] * lens[0] + [1] *
+                           lens[1], list(range(lens[0])) +
+                           list(range(lens[1])), lens, max_tokens=32,
+                           max_requests=2, device=dev)
+    ssm_g.step(bc)
+    ids = llm_g.step(bc).token_ids.cpu().tolist()
+    firsts = [ids[lens[0] - 1], ids[sum(lens) - 1]]
+    sc = SpecDecodeScan(llm_g, ssm_g, width=2, depth=3)
+    carry = sc.init_carry(firsts, lens, lens, [False, False],
+                          budget=[9, 9])
+    n0 = att.tree_attention_batched.launches
+    em, _ = sc.run(carry, 9)
+    assert att.tree_attention_batched.launches > n0
+    em = em.cpu().numpy()
+    scan = [[firsts[r]] + [int(t) for t in em[:, r].reshape(-1) if t >= 0]
+            for r in range(2)]
+    assert scan == want[:2]

@@ -328,6 +328,7 @@ def test_port_never_imports_jax_or_the_reference_package():
     files = sorted((REPO / "flexflow_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    assert {"spec_infer.py", "spec_scan.py"} <= {f.name for f in files}
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
