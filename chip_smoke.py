@@ -10,17 +10,23 @@ and prints no result):
    ``flexflow_tpu_torch/csrc`` with nvcc (one process per source, started
    together), and print the card's name and power limit;
 2. kernels: call each kernel at the Llama-2-7B attention shapes the serve
-   path gives it and hold it against its plain PyTorch version, in float32
+   path gives it, in each cache variant (fp; int8 with per-key scales;
+   paged, 512-position pages behind a shuffled table; int8 and paged), and
+   hold it against its plain PyTorch version, in float32
    (``atol=rtol=2e-5``) and bfloat16 (``atol=rtol=1e-2``: both sides round
-   to bfloat16, one bfloat16 step apart at most); time the kernel, the
-   plain version and one PyTorch library call computing the same function
-   (``scaled_dot_product_attention``, a yardstick the port never calls);
+   to bfloat16, one bfloat16 step apart at most); a paged kernel must give
+   the contiguous kernel's output bit for bit on the same logical cache.
+   Time the kernel, the plain version and, for fp caches, one PyTorch
+   library call computing the same function (``scaled_dot_product_attention``,
+   a yardstick the port never calls; no single PyTorch call dequantizes
+   int8 K/V or reads through a page table inside attention, so the other
+   variants have none);
 3. tree kernels: the tree-attention kernel in both layouts at the
    speculative serve shapes (per-token: 512 flat rows, 56 real = 8
    requests x a 7-node tree, the rest scratch-row pads; batched: [8, 7]),
-   held and timed as in phase 2, the library yardstick being one
-   ``scaled_dot_product_attention`` over [committed; spec] keys under an
-   explicit mask;
+   in the four variants, held and timed as in phase 2, the library
+   yardstick being one ``scaled_dot_product_attention`` over
+   [committed; spec] keys under an explicit mask;
 4. parity: a 2-layer model at full Llama-2-7B width in float32 (TF32 off)
    serves the same prompts on the card (kernels) and on the CPU (plain
    versions) from the same seeded weights: greedy tokens must be equal and
@@ -31,24 +37,39 @@ and prints no result):
    the card == ``RequestManager`` on the card == ``SpecInferManager`` on
    the CPU, and ``SpecDecodeScan`` on the card == the same, token for
    token (greedy);
-6. serve: the published Llama-2-7B shape (32 layers, bfloat16, seeded
+6. variant parity: the same 2-layer float32 model and draft with int8
+   weights, on int8 KV with 512-position pages: card and CPU serve
+   identical greedy tokens incrementally and through ``SpecInferManager``;
+   on the card the int8 contiguous, fp paged and fp contiguous caches serve
+   too, and each paged run (incremental, ``SpecInferManager``,
+   ``SpecDecodeScan``) equals its contiguous run token for token;
+7. serve: the published Llama-2-7B shape (32 layers, bfloat16, seeded
    random weights) serves 8 prompts of 256-1800 tokens, 64 new tokens
    each, through ``RequestManager.generate``, then through
    ``SpecInferManager.generate`` (width 2, depth 3) and ``SpecDecodeScan``
    with the llama-68m-shaped draft, then both again with a perfect draft
    (width 1, depth 5: the LLM's embedding, first 2 layers, final norm and
-   head, shared; the upper layers' o_proj/down_proj zeroed in the LLM).
-   Every kernel count is set to 0 just before each path and read just
-   after: K1 and K2 must launch on the incremental path,
-   ``tree_attention`` on the host speculative path and
-   ``tree_attention_batched`` on the device one.
-   Speculative streams must finish with 64 in-range tokens; their share of
-   tokens equal to the incremental run is printed, not required (bf16
-   streams may part at a rounding tie).
+   head, shared; the upper layers' o_proj/down_proj zeroed in the LLM);
+8. int8 serve: the same model with int8 weights (``quantize_int8``), int8
+   KV and 512-position pages serves the same 8 prompts incrementally; then
+   two sessions of 8 prompts sharing a 1024-token system prefix, the
+   second of which must reuse the first one's pages (1024 cached prompt
+   tokens per request) and give the tokens of a run with an empty prefix
+   index; then ``SpecDecodeScan`` with the perfect draft on the same int8
+   paged caches.
+Every kernel count is set to 0 just before each path and read just after,
+per cache variant, and every plain version is counted too: each path must
+launch its kernels in its variant (K1 and K2 on the incremental paths,
+``tree_attention`` on the host speculative path and the drafts' steps,
+``tree_attention_batched`` on the device one) and run no plain version.
+Speculative streams must finish with 64 in-range tokens; their share of
+tokens equal to the incremental run is printed, not required (bf16 streams
+may part at a rounding tie).
 
 The last three lines of standard output are the card's name and power
-limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
-Exits non-zero without a CUDA device.
+limit, the kernels' JSON record (one entry per kernel and cache variant)
+and ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
+device.
 """
 
 import dataclasses
@@ -60,6 +81,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM, data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, data sheet
+VARIANTS = ("fp", "int8", "paged", "int8+paged")
+PAGE = 512          # the serve path's page size (the reference's default)
 
 
 def log(*args):
@@ -81,25 +104,38 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def decode_work(rows, pos, s, kv, qh, d, itemsize):
+def key_bytes(variant, d, itemsize):
+    """Bytes of one key's K and V vectors of one head in ``variant``: int8
+    values plus their two f32 scales, or two vectors of the dtype."""
+    if variant.startswith("int8"):
+        return 2 * d + 8
+    return 2 * d * itemsize
+
+
+def table_bytes(variant, r1, s):
+    return 4 * r1 * (s // PAGE) if variant.endswith("paged") else 0
+
+
+def decode_work(rows, pos, s, kv, qh, d, itemsize, kbytes):
     """(bytes, flops) decode attention must move/do for these inputs:
-    q and out once, each row's K/V prefix up to its deepest token once."""
+    q and out once, each row's K/V prefix up to its deepest token once
+    (``kbytes`` per key and head)."""
     deepest = {}
     for r, p in zip(rows, pos):
         deepest[r] = max(deepest.get(r, 0), min(p, s - 1) + 1)
     t = len(rows)
-    kv_bytes = sum(deepest.values()) * kv * d * itemsize * 2
+    kv_bytes = sum(deepest.values()) * kv * kbytes
     nbytes = 2 * t * qh * d * itemsize + 8 * t + kv_bytes
     flops = sum(4 * (min(p, s - 1) + 1) * qh * d for p in pos)
     return nbytes, flops
 
 
-def prefill_work(rows, pstart, bq, s, kv, qh, d, itemsize):
+def prefill_work(rows, pstart, bq, s, kv, qh, d, itemsize, kbytes):
     deepest = {}
     for r, p in zip(rows, pstart):
         deepest[r] = max(deepest.get(r, 0), min(p + bq - 1, s - 1) + 1)
     g = len(rows)
-    kv_bytes = sum(deepest.values()) * kv * d * itemsize * 2
+    kv_bytes = sum(deepest.values()) * kv * kbytes
     nbytes = 2 * g * bq * qh * d * itemsize + 8 * g + kv_bytes
     flops = sum(4 * (min(p + b, s - 1) + 1) * qh * d
                 for p in pstart for b in range(bq))
@@ -112,8 +148,62 @@ def bound(nbytes, flops, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(att, torch, dev):
-    """Each kernel at the 7B attention shapes vs its plain version."""
+def cache_variants(att, kv_quant, kc, vc, seed):
+    """{variant: (k, v, cache kwargs)} of one logical fp cache: fp, int8
+    (``kv_quant`` of it: the serve path's quantizer) and both behind a
+    shuffled page table (physical pages out of logical order)."""
+    import torch
+
+    r1, _, s = kc.shape[:3]
+    table = torch.randperm(r1 * (s // PAGE), generator=torch.Generator()
+                           .manual_seed(seed)).reshape(r1, -1).int()
+    table = table.to(kc.device)
+    kq, ks = kv_quant(kc)
+    vq, vs = kv_quant(vc)
+    pk, pv, pkq, pvq, pks, pvs = (att.page_layout(t, table, PAGE)
+                                  for t in (kc, vc, kq, vq, ks, vs))
+    return {
+        "fp": (kc, vc, {}),
+        "int8": (kq, vq, dict(k_scale=ks, v_scale=vs)),
+        "paged": (pk, pv, dict(page_table=table, page_size=PAGE)),
+        "int8+paged": (pkq, pvq, dict(k_scale=pks, v_scale=pvs,
+                                      page_table=table, page_size=PAGE)),
+    }
+
+
+def run_variants(att, torch, name, dn, tol, variants, head, tail, work,
+                 library_ms, iters):
+    """Kernel ``name`` on ``(*head, k, v, *tail)`` in each cache variant:
+    held against its plain version, paged == contiguous bit for bit,
+    timed.  ``work(variant) -> (bytes, flops)``.  Returns {(name, variant,
+    dtype): result}."""
+    fn, plain = getattr(att, name), getattr(att, name + "_plain")
+    out, got = {}, {}
+    for var, (k, v, kw) in variants.items():
+        args = (*head, k, v, *tail)
+        got[var] = fn(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got[var].float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got[var].float(), want.float(), **tol)
+        nb, nf = work(var)
+        bms, by = bound(nb, nf, dn)
+        out[(name, var, dn)] = dict(
+            max_abs_err=err, ms=time_ms(lambda: fn(*args, **kw), iters),
+            plain_ms=time_ms(lambda: plain(*args, **kw), 2),
+            bound_ms=bms, bound_by=by,
+            library_ms=library_ms if var == "fp" else None)
+        del want
+    for paged, contiguous in (("paged", "fp"), ("int8+paged", "int8")):
+        if not torch.equal(got[paged], got[contiguous]):
+            raise AssertionError(f"{name} {dn}: the {paged} kernel differs "
+                                 f"from the {contiguous} one")
+    return out
+
+
+def phase_kernels(att, kv_quant, torch, dev):
+    """K1 and K2 at the 7B attention shapes, in every cache variant, vs
+    their plain versions."""
     import torch.nn.functional as F
 
     qh = kv = 32
@@ -130,17 +220,13 @@ def phase_kernels(att, torch, dev):
             else dict(atol=1e-2, rtol=1e-2)
         kc = torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
         vc = torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
+        variants = cache_variants(att, kv_quant, kc, vc, 1)
         scale = d ** -0.5
         itemsize = kc.element_size()
 
         q1 = torch.randn(len(rows_k1), qh, d, generator=g).to(dev, dtype)
         rows1 = torch.tensor(rows_k1, dtype=torch.int32, device=dev)
         pos1 = torch.tensor(pos_k1, dtype=torch.int32, device=dev)
-        got = att.decode_attention(q1, kc, vc, rows1, pos1, scale)
-        want = att.decode_attention_plain(q1, kc, vc, rows1, pos1, scale)
-        torch.cuda.synchronize()
-        err1 = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(), **tol)
         # library yardstick: SDPA over the 8 real tokens' gathered rows
         # (the pads' one-key work is negligible)
         ridx = torch.tensor(rows_k1[:8], device=dev)
@@ -150,25 +236,20 @@ def phase_kernels(att, torch, dev):
         qs = q1[:8, :, None, :]
         lib1 = time_ms(lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask, scale=scale), 20)
-        b1, f1 = decode_work(rows_k1, pos_k1, s, kv, qh, d, itemsize)
-        bms1, by1 = bound(b1, f1, dn)
-        results[("decode_attention", dn)] = dict(
-            max_abs_err=err1,
-            ms=time_ms(lambda: att.decode_attention(q1, kc, vc, rows1, pos1,
-                                                    scale), 50),
-            plain_ms=time_ms(lambda: att.decode_attention_plain(
-                q1, kc, vc, rows1, pos1, scale), 3),
-            bound_ms=bms1, bound_by=by1, library_ms=lib1)
         del kg, vg
+        results.update(run_variants(
+            att, torch, "decode_attention", dn, tol, variants, (q1,),
+            (rows1, pos1, scale),
+            lambda var: (decode_work(rows_k1, pos_k1, s, kv, qh, d, itemsize,
+                                     key_bytes(var, d, itemsize))[0]
+                         + table_bytes(var, r + 1, s),
+                         decode_work(rows_k1, pos_k1, s, kv, qh, d, itemsize,
+                                     0)[1]),
+            lib1, 50))
 
         q2 = torch.randn(len(rows_k2), bq, qh, d, generator=g).to(dev, dtype)
         rows2 = torch.tensor(rows_k2, dtype=torch.int32, device=dev)
         ps2 = torch.tensor(pstart, dtype=torch.int32, device=dev)
-        got = att.prefill_attention(q2, kc, vc, rows2, ps2, scale)
-        want = att.prefill_attention_plain(q2, kc, vc, rows2, ps2, scale)
-        torch.cuda.synchronize()
-        err2 = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(), **tol)
         ridx = rows2.long()
         kg, vg = kc[ridx], vc[ridx]
         qpos = ps2.long()[:, None] + torch.arange(bq, device=dev)
@@ -177,19 +258,20 @@ def phase_kernels(att, torch, dev):
         qs = q2.transpose(1, 2)                     # [G, QH, Bq, D]
         lib2 = time_ms(lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=mask, scale=scale), 20)
-        b2, f2 = prefill_work(rows_k2, pstart, bq, s, kv, qh, d, itemsize)
-        bms2, by2 = bound(b2, f2, dn)
-        results[("prefill_attention", dn)] = dict(
-            max_abs_err=err2,
-            ms=time_ms(lambda: att.prefill_attention(q2, kc, vc, rows2, ps2,
-                                                     scale), 20),
-            plain_ms=time_ms(lambda: att.prefill_attention_plain(
-                q2, kc, vc, rows2, ps2, scale), 3),
-            bound_ms=bms2, bound_by=by2, library_ms=lib2)
-        del kc, vc, kg, vg, q1, q2
+        del kg, vg
+        results.update(run_variants(
+            att, torch, "prefill_attention", dn, tol, variants, (q2,),
+            (rows2, ps2, scale),
+            lambda var: (prefill_work(rows_k2, pstart, bq, s, kv, qh, d,
+                                      itemsize, key_bytes(var, d, itemsize)
+                                      )[0] + table_bytes(var, r + 1, s),
+                         prefill_work(rows_k2, pstart, bq, s, kv, qh, d,
+                                      itemsize, 0)[1]),
+            lib2, 20))
+        del kc, vc, variants, q1, q2
         torch.cuda.empty_cache()
-    for (name, dn), res in results.items():
-        log(f"kernel {name} {dn}: " + " ".join(
+    for (name, var, dn), res in results.items():
+        log(f"kernel {name} {var} {dn}: " + " ".join(
             f"{k}={v}" for k, v in res.items()))
     return results
 
@@ -249,12 +331,13 @@ def phase_parity(serve, torch, dev):
         f"serve cpu {t_cpu:.1f}s card {t_gpu:.2f}s")
 
 
-def tree_work(clens, trees, n_flat, pb, kv, qh, d, itemsize):
+def tree_work(clens, trees, n_flat, pb, kv, qh, d, itemsize, kbytes):
     """(bytes, flops) tree attention must move/do for these inputs: each
-    request's committed K/V prefix and spec buffers once, q and out for
-    every flat row, the index and mask arrays; 4*D flops per query head
-    and live key of each real tree token."""
-    nbytes = (sum(clens) * kv * d * itemsize * 2
+    request's committed K/V prefix (``kbytes`` per key and head) and spec
+    buffers once, q and out for every flat row, the index and mask
+    arrays; 4*D flops per query head and live key of each real tree
+    token."""
+    nbytes = (sum(clens) * kv * kbytes
               + len(clens) * kv * pb * d * itemsize * 2
               + 2 * n_flat * qh * d * itemsize + 8 * n_flat + n_flat * pb)
     flops = sum(4 * (c + int(m.sum())) * qh * d
@@ -277,9 +360,10 @@ def tree_mask(parents, pb):
     return m
 
 
-def phase_tree_kernels(att, torch, dev):
-    """K3 at the speculative serve shapes, both layouts, vs its plain
-    version; timed beside one SDPA call over [committed; spec] keys."""
+def phase_tree_kernels(att, kv_quant, torch, dev):
+    """K3 at the speculative serve shapes, both layouts, every cache
+    variant, vs its plain version; timed beside one SDPA call over
+    [committed; spec] keys."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -304,15 +388,16 @@ def phase_tree_kernels(att, torch, dev):
                   for _ in range(2))
         sk, sv = (torch.randn(r + 1, kv, pb, d, generator=g).to(dev, dtype)
                   for _ in range(2))
+        variants = cache_variants(att, kv_quant, kc, vc, 2)
         q = torch.randn(n_flat, qh, d, generator=g).to(dev, dtype)
         scale = d ** -0.5
         itemsize = kc.element_size()
-        tok_args = (q, kc, vc, sk, sv,
+        tok_tail = (sk, sv,
                     torch.tensor(rows_t, dtype=torch.int32, device=dev),
                     torch.tensor(clens_t, dtype=torch.int32, device=dev),
                     torch.from_numpy(amask_t).to(dev), scale)
-        bat_args = (q[:real].reshape(r, p, qh, d).contiguous(), kc, vc, sk,
-                    sv, torch.arange(r, dtype=torch.int32, device=dev),
+        qb = q[:real].reshape(r, p, qh, d).contiguous()
+        bat_tail = (sk, sv, torch.arange(r, dtype=torch.int32, device=dev),
                     torch.tensor(lens, dtype=torch.int32, device=dev),
                     torch.from_numpy(np.tile(mask1, (r, 1, 1))).to(dev),
                     scale)
@@ -321,32 +406,29 @@ def phase_tree_kernels(att, torch, dev):
         kg = torch.cat([kc[:r], sk[:r]], dim=2)
         vg = torch.cat([vc[:r], sv[:r]], dim=2)
         committed = (torch.arange(s, device=dev)[None, :]
-                     < bat_args[6][:, None].long())           # [R, S]
+                     < bat_tail[3][:, None].long())           # [R, S]
         lib_mask = torch.cat([committed[:, None, :].expand(r, p, s),
-                              bat_args[7]], dim=2)[:, None]   # [R,1,P,S+Pb]
-        qs = bat_args[0].transpose(1, 2)                      # [R, QH, P, D]
+                              bat_tail[4]], dim=2)[:, None]   # [R,1,P,S+Pb]
+        qs = qb.transpose(1, 2)                               # [R, QH, P, D]
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qs, kg, vg, attn_mask=lib_mask, scale=scale), 20)
-        for name, args, flat in (("tree_attention", tok_args, n_flat),
-                                 ("tree_attention_batched", bat_args, real)):
-            fn = getattr(att, name)
-            plain = getattr(att, name + "_plain")
-            got = fn(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            torch.testing.assert_close(got.float(), want.float(), **tol)
-            nb, nf = tree_work(lens, [mask1] * r, flat, pb, kv, qh, d,
-                               itemsize)
-            bms, by = bound(nb, nf, dn)
-            results[(name, dn)] = dict(
-                max_abs_err=err, ms=time_ms(lambda: fn(*args), 20),
-                plain_ms=time_ms(lambda: plain(*args), 2),
-                bound_ms=bms, bound_by=by, library_ms=lib)
-        del kc, vc, sk, sv, q, kg, vg, tok_args, bat_args
+        del kg, vg
+        for name, head, tail, flat in (
+                ("tree_attention", (q,), tok_tail, n_flat),
+                ("tree_attention_batched", (qb,), bat_tail, real)):
+            results.update(run_variants(
+                att, torch, name, dn, tol, variants, head, tail,
+                lambda var, flat=flat: (
+                    tree_work(lens, [mask1] * r, flat, pb, kv, qh, d,
+                              itemsize, key_bytes(var, d, itemsize))[0]
+                    + table_bytes(var, r + 1, s),
+                    tree_work(lens, [mask1] * r, flat, pb, kv, qh, d,
+                              itemsize, 0)[1]),
+                lib, 20))
+        del kc, vc, sk, sv, q, qb, variants, tok_tail, bat_tail
         torch.cuda.empty_cache()
-    for (name, dn), res in results.items():
-        log(f"kernel {name} {dn}: " + " ".join(
+    for (name, var, dn), res in results.items():
+        log(f"kernel {name} {var} {dn}: " + " ".join(
             f"{k}={v}" for k, v in res.items()))
     return results
 
@@ -359,12 +441,26 @@ def draft_config(serve, dtype):
         num_attention_heads=12, num_key_value_heads=12, dtype=dtype)
 
 
-def prefill_firsts(serve, im, prompts):
-    """Fill slots 0.. of ``im``'s caches with the prompts (a prefill
-    stretch); the first generated token of each."""
-    outs = serve.RequestManager(
-        im, serve.GenerationConfig(max_new_tokens=1)).generate(prompts)
+def held_firsts(serve, im, prompts):
+    """Prefill slots 0.. of ``im``'s caches with the prompts (a prefill
+    stretch); the first generated token of each.  Request i keeps its
+    binding to slot i (a paged cache keeps its pages) for a
+    ``SpecDecodeScan`` to continue from: :func:`release_held` ends it."""
+
+    class Held(serve.RequestManager):
+        def _release_slot(self, req):
+            self.slots[req.slot] = None
+            req.slot = -1
+
+    outs = Held(im, serve.GenerationConfig(max_new_tokens=1)).generate(
+        prompts)
     return [o[0] for o in outs]
+
+
+def release_held(ims, n):
+    for im in ims:
+        for rid in range(n):
+            im.kv.release(rid)
 
 
 def phase_spec_parity(serve, torch, dev):
@@ -403,15 +499,7 @@ def phase_spec_parity(serve, torch, dev):
     t_cpu = time.perf_counter() - t0
     llm_g.reset()
     ssm_g.reset()
-    firsts = prefill_firsts(serve, llm_g, prompts)
-    prefill_firsts(serve, ssm_g, prompts)
-    lens = [len(p) for p in prompts]
-    sc = serve.SpecDecodeScan(llm_g, ssm_g, width=2, depth=3)
-    em, _ = sc.run(sc.init_carry(firsts, lens, lens, [False, False],
-                                 budget=[7, 7]), 7)
-    em = em.cpu().numpy()
-    scan = [[firsts[i]] + [int(t) for t in em[:, i].reshape(-1) if t >= 0]
-            for i in range(2)]
+    scan = scan_streams(serve, llm_g, ssm_g, prompts, 8)
     for name, out in (("card SpecInferManager", got),
                       ("CPU SpecInferManager", got_cpu),
                       ("card SpecDecodeScan", scan)):
@@ -420,6 +508,22 @@ def phase_spec_parity(serve, torch, dev):
     log(f"spec parity: 2-layer 7B-width f32 + llama-68m draft, tokens "
         f"equal {want[0][:4]}... on both speculative paths, card and CPU "
         f"(CPU spec serve {t_cpu:.1f}s)")
+
+
+def scan_streams(serve, llm, ssm, prompts, n_new, width=2, depth=3):
+    """Greedy streams of ``n_new`` tokens per prompt from a held prefill
+    and one ``SpecDecodeScan.run`` window."""
+    firsts = held_firsts(serve, llm, prompts)
+    held_firsts(serve, ssm, prompts)
+    n = len(prompts)
+    lens = [len(p) for p in prompts]
+    sc = serve.SpecDecodeScan(llm, ssm, width=width, depth=depth)
+    em, _ = sc.run(sc.init_carry(firsts, lens, lens, [False] * n,
+                                 budget=[n_new - 1] * n), n_new - 1)
+    release_held((llm, ssm), n)
+    em = em.cpu().numpy()
+    return [[firsts[i]] + [int(t) for t in em[:, i].reshape(-1) if t >= 0]
+            for i in range(n)]
 
 
 def stream_times(stamps, t0):
@@ -445,24 +549,281 @@ def equal_share(outs, ref):
 
 COUNTED = ("decode_attention", "prefill_attention", "tree_attention",
            "tree_attention_batched")
+PLAIN_CALLS = dict.fromkeys(COUNTED, 0)   # plain versions run on a path
+
+
+def count_plain_versions(att):
+    """Count every call of a kernel's plain version (the wrappers and the
+    batched plain version reach them through the module)."""
+    for name in COUNTED:
+        plain = getattr(att, name + "_plain")
+
+        def counting(*args, _plain=plain, _name=name, **kw):
+            PLAIN_CALLS[_name] += 1
+            return _plain(*args, **kw)
+
+        setattr(att, name + "_plain", counting)
 
 
 def counted(att, fn):
-    """Run ``fn`` with every kernel count set to 0 just before; returns
-    (its result, the counts just after)."""
+    """Run ``fn`` with every kernel count (per cache variant) and plain
+    count set to 0 just before; returns (its result, the kernel counts just
+    after, {(kernel, variant): launches}).  Raises if a plain version
+    ran."""
+    att.reset_counts()
     for name in COUNTED:
-        getattr(att, name).launches = 0
+        PLAIN_CALLS[name] = 0
     out = fn()
-    return out, {name: getattr(att, name).launches for name in COUNTED}
+    if any(PLAIN_CALLS.values()):
+        raise AssertionError(f"plain versions ran on the card's path: "
+                             f"{PLAIN_CALLS}")
+    return out, {(name, var): getattr(att, name).variant_launches[var]
+                 for name in COUNTED for var in VARIANTS}
+
+
+def require_launches(n, label, variant, names):
+    """Every kernel in ``names`` launched in ``variant`` on the path, and
+    no kernel in another variant."""
+    for name in names:
+        if n[(name, variant)] <= 0:
+            raise AssertionError(f"{name} ({variant}) never launched on the "
+                                 f"{label} path")
+    other = {k: c for k, c in n.items() if k[1] != variant and c}
+    if other:
+        raise AssertionError(f"{label}: kernels of another cache variant "
+                             f"launched: {other}")
+
+
+def short(n):
+    """The non-zero counts of a path, for the log."""
+    return {f"{name}/{var}": c for (name, var), c in n.items() if c}
+
+
+def phase_variant_parity(serve, att, torch, dev):
+    """2 layers at full 7B width + the llama-68m-shaped draft, f32, int8
+    weights: the card's kernels equal the CPU's plain versions on int8
+    paged KV, and each paged cache serves its contiguous twin's tokens."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(max_requests=2, max_tokens_per_batch=128, max_seq_len=1024,
+              max_spec_tokens=8)
+    cfgs = {"llm": (serve.ServeModelConfig(num_hidden_layers=2,
+                                           dtype="float32"), 0, 1),
+            "ssm": (draft_config(serve, "float32"), 2, 2)}
+
+    def managers(device, kv_dtype, page, params=None):
+        out = {}
+        for key, (cfg, topk, seed) in cfgs.items():
+            im = serve.InferenceManager(
+                serve.build_model(cfg), device=device, topk=topk,
+                kv_dtype=kv_dtype, kv_page_size=page, **kw)
+            im.init_operators_inference(
+                None if params is None else params[key], seed=seed)
+            serve.quantize_int8(im)
+            out[key] = im
+        return out
+
+    cpu = managers("cpu", "int8", PAGE)
+    params = {key: {k: p.to(dev) for k, p in im.model.named_parameters()}
+              for key, im in cpu.items()}
+    rng = np.random.default_rng(3)
+    # the first prompt's prefill and decode cross a page boundary
+    prompts = [rng.integers(3, cfgs["llm"][0].vocab_size, size=n).tolist()
+               for n in (560, 200)]
+    gen = serve.GenerationConfig(max_new_tokens=8)
+
+    def serve_all(ims, label, count=True):
+        llm, ssm = ims["llm"], ims["ssm"]
+        runs = (("incremental", lambda: serve.RequestManager(
+                    llm, gen).generate(prompts)),
+                ("spec host", lambda: serve.SpecInferManager(
+                    llm, ssm, gen, width=2, depth=3).generate(prompts)),
+                ("spec device", lambda: scan_streams(
+                    serve, llm, ssm, prompts, 8)))
+        outs, launches = {}, {}
+        for path, fn in runs:
+            llm.reset()
+            ssm.reset()
+            if count:
+                outs[path], launches[path] = counted(att, fn)
+            else:
+                outs[path] = fn()
+            if label == "CPU" and path == "spec host":
+                break                      # the CPU's scan adds nothing
+        return outs, launches
+
+    t0 = time.perf_counter()
+    want, _ = serve_all(cpu, "CPU", count=False)
+    t_cpu = time.perf_counter() - t0
+    del cpu
+    card, launches = {}, {}
+    for kv_dtype, page in (("int8", PAGE), ("int8", None), (None, PAGE),
+                           (None, None)):
+        var = ("int8" if kv_dtype else "fp") + ("+paged" if page else "")
+        var = var.replace("fp+paged", "paged")
+        card[var], launches[var] = serve_all(
+            managers(dev, kv_dtype, page, params), var)
+        torch.cuda.empty_cache()
+    for path in ("incremental", "spec host"):
+        if card["int8+paged"][path] != want[path]:
+            raise AssertionError(
+                f"{path} on int8 paged KV: card {card['int8+paged'][path]} "
+                f"!= CPU {want[path]}")
+    for paged, contiguous in (("int8+paged", "int8"), ("paged", "fp")):
+        for path, toks in card[paged].items():
+            if toks != card[contiguous][path]:
+                raise AssertionError(
+                    f"{path}: {paged} cache {toks} != {contiguous} cache "
+                    f"{card[contiguous][path]}")
+    for var, by_path in launches.items():
+        require_launches(by_path["incremental"], f"{var} incremental", var,
+                         ("decode_attention", "prefill_attention"))
+        require_launches(by_path["spec host"], f"{var} spec host", var,
+                         ("tree_attention",))
+        require_launches(by_path["spec device"], f"{var} spec device", var,
+                         ("tree_attention_batched", "tree_attention"))
+    log(f"variant parity: 2-layer 7B-width f32, int8 weights + llama-68m "
+        f"draft: int8 paged KV card == CPU (incremental "
+        f"{card['int8+paged']['incremental'][0][:4]}..., spec host), each "
+        f"paged run == its contiguous run on the card (incremental, spec "
+        f"host, spec device); int8 vs fp KV tokens equal share "
+        f"{equal_share(*(card[v]['incremental'] for v in ('int8', 'fp'))):.4f}"
+        f" (CPU serve {t_cpu:.1f}s)")
+    for var, by_path in launches.items():
+        log(f"variant parity {var}: launches " + "; ".join(
+            f"{path} {short(n)}" for path, n in by_path.items()))
+    return launches
+
+
+def serve_prompts(vocab):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = np.linspace(256, 1800, 8).astype(int).tolist()
+    return [rng.integers(3, vocab, size=n).tolist() for n in lens]
+
+
+class Serving:
+    """Timed runs of the 7B serve shape: ``generate`` through a manager
+    whose token arrivals are stamped, and windows of ``SpecDecodeScan``."""
+
+    def __init__(self, serve, att, torch, vocab):
+        self.serve, self.att, self.torch = serve, att, torch
+        self.vocab = vocab
+        self.stamps = {}
+        stamps = self.stamps
+
+        class Stamped:
+            def _append_token(self, req, tok):
+                super()._append_token(req, tok)
+                stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+        class TimedRM(Stamped, serve.RequestManager):
+            pass
+
+        class TimedSpec(Stamped, serve.SpecInferManager):
+            rows_verified = 0   # requests summed over the verify passes
+
+            def _verify_phase(self, verifying):
+                self.rows_verified += len(verifying)
+                super()._verify_phase(verifying)
+
+        self.TimedRM, self.TimedSpec = TimedRM, TimedSpec
+
+    def generate(self, label, manager, prompts, ref=None):
+        """``manager.generate(prompts)``, 64 tokens each; returns (streams,
+        launches, mean TTFT s, mean TPOT ms)."""
+        self.stamps.clear()
+        t0 = time.perf_counter()
+        outs, n = counted(self.att, lambda: manager.generate(prompts))
+        self.torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_streams(outs, 64, self.vocab, label)
+        ttft, tpot = stream_times(self.stamps, t0)
+        extra = ""
+        if ref is not None:
+            extra = (f", tokens per LLM verify pass per request "
+                     f"{63 * len(prompts) / manager.rows_verified:.3f} "
+                     f"({manager.llm_steps} passes), equal to incremental "
+                     f"{equal_share(outs, ref):.4f}")
+        log(f"serve {label}: wall {wall:.2f}s, "
+            f"{sum(map(len, outs)) / wall:.1f} tok/s{extra}; launches "
+            f"{short(n)}")
+        log(f"serve {label}: TTFT s " + " ".join(f"{x:.3f}" for x in ttft)
+            + " | TPOT ms " + " ".join(f"{x:.2f}" for x in tpot))
+        return outs, n, sum(ttft) / len(ttft), sum(tpot) / len(tpot)
+
+    def scan(self, label, llm, ssm, prompts, width, depth, window, ref):
+        """Prefill (held), then windows of ``window`` macro steps (one
+        read-back each) until every request has its 64 tokens."""
+        import numpy as np
+
+        n_req = len(prompts)
+        llm.reset()
+        ssm.reset()
+        t0 = time.perf_counter()
+        firsts = held_firsts(self.serve, llm, prompts)
+        held_firsts(self.serve, ssm, prompts)
+        t_prefill = time.perf_counter() - t0
+        lens = [len(p) for p in prompts]
+        sc = self.serve.SpecDecodeScan(llm, ssm, width=width, depth=depth)
+        carry = sc.init_carry(firsts, lens, lens, [False] * n_req,
+                              budget=[63] * n_req)
+        ems = []
+
+        def loop(carry):
+            while not bool(carry["finished"].all()):
+                em, carry = sc.run(carry, window)
+                ems.append(em.cpu().numpy())
+
+        t0 = time.perf_counter()
+        _, n = counted(self.att, lambda: loop(carry))
+        wall = time.perf_counter() - t0
+        release_held((llm, ssm), n_req)
+        em = np.concatenate(ems)
+        outs = [[firsts[i]] + [int(t) for t in em[:, i].reshape(-1)
+                               if t >= 0] for i in range(n_req)]
+        check_streams(outs, 64, self.vocab, label)
+        # macro steps each request took part in: one LLM pass each
+        took = [int(np.nonzero((em[:, i] >= 0).any(1))[0].max()) + 1
+                for i in range(n_req)]
+        log(f"serve {label}: prefill {t_prefill:.2f}s, {len(em)} macro "
+            f"steps in {len(ems)} windows {wall:.2f}s, "
+            f"{63 * n_req / wall:.1f} tok/s after the first token, TPOT "
+            f"{1e3 * wall / 63:.2f} ms, tokens per LLM pass per request "
+            f"{63 * n_req / sum(took):.3f}, equal to incremental "
+            f"{equal_share(outs, ref):.4f}; launches {short(n)}")
+        return outs, n
+
+
+def perfect_draft(serve, im, cfg, kw):
+    """Zero the LLM's upper layers' o_proj/down_proj, so a 2-layer model
+    sharing its embedding, first two layers, final norm and head predicts
+    its argmax; returns that draft's manager (top-1)."""
+    import torch
+
+    lm = im.model
+    with torch.no_grad():
+        for layer in lm.model.layers[2:]:
+            layer.self_attn.o_proj.zero_()
+            layer.mlp.down_proj.kernel.zero_()
+    pmodel = serve.build_model(dataclasses.replace(cfg, num_hidden_layers=2))
+    pmodel.model.embed_tokens = lm.model.embed_tokens
+    pmodel.model.layers = lm.model.layers[:2]
+    pmodel.model.norm = lm.model.norm
+    pmodel.lm_head = lm.lm_head
+    perfect = serve.InferenceManager(pmodel, topk=1, **kw)
+    return perfect.init_operators_inference(dict(pmodel.named_parameters()))
 
 
 def phase_serve(serve, att, torch, dev):
     """The published Llama-2-7B shape, 8 requests: incremental, then
     speculative on the host and on the device with a llama-68m-shaped
     draft (width 2, depth 3), then both with a perfect draft (width 1,
-    depth 5, as bench.py's ceiling row)."""
-    import numpy as np
-
+    depth 5, as bench.py's ceiling row).  Returns ({path: launches}, mean
+    TTFT s and TPOT ms of the incremental run)."""
     cfg = serve.ServeModelConfig(dtype="bfloat16")   # Llama-2-7B defaults
     kw = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
               max_spec_tokens=8, device=dev)
@@ -477,98 +838,20 @@ def phase_serve(serve, att, torch, dev):
         f"{w_bytes / 1e9:.2f} GB, KV cache + spec buffers "
         f"{im.kv.allocated_bytes() / 1e9:.2f} GB, prefill tile "
         f"{im.prefill_tile}")
-
-    stamps = {}
-
-    class Stamped:
-        def _append_token(self, req, tok):
-            super()._append_token(req, tok)
-            stamps.setdefault(req.rid, []).append(time.perf_counter())
-
-    class TimedRM(Stamped, serve.RequestManager):
-        pass
-
-    class TimedSpec(Stamped, serve.SpecInferManager):
-        rows_verified = 0   # requests summed over the verify passes
-
-        def _verify_phase(self, verifying):
-            self.rows_verified += len(verifying)
-            super()._verify_phase(verifying)
-
-    rng = np.random.default_rng(0)
-    lens = np.linspace(256, 1800, 8).astype(int).tolist()
-    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
-               for n in lens]
+    run = Serving(serve, att, torch, cfg.vocab_size)
+    prompts = serve_prompts(cfg.vocab_size)
     gen = serve.GenerationConfig(max_new_tokens=64)
     launches = {}
 
-    def run_generate(label, manager, ref=None):
-        stamps.clear()
-        t0 = time.perf_counter()
-        outs, n = counted(att, lambda: manager.generate(prompts))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        check_streams(outs, 64, cfg.vocab_size, label)
-        ttft, tpot = stream_times(stamps, t0)
-        extra = ""
-        if ref is not None:
-            extra = (f", tokens per LLM verify pass per request "
-                     f"{63 * 8 / manager.rows_verified:.3f} "
-                     f"({manager.llm_steps} passes), equal to incremental "
-                     f"{equal_share(outs, ref):.4f}")
-        log(f"serve {label}: wall {wall:.2f}s, "
-            f"{sum(map(len, outs)) / wall:.1f} tok/s{extra}; launches {n}")
-        log(f"serve {label}: TTFT s " + " ".join(f"{x:.3f}" for x in ttft)
-            + " | TPOT ms " + " ".join(f"{x:.2f}" for x in tpot))
-        return outs, n
-
-    def run_scan(label, llm, ssm, width, depth, window, ref):
-        """Prefill, then windows of ``window`` macro steps (one read-back
-        each) until every request has its 64 tokens."""
-        llm.reset()
-        ssm.reset()
-        t0 = time.perf_counter()
-        firsts = prefill_firsts(serve, llm, prompts)
-        prefill_firsts(serve, ssm, prompts)
-        t_prefill = time.perf_counter() - t0
-        sc = serve.SpecDecodeScan(llm, ssm, width=width, depth=depth)
-        carry = sc.init_carry(firsts, lens, lens, [False] * 8,
-                              budget=[63] * 8)
-        ems = []
-
-        def loop(carry):
-            while not bool(carry["finished"].all()):
-                em, carry = sc.run(carry, window)
-                ems.append(em.cpu().numpy())
-
-        t0 = time.perf_counter()
-        _, n = counted(att, lambda: loop(carry))
-        wall = time.perf_counter() - t0
-        em = np.concatenate(ems)
-        outs = [[firsts[i]] + [int(t) for t in em[:, i].reshape(-1)
-                               if t >= 0] for i in range(8)]
-        check_streams(outs, 64, cfg.vocab_size, label)
-        # macro steps each request took part in: one LLM pass each
-        took = [int(np.nonzero((em[:, i] >= 0).any(1))[0].max()) + 1
-                for i in range(8)]
-        log(f"serve {label}: prefill {t_prefill:.2f}s, {len(em)} macro "
-            f"steps in {len(ems)} windows {wall:.2f}s, "
-            f"{63 * 8 / wall:.1f} tok/s after the first token, TPOT "
-            f"{1e3 * wall / 63:.2f} ms, tokens per LLM pass per request "
-            f"{63 * 8 / sum(took):.3f}, equal to incremental "
-            f"{equal_share(outs, ref):.4f}; launches {n}")
-        return outs, n
-
     torch.cuda.reset_peak_memory_stats()
-    incr, launches["incremental"] = run_generate("incremental",
-                                                 TimedRM(im, gen))
-    for name in ("decode_attention", "prefill_attention"):
-        if launches["incremental"][name] <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    incr, launches["incremental"], ttft, tpot = run.generate(
+        "incremental", run.TimedRM(im, gen), prompts)
+    require_launches(launches["incremental"], "incremental", "fp",
+                     ("decode_attention", "prefill_attention"))
     # the step logits the last stretch was drawn from are finite
     logits = im.forward(serve.BatchConfig.build(
-        [incr[0][-1]], [0], [lens[0] + 63], [lens[0] + 64],
-        max_tokens=512, max_requests=8, device=dev))
+        [incr[0][-1]], [0], [len(prompts[0]) + 63],
+        [len(prompts[0]) + 64], max_tokens=512, max_requests=8, device=dev))
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite logits")
 
@@ -576,43 +859,117 @@ def phase_serve(serve, att, torch, dev):
         serve.build_model(draft_config(serve, "bfloat16")), topk=2, **kw)
     draft.init_operators_inference(seed=1)
     im.reset()
-    _, launches["spec host"] = run_generate(
+    _, launches["spec host"], _, _ = run.generate(
         "spec host (llama-68m draft)",
-        TimedSpec(im, draft, gen, width=2, depth=3), incr)
-    _, launches["spec device"] = run_scan(
-        "spec device (llama-68m draft)", im, draft, 2, 3, 63, incr)
-    if launches["spec host"]["tree_attention"] <= 0:
-        raise AssertionError("tree_attention never launched on the host "
-                             "speculative path")
-    if launches["spec device"]["tree_attention_batched"] <= 0:
-        raise AssertionError("tree_attention_batched never launched on the "
-                             "device speculative path")
+        run.TimedSpec(im, draft, gen, width=2, depth=3), prompts, incr)
+    _, launches["spec device"] = run.scan(
+        "spec device (llama-68m draft)", im, draft, prompts, 2, 3, 63, incr)
+    require_launches(launches["spec host"], "spec host", "fp",
+                     ("tree_attention",))
+    require_launches(launches["spec device"], "spec device", "fp",
+                     ("tree_attention_batched",))
     del draft
     torch.cuda.empty_cache()
 
-    # perfect draft: the LLM's upper layers add nothing to the residual
-    # stream, so a 2-layer model sharing its embedding, first two layers,
-    # final norm and head predicts its argmax
-    lm = im.model
-    with torch.no_grad():
-        for layer in lm.model.layers[2:]:
-            layer.self_attn.o_proj.zero_()
-            layer.mlp.down_proj.kernel.zero_()
-    pmodel = serve.build_model(dataclasses.replace(cfg, num_hidden_layers=2))
-    pmodel.model.embed_tokens = lm.model.embed_tokens
-    pmodel.model.layers = lm.model.layers[:2]
-    pmodel.model.norm = lm.model.norm
-    pmodel.lm_head = lm.lm_head
-    perfect = serve.InferenceManager(pmodel, topk=1, **kw)
-    perfect.init_operators_inference(dict(pmodel.named_parameters()))
+    perfect = perfect_draft(serve, im, cfg, kw)
     im.reset()
-    incr_p, _ = run_generate("incremental (LLM of the perfect draft)",
-                             TimedRM(im, gen))
+    incr_p, _, _, _ = run.generate("incremental (LLM of the perfect draft)",
+                                   run.TimedRM(im, gen), prompts)
     im.reset()
-    run_generate("spec host (perfect draft)",
-                 TimedSpec(im, perfect, gen, width=1, depth=5), incr_p)
-    run_scan("spec device (perfect draft)", im, perfect, 1, 5, 11, incr_p)
+    run.generate("spec host (perfect draft)",
+                 run.TimedSpec(im, perfect, gen, width=1, depth=5), prompts,
+                 incr_p)
+    run.scan("spec device (perfect draft)", im, perfect, prompts, 1, 5, 11,
+             incr_p)
     log(f"serve: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches, ttft, tpot
+
+
+def phase_serve_int8(serve, att, torch, dev, bf16_ttft, bf16_tpot):
+    """The Llama-2-7B shape with int8 weights, int8 KV and 512-position
+    pages: the 8 prompts; two sessions sharing a 1024-token system prefix;
+    the device speculative loop with the perfect draft."""
+    import numpy as np
+
+    cfg = serve.ServeModelConfig(dtype="bfloat16")
+    kw = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
+              max_spec_tokens=8, device=dev, kv_dtype="int8",
+              kv_page_size=PAGE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    im = serve.InferenceManager(serve.build_model(cfg), **kw)
+    im.init_operators_inference(seed=0)    # bf16 weights, then int8
+    n_q = serve.quantize_int8(im)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    w_bytes = sum(p.numel() * p.element_size()
+                  for p in im.model.parameters())
+    log(f"int8 serve: 7B, {n_q} int8 weight matrices, init {t_init:.1f}s "
+        f"(max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB with the bf16 weights), weights {w_bytes / 1e9:.2f} GB, int8 "
+        f"KV cache + scales + spec buffers "
+        f"{im.kv.allocated_bytes() / 1e9:.2f} GB, page {PAGE}, "
+        f"{im.kv.n_pages - 1} pages")
+    torch.cuda.reset_peak_memory_stats()
+    run = Serving(serve, att, torch, cfg.vocab_size)
+    prompts = serve_prompts(cfg.vocab_size)
+    gen = serve.GenerationConfig(max_new_tokens=64)
+    launches = {}
+
+    incr, launches["incremental"], ttft, tpot = run.generate(
+        "int8 incremental", run.TimedRM(im, gen), prompts)
+    require_launches(launches["incremental"], "int8 incremental",
+                     "int8+paged", ("decode_attention", "prefill_attention"))
+    log(f"int8 serve: mean TTFT {ttft:.3f}s (bf16 {bf16_ttft:.3f}s), mean "
+        f"TPOT {tpot:.2f} ms (bf16 {bf16_tpot:.2f} ms, x{tpot / bf16_tpot:.2f}"
+        f"), max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # two sessions of prompts sharing a 1024-token system prefix
+    rng = np.random.default_rng(4)
+    system = rng.integers(3, cfg.vocab_size, size=1024).tolist()
+    sessions = [[system + rng.integers(3, cfg.vocab_size, size=int(n))
+                 .tolist() for n in np.linspace(64, 896, 8)]
+                for _ in range(2)]
+    im.reset()
+    results = []
+    for i, ps in enumerate(sessions + [sessions[1]]):
+        if i == 2:
+            im.reset()                 # an empty prefix index
+        hits0 = im.kv.prefix_hits
+        rm = run.TimedRM(im, gen)
+        outs, n, s_ttft, _ = run.generate(f"int8 prefix session {i}", rm, ps)
+        require_launches(n, f"int8 prefix session {i}", "int8+paged",
+                         ("decode_attention", "prefill_attention"))
+        cached = [r.prefix_cached for r in rm.requests.values()]
+        results.append((outs, s_ttft, sum(map(len, ps)) - sum(cached),
+                        cached, im.kv.prefix_hits - hits0))
+    (out0, ttft0, fed0, _, _), (out1, ttft1, fed1, cached1, hits1), \
+        (out2, ttft2, fed2, _, _) = results
+    if hits1 != 8 or cached1 != [1024] * 8:
+        raise AssertionError(f"second session: {hits1} prefix hits, cached "
+                             f"{cached1} (want 8 x 1024)")
+    if out1 != out2:
+        raise AssertionError("the second session's tokens differ from a run "
+                             "of the same prompts with an empty index")
+    log(f"int8 prefix sessions: session 0 TTFT {ttft0:.3f}s, prefilled "
+        f"{fed0} tokens; session 1 TTFT {ttft1:.3f}s, prefilled {fed1} "
+        f"tokens ({hits1} prefix hits, 1024 cached each), tokens equal to an "
+        f"empty-index run (TTFT {ttft2:.3f}s, prefilled {fed2}); pool "
+        f"{im.kv.snapshot()}")
+
+    perfect = perfect_draft(serve, im, cfg, kw)
+    im.reset()
+    incr_p, _, _, _ = run.generate("int8 incremental (LLM of the perfect "
+                                   "draft)", run.TimedRM(im, gen), prompts)
+    _, launches["spec device"] = run.scan(
+        "int8 spec device (perfect draft)", im, perfect, prompts, 1, 5, 11,
+        incr_p)
+    require_launches(launches["spec device"], "int8 spec device",
+                     "int8+paged", ("tree_attention_batched",
+                                    "tree_attention"))
+    log(f"int8 serve: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return launches
 
@@ -628,6 +985,7 @@ def main():
     from flexflow_tpu_torch import serve
     from flexflow_tpu_torch.ops.cuda import attention as att
     from flexflow_tpu_torch.ops.cuda import build
+    from flexflow_tpu_torch.serve.ops import kv_quant
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -645,28 +1003,46 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    count_plain_versions(att)
 
-    t0 = time.perf_counter()
-    kres = phase_kernels(att, torch, dev)
-    log(f"phase kernels done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    kres.update(phase_tree_kernels(att, torch, dev))
-    log(f"phase tree kernels done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase_parity(serve, torch, dev)
-    log(f"phase parity done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase_spec_parity(serve, torch, dev)
-    log(f"phase spec parity done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    launches = phase_serve(serve, att, torch, dev)
-    log(f"phase serve done in {time.perf_counter() - t0:.1f}s")
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"phase {label} done in {time.perf_counter() - t0:.1f}s")
+        return out
 
-    # each kernel's launches on the path that runs it
-    path_of = {"decode_attention": "incremental",
-               "prefill_attention": "incremental",
-               "tree_attention": "spec host",
-               "tree_attention_batched": "spec device"}
+    kres = timed("kernels", lambda: phase_kernels(att, kv_quant, torch, dev))
+    kres.update(timed("tree kernels", lambda: phase_tree_kernels(
+        att, kv_quant, torch, dev)))
+    timed("parity", lambda: phase_parity(serve, torch, dev))
+    timed("spec parity", lambda: phase_spec_parity(serve, torch, dev))
+    parity = timed("variant parity", lambda: phase_variant_parity(
+        serve, att, torch, dev))
+    launches, ttft, tpot = timed("serve", lambda: phase_serve(
+        serve, att, torch, dev))
+    torch.cuda.empty_cache()
+    int8 = timed("int8 serve", lambda: phase_serve_int8(
+        serve, att, torch, dev, ttft, tpot))
+
+    # each kernel variant's launches on the path that runs it: fp on the
+    # 7B bf16 serve path, int8+paged on the 7B int8 serve path, int8 and
+    # paged on the 2-layer variant-parity paths
+    def path_counts(var):
+        if var == "fp":
+            return {"decode_attention": launches["incremental"],
+                    "prefill_attention": launches["incremental"],
+                    "tree_attention": launches["spec host"],
+                    "tree_attention_batched": launches["spec device"]}
+        if var == "int8+paged":
+            return {"decode_attention": int8["incremental"],
+                    "prefill_attention": int8["incremental"],
+                    "tree_attention": int8["spec device"],
+                    "tree_attention_batched": int8["spec device"]}
+        return {"decode_attention": parity[var]["incremental"],
+                "prefill_attention": parity[var]["incremental"],
+                "tree_attention": parity[var]["spec host"],
+                "tree_attention_batched": parity[var]["spec device"]}
+
     replaces = {
         "decode_attention": "flexflow_tpu/ops/pallas/attention.py:209",
         "prefill_attention": "flexflow_tpu/ops/pallas/attention.py:444",
@@ -675,13 +1051,17 @@ def main():
     }
     source = {"tree_attention_batched": "tree_attention"}
     kernels = []
-    for name, path in path_of.items():
-        res = kres[(name, "bfloat16")]   # the serve path's dtype
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"flexflow_tpu_torch/csrc/{source.get(name, name)}.cu",
-            "replaces": replaces[name], "launches": launches[path][name],
-            **res})
+    for var in VARIANTS:
+        counts = path_counts(var)
+        for name in COUNTED:
+            res = kres[(name, var, "bfloat16")]   # the serve path's dtype
+            kernels.append({
+                "name": name if var == "fp" else f"{name}/{var}",
+                "route": "cuda",
+                "source": ("flexflow_tpu_torch/csrc/"
+                           f"{source.get(name, name)}.cu"),
+                "replaces": replaces[name],
+                "launches": counts[name][(name, var)], **res})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
 // KV-cached decode attention over flat tokens, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `decode_attention`
-// (flexflow_tpu/ops/pallas/attention.py:209, body `_decode_kernel` :120) on
-// its fp, slot-contiguous, no-ALiBi path.  For every flat token t and every
-// KV head h it computes the GQA attention of the token's `gq` query heads of
-// that group over cache row rows[t], keys at positions <= pos[t]:
-// online softmax in f32, output cast to q's dtype, denominator clamped at
-// 1e-30 as the reference does.
+// (flexflow_tpu/ops/pallas/attention.py:209, body `_decode_kernel` :120)
+// on its no-ALiBi paths: fp or int8 caches (`k_scale/v_scale`,
+// `_scale_plumbing` :98), slot-contiguous or paged (`page_table`,
+// `_page_coords` :88).  For every flat token t and every KV head h it
+// computes the GQA attention of the token's `gq` query heads of that group
+// over cache row rows[t], keys at positions <= pos[t]: online softmax in
+// f32, output cast to q's dtype, denominator clamped at 1e-30 as the
+// reference does.  An int8 cache is dequantized in the Pallas kernel's
+// order (:164-193): score = (q . k_i8) * scale * ks[key]; the denominator
+// takes the unscaled p; the accumulator takes p * vs[key] * v_i8.
 //
 // What bounds it on the H100: the bytes of K and V it must read (each key
 // row is used by gq query rows only: about gq FMAs per byte), so it is
@@ -14,73 +18,43 @@
 //   * one CTA per (token, kv head); the causal clamp is the loop bound, so
 //     no byte beyond pos[t] is fetched (pad tokens, pos 0 on the scratch
 //     row, read one key);
-//   * K and V are read as 16-byte vectors, neighbouring thread groups on
-//     neighbouring keys, 4 keys in flight per group before any arithmetic;
+//   * K and V are read as 16-byte vectors (an int8 cache: 16 values per
+//     load, 8 with more than 2 query heads per KV head or D = 8),
+//     neighbouring thread groups on neighbouring keys, 4 keys in flight per
+//     group before any arithmetic, converted to f32 in registers;
 //   * each group of D/VEC threads keeps its own online-softmax state for
 //     the keys it streams, and the groups are merged once at the end, so
-//     the key loop has no __syncthreads.
+//     the key loop has no __syncthreads;
+//   * paged: a thread translates a page through the table once and reuses
+//     it for its keys in that page; keys are visited in the same order as
+//     in the contiguous layout, so the two give identical bits.
 // Not yet done (later work): split-KV (flash-decoding) for long rows with
-// few tokens, TMA, int8/paged/ALiBi variants.
+// few tokens, TMA, the ALiBi variant.
 //
 // C interface for ctypes; the kernel allocates nothing and returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "kv_access.cuh"
 
 namespace {
 
+using namespace ffk;
+
 constexpr int kThreads = 128;
 constexpr int kUnroll = 4;
-constexpr float kNegInf = -1e30f;
 
-template <typename T>
-__device__ __forceinline__ void vec_to_float(const uint4& raw, float* out);
-
-template <>
-__device__ __forceinline__ void vec_to_float<float>(const uint4& raw,
-                                                    float* out) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-
-template <>
-__device__ __forceinline__ void vec_to_float<__nv_bfloat16>(const uint4& raw,
-                                                            float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ uint4 load16(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-template <typename T, int D, int GQ>
+template <typename T, typename KT, int D, int GQ, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ rows,
-              const int* __restrict__ pos, T* __restrict__ out, int num_kv,
-              int r1, int s_len, float scale) {
-  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte vector
-  constexpr int TPK = D / VEC;          // threads per key row
-  static_assert(D % VEC == 0, "head dim must fill whole 16-byte vectors");
+decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+              const KT* __restrict__ v, const float* __restrict__ ks,
+              const float* __restrict__ vs, const int* __restrict__ table,
+              const int* __restrict__ rows, const int* __restrict__ pos,
+              T* __restrict__ out, int num_kv, int r1, int s_len, int page,
+              float scale) {
+  constexpr bool KVQ = std::is_same<KT, int8_t>::value;
+  constexpr int VEC = kv_vec<T, KT, D, GQ>();   // elements per lane
+  constexpr int TPK = D / VEC;                  // threads per key row
+  static_assert(D % VEC == 0, "head dim must fill whole vectors");
   static_assert(TPK >= 1 && TPK <= 32 && 32 % TPK == 0,
                 "a key row must be read by a power-of-two lane group");
   constexpr int GROUPS = kThreads / TPK;
@@ -101,8 +75,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qv[GQ][VEC];
 #pragma unroll
   for (int g = 0; g < GQ; ++g) {
-    const T* qp = q + ((size_t)t * qh + h * GQ + g) * D + lane * VEC;
-    vec_to_float<T>(load16(qp), qv[g]);
+    Vec<T, VEC> qr;
+    qr.load(q + ((size_t)t * qh + h * GQ + g) * D + lane * VEC);
+    qr.to_float(qv[g]);
   }
   float m[GQ], l[GQ], acc[GQ][VEC];
 #pragma unroll
@@ -113,31 +88,41 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   }
 
-  const size_t head_base = ((size_t)row * num_kv + h) * (size_t)s_len * D;
-  const T* kb = k + head_base + lane * VEC;
-  const T* vb = v + head_base + lane * VEC;
+  const size_t head_base = head_keys<PAGED>(row, num_kv, h, s_len);
+  const KT* kb = k + head_base * D + lane * VEC;
+  const KT* vb = v + head_base * D + lane * VEC;
+  const float* ksb = KVQ ? ks + head_base : nullptr;
+  const float* vsb = KVQ ? vs + head_base : nullptr;
+  KeyRows<PAGED> keys(table, row, num_kv, h, s_len, page);
   const int per_iter = GROUPS * kUnroll;
   // the trip count is uniform across the CTA: every lane of a warp reaches
   // the shuffles below, whichever keys are valid for its group
   const int iters = (n_keys + per_iter - 1) / per_iter;
   for (int it = 0; it < iters; ++it) {
-    uint4 kr[kUnroll], vr[kUnroll];
+    Vec<KT, VEC> kr[kUnroll], vr[kUnroll];
+    float ksr[kUnroll], vsr[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = (it * kUnroll + u) * GROUPS + grp;
       if (j < n_keys) {
-        kr[u] = load16(kb + (size_t)j * D);
-        vr[u] = load16(vb + (size_t)j * D);
+        const size_t key = keys.key(j);
+        kr[u].load(kb + key * D);
+        vr[u].load(vb + key * D);
+        if constexpr (KVQ) {
+          ksr[u] = ksb[key];
+          vsr[u] = vsb[key];
+        }
       } else {
-        kr[u] = make_uint4(0, 0, 0, 0);
-        vr[u] = make_uint4(0, 0, 0, 0);
+        kr[u].zero();
+        vr[u].zero();
+        if constexpr (KVQ) ksr[u] = vsr[u] = 0.f;
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int j = (it * kUnroll + u) * GROUPS + grp;
       float kf[VEC];
-      vec_to_float<T>(kr[u], kf);
+      kr[u].to_float(kf);
       float s[GQ];
 #pragma unroll
       for (int g = 0; g < GQ; ++g) {
@@ -148,19 +133,21 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int off = TPK / 2; off > 0; off >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, off);
         s[g] = part * scale;
+        if constexpr (KVQ) s[g] *= ksr[u];
       }
       if (j < n_keys) {
         float vf[VEC];
-        vec_to_float<T>(vr[u], vf);
+        vr[u].to_float(vf);
 #pragma unroll
         for (int g = 0; g < GQ; ++g) {
           const float m_new = fmaxf(m[g], s[g]);
           const float alpha = expf(m[g] - m_new);
           const float p = expf(s[g] - m_new);
           l[g] = l[g] * alpha + p;
+          const float pv = KVQ ? p * vsr[u] : p;
 #pragma unroll
           for (int e = 0; e < VEC; ++e)
-            acc[g][e] = fmaf(p, vf[e], acc[g][e] * alpha);
+            acc[g][e] = fmaf(pv, vf[e], acc[g][e] * alpha);
           m[g] = m_new;
         }
       }
@@ -194,70 +181,44 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int GQ>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* rows, const void* pos, void* out, int n_tokens,
-                   int num_kv, int r1, int s_len, float scale,
-                   cudaStream_t stream) {
-  dim3 grid(n_tokens, num_kv);
-  decode_kernel<T, D, GQ><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(rows),
-      static_cast<const int*>(pos), static_cast<T*>(out), num_kv, r1, s_len,
-      scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t dispatch_gq(int gq, const void* q, const void* k, const void* v,
-                        const void* rows, const void* pos, void* out,
-                        int n_tokens, int num_kv, int r1, int s_len,
-                        float scale, cudaStream_t stream) {
-  switch (gq) {
-    case 1: return launch<T, D, 1>(q, k, v, rows, pos, out, n_tokens, num_kv, r1, s_len, scale, stream);
-    case 2: return launch<T, D, 2>(q, k, v, rows, pos, out, n_tokens, num_kv, r1, s_len, scale, stream);
-    case 4: return launch<T, D, 4>(q, k, v, rows, pos, out, n_tokens, num_kv, r1, s_len, scale, stream);
-    case 8: return launch<T, D, 8>(q, k, v, rows, pos, out, n_tokens, num_kv, r1, s_len, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-cudaError_t dispatch_d(int d, int gq, const void* q, const void* k,
-                       const void* v, const void* rows, const void* pos,
-                       void* out, int n_tokens, int num_kv, int r1, int s_len,
-                       float scale, cudaStream_t stream) {
-  switch (d) {
-    case 8: return dispatch_gq<T, 8>(gq, q, k, v, rows, pos, out, n_tokens, num_kv, r1, s_len, scale, stream);
-    case 16: return dispatch_gq<T, 16>(gq, q, k, v, rows, pos, out, n_tokens, num_kv, r1, s_len, scale, stream);
-    case 32: return dispatch_gq<T, 32>(gq, q, k, v, rows, pos, out, n_tokens, num_kv, r1, s_len, scale, stream);
-    case 64: return dispatch_gq<T, 64>(gq, q, k, v, rows, pos, out, n_tokens, num_kv, r1, s_len, scale, stream);
-    case 128: return dispatch_gq<T, 128>(gq, q, k, v, rows, pos, out, n_tokens, num_kv, r1, s_len, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// q [n_tokens, num_kv*gq, D]; k, v [r1, num_kv, s_len, D]; rows, pos
+// q [n_tokens, num_kv*gq, D]; k, v [r1, num_kv, s_len, D] in q's dtype, or
+// int8 with k_scale, v_scale f32 [r1, num_kv, s_len] (null: fp cache);
+// table int32 [r1, s_len / page_size] (null: slot-contiguous); rows, pos
 // int32[n_tokens]; out [n_tokens, num_kv*gq, D].  dtype: 0 = float32,
 // 1 = bfloat16.  All tensors contiguous.
-extern "C" int ff_decode_attention(const void* q, const void* k,
-                                   const void* v, const void* rows,
-                                   const void* pos, void* out, int n_tokens,
-                                   int num_kv, int gq, int r1, int s_len,
-                                   int head_dim, float scale, int dtype,
-                                   void* stream) {
+extern "C" int ff_decode_attention(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* table, const void* rows,
+    const void* pos, void* out, int n_tokens, int num_kv, int gq, int r1,
+    int s_len, int head_dim, int page_size, float scale, int dtype,
+    void* stream) {
   if (n_tokens == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(head_dim, gq, q, k, v, rows, pos, out, n_tokens,
-                            num_kv, r1, s_len, scale, st);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(head_dim, gq, q, k, v, rows, pos, out,
-                                    n_tokens, num_kv, r1, s_len, scale, st);
-  else
-    err = cudaErrorInvalidValue;
+  const cudaError_t err = with_dtype(dtype, [&](auto tt) {
+    using T = typename decltype(tt)::type;
+    return with_head_dim(head_dim, [&](auto dd) {
+      return with_group(gq, [&](auto gg) {
+        return with_variant(k_scale != nullptr, table != nullptr,
+                            [&](auto qq, auto pp) {
+          constexpr int D = decltype(dd)::value;
+          constexpr int GQ = decltype(gg)::value;
+          constexpr bool PAGED = decltype(pp)::value;
+          using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
+          decode_kernel<T, KT, D, GQ, PAGED>
+              <<<dim3(n_tokens, num_kv), kThreads, 0, st>>>(
+                  static_cast<const T*>(q), static_cast<const KT*>(k),
+                  static_cast<const KT*>(v),
+                  static_cast<const float*>(k_scale),
+                  static_cast<const float*>(v_scale),
+                  static_cast<const int*>(table),
+                  static_cast<const int*>(rows), static_cast<const int*>(pos),
+                  static_cast<T*>(out), num_kv, r1, s_len, page_size, scale);
+          return cudaGetLastError();
+        });
+      });
+    });
+  });
   return static_cast<int>(err);
 }

@@ -2,13 +2,17 @@
 //
 // Replaces the Pallas TPU kernel `prefill_attention`
 // (flexflow_tpu/ops/pallas/attention.py:444, body `_prefill_kernel` :357)
-// on its fp, slot-contiguous path.  G tiles of Bq tokens of one request,
+// with fp or int8 caches (`k_scale/v_scale`), slot-contiguous or paged
+// (`page_table`, maps :505-520).  G tiles of Bq tokens of one request,
 // positions contiguous from pstart[g]; each query row attends causally to
 // its tile's cache row rows[g], which already holds this step's K/V.  The
 // Bq*gq query rows of a (tile, kv head) are folded b-major as the reference
 // folds them (row = b*gq + g'), query row r sits at position
 // pstart + r/gq, and it sees the keys at positions <= that.  Online softmax
-// in f32, denominator clamped at 1e-30, output in q's dtype.
+// in f32, denominator clamped at 1e-30, output in q's dtype.  An int8
+// cache is dequantized in the Pallas kernel's order: score =
+// (q . k_i8) * scale * ks[key], the denominator takes the unscaled p, the
+// P.V product takes p * vs[key].
 //
 // What bounds it on the H100: the work itself (4*D flops per query row and
 // live key, the tile's K/V prefix read once) is memory-bound at the
@@ -20,85 +24,56 @@
 //     prefix streams once per chunk instead of once per token, and the
 //     loop stops at the chunk's causal frontier;
 //   * 64-key K/V blocks are staged in shared memory as f32 (rows padded by
-//     one float so the score loop is free of bank conflicts), and each of
-//     the 256 threads computes a 4x4 block of scores and a 4x(D/16) block
-//     of the output in registers;
+//     one float so the score loop is free of bank conflicts; an int8 block
+//     is read as 16-value vectors and its 64 scales staged beside it), and
+//     each of the 256 threads computes a 4x4 block of scores and a
+//     4x(D/16) block of the output in registers;
+//   * paged: a block sits inside one page (the wrapper requires pages of
+//     whole blocks), so each block translates through the table once; the
+//     blocks and their arithmetic are those of the contiguous layout, so
+//     the two give identical bits;
 //   * the kernel masks its own ragged edges (row chunks past Bq*gq, keys
 //     past pstart + b or past the cache length).
-// Not yet done (later work): tensor-core mma/wgmma for bf16, TMA, int8 and
-// paged variants.
+// Not yet done (later work): tensor-core mma/wgmma for bf16, TMA.
 //
 // C interface for ctypes; the kernel allocates nothing and returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "kv_access.cuh"
 
 namespace {
+
+using namespace ffk;
 
 constexpr int BM = 64;   // folded query rows per CTA
 constexpr int BN = 64;   // keys per shared-memory block
 constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ void vec_to_float(const uint4& raw, float* out);
-
-template <>
-__device__ __forceinline__ void vec_to_float<float>(const uint4& raw,
-                                                    float* out) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-
-template <>
-__device__ __forceinline__ void vec_to_float<__nv_bfloat16>(const uint4& raw,
-                                                            float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 static_assert(BM * 4 == kThreads, "the softmax pass gives each row 4 lanes");
 static_assert(BN == 4 * 16, "each softmax lane covers 16 keys");
 
-template <int D>
+template <int D, bool KVQ>
 constexpr size_t smem_floats() {
-  // Qs [BM][D+1], Ks [BN][D+1], Vs [BN][D], Ss [BM][BN+1], m/l/alpha [BM]
+  // Qs [BM][D+1], Ks [BN][D+1], Vs [BN][D], Ss [BM][BN+1], m/l/alpha [BM],
+  // and for an int8 cache the block's K and V scales [BN] each
   return (size_t)BM * (D + 1) + (size_t)BN * (D + 1) + (size_t)BN * D +
-         (size_t)BM * (BN + 1) + 3 * BM;
+         (size_t)BM * (BN + 1) + 3 * BM + (KVQ ? 2 * BN : 0);
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
-prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const int* __restrict__ rows,
-               const int* __restrict__ pstart, T* __restrict__ out, int bq,
-               int num_kv, int gq, int r1, int s_len, float scale) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int VPR = D / VEC;          // 16-byte vectors per key row
-  static_assert(D % VEC == 0, "head dim must fill whole 16-byte vectors");
+prefill_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+               const KT* __restrict__ v, const float* __restrict__ ks,
+               const float* __restrict__ vs, const int* __restrict__ table,
+               const int* __restrict__ rows, const int* __restrict__ pstart,
+               T* __restrict__ out, int bq, int num_kv, int gq, int r1,
+               int s_len, int page, float scale) {
+  constexpr bool KVQ = std::is_same<KT, int8_t>::value;
+  // elements per staged vector: 16 bytes of the cache's dtype (an int8
+  // row of D = 8 is one 8-byte vector)
+  constexpr int VEC = KVQ ? (D >= 16 ? 16 : 8) : 16 / sizeof(T);
+  constexpr int VPR = D / VEC;          // vectors per key row
+  static_assert(D % VEC == 0, "head dim must fill whole vectors");
   constexpr int DP = D + 1;
   constexpr int SP = BN + 1;
   constexpr int DJ = (D + 15) / 16;     // output columns per thread
@@ -111,6 +86,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* row_m = Ss + BM * SP;
   float* row_l = row_m + BM;
   float* row_a = row_l + BM;
+  float* Ksc = row_a + BM;              // int8 only: [BN] K scales
+  float* Vsc = Ksc + BN;                // int8 only: [BN] V scales
 
   const int tile = blockIdx.x;
   const int h = blockIdx.y;
@@ -139,7 +116,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int m_last = min(m0 + BM, m_rows) - 1;
   const int front = min(max(ps + m_last / gq, 0), s_len - 1);
   const int n_blocks = front / BN + 1;
-  const size_t head_base = ((size_t)row * num_kv + h) * (size_t)s_len * D;
+  const size_t head_base = head_keys<PAGED>(row, num_kv, h, s_len);
+  KeyRows<PAGED> keys(table, row, num_kv, h, s_len, page);
 
   const int tx = tid % 16, ty = tid / 16;
   float o[4][DJ];
@@ -151,13 +129,19 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int nb = 0; nb < n_blocks; ++nb) {
     const int n0 = nb * BN;
+    // key rows of this block: contiguous from here (a block never
+    // straddles a page)
+    const size_t kb0 = head_base + keys.key(n0);
     for (int i = tid; i < BN * VPR; i += kThreads) {
       const int r = i / VPR, c = i % VPR, n = n0 + r;
       float kf[VEC], vf[VEC];
       if (n < s_len) {
-        const size_t off = head_base + (size_t)n * D + c * VEC;
-        vec_to_float<T>(*reinterpret_cast<const uint4*>(k + off), kf);
-        vec_to_float<T>(*reinterpret_cast<const uint4*>(v + off), vf);
+        const size_t off = (kb0 + r) * D + c * VEC;
+        Vec<KT, VEC> kr, vr;
+        kr.load(k + off);
+        vr.load(v + off);
+        kr.to_float(kf);
+        vr.to_float(vf);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.f;
@@ -166,6 +150,13 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < VEC; ++e) {
         Ks[r * DP + c * VEC + e] = kf[e];
         Vs[r * D + c * VEC + e] = vf[e];
+      }
+    }
+    if constexpr (KVQ) {
+      if (tid < BN) {
+        const bool in = n0 + tid < s_len;
+        Ksc[tid] = in ? ks[kb0 + tid] : 0.f;
+        Vsc[tid] = in ? vs[kb0 + tid] : 0.f;
       }
     }
     __syncthreads();
@@ -196,7 +187,9 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j, n = n0 + c;
         const bool live = mg < m_rows && n <= qpos && n < s_len;
-        Ss[r * SP + c] = live ? s[i][j] * scale : kNegInf;
+        float sc = s[i][j] * scale;
+        if constexpr (KVQ) sc *= Ksc[c];
+        Ss[r * SP + c] = live ? sc : kNegInf;
       }
     }
     __syncthreads();
@@ -217,7 +210,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         // masked entries hold exactly kNegInf: re-mask after the exp as
         // the reference does (exp(NEG_INF - NEG_INF) would be 1)
         const float p = sv == kNegInf ? 0.f : expf(sv - m_new);
-        Ss[r * SP + c] = p;
+        // the denominator sums the unscaled p; P.V takes p * vs
+        Ss[r * SP + c] = KVQ ? p * Vsc[c] : p;
         sum += p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -270,63 +264,49 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* rows, const void* pstart, void* out,
-                   int n_tiles, int bq, int num_kv, int gq, int r1, int s_len,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int chunks = (bq * gq + BM - 1) / BM;
-  dim3 grid(n_tiles, num_kv, chunks);
-  prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(rows),
-      static_cast<const int*>(pstart), static_cast<T*>(out), bq, num_kv, gq,
-      r1, s_len, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       const void* rows, const void* pstart, void* out,
-                       int n_tiles, int bq, int num_kv, int gq, int r1,
-                       int s_len, float scale, cudaStream_t stream) {
-  switch (d) {
-    case 8: return launch<T, 8>(q, k, v, rows, pstart, out, n_tiles, bq, num_kv, gq, r1, s_len, scale, stream);
-    case 16: return launch<T, 16>(q, k, v, rows, pstart, out, n_tiles, bq, num_kv, gq, r1, s_len, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, rows, pstart, out, n_tiles, bq, num_kv, gq, r1, s_len, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, rows, pstart, out, n_tiles, bq, num_kv, gq, r1, s_len, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, rows, pstart, out, n_tiles, bq, num_kv, gq, r1, s_len, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// q [n_tiles, bq, num_kv*gq, D]; k, v [r1, num_kv, s_len, D]; rows, pstart
+// q [n_tiles, bq, num_kv*gq, D]; k, v [r1, num_kv, s_len, D] in q's dtype,
+// or int8 with k_scale, v_scale f32 [r1, num_kv, s_len] (null: fp cache);
+// table int32 [r1, s_len / page_size] (null: slot-contiguous; else
+// page_size a multiple of 64 dividing s_len); rows, pstart
 // int32[n_tiles]; out [n_tiles, bq, num_kv*gq, D].  dtype: 0 = float32,
 // 1 = bfloat16.  All tensors contiguous.
-extern "C" int ff_prefill_attention(const void* q, const void* k,
-                                    const void* v, const void* rows,
-                                    const void* pstart, void* out,
-                                    int n_tiles, int bq, int num_kv, int gq,
-                                    int r1, int s_len, int head_dim,
-                                    float scale, int dtype, void* stream) {
+extern "C" int ff_prefill_attention(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* table, const void* rows,
+    const void* pstart, void* out, int n_tiles, int bq, int num_kv, int gq,
+    int r1, int s_len, int head_dim, int page_size, float scale, int dtype,
+    void* stream) {
   if (n_tiles == 0 || bq == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(head_dim, q, k, v, rows, pstart, out, n_tiles, bq,
-                            num_kv, gq, r1, s_len, scale, st);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(head_dim, q, k, v, rows, pstart, out,
-                                    n_tiles, bq, num_kv, gq, r1, s_len, scale,
-                                    st);
-  else
-    err = cudaErrorInvalidValue;
+  const cudaError_t err = with_dtype(dtype, [&](auto tt) {
+    using T = typename decltype(tt)::type;
+    return with_head_dim(head_dim, [&](auto dd) {
+      return with_variant(k_scale != nullptr, table != nullptr,
+                          [&](auto qq, auto pp) {
+        constexpr int D = decltype(dd)::value;
+        constexpr bool KVQ = decltype(qq)::value;
+        constexpr bool PAGED = decltype(pp)::value;
+        using KT = std::conditional_t<KVQ, int8_t, T>;
+        const size_t smem = smem_floats<D, KVQ>() * sizeof(float);
+        cudaError_t e = cudaFuncSetAttribute(
+            prefill_kernel<T, KT, D, PAGED>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+        const int chunks = (bq * gq + BM - 1) / BM;
+        prefill_kernel<T, KT, D, PAGED>
+            <<<dim3(n_tiles, num_kv, chunks), kThreads, smem, st>>>(
+                static_cast<const T*>(q), static_cast<const KT*>(k),
+                static_cast<const KT*>(v), static_cast<const float*>(k_scale),
+                static_cast<const float*>(v_scale),
+                static_cast<const int*>(table),
+                static_cast<const int*>(rows),
+                static_cast<const int*>(pstart), static_cast<T*>(out), bq,
+                num_kv, gq, r1, s_len, page_size, scale);
+        return cudaGetLastError();
+      });
+    });
+  });
   return static_cast<int>(err);
 }

@@ -4,19 +4,30 @@
 (``flexflow_tpu/ops/pallas/attention.py:209``), ``prefill_attention``
 replaces ``prefill_attention`` (:444), and ``tree_attention`` /
 ``tree_attention_batched`` replace the two layouts of the tree kernel
-(:790, :836, both through ``_tree_call`` :675), all on their fp,
-slot-contiguous, no-ALiBi paths.  The kernels are hand-written CUDA C++ for
-sm_90a (``flexflow_tpu_torch/csrc/``), built by ``nvcc`` on first use
-(:mod:`.build`) and called through a plain C interface.
+(:790, :836, both through ``_tree_call`` :675), all on their no-ALiBi
+paths, each in four variants: fp or int8 caches (``k_scale``/``v_scale``,
+f32 ``[R+1, KV, S]``: one dequant scale per key vector), slot-contiguous or
+paged (``page_table`` int32 ``[R+1, S / page_size]``: logical page j of
+cache row r is physical page ``table[r, j]``, which addresses row
+``pid // (S / page_size)``, page slot ``pid % (S / page_size)``).  The tree
+kernels' int8 and paging apply to the committed cache; the spec buffer
+stays in the compute dtype and slot-contiguous.  The kernels are
+hand-written CUDA C++ for sm_90a (``flexflow_tpu_torch/csrc/``), built by
+``nvcc`` on first use (:mod:`.build`) and called through a plain C
+interface.
 
 Each wrapper launches its kernel for CUDA tensors, or raises: there is no
 fall-back for them.  It takes the plain PyTorch version only when the
 tensors it was given lie on the CPU.  The plain versions are the same
-function written as a masked softmax over gathered cache rows in f32, the
-gather path of ``flexflow_tpu/serve/ops.py:613-651``; the CPU tests hold
-them against the JAX kernels, and the card holds the kernels against them.
+function written as a masked softmax over gathered cache rows in f32 (int8
+rows times their scales, paged rows rebuilt through the table), the gather
+path of ``flexflow_tpu/serve/ops.py:613-651`` with ``_gather_logical_rows``
+(:69) and ``_dequant_rows`` (:499); the CPU tests hold them against the JAX
+kernels, and the card holds the kernels against them.  Both paths check the
+cache variant's arguments first (:func:`check_cache_variant`).
 
-Each wrapper counts its kernel launches in its ``launches`` attribute.
+Each wrapper counts its kernel launches in its ``launches`` attribute, and
+per variant in ``variant_launches`` (keys :data:`VARIANTS`).
 """
 
 from __future__ import annotations
@@ -31,6 +42,11 @@ from . import build
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)     # head dims the kernels are built for
 DECODE_GROUPS = (1, 2, 4, 8)         # query heads per KV head (decode)
+# a page holds whole 64-key blocks: the prefill kernel and the tree
+# kernel's batched layout stage 64-key blocks, and each block must sit in
+# one page so it translates through the table once
+PAGE_BLOCK = 64
+VARIANTS = ("fp", "int8", "paged", "int8+paged")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the plain decode version gathers at most this many cache elements at once
 _GATHER_ELEMS = 1 << 27
@@ -38,18 +54,18 @@ _GATHER_ELEMS = 1 << 27
 _FNS: Dict[str, object] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # q, k, v, rows, pos, out, n_tokens, num_kv, gq, r1, s_len, head_dim,
-    # scale, dtype, stream
-    "decode_attention": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
-    # q, k, v, rows, pstart, out, n_tiles, bq, num_kv, gq, r1, s_len,
-    # head_dim, scale, dtype, stream
-    "prefill_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
-    # q, k, v, sk, sv, rows, clens, amask, out, n_tokens, num_kv, gq, r1,
-    # s_len, p_len, head_dim, scale, dtype, stream
-    "tree_attention": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
-    # q, k, v, sk, sv, rows, clens, amask, out, n_req, p_tok, num_kv, gq,
-    # r1, s_len, p_len, head_dim, scale, dtype, stream
-    "tree_attention_batched": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale, table, rows, pos, out, n_tokens, num_kv,
+    # gq, r1, s_len, head_dim, page_size, scale, dtype, stream
+    "decode_attention": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale, table, rows, pstart, out, n_tiles, bq,
+    # num_kv, gq, r1, s_len, head_dim, page_size, scale, dtype, stream
+    "prefill_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale, table, sk, sv, rows, clens, amask, out,
+    # n_tokens, num_kv, gq, r1, s_len, p_len, head_dim, page_size, scale,
+    # dtype, stream
+    "tree_attention": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
+    # as tree_attention with n_req, p_tok in place of n_tokens
+    "tree_attention_batched": [_P] * 12 + [_I] * 9 + [_F, _I, _P],
 }
 # the library (csrc/<source>.cu) each entry point lives in
 _SOURCE = {"tree_attention_batched": "tree_attention"}
@@ -67,8 +83,8 @@ def _kernel(name: str):
 
 def _on_cpu(name, *tensors) -> bool:
     """True when every tensor lies on the CPU, False when all lie on one
-    CUDA device; anything else raises."""
-    devs = {t.device for t in tensors}
+    CUDA device; anything else raises.  None entries are skipped."""
+    devs = {t.device for t in tensors if t is not None}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on several devices {devs}")
     dev = devs.pop()
@@ -79,13 +95,74 @@ def _on_cpu(name, *tensors) -> bool:
     return False
 
 
+def variant(k_scale, page_table) -> str:
+    """The cache variant's name in :data:`VARIANTS`."""
+    kind = "fp" if k_scale is None else "int8"
+    if page_table is None:
+        return kind
+    return "paged" if kind == "fp" else "int8+paged"
+
+
+def check_page_size(page_size: int, s_len: int) -> None:
+    """Raises unless the kernels take pages of ``page_size`` keys over a
+    cache of ``s_len`` positions: a positive multiple of
+    :data:`PAGE_BLOCK` that divides ``s_len``."""
+    if page_size <= 0 or page_size % PAGE_BLOCK or s_len % page_size:
+        raise ValueError(
+            f"page size {page_size} must be a positive multiple of "
+            f"{PAGE_BLOCK} dividing the cache length {s_len}: a page holds "
+            f"whole {PAGE_BLOCK}-key blocks of the prefill and batched tree "
+            "kernels")
+
+
+def check_cache_variant(name, k_cache, v_cache, k_scale, v_scale,
+                        page_table, page_size) -> None:
+    """Raises unless the caches, their scales and the page table form a
+    variant the kernels take: int8 caches with contiguous f32
+    ``[R+1, KV, S]`` scales (fp caches without), and a contiguous int32
+    ``[R+1, S / page_size]`` table with a page size
+    :func:`check_page_size` takes (or no table and page size 0)."""
+    r1, kv, s = k_cache.shape[:3]
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: k_scale and v_scale go together")
+    int8 = k_cache.dtype == torch.int8 or v_cache.dtype == torch.int8
+    if k_scale is None:
+        if int8:
+            raise TypeError(f"{name}: an int8 cache needs k_scale and "
+                            "v_scale")
+    else:
+        if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+            raise TypeError(f"{name}: scales come with int8 caches")
+        for t in (k_scale, v_scale):
+            if (t.dtype != torch.float32 or tuple(t.shape) != (r1, kv, s)
+                    or not t.is_contiguous()):
+                raise ValueError(f"{name}: scales must be contiguous "
+                                 f"float32[{r1}, {kv}, {s}]")
+    if page_table is None:
+        if page_size:
+            raise ValueError(f"{name}: page size {page_size} without a "
+                             "page table")
+        return
+    try:
+        check_page_size(page_size, s)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if (page_table.dtype != torch.int32
+            or tuple(page_table.shape) != (r1, s // page_size)
+            or not page_table.is_contiguous()):
+        raise ValueError(f"{name}: page table must be contiguous "
+                         f"int32[{r1}, {s // page_size}]")
+
+
 def _check_kernel_args(name, q, k_cache, v_cache, idx_a, idx_b, n, gq,
                        groups=None):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported "
                         f"(float32, bfloat16)")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError(f"{name}: q, k and v must share one dtype")
+    if k_cache.dtype != torch.int8 and (k_cache.dtype != q.dtype
+                                        or v_cache.dtype != q.dtype):
+        raise TypeError(f"{name}: q, k and v must share one dtype (or the "
+                        "caches be int8)")
     if k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"{name}: caches must both be [R+1, KV, S, D]")
     d = q.shape[-1]
@@ -112,10 +189,74 @@ def _launch(name, fn, *args):
                            f"{err}")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _count(fn, k_scale, page_table) -> None:
+    fn.launches += 1
+    fn.variant_launches[variant(k_scale, page_table)] += 1
+
+
+def _init_counts(fn) -> None:
+    fn.launches = 0
+    fn.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def reset_counts() -> None:
+    """Set every wrapper's launch counts to 0."""
+    for fn in (decode_attention, prefill_attention, tree_attention,
+               tree_attention_batched):
+        _init_counts(fn)
+
+
+def _pages(cache, page_table, page_size, rows):
+    """``cache[rows]`` (``[t, KV, S(, D)]``) rebuilt through the page
+    table from the physical pages of the same buffer."""
+    r1, kv, s = cache.shape[:3]
+    ppr = s // page_size
+    pids = page_table.long()[rows]                        # [t, ppr]
+    prow, pslot = pids // ppr, pids % ppr
+    tail = tuple(cache.shape[3:])
+    # advanced indices split by a slice lead: [t, ppr, KV, page(, D)]
+    pg = cache.reshape(r1, kv, ppr, page_size, *tail)[prow, :, pslot]
+    return pg.transpose(1, 2).reshape(rows.shape[0], kv, s, *tail)
+
+
+def page_layout(cache, page_table, page_size):
+    """The physical buffer of a paged cache whose logical rows are
+    ``cache`` (``[R+1, KV, S(, D)]``): logical page j of row r moves to
+    physical page ``page_table[r, j]``; the inverse of rebuilding rows
+    through the table.  ``page_table`` holds each page id once."""
+    r1, kv, s = cache.shape[:3]
+    ppr = s // page_size
+    tail = tuple(cache.shape[3:])
+    logical = cache.reshape(r1, kv, ppr, page_size, *tail).transpose(1, 2)
+    phys = cache.new_empty((r1 * ppr, kv, page_size) + tail)
+    phys[page_table.reshape(-1).long()] = logical.reshape(phys.shape)
+    return phys.reshape(r1, ppr, kv, page_size, *tail).transpose(
+        1, 2).reshape(cache.shape)
+
+
+def _rows_f32(cache, scale, page_table, page_size, rows):
+    """The logical cache rows ``rows`` in f32: rebuilt through the page
+    table when paged, int8 values times their scales when quantized."""
+    if page_table is None:
+        x = cache[rows].float()
+        sc = scale[rows] if scale is not None else None
+    else:
+        x = _pages(cache, page_table, page_size, rows).float()
+        sc = (_pages(scale, page_table, page_size, rows)
+              if scale is not None else None)
+    return x if sc is None else x * sc[..., None]
+
+
 # ---------------------------------------------------------------------------
 # K1: decode attention
 # ---------------------------------------------------------------------------
-def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale):
+def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale,
+                           k_scale=None, v_scale=None, page_table=None,
+                           page_size=0):
     """Plain version of :func:`decode_attention` (any device)."""
     t, qh, d = q.shape
     r1, kv, s, _ = k_cache.shape
@@ -127,8 +268,8 @@ def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale):
     step = max(1, _GATHER_ELEMS // (kv * s * d))
     for lo in range(0, t, step):
         sl = slice(lo, lo + step)
-        k_tok = k_cache[rows[sl]].float()               # [t', KV, S, D]
-        v_tok = v_cache[rows[sl]].float()
+        k_tok = _rows_f32(k_cache, k_scale, page_table, page_size, rows[sl])
+        v_tok = _rows_f32(v_cache, v_scale, page_table, page_size, rows[sl])
         qr = q[sl].float().reshape(-1, kv, gq, d)
         scores = torch.einsum("tkgd,tksd->tkgs", qr, k_tok) * scale
         mask = key_pos[None, :] <= pos[sl, None]        # [t', S]
@@ -139,18 +280,26 @@ def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale):
     return out
 
 
-def decode_attention(q, k_cache, v_cache, rows, positions, scale: float):
+def decode_attention(q, k_cache, v_cache, rows, positions, scale: float,
+                     k_scale=None, v_scale=None, page_table=None,
+                     page_size: int = 0):
     """Attention of flat decode tokens over their cache rows.
 
     ``q [T, QH, D]`` (RoPE applied); ``k_cache, v_cache [R+1, KV, S, D]``
-    holding this step's K/V already; ``rows, positions int32[T]``.  Token
-    t attends with its query heads over cache row ``rows[t]`` at key
-    positions ``<= positions[t]``.  Returns ``[T, QH, D]`` in q's dtype.
+    holding this step's K/V already (int8 with ``k_scale, v_scale``);
+    ``rows, positions int32[T]``; ``page_table``/``page_size`` for a paged
+    cache.  Token t attends with its query heads over cache row
+    ``rows[t]`` at logical key positions ``<= positions[t]``.  Returns
+    ``[T, QH, D]`` in q's dtype.
     """
     name = "decode_attention"
-    if _on_cpu(name, q, k_cache, v_cache, rows, positions):
+    check_cache_variant(name, k_cache, v_cache, k_scale, v_scale,
+                        page_table, page_size)
+    if _on_cpu(name, q, k_cache, v_cache, rows, positions, k_scale,
+               v_scale, page_table):
         return decode_attention_plain(q, k_cache, v_cache, rows, positions,
-                                      scale)
+                                      scale, k_scale, v_scale, page_table,
+                                      page_size)
     t, qh, d = q.shape
     r1, kv, s, _ = k_cache.shape
     if qh % kv:
@@ -161,20 +310,20 @@ def decode_attention(q, k_cache, v_cache, rows, positions, scale: float):
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), rows.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), t, kv, gq, r1, s, d, float(scale),
+            v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+            _ptr(page_table), rows.data_ptr(), positions.data_ptr(),
+            out.data_ptr(), t, kv, gq, r1, s, d, page_size, float(scale),
             _DTYPE_CODES[q.dtype], stream)
-    decode_attention.launches += 1
+    _count(decode_attention, k_scale, page_table)
     return out
-
-
-decode_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # K2: prefill attention
 # ---------------------------------------------------------------------------
-def prefill_attention_plain(q, k_cache, v_cache, rows, pstart, scale):
+def prefill_attention_plain(q, k_cache, v_cache, rows, pstart, scale,
+                            k_scale=None, v_scale=None, page_table=None,
+                            page_size=0):
     """Plain version of :func:`prefill_attention` (any device)."""
     g, bq, qh, d = q.shape
     r1, kv, s, _ = k_cache.shape
@@ -184,8 +333,9 @@ def prefill_attention_plain(q, k_cache, v_cache, rows, pstart, scale):
     key_pos = torch.arange(s, device=q.device)
     out = torch.empty_like(q)
     for i in range(g):   # one tile at a time bounds the gathered rows
-        k_t = k_cache.index_select(0, rows[i:i + 1])[0].float()  # [KV, S, D]
-        v_t = v_cache.index_select(0, rows[i:i + 1])[0].float()
+        row = rows[i:i + 1]
+        k_t = _rows_f32(k_cache, k_scale, page_table, page_size, row)[0]
+        v_t = _rows_f32(v_cache, v_scale, page_table, page_size, row)[0]
         qr = q[i].float().reshape(bq, kv, gq, d)
         scores = torch.einsum("bkgd,ksd->bkgs", qr, k_t) * scale
         mask = key_pos[None, :] <= qpos[i][:, None]      # [Bq, S]
@@ -196,19 +346,26 @@ def prefill_attention_plain(q, k_cache, v_cache, rows, pstart, scale):
     return out
 
 
-def prefill_attention(q, k_cache, v_cache, rows, pstart, scale: float):
+def prefill_attention(q, k_cache, v_cache, rows, pstart, scale: float,
+                      k_scale=None, v_scale=None, page_table=None,
+                      page_size: int = 0):
     """Causal attention of G prompt tiles over their cache rows.
 
     ``q [G, Bq, QH, D]``: tile g holds Bq tokens of one request at
     positions ``pstart[g] + b``; ``k_cache, v_cache [R+1, KV, S, D]``
-    already hold this step's K/V; ``rows, pstart int32[G]``.  Query b of
-    tile g sees keys ``<= pstart[g] + b`` of row ``rows[g]``.  Returns
-    ``[G, Bq, QH, D]`` in q's dtype.
+    already hold this step's K/V (int8 with ``k_scale, v_scale``; paged
+    with ``page_table``/``page_size``); ``rows, pstart int32[G]``.  Query
+    b of tile g sees logical keys ``<= pstart[g] + b`` of row ``rows[g]``.
+    Returns ``[G, Bq, QH, D]`` in q's dtype.
     """
     name = "prefill_attention"
-    if _on_cpu(name, q, k_cache, v_cache, rows, pstart):
+    check_cache_variant(name, k_cache, v_cache, k_scale, v_scale,
+                        page_table, page_size)
+    if _on_cpu(name, q, k_cache, v_cache, rows, pstart, k_scale, v_scale,
+               page_table):
         return prefill_attention_plain(q, k_cache, v_cache, rows, pstart,
-                                       scale)
+                                       scale, k_scale, v_scale, page_table,
+                                       page_size)
     g, bq, qh, d = q.shape
     r1, kv, s, _ = k_cache.shape
     if qh % kv:
@@ -218,21 +375,20 @@ def prefill_attention(q, k_cache, v_cache, rows, pstart, scale: float):
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), rows.data_ptr(), pstart.data_ptr(),
-            out.data_ptr(), g, bq, kv, gq, r1, s, d, float(scale),
+            v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+            _ptr(page_table), rows.data_ptr(), pstart.data_ptr(),
+            out.data_ptr(), g, bq, kv, gq, r1, s, d, page_size, float(scale),
             _DTYPE_CODES[q.dtype], stream)
-    prefill_attention.launches += 1
+    _count(prefill_attention, k_scale, page_table)
     return out
-
-
-prefill_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # K3: tree attention (committed cache + speculation-tree buffer)
 # ---------------------------------------------------------------------------
 def tree_attention_plain(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
-                         amask, scale):
+                         amask, scale, k_scale=None, v_scale=None,
+                         page_table=None, page_size=0):
     """Plain version of :func:`tree_attention` (any device).  It follows
     the Pallas kernel, not the JAX gather path: a row with no live key
     gives zeros (masked weights are 0, the denominator is clamped at
@@ -250,8 +406,12 @@ def tree_attention_plain(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
     for lo in range(0, t, step):
         sl = slice(lo, lo + step)
         r = rows[sl]
-        k_tok = torch.cat([k_cache[r], k_spec[r]], dim=2).float()
-        v_tok = torch.cat([v_cache[r], v_spec[r]], dim=2).float()
+        k_tok = torch.cat([
+            _rows_f32(k_cache, k_scale, page_table, page_size, r),
+            k_spec[r].float()], dim=2)
+        v_tok = torch.cat([
+            _rows_f32(v_cache, v_scale, page_table, page_size, r),
+            v_spec[r].float()], dim=2)
         live = torch.cat([key_pos[None, :] < clens[sl, None], amask[sl]],
                          dim=1)[:, None, None, :]           # [t', 1, 1, S+P]
         qr = q[sl].float().reshape(-1, kv, gq, d)
@@ -265,7 +425,8 @@ def tree_attention_plain(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
 
 
 def tree_attention_batched_plain(q, k_cache, v_cache, k_spec, v_spec, rows,
-                                 clens, amask, scale):
+                                 clens, amask, scale, k_scale=None,
+                                 v_scale=None, page_table=None, page_size=0):
     """Plain version of :func:`tree_attention_batched` (any device): the
     per-token function with each request's row, depth and mask rows
     repeated over its P tree tokens."""
@@ -273,19 +434,20 @@ def tree_attention_batched_plain(q, k_cache, v_cache, k_spec, v_spec, rows,
     out = tree_attention_plain(
         q.reshape(r * p, qh, d), k_cache, v_cache, k_spec, v_spec,
         rows.repeat_interleave(p), clens.repeat_interleave(p),
-        amask.reshape(r * p, -1), scale)
+        amask.reshape(r * p, -1), scale, k_scale, v_scale, page_table,
+        page_size)
     return out.reshape(r, p, qh, d)
 
 
-def _check_spec_args(name, k_cache, k_spec, v_spec, amask, mask_shape):
+def _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, mask_shape):
     r1, kv, _, d = k_cache.shape
     if (k_spec.dim() != 4 or v_spec.shape != k_spec.shape
             or k_spec.shape[:2] != (r1, kv) or k_spec.shape[3] != d
             or k_spec.shape[2] < 1):
         raise ValueError(f"{name}: spec buffers must both be [R+1, KV, P, D]"
                          " beside caches [R+1, KV, S, D]")
-    if k_spec.dtype != k_cache.dtype or v_spec.dtype != k_cache.dtype:
-        raise TypeError(f"{name}: spec buffers must share the caches' dtype")
+    if k_spec.dtype != q.dtype or v_spec.dtype != q.dtype:
+        raise TypeError(f"{name}: spec buffers must be in q's dtype")
     if amask.dtype != torch.bool or tuple(amask.shape) != mask_shape:
         raise ValueError(f"{name}: ancestor mask must be "
                          f"bool{list(mask_shape)}")
@@ -295,21 +457,27 @@ def _check_spec_args(name, k_cache, k_spec, v_spec, amask, mask_shape):
 
 
 def tree_attention(q, k_cache, v_cache, k_spec, v_spec, rows, clens, amask,
-                   scale: float):
+                   scale: float, k_scale=None, v_scale=None, page_table=None,
+                   page_size: int = 0):
     """Tree attention of flat tokens (one kernel row per token).
 
     ``q [T, QH, D]`` (RoPE applied); ``k_cache, v_cache [R+1, KV, S, D]``
-    the committed caches (after this step's commit); ``k_spec, v_spec
-    [R+1, KV, P, D]`` the speculation-tree buffers holding this step's K/V;
-    ``rows, clens int32[T]``; ``amask bool[T, P]``.  Token t attends over
-    row ``rows[t]``: committed keys at positions ``< clens[t]`` and spec
-    keys j with ``amask[t, j]``.  Returns ``[T, QH, D]`` in q's dtype.
+    the committed caches (after this step's commit; int8 with ``k_scale,
+    v_scale``; paged with ``page_table``/``page_size``); ``k_spec, v_spec
+    [R+1, KV, P, D]`` the speculation-tree buffers in q's dtype holding
+    this step's K/V; ``rows, clens int32[T]``; ``amask bool[T, P]``.
+    Token t attends over row ``rows[t]``: committed keys at logical
+    positions ``< clens[t]`` and spec keys j with ``amask[t, j]``.  Returns
+    ``[T, QH, D]`` in q's dtype.
     """
     name = "tree_attention"
+    check_cache_variant(name, k_cache, v_cache, k_scale, v_scale,
+                        page_table, page_size)
     if _on_cpu(name, q, k_cache, v_cache, k_spec, v_spec, rows, clens,
-               amask):
+               amask, k_scale, v_scale, page_table):
         return tree_attention_plain(q, k_cache, v_cache, k_spec, v_spec,
-                                    rows, clens, amask, scale)
+                                    rows, clens, amask, scale, k_scale,
+                                    v_scale, page_table, page_size)
     t, qh, d = q.shape
     r1, kv, s, _ = k_cache.shape
     p = k_spec.shape[2]
@@ -318,35 +486,38 @@ def tree_attention(q, k_cache, v_cache, k_spec, v_spec, rows, clens, amask,
     gq = qh // kv
     _check_kernel_args(name, q, k_cache, v_cache, rows, clens, t, gq,
                        DECODE_GROUPS)
-    _check_spec_args(name, k_cache, k_spec, v_spec, amask, (t, p))
+    _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, (t, p))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), k_spec.data_ptr(), v_spec.data_ptr(),
+            v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+            _ptr(page_table), k_spec.data_ptr(), v_spec.data_ptr(),
             rows.data_ptr(), clens.data_ptr(), amask.data_ptr(),
-            out.data_ptr(), t, kv, gq, r1, s, p, d, float(scale),
+            out.data_ptr(), t, kv, gq, r1, s, p, d, page_size, float(scale),
             _DTYPE_CODES[q.dtype], stream)
-    tree_attention.launches += 1
+    _count(tree_attention, k_scale, page_table)
     return out
 
 
-tree_attention.launches = 0
-
-
 def tree_attention_batched(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
-                           amask, scale: float):
+                           amask, scale: float, k_scale=None, v_scale=None,
+                           page_table=None, page_size: int = 0):
     """Tree attention for a fixed ``[requests x tree slots]`` layout (one
     kernel row per request, so its committed prefix streams once).
 
-    ``q [R, P, QH, D]``: the P tree tokens of request r; caches and spec
-    buffers as :func:`tree_attention` (spec length ``Pb``); ``rows, clens
-    int32[R]``; ``amask bool[R, P, Pb]``.  Returns ``[R, P, QH, D]``.
+    ``q [R, P, QH, D]``: the P tree tokens of request r; caches, scales,
+    page table and spec buffers as :func:`tree_attention` (spec length
+    ``Pb``); ``rows, clens int32[R]``; ``amask bool[R, P, Pb]``.  Returns
+    ``[R, P, QH, D]``.
     """
     name = "tree_attention_batched"
+    check_cache_variant(name, k_cache, v_cache, k_scale, v_scale,
+                        page_table, page_size)
     if _on_cpu(name, q, k_cache, v_cache, k_spec, v_spec, rows, clens,
-               amask):
-        return tree_attention_batched_plain(q, k_cache, v_cache, k_spec,
-                                            v_spec, rows, clens, amask, scale)
+               amask, k_scale, v_scale, page_table):
+        return tree_attention_batched_plain(
+            q, k_cache, v_cache, k_spec, v_spec, rows, clens, amask, scale,
+            k_scale, v_scale, page_table, page_size)
     r, p, qh, d = q.shape
     r1, kv, s, _ = k_cache.shape
     pb = k_spec.shape[2]
@@ -354,16 +525,17 @@ def tree_attention_batched(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
         raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
     gq = qh // kv
     _check_kernel_args(name, q, k_cache, v_cache, rows, clens, r, gq)
-    _check_spec_args(name, k_cache, k_spec, v_spec, amask, (r, p, pb))
+    _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, (r, p, pb))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), k_spec.data_ptr(), v_spec.data_ptr(),
+            v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
+            _ptr(page_table), k_spec.data_ptr(), v_spec.data_ptr(),
             rows.data_ptr(), clens.data_ptr(), amask.data_ptr(),
-            out.data_ptr(), r, p, kv, gq, r1, s, pb, d, float(scale),
-            _DTYPE_CODES[q.dtype], stream)
-    tree_attention_batched.launches += 1
+            out.data_ptr(), r, p, kv, gq, r1, s, pb, d, page_size,
+            float(scale), _DTYPE_CODES[q.dtype], stream)
+    _count(tree_attention_batched, k_scale, page_table)
     return out
 
 
-tree_attention_batched.launches = 0
+reset_counts()

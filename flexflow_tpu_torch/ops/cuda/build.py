@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface under ``build/kernels/`` at the repository root (listed in
-``.gitignore``).  The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded.  :func:`build` starts one ``nvcc`` per missing library, all at once,
-and waits for all of them.  Nothing here runs at import time: the CPU tests
-import every module and have no ``nvcc``.
+``.gitignore``).  The library's file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a stale library is never loaded.  :func:`build` starts one
+``nvcc`` per missing library, all at once, and waits for all of them.
+Nothing here runs at import time: the CPU tests import every module and
+have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -43,8 +44,9 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # the shared helpers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -5,13 +5,24 @@ Port of ``flexflow_tpu/ops/linear.py:98-126`` for the serve path.
 ``torch.matmul``, as the reference left it to XLA: for bf16 operands the
 GEMM accumulates in float32 and rounds its output once, which is the
 reference's ``preferred_element_type=_acc_dtype(x.dtype)`` followed by the
-cast back.
+cast back.  An int8 ``kernel`` (``serve/quant.py``) carries per-out-channel
+f32 scales in ``kernel_scale`` and is dequantized to x's dtype just before
+the product (reference :110-118); the dequantized copy lives for that
+product only.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+def dequant(w: torch.Tensor, scale, dtype: torch.dtype) -> torch.Tensor:
+    """An int8 weight times its per-out-channel scales, in ``dtype``
+    (``flexflow_tpu/serve/quant.py:153``); any other weight as it is."""
+    if w.dtype != torch.int8:
+        return w
+    return (w * scale).to(dtype)   # int8 * f32 promotes to f32
 
 
 class Linear(nn.Module):
@@ -23,4 +34,7 @@ class Linear(nn.Module):
             requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.kernel)
+        w = self.kernel
+        if w.dtype == torch.int8:
+            w = dequant(w, self.kernel_scale, x.dtype)
+        return torch.matmul(x, w)

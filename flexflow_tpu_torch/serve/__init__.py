@@ -4,7 +4,10 @@ Port of ``flexflow_tpu/serve``: incremental decoding with continuous
 batching, prefill and decode through hand-written CUDA attention kernels
 (slice 1), and SpecInfer tree speculative decoding, on the host
 (``SpecInferManager``) and on the device (``SpecDecodeScan``), through the
-hand-written tree-attention kernel (slice 2).
+hand-written tree-attention kernel (slice 2); int8 weights
+(``quantize_int8``), int8 KV caches (``kv_dtype="int8"``) and paged KV
+caches with copy-on-write prefix sharing (``kv_page_size``), through the
+int8 and paged variants of the kernels (slice 3).
 """
 
 from . import models  # noqa: F401  (registers the model builders)
@@ -24,8 +27,15 @@ from .inference_manager import (
     sample_tokens,
 )
 from .kv_allocator import KVAllocator
+from .kv_paged import (
+    PagedKVAllocator,
+    PagePoolExhausted,
+    PageTable,
+    validate_page_tile,
+)
 from .models.base import MODEL_REGISTRY, ServeModelConfig, build_model
 from .ops import IncMultiHeadSelfAttention, apply_rope
+from .quant import quantize_int8
 from .request_manager import (
     GenerationConfig,
     Request,
@@ -45,6 +55,11 @@ __all__ = [
     "MAX_NUM_TOKENS",
     "InferenceManager",
     "KVAllocator",
+    "PagedKVAllocator",
+    "PagePoolExhausted",
+    "PageTable",
+    "validate_page_tile",
+    "quantize_int8",
     "pick_prefill_tile",
     "sample_tokens",
     "RequestManager",

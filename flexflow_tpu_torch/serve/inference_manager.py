@@ -3,7 +3,8 @@
 Port of ``flexflow_tpu/serve/inference_manager.py`` for one device:
 ``pick_prefill_tile`` (:184), ``sample_tokens`` (:197), ``__init__``,
 ``init_operators_inference``, ``step`` (:612) with the draft model's
-top-k (:596), and ``decode_scan`` (:757).
+top-k (:596), and ``decode_scan`` (:757), over an int8 (``kv_dtype``) and/or
+paged (``kv_page_size``) KV cache.
 PyTorch runs eagerly, so the reference's jitted step is a plain call and
 its donated caches are caches updated in place.  ``decode_scan`` is a loop
 of steps whose batch advances on the device: nothing inside it reads a
@@ -23,9 +24,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..ops.cuda.attention import check_page_size
 from ..utils.platform import resolve_device
 from .batch_config import BatchConfig, InferenceResult
-from .kv_allocator import KVAllocator
+from .kv_allocator import KVAllocator, padded_seq_len
+from .kv_paged import PagedKVAllocator, validate_page_tile
+from .quant import int8_layout
 
 # sample = (seed, temperature, top_p, folds i32[rows, 2] of (rid, index))
 Sample = Tuple[int, float, float, torch.Tensor]
@@ -94,7 +98,9 @@ def sample_tokens(logits: torch.Tensor,
 class InferenceManager:
     def __init__(self, model: torch.nn.Module, max_requests: int = 8,
                  max_tokens_per_batch: int = 64, max_seq_len: int = 512,
-                 device=None, max_spec_tokens: int = 0, topk: int = 0):
+                 device=None, max_spec_tokens: int = 0, topk: int = 0,
+                 kv_dtype: Optional[str] = None,
+                 kv_page_size: Optional[int] = None):
         """``model``: a serve model from ``build_model`` (parameters on
         ``meta`` until :meth:`init_operators_inference` fills them; a
         model whose parameters already lie on ``device`` keeps them, so
@@ -102,7 +108,21 @@ class InferenceManager:
         card; pass ``"cpu"`` to run the plain versions of the kernels on
         the CPU.  ``max_spec_tokens > 0`` allocates the speculation-tree
         buffers; ``topk > 0`` makes every step return the top-k token ids
-        and log-probabilities (a draft model's beam candidates)."""
+        and log-probabilities (a draft model's beam candidates).
+
+        ``kv_dtype="int8"`` stores the committed K/V caches int8 with one
+        f32 scale per (row, head, position), quantized on write and
+        dequantized inside the attention kernels (None: the model's
+        compute dtype; anything else raises, reference :325).
+        ``kv_page_size`` carves the same buffers into pages of that many
+        positions behind a block table with copy-on-write prefix sharing
+        (:mod:`.kv_paged`): it must divide ``max_seq_len`` and its
+        128-padded length, be a multiple of the prefill tile (reference
+        :418-421) and be a page the kernels take (a multiple of 64).
+        Writes need mapped pages: the RequestManager prepares them before
+        every dispatch; a caller driving ``step`` itself calls
+        ``kv.bind(rid, slot=...)`` and ``kv.prepare_write(rid, lo, hi)``
+        first (an unprepared write lands in the scratch page)."""
         self.device = resolve_device(device)
         self.max_requests = max_requests
         self.max_tokens = max_tokens_per_batch
@@ -115,10 +135,19 @@ class InferenceManager:
                  for p in model.parameters()):
             raise ValueError(f"model parameters are not on {self.device}")
         self.model = model.eval()
-        self.kv = KVAllocator(self.model, max_requests, max_seq_len,
-                              self.device, max_spec_tokens)
+        self.kv_dtype = kv_dtype
+        self.kv_page_size = kv_page_size
         self.prefill_tile = pick_prefill_tile(max_tokens_per_batch,
                                               max_seq_len)
+        if kv_page_size:
+            self.kv = PagedKVAllocator(self.model, max_requests, max_seq_len,
+                                       self.device, max_spec_tokens,
+                                       kv_dtype, page_size=kv_page_size)
+            validate_page_tile(kv_page_size, self.prefill_tile)
+            check_page_size(kv_page_size, padded_seq_len(max_seq_len))
+        else:
+            self.kv = KVAllocator(self.model, max_requests, max_seq_len,
+                                  self.device, max_spec_tokens, kv_dtype)
         self.ready = False
 
     @property
@@ -129,11 +158,13 @@ class InferenceManager:
     def init_operators_inference(self, params: Optional[Dict] = None,
                                  seed: int = 0):
         """Fill the parameters (``params``: a state dict, e.g. from
-        :func:`~flexflow_tpu_torch.serve.convert.params_from_jax`; None =
-        random from ``seed``) and allocate zeroed KV caches."""
+        :func:`~flexflow_tpu_torch.serve.convert.params_from_jax`, whose
+        int8 weights beside their ``_scale`` load as int8; None = random
+        from ``seed``) and allocate zeroed KV caches."""
         if params is None:
             init_random_params(self.model, seed)
         else:
+            int8_layout(self.model, params)
             own = dict(self.model.named_parameters())
             if set(params) != set(own):
                 raise ValueError(
@@ -156,10 +187,12 @@ class InferenceManager:
     @torch.no_grad()
     def forward(self, bc) -> torch.Tensor:
         """One step's float32 logits ``[max_tokens, vocab]``; the caches
-        take this step's K/V in place."""
+        take this step's K/V in place, through the page table of a paged
+        cache (uploaded here after the allocator changed it, reused by
+        the steps of a stretch)."""
         if not self.ready:
             raise RuntimeError("call init_operators_inference() first")
-        return self.model(bc, self.state)
+        return self.model(bc, self.state, self.kv.page_view())
 
     @torch.no_grad()
     def step(self, bc, sample: Optional[Sample] = None) -> InferenceResult:

@@ -73,10 +73,11 @@ class LlamaForServe(nn.Module):
             if isinstance(mod, IncMultiHeadSelfAttention):
                 mod.name = name
 
-    def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]]
-                ) -> torch.Tensor:
+    def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
+                pages=None) -> torch.Tensor:
         """Float32 logits ``[T, vocab]`` of one step; ``state`` holds each
-        attention layer's caches, which are updated in place."""
+        attention layer's caches, which are updated in place; ``pages`` is
+        the page table of a paged cache (None: slot-contiguous)."""
         base = getattr(bc, "base", bc)
         residual = self.model.embed_tokens(base.tokens)
         mlp_out = None
@@ -85,7 +86,8 @@ class LlamaForServe(nn.Module):
                 attn_in = layer.input_layernorm(residual)
             else:
                 residual, attn_in = layer.input_layernorm(mlp_out, residual)
-            attn = layer.self_attn(attn_in, bc, state[layer.self_attn.name])
+            attn = layer.self_attn(attn_in, bc, state[layer.self_attn.name],
+                                   pages)
             residual, mlp_in = layer.post_attention_layernorm(attn, residual)
             mlp_out = layer.mlp(mlp_in)
         _, normed = self.model.norm(mlp_out, residual)

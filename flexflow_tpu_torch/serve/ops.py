@@ -3,17 +3,21 @@
 Port of ``flexflow_tpu/serve/ops.py``'s ``IncMultiHeadSelfAttention`` for
 the incremental (``BatchConfig``), tiled-prefill (``PrefillBatchConfig``)
 and speculation-tree (``TreeSearchBatchConfig``, ``TreeVerifyBatchConfig``)
-modes on one device: no tensor parallelism, no int8 or paged KV, no
-ALiBi.  Layouts are the reference's: the fused QKV
-weight is ``[E, KV, gq + 2, D]`` (per KV head, its gq query heads, then K,
-then V), ``o_proj`` is ``[QH*D, E]`` and the caches are kv-head-major
-``[R+1, KV, S, D]`` with row ``R`` the pad tokens' scratch row.
+modes on one device, with int8 weights (``qkv``/``o_proj`` beside their
+``_scale``, dequantized before each product, reference :330-333,
+:353-356), int8 KV caches (quantize-on-write, reference :429-496) and
+paged KV caches (writes translated through the page table, reference
+:50): no tensor parallelism, no ALiBi.  Layouts are the reference's: the
+fused QKV weight is ``[E, KV, gq + 2, D]`` (per KV head, its gq query
+heads, then K, then V), ``o_proj`` is ``[QH*D, E]`` and the caches are
+kv-head-major ``[R+1, KV, S, D]`` with row ``R`` the pad tokens' scratch
+row (int8 caches: scale planes ``[R+1, KV, S]`` beside them).
 
 The caches are updated IN PLACE (``index_put_``): the reference threads
 them functionally through a jitted step with donated buffers, which is the
-same memory behaviour; so are the spec buffers ``sk``/``sv``.  Attention
-goes through the hand-written CUDA kernels of
-:mod:`flexflow_tpu_torch.ops.cuda.attention`.
+same memory behaviour; so are the spec buffers ``sk``/``sv``, which stay
+in the compute dtype and slot-contiguous.  Attention goes through the
+hand-written CUDA kernels of :mod:`flexflow_tpu_torch.ops.cuda.attention`.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..ops.cuda.attention import (
     tree_attention,
     tree_attention_batched,
 )
+from ..ops.linear import dequant
 from .batch_config import (
     BatchConfig,
     PrefillBatchConfig,
@@ -56,12 +61,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def _page_rows_pos(pages, rows: torch.Tensor, pos: torch.Tensor):
+    """Logical cache coordinates (row, position) -> physical ones through
+    the page table (reference :50); every write path runs unchanged on the
+    translated coordinates, the int8 scale planes too."""
+    ps, ppr = pages.page_size, pages.pages_per_row
+    rows = rows.long().clamp(0, pages.table.shape[0] - 1)
+    pos = pos.long()
+    pid = pages.table[rows, (pos // ps).clamp(0, ppr - 1)].long()
+    return pid // ppr, (pid % ppr) * ps + pos % ps
+
+
+def kv_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-vector symmetric int8 quantization of fresh K/V (reference
+    ``_kv_quant`` :429): ``x [T, KV, D]`` -> ``(q int8 [T, KV, D], scale
+    f32 [T, KV])``, scale = absmax / 127, round half to even, clipped to
+    +-127; a zero vector gives value 0 and scale 0.  The same bits as the
+    reference (IEEE division, ``torch.round`` rounds half to even)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    denom = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.round(xf / denom[..., None]).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
 class IncMultiHeadSelfAttention(nn.Module):
     """KV-cached GQA self-attention over flat token batches.
 
-    ``forward(x [T, E], bc, state)`` with ``state = {"k", "v"}`` this
-    layer's caches; returns ``[T, E]``.  ``name`` is the module's path in
-    the model, the key of its caches in the allocator's state.
+    ``forward(x [T, E], bc, state, pages)`` with ``state = {"k", "v"}``
+    this layer's caches (int8: and ``"k_scale"``, ``"v_scale"``; spec
+    steps: and ``"sk"``, ``"sv"``) and ``pages`` the page table of a paged
+    cache (None: slot-contiguous); returns ``[T, E]``.  ``name`` is the
+    module's path in the model, the key of its caches in the allocator's
+    state; ``compute_dtype`` is the dtype of its activations and of fp
+    caches, whatever its weights are stored in.
     """
 
     def __init__(self, embed_dim: int, num_q_heads: int,
@@ -82,6 +115,7 @@ class IncMultiHeadSelfAttention(nn.Module):
                                if scaling_factor is not None
                                else 1.0 / math.sqrt(self.head_dim))
         self.name = ""
+        self.compute_dtype = dtype
         self.qkv = nn.Parameter(torch.empty(
             self.embed_dim, self.num_kv_heads, self.q_per_kv + 2,
             self.head_dim, dtype=dtype, device=device), requires_grad=False)
@@ -89,29 +123,32 @@ class IncMultiHeadSelfAttention(nn.Module):
             self.num_q_heads * self.head_dim, self.embed_dim, dtype=dtype,
             device=device), requires_grad=False)
 
-    def forward(self, x: torch.Tensor, bc, state: Dict[str, torch.Tensor]
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bc, state: Dict[str, torch.Tensor],
+                pages=None) -> torch.Tensor:
         q, k, v = self._project(x, bc)
         if isinstance(bc, TreeVerifyBatchConfig):
             # last macro-step's accepted K/V joins the committed cache
             # before this step's tree overwrites the spec buffer
-            self._commit(state, bc)
-            out = self._tree_attend(q, k, v, state, bc)
+            self._commit(state, bc, pages)
+            out = self._tree_attend(q, k, v, state, bc, pages)
         elif isinstance(bc, TreeSearchBatchConfig):
-            out = self._tree_attend(q, k, v, state, bc)
+            out = self._tree_attend(q, k, v, state, bc, pages)
         elif isinstance(bc, PrefillBatchConfig):
-            out = self._prefill_attend(q, k, v, state, bc)
+            out = self._prefill_attend(q, k, v, state, bc, pages)
         else:
-            out = self._inc_attend(q, k, v, state, bc)
+            out = self._inc_attend(q, k, v, state, bc, pages)
         t = out.shape[0]
-        return torch.matmul(
-            out.reshape(t, self.num_q_heads * self.head_dim), self.o_proj)
+        o_w = dequant(self.o_proj, getattr(self, "o_proj_scale", None),
+                      out.dtype)
+        return torch.matmul(out.reshape(t, self.num_q_heads * self.head_dim),
+                            o_w)
 
     def _project(self, x, bc) -> Tuple[torch.Tensor, ...]:
-        """One GEMM for Q, K and V, then RoPE (reference :359-375)."""
+        """One GEMM for Q, K and V, then RoPE (reference :344-375)."""
         base = bc if isinstance(bc, BatchConfig) else bc.base
         t = x.shape[0]
-        qkv = torch.matmul(x, self.qkv.reshape(self.embed_dim, -1)).reshape(
+        w = dequant(self.qkv, getattr(self, "qkv_scale", None), x.dtype)
+        qkv = torch.matmul(x, w.reshape(self.embed_dim, -1)).reshape(
             t, self.num_kv_heads, self.q_per_kv + 2, self.head_dim)
         q = qkv[:, :, : self.q_per_kv, :]          # [T, KV, gq, D]
         k = qkv[:, :, self.q_per_kv, :]            # [T, KV, D]
@@ -128,22 +165,42 @@ class IncMultiHeadSelfAttention(nn.Module):
         return torch.where(r >= 0, r, max_requests)
 
     @staticmethod
-    def _write_kv(state, rows, pos, k, v) -> None:
-        """``cache[rows[t], :, pos[t]] = k[t]`` (and v), in place; rows and
-        positions are clipped into range as the reference clips them."""
+    def _write_kv(state, rows, pos, k, v, pages=None) -> None:
+        """``cache[rows[t], :, pos[t]] = k[t]`` (and v), in place (reference
+        :474): logical coordinates go through the page table first, rows
+        and positions are clipped into range as the reference clips them,
+        and an int8 cache takes :func:`kv_quant`'s values and scales (the
+        scale planes ride the same coordinates)."""
+        if pages is not None:
+            rows, pos = _page_rows_pos(pages, rows, pos)
         kc, vc = state["k"], state["v"]
         r = rows.long().clamp(0, kc.shape[0] - 1)
         p = pos.long().clamp(0, kc.shape[2] - 1)
-        kc[r, :, p] = k.to(kc.dtype)
-        vc[r, :, p] = v.to(vc.dtype)
+        if kc.dtype == torch.int8:
+            kq, ks = kv_quant(k)
+            vq, vs = kv_quant(v)
+            kc[r, :, p] = kq
+            vc[r, :, p] = vq
+            state["k_scale"][r, :, p] = ks
+            state["v_scale"][r, :, p] = vs
+        else:
+            kc[r, :, p] = k.to(kc.dtype)
+            vc[r, :, p] = v.to(vc.dtype)
 
-    def _inc_attend(self, q, k, v, state, bc: BatchConfig):
+    @staticmethod
+    def _cache_args(state, pages) -> Dict:
+        """The cache-variant arguments of the attention kernels."""
+        return dict(k_scale=state.get("k_scale"), v_scale=state.get("v_scale"),
+                    page_table=None if pages is None else pages.table,
+                    page_size=0 if pages is None else pages.page_size)
+
+    def _inc_attend(self, q, k, v, state, bc: BatchConfig, pages=None):
         """Flat-token attention (reference :557-651)."""
         kc, vc = state["k"], state["v"]
         nreq = kc.shape[0] - 1
         rows = self._rows(bc, nreq)
         pos = bc.token_position
-        self._write_kv(state, rows, pos, k, v)
+        self._write_kv(state, rows, pos, k, v, pages)
         # pad tokens (scratch row) read one key, not a whole row: their
         # outputs are discarded (reference :577)
         pos = torch.where(rows == nreq, 0, pos)
@@ -151,14 +208,16 @@ class IncMultiHeadSelfAttention(nn.Module):
         return decode_attention(
             q.reshape(t, self.num_q_heads, self.head_dim).contiguous(),
             kc, vc, rows.to(torch.int32).contiguous(),
-            pos.to(torch.int32).contiguous(), self.scaling_factor)
+            pos.to(torch.int32).contiguous(), self.scaling_factor,
+            **self._cache_args(state, pages))
 
-    def _prefill_attend(self, q, k, v, state, bc: PrefillBatchConfig):
+    def _prefill_attend(self, q, k, v, state, bc: PrefillBatchConfig,
+                        pages=None):
         """Attention over request-homogeneous query tiles (reference
         :653-784).  Each tile's whole ``[KV, Bq, D]`` K/V block is written
         at the tile's row and start, tail pads as zeros (fresh caches are
-        zeros, so the tiled and flat paths leave identical caches), in one
-        ``index_put_`` covering every tile."""
+        zeros, so the tiled and flat paths leave identical caches; int8:
+        value 0 and scale 0), in one ``index_put_`` covering every tile."""
         base = bc.base
         kc, vc = state["k"], state["v"]
         nreq = kc.shape[0] - 1
@@ -176,26 +235,30 @@ class IncMultiHeadSelfAttention(nn.Module):
         w_pos = (pstart[:, None] + torch.arange(bq, device=pos.device)
                  ).reshape(-1)
         self._write_kv(state, w_rows, w_pos, torch.where(valid, k, 0),
-                       torch.where(valid, v, 0))
+                       torch.where(valid, v, 0), pages)
         out = prefill_attention(
             q.reshape(g, bq, self.num_q_heads, self.head_dim).contiguous(),
             kc, vc, tile_rows.to(torch.int32).contiguous(),
-            pstart.to(torch.int32).contiguous(), self.scaling_factor)
+            pstart.to(torch.int32).contiguous(), self.scaling_factor,
+            **self._cache_args(state, pages))
         return out.reshape(t, self.num_q_heads, self.head_dim)
 
-    def _commit(self, state, bc: TreeVerifyBatchConfig) -> None:
+    def _commit(self, state, bc: TreeVerifyBatchConfig, pages=None) -> None:
         """Copy accepted speculative K/V (spec buffer -> committed cache),
         in place (reference :786).  Pad entries read and write the scratch
-        row."""
+        row.  The spec buffer is read slot-contiguously; the destination
+        goes through the page table, and an int8 cache quantizes the
+        accepted vectors with the incremental path's quantizer, so a
+        token's cache entry is the same bits whichever path wrote it."""
         kc, sk, sv = state["k"], state["sk"], state["sv"]
         nreq = kc.shape[0] - 1
         ri = bc.commit_request_index
         rows = torch.where(ri >= 0, ri, nreq).long()
         src = bc.commit_src_spec_index.long().clamp(0, sk.shape[2] - 1)
         self._write_kv(state, rows, bc.commit_dst_position,
-                       sk[rows, :, src], sv[rows, :, src])
+                       sk[rows, :, src], sv[rows, :, src], pages)
 
-    def _tree_attend(self, q, k, v, state, bc):
+    def _tree_attend(self, q, k, v, state, bc, pages=None):
         """Attention over the committed cache (positions below the
         request's committed depth) plus the spec buffer (ancestor mask),
         after this step's K/V lands in the spec buffer at ``spec_index``
@@ -214,12 +277,13 @@ class IncMultiHeadSelfAttention(nn.Module):
         amask = bc.ancestor_mask[req, spec_idx] & real[:, None]
         t = q.shape[0]
         qf = q.reshape(t, self.num_q_heads, self.head_dim)
+        variant = self._cache_args(state, pages)
         layout = getattr(bc, "tree_layout", None)
         if layout is None:
             return tree_attention(
                 qf.contiguous(), kc, vc, sk, sv,
                 rows.to(torch.int32).contiguous(), clens.contiguous(),
-                amask.contiguous(), self.scaling_factor)
+                amask.contiguous(), self.scaling_factor, **variant)
         # fixed [R, P] layout of exactly R*P tokens: token r*P + j is node
         # j of slot r, so one kernel row per request streams its committed
         # prefix once
@@ -229,4 +293,5 @@ class IncMultiHeadSelfAttention(nn.Module):
             kc, vc, sk, sv, rows[::p_t].to(torch.int32).contiguous(),
             clens[::p_t].contiguous(),
             amask.reshape(r_t, p_t, -1).contiguous(),
-            self.scaling_factor).reshape(t, self.num_q_heads, self.head_dim)
+            self.scaling_factor, **variant).reshape(t, self.num_q_heads,
+                                                    self.head_dim)

@@ -1,0 +1,95 @@
+"""Weight-only int8 quantization of a serve model.
+
+Port of ``flexflow_tpu/serve/quant.py``: weights are stored int8 with
+per-out-channel f32 scales beside them (``<name>_scale``) and dequantized to
+the compute dtype just before their product (``ops/linear.py``,
+``serve/ops.py``); the dequantized copy is transient.  The planner-only
+``annotate_int8`` waits for the planner slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.linear import Linear, dequant  # noqa: F401  (re-exported)
+from .ops import IncMultiHeadSelfAttention
+
+
+def _quantize_array(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8-quantize ``w`` with per-out-channel scales (reference :28).
+
+    Every weight here contracts over its first dim (Linear ``[in, out]``,
+    fused QKV ``[E, KV, G, D]``, o_proj ``[QH*D, E]``), so the scale spans
+    ``w.shape[1:]``.  Returns ``(q int8, scale f32)`` with ``q * scale ~=
+    w``, the per-element error at most ``scale / 2``; the same bits as the
+    reference's numpy (IEEE division, round half to even).
+    """
+    wf = w.float()
+    scale = wf.abs().amax(dim=0) / 127.0
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.round(wf / scale).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _weights(model: nn.Module, include: Optional[Sequence[str]],
+             attention: bool) -> Iterator[Tuple[nn.Module, str]]:
+    """(module, parameter name) of every weight :func:`quantize_int8`
+    covers: each Linear's ``kernel`` and, with ``attention``, each
+    attention module's ``qkv`` and ``o_proj``; ``include`` keeps the
+    modules whose path contains one of its strings."""
+    for name, mod in model.named_modules():
+        if include and not any(s in name for s in include):
+            continue
+        if isinstance(mod, Linear):
+            yield mod, "kernel"
+        elif attention and isinstance(mod, IncMultiHeadSelfAttention):
+            yield mod, "qkv"
+            yield mod, "o_proj"
+
+
+def _set_int8(mod: nn.Module, pname: str, q: torch.Tensor,
+              scale: torch.Tensor) -> None:
+    setattr(mod, pname, nn.Parameter(q, requires_grad=False))
+    setattr(mod, f"{pname}_scale", nn.Parameter(scale, requires_grad=False))
+
+
+@torch.no_grad()
+def quantize_int8(im, include: Optional[Sequence[str]] = None,
+                  attention: bool = True) -> int:
+    """Quantize the serve model's weight matrices to int8 in place
+    (reference :71): every Linear's kernel and, with ``attention``, each
+    attention module's fused ``qkv`` and ``o_proj``; ``include`` restricts
+    both to modules whose path contains one of its strings.  Call after
+    ``init_operators_inference``; int8 weights are skipped, so
+    re-quantizing is a no-op.  Returns the number of weights quantized."""
+    n = 0
+    for mod, pname in list(_weights(im.model, include, attention)):
+        w = getattr(mod, pname)
+        if w.dtype == torch.int8:
+            continue
+        q, scale = _quantize_array(w)
+        _set_int8(mod, pname, q, scale)   # the compute-dtype weight goes
+        n += 1
+    return n
+
+
+def int8_layout(model: nn.Module, params: Dict[str, torch.Tensor]) -> None:
+    """Give the model int8 slots (empty) for every weight that ``params``
+    holds as int8 beside its ``_scale``, so a quantized state dict (e.g.
+    ``params_from_jax`` of a reference model after ``quantize_int8``)
+    loads into it."""
+    for mod_name, mod in model.named_modules():
+        for pname in ("kernel", "qkv", "o_proj"):
+            key = f"{mod_name}.{pname}" if mod_name else pname
+            w = getattr(mod, pname, None)
+            if (isinstance(w, nn.Parameter) and w.dtype != torch.int8
+                    and key in params and params[key].dtype == torch.int8
+                    and f"{key}_scale" in params):
+                _set_int8(mod, pname,
+                          torch.empty(w.shape, dtype=torch.int8,
+                                      device=w.device),
+                          torch.empty(w.shape[1:], dtype=torch.float32,
+                                      device=w.device))

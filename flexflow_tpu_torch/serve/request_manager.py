@@ -10,9 +10,16 @@ as tiled steps; a pure-decode stretch is one
 ``InferenceManager.decode_scan``; each reads back once at its end.  The
 hooks the speculative manager builds on (``request_cls``,
 ``_seq_len_needed``, ``_kv_bind``, ``_tick``) leave this path as it is.
+Under a paged KV cache, ``_kv_bind`` is the prefix-reuse hook (a request
+whose prompt prefix the page index holds starts its prefill there) and
+``_kv_prepare`` maps and copy-on-writes the pages of every span a dispatch
+writes before it runs (reference :1982-2011, :2120-2147); admission counts
+each request's need in whole pages (``round_need``, reference :425-442),
+and an exhausted pool raises ``PagePoolExhausted``.
 
 Left out of this slice: telemetry and profiling, fault injection and
-retries, SLO lanes, migration, KV spill, preemption, deadlines and
+retries, SLO lanes, migration, KV spill and the host page tier,
+preemption (and so page-pressure preemption), deadlines and
 ``serve_with_arrivals``, and the chained decode stretch with mid-stretch
 joins.
 """
@@ -48,6 +55,9 @@ class Request:
     # consecutive mixed steps whose tiled budget rounded this request's
     # prefill take to zero (the starvation fallback below)
     starved_steps: int = 0
+    # prompt tokens a paged cache's prefix index held at admission (the
+    # prefill started there)
+    prefix_cached: int = 0
 
     @property
     def seq_len(self) -> int:
@@ -138,17 +148,47 @@ class RequestManager:
 
     # ------------------------------------------------------------------
     def _admit(self) -> None:
-        """Fill free slots from the queue, first come first served."""
+        """Fill free slots from the queue, first come first served, while
+        the cache holds every admitted request's worst-case need counted
+        in the allocator's granularity (reference :425-442)."""
+        kv = self.im.kv
+        committed = sum(kv.round_need(self._seq_len_needed(r))
+                        for r in self._active())
         for i, occupant in enumerate(self.slots):
             if occupant is None and self.pending:
-                req = self.requests[self.pending.pop(0)]
+                req = self.requests[self.pending[0]]
+                need = kv.round_need(self._seq_len_needed(req))
+                if committed + need > kv.capacity_tokens:
+                    return
+                committed += need
+                self.pending.pop(0)
                 req.slot = i
                 req.status = RequestStatus.PREFILLING
                 self.slots[i] = req.rid
                 self._kv_bind(req.rid)
 
     def _kv_bind(self, rid: int) -> None:
-        self.im.kv.bind(rid)
+        """A request took a slot.  Under a paged cache this is the
+        prefix-reuse hook (reference :1982): ``bind`` maps the registered
+        pages the prompt matches and returns the tile-aligned cached
+        offset, where the prefill starts."""
+        req = self.requests[rid]
+        info = self.im.kv.bind(rid, slot=req.slot, tokens=req.prompt,
+                               need=self._seq_len_needed(req),
+                               align=self.im.prefill_tile)
+        if info and info["cached_tokens"]:
+            req.prefill_offset = req.prefix_cached = info["cached_tokens"]
+
+    def _kv_prepare(self, spans, kv=None) -> None:
+        """Make the cache writable at every ``(rid, lo, hi)`` span the
+        next dispatch writes, before it runs (reference :2120): a paged
+        allocator maps missing pages and copy-on-writes shared ones here,
+        so the table is constant while the device works; a no-op for the
+        slot-contiguous allocator."""
+        kv = kv if kv is not None else self.im.kv
+        if kv.paged:
+            for rid, lo, hi in spans:
+                kv.prepare_write(rid, lo, hi)
 
     def _release_slot(self, req: Request) -> None:
         self.im.kv.release(req.rid, req.seq_len)
@@ -201,7 +241,7 @@ class RequestManager:
                       if r.status is RequestStatus.PREFILLING]
         if (not tokens and tile > 1 and prefilling
                 and all(r.prefill_offset % tile == 0 for r in prefilling)):
-            segments = []
+            segments, spans = [], []
             for req in prefilling:
                 if budget < tile:
                     continue
@@ -210,11 +250,13 @@ class RequestManager:
                 start = req.prefill_offset
                 segments.append(
                     (req.slot, req.prompt[start: start + take], start))
+                spans.append((req.rid, start, start + take))
                 req.prefill_offset += take
                 req.starved_steps = 0
                 budget -= -(-take // tile) * tile
                 if req.prefill_offset == len(req.prompt):
                     sample_points.append((req.slot, req.rid))
+            self._kv_prepare(spans)
             pbc, last_flat = PrefillBatchConfig.build(
                 segments, self._seq_lens(), tile,
                 max_tokens=im.max_tokens, max_requests=im.max_requests,
@@ -261,6 +303,12 @@ class RequestManager:
             if req.prefill_offset == len(req.prompt):
                 sample_points.append((len(tokens) - 1, req.rid))
 
+        written: Dict[int, Tuple[int, int]] = {}   # slot -> [lo, hi)
+        for slot, p in zip(req_idx, positions):
+            lo, hi = written.get(slot, (p, p + 1))
+            written[slot] = (min(lo, p), max(hi, p + 1))
+        self._kv_prepare([(self.slots[slot], lo, hi)
+                          for slot, (lo, hi) in written.items()])
         bc = BatchConfig.build(tokens, req_idx, positions, self._seq_lens(),
                                max_tokens=im.max_tokens,
                                max_requests=im.max_requests, device=im.device)
@@ -322,6 +370,8 @@ class RequestManager:
         chunk instead of one scan), then read the first tokens back once."""
         im = self.im
         tile = im.prefill_tile
+        self._kv_prepare([(r.rid, r.prefill_offset, len(r.prompt))
+                          for r in self._active()])
         seq = self._seq_lens()
         firsts = []   # (req, token ids of its last chunk, flat index)
         for req in self._active():
@@ -353,6 +403,10 @@ class RequestManager:
         im = self.im
         active = self._active()
         rids = [r.rid for r in active]
+        # the stretch writes n positions per request with no host boundary
+        # in between: its whole span is prepared up front
+        self._kv_prepare([(r.rid, r.seq_len - 1, r.seq_len - 1 + n)
+                          for r in active])
         bc = BatchConfig.build(
             [r.generated[-1] for r in active], [r.slot for r in active],
             [r.seq_len - 1 for r in active], self._seq_lens(),

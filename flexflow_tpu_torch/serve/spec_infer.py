@@ -17,7 +17,11 @@ macro-step, per request:
    accepted, plus one bonus token from the LLM.
 
 Greedy invariant: the output equals plain incremental decoding with the
-LLM, token for token, whatever the draft model.  While no request holds a
+LLM, token for token, whatever the draft model.  Int8 and paged caches
+ride along: both allocators bind every request (the LLM's with prefix
+reuse) and prepare every span a dispatch writes before it runs, the
+verify step's commit destinations and the tree's span included
+(reference :218, :359, :428, :610).  While no request holds a
 slot, a tick is the incremental manager's (admission and prompt prefill),
 as in the reference; the speculative phases then sync the SSM's cache.
 
@@ -119,8 +123,11 @@ class SpecInferManager(RequestManager):
 
     # ------------------------------------------------------------------
     def _kv_bind(self, rid: int) -> None:
+        # the LLM's allocator reuses a cached prompt prefix; the draft's
+        # binds the slot only (its catch-up feed follows its committed
+        # depth, not an offset), its pages mapped by the SSM-side spans
         super()._kv_bind(rid)
-        self.ssm.kv.bind(rid)
+        self.ssm.kv.bind(rid, slot=self.requests[rid].slot)
 
     def _release_slot(self, req: SpecRequest) -> None:
         self.ssm.kv.release(req.rid, req.ssm_committed)
@@ -163,7 +170,7 @@ class SpecInferManager(RequestManager):
         """Reference :333-433."""
         self._admit()
         while True:   # LLM prompt prefill, chunked by its token budget
-            toks, reqi, pos, points = [], [], [], []
+            toks, reqi, pos, points, spans = [], [], [], [], []
             budget = self.llm.max_tokens
             for req in self._active():
                 if req.status is not RequestStatus.PREFILLING or budget <= 0:
@@ -173,12 +180,14 @@ class SpecInferManager(RequestManager):
                 toks += req.prompt[st: st + take]
                 reqi += [req.slot] * take
                 pos += range(st, st + take)
+                spans.append((req.rid, st, st + take))
                 req.prefill_offset += take
                 budget -= take
                 if req.prefill_offset == len(req.prompt):
                     points.append((len(toks) - 1, req))
             if not toks:
                 break
+            self._kv_prepare(spans)
             ids = self.llm.step(self._plain_bc(self.llm, toks, reqi, pos)
                                 ).token_ids.cpu().numpy()
             self.llm_steps += 1
@@ -191,11 +200,12 @@ class SpecInferManager(RequestManager):
         for req in self._active():
             self._ssm_sync(req)
         while True:   # SSM prompt prefill + catch-up of accepted tokens
-            toks, reqi, pos = [], [], []
+            toks, reqi, pos, spans = [], [], [], []
             budget = self.ssm.max_tokens
             for req in self._active():
                 if budget <= 0:
                     break
+                lo = len(pos)
                 if req.ssm_committed < len(req.prompt):
                     st = req.ssm_committed
                     take = min(budget, len(req.prompt) - st)
@@ -213,8 +223,11 @@ class SpecInferManager(RequestManager):
                     req.ssm_backlog = req.ssm_backlog[take:]
                     req.ssm_committed += take
                     budget -= take
+                if len(pos) > lo:
+                    spans.append((req.rid, min(pos[lo:]), max(pos[lo:]) + 1))
             if not toks:
                 break
+            self._kv_prepare(spans, kv=self.ssm.kv)
             self.ssm.step(self._plain_bc(self.ssm, toks, reqi, pos))
 
     # ------------------------------------------------------------------
@@ -307,6 +320,7 @@ class SpecInferManager(RequestManager):
         r, p = self.llm.max_requests, self.llm.max_spec_tokens
         masks = np.zeros((r, p, p), bool)
         toks, reqi, pos, spec, index_of, commit = [], [], [], [], {}, []
+        spans = []
         for req in verifying:
             for ni, node in enumerate(req.tree):
                 if node.parent >= 0:
@@ -318,7 +332,14 @@ class SpecInferManager(RequestManager):
                 pos.append(req.llm_committed + node.depth)
                 spec.append(ni)
             commit += [(req.slot, src, dst) for src, dst in req.pending_commit]
+            # the cache positions this step commits (the last round's
+            # accepted nodes) and those the tree's accepted nodes will
+            # take; the spec buffer itself is never paged
+            spans.append((req.rid, min([d for _, d in req.pending_commit],
+                                       default=req.llm_committed),
+                          req.llm_committed + self.depth + 1))
             req.pending_commit = []
+        self._kv_prepare(spans)
         bc = self._tree_bc(TreeVerifyBatchConfig, self.llm, toks, reqi, pos,
                            spec, masks, "llm_committed", commit)
         ids = self.llm.step(bc).token_ids.cpu().numpy()

@@ -24,9 +24,14 @@ as slice 1's ``InferenceManager.decode_scan``; each macro step is
 
 Emissions are ``-1`` where a slot emits nothing.  A slot whose budget runs
 out, or that emits the EOS token, freezes (``finished``), and its
-``exit_code`` says why.  Left out: stochastic verification (``run`` with
-``sample`` raises ``NotImplementedError``), mixed spec/non-spec slots and
-paged caches.
+``exit_code`` says why.  Int8 and paged caches work as on the host path;
+with a paged cache, ``run`` maps (and copy-on-writes) up front every page
+each live slot's worst-case growth can reach, since committed depths
+advance on the device (reference spec_scan.py:224-242), and the caller
+keeps each slot's prompt pages mapped (the request stays bound to its
+slot while the scan runs).  Left out: stochastic verification (``run``
+with ``sample`` raises ``NotImplementedError``) and mixed spec/non-spec
+slots.
 """
 
 from __future__ import annotations
@@ -125,7 +130,8 @@ class SpecDecodeScan:
         """``n_macro`` macro steps.  Returns ``(emitted i32[n_macro, R,
         depth+1], carry)``.  One read-back before the loop checks that no
         live slot can pass ``max_seq_len`` (each slot grows at most
-        ``depth+1`` per step and ``budget + depth`` in all)."""
+        ``depth+1`` per step and ``budget + depth`` in all) and, for a
+        paged cache, prepares the pages of that growth."""
         if sample is not None:
             raise NotImplementedError(
                 "stochastic verification is not ported yet: SpecDecodeScan "
@@ -141,6 +147,12 @@ class SpecDecodeScan:
                 raise ValueError(
                     f"n_macro={n_macro} could reach position {worst} > "
                     f"max_seq_len {im.max_seq_len}")
+            if im.kv.paged:
+                # the table stays constant inside the loop
+                for slot, (lo, hi) in enumerate(zip(
+                        carry[key].tolist(), reach.tolist())):
+                    if hi:
+                        im.kv.prepare_slot_span(slot, lo, hi)
         emitted = []
         for _ in range(n_macro):
             carry, e = self._macro_body(carry)

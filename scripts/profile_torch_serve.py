@@ -2,6 +2,8 @@
 """Where a serving step's time goes on the card, for the PyTorch/CUDA port.
 
     python scripts/profile_torch_serve.py [--layers 32] [--new-tokens 16]
+    python scripts/profile_torch_serve.py --quantize --kv-dtype int8 \
+        --kv-page-size 512 --no-spec
 
 Builds the Llama-2-7B serve shape (bfloat16, seeded random weights; depth
 cut by ``--layers``), admits 8 prompts of 256-1800 tokens, and times
@@ -13,7 +15,11 @@ macro step of ``SpecInferManager`` (host loop) and ``--macro-steps`` of
 wall time, the device time summed over kernels, the busy share (device
 time / wall), the device time by kernel class, and the top kernels.
 Needs a CUDA device; the numbers are the card's, with its name and power
-limit printed first.
+limit printed first.  ``--quantize`` (int8 weights), ``--kv-dtype int8``
+and ``--kv-page-size N`` profile those variants of the same windows;
+``--no-spec`` stops after the decode stretch (the speculative windows
+prefill through a RequestManager that releases each request's pages, so
+they run on slot-contiguous caches only).
 """
 
 import argparse
@@ -87,7 +93,16 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--macro-steps", type=int, default=8)
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8 weights (serve.quantize_int8)")
+    ap.add_argument("--kv-dtype", default=None, choices=["int8"])
+    ap.add_argument("--kv-page-size", type=int, default=0)
+    ap.add_argument("--no-spec", action="store_true",
+                    help="skip the speculative windows")
     args = ap.parse_args(argv)
+    if args.kv_page_size and not args.no_spec:
+        ap.error("the speculative windows need slot-contiguous caches: "
+                 "add --no-spec")
 
     import numpy as np
     import torch
@@ -100,11 +115,19 @@ def main(argv=None):
         serve.build_model(serve.ServeModelConfig(
             dtype="bfloat16", num_hidden_layers=args.layers)),
         max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
-        max_spec_tokens=8)
+        max_spec_tokens=8, kv_dtype=args.kv_dtype,
+        kv_page_size=args.kv_page_size or None)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     im.init_operators_inference(seed=0)
+    if args.quantize:
+        serve.quantize_int8(im)
+    w_bytes = sum(p.numel() * p.element_size()
+                  for p in im.model.parameters())
+    print(f"weights {w_bytes / 1e9:.2f} GB, "
+          f"KV {im.kv.allocated_bytes() / 1e9:.2f} GB (kv_dtype "
+          f"{args.kv_dtype}, page {args.kv_page_size or 'none'})")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(3, 32000, size=int(n)).tolist()
                for n in np.linspace(256, 1800, 8)]
@@ -139,7 +162,8 @@ def main(argv=None):
            wall, kern)
     print(f"decode step: {wall / n * 1e3:.3f} ms profiled, "
           f"{bare / n * 1e3:.3f} ms unprofiled")
-    profile_spec(args, torch, serve, im, prompts)
+    if not args.no_spec:
+        profile_spec(args, torch, serve, im, prompts)
     return 0
 
 

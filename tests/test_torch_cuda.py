@@ -281,3 +281,186 @@ def test_spec_serving_on_card_matches_incremental(dev):
     scan = [[firsts[r]] + [int(t) for t in em[:, r].reshape(-1) if t >= 0]
             for r in range(2)]
     assert scan == want[:2]
+
+
+# ---------------------------------------------------------------------------
+# int8 and paged variants: each against its plain version, and the paged
+# kernel bit for bit equal to the contiguous one on the same logical cache
+# ---------------------------------------------------------------------------
+def _variants(kc, vc, page, seed):
+    """{variant: (k, v, cache kwargs)} of one logical fp cache: fp,
+    int8 (``kv_quant`` of it), and both paged through a shuffled table."""
+    from flexflow_tpu_torch.serve.ops import kv_quant
+
+    r1, _, s = kc.shape[:3]
+    table = torch.randperm(r1 * (s // page), generator=torch.Generator()
+                           .manual_seed(seed)).reshape(r1, -1).int()
+    table = table.to(kc.device)
+    kq, ks = kv_quant(kc)
+    vq, vs = kv_quant(vc)
+
+    def paged(*ts):
+        return [att.page_layout(t, table, page) for t in ts]
+
+    pk, pv = paged(kc, vc)
+    pkq, pvq, pks, pvs = paged(kq, vq, ks, vs)
+    return {
+        "fp": (kc, vc, {}),
+        "int8": (kq, vq, dict(k_scale=ks, v_scale=vs)),
+        "paged": (pk, pv, dict(page_table=table, page_size=page)),
+        "int8+paged": (pkq, pvq, dict(k_scale=pks, v_scale=pvs,
+                                      page_table=table, page_size=page)),
+    }
+
+
+def _check_variants(name, dev, dtype, q, kc, vc, page, extra, tail):
+    """Each variant's kernel vs its plain version (counted as that
+    variant), and paged == contiguous exactly, fp and int8."""
+    fn, plain = getattr(att, name), getattr(att, name + "_plain")
+    got = {}
+    for var, (k, v, kw) in _variants(kc, vc, page, 5).items():
+        args = (q, k, v, *extra, *tail)
+        n0 = fn.variant_launches[var]
+        got[var] = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.variant_launches[var] == n0 + 1
+        _close(got[var], plain(*args, **kw), dtype)
+    assert torch.equal(got["paged"], got["fp"])
+    assert torch.equal(got["int8+paged"], got["int8"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qh,kv,d,s,page", [
+    (4, 2, 8, 128, 64),         # GQA, D = 8: 8-byte int8 loads
+    (8, 1, 16, 256, 64),        # MQA: 8 values per int8 lane
+    (32, 8, 128, 384, 128),     # GQA at the 7B/70B head dim
+    (32, 32, 128, 2048, 512),   # Llama-2-7B attention shape
+])
+def test_decode_kernel_variants(dev, dtype, qh, kv, d, s, page):
+    g = torch.Generator().manual_seed(6)
+    t, r = 7, 3
+    q = torch.randn(t, qh, d, generator=g).to(dev, dtype)
+    kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
+              for _ in range(2))
+    rows = torch.tensor([0, 1, 2, 1, 0, 3, 2], dtype=torch.int32, device=dev)
+    pos = torch.tensor([5, s - 1, 0, s // 2, page, 0, s - 2],
+                       dtype=torch.int32, device=dev)
+    _check_variants("decode_attention", dev, dtype, q, kc, vc, page,
+                    (rows, pos), (d ** -0.5,))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qh,kv,d,s,bq,page", [
+    (4, 2, 8, 128, 8, 64),
+    (8, 1, 16, 256, 16, 128),       # 128 folded rows: two row chunks
+    (32, 32, 128, 2048, 128, 512),  # Llama-2-7B shape, tile 128
+])
+def test_prefill_kernel_variants(dev, dtype, qh, kv, d, s, bq, page):
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn(3, bq, qh, d, generator=g).to(dev, dtype)
+    kc, vc = (torch.randn(4, kv, s, d, generator=g).to(dev, dtype)
+              for _ in range(2))
+    rows = torch.tensor([0, 2, 1], dtype=torch.int32, device=dev)
+    pstart = torch.tensor([page - bq, 0, s - bq], dtype=torch.int32,
+                          device=dev)
+    _check_variants("prefill_attention", dev, dtype, q, kc, vc, page,
+                    (rows, pstart), (d ** -0.5,))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qh,kv,d,s,p,page", [
+    (4, 2, 8, 128, 8, 64),
+    (8, 1, 16, 256, 16, 64),
+    (32, 32, 128, 2048, 8, 512),   # Llama-2-7B verify shape
+    (12, 12, 64, 256, 8, 128),     # llama-68m draft shape
+])
+def test_tree_kernel_variants(dev, dtype, qh, kv, d, s, p, page):
+    g = torch.Generator().manual_seed(8)
+    r = 3
+    rows = [0, 0, 1, 2, 1, 0, 3, 3, 2]
+    clens = [5, 5, 0, s, page, 17, 0, 0, s - 1]
+    t = len(rows)
+    q = torch.randn(t, qh, d, generator=g).to(dev, dtype)
+    kc, vc, sk, sv = (torch.randn(r + 1, kv, n, d, generator=g).to(dev, dtype)
+                      for n in (s, s, p, p))
+    amask = torch.rand(t, p, generator=g) < 0.4
+    amask[:, 0] = True
+    amask[6:8] = False
+    _check_variants("tree_attention", dev, dtype, q, kc, vc, page,
+                    (sk, sv, torch.tensor(rows, dtype=torch.int32,
+                                          device=dev),
+                     torch.tensor(clens, dtype=torch.int32, device=dev),
+                     amask.to(dev)), (d ** -0.5,))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qh,kv,d,s,p,pb,page", [
+    (4, 2, 8, 128, 4, 8, 64),
+    (8, 1, 16, 256, 7, 8, 128),       # 56 folded rows, 64-row chunk
+    (32, 32, 128, 2048, 7, 8, 512),   # Llama-2-7B verify: 16-row chunk
+    (4, 1, 32, 128, 20, 80, 64),      # two chunks, two spec blocks
+])
+def test_batched_tree_kernel_variants(dev, dtype, qh, kv, d, s, p, pb, page):
+    g = torch.Generator().manual_seed(9)
+    r = 3
+    q = torch.randn(r, p, qh, d, generator=g).to(dev, dtype)
+    kc, vc, sk, sv = (torch.randn(r + 1, kv, n, d, generator=g).to(dev, dtype)
+                      for n in (s, s, pb, pb))
+    amask = torch.rand(r, p, pb, generator=g) < 0.4
+    amask[:, :, 0] = True
+    amask[2] = False
+    _check_variants("tree_attention_batched", dev, dtype, q, kc, vc, page,
+                    (sk, sv, torch.tensor([0, 2, 3], dtype=torch.int32,
+                                          device=dev),
+                     torch.tensor([7, s, 0], dtype=torch.int32, device=dev),
+                     amask.to(dev)), (d ** -0.5,))
+
+
+def test_wrappers_reject_bad_cache_variants(dev):
+    q = torch.randn(2, 4, 16, device=dev)
+    kq = torch.zeros(3, 2, 128, 16, dtype=torch.int8, device=dev)
+    sc = torch.ones(3, 2, 128, device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    table = torch.arange(6, dtype=torch.int32, device=dev).reshape(3, 2)
+    with pytest.raises(TypeError):      # int8 cache without scales
+        att.decode_attention(q, kq, kq, idx, idx, 1.0)
+    with pytest.raises(ValueError):     # f16 scales
+        att.decode_attention(q, kq, kq, idx, idx, 1.0, sc.half(), sc.half())
+    with pytest.raises(ValueError):     # a page of 32 keys: half a block
+        att.decode_attention(q, kq, kq, idx, idx, 1.0, sc, sc,
+                             table.reshape(3, 2).repeat(1, 2), 32)
+    with pytest.raises(ValueError):     # an int64 table
+        att.decode_attention(q, kq, kq, idx, idx, 1.0, sc, sc, table.long(),
+                             64)
+
+
+def test_int8_paged_serving_on_card_matches_cpu(dev):
+    """int8 weights + int8 KV + 64-position pages: the card (kernels) and
+    the CPU (plain versions) serve the same greedy tokens from the same
+    quantized weights, the paged run equals the contiguous one, and the
+    int8+paged kernels launch."""
+    from flexflow_tpu_torch.serve import quantize_int8
+
+    def manager(device, page, params=None):
+        im = InferenceManager(build_model(SMALL), max_requests=2,
+                              max_tokens_per_batch=16, max_seq_len=128,
+                              device=device, kv_dtype="int8",
+                              kv_page_size=page)
+        im.init_operators_inference(params, seed=3)
+        quantize_int8(im)
+        return im
+
+    cpu = manager("cpu", 64)
+    params = {k: p.to(dev) for k, p in cpu.model.named_parameters()}
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 97, size=n).tolist() for n in (5, 70, 3)]
+    gen = GenerationConfig(max_new_tokens=8)
+    want = RequestManager(cpu, gen).generate(prompts)
+    att.reset_counts()
+    got = RequestManager(manager(dev, 64, params), gen).generate(prompts)
+    assert got == want
+    for fn in (att.decode_attention, att.prefill_attention):
+        assert fn.variant_launches["int8+paged"] > 0
+        assert fn.variant_launches["fp"] == 0
+    assert RequestManager(manager(dev, None, params), gen).generate(
+        prompts) == want
