@@ -27,6 +27,12 @@ and prints no result):
    in the four variants, held and timed as in phase 2, the library
    yardstick being one ``scaled_dot_product_attention`` over
    [committed; spec] keys under an explicit mask;
+3b. k1 families: K1 at the other families' decode shapes, held and timed
+   as in phase 2 (f32 and bf16): with ALiBi slopes at the MPT-7B shape (8
+   real of 512 flat tokens, cache ``[9, 32, 2048, 128]``) in the four cache
+   variants, the yardstick one ``scaled_dot_product_attention`` with the
+   ALiBi bias and causal mask as a float mask; and at Falcon-7B's 71 and
+   StarCoder's 48 query heads on one KV head (D 64 and 128), fp and paged;
 4. parity: a 2-layer model at full Llama-2-7B width in float32 (TF32 off)
    serves the same prompts on the card (kernels) and on the CPU (plain
    versions) from the same seeded weights: greedy tokens must be equal and
@@ -43,6 +49,12 @@ and prints no result):
    on the card the int8 contiguous, fp paged and fp contiguous caches serve
    too, and each paged run (incremental, ``SpecInferManager``,
    ``SpecDecodeScan``) equals its contiguous run token for token;
+6b. family parity: MPT-7B and Falcon-7B at full width, 2 layers, float32
+   (TF32 off), card vs CPU from the same seeded weights: greedy tokens
+   equal (2 prompts of 64 and 200 tokens, 8 new tokens) and a prefill
+   and a decode step's logits within ``atol=rtol=1e-3``; then MPT on the
+   card with int8, paged and int8+paged KV (128-position pages), each
+   paged run equal to its contiguous twin;
 7. serve: the published Llama-2-7B shape (32 layers, bfloat16, seeded
    random weights) serves 8 prompts of 256-1800 tokens, 64 new tokens
    each, through ``RequestManager.generate``, then through
@@ -56,7 +68,14 @@ and prints no result):
    second of which must reuse the first one's pages (1024 cached prompt
    tokens per request) and give the tokens of a run with an empty prefix
    index; then ``SpecDecodeScan`` with the perfect draft on the same int8
-   paged caches.
+   paged caches;
+9. mpt serve: MPT-7B's published shape (32 layers, bf16, ALiBi) serves the
+   8 prompts, 64 new tokens, on fp caches and then on int8 KV with
+   512-position pages: only K1's ALiBi variant of the cache launches (an
+   ALiBi model's prefill runs through K1; K2 never);
+10. family serve: OPT-6.7B and StarCoder at full width, 2 layers, bf16,
+   the 8 prompts, 16 new tokens: every request finishes with in-range
+   tokens, and K1 and K2 launch.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -67,7 +86,8 @@ tokens equal to the incremental run is printed, not required (bf16 streams
 may part at a rounding tie).
 
 The last three lines of standard output are the card's name and power
-limit, the kernels' JSON record (one entry per kernel and cache variant)
+limit, the kernels' JSON record (one entry per kernel and cache variant,
+K1's ALiBi variants, and K1 at 71 and 48 query heads per KV head)
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
 device.
 """
@@ -172,15 +192,18 @@ def cache_variants(att, kv_quant, kc, vc, seed):
 
 
 def run_variants(att, torch, name, dn, tol, variants, head, tail, work,
-                 library_ms, iters):
-    """Kernel ``name`` on ``(*head, k, v, *tail)`` in each cache variant:
-    held against its plain version, paged == contiguous bit for bit,
-    timed.  ``work(variant) -> (bytes, flops)``.  Returns {(name, variant,
-    dtype): result}."""
+                 library_ms, iters, slopes=None):
+    """Kernel ``name`` on ``(*head, k, v, *tail)`` in each cache variant
+    (with ALiBi ``slopes``, K1's ALiBi twin of each, named
+    ``<variant>+alibi``): held against its plain version, paged ==
+    contiguous bit for bit, timed.  ``work(variant) -> (bytes, flops)``.
+    Returns {(name, variant, dtype): result}."""
     fn, plain = getattr(att, name), getattr(att, name + "_plain")
     out, got = {}, {}
     for var, (k, v, kw) in variants.items():
         args = (*head, k, v, *tail)
+        if slopes is not None:
+            kw = dict(kw, slopes=slopes)
         got[var] = fn(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
@@ -188,14 +211,15 @@ def run_variants(att, torch, name, dn, tol, variants, head, tail, work,
         torch.testing.assert_close(got[var].float(), want.float(), **tol)
         nb, nf = work(var)
         bms, by = bound(nb, nf, dn)
-        out[(name, var, dn)] = dict(
+        key = var if slopes is None else f"{var}+alibi"
+        out[(name, key, dn)] = dict(
             max_abs_err=err, ms=time_ms(lambda: fn(*args, **kw), iters),
             plain_ms=time_ms(lambda: plain(*args, **kw), 2),
             bound_ms=bms, bound_by=by,
             library_ms=library_ms if var == "fp" else None)
         del want
     for paged, contiguous in (("paged", "fp"), ("int8+paged", "int8")):
-        if not torch.equal(got[paged], got[contiguous]):
+        if paged in got and not torch.equal(got[paged], got[contiguous]):
             raise AssertionError(f"{name} {dn}: the {paged} kernel differs "
                                  f"from the {contiguous} one")
     return out
@@ -278,8 +302,6 @@ def phase_kernels(att, kv_quant, torch, dev):
 
 def phase_parity(serve, torch, dev):
     """2 layers at full 7B width, f32: card (kernels) vs CPU (plain)."""
-    import dataclasses
-
     import numpy as np
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -304,14 +326,6 @@ def phase_parity(serve, torch, dev):
     if got != want:
         raise AssertionError(f"card tokens {got} != CPU tokens {want}")
 
-    def on(dev_, bc):
-        base = bc.base if hasattr(bc, "base") else bc
-        moved = dataclasses.replace(base, **{
-            f.name: getattr(base, f.name).to(dev_)
-            for f in dataclasses.fields(base)})
-        return dataclasses.replace(bc, base=moved) if hasattr(bc, "base") \
-            else moved
-
     cpu.reset()
     gpu.reset()
     pbc, _ = serve.PrefillBatchConfig.build(
@@ -323,7 +337,7 @@ def phase_parity(serve, torch, dev):
     errs = []
     for step in (pbc, bc):
         lc = cpu.forward(step)
-        lg = gpu.forward(on(dev, step)).cpu()
+        lg = gpu.forward(to_device(step, dev)).cpu()
         errs.append((lg - lc).abs().max().item())
         torch.testing.assert_close(lg, lc, atol=1e-3, rtol=1e-3)
     log(f"parity: 2-layer 7B-width f32, tokens equal {got[0][:4]}..., "
@@ -431,6 +445,95 @@ def phase_tree_kernels(att, kv_quant, torch, dev):
         log(f"kernel {name} {var} {dn}: " + " ".join(
             f"{k}={v}" for k, v in res.items()))
     return results
+
+
+def alibi_bias(slopes, pos, s):
+    """The ALiBi score bias ``slopes[h] * (key - pos[t])`` with the causal
+    mask folded in (-inf past ``pos[t]``), float ``[T, QH, 1, S]``: the
+    library yardstick's ``attn_mask``."""
+    import torch
+
+    key = torch.arange(s, device=pos.device)
+    rel = (key[None, :] - pos[:, None].long()).float()           # [T, S]
+    bias = slopes.float()[None, :, None] * rel[:, None, :]       # [T, QH, S]
+    bias = bias.masked_fill(rel[:, None, :] > 0, float("-inf"))
+    return bias[:, :, None, :]
+
+
+def phase_k1_families(att, kv_quant, torch, dev):
+    """K1 on the other families' decode shapes, vs its plain version: with
+    ALiBi at the MPT-7B shape in every cache variant, and at the large
+    multi-query groups of Falcon-7B (71 query heads on one KV head, D 64)
+    and StarCoder (48, D 128).  Timed beside one
+    ``scaled_dot_product_attention`` on the fp work (the ALiBi bias and the
+    causal mask as a float mask; the one KV head broadcast to the group).
+    Returns ({(name, variant, dtype): result}, {label: bytes the extra
+    chunk passes re-read})."""
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.serve import alibi_slopes
+
+    s, r = 2048, 8
+    rows_k1 = list(range(8)) + [r] * 504            # 8 real tokens, 504 pads
+    pos_k1 = [0, 2047, 1023, 300, 1800, 64, 1500, 777] + [0] * 504
+    g = torch.Generator().manual_seed(3)
+    results, rereads = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        tol = dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32 \
+            else dict(atol=1e-2, rtol=1e-2)
+        rows1 = torch.tensor(rows_k1, dtype=torch.int32, device=dev)
+        pos1 = torch.tensor(pos_k1, dtype=torch.int32, device=dev)
+        ridx = torch.tensor(rows_k1[:8], device=dev)
+        for label, qh, kv, d, alibi in (("alibi", 32, 32, 128, True),
+                                        ("gq71", 71, 1, 64, False),
+                                        ("gq48", 48, 1, 128, False)):
+            kc = torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
+            vc = torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
+            q1 = torch.randn(len(rows_k1), qh, d, generator=g).to(dev, dtype)
+            scale = d ** -0.5
+            itemsize = kc.element_size()
+            slopes = alibi_slopes(qh, dev) if alibi else None
+            kg = kc[ridx].expand(8, qh, s, d)
+            vg = vc[ridx].expand(8, qh, s, d)
+            if alibi:
+                mask = alibi_bias(slopes, pos1[:8], s).to(dtype)
+            else:
+                mask = (torch.arange(s, device=dev)[None, :]
+                        <= pos1[:8, None].long())[:, None, None, :]
+            qs = q1[:8, :, None, :]
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, kg, vg, attn_mask=mask, scale=scale), 20)
+            del kg, vg, mask
+            variants = cache_variants(att, kv_quant, kc, vc, 4)
+            if not alibi:   # the multi-query shapes: fp and paged caches
+                variants = {v: variants[v] for v in ("fp", "paged")}
+
+            def work(var, d=d, kv=kv, qh=qh, itemsize=itemsize):
+                nb, nf = decode_work(rows_k1, pos_k1, s, kv, qh, d, itemsize,
+                                     key_bytes(var, d, itemsize))
+                return nb + table_bytes(var, r + 1, s), nf
+
+            res = run_variants(att, torch, "decode_attention", dn, tol,
+                               variants, (q1,), (rows1, pos1, scale), work,
+                               lib, 50, slopes=slopes)
+            for (name, var, dn_), v in res.items():
+                results[(name, var if alibi else f"{var}+{label}", dn_)] = v
+            if not alibi:
+                # ceil(gq / 8) CTAs per (token, KV head) each stream the
+                # K/V prefix; the must-move bytes count it once
+                chunks = -(-qh // 8)
+                kv_bytes = work("fp")[0] - decode_work(
+                    rows_k1, pos_k1, s, kv, qh, d, itemsize, 0)[0]
+                rereads[f"{label} {dn}"] = (chunks - 1) * kv_bytes
+            del kc, vc, q1, variants
+            torch.cuda.empty_cache()
+    for (name, var, dn), res in results.items():
+        log(f"kernel {name} {var} {dn}: " + " ".join(
+            f"{k}={v}" for k, v in res.items()))
+    log(f"k1 large groups: bytes the extra chunk passes re-read "
+        f"(beyond the must-move bytes): {rereads}")
+    return results, rereads
 
 
 def draft_config(serve, dtype):
@@ -566,10 +669,10 @@ def count_plain_versions(att):
 
 
 def counted(att, fn):
-    """Run ``fn`` with every kernel count (per cache variant) and plain
-    count set to 0 just before; returns (its result, the kernel counts just
-    after, {(kernel, variant): launches}).  Raises if a plain version
-    ran."""
+    """Run ``fn`` with every kernel count (per variant: the cache variants,
+    and K1's ALiBi twins) and plain count set to 0 just before; returns
+    (its result, the kernel counts just after, {(kernel, variant):
+    launches}).  Raises if a plain version ran."""
     att.reset_counts()
     for name in COUNTED:
         PLAIN_CALLS[name] = 0
@@ -577,8 +680,8 @@ def counted(att, fn):
     if any(PLAIN_CALLS.values()):
         raise AssertionError(f"plain versions ran on the card's path: "
                              f"{PLAIN_CALLS}")
-    return out, {(name, var): getattr(att, name).variant_launches[var]
-                 for name in COUNTED for var in VARIANTS}
+    return out, {(name, var): n for name in COUNTED
+                 for var, n in getattr(att, name).variant_launches.items()}
 
 
 def require_launches(n, label, variant, names):
@@ -695,6 +798,145 @@ def phase_variant_parity(serve, att, torch, dev):
         log(f"variant parity {var}: launches " + "; ".join(
             f"{path} {short(n)}" for path, n in by_path.items()))
     return launches
+
+
+def mpt7b_config(serve, **kw):
+    """mosaicml/mpt-7b's published shape (config.json: d_model 4096,
+    n_heads 32, n_layers 32, expansion_ratio 4, vocab_size 50432,
+    max_seq_len 2048, no_bias, ALiBi)."""
+    return serve.ServeModelConfig.from_hf_config(dict(dict(
+        model_type="mpt", d_model=4096, n_heads=32, n_layers=32,
+        expansion_ratio=4, vocab_size=50432, max_seq_len=2048,
+        no_bias=True, attn_config={"alibi": True}), **kw))
+
+
+def falcon7b_config(serve, **kw):
+    """tiiuae/falcon-7b's published shape (config.json: hidden_size 4544,
+    71 heads, multi_query, parallel_attn, no bias, vocab_size 65024, 32
+    layers; ffn_hidden_size 4 x hidden = 18176)."""
+    return serve.ServeModelConfig.from_hf_config(dict(dict(
+        model_type="falcon", hidden_size=4544, num_attention_heads=71,
+        num_hidden_layers=32, multi_query=True, parallel_attn=True,
+        bias=False, alibi=False, new_decoder_architecture=False,
+        vocab_size=65024, layer_norm_epsilon=1e-5), **kw))
+
+
+def opt67b_config(serve, **kw):
+    """facebook/opt-6.7b's published shape (config.json: hidden_size 4096,
+    ffn_dim 16384, 32 heads, 32 layers, vocab_size 50272, 2048 positions,
+    do_layer_norm_before)."""
+    return serve.ServeModelConfig.from_hf_config(dict(dict(
+        model_type="opt", hidden_size=4096, ffn_dim=16384,
+        num_attention_heads=32, num_hidden_layers=32, vocab_size=50272,
+        max_position_embeddings=2048, do_layer_norm_before=True,
+        word_embed_proj_dim=4096), **kw))
+
+
+def starcoder_config(serve, **kw):
+    """bigcode/starcoder's published shape (config.json: n_embd 6144,
+    n_head 48, multi_query, n_inner 24576, n_layer 40, vocab_size 49152,
+    n_positions 8192)."""
+    return serve.ServeModelConfig.from_hf_config(dict(dict(
+        model_type="gpt_bigcode", n_embd=6144, n_head=48, n_layer=40,
+        multi_query=True, n_inner=24576, vocab_size=49152,
+        n_positions=8192, layer_norm_epsilon=1e-5), **kw))
+
+
+def phase_family_parity(serve, att, torch, dev):
+    """MPT-7B and Falcon-7B at full width, 2 layers, f32 (TF32 off): card
+    (kernels) vs CPU (plain versions) from the same seeded weights; then
+    MPT on the card with int8 and paged caches, each paged run equal to its
+    contiguous twin.  Returns {(family, variant): launches}."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(max_requests=2, max_tokens_per_batch=128, max_seq_len=512)
+    gen = serve.GenerationConfig(max_new_tokens=8)
+    launches = {}
+    for family, cfg in (
+            ("mpt", mpt7b_config(serve, n_layers=2, torch_dtype="float32")),
+            ("falcon", falcon7b_config(serve, num_hidden_layers=2,
+                                       torch_dtype="float32"))):
+        cpu = serve.InferenceManager(serve.build_model(cfg), device="cpu",
+                                     **kw)
+        cpu.init_operators_inference(seed=5)
+        params = {k: p.to(dev) for k, p in cpu.model.named_parameters()}
+        gpu = serve.InferenceManager(serve.build_model(cfg), device=dev, **kw)
+        gpu.init_operators_inference(params)
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+                   for n in (64, 200)]
+        t0 = time.perf_counter()
+        want = serve.RequestManager(cpu, gen).generate(prompts)
+        t_cpu = time.perf_counter() - t0
+        got, n = counted(att, lambda: serve.RequestManager(
+            gpu, gen).generate(prompts))
+        if got != want:
+            raise AssertionError(f"{family}: card tokens {got} != CPU tokens "
+                                 f"{want}")
+        variant = "fp+alibi" if cfg.use_alibi else "fp"
+        require_launches(n, f"{family} parity", variant, (
+            ("decode_attention",) if cfg.use_alibi
+            else ("decode_attention", "prefill_attention")))
+        launches[(family, variant)] = n
+        cpu.reset()
+        gpu.reset()
+        pbc, _ = serve.PrefillBatchConfig.build(
+            [(0, prompts[1][:128], 0)], [128], 128, max_tokens=128,
+            max_requests=2, device="cpu")
+        bc = serve.BatchConfig.build([prompts[1][128]], [0], [128], [129],
+                                     max_tokens=128, max_requests=2,
+                                     device="cpu")
+        errs = []
+        for step in (pbc, bc):
+            lc = cpu.forward(step)
+            lg = gpu.forward(to_device(step, dev)).cpu()
+            errs.append((lg - lc).abs().max().item())
+            torch.testing.assert_close(lg, lc, atol=1e-3, rtol=1e-3)
+        log(f"family parity {family}: 2-layer full-width f32 "
+            f"({cfg.num_attention_heads} heads on {cfg.kv_heads} KV heads), "
+            f"tokens equal {got[0][:4]}..., max |logit diff| prefill "
+            f"{errs[0]:.3e} decode {errs[1]:.3e} (CPU serve {t_cpu:.1f}s); "
+            f"launches {short(n)}")
+        if cfg.use_alibi:
+            # the other ALiBi variants on the card: int8 and paged caches
+            outs = {}
+            for kv_dtype, page in (("int8", None), (None, 128),
+                                   ("int8", 128)):
+                var = ("int8" if kv_dtype else "fp") + \
+                    ("+paged" if page else "")
+                var = var.replace("fp+paged", "paged") + "+alibi"
+                im = serve.InferenceManager(
+                    serve.build_model(cfg), device=dev, kv_dtype=kv_dtype,
+                    kv_page_size=page, **kw)
+                im.init_operators_inference(params)
+                outs[var], n = counted(att, lambda: serve.RequestManager(
+                    im, gen).generate(prompts))
+                require_launches(n, f"{family} {var}", var,
+                                 ("decode_attention",))
+                launches[(family, var)] = n
+                del im
+            if outs["paged+alibi"] != got or \
+                    outs["int8+paged+alibi"] != outs["int8+alibi"]:
+                raise AssertionError(f"{family}: a paged run differs from its "
+                                     f"contiguous twin: {outs} vs {got}")
+            log(f"family parity {family}: paged == contiguous on the card, "
+                f"fp and int8 KV; int8 vs fp KV tokens equal share "
+                f"{equal_share(outs['int8+alibi'], got):.4f}")
+        del cpu, gpu, params
+        torch.cuda.empty_cache()
+    return launches
+
+
+def to_device(bc, dev):
+    """A batch config (or a prefill config around one) moved to ``dev``."""
+    base = bc.base if hasattr(bc, "base") else bc
+    moved = dataclasses.replace(base, **{
+        f.name: getattr(base, f.name).to(dev)
+        for f in dataclasses.fields(base)})
+    return dataclasses.replace(bc, base=moved) if hasattr(bc, "base") \
+        else moved
 
 
 def serve_prompts(vocab):
@@ -974,6 +1216,83 @@ def phase_serve_int8(serve, att, torch, dev, bf16_ttft, bf16_tpot):
     return launches
 
 
+def phase_serve_mpt(serve, att, torch, dev):
+    """MPT-7B's published shape at full depth, bf16, seeded random weights:
+    the 8 prompts of the Llama serve phase, 64 new tokens, through
+    ``RequestManager.generate``, on fp caches, then on int8 KV with
+    512-position pages; only K1's ALiBi variants launch (prefill goes
+    through K1).  Returns {variant: launches}."""
+    cfg = mpt7b_config(serve, torch_dtype="bfloat16")
+    prompts = serve_prompts(cfg.vocab_size)
+    gen = serve.GenerationConfig(max_new_tokens=64)
+    run = Serving(serve, att, torch, cfg.vocab_size)
+    launches = {}
+    for kv_dtype, page, var in ((None, None, "fp+alibi"),
+                                ("int8", PAGE, "int8+paged+alibi")):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        im = serve.InferenceManager(
+            serve.build_model(cfg), max_requests=8, max_tokens_per_batch=512,
+            max_seq_len=2048, device=dev, kv_dtype=kv_dtype,
+            kv_page_size=page)
+        im.init_operators_inference(seed=0)     # the same weights twice
+        torch.cuda.synchronize()
+        w_bytes = sum(p.numel() * p.element_size()
+                      for p in im.model.parameters())
+        log(f"mpt serve {var}: MPT-7B bf16 ({cfg.num_hidden_layers} layers, "
+            f"hidden {cfg.hidden_size}, ffn {cfg.intermediate_size}, vocab "
+            f"{cfg.vocab_size}) init {time.perf_counter() - t0:.1f}s, "
+            f"weights {w_bytes / 1e9:.2f} GB, KV cache "
+            f"{im.kv.allocated_bytes() / 1e9:.2f} GB")
+        outs, n, ttft, tpot = run.generate(f"mpt-7b {var}",
+                                           run.TimedRM(im, gen), prompts)
+        require_launches(n, f"mpt-7b {var}", var, ("decode_attention",))
+        launches[var] = n
+        log(f"mpt serve {var}: mean TTFT {ttft:.3f}s, mean TPOT "
+            f"{tpot:.2f} ms, K1 launches {n[('decode_attention', var)]}, K2 "
+            f"launches {sum(c for (k, _), c in n.items() if k == 'prefill_attention')}"
+            f", max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del im
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_families(serve, att, torch, dev):
+    """OPT-6.7B and StarCoder at full width, 2 layers, bf16, seeded random
+    weights: the 8 prompts, 16 new tokens each; every request finishes
+    with in-range tokens, and K1 and K2 launch.  Returns {family:
+    launches}."""
+    gen = serve.GenerationConfig(max_new_tokens=16)
+    launches = {}
+    for family, cfg in (
+            ("opt-6.7b", opt67b_config(serve, num_hidden_layers=2,
+                                       torch_dtype="bfloat16")),
+            ("starcoder", starcoder_config(serve, n_layer=2,
+                                           torch_dtype="bfloat16"))):
+        im = serve.InferenceManager(
+            serve.build_model(cfg), max_requests=8, max_tokens_per_batch=512,
+            max_seq_len=2048, device=dev)
+        im.init_operators_inference(seed=0)
+        prompts = serve_prompts(cfg.vocab_size)
+        t0 = time.perf_counter()
+        outs, n = counted(att, lambda: serve.RequestManager(
+            im, gen).generate(prompts))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_streams(outs, 16, cfg.vocab_size, family)
+        require_launches(n, family, "fp",
+                         ("decode_attention", "prefill_attention"))
+        launches[family] = n
+        log(f"serve {family}: 2 layers at full width ({cfg.hidden_size} "
+            f"hidden, {cfg.num_attention_heads} heads on {cfg.kv_heads} KV "
+            f"heads, ffn {cfg.intermediate_size}), bf16: 8 requests x 16 "
+            f"tokens in {wall:.2f}s; launches {short(n)}")
+        del im
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1014,19 +1333,30 @@ def main():
     kres = timed("kernels", lambda: phase_kernels(att, kv_quant, torch, dev))
     kres.update(timed("tree kernels", lambda: phase_tree_kernels(
         att, kv_quant, torch, dev)))
+    fam_kres, _ = timed("k1 families", lambda: phase_k1_families(
+        att, kv_quant, torch, dev))
+    kres.update(fam_kres)
     timed("parity", lambda: phase_parity(serve, torch, dev))
     timed("spec parity", lambda: phase_spec_parity(serve, torch, dev))
     parity = timed("variant parity", lambda: phase_variant_parity(
+        serve, att, torch, dev))
+    fam_parity = timed("family parity", lambda: phase_family_parity(
         serve, att, torch, dev))
     launches, ttft, tpot = timed("serve", lambda: phase_serve(
         serve, att, torch, dev))
     torch.cuda.empty_cache()
     int8 = timed("int8 serve", lambda: phase_serve_int8(
         serve, att, torch, dev, ttft, tpot))
+    mpt = timed("mpt serve", lambda: phase_serve_mpt(serve, att, torch, dev))
+    fams = timed("family serve", lambda: phase_serve_families(
+        serve, att, torch, dev))
 
     # each kernel variant's launches on the path that runs it: fp on the
     # 7B bf16 serve path, int8+paged on the 7B int8 serve path, int8 and
-    # paged on the 2-layer variant-parity paths
+    # paged on the 2-layer variant-parity paths; K1's ALiBi variants on the
+    # MPT-7B serve paths (fp, int8+paged) and the 2-layer MPT parity paths
+    # (int8, paged); K1 at 71 and 48 query heads per KV head on the
+    # Falcon-7B parity path and the StarCoder serve path
     def path_counts(var):
         if var == "fp":
             return {"decode_attention": launches["incremental"],
@@ -1051,17 +1381,28 @@ def main():
     }
     source = {"tree_attention_batched": "tree_attention"}
     kernels = []
+
+    def entry(name, label, res, n):
+        kernels.append({
+            "name": name if label == "fp" else f"{name}/{label}",
+            "route": "cuda",
+            "source": f"flexflow_tpu_torch/csrc/{source.get(name, name)}.cu",
+            "replaces": replaces[name], "launches": n, **res})
+
     for var in VARIANTS:
         counts = path_counts(var)
         for name in COUNTED:
-            res = kres[(name, var, "bfloat16")]   # the serve path's dtype
-            kernels.append({
-                "name": name if var == "fp" else f"{name}/{var}",
-                "route": "cuda",
-                "source": ("flexflow_tpu_torch/csrc/"
-                           f"{source.get(name, name)}.cu"),
-                "replaces": replaces[name],
-                "launches": counts[name][(name, var)], **res})
+            # the serve path's dtype
+            entry(name, var, kres[(name, var, "bfloat16")],
+                  counts[name][(name, var)])
+    k1 = "decode_attention"
+    for var in att.ALIBI_VARIANTS:
+        n = (mpt[var] if var in mpt else fam_parity[("mpt", var)])
+        entry(k1, var, kres[(k1, var, "bfloat16")], n[(k1, var)])
+    entry(k1, "fp+gq71", kres[(k1, "fp+gq71", "bfloat16")],
+          fam_parity[("falcon", "fp")][(k1, "fp")])
+    entry(k1, "fp+gq48", kres[(k1, "fp+gq48", "bfloat16")],
+          fams["starcoder"][(k1, "fp")])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

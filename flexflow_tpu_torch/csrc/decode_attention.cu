@@ -2,24 +2,38 @@
 //
 // Replaces the Pallas TPU kernel `decode_attention`
 // (flexflow_tpu/ops/pallas/attention.py:209, body `_decode_kernel` :120)
-// on its no-ALiBi paths: fp or int8 caches (`k_scale/v_scale`,
+// in all its variants: fp or int8 caches (`k_scale/v_scale`,
 // `_scale_plumbing` :98), slot-contiguous or paged (`page_table`,
-// `_page_coords` :88).  For every flat token t and every KV head h it
-// computes the GQA attention of the token's `gq` query heads of that group
-// over cache row rows[t], keys at positions <= pos[t]: online softmax in
-// f32, output cast to q's dtype, denominator clamped at 1e-30 as the
-// reference does.  An int8 cache is dequantized in the Pallas kernel's
+// `_page_coords` :88), with or without ALiBi (`slopes`, :171-173), and any
+// number of query heads per KV head.  For every flat token t and every KV
+// head h it computes the GQA attention of the token's `gq` query heads of
+// that group over cache row rows[t], keys at positions <= pos[t]: online
+// softmax in f32, output cast to q's dtype, denominator clamped at 1e-30 as
+// the reference does.  An int8 cache is dequantized in the Pallas kernel's
 // order (:164-193): score = (q . k_i8) * scale * ks[key]; the denominator
-// takes the unscaled p; the accumulator takes p * vs[key] * v_i8.
+// takes the unscaled p; the accumulator takes p * vs[key] * v_i8.  ALiBi
+// adds slope[h, g] * (key_pos - pos[t]) to that score in f32 before the
+// causal mask, as :171-174 do; `slopes == nullptr` means no ALiBi (a
+// branch uniform across the CTA, not a template flag, so the build does
+// not double).
 //
 // What bounds it on the H100: the bytes of K and V it must read (each key
 // row is used by gq query rows only: about gq FMAs per byte), so it is
 // memory-bound.  What the design does about that:
-//   * one CTA per (token, kv head); the causal clamp is the loop bound, so
-//     no byte beyond pos[t] is fetched (pad tokens, pos 0 on the scratch
-//     row, read one key);
+//   * one CTA per (token, kv head, chunk of query heads); the causal clamp
+//     is the loop bound, so no byte beyond pos[t] is fetched (pad tokens,
+//     pos 0 on the scratch row, read one key);
+//   * the query heads of a group are processed GQ at a time, GQ in
+//     {1, 2, 4, 8} a template parameter that sizes registers and shared
+//     memory: a group of up to 8 heads is one chunk (GQ the next power of
+//     two, the heads past gq masked), a larger group (Falcon-7B 71,
+//     StarCoder 48 on one KV head) spreads over ceil(gq / 8) chunks along
+//     the grid's z axis, the last one masked.  Each chunk re-reads its KV
+//     head's keys: under multi-query attention those re-reads come from L2
+//     (one KV head, S x D per row), at the price of ceil(gq / 8) - 1 extra
+//     passes over the prefix;
 //   * K and V are read as 16-byte vectors (an int8 cache: 16 values per
-//     load, 8 with more than 2 query heads per KV head or D = 8),
+//     load, 8 with more than 2 query heads per chunk or D = 8),
 //     neighbouring thread groups on neighbouring keys, 4 keys in flight per
 //     group before any arithmetic, converted to f32 in registers;
 //   * each group of D/VEC threads keeps its own online-softmax state for
@@ -29,7 +43,8 @@
 //     it for its keys in that page; keys are visited in the same order as
 //     in the contiguous layout, so the two give identical bits.
 // Not yet done (later work): split-KV (flash-decoding) for long rows with
-// few tokens, TMA, the ALiBi variant.
+// few tokens, TMA, one pass over K/V for all the query heads of a large
+// group (tensor cores over a [gq, D] x [D, keys] tile).
 //
 // C interface for ctypes; the kernel allocates nothing and returns
 // cudaGetLastError() after the launch.
@@ -43,14 +58,16 @@ using namespace ffk;
 constexpr int kThreads = 128;
 constexpr int kUnroll = 4;
 
+// GQ query heads of one KV head per CTA: heads g0 .. g0 + GQ - 1 of the
+// group, g0 = blockIdx.z * GQ, those at or past gq masked
 template <typename T, typename KT, int D, int GQ, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
               const KT* __restrict__ v, const float* __restrict__ ks,
               const float* __restrict__ vs, const int* __restrict__ table,
-              const int* __restrict__ rows, const int* __restrict__ pos,
-              T* __restrict__ out, int num_kv, int r1, int s_len, int page,
-              float scale) {
+              const float* __restrict__ slopes, const int* __restrict__ rows,
+              const int* __restrict__ pos, T* __restrict__ out, int num_kv,
+              int gq, int r1, int s_len, int page, float scale) {
   constexpr bool KVQ = std::is_same<KT, int8_t>::value;
   constexpr int VEC = kv_vec<T, KT, D, GQ>();   // elements per lane
   constexpr int TPK = D / VEC;                  // threads per key row
@@ -65,19 +82,29 @@ decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
 
   const int t = blockIdx.x;
   const int h = blockIdx.y;
+  const int g0 = blockIdx.z * GQ;
   const int tid = threadIdx.x;
   const int grp = tid / TPK;
   const int lane = tid % TPK;
-  const int qh = num_kv * GQ;
+  const int qh = num_kv * gq;
   const int row = min(max(rows[t], 0), r1 - 1);
-  const int n_keys = min(max(pos[t], 0), s_len - 1) + 1;
+  const int p_t = pos[t];
+  const int n_keys = min(max(p_t, 0), s_len - 1) + 1;
+  const bool alibi = slopes != nullptr;   // uniform across the CTA
 
-  float qv[GQ][VEC];
+  float qv[GQ][VEC], sl[GQ];
 #pragma unroll
   for (int g = 0; g < GQ; ++g) {
-    Vec<T, VEC> qr;
-    qr.load(q + ((size_t)t * qh + h * GQ + g) * D + lane * VEC);
-    qr.to_float(qv[g]);
+    const bool live = g0 + g < gq;
+    if (live) {
+      Vec<T, VEC> qr;
+      qr.load(q + ((size_t)t * qh + h * gq + g0 + g) * D + lane * VEC);
+      qr.to_float(qv[g]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qv[g][e] = 0.f;
+    }
+    sl[g] = alibi && live ? slopes[h * gq + g0 + g] : 0.f;
   }
   float m[GQ], l[GQ], acc[GQ][VEC];
 #pragma unroll
@@ -123,6 +150,7 @@ decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
       const int j = (it * kUnroll + u) * GROUPS + grp;
       float kf[VEC];
       kr[u].to_float(kf);
+      const float rel = static_cast<float>(j - p_t);   // key_pos - pos
       float s[GQ];
 #pragma unroll
       for (int g = 0; g < GQ; ++g) {
@@ -134,6 +162,7 @@ decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
           part += __shfl_xor_sync(0xffffffffu, part, off);
         s[g] = part * scale;
         if constexpr (KVQ) s[g] *= ksr[u];
+        if (alibi) s[g] += sl[g] * rel;
       }
       if (j < n_keys) {
         float vf[VEC];
@@ -165,7 +194,8 @@ decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
     for (int e = 0; e < VEC; ++e) sm_acc[grp][g][lane * VEC + e] = acc[g][e];
   }
   __syncthreads();
-  for (int idx = tid; idx < GQ * D; idx += kThreads) {
+  const int live = min(GQ, gq - g0);
+  for (int idx = tid; idx < live * D; idx += kThreads) {
     const int g = idx / D;
     const int d = idx % D;
     float mx = kNegInf;
@@ -176,45 +206,60 @@ decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
       lsum = fmaf(sm_l[gr][g], w, lsum);
       o = fmaf(sm_acc[gr][g][d], w, o);
     }
-    out[((size_t)t * qh + h * GQ + g) * D + d] =
+    out[((size_t)t * qh + h * gq + g0 + g) * D + d] =
         from_float<T>(o / fmaxf(lsum, 1e-30f));
   }
+}
+
+// the chunk width for a group of gq query heads: the next power of two up
+// to 8; larger groups take chunks of 8
+template <typename F>
+cudaError_t with_chunk(int gq, F&& f) {
+  if (gq <= 0) return cudaErrorInvalidValue;
+  if (gq == 1) return f(Int<1>{});
+  if (gq == 2) return f(Int<2>{});
+  if (gq <= 4) return f(Int<4>{});
+  return f(Int<8>{});
 }
 
 }  // namespace
 
 // q [n_tokens, num_kv*gq, D]; k, v [r1, num_kv, s_len, D] in q's dtype, or
 // int8 with k_scale, v_scale f32 [r1, num_kv, s_len] (null: fp cache);
-// table int32 [r1, s_len / page_size] (null: slot-contiguous); rows, pos
-// int32[n_tokens]; out [n_tokens, num_kv*gq, D].  dtype: 0 = float32,
-// 1 = bfloat16.  All tensors contiguous.
+// table int32 [r1, s_len / page_size] (null: slot-contiguous); slopes f32
+// [num_kv*gq] (null: no ALiBi); rows, pos int32[n_tokens]; out
+// [n_tokens, num_kv*gq, D].  dtype: 0 = float32, 1 = bfloat16.  All
+// tensors contiguous.
 extern "C" int ff_decode_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
-    const void* v_scale, const void* table, const void* rows,
-    const void* pos, void* out, int n_tokens, int num_kv, int gq, int r1,
-    int s_len, int head_dim, int page_size, float scale, int dtype,
-    void* stream) {
+    const void* v_scale, const void* table, const void* slopes,
+    const void* rows, const void* pos, void* out, int n_tokens, int num_kv,
+    int gq, int r1, int s_len, int head_dim, int page_size, float scale,
+    int dtype, void* stream) {
   if (n_tokens == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = with_dtype(dtype, [&](auto tt) {
     using T = typename decltype(tt)::type;
     return with_head_dim(head_dim, [&](auto dd) {
-      return with_group(gq, [&](auto gg) {
+      return with_chunk(gq, [&](auto gg) {
         return with_variant(k_scale != nullptr, table != nullptr,
                             [&](auto qq, auto pp) {
           constexpr int D = decltype(dd)::value;
           constexpr int GQ = decltype(gg)::value;
           constexpr bool PAGED = decltype(pp)::value;
           using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
+          const int chunks = (gq + GQ - 1) / GQ;
           decode_kernel<T, KT, D, GQ, PAGED>
-              <<<dim3(n_tokens, num_kv), kThreads, 0, st>>>(
+              <<<dim3(n_tokens, num_kv, chunks), kThreads, 0, st>>>(
                   static_cast<const T*>(q), static_cast<const KT*>(k),
                   static_cast<const KT*>(v),
                   static_cast<const float*>(k_scale),
                   static_cast<const float*>(v_scale),
                   static_cast<const int*>(table),
+                  static_cast<const float*>(slopes),
                   static_cast<const int*>(rows), static_cast<const int*>(pos),
-                  static_cast<T*>(out), num_kv, r1, s_len, page_size, scale);
+                  static_cast<T*>(out), num_kv, gq, r1, s_len, page_size,
+                  scale);
           return cudaGetLastError();
         });
       });

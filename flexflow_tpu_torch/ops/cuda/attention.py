@@ -4,14 +4,19 @@
 (``flexflow_tpu/ops/pallas/attention.py:209``), ``prefill_attention``
 replaces ``prefill_attention`` (:444), and ``tree_attention`` /
 ``tree_attention_batched`` replace the two layouts of the tree kernel
-(:790, :836, both through ``_tree_call`` :675), all on their no-ALiBi
-paths, each in four variants: fp or int8 caches (``k_scale``/``v_scale``,
+(:790, :836, both through ``_tree_call`` :675), each in four variants: fp
+or int8 caches (``k_scale``/``v_scale``,
 f32 ``[R+1, KV, S]``: one dequant scale per key vector), slot-contiguous or
 paged (``page_table`` int32 ``[R+1, S / page_size]``: logical page j of
 cache row r is physical page ``table[r, j]``, which addresses row
 ``pid // (S / page_size)``, page slot ``pid % (S / page_size)``).  The tree
 kernels' int8 and paging apply to the committed cache; the spec buffer
-stays in the compute dtype and slot-contiguous.  The kernels are
+stays in the compute dtype and slot-contiguous.  ``decode_attention`` also
+takes ALiBi slopes (``slopes`` f32 ``[QH]``, the Pallas kernel's
+``use_alibi`` path, :171-173) in each variant, and any number of query
+heads per KV head; the tree kernels take neither (the reference has no
+ALiBi tree kernel, :816) and the per-token tree layout takes 1, 2, 4 or 8
+query heads per KV head.  The kernels are
 hand-written CUDA C++ for sm_90a (``flexflow_tpu_torch/csrc/``), built by
 ``nvcc`` on first use (:mod:`.build`) and called through a plain C
 interface.
@@ -27,7 +32,8 @@ kernels, and the card holds the kernels against them.  Both paths check the
 cache variant's arguments first (:func:`check_cache_variant`).
 
 Each wrapper counts its kernel launches in its ``launches`` attribute, and
-per variant in ``variant_launches`` (keys :data:`VARIANTS`).
+per variant in ``variant_launches`` (keys :data:`VARIANTS`; for
+``decode_attention`` also :data:`ALIBI_VARIANTS`).
 """
 
 from __future__ import annotations
@@ -41,12 +47,13 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)     # head dims the kernels are built for
-DECODE_GROUPS = (1, 2, 4, 8)         # query heads per KV head (decode)
+TREE_GROUPS = (1, 2, 4, 8)           # query heads per KV head (tree, per token)
 # a page holds whole 64-key blocks: the prefill kernel and the tree
 # kernel's batched layout stage 64-key blocks, and each block must sit in
 # one page so it translates through the table once
 PAGE_BLOCK = 64
 VARIANTS = ("fp", "int8", "paged", "int8+paged")
+ALIBI_VARIANTS = tuple(f"{v}+alibi" for v in VARIANTS)   # decode only
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the plain decode version gathers at most this many cache elements at once
 _GATHER_ELEMS = 1 << 27
@@ -54,9 +61,9 @@ _GATHER_ELEMS = 1 << 27
 _FNS: Dict[str, object] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # q, k, v, k_scale, v_scale, table, rows, pos, out, n_tokens, num_kv,
-    # gq, r1, s_len, head_dim, page_size, scale, dtype, stream
-    "decode_attention": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale, table, slopes, rows, pos, out, n_tokens,
+    # num_kv, gq, r1, s_len, head_dim, page_size, scale, dtype, stream
+    "decode_attention": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
     # q, k, v, k_scale, v_scale, table, rows, pstart, out, n_tiles, bq,
     # num_kv, gq, r1, s_len, head_dim, page_size, scale, dtype, stream
     "prefill_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
@@ -95,12 +102,13 @@ def _on_cpu(name, *tensors) -> bool:
     return False
 
 
-def variant(k_scale, page_table) -> str:
-    """The cache variant's name in :data:`VARIANTS`."""
+def variant(k_scale, page_table, slopes=None) -> str:
+    """The variant's name in :data:`VARIANTS` (with ``slopes``, in
+    :data:`ALIBI_VARIANTS`)."""
     kind = "fp" if k_scale is None else "int8"
-    if page_table is None:
-        return kind
-    return "paged" if kind == "fp" else "int8+paged"
+    if page_table is not None:
+        kind = "paged" if kind == "fp" else "int8+paged"
+    return kind if slopes is None else f"{kind}+alibi"
 
 
 def check_page_size(page_size: int, s_len: int) -> None:
@@ -193,20 +201,20 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _count(fn, k_scale, page_table) -> None:
+def _count(fn, k_scale, page_table, slopes=None) -> None:
     fn.launches += 1
-    fn.variant_launches[variant(k_scale, page_table)] += 1
+    fn.variant_launches[variant(k_scale, page_table, slopes)] += 1
 
 
-def _init_counts(fn) -> None:
+def _init_counts(fn, variants=VARIANTS) -> None:
     fn.launches = 0
-    fn.variant_launches = dict.fromkeys(VARIANTS, 0)
+    fn.variant_launches = dict.fromkeys(variants, 0)
 
 
 def reset_counts() -> None:
     """Set every wrapper's launch counts to 0."""
-    for fn in (decode_attention, prefill_attention, tree_attention,
-               tree_attention_batched):
+    _init_counts(decode_attention, VARIANTS + ALIBI_VARIANTS)
+    for fn in (prefill_attention, tree_attention, tree_attention_batched):
         _init_counts(fn)
 
 
@@ -256,7 +264,7 @@ def _rows_f32(cache, scale, page_table, page_size, rows):
 # ---------------------------------------------------------------------------
 def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale,
                            k_scale=None, v_scale=None, page_table=None,
-                           page_size=0):
+                           page_size=0, slopes=None):
     """Plain version of :func:`decode_attention` (any device)."""
     t, qh, d = q.shape
     r1, kv, s, _ = k_cache.shape
@@ -272,6 +280,10 @@ def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale,
         v_tok = _rows_f32(v_cache, v_scale, page_table, page_size, rows[sl])
         qr = q[sl].float().reshape(-1, kv, gq, d)
         scores = torch.einsum("tkgd,tksd->tkgs", qr, k_tok) * scale
+        if slopes is not None:   # ALiBi: slope * (key_pos - pos), in f32
+            rel = (key_pos[None, :] - pos[sl, None]).float()   # [t', S]
+            scores = scores + (slopes.float().reshape(kv, gq)[None, :, :, None]
+                               * rel[:, None, None, :])
         mask = key_pos[None, :] <= pos[sl, None]        # [t', S]
         scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
         w = torch.softmax(scores, dim=-1)
@@ -280,41 +292,51 @@ def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale,
     return out
 
 
+def _check_slopes(name, slopes, qh) -> None:
+    if slopes is not None and (slopes.dtype != torch.float32
+                               or tuple(slopes.shape) != (qh,)
+                               or not slopes.is_contiguous()):
+        raise ValueError(f"{name}: ALiBi slopes must be contiguous "
+                         f"float32[{qh}]")
+
+
 def decode_attention(q, k_cache, v_cache, rows, positions, scale: float,
                      k_scale=None, v_scale=None, page_table=None,
-                     page_size: int = 0):
+                     page_size: int = 0, slopes=None):
     """Attention of flat decode tokens over their cache rows.
 
-    ``q [T, QH, D]`` (RoPE applied); ``k_cache, v_cache [R+1, KV, S, D]``
-    holding this step's K/V already (int8 with ``k_scale, v_scale``);
-    ``rows, positions int32[T]``; ``page_table``/``page_size`` for a paged
-    cache.  Token t attends with its query heads over cache row
-    ``rows[t]`` at logical key positions ``<= positions[t]``.  Returns
-    ``[T, QH, D]`` in q's dtype.
+    ``q [T, QH, D]`` (RoPE applied, if any); ``k_cache, v_cache [R+1, KV,
+    S, D]`` holding this step's K/V already (int8 with ``k_scale,
+    v_scale``); ``rows, positions int32[T]``; ``page_table``/``page_size``
+    for a paged cache; ``slopes`` f32 ``[QH]`` for ALiBi (None: none).
+    Token t attends with its query heads over cache row ``rows[t]`` at
+    logical key positions ``<= positions[t]``; with slopes, head h's score
+    of key j gains ``slopes[h] * (j - positions[t])`` before the mask.
+    ``QH`` is any multiple of ``KV``.  Returns ``[T, QH, D]`` in q's dtype.
     """
     name = "decode_attention"
     check_cache_variant(name, k_cache, v_cache, k_scale, v_scale,
                         page_table, page_size)
+    _check_slopes(name, slopes, q.shape[1])
     if _on_cpu(name, q, k_cache, v_cache, rows, positions, k_scale,
-               v_scale, page_table):
+               v_scale, page_table, slopes):
         return decode_attention_plain(q, k_cache, v_cache, rows, positions,
                                       scale, k_scale, v_scale, page_table,
-                                      page_size)
+                                      page_size, slopes)
     t, qh, d = q.shape
     r1, kv, s, _ = k_cache.shape
     if qh % kv:
         raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
     gq = qh // kv
-    _check_kernel_args(name, q, k_cache, v_cache, rows, positions, t, gq,
-                       DECODE_GROUPS)
+    _check_kernel_args(name, q, k_cache, v_cache, rows, positions, t, gq)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
-            _ptr(page_table), rows.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), t, kv, gq, r1, s, d, page_size, float(scale),
-            _DTYPE_CODES[q.dtype], stream)
-    _count(decode_attention, k_scale, page_table)
+            _ptr(page_table), _ptr(slopes), rows.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), t, kv, gq, r1, s, d,
+            page_size, float(scale), _DTYPE_CODES[q.dtype], stream)
+    _count(decode_attention, k_scale, page_table, slopes)
     return out
 
 
@@ -485,7 +507,7 @@ def tree_attention(q, k_cache, v_cache, k_spec, v_spec, rows, clens, amask,
         raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
     gq = qh // kv
     _check_kernel_args(name, q, k_cache, v_cache, rows, clens, t, gq,
-                       DECODE_GROUPS)
+                       TREE_GROUPS)
     _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, (t, p))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

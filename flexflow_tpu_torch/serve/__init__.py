@@ -1,4 +1,4 @@
-"""flexflow_tpu_torch.serve: Llama serving on one CUDA device.
+"""flexflow_tpu_torch.serve: LLM serving on one CUDA device.
 
 Port of ``flexflow_tpu/serve``: incremental decoding with continuous
 batching, prefill and decode through hand-written CUDA attention kernels
@@ -7,7 +7,10 @@ batching, prefill and decode through hand-written CUDA attention kernels
 hand-written tree-attention kernel (slice 2); int8 weights
 (``quantize_int8``), int8 KV caches (``kv_dtype="int8"``) and paged KV
 caches with copy-on-write prefix sharing (``kv_page_size``), through the
-int8 and paged variants of the kernels (slice 3).
+int8 and paged variants of the kernels (slice 3); the OPT, Falcon, MPT
+and StarCoder families (LayerNorm, biases, learned positions, ALiBi
+through the decode kernel's slopes, multi-query attention with any number
+of query heads per KV head) and their HF state-dict converters (slice 5).
 """
 
 from . import models  # noqa: F401  (registers the model builders)
@@ -34,7 +37,7 @@ from .kv_paged import (
     validate_page_tile,
 )
 from .models.base import MODEL_REGISTRY, ServeModelConfig, build_model
-from .ops import IncMultiHeadSelfAttention, apply_rope
+from .ops import IncMultiHeadSelfAttention, alibi_slopes, apply_rope
 from .quant import quantize_int8
 from .request_manager import (
     GenerationConfig,
@@ -44,6 +47,7 @@ from .request_manager import (
 )
 from .spec_infer import SpecInferManager, SpecRequest, TokenTreeNode
 from .spec_scan import SpecDecodeScan
+from .weights import CONVERTERS, convert_state_dict
 
 __all__ = [
     "BatchConfig",
@@ -74,6 +78,9 @@ __all__ = [
     "build_model",
     "MODEL_REGISTRY",
     "IncMultiHeadSelfAttention",
+    "alibi_slopes",
     "apply_rope",
     "params_from_jax",
+    "CONVERTERS",
+    "convert_state_dict",
 ]

@@ -259,20 +259,34 @@ class InferenceManager:
 
 @torch.no_grad()
 def init_random_params(model: torch.nn.Module, seed: int) -> None:
-    """Seeded random weights on the model's device: norm gains 1, every
-    other parameter normal with std 1/sqrt(fan-in) (the embedding std 1),
-    drawn in float32 from a ``torch.Generator`` and cast."""
+    """Seeded random weights on the model's device, chosen by the module
+    that owns each parameter: norm gains 1, norm shifts and every bias 0,
+    token and position embeddings normal with std 1, every other weight
+    normal with std 1/sqrt(fan-in) (its first dim), drawn in float32 from a
+    ``torch.Generator`` in parameter order and cast.  Only the normal
+    weights draw, so a model without biases (Llama) draws what it always
+    drew."""
+    from ..ops.embedding import Embedding, PositionEmbedding
+
+    owner = {}
+    for mod_name, mod in model.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            owner[f"{mod_name}.{pname}" if mod_name else pname] = (mod, pname)
     params = list(model.named_parameters())
     dev = params[0][1].device if params else torch.device("cpu")
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     for name, p in params:
-        if name.endswith("gamma"):
+        mod, pname = owner[name]
+        if pname == "gamma":
             p.fill_(1.0)
             continue
-        fan_in = 1 if name.endswith("embed_tokens.weight") else p.shape[0]
+        if pname in ("beta", "bias", "qkv_bias", "o_bias"):
+            p.zero_()
+            continue
+        fan_in = (1 if isinstance(mod, (Embedding, PositionEmbedding))
+                  else p.shape[0])
         w = torch.randn(p.shape, generator=gen, device=dev,
                         dtype=torch.float32)
         p.copy_(w.mul_(fan_in ** -0.5))
         del w
-

@@ -1,5 +1,11 @@
-from . import llama  # noqa: F401  (registers the llama builder)
-from .base import MODEL_REGISTRY, ServeModelConfig, build_model, register_model
+from . import falcon, llama, mpt, opt, starcoder  # noqa: F401  (registers)
+from .base import (
+    MODEL_REGISTRY,
+    ServeModelConfig,
+    build_model,
+    name_attention_layers,
+    register_model,
+)
 
 __all__ = ["MODEL_REGISTRY", "ServeModelConfig", "build_model",
-           "register_model"]
+           "name_attention_layers", "register_model"]

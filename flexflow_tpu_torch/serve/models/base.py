@@ -63,6 +63,79 @@ class ServeModelConfig:
     def hdim(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
 
+    @staticmethod
+    def from_hf_config(hf) -> "ServeModelConfig":
+        """Build from an HF config object or a plain dict of its fields
+        (``flexflow_tpu/serve/models/base.py:66-123``), mapping Falcon's
+        ``ffn_hidden_size`` too (4 x hidden when absent, as HF defaults
+        it), which the reference leaves at the Llama default."""
+        def get(k, d=None):
+            return hf.get(k, d) if isinstance(hf, dict) else getattr(hf, k, d)
+
+        kw = {}
+        for f in dataclasses.fields(ServeModelConfig):
+            v = get(f.name, None)
+            if v is not None:
+                kw[f.name] = v
+        renames = (   # (HF field, ours), later entries win
+            ("layer_norm_epsilon", "layer_norm_eps"),    # falcon/gpt_bigcode
+            ("n_embd", "hidden_size"),                   # gpt_bigcode
+            ("d_model", "hidden_size"),                  # mpt
+            ("n_head", "num_attention_heads"),
+            ("n_heads", "num_attention_heads"),
+            ("n_layer", "num_hidden_layers"),
+            ("n_layers", "num_hidden_layers"),
+            ("ffn_dim", "intermediate_size"),            # opt
+            ("ffn_hidden_size", "intermediate_size"),    # falcon
+            ("n_positions", "max_position_embeddings"),  # gpt_bigcode
+        )
+        for theirs, ours in renames:
+            if get(theirs) is not None:
+                kw[ours] = get(theirs)
+        if get("n_inner"):                               # gpt_bigcode
+            kw["intermediate_size"] = get("n_inner")
+        if get("expansion_ratio") is not None:           # mpt
+            kw["intermediate_size"] = (get("expansion_ratio")
+                                       * kw["hidden_size"])
+        if get("num_kv_heads") is not None and get("new_decoder_architecture",
+                                                   False):
+            # falcon's new-decoder GQA only; the old one ignores num_kv_heads
+            kw["num_key_value_heads"] = get("num_kv_heads")
+        if get("multi_query", False):                    # falcon-7b, starcoder
+            kw["num_key_value_heads"] = 1
+        if get("alibi", None) is not None:
+            kw["use_alibi"] = get("alibi")
+        attn_cfg = get("attn_config", None)              # mpt nests these
+        if attn_cfg is not None:
+            def aget(k):
+                return (attn_cfg.get(k) if isinstance(attn_cfg, dict)
+                        else getattr(attn_cfg, k, None))
+
+            if aget("kv_n_heads") is not None:
+                kw["num_key_value_heads"] = aget("kv_n_heads")
+            if aget("alibi") is not None:
+                kw["use_alibi"] = aget("alibi")
+        hidden = kw.get("hidden_size", ServeModelConfig.hidden_size)
+        if "intermediate_size" not in kw and get("model_type") in (
+                "gpt_bigcode", "falcon"):
+            kw["intermediate_size"] = 4 * hidden
+        kw.pop("dtype", None)
+        td = get("torch_dtype", None) or get("dtype", None)
+        if td is not None:
+            td = str(td).replace("torch.", "")
+            kw["dtype"] = "bfloat16" if td in ("float16", "bfloat16") else td
+        return ServeModelConfig(**kw)
+
+
+def name_attention_layers(model: torch.nn.Module) -> None:
+    """Give each attention module its path in ``model``: the key of its
+    caches in the allocator's state."""
+    from ..ops import IncMultiHeadSelfAttention
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, IncMultiHeadSelfAttention):
+            mod.name = name
+
 
 def build_model(config: ServeModelConfig) -> torch.nn.Module:
     """The registered family's serve model, parameters on ``meta``."""

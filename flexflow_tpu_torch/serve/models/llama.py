@@ -20,7 +20,7 @@ from ...ops.linear import Linear
 from ...ops.norm import ResidualRMSNorm, RMSNorm, SigmoidSiluMulti
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import ServeModelConfig, register_model
+from .base import ServeModelConfig, name_attention_layers, register_model
 
 
 class LlamaMLP(nn.Module):
@@ -69,9 +69,7 @@ class LlamaForServe(nn.Module):
         dtype = torch_dtype(cfg.dtype)
         self.model = LlamaModel(cfg, dtype)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, dtype)
-        for name, mod in self.named_modules():
-            if isinstance(mod, IncMultiHeadSelfAttention):
-                mod.name = name
+        name_attention_layers(self)
 
     def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
                 pages=None) -> torch.Tensor:

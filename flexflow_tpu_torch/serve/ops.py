@@ -7,7 +7,11 @@ modes on one device, with int8 weights (``qkv``/``o_proj`` beside their
 ``_scale``, dequantized before each product, reference :330-333,
 :353-356), int8 KV caches (quantize-on-write, reference :429-496) and
 paged KV caches (writes translated through the page table, reference
-:50): no tensor parallelism, no ALiBi.  Layouts are the reference's: the
+:50), and the other families' options (reference :164-193): RoPE or none,
+biased projections, ALiBi through the decode kernel's slopes.  No tensor
+parallelism, and no speculative steps on an ALiBi layer (the reference
+serves those through its gather path with a ``spec_pos`` buffer,
+:280-287, :831-836; ROADMAP Queue 1).  Layouts are the reference's: the
 fused QKV weight is ``[E, KV, gq + 2, D]`` (per KV head, its gq query
 heads, then K, then V), ``o_proj`` is ``[QH*D, E]`` and the caches are
 kv-head-major ``[R+1, KV, S, D]`` with row ``R`` the pad tokens' scratch
@@ -34,13 +38,27 @@ from ..ops.cuda.attention import (
     tree_attention,
     tree_attention_batched,
 )
-from ..ops.linear import dequant
+from ..ops.linear import add_bias, dequant
 from .batch_config import (
     BatchConfig,
     PrefillBatchConfig,
     TreeSearchBatchConfig,
     TreeVerifyBatchConfig,
 )
+
+
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """ALiBi per-head slopes, f32 ``[num_heads]`` (reference :102): the
+    power-of-two recipe, with the heads past the largest power of two
+    interleaved at half offsets."""
+    n = 2 ** math.floor(math.log2(num_heads))
+    base = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+    slopes = 2.0 ** (-8.0 * base / n)
+    if n < num_heads:
+        extra = torch.arange(1, 2 * (num_heads - n) + 1, 2,
+                             dtype=torch.float32, device=device)
+        slopes = torch.cat([slopes, 2.0 ** (-4.0 * extra / n)])
+    return slopes[:num_heads]
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -88,6 +106,10 @@ def kv_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 class IncMultiHeadSelfAttention(nn.Module):
     """KV-cached GQA self-attention over flat token batches.
 
+    ``rotary_embedding`` applies RoPE to Q and K; ``use_bias`` adds the
+    params ``qkv_bias [KV, gq + 2, D]`` (after the QKV product) and
+    ``o_bias [E]`` (after the output product); ``use_alibi`` biases every
+    score by its head's slope times the key's distance (MPT, Falcon-RW).
     ``forward(x [T, E], bc, state, pages)`` with ``state = {"k", "v"}``
     this layer's caches (int8: and ``"k_scale"``, ``"v_scale"``; spec
     steps: and ``"sk"``, ``"sv"``) and ``pages`` the page table of a paged
@@ -99,8 +121,11 @@ class IncMultiHeadSelfAttention(nn.Module):
 
     def __init__(self, embed_dim: int, num_q_heads: int,
                  num_kv_heads: Optional[int] = None,
-                 head_dim: Optional[int] = None, rope_theta: float = 10000.0,
+                 head_dim: Optional[int] = None,
+                 rotary_embedding: bool = True, rope_theta: float = 10000.0,
+                 use_bias: bool = False,
                  scaling_factor: Optional[float] = None,
+                 use_alibi: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.embed_dim = int(embed_dim)
@@ -110,7 +135,11 @@ class IncMultiHeadSelfAttention(nn.Module):
         if self.num_q_heads % self.num_kv_heads:
             raise ValueError("num_q_heads must be a multiple of num_kv_heads")
         self.q_per_kv = self.num_q_heads // self.num_kv_heads
+        self.rotary_embedding = bool(rotary_embedding)
         self.rope_theta = float(rope_theta)
+        self.use_bias = bool(use_bias)
+        self.use_alibi = bool(use_alibi)
+        self._slopes: Optional[torch.Tensor] = None
         self.scaling_factor = (float(scaling_factor)
                                if scaling_factor is not None
                                else 1.0 / math.sqrt(self.head_dim))
@@ -122,6 +151,13 @@ class IncMultiHeadSelfAttention(nn.Module):
         self.o_proj = nn.Parameter(torch.empty(
             self.num_q_heads * self.head_dim, self.embed_dim, dtype=dtype,
             device=device), requires_grad=False)
+        if self.use_bias:
+            self.qkv_bias = nn.Parameter(torch.empty(
+                self.num_kv_heads, self.q_per_kv + 2, self.head_dim,
+                dtype=dtype, device=device), requires_grad=False)
+            self.o_bias = nn.Parameter(torch.empty(
+                self.embed_dim, dtype=dtype, device=device),
+                requires_grad=False)
 
     def forward(self, x: torch.Tensor, bc, state: Dict[str, torch.Tensor],
                 pages=None) -> torch.Tensor:
@@ -140,23 +176,38 @@ class IncMultiHeadSelfAttention(nn.Module):
         t = out.shape[0]
         o_w = dequant(self.o_proj, getattr(self, "o_proj_scale", None),
                       out.dtype)
-        return torch.matmul(out.reshape(t, self.num_q_heads * self.head_dim),
-                            o_w)
+        y = torch.matmul(out.reshape(t, self.num_q_heads * self.head_dim),
+                         o_w)
+        return add_bias(y, self.o_bias) if self.use_bias else y
 
     def _project(self, x, bc) -> Tuple[torch.Tensor, ...]:
-        """One GEMM for Q, K and V, then RoPE (reference :344-375)."""
+        """One GEMM for Q, K and V, the bias, then RoPE (reference
+        :344-375)."""
         base = bc if isinstance(bc, BatchConfig) else bc.base
         t = x.shape[0]
         w = dequant(self.qkv, getattr(self, "qkv_scale", None), x.dtype)
         qkv = torch.matmul(x, w.reshape(self.embed_dim, -1)).reshape(
             t, self.num_kv_heads, self.q_per_kv + 2, self.head_dim)
+        if self.use_bias:   # added to the product cast to x's dtype (:367)
+            qkv = qkv + self.qkv_bias
         q = qkv[:, :, : self.q_per_kv, :]          # [T, KV, gq, D]
         k = qkv[:, :, self.q_per_kv, :]            # [T, KV, D]
         v = qkv[:, :, self.q_per_kv + 1, :]        # [T, KV, D]
-        pos = base.token_position
-        q = apply_rope(q, pos, self.rope_theta)
-        k = apply_rope(k, pos, self.rope_theta)
+        if self.rotary_embedding:
+            pos = base.token_position
+            q = apply_rope(q, pos, self.rope_theta)
+            k = apply_rope(k, pos, self.rope_theta)
         return q, k, v
+
+    def slopes(self, device) -> Optional[torch.Tensor]:
+        """The ALiBi slopes on ``device`` (None without ALiBi), made once:
+        not a parameter, so state dicts carry none, as the reference's
+        params do not."""
+        if not self.use_alibi:
+            return None
+        if self._slopes is None or self._slopes.device != device:
+            self._slopes = alibi_slopes(self.num_q_heads, device)
+        return self._slopes
 
     @staticmethod
     def _rows(bc: BatchConfig, max_requests: int) -> torch.Tensor:
@@ -195,7 +246,8 @@ class IncMultiHeadSelfAttention(nn.Module):
                     page_size=0 if pages is None else pages.page_size)
 
     def _inc_attend(self, q, k, v, state, bc: BatchConfig, pages=None):
-        """Flat-token attention (reference :557-651)."""
+        """Flat-token attention (reference :557-651), with the ALiBi slopes
+        of an ALiBi layer (:578-598)."""
         kc, vc = state["k"], state["v"]
         nreq = kc.shape[0] - 1
         rows = self._rows(bc, nreq)
@@ -209,7 +261,7 @@ class IncMultiHeadSelfAttention(nn.Module):
             q.reshape(t, self.num_q_heads, self.head_dim).contiguous(),
             kc, vc, rows.to(torch.int32).contiguous(),
             pos.to(torch.int32).contiguous(), self.scaling_factor,
-            **self._cache_args(state, pages))
+            slopes=self.slopes(q.device), **self._cache_args(state, pages))
 
     def _prefill_attend(self, q, k, v, state, bc: PrefillBatchConfig,
                         pages=None):
@@ -217,8 +269,12 @@ class IncMultiHeadSelfAttention(nn.Module):
         :653-784).  Each tile's whole ``[KV, Bq, D]`` K/V block is written
         at the tile's row and start, tail pads as zeros (fresh caches are
         zeros, so the tiled and flat paths leave identical caches; int8:
-        value 0 and scale 0), in one ``index_put_`` covering every tile."""
+        value 0 and scale 0), in one ``index_put_`` covering every tile.
+        An ALiBi layer takes the flat path instead, as the reference does
+        (:664-670): the prefill kernel has no ALiBi variant."""
         base = bc.base
+        if self.use_alibi:
+            return self._inc_attend(q, k, v, state, base, pages)
         kc, vc = state["k"], state["v"]
         nreq = kc.shape[0] - 1
         rows = self._rows(base, nreq)
@@ -264,6 +320,12 @@ class IncMultiHeadSelfAttention(nn.Module):
         after this step's K/V lands in the spec buffer at ``spec_index``
         (reference :815).  Pad tokens use the scratch row with committed
         depth 0 and an empty mask, so they read no key."""
+        if self.use_alibi:
+            raise NotImplementedError(
+                "speculative steps on an ALiBi layer are not ported yet: the "
+                "reference serves them through its gather path with a "
+                "spec_pos buffer (ROADMAP Queue 1, speculative serving of "
+                "ALiBi families)")
         base = bc.base
         kc, vc, sk, sv = state["k"], state["v"], state["sk"], state["sv"]
         nreq = kc.shape[0] - 1

@@ -4,9 +4,12 @@
     python scripts/profile_torch_serve.py [--layers 32] [--new-tokens 16]
     python scripts/profile_torch_serve.py --quantize --kv-dtype int8 \
         --kv-page-size 512 --no-spec
+    python scripts/profile_torch_serve.py --model-type mpt
 
 Builds the Llama-2-7B serve shape (bfloat16, seeded random weights; depth
-cut by ``--layers``), admits 8 prompts of 256-1800 tokens, and times
+cut by ``--layers``), or with ``--model-type mpt`` MPT-7B's (ALiBi: its
+prefill runs through the decode kernel, and ``--no-spec`` is implied),
+admits 8 prompts of 256-1800 tokens, and times
 windows, first bare and then under ``torch.profiler``: the prefill stretch
 (every prompt, tiled steps), the first decode stretch, and, with a draft
 of llama-68m's published shape (width 2, depth 3), one steady speculative
@@ -90,6 +93,7 @@ def report(label, wall, kernels):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model-type", default="llama", choices=["llama", "mpt"])
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--macro-steps", type=int, default=8)
@@ -100,6 +104,8 @@ def main(argv=None):
     ap.add_argument("--no-spec", action="store_true",
                     help="skip the speculative windows")
     args = ap.parse_args(argv)
+    if args.model_type == "mpt":
+        args.no_spec = True      # no speculative steps on ALiBi layers yet
     if args.kv_page_size and not args.no_spec:
         ap.error("the speculative windows need slot-contiguous caches: "
                  "add --no-spec")
@@ -111,12 +117,18 @@ def main(argv=None):
         os.path.abspath(__file__))))
     from flexflow_tpu_torch import serve
 
+    if args.model_type == "mpt":   # mosaicml/mpt-7b's config.json
+        cfg = serve.ServeModelConfig.from_hf_config(dict(
+            model_type="mpt", d_model=4096, n_heads=32,
+            n_layers=args.layers, expansion_ratio=4, vocab_size=50432,
+            no_bias=True, torch_dtype="bfloat16"))
+    else:
+        cfg = serve.ServeModelConfig(dtype="bfloat16",
+                                     num_hidden_layers=args.layers)
     im = serve.InferenceManager(
-        serve.build_model(serve.ServeModelConfig(
-            dtype="bfloat16", num_hidden_layers=args.layers)),
-        max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
-        max_spec_tokens=8, kv_dtype=args.kv_dtype,
-        kv_page_size=args.kv_page_size or None)
+        serve.build_model(cfg), max_requests=8, max_tokens_per_batch=512,
+        max_seq_len=2048, max_spec_tokens=0 if args.no_spec else 8,
+        kv_dtype=args.kv_dtype, kv_page_size=args.kv_page_size or None)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -125,11 +137,11 @@ def main(argv=None):
         serve.quantize_int8(im)
     w_bytes = sum(p.numel() * p.element_size()
                   for p in im.model.parameters())
-    print(f"weights {w_bytes / 1e9:.2f} GB, "
+    print(f"{args.model_type}: weights {w_bytes / 1e9:.2f} GB, "
           f"KV {im.kv.allocated_bytes() / 1e9:.2f} GB (kv_dtype "
           f"{args.kv_dtype}, page {args.kv_page_size or 'none'})")
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(3, 32000, size=int(n)).tolist()
+    prompts = [rng.integers(3, cfg.vocab_size, size=int(n)).tolist()
                for n in np.linspace(256, 1800, 8)]
 
     def fresh_rm():

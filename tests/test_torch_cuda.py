@@ -313,17 +313,22 @@ def _variants(kc, vc, page, seed):
     }
 
 
-def _check_variants(name, dev, dtype, q, kc, vc, page, extra, tail):
+def _check_variants(name, dev, dtype, q, kc, vc, page, extra, tail,
+                    slopes=None):
     """Each variant's kernel vs its plain version (counted as that
-    variant), and paged == contiguous exactly, fp and int8."""
+    variant; with ``slopes``, its ALiBi twin), and paged == contiguous
+    exactly, fp and int8."""
     fn, plain = getattr(att, name), getattr(att, name + "_plain")
     got = {}
     for var, (k, v, kw) in _variants(kc, vc, page, 5).items():
         args = (q, k, v, *extra, *tail)
-        n0 = fn.variant_launches[var]
+        if slopes is not None:
+            kw = dict(kw, slopes=slopes)
+        key = var if slopes is None else f"{var}+alibi"
+        n0 = fn.variant_launches[key]
         got[var] = fn(*args, **kw)
         torch.cuda.synchronize()
-        assert fn.variant_launches[var] == n0 + 1
+        assert fn.variant_launches[key] == n0 + 1
         _close(got[var], plain(*args, **kw), dtype)
     assert torch.equal(got["paged"], got["fp"])
     assert torch.equal(got["int8+paged"], got["int8"])
@@ -416,6 +421,51 @@ def test_batched_tree_kernel_variants(dev, dtype, qh, kv, d, s, p, pb, page):
                      amask.to(dev)), (d ** -0.5,))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qh,kv,d,s,page", [
+    (4, 2, 8, 128, 64),
+    (12, 1, 64, 256, 64),       # 12 heads on one KV head: a masked chunk
+    (32, 32, 128, 2048, 512),   # MPT-7B attention shape
+])
+def test_decode_kernel_alibi_variants(dev, dtype, qh, kv, d, s, page):
+    """K1 with ALiBi slopes in the four cache variants vs its plain
+    version; ALiBi + paged == ALiBi + contiguous bit for bit."""
+    from flexflow_tpu_torch.serve import alibi_slopes
+
+    g = torch.Generator().manual_seed(10)
+    t, r = 7, 3
+    q = torch.randn(t, qh, d, generator=g).to(dev, dtype)
+    kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
+              for _ in range(2))
+    rows = torch.tensor([0, 1, 2, 1, 0, 3, 2], dtype=torch.int32, device=dev)
+    pos = torch.tensor([5, s - 1, 0, s // 2, page, 0, s - 2],
+                       dtype=torch.int32, device=dev)
+    _check_variants("decode_attention", dev, dtype, q, kc, vc, page,
+                    (rows, pos), (d ** -0.5,),
+                    slopes=alibi_slopes(qh, dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gq", [1, 2, 4, 8, 12, 48, 71])
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_kernel_any_group(dev, dtype, gq, d):
+    """Any number of query heads per KV head (Falcon-7B: 71 at D = 64,
+    StarCoder: 48 at D = 128), contiguous and paged, with and without
+    ALiBi."""
+    from flexflow_tpu_torch.serve import alibi_slopes
+
+    g = torch.Generator().manual_seed(gq)
+    kv, s, page = (1, 256, 64) if gq > 8 else (2, 256, 64)
+    q = torch.randn(5, kv * gq, d, generator=g).to(dev, dtype)
+    kc, vc = (torch.randn(3, kv, s, d, generator=g).to(dev, dtype)
+              for _ in range(2))
+    rows = torch.tensor([0, 1, 2, 0, 1], dtype=torch.int32, device=dev)
+    pos = torch.tensor([0, 100, 0, s - 1, 64], dtype=torch.int32, device=dev)
+    for slopes in (None, alibi_slopes(kv * gq, dev)):
+        _check_variants("decode_attention", dev, dtype, q, kc, vc, page,
+                        (rows, pos), (d ** -0.5,), slopes=slopes)
+
+
 def test_wrappers_reject_bad_cache_variants(dev):
     q = torch.randn(2, 4, 16, device=dev)
     kq = torch.zeros(3, 2, 128, 16, dtype=torch.int8, device=dev)
@@ -464,3 +514,31 @@ def test_int8_paged_serving_on_card_matches_cpu(dev):
         assert fn.variant_launches["fp"] == 0
     assert RequestManager(manager(dev, None, params), gen).generate(
         prompts) == want
+
+
+def test_mpt_serving_on_card_matches_cpu(dev):
+    """A TINY float32 MPT (ALiBi) serves the same greedy tokens on the card
+    as on the CPU, on an fp and an int8 paged cache, launching only the
+    ALiBi K1 variants (its prefill goes through K1, not K2)."""
+    cfg = ServeModelConfig(model_type="mpt", vocab_size=97, hidden_size=64,
+                           intermediate_size=256, num_hidden_layers=2,
+                           num_attention_heads=4)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 97, size=n).tolist() for n in (5, 70, 3)]
+    gen = GenerationConfig(max_new_tokens=8)
+    for kv_dtype, page, var in ((None, None, "fp+alibi"),
+                                ("int8", 64, "int8+paged+alibi")):
+        kw = dict(max_requests=2, max_tokens_per_batch=16, max_seq_len=128,
+                  kv_dtype=kv_dtype, kv_page_size=page)
+        cpu = InferenceManager(build_model(cfg), device="cpu", **kw)
+        cpu.init_operators_inference(seed=4)
+        gpu = InferenceManager(build_model(cfg), device=dev, **kw)
+        gpu.init_operators_inference(
+            {k: p.to(dev) for k, p in cpu.model.named_parameters()})
+        want = RequestManager(cpu, gen).generate(prompts)
+        att.reset_counts()
+        assert RequestManager(gpu, gen).generate(prompts) == want
+        launched = {k: n for k, n in
+                    att.decode_attention.variant_launches.items() if n}
+        assert list(launched) == [var]
+        assert att.prefill_attention.launches == 0

@@ -328,19 +328,24 @@ def test_port_never_imports_jax_or_the_reference_package():
     files = sorted((REPO / "flexflow_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
-    assert {"spec_infer.py", "spec_scan.py"} <= {f.name for f in files}
+    assert {"spec_infer.py", "spec_scan.py", "opt.py", "falcon.py",
+            "mpt.py", "starcoder.py", "weights.py"} <= {f.name for f in files}
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flexflow_tpu"), \
+            assert top not in ("jax", "jaxlib", "flexflow_tpu",
+                               "transformers"), \
                 f"{path.relative_to(REPO)} imports {mod}"
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, flexflow_tpu_torch.serve, "
+            "flexflow_tpu_torch.serve.weights, "
+            "flexflow_tpu_torch.serve.models.mpt, "
             "flexflow_tpu_torch.ops.cuda.attention; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'flexflow_tpu.')) or m == 'flexflow_tpu']; "
+            "bad = [m for m in sys.modules if m in ('jax', 'flexflow_tpu', "
+            "'transformers') or m.startswith(('jax.', 'flexflow_tpu.', "
+            "'transformers.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
