@@ -21,6 +21,13 @@ and prints no result):
    a yardstick the port never calls; no single PyTorch call dequantizes
    int8 K/V or reads through a page table inside attention, so the other
    variants have none);
+   In bfloat16, K2 and K3's batched layout are the tensor-core kernels
+   (mma.sync m16n8k16, a cp.async ring; K3 batched split-KV with a merge
+   kernel); float32 keeps the CUDA-core kernels;
+2b. edge kernels: the bf16 K2 at a ragged shape (3 query heads per KV
+   head, tiles of 40 at positions off the 64-key grid) and the bf16 K3
+   batched layout at committed lengths on the block and split boundaries
+   with a pad request, every variant, held against the plain versions;
 3. tree kernels: the tree-attention kernel in both layouts at the
    speculative serve shapes (per-token: 512 flat rows, 56 real = 8
    requests x a 7-node tree, the rest scratch-row pads; batched: [8, 7]),
@@ -196,8 +203,9 @@ def run_variants(att, torch, name, dn, tol, variants, head, tail, work,
     """Kernel ``name`` on ``(*head, k, v, *tail)`` in each cache variant
     (with ALiBi ``slopes``, K1's ALiBi twin of each, named
     ``<variant>+alibi``): held against its plain version, paged ==
-    contiguous bit for bit, timed.  ``work(variant) -> (bytes, flops)``.
-    Returns {(name, variant, dtype): result}."""
+    contiguous bit for bit, timed.  ``work(variant) -> (bytes, flops)``;
+    ``work`` None: held only, not timed.  Returns {(name, variant, dtype):
+    result}."""
     fn, plain = getattr(att, name), getattr(att, name + "_plain")
     out, got = {}, {}
     for var, (k, v, kw) in variants.items():
@@ -209,6 +217,9 @@ def run_variants(att, torch, name, dn, tol, variants, head, tail, work,
         torch.cuda.synchronize()
         err = (got[var].float() - want.float()).abs().max().item()
         torch.testing.assert_close(got[var].float(), want.float(), **tol)
+        if work is None:
+            out[(name, var, dn)] = dict(max_abs_err=err)
+            continue
         nb, nf = work(var)
         bms, by = bound(nb, nf, dn)
         key = var if slopes is None else f"{var}+alibi"
@@ -298,6 +309,54 @@ def phase_kernels(att, kv_quant, torch, dev):
         log(f"kernel {name} {var} {dn}: " + " ".join(
             f"{k}={v}" for k, v in res.items()))
     return results
+
+
+def phase_edge_kernels(att, kv_quant, torch, dev):
+    """The bf16 tensor-core K2 and split-KV K3 batched kernels at ragged
+    shapes, in every cache variant, vs their plain versions (``1e-2``),
+    paged == contiguous: K2 with 3 query heads per KV head and tiles of 40
+    (120 folded rows: a full and a part 64-row chunk) at positions off the
+    64-key grid, the last tile ending at S - 1; K3 batched with committed
+    lengths at the block and split boundaries (0, 1, 63, 64, 65, S - 1) and
+    a pad request with no live key (zeros)."""
+    bf = torch.bfloat16
+    tol = dict(atol=1e-2, rtol=1e-2)
+    d, s = 128, 2048
+    g = torch.Generator().manual_seed(5)
+    kc, vc = (torch.randn(9, 4, s, d, generator=g).to(dev, bf)
+              for _ in range(2))
+    variants = cache_variants(att, kv_quant, kc, vc, 6)
+    q2 = torch.randn(3, 40, 12, d, generator=g).to(dev, bf)
+    res = run_variants(att, torch, "prefill_attention", "bfloat16", tol,
+                       variants, (q2,), (
+                           torch.tensor([0, 5, 2], dtype=torch.int32,
+                                        device=dev),
+                           torch.tensor([100, 0, s - 40], dtype=torch.int32,
+                                        device=dev), d ** -0.5),
+                       None, None, 0)
+    clens = [0, 1, 63, 64, 65, s - 1, 0]
+    r, p, pb = len(clens), 7, 8
+    q3 = torch.randn(r, p, 8, d, generator=g).to(dev, bf)
+    sk, sv = (torch.randn(9, 4, pb, d, generator=g).to(dev, bf)
+              for _ in range(2))
+    amask = torch.rand(r, p, pb, generator=g) < 0.4
+    amask[:, :, 0] = True
+    amask[-1] = False
+    tail = (sk, sv, torch.tensor(list(range(r - 1)) + [8], dtype=torch.int32,
+                                 device=dev),
+            torch.tensor(clens, dtype=torch.int32, device=dev),
+            amask.to(dev), d ** -0.5)
+    res.update(run_variants(att, torch, "tree_attention_batched", "bfloat16",
+                            tol, variants, (q3,), tail, None, None, 0))
+    for var, (k, v, kw) in variants.items():
+        out = att.tree_attention_batched(q3, k, v, *tail, **kw)
+        if out[-1].float().abs().sum().item() != 0:
+            raise AssertionError(f"tree_attention_batched {var}: a request "
+                                 "with no live key gave non-zeros")
+    torch.cuda.synchronize()
+    log("edge kernels (bf16, ragged K2, K3 split boundaries): " + " ".join(
+        f"{name}/{var} err={v['max_abs_err']:.3g}"
+        for (name, var, _), v in res.items()))
 
 
 def phase_parity(serve, torch, dev):
@@ -1293,6 +1352,30 @@ def phase_serve_families(serve, att, torch, dev):
     return launches
 
 
+TC_KERNELS = ("prefill_tc_kernel", "tree_split_kernel", "tree_merge_kernel")
+
+
+def tc_reports(text):
+    """(kernel, "registers, shared memory, spills") of each tensor-core
+    kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
+    ptxas reports is the static part (the ring is dynamic)."""
+    lines = text.splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" not in ln:
+            continue
+        mangled = ln.split("'")[1]
+        name = next((k for k in TC_KERNELS if k in mangled), None)
+        if name is None:
+            continue
+        # the template arguments, as they appear in the mangled name
+        args = mangled.split(name, 1)[1]
+        info = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 5]
+                if "Used" in x or "spill" in x]
+        out.append((f"{name}{args[:40]}", "; ".join(info)))
+    return out
+
+
 def main():
     import torch
 
@@ -1318,6 +1401,8 @@ def main():
                   if "spill" in ln and not ln.strip().startswith("0 bytes")]
         log(f"build {name}: {len(regs)} kernels, registers "
             f"{sorted({r.split()[1] for r in regs})}, spills {spills}")
+        for kernel, report in tc_reports(text):
+            log(f"ptxas {kernel}: {report}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1333,6 +1418,8 @@ def main():
     kres = timed("kernels", lambda: phase_kernels(att, kv_quant, torch, dev))
     kres.update(timed("tree kernels", lambda: phase_tree_kernels(
         att, kv_quant, torch, dev)))
+    timed("edge kernels", lambda: phase_edge_kernels(att, kv_quant, torch,
+                                                     dev))
     fam_kres, _ = timed("k1 families", lambda: phase_k1_families(
         att, kv_quant, torch, dev))
     kres.update(fam_kres)

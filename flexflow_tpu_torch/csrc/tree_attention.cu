@@ -19,8 +19,10 @@
 // compute dtype and slot-contiguous, as in the reference.
 //
 // What bounds it on the H100: the bytes of the committed K/V prefix (a
-// handful of query rows use each key), so it is memory-bound.  What the
-// design does about that:
+// handful of query rows use each key), so it is memory-bound.  At the
+// Llama-2-7B verify shape (8 requests of a 7-token tree, committed lengths
+// 256-1800, 32 heads, D 128) the batched layout must move 134.7 MB, 0.041
+// ms at 3.35 TB/s.  What the design does about that:
 //   * per-token layout: K1's design (decode_attention.cu): one CTA per
 //     (token, kv head), lane groups streaming 16-byte K/V vectors, each
 //     group with its own softmax state, merged once; the committed clamp is
@@ -30,24 +32,43 @@
 //     cache a lane holds K1's int8 vector width, and the spec keys are read
 //     at that width in the compute dtype (several 16-byte loads per key),
 //     so both segments share one lane layout and one softmax state;
-//   * batched layout: K2's design (prefill_attention.cu): one CTA per
-//     (request, kv head, chunk of folded query rows), 64-key K/V blocks
-//     staged in shared memory as f32 (an int8 block with its 64 scales),
-//     so the prefix streams once per request; the spec buffer follows as
-//     the last blocks under the mask.  The row chunk is 16 rows when the
-//     request has at most 16 folded rows (a width-2 depth-3 tree with one
-//     query head per KV head has 7), else 64, so few rows do not pay for a
-//     64-row tile;
+//   * batched layout, bf16 (tree_split_kernel + tree_merge_kernel):
+//     split-KV.  One request's committed prefix streams once, cut into
+//     splits of `split_blocks` 64-key blocks (the wrapper's plan), one CTA
+//     per (split, kv head, request, chunk of folded rows), so the 8 x 32
+//     (request, head) pairs of the serve shape spread over ~1150 CTAs in
+//     place of 256 CTAs that each walk up to 29 blocks in turn.  The plan's
+//     last split also takes the spec segment under the mask.  A CTA runs
+//     tc_attention.cuh's tiles: four warps, of which one holds the rows
+//     when the request has at most 16 (as the 7 of the serve shape) and
+//     all four up to 64, 16 each; all four issue the copies and widen an
+//     int8 block (one warp alone made int8 1.9x fp).  mma.sync bf16
+//     products with f32 accumulators, P rounded to bf16 in registers,
+//     blocks in the cache's dtype in a two-stage cp.async ring (the spec
+//     blocks, in the compute dtype, go through the same ring).
+//     It writes its rows' f32 partial (m, l, acc[D]) to scratch the wrapper
+//     allocates; a split with no block writes m = kNegInf, l = 0 and no acc.
+//     The merge kernel combines each row's partials in split order, weighting
+//     a partial by exp2(m_i - m) and skipping one with m_i = kNegInf, so a
+//     row with no live key still gives zeros;
+//   * batched layout, float32 (tree_batched_kernel): the tensor cores have
+//     no f32 mode, so f32 keeps K2's CUDA-core design: one CTA per
+//     (request, kv head, chunk of 16 or 64 folded rows), 64-key K/V blocks
+//     staged in shared memory as f32, the spec buffer as the last blocks;
 //   * paged: per-token threads translate a page once and reuse it; a
 //     batched block sits inside one page (the wrapper requires pages of
 //     whole 64-key blocks) and translates once.  Keys are visited in the
-//     contiguous layout's order, so the two give identical bits.
-// Not yet done (later work): tensor cores, TMA.
+//     contiguous layout's order, splits fall on the same block boundaries
+//     and merge in a fixed order, so the two give identical bits.
+// Not yet done (later work): tensor cores for the per-token layout; TMA
+// with mbarriers in place of cp.async; a persistent schedule that skips
+// the plan's empty splits instead of launching them.
 //
 // C interface for ctypes; the kernels allocate nothing and each entry point
 // returns cudaGetLastError() after its launch.
 
 #include "kv_access.cuh"
+#include "tc_attention.cuh"
 
 namespace {
 
@@ -56,7 +77,10 @@ using namespace ffk;
 constexpr int kThreads = 128;   // per-token kernel
 constexpr int kUnroll = 4;
 constexpr int BN = 64;          // keys per shared-memory block (batched)
-constexpr int kBThreads = 256;  // batched kernel
+constexpr int kBThreads = 256;  // batched kernel, f32
+constexpr int kTcThreads = 128; // bf16 split kernel: four warps
+constexpr int kMergeRows = 4;   // merge kernel: one warp per folded row
+using tc::bf16;
 
 // ---------------------------------------------------------------------------
 // per-token layout
@@ -276,6 +300,7 @@ __device__ __forceinline__ void stage_block(const E* __restrict__ kbk,
   }
 }
 
+// float32: CUDA-core FMAs (see the header)
 template <typename T, typename KT, int D, int BM, bool PAGED>
 __global__ void __launch_bounds__(kBThreads)
 tree_batched_kernel(const T* __restrict__ q, const KT* __restrict__ k,
@@ -495,9 +520,8 @@ cudaError_t launch_batched(const void* q, const void* k, const void* v,
                            cudaStream_t stream) {
   constexpr bool KVQ = std::is_same<KT, int8_t>::value;
   const size_t smem = batched_smem_floats<D, BM, KVQ>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      tree_batched_kernel<T, KT, D, BM, PAGED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      tc::allow_smem<tree_batched_kernel<T, KT, D, BM, PAGED>>(smem);
   if (err != cudaSuccess) return err;
   const int chunks = (p_tok * gq + BM - 1) / BM;
   tree_batched_kernel<T, KT, D, BM, PAGED>
@@ -509,6 +533,229 @@ cudaError_t launch_batched(const void* q, const void* k, const void* v,
           static_cast<const int*>(rows), static_cast<const int*>(clens),
           static_cast<const uint8_t*>(amask), static_cast<T*>(out), p_tok,
           num_kv, gq, r1, s_len, p_len, page, scale);
+  return cudaGetLastError();
+}
+
+// bfloat16, split-KV (see the header).  Grid (n_split, num_kv, n_req *
+// chunks), four warps: the first NW hold 16 folded rows each, and all
+// four issue the copies and widen int8 blocks.  Scratch: f32 (m, l) pairs
+// [n_split, n_req, num_kv, m_rows], then acc [n_split, n_req, num_kv,
+// m_rows, D]; m in base 2 (scores times log2 e).
+template <typename KT, int D, int NW, bool PAGED>
+__global__ void __launch_bounds__(kTcThreads)
+tree_split_kernel(const bf16* __restrict__ q, const KT* __restrict__ k,
+                  const KT* __restrict__ v, const float* __restrict__ ks,
+                  const float* __restrict__ vs, const int* __restrict__ table,
+                  const bf16* __restrict__ sk, const bf16* __restrict__ sv,
+                  const int* __restrict__ rows, const int* __restrict__ clens,
+                  const uint8_t* __restrict__ amask,
+                  float* __restrict__ scratch, int n_req, int p_tok,
+                  int num_kv, int gq, int r1, int s_len, int p_len, int page,
+                  int n_split, int split_blocks, float scale) {
+  using S = tc::Shape<D>;
+  using R = tc::Ring<KT, D, true>;
+  constexpr bool KVQ = R::KVQ;
+  constexpr int BMR = 16 * NW;          // folded rows per CTA
+  constexpr int NT = kTcThreads;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qt = reinterpret_cast<bf16*>(tc_smem);
+  unsigned char* ring = tc_smem + BMR * S::LD * 2;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m_rows = p_tok * gq;
+  const int chunks = (m_rows + BMR - 1) / BMR;
+  const int split = blockIdx.x, h = blockIdx.y;
+  const int req = blockIdx.z / chunks;
+  const int m0 = (blockIdx.z % chunks) * BMR;
+  const int qh = num_kv * gq;
+  const int row = min(max(rows[req], 0), r1 - 1);
+  const int clen = min(max(clens[req], 0), s_len);
+  // this split's committed blocks [c_lo, c_hi), then the spec blocks
+  const int nb_c = (clen + tc::BN - 1) / tc::BN;
+  const int c_lo = min(split * split_blocks, nb_c);
+  const int c_hi = min(c_lo + split_blocks, nb_c);
+  const int n_c = c_hi - c_lo;
+  const int n_s = split == n_split - 1 ? (p_len + tc::BN - 1) / tc::BN : 0;
+  const int n_blocks = n_c + n_s;
+  const size_t total = (size_t)n_req * num_kv * m_rows;
+  float2* part_ml = reinterpret_cast<float2*>(scratch);
+  float* part_acc = scratch + 2 * (size_t)n_split * total;
+  const size_t part0 = split * total + ((size_t)req * num_kv + h) * m_rows;
+
+  if (n_blocks == 0) {                  // nothing to see: weight 0
+    for (int r = tid; r < BMR; r += NT)
+      if (m0 + r < m_rows) part_ml[part0 + m0 + r] = make_float2(kNegInf, 0.f);
+    return;
+  }
+
+  tc::copy_q<D>(Qt, BMR, q, [&](int r) -> long long {
+    const int mg = m0 + r;
+    if (mg >= m_rows) return -1;
+    return (((long long)req * p_tok + mg / gq) * qh + h * gq + mg % gq) * D;
+  }, tid, NT);
+  cp_async_commit();
+  const size_t head_base = head_keys<PAGED>(row, num_kv, h, s_len);
+  KeyRows<PAGED> keys(table, row, num_kv, h, s_len, page);
+  const size_t spec_base = ((size_t)row * num_kv + h) * p_len;
+  auto issue = [&](int nb) {
+    unsigned char* stg = R::stage(ring, nb);
+    if (nb < n_c) {
+      const int n0 = (c_lo + nb) * tc::BN;
+      // a block never straddles a page
+      const size_t kb0 = head_base + keys.key(n0);
+      tc::copy_block<KT, D, true>(stg, k + kb0 * D, v + kb0 * D,
+                                  KVQ ? ks + kb0 : nullptr,
+                                  KVQ ? vs + kb0 : nullptr,
+                                  min(tc::BN, clen - n0), tid, NT);
+    } else {
+      const int n0 = (nb - n_c) * tc::BN;
+      bf16* Kt = reinterpret_cast<bf16*>(stg);
+      tc::copy_tiles<D>(Kt, Kt + S::TILE, sk + (spec_base + n0) * D,
+                        sv + (spec_base + n0) * D, min(tc::BN, p_len - n0),
+                        tid, NT);
+    }
+  };
+  issue(0);
+  cp_async_commit();
+  cp_async_wait<1>();                    // Q has landed
+  __syncthreads();
+
+  // warps past NW hold no rows
+  const bool warp_live = warp < NW && m0 + warp * 16 < m_rows;
+  tc::Rows<D> st;
+  if (warp_live) st.init(Qt, warp, lane);
+  const int mg0 = m0 + warp * 16 + (lane >> 2), mg1 = mg0 + 8;
+  // the lane's two rows' ancestor-mask rows (null: a row past the tree)
+  const uint8_t* mrow0 =
+      mg0 < m_rows ? amask + ((size_t)req * p_tok + mg0 / gq) * p_len : nullptr;
+  const uint8_t* mrow1 =
+      mg1 < m_rows ? amask + ((size_t)req * p_tok + mg1 / gq) * p_len : nullptr;
+  const float scale2 = scale * tc::kLog2e;
+
+  for (int nb = 0; nb < n_blocks; ++nb) {
+    if (nb + 1 < n_blocks) issue(nb + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                  // block nb has landed
+    __syncthreads();
+    unsigned char* stg = R::stage(ring, nb);
+    const bool spec = nb >= n_c;
+    const bf16* Kt = reinterpret_cast<const bf16*>(stg);
+    const float *ksc = nullptr, *vsc = nullptr;
+    if constexpr (KVQ) {
+      if (!spec) {
+        bf16* wide = R::wide(ring);
+        tc::widen_i8<D>(R::k8(stg), R::v8(stg), wide, wide + S::TILE, tid,
+                        NT);
+        __syncthreads();
+        Kt = wide;
+        ksc = R::kscale(stg);
+        vsc = R::vscale(stg);
+      }
+    }
+    if (warp_live) {
+      if (spec) {
+        const int n0 = (nb - n_c) * tc::BN;
+        st.attend(Kt, Kt + S::TILE, ksc, vsc, scale2, lane,
+                  [&](int i, int c) {
+                    const uint8_t* mr = i ? mrow1 : mrow0;
+                    const int n = n0 + c;
+                    return mr != nullptr && n < p_len && mr[n] != 0;
+                  });
+      } else {
+        const int n0 = (c_lo + nb) * tc::BN;
+        st.attend(Kt, Kt + S::TILE, ksc, vsc, scale2, lane,
+                  [&](int i, int c) {
+                    return (i ? mg1 : mg0) < m_rows && n0 + c < clen;
+                  });
+      }
+    }
+    __syncthreads();                     // the stage may be refilled
+  }
+  if (!warp_live) return;
+  st.finish();
+  const int t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int mg = i ? mg1 : mg0;
+    if (mg >= m_rows) continue;
+    const size_t pi = part0 + mg;
+    if ((lane & 3) == 0) part_ml[pi] = make_float2(st.m[i], st.l[i]);
+    float* ap = part_acc + pi * D;
+#pragma unroll
+    for (int dt = 0; dt < S::DT; ++dt)
+      *reinterpret_cast<float2*>(ap + dt * 8 + t2) =
+          make_float2(st.o[dt][2 * i], st.o[dt][2 * i + 1]);
+  }
+}
+
+// Merge each folded row's split partials (in split order) into the output
+// in bf16: one warp per row, lanes over D.
+__global__ void __launch_bounds__(kMergeRows * 32)
+tree_merge_kernel(const float* __restrict__ scratch, bf16* __restrict__ out,
+                  int n_req, int p_tok, int num_kv, int gq, int d_head,
+                  int n_split) {
+  const int m_rows = p_tok * gq;
+  const size_t total = (size_t)n_req * num_kv * m_rows;
+  const size_t r = (size_t)blockIdx.x * kMergeRows + threadIdx.x / 32;
+  if (r >= total) return;
+  const int lane = threadIdx.x & 31;
+  const float2* part_ml = reinterpret_cast<const float2*>(scratch);
+  const float* part_acc = scratch + 2 * (size_t)n_split * total;
+  float mx = kNegInf;
+  for (int j = 0; j < n_split; ++j) mx = fmaxf(mx, part_ml[j * total + r].x);
+  float lsum = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};   // d = lane + 32 * e
+  for (int j = 0; j < n_split; ++j) {
+    const float2 ml = part_ml[j * total + r];
+    if (ml.x == kNegInf) continue;       // no live key in this split
+    const float w = exp2f(ml.x - mx);
+    lsum = fmaf(ml.y, w, lsum);
+    const float* ap = part_acc + (j * total + r) * d_head;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (lane + 32 * e < d_head) o[e] = fmaf(ap[lane + 32 * e], w, o[e]);
+  }
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
+  const int mg = r % m_rows;
+  const int h = (r / m_rows) % num_kv;
+  const int req = r / ((size_t)m_rows * num_kv);
+  bf16* op = out + (((size_t)req * p_tok + mg / gq) * num_kv * gq + h * gq +
+                    mg % gq) * d_head;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (lane + 32 * e < d_head) op[lane + 32 * e] = __float2bfloat16(o[e] * inv);
+}
+
+template <typename KT, int D, int NW, bool PAGED>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
+                         const void* ks, const void* vs, const void* table,
+                         const void* sk, const void* sv, const void* rows,
+                         const void* clens, const void* amask, void* scratch,
+                         void* out, int n_req, int p_tok, int num_kv, int gq,
+                         int r1, int s_len, int p_len, int page, int n_split,
+                         int split_blocks, float scale, cudaStream_t stream) {
+  const size_t smem = tc::Ring<KT, D, true>::bytes(16 * NW);
+  cudaError_t err =
+      tc::allow_smem<tree_split_kernel<KT, D, NW, PAGED>>(smem);
+  if (err != cudaSuccess) return err;
+  const int m_rows = p_tok * gq;
+  const int chunks = (m_rows + 16 * NW - 1) / (16 * NW);
+  tree_split_kernel<KT, D, NW, PAGED>
+      <<<dim3(n_split, num_kv, n_req * chunks), kTcThreads, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const KT*>(k),
+          static_cast<const KT*>(v), static_cast<const float*>(ks),
+          static_cast<const float*>(vs), static_cast<const int*>(table),
+          static_cast<const bf16*>(sk), static_cast<const bf16*>(sv),
+          static_cast<const int*>(rows), static_cast<const int*>(clens),
+          static_cast<const uint8_t*>(amask), static_cast<float*>(scratch),
+          n_req, p_tok, num_kv, gq, r1, s_len, p_len, page, n_split,
+          split_blocks, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long total = (long long)n_req * num_kv * m_rows;
+  tree_merge_kernel<<<(unsigned)((total + kMergeRows - 1) / kMergeRows),
+                      kMergeRows * 32, 0, stream>>>(
+      static_cast<const float*>(scratch), static_cast<bf16*>(out), n_req,
+      p_tok, num_kv, gq, D, n_split);
   return cudaGetLastError();
 }
 
@@ -560,13 +807,17 @@ extern "C" int ff_tree_attention(
 // Batched layout.  q [n_req, p_tok, num_kv*gq, D]; k, v, k_scale, v_scale,
 // table, sk, sv as above (a paged table: page_size a multiple of 64
 // dividing s_len); rows, clens int32[n_req]; amask bool[n_req, p_tok,
-// p_len]; out like q.
+// p_len]; out like q.  bfloat16 only: scratch f32 [n_split * n_req * num_kv
+// * p_tok * gq * (D + 2)] for the split partials, each split of
+// split_blocks 64-key blocks of the committed prefix, n_split of them
+// covering s_len (float32: scratch null, no splits).
 extern "C" int ff_tree_attention_batched(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* table, const void* sk, const void* sv,
-    const void* rows, const void* clens, const void* amask, void* out,
-    int n_req, int p_tok, int num_kv, int gq, int r1, int s_len, int p_len,
-    int head_dim, int page_size, float scale, int dtype, void* stream) {
+    const void* rows, const void* clens, const void* amask, void* scratch,
+    void* out, int n_req, int p_tok, int num_kv, int gq, int r1, int s_len,
+    int p_len, int head_dim, int page_size, int n_split, int split_blocks,
+    float scale, int dtype, void* stream) {
   if (n_req == 0 || p_tok == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = with_dtype(dtype, [&](auto tt) {
@@ -577,15 +828,29 @@ extern "C" int ff_tree_attention_batched(
         constexpr int D = decltype(dd)::value;
         constexpr bool PAGED = decltype(pp)::value;
         using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
-        if (p_tok * gq <= 16)
-          return launch_batched<T, KT, D, 16, PAGED>(
+        if constexpr (std::is_same<T, float>::value) {
+          if (p_tok * gq <= 16)
+            return launch_batched<T, KT, D, 16, PAGED>(
+                q, k, v, k_scale, v_scale, table, sk, sv, rows, clens,
+                amask, out, n_req, p_tok, num_kv, gq, r1, s_len, p_len,
+                page_size, scale, st);
+          return launch_batched<T, KT, D, 64, PAGED>(
               q, k, v, k_scale, v_scale, table, sk, sv, rows, clens, amask,
               out, n_req, p_tok, num_kv, gq, r1, s_len, p_len, page_size,
               scale, st);
-        return launch_batched<T, KT, D, 64, PAGED>(
-            q, k, v, k_scale, v_scale, table, sk, sv, rows, clens, amask,
-            out, n_req, p_tok, num_kv, gq, r1, s_len, p_len, page_size,
-            scale, st);
+        } else {
+          if (scratch == nullptr || n_split < 1 || split_blocks < 1)
+            return cudaErrorInvalidValue;
+          if (p_tok * gq <= 16)
+            return launch_split<KT, D, 1, PAGED>(
+                q, k, v, k_scale, v_scale, table, sk, sv, rows, clens,
+                amask, scratch, out, n_req, p_tok, num_kv, gq, r1, s_len,
+                p_len, page_size, n_split, split_blocks, scale, st);
+          return launch_split<KT, D, 4, PAGED>(
+              q, k, v, k_scale, v_scale, table, sk, sv, rows, clens, amask,
+              scratch, out, n_req, p_tok, num_kv, gq, r1, s_len, p_len,
+              page_size, n_split, split_blocks, scale, st);
+        }
       });
     });
   });

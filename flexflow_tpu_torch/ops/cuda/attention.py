@@ -19,7 +19,15 @@ ALiBi tree kernel, :816) and the per-token tree layout takes 1, 2, 4 or 8
 query heads per KV head.  The kernels are
 hand-written CUDA C++ for sm_90a (``flexflow_tpu_torch/csrc/``), built by
 ``nvcc`` on first use (:mod:`.build`) and called through a plain C
-interface.
+interface.  In bfloat16, ``prefill_attention`` and
+``tree_attention_batched`` run on the tensor cores (``csrc/tc_attention.cuh``:
+``mma.sync`` products, P rounded to bfloat16 before P.V, K/V blocks in the
+cache's dtype through a ``cp.async`` ring); the batched tree kernel is
+split-KV: the committed prefix in splits of :data:`SPLIT_BLOCKS` blocks
+(:func:`tree_split_plan`), one CTA each writing f32 partials to scratch
+this wrapper allocates, then a merge kernel (plain versions:
+:func:`tree_split_partials_plain`, :func:`merge_partials_plain`).  float32
+keeps the CUDA-core kernels.
 
 Each wrapper launches its kernel for CUDA tensors, or raises: there is no
 fall-back for them.  It takes the plain PyTorch version only when the
@@ -52,6 +60,9 @@ TREE_GROUPS = (1, 2, 4, 8)           # query heads per KV head (tree, per token)
 # kernel's batched layout stage 64-key blocks, and each block must sit in
 # one page so it translates through the table once
 PAGE_BLOCK = 64
+# the bf16 batched tree kernel reads the committed prefix in splits of this
+# many blocks, one CTA per split (:func:`tree_split_plan`)
+SPLIT_BLOCKS = 4
 VARIANTS = ("fp", "int8", "paged", "int8+paged")
 ALIBI_VARIANTS = tuple(f"{v}+alibi" for v in VARIANTS)   # decode only
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,8 +82,10 @@ _ARGTYPES = {
     # n_tokens, num_kv, gq, r1, s_len, p_len, head_dim, page_size, scale,
     # dtype, stream
     "tree_attention": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
-    # as tree_attention with n_req, p_tok in place of n_tokens
-    "tree_attention_batched": [_P] * 12 + [_I] * 9 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale, table, sk, sv, rows, clens, amask,
+    # scratch, out, n_req, p_tok, num_kv, gq, r1, s_len, p_len, head_dim,
+    # page_size, n_split, split_blocks, scale, dtype, stream
+    "tree_attention_batched": [_P] * 13 + [_I] * 11 + [_F, _I, _P],
 }
 # the library (csrc/<source>.cu) each entry point lives in
 _SOURCE = {"tree_attention_batched": "tree_attention"}
@@ -185,9 +198,17 @@ def _check_kernel_args(name, q, k_cache, v_cache, idx_a, idx_b, n, gq,
     for t in (q, k_cache, v_cache, idx_a, idx_b):
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    _check_aligned(name, q, k_cache, v_cache)
     if max(q.shape + k_cache.shape) >= 2 ** 31:
         raise ValueError(f"{name}: a dimension does not fit the kernel's "
                          "32-bit sizes")
+
+
+def _check_aligned(name, *tensors) -> None:
+    """The kernels copy rows in 16-byte vectors."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: q, caches and spec buffers must start on "
+                         "a 16-byte boundary")
 
 
 def _launch(name, fn, *args):
@@ -461,6 +482,89 @@ def tree_attention_batched_plain(q, k_cache, v_cache, k_spec, v_spec, rows,
     return out.reshape(r, p, qh, d)
 
 
+def tree_split_plan(s_len: int):
+    """``(n_split, split_blocks)``: the bf16 batched tree kernel cuts each
+    request's committed prefix into splits of ``split_blocks`` whole
+    :data:`PAGE_BLOCK`-key blocks, ``n_split`` of them covering a cache of
+    ``s_len`` positions.  The plan depends on shapes only, so the device
+    path reads no ``clens`` back; the splits past a request's committed
+    blocks are empty, except the last, which also takes the spec segment."""
+    blocks = -(-s_len // PAGE_BLOCK)
+    return max(1, -(-blocks // SPLIT_BLOCKS)), SPLIT_BLOCKS
+
+
+def split_blocks(clen: int, s_len: int):
+    """The committed blocks ``[lo, hi)`` that each split of
+    :func:`tree_split_plan` reads for a request with ``clen`` committed
+    keys, as the kernel computes them (the keys of a block at and past
+    ``clen`` are masked)."""
+    n_split, per = tree_split_plan(s_len)
+    nb = -(-min(max(clen, 0), s_len) // PAGE_BLOCK)
+    out = []
+    for j in range(n_split):
+        lo = min(j * per, nb)
+        out.append((lo, min(lo + per, nb)))
+    return out
+
+
+def tree_split_partials_plain(q, k_cache, v_cache, k_spec, v_spec, rows,
+                              clens, amask, scale, k_scale=None, v_scale=None,
+                              page_table=None, page_size=0):
+    """Plain version of the bf16 batched tree kernel's split pass (any
+    device): for each split of :func:`tree_split_plan`, each query's
+    ``(m, l, acc)`` over the split's keys in f32, natural base (the kernel
+    keeps m in base 2).  A split with no live key gives ``m = NEG_INF``,
+    ``l = 0``, ``acc = 0``.  Returns ``m, l [n_split, R, P, QH]`` and
+    ``acc [n_split, R, P, QH, D]``."""
+    r, p, qh, d = q.shape
+    r1, kv, s, _ = k_cache.shape
+    gq = qh // kv
+    n_split, _ = tree_split_plan(s)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((n_split, r, p, qh), NEG_INF, **f32)
+    l = torch.zeros((n_split, r, p, qh), **f32)
+    acc = torch.zeros((n_split, r, p, qh, d), **f32)
+    rows = rows.long().clamp(0, r1 - 1)
+    for i in range(r):
+        row = rows[i:i + 1]
+        k_t = _rows_f32(k_cache, k_scale, page_table, page_size, row)[0]
+        v_t = _rows_f32(v_cache, v_scale, page_table, page_size, row)[0]
+        clen = int(clens[i].clamp(0, s))
+        qr = q[i].float().reshape(p, kv, gq, d)
+        for j, (lo, hi) in enumerate(split_blocks(clen, s)):
+            keys = slice(lo * PAGE_BLOCK, min(hi * PAGE_BLOCK, clen))
+            kj, vj = k_t[:, keys], v_t[:, keys]
+            live = torch.ones(p, kj.shape[1], dtype=torch.bool,
+                              device=q.device)
+            if j == n_split - 1:
+                kj = torch.cat([kj, k_spec[rows[i]].float()], dim=1)
+                vj = torch.cat([vj, v_spec[rows[i]].float()], dim=1)
+                live = torch.cat([live, amask[i]], dim=1)
+            if kj.shape[1] == 0:
+                continue
+            lv = live[:, None, None, :]                      # [P, 1, 1, n]
+            sc = torch.einsum("bkgd,ksd->bkgs", qr, kj) * scale
+            sc = sc.masked_fill(~lv, NEG_INF)
+            mj = sc.amax(-1)
+            w = torch.exp(sc - mj[..., None]) * lv
+            m[j, i] = mj.reshape(p, qh)
+            l[j, i] = w.sum(-1).reshape(p, qh)
+            acc[j, i] = torch.einsum("bkgs,ksd->bkgd", w, vj).reshape(
+                p, qh, d)
+    return m, l, acc
+
+
+def merge_partials_plain(m, l, acc):
+    """Plain version of the merge kernel (any device): split partials
+    ``m, l [n_split, ...]``, ``acc [n_split, ..., D]`` (natural base) ->
+    the f32 output ``[..., D]``.  A partial with ``m = NEG_INF`` (no live
+    key) weighs 0; a row with none gives zeros."""
+    mx = m.amax(0)
+    w = torch.where(m == NEG_INF, torch.zeros_like(m), torch.exp(m - mx))
+    lsum = (l * w).sum(0)
+    return (acc * w[..., None]).sum(0) / lsum.clamp_min(1e-30)[..., None]
+
+
 def _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, mask_shape):
     r1, kv, _, d = k_cache.shape
     if (k_spec.dim() != 4 or v_spec.shape != k_spec.shape
@@ -476,6 +580,7 @@ def _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, mask_shape):
     for t in (k_spec, v_spec, amask):
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    _check_aligned(name, k_spec, v_spec)
 
 
 def tree_attention(q, k_cache, v_cache, k_spec, v_spec, rows, clens, amask,
@@ -548,14 +653,25 @@ def tree_attention_batched(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
     gq = qh // kv
     _check_kernel_args(name, q, k_cache, v_cache, rows, clens, r, gq)
     _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, (r, p, pb))
+    n_split, per, scratch = 0, 0, None
+    if q.dtype == torch.bfloat16:
+        # split-KV: the (m, l) pairs and accumulators of every split
+        n_split, per = tree_split_plan(s)
+        rows_per_cta = 16 if p * gq <= 16 else 64
+        if kv > 65535 or r * -(-p * gq // rows_per_cta) > 65535:
+            raise ValueError(f"{name}: {r} requests x {kv} KV heads exceed "
+                             "the kernel's grid")
+        scratch = torch.empty(n_split * r * kv * p * gq * (d + 2),
+                              dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             _ptr(page_table), k_spec.data_ptr(), v_spec.data_ptr(),
             rows.data_ptr(), clens.data_ptr(), amask.data_ptr(),
-            out.data_ptr(), r, p, kv, gq, r1, s, pb, d, page_size,
-            float(scale), _DTYPE_CODES[q.dtype], stream)
+            _ptr(scratch), out.data_ptr(), r, p, kv, gq, r1, s, pb, d,
+            page_size, n_split, per, float(scale), _DTYPE_CODES[q.dtype],
+            stream)
     _count(tree_attention_batched, k_scale, page_table)
     return out
 

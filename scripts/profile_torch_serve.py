@@ -34,8 +34,9 @@ from collections import defaultdict
 
 CLASSES = (   # (class, substrings of the kernel name), first match wins
     ("attention K1 decode", ("decode_kernel",)),
-    ("attention K2 prefill", ("prefill_kernel",)),
-    ("attention K3 tree batched", ("tree_batched_kernel",)),
+    ("attention K2 prefill", ("prefill_kernel", "prefill_tc_kernel")),
+    ("attention K3 tree batched", ("tree_batched_kernel", "tree_split_kernel",
+                                   "tree_merge_kernel")),
     ("attention K3 tree per-token", ("tree_token_kernel",)),
     ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "sm90")),
     ("index / copy", ("index", "copy", "gather", "scatter", "cat")),

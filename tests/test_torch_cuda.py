@@ -332,6 +332,7 @@ def _check_variants(name, dev, dtype, q, kc, vc, page, extra, tail,
         _close(got[var], plain(*args, **kw), dtype)
     assert torch.equal(got["paged"], got["fp"])
     assert torch.equal(got["int8+paged"], got["int8"])
+    return got
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -370,6 +371,48 @@ def test_prefill_kernel_variants(dev, dtype, qh, kv, d, s, bq, page):
                           device=dev)
     _check_variants("prefill_attention", dev, dtype, q, kc, vc, page,
                     (rows, pstart), (d ** -0.5,))
+
+
+@pytest.mark.parametrize("d", att.HEAD_DIMS)
+def test_prefill_kernel_ragged_edges(dev, d):
+    """The bf16 tensor-core K2 at ragged edges, in the four variants: 3
+    query heads per KV head and Bq 40 (120 folded rows: a full and a part
+    64-row chunk), pstart off the 64-key grid, a causal frontier inside a
+    block, the last tile ending at S - 1 of 2048."""
+    g = torch.Generator().manual_seed(11)
+    qh, kv, s, bq, page = 12, 4, 2048, 40, 512
+    q = torch.randn(3, bq, qh, d, generator=g).to(dev, torch.bfloat16)
+    kc, vc = (torch.randn(4, kv, s, d, generator=g).to(dev, torch.bfloat16)
+              for _ in range(2))
+    rows = torch.tensor([0, 2, 1], dtype=torch.int32, device=dev)
+    pstart = torch.tensor([100, 0, s - bq], dtype=torch.int32, device=dev)
+    _check_variants("prefill_attention", dev, torch.bfloat16, q, kc, vc,
+                    page, (rows, pstart), (d ** -0.5,))
+
+
+@pytest.mark.parametrize("s", [256, 2048])   # one split; eight splits
+def test_batched_tree_kernel_split_boundaries(dev, s):
+    """The bf16 split-KV K3 batched layout with committed lengths at the
+    block and split boundaries (0, 1, 63, 64, 65, S - 1), and a pad
+    request with no live key (zeros), in the four variants."""
+    g = torch.Generator().manual_seed(12)
+    qh, kv, d, p, pb, page = 8, 4, 128, 7, 8, 64
+    clens = [0, 1, 63, 64, 65, s - 1, 0]
+    r = len(clens)
+    q = torch.randn(r, p, qh, d, generator=g).to(dev, torch.bfloat16)
+    kc, vc, sk, sv = (torch.randn(r + 1, kv, n, d, generator=g).to(
+        dev, torch.bfloat16) for n in (s, s, pb, pb))
+    amask = torch.rand(r, p, pb, generator=g) < 0.4
+    amask[:, :, 0] = True
+    amask[-1] = False                 # the pad request: no live key at all
+    rows = torch.tensor(list(range(r - 1)) + [r], dtype=torch.int32,
+                        device=dev)
+    got = _check_variants(
+        "tree_attention_batched", dev, torch.bfloat16, q, kc, vc, page,
+        (sk, sv, rows, torch.tensor(clens, dtype=torch.int32, device=dev),
+         amask.to(dev)), (d ** -0.5,))
+    for out in got.values():
+        assert not out[-1].float().abs().sum()   # zeros, not NaN
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
