@@ -20,14 +20,28 @@ and prints no result):
    library call computing the same function (``scaled_dot_product_attention``,
    a yardstick the port never calls; no single PyTorch call dequantizes
    int8 K/V or reads through a page table inside attention, so the other
-   variants have none);
-   In bfloat16, K2 and K3's batched layout are the tensor-core kernels
-   (mma.sync m16n8k16, a cp.async ring; K3 batched split-KV with a merge
-   kernel); float32 keeps the CUDA-core kernels;
+   variants have none): the kernel and the library call as device time
+   (``time_ms``: the calls queued behind a sleep kernel, so the host's
+   issue time is not counted), the kernel also back to back as the host
+   issues it (``call_ms``: the host's time where that is the longer), the
+   plain version back to back.  In bfloat16 every kernel runs on the tensor cores
+   (mma.sync m16n8k16, a cp.async ring; K1 and both K3 layouts split-KV,
+   K1 and K3 per-token after a row plan kernel that groups the flat tokens
+   by cache row on the device); float32 keeps the CUDA-core kernels;
 2b. edge kernels: the bf16 K2 at a ragged shape (3 query heads per KV
    head, tiles of 40 at positions off the 64-key grid) and the bf16 K3
    batched layout at committed lengths on the block and split boundaries
    with a pad request, every variant, held against the plain versions;
+2c. row edge kernels: the bf16 row-grouped K1 and K3 per-token kernels,
+   every variant, held against the plain versions (``1e-2``), paged ==
+   contiguous: K1 at 3 query heads per KV head (with and without ALiBi)
+   on 120 prompt tokens of one row at consecutive positions (an ALiBi
+   prefill: 360 folded rows in six chunks), tokens of other rows
+   scattered through the flat batch at positions on the block and split
+   boundaries, and pads on the scratch row; K1 at 48 and 71 query
+   heads on one KV head with scattered tokens and pads; K3 per-token at 2
+   query heads per KV head, 7-token trees scattered through the batch at
+   committed depths on the boundaries, pads giving zeros;
 3. tree kernels: the tree-attention kernel in both layouts at the
    speculative serve shapes (per-token: 512 flat rows, 56 real = 8
    requests x a 7-node tree, the rest scratch-row pads; batched: [8, 7]),
@@ -116,7 +130,13 @@ def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, iters):
+_SLEEP_CYCLES_PER_MS = []
+
+
+def call_ms(fn, iters):
+    """Milliseconds per call of ``fn`` run back to back: CUDA events around
+    ``iters`` calls.  Where the host takes longer to issue a call than the
+    device to run it, this is the host's time."""
     import torch
 
     fn()
@@ -129,6 +149,41 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters):
+    """Device milliseconds per call of ``fn``: ``iters`` calls queued
+    behind a sleep kernel that holds the stream until the host has issued
+    all of them, so the events around them see the device run them back to
+    back, whatever the host's issue time.  Raises if the host could not
+    issue them within the hold."""
+    import torch
+
+    if not _SLEEP_CYCLES_PER_MS:
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(1000)
+        s.record()
+        torch.cuda._sleep(10 ** 7)
+        e.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(1e7 / s.elapsed_time(e))
+    hold = 2 * call_ms(fn, iters) * iters + 2      # ms
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(hold * _SLEEP_CYCLES_PER_MS[0]))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        issued = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if issued < hold:
+            return start.elapsed_time(end) / iters
+        hold *= 4
+    raise RuntimeError(f"time_ms: the host took {issued:.1f} ms to issue "
+                       f"{iters} calls, beyond a {hold / 4:.1f} ms hold")
 
 
 def key_bytes(variant, d, itemsize):
@@ -225,7 +280,10 @@ def run_variants(att, torch, name, dn, tol, variants, head, tail, work,
         key = var if slopes is None else f"{var}+alibi"
         out[(name, key, dn)] = dict(
             max_abs_err=err, ms=time_ms(lambda: fn(*args, **kw), iters),
-            plain_ms=time_ms(lambda: plain(*args, **kw), 2),
+            call_ms=call_ms(lambda: fn(*args, **kw), iters),
+            # the plain versions allocate gigabytes, which can synchronize
+            # with the device: timed back to back, not behind a hold
+            plain_ms=call_ms(lambda: plain(*args, **kw), 2),
             bound_ms=bms, bound_by=by,
             library_ms=library_ms if var == "fp" else None)
         del want
@@ -357,6 +415,81 @@ def phase_edge_kernels(att, kv_quant, torch, dev):
     log("edge kernels (bf16, ragged K2, K3 split boundaries): " + " ".join(
         f"{name}/{var} err={v['max_abs_err']:.3g}"
         for (name, var, _), v in res.items()))
+
+
+def phase_row_edge_kernels(att, kv_quant, torch, dev):
+    """The bf16 row-grouped K1 and K3 per-token kernels where the row plan
+    and the splits have edges, every cache variant, vs their plain
+    versions (``1e-2``), paged == contiguous (see the module docstring,
+    phase 2c)."""
+    from flexflow_tpu_torch.serve import alibi_slopes
+
+    bf = torch.bfloat16
+    tol = dict(atol=1e-2, rtol=1e-2)
+    s, r = 2048, 8                     # cache rows 0-7, scratch row 8
+    g = torch.Generator().manual_seed(7)
+    boundary = [0, 63, 64, 255, 256, 257, 511, 512, s - 1]
+    rows_k1 = [0] * 120 + [1 + i % 7 for i in range(len(boundary))] + [r] * 40
+    pos_k1 = list(range(900, 1020)) + boundary + [0] * 40
+    order = torch.randperm(len(rows_k1), generator=g).tolist()
+    rows1 = torch.tensor([rows_k1[i] for i in order], dtype=torch.int32,
+                         device=dev)
+    pos1 = torch.tensor([pos_k1[i] for i in order], dtype=torch.int32,
+                        device=dev)
+    # (label, query heads, KV heads, D, with ALiBi too)
+    res = {}
+    for label, qh, kv, d, alibi in (("gq3", 12, 4, 128, True),
+                                    ("gq48", 48, 1, 128, False),
+                                    ("gq71", 71, 1, 64, False)):
+        kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, bf)
+                  for _ in range(2))
+        variants = cache_variants(att, kv_quant, kc, vc, 8)
+        q1 = torch.randn(len(rows_k1), qh, d, generator=g).to(dev, bf)
+        for slopes in (None, alibi_slopes(qh, dev)) if alibi else (None,):
+            out = run_variants(att, torch, "decode_attention", "bfloat16",
+                               tol, variants, (q1,),
+                               (rows1, pos1, d ** -0.5), None, None, 0,
+                               slopes=slopes)
+            tag = label + ("+alibi" if slopes is not None else "")
+            res.update({(n, f"{v}+{tag}"): x for (n, v, _), x in out.items()})
+        del kc, vc, variants, q1
+    # K3 per-token: five requests of a 7-token tree and pads, shuffled
+    clen_of = [0, 1, 63, 256, s]
+    p, pb, qh, kv, d = len(TREE_PARENTS), 8, 8, 4, 128
+    mask1 = torch.from_numpy(tree_mask(TREE_PARENTS, pb))
+    n_pad = 30
+    rows_t = [i // p for i in range(len(clen_of) * p)] + [r] * n_pad
+    order = torch.randperm(len(rows_t), generator=g).tolist()
+    rows_t = [rows_t[i] for i in order]
+    real = [i for i, row in enumerate(rows_t) if row < r]
+    clens_t = [clen_of[row] if row < r else 0 for row in rows_t]
+    amask = torch.zeros(len(rows_t), pb, dtype=torch.bool)
+    node = {}
+    for i in real:                 # each request's nodes in flat order
+        amask[i] = mask1[node.setdefault(rows_t[i], 0)]
+        node[rows_t[i]] += 1
+    kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, bf)
+              for _ in range(2))
+    sk, sv = (torch.randn(r + 1, kv, pb, d, generator=g).to(dev, bf)
+              for _ in range(2))
+    variants = cache_variants(att, kv_quant, kc, vc, 9)
+    q3 = torch.randn(len(rows_t), qh, d, generator=g).to(dev, bf)
+    tail = (sk, sv, torch.tensor(rows_t, dtype=torch.int32, device=dev),
+            torch.tensor(clens_t, dtype=torch.int32, device=dev),
+            amask.to(dev), d ** -0.5)
+    out = run_variants(att, torch, "tree_attention", "bfloat16", tol,
+                       variants, (q3,), tail, None, None, 0)
+    res.update({(n, f"{v}+gq2"): x for (n, v, _), x in out.items()})
+    pads = torch.tensor([row == r for row in rows_t], device=dev)
+    for var, (k, v, kw) in variants.items():
+        got = att.tree_attention(q3, k, v, *tail, **kw)
+        if got[pads].float().abs().sum().item() != 0:
+            raise AssertionError(f"tree_attention {var}: a pad token gave "
+                                 "non-zeros")
+    torch.cuda.synchronize()
+    log("row edge kernels (bf16, row-grouped K1 and K3 per-token): " +
+        " ".join(f"{name}/{var} err={v['max_abs_err']:.3g}"
+                 for (name, var), v in res.items()))
 
 
 def phase_parity(serve, torch, dev):
@@ -579,9 +712,12 @@ def phase_k1_families(att, kv_quant, torch, dev):
             for (name, var, dn_), v in res.items():
                 results[(name, var if alibi else f"{var}+{label}", dn_)] = v
             if not alibi:
-                # ceil(gq / 8) CTAs per (token, KV head) each stream the
-                # K/V prefix; the must-move bytes count it once
-                chunks = -(-qh // 8)
+                # f32: ceil(gq / 8) CTAs per (token, KV head) each stream
+                # the K/V prefix; bf16: ceil(gq / ROW_TILE) chunks of a
+                # lone token's folded rows do; the must-move bytes count it
+                # once
+                chunks = -(-qh // (8 if dtype == torch.float32
+                                   else att.ROW_TILE))
                 kv_bytes = work("fp")[0] - decode_work(
                     rows_k1, pos_k1, s, kv, qh, d, itemsize, 0)[0]
                 rereads[f"{label} {dn}"] = (chunks - 1) * kv_bytes
@@ -1352,7 +1488,8 @@ def phase_serve_families(serve, att, torch, dev):
     return launches
 
 
-TC_KERNELS = ("prefill_tc_kernel", "tree_split_kernel", "tree_merge_kernel")
+TC_KERNELS = ("prefill_tc_kernel", "tree_split_kernel", "tree_merge_kernel",
+              "decode_split_kernel", "tree_token_split_kernel")
 
 
 def tc_reports(text):
@@ -1420,6 +1557,8 @@ def main():
         att, kv_quant, torch, dev)))
     timed("edge kernels", lambda: phase_edge_kernels(att, kv_quant, torch,
                                                      dev))
+    timed("row edge kernels", lambda: phase_row_edge_kernels(
+        att, kv_quant, torch, dev))
     fam_kres, _ = timed("k1 families", lambda: phase_k1_families(
         att, kv_quant, torch, dev))
     kres.update(fam_kres)

@@ -18,38 +18,54 @@
 // not double).
 //
 // What bounds it on the H100: the bytes of K and V it must read (each key
-// row is used by gq query rows only: about gq FMAs per byte), so it is
+// row is used by the gq query rows of its group, and by every token of a
+// row: a decode step's 8 requests each read their prefix once), so it is
 // memory-bound.  What the design does about that:
-//   * one CTA per (token, kv head, chunk of query heads); the causal clamp
-//     is the loop bound, so no byte beyond pos[t] is fetched (pad tokens,
-//     pos 0 on the scratch row, read one key);
-//   * the query heads of a group are processed GQ at a time, GQ in
-//     {1, 2, 4, 8} a template parameter that sizes registers and shared
-//     memory: a group of up to 8 heads is one chunk (GQ the next power of
-//     two, the heads past gq masked), a larger group (Falcon-7B 71,
-//     StarCoder 48 on one KV head) spreads over ceil(gq / 8) chunks along
-//     the grid's z axis, the last one masked.  Each chunk re-reads its KV
-//     head's keys: under multi-query attention those re-reads come from L2
-//     (one KV head, S x D per row), at the price of ceil(gq / 8) - 1 extra
-//     passes over the prefix;
-//   * K and V are read as 16-byte vectors (an int8 cache: 16 values per
+//   * bfloat16 (row_tiles.cuh: decode_plan_kernel, decode_split_kernel):
+//     the flat tokens are grouped by cache row on the device and each
+//     row's folded (token, query head) rows cut into chunks of up to 64,
+//     so one pass over a block of K/V serves every token and query head of
+//     the chunk as a [rows, D] x [D, 64] tensor-core product (a group of
+//     48 query heads reads its prefix once per split, 71 heads twice; an
+//     ALiBi prefill of 512 tokens of one request reads it once per 64
+//     tokens, each chunk only up to its last position).  Split-KV: the
+//     prefix is cut into the splits of tree_split_plan(S), one CTA each,
+//     so a deep row spreads over up to S / 256 CTAs; a row that stays in
+//     one split is written by it, the others merged by the last split CTA
+//     of their chunk to finish.  Q fragments come straight from global
+//     memory, so with a two-stage cp.async ring three CTAs fit an SM (one
+//     warp computes a decode chunk: resident CTAs bound the blocks in
+//     flight).  Pad tokens (pos 0 on the scratch row) share one chunk
+//     group reading one key;
+//   * float32 (decode_kernel): the tensor cores have no f32 mode, so f32
+//     keeps the CUDA-core design: one CTA per (token, kv head, chunk of
+//     query heads); the causal clamp is the loop bound, so no byte beyond
+//     pos[t] is fetched; the query heads of a group are processed GQ at a
+//     time, GQ in {1, 2, 4, 8} a template parameter that sizes registers
+//     and shared memory: a group of up to 8 heads is one chunk (GQ the next
+//     power of two, the heads past gq masked), a larger group spreads over
+//     ceil(gq / 8) chunks along the grid's z axis, each re-reading its KV
+//     head's keys (from L2 under multi-query attention);
+//     K and V are read as 16-byte vectors (an int8 cache: 16 values per
 //     load, 8 with more than 2 query heads per chunk or D = 8),
 //     neighbouring thread groups on neighbouring keys, 4 keys in flight per
-//     group before any arithmetic, converted to f32 in registers;
-//   * each group of D/VEC threads keeps its own online-softmax state for
-//     the keys it streams, and the groups are merged once at the end, so
-//     the key loop has no __syncthreads;
-//   * paged: a thread translates a page through the table once and reuses
-//     it for its keys in that page; keys are visited in the same order as
-//     in the contiguous layout, so the two give identical bits.
-// Not yet done (later work): split-KV (flash-decoding) for long rows with
-// few tokens, TMA, one pass over K/V for all the query heads of a large
-// group (tensor cores over a [gq, D] x [D, keys] tile).
+//     group before any arithmetic, converted to f32 in registers; each
+//     group of D/VEC threads keeps its own online-softmax state for the
+//     keys it streams, and the groups are merged once at the end, so the
+//     key loop has no __syncthreads;
+//   * paged: a block (bf16) or a thread's run of keys (f32) translates its
+//     page through the table once; keys are visited in the same order and
+//     cut at the same split boundaries as in the contiguous layout, so the
+//     two give identical bits.
+// Not yet done (later work): TMA with mbarriers in place of cp.async; a
+// persistent schedule that skips the empty (split, chunk) CTAs instead of
+// launching them; reusing one step's row plan across its layers.
 //
-// C interface for ctypes; the kernel allocates nothing and returns
-// cudaGetLastError() after the launch.
+// C interface for ctypes; the kernels allocate nothing and the entry point
+// returns the first launch error.
 
 #include "kv_access.cuh"
+#include "row_tiles.cuh"
 
 namespace {
 
@@ -211,6 +227,21 @@ decode_kernel(const T* __restrict__ q, const KT* __restrict__ k,
   }
 }
 
+// bfloat16: the row-grouped split-KV kernels (row_tiles.cuh)
+__global__ void __launch_bounds__(32 * rt::kPlanWarps)
+decode_plan_kernel(rt::Args a) {
+  extern __shared__ int rt_counts[];
+  rt::plan_body<false>(a, rt_counts);
+}
+
+template <typename KT, int D, bool PAGED>
+__global__ void __launch_bounds__(
+    rt::kThreads, (rt::Tiles<KT, D, false>::kMinCtas))
+decode_split_kernel(rt::Args a) {
+  extern __shared__ __align__(16) unsigned char rt_smem[];
+  rt::split_body<KT, D, PAGED, false>(a, rt_smem);
+}
+
 // the chunk width for a group of gq query heads: the next power of two up
 // to 8; larger groups take chunks of 8
 template <typename F>
@@ -228,41 +259,70 @@ cudaError_t with_chunk(int gq, F&& f) {
 // int8 with k_scale, v_scale f32 [r1, num_kv, s_len] (null: fp cache);
 // table int32 [r1, s_len / page_size] (null: slot-contiguous); slopes f32
 // [num_kv*gq] (null: no ALiBi); rows, pos int32[n_tokens]; out
-// [n_tokens, num_kv*gq, D].  dtype: 0 = float32, 1 = bfloat16.  All
+// [n_tokens, num_kv*gq, D].  dtype: 0 = float32, 1 = bfloat16.  bfloat16
+// also takes scratch f32 [n_split * n_tokens * num_kv*gq * (D + 2)], plan
+// int32 [round_up(2 * n_tokens, 4) + (4 + num_kv) * cap] with cap =
+// ceil(n_tokens * gq / 64) + r1, and the split plan (n_split splits of
+// split_blocks 64-key blocks covering s_len); float32 ignores them.  All
 // tensors contiguous.
 extern "C" int ff_decode_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* table, const void* slopes,
-    const void* rows, const void* pos, void* out, int n_tokens, int num_kv,
-    int gq, int r1, int s_len, int head_dim, int page_size, float scale,
+    const void* rows, const void* pos, void* scratch, void* plan, void* out,
+    int n_tokens, int num_kv, int gq, int r1, int s_len, int head_dim,
+    int page_size, int n_split, int split_blocks, int cap, float scale,
     int dtype, void* stream) {
   if (n_tokens == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = with_dtype(dtype, [&](auto tt) {
     using T = typename decltype(tt)::type;
     return with_head_dim(head_dim, [&](auto dd) {
-      return with_chunk(gq, [&](auto gg) {
+      constexpr int D = decltype(dd)::value;
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        if (scratch == nullptr || plan == nullptr || n_split < 1 ||
+            split_blocks < 1 || cap < 1)
+          return cudaErrorInvalidValue;
+        const rt::Args a{
+            static_cast<const T*>(q), k, v,
+            static_cast<const float*>(k_scale),
+            static_cast<const float*>(v_scale),
+            static_cast<const int*>(table),
+            static_cast<const float*>(slopes), nullptr, nullptr, nullptr,
+            static_cast<const int*>(rows), static_cast<const int*>(pos),
+            static_cast<int*>(plan), static_cast<float*>(scratch),
+            static_cast<T*>(out), n_tokens, num_kv, gq, r1, s_len, 0,
+            page_size, n_split, split_blocks, cap, scale};
         return with_variant(k_scale != nullptr, table != nullptr,
                             [&](auto qq, auto pp) {
-          constexpr int D = decltype(dd)::value;
-          constexpr int GQ = decltype(gg)::value;
           constexpr bool PAGED = decltype(pp)::value;
           using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
-          const int chunks = (gq + GQ - 1) / GQ;
-          decode_kernel<T, KT, D, GQ, PAGED>
-              <<<dim3(n_tokens, num_kv, chunks), kThreads, 0, st>>>(
-                  static_cast<const T*>(q), static_cast<const KT*>(k),
-                  static_cast<const KT*>(v),
-                  static_cast<const float*>(k_scale),
-                  static_cast<const float*>(v_scale),
-                  static_cast<const int*>(table),
-                  static_cast<const float*>(slopes),
-                  static_cast<const int*>(rows), static_cast<const int*>(pos),
-                  static_cast<T*>(out), num_kv, gq, r1, s_len, page_size,
-                  scale);
-          return cudaGetLastError();
+          return rt::launch<decode_plan_kernel,
+                            decode_split_kernel<KT, D, PAGED>, KT, D,
+                            false>(a, st);
         });
-      });
+      } else {
+        return with_chunk(gq, [&](auto gg) {
+          return with_variant(k_scale != nullptr, table != nullptr,
+                              [&](auto qq, auto pp) {
+            constexpr int GQ = decltype(gg)::value;
+            constexpr bool PAGED = decltype(pp)::value;
+            using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
+            const int chunks = (gq + GQ - 1) / GQ;
+            decode_kernel<T, KT, D, GQ, PAGED>
+                <<<dim3(n_tokens, num_kv, chunks), kThreads, 0, st>>>(
+                    static_cast<const T*>(q), static_cast<const KT*>(k),
+                    static_cast<const KT*>(v),
+                    static_cast<const float*>(k_scale),
+                    static_cast<const float*>(v_scale),
+                    static_cast<const int*>(table),
+                    static_cast<const float*>(slopes),
+                    static_cast<const int*>(rows),
+                    static_cast<const int*>(pos), static_cast<T*>(out),
+                    num_kv, gq, r1, s_len, page_size, scale);
+            return cudaGetLastError();
+          });
+        });
+      }
     });
   });
   return static_cast<int>(err);

@@ -1,6 +1,6 @@
-// Tensor-core attention tiles shared by the bf16 prefill kernel
-// (prefill_attention.cu) and the bf16 batched tree kernel
-// (tree_attention.cu).
+// Tensor-core attention tiles shared by the bf16 kernels: prefill
+// (prefill_attention.cu), the batched tree layout (tree_attention.cu), and
+// K1 and K3's per-token layout (row_tiles.cuh).
 //
 // A CTA holds up to 16 * NW folded query rows of one KV head, 16 rows per
 // warp, and walks 64-key blocks of K/V:
@@ -51,7 +51,7 @@ struct Shape {
 // [int8 only: the widened K and V tiles].  A stage holds a bf16 K tile and
 // V tile, or int8 K [BN][D], V [BN][D], K scales [BN] and V scales [BN];
 // with BF16_TOO an int8 stage is sized to hold bf16 tiles as well (the
-// tree kernel's spec blocks, which are in the compute dtype).
+// tree kernels' spec blocks, which are in the compute dtype).
 template <typename KT, int D, bool BF16_TOO>
 struct Ring {
   using S = Shape<D>;
@@ -207,6 +207,11 @@ __device__ __forceinline__ void copy_q(bf16* Qt, int n_rows, const bf16* q,
   }
 }
 
+// The score bias of tiles without one (the compiler drops its addition).
+struct NoBias {
+  __device__ __forceinline__ float operator()(int, int) const { return 0.f; }
+};
+
 // One warp's 16 query rows: Q fragments, output accumulators and the
 // online softmax state of the lane's two rows (g and g + 8).
 template <int D>
@@ -230,13 +235,41 @@ struct Rows {
     l[0] = l[1] = 0.f;
   }
 
+  // The same from global memory: q0, q1 the lane's rows g and g + 8 (D
+  // values each, null: a zero row), read in the A fragment's layout.
+  __device__ __forceinline__ void init_rows(const bf16* q0, const bf16* q1,
+                                            int lane) {
+    const int c = (lane & 3) * 2;
+    auto pair = [&](const bf16* r, int col) -> uint32_t {
+      return r != nullptr && col < D
+                 ? *reinterpret_cast<const uint32_t*>(r + col)
+                 : 0u;
+    };
+#pragma unroll
+    for (int ks = 0; ks < S::KSTEPS; ++ks) {
+      qa[ks][0] = pair(q0, ks * 16 + c);
+      qa[ks][1] = pair(q1, ks * 16 + c);
+      qa[ks][2] = pair(q0, ks * 16 + 8 + c);
+      qa[ks][3] = pair(q1, ks * 16 + 8 + c);
+    }
+#pragma unroll
+    for (int dt = 0; dt < S::DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+  }
+
   // One 64-key block from the bf16 tiles Kt, Vt.  live(i, c): whether the
   // lane's row i (0: g, 1: g + 8) sees the block's key c.  ksc/vsc: the
-  // block's int8 scales, or null.  scale2 = scale * log2 e.
-  template <typename Live>
+  // block's int8 scales, or null.  scale2 = scale * log2 e.  bias(i, c):
+  // added to the score in base 2 after the scales, before the mask (K1's
+  // ALiBi term).
+  template <typename Live, typename Bias = NoBias>
   __device__ __forceinline__ void attend(const bf16* Kt, const bf16* Vt,
                                          const float* ksc, const float* vsc,
-                                         float scale2, int lane, Live live) {
+                                         float scale2, int lane, Live live,
+                                         Bias bias = Bias()) {
     float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -264,6 +297,7 @@ struct Rows {
         const int i = e >> 1, c = nt * 8 + t2 + (e & 1);
         float x = s[nt][e] * scale2;
         if (ksc != nullptr) x *= ksc[c];
+        if constexpr (!std::is_same<Bias, NoBias>::value) x += bias(i, c);
         x = live(i, c) ? x : kNegInf;
         s[nt][e] = x;
         mx[i] = fmaxf(mx[i], x);

@@ -23,12 +23,22 @@
 // Llama-2-7B verify shape (8 requests of a 7-token tree, committed lengths
 // 256-1800, 32 heads, D 128) the batched layout must move 134.7 MB, 0.041
 // ms at 3.35 TB/s.  What the design does about that:
-//   * per-token layout: K1's design (decode_attention.cu): one CTA per
-//     (token, kv head), lane groups streaming 16-byte K/V vectors, each
-//     group with its own softmax state, merged once; the committed clamp is
-//     the loop bound, so a pad token (clens 0, empty mask) reads nothing.
-//     Tokens of one request each re-stream that request's prefix: this
-//     layout moves P times the bytes of the batched one.  With an int8
+//   * per-token layout, bf16 (row_tiles.cuh: tree_token_plan_kernel,
+//     tree_token_split_kernel): K1's bf16 design.  The flat tokens are
+//     grouped by cache row on the device, so a request's tree tokens (and
+//     pads, on the scratch row) share chunks of up to 64 folded rows and
+//     its committed prefix streams once per split, as in the batched
+//     layout, where each token once re-streamed it; the plan's last split
+//     also takes the spec segment under each token's mask; the last split
+//     CTA of a chunk to finish merges its rows' partials; rows with no
+//     live key (pads: clens 0, empty mask) give zeros;
+//   * per-token layout, float32 (tree_token_kernel): the tensor cores have
+//     no f32 mode, so f32 keeps K1's CUDA-core design
+//     (decode_attention.cu): one CTA per (token, kv head), lane groups
+//     streaming 16-byte K/V vectors, each group with its own softmax
+//     state, merged once; the committed clamp is the loop bound, so a pad
+//     token (clens 0, empty mask) reads nothing.  Tokens of one request
+//     each re-stream that request's prefix.  With an int8
 //     cache a lane holds K1's int8 vector width, and the spec keys are read
 //     at that width in the compute dtype (several 16-byte loads per key),
 //     so both segments share one lane layout and one softmax state;
@@ -55,19 +65,21 @@
 //     no f32 mode, so f32 keeps K2's CUDA-core design: one CTA per
 //     (request, kv head, chunk of 16 or 64 folded rows), 64-key K/V blocks
 //     staged in shared memory as f32, the spec buffer as the last blocks;
-//   * paged: per-token threads translate a page once and reuse it; a
-//     batched block sits inside one page (the wrapper requires pages of
-//     whole 64-key blocks) and translates once.  Keys are visited in the
-//     contiguous layout's order, splits fall on the same block boundaries
-//     and merge in a fixed order, so the two give identical bits.
-// Not yet done (later work): tensor cores for the per-token layout; TMA
-// with mbarriers in place of cp.async; a persistent schedule that skips
-// the plan's empty splits instead of launching them.
+//   * paged: f32 per-token threads translate a page once and reuse it; a
+//     64-key block (bf16, and f32 batched) sits inside one page (the
+//     wrapper requires pages of whole 64-key blocks) and translates once.
+//     Keys are visited in the contiguous layout's order, splits fall on the
+//     same block boundaries and merge in a fixed order, so the two give
+//     identical bits.
+// Not yet done (later work): TMA with mbarriers in place of cp.async; a
+// persistent schedule that skips the plan's empty splits instead of
+// launching them.
 //
 // C interface for ctypes; the kernels allocate nothing and each entry point
 // returns cudaGetLastError() after its launch.
 
 #include "kv_access.cuh"
+#include "row_tiles.cuh"
 #include "tc_attention.cuh"
 
 namespace {
@@ -725,6 +737,22 @@ tree_merge_kernel(const float* __restrict__ scratch, bf16* __restrict__ out,
     if (lane + 32 * e < d_head) op[lane + 32 * e] = __float2bfloat16(o[e] * inv);
 }
 
+// bfloat16 per-token layout: the row-grouped split-KV kernels
+// (row_tiles.cuh)
+__global__ void __launch_bounds__(32 * rt::kPlanWarps)
+tree_token_plan_kernel(rt::Args a) {
+  extern __shared__ int rt_counts[];
+  rt::plan_body<true>(a, rt_counts);
+}
+
+template <typename KT, int D, bool PAGED>
+__global__ void __launch_bounds__(
+    rt::kThreads, (rt::Tiles<KT, D, true>::kMinCtas))
+tree_token_split_kernel(rt::Args a) {
+  extern __shared__ __align__(16) unsigned char rt_smem[];
+  rt::split_body<KT, D, PAGED, true>(a, rt_smem);
+}
+
 template <typename KT, int D, int NW, bool PAGED>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
                          const void* ks, const void* vs, const void* table,
@@ -766,39 +794,70 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
 // (null: fp cache); table int32 [r1, s_len / page_size] (null:
 // slot-contiguous); sk, sv [r1, num_kv, p_len, D] in q's dtype; rows, clens
 // int32[n_tokens]; amask bool[n_tokens, p_len]; out like q.  dtype:
-// 0 = float32, 1 = bfloat16.  All tensors contiguous.
+// 0 = float32, 1 = bfloat16.  bfloat16 also takes scratch f32 [n_split *
+// n_tokens * num_kv*gq * (D + 2)], plan int32 [round_up(2 * n_tokens, 4)
+// + (4 + num_kv) * cap] with cap = ceil(n_tokens * gq / 64) + r1, and the
+// split plan (a paged table: page_size a multiple of 64 dividing s_len);
+// float32 ignores them.  All tensors contiguous.
 extern "C" int ff_tree_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* table, const void* sk, const void* sv,
-    const void* rows, const void* clens, const void* amask, void* out,
-    int n_tokens, int num_kv, int gq, int r1, int s_len, int p_len,
-    int head_dim, int page_size, float scale, int dtype, void* stream) {
+    const void* rows, const void* clens, const void* amask, void* scratch,
+    void* plan, void* out, int n_tokens, int num_kv, int gq, int r1,
+    int s_len, int p_len, int head_dim, int page_size, int n_split,
+    int split_blocks, int cap, float scale, int dtype, void* stream) {
   if (n_tokens == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = with_dtype(dtype, [&](auto tt) {
     using T = typename decltype(tt)::type;
     return with_head_dim(head_dim, [&](auto dd) {
-      return with_group(gq, [&](auto gg) {
+      constexpr int D = decltype(dd)::value;
+      if constexpr (std::is_same<T, bf16>::value) {
+        if (scratch == nullptr || plan == nullptr || n_split < 1 ||
+            split_blocks < 1 || cap < 1)
+          return cudaErrorInvalidValue;
+        const rt::Args a{
+            static_cast<const T*>(q), k, v,
+            static_cast<const float*>(k_scale),
+            static_cast<const float*>(v_scale),
+            static_cast<const int*>(table), nullptr,
+            static_cast<const T*>(sk), static_cast<const T*>(sv),
+            static_cast<const uint8_t*>(amask),
+            static_cast<const int*>(rows), static_cast<const int*>(clens),
+            static_cast<int*>(plan), static_cast<float*>(scratch),
+            static_cast<T*>(out), n_tokens, num_kv, gq, r1, s_len, p_len,
+            page_size, n_split, split_blocks, cap, scale};
         return with_variant(k_scale != nullptr, table != nullptr,
                             [&](auto qq, auto pp) {
-          constexpr int D = decltype(dd)::value;
-          constexpr int GQ = decltype(gg)::value;
           constexpr bool PAGED = decltype(pp)::value;
           using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
-          tree_token_kernel<T, KT, D, GQ, PAGED>
-              <<<dim3(n_tokens, num_kv), kThreads, 0, st>>>(
-                  static_cast<const T*>(q), static_cast<const KT*>(k),
-                  static_cast<const KT*>(v),
-                  static_cast<const float*>(k_scale),
-                  static_cast<const float*>(v_scale),
-                  static_cast<const int*>(table), static_cast<const T*>(sk),
-                  static_cast<const T*>(sv), static_cast<const int*>(rows),
-                  static_cast<const int*>(clens),
-                  static_cast<const uint8_t*>(amask), static_cast<T*>(out),
-                  num_kv, r1, s_len, p_len, page_size, scale);
-          return cudaGetLastError();
+          return rt::launch<tree_token_plan_kernel,
+                            tree_token_split_kernel<KT, D, PAGED>, KT, D,
+                            true>(a, st);
         });
-      });
+      } else {
+        return with_group(gq, [&](auto gg) {
+          return with_variant(k_scale != nullptr, table != nullptr,
+                              [&](auto qq, auto pp) {
+            constexpr int GQ = decltype(gg)::value;
+            constexpr bool PAGED = decltype(pp)::value;
+            using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
+            tree_token_kernel<T, KT, D, GQ, PAGED>
+                <<<dim3(n_tokens, num_kv), kThreads, 0, st>>>(
+                    static_cast<const T*>(q), static_cast<const KT*>(k),
+                    static_cast<const KT*>(v),
+                    static_cast<const float*>(k_scale),
+                    static_cast<const float*>(v_scale),
+                    static_cast<const int*>(table),
+                    static_cast<const T*>(sk), static_cast<const T*>(sv),
+                    static_cast<const int*>(rows),
+                    static_cast<const int*>(clens),
+                    static_cast<const uint8_t*>(amask), static_cast<T*>(out),
+                    num_kv, r1, s_len, p_len, page_size, scale);
+            return cudaGetLastError();
+          });
+        });
+      }
     });
   });
   return static_cast<int>(err);

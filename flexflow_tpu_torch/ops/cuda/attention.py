@@ -19,15 +19,21 @@ ALiBi tree kernel, :816) and the per-token tree layout takes 1, 2, 4 or 8
 query heads per KV head.  The kernels are
 hand-written CUDA C++ for sm_90a (``flexflow_tpu_torch/csrc/``), built by
 ``nvcc`` on first use (:mod:`.build`) and called through a plain C
-interface.  In bfloat16, ``prefill_attention`` and
-``tree_attention_batched`` run on the tensor cores (``csrc/tc_attention.cuh``:
-``mma.sync`` products, P rounded to bfloat16 before P.V, K/V blocks in the
-cache's dtype through a ``cp.async`` ring); the batched tree kernel is
+interface.  In bfloat16 every kernel runs on the tensor cores
+(``csrc/tc_attention.cuh``: ``mma.sync`` products, P rounded to bfloat16
+before P.V, K/V blocks in the cache's dtype through a ``cp.async`` ring).
+``decode_attention``, ``tree_attention`` and ``tree_attention_batched`` are
 split-KV: the committed prefix in splits of :data:`SPLIT_BLOCKS` blocks
 (:func:`tree_split_plan`), one CTA each writing f32 partials to scratch
-this wrapper allocates, then a merge kernel (plain versions:
-:func:`tree_split_partials_plain`, :func:`merge_partials_plain`).  float32
-keeps the CUDA-core kernels.
+this wrapper allocates, then merged (plain versions:
+:func:`decode_split_partials_plain`, :func:`tree_token_split_partials_plain`,
+:func:`tree_split_partials_plain`, :func:`merge_partials_plain`): by a
+merge kernel in the batched layout, by the last split CTA of a chunk to
+finish in the two flat-token kernels.  Those first group their tokens by
+cache row on the device (``csrc/row_tiles.cuh``; plain version
+:func:`row_plan_plain`), so the tokens and query heads of one row share
+chunks of up to :data:`ROW_TILE` folded rows that read each K/V block
+once.  float32 keeps the CUDA-core kernels.
 
 Each wrapper launches its kernel for CUDA tensors, or raises: there is no
 fall-back for them.  It takes the plain PyTorch version only when the
@@ -60,9 +66,15 @@ TREE_GROUPS = (1, 2, 4, 8)           # query heads per KV head (tree, per token)
 # kernel's batched layout stage 64-key blocks, and each block must sit in
 # one page so it translates through the table once
 PAGE_BLOCK = 64
-# the bf16 batched tree kernel reads the committed prefix in splits of this
+# the bf16 split-KV kernels read the committed prefix in splits of this
 # many blocks, one CTA per split (:func:`tree_split_plan`)
 SPLIT_BLOCKS = 4
+# the bf16 flat-token kernels (decode, per-token tree) hold up to this many
+# folded (token, query head) rows of one cache row per CTA
+ROW_TILE = 64
+# the row plan kernel stages 3 ints per token, 11 per cache row and one
+# per chunk in shared memory (224 KB at most)
+PLAN_SMEM_INTS = 56 * 1024
 VARIANTS = ("fp", "int8", "paged", "int8+paged")
 ALIBI_VARIANTS = tuple(f"{v}+alibi" for v in VARIANTS)   # decode only
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,16 +84,17 @@ _GATHER_ELEMS = 1 << 27
 _FNS: Dict[str, object] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # q, k, v, k_scale, v_scale, table, slopes, rows, pos, out, n_tokens,
-    # num_kv, gq, r1, s_len, head_dim, page_size, scale, dtype, stream
-    "decode_attention": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale, table, slopes, rows, pos, scratch, plan,
+    # out, n_tokens, num_kv, gq, r1, s_len, head_dim, page_size, n_split,
+    # split_blocks, cap, scale, dtype, stream
+    "decode_attention": [_P] * 12 + [_I] * 10 + [_F, _I, _P],
     # q, k, v, k_scale, v_scale, table, rows, pstart, out, n_tiles, bq,
     # num_kv, gq, r1, s_len, head_dim, page_size, scale, dtype, stream
     "prefill_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
-    # q, k, v, k_scale, v_scale, table, sk, sv, rows, clens, amask, out,
-    # n_tokens, num_kv, gq, r1, s_len, p_len, head_dim, page_size, scale,
-    # dtype, stream
-    "tree_attention": [_P] * 12 + [_I] * 8 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale, table, sk, sv, rows, clens, amask,
+    # scratch, plan, out, n_tokens, num_kv, gq, r1, s_len, p_len, head_dim,
+    # page_size, n_split, split_blocks, cap, scale, dtype, stream
+    "tree_attention": [_P] * 14 + [_I] * 11 + [_F, _I, _P],
     # q, k, v, k_scale, v_scale, table, sk, sv, rows, clens, amask,
     # scratch, out, n_req, p_tok, num_kv, gq, r1, s_len, p_len, head_dim,
     # page_size, n_split, split_blocks, scale, dtype, stream
@@ -281,6 +294,83 @@ def _rows_f32(cache, scale, page_table, page_size, rows):
 
 
 # ---------------------------------------------------------------------------
+# The row plan and split partials of the bf16 flat-token kernels
+# ---------------------------------------------------------------------------
+def row_chunk_capacity(n_tokens: int, gq: int, r1: int) -> int:
+    """Entries of the row plan's chunk table: ``ceil(T * gq /``
+    :data:`ROW_TILE` ``)`` full chunks, plus at most one part chunk for
+    each of the ``r1`` cache rows."""
+    return -(-n_tokens * gq // ROW_TILE) + r1
+
+
+def row_plan_plain(rows, r1: int, gq: int):
+    """Plain version of the row plan kernel (any device): the flat tokens
+    sorted by their clamped cache row, stably, and each row's folded rows
+    (sorted slot * gq + query head) cut into chunks of at most
+    :data:`ROW_TILE`.  Returns ``perm`` int64 ``[T]`` (sorted slot ->
+    token) and the chunk table int32 ``[cap, 2]`` of (first folded row,
+    row count), ``cap =`` :func:`row_chunk_capacity`, the unused entries
+    ``(0, 0)``.  The kernel also stores each chunk's cache row and its
+    rows' largest key limit."""
+    r = rows.long().clamp(0, r1 - 1)
+    perm = torch.sort(r, stable=True).indices
+    counts = torch.bincount(r, minlength=r1).tolist()
+    cap = row_chunk_capacity(r.shape[0], gq, r1)
+    chunks = torch.zeros(cap, 2, dtype=torch.int32, device=rows.device)
+    off = c = 0
+    for n in counts:
+        for f in range(0, n * gq, ROW_TILE):
+            chunks[c, 0] = off * gq + f
+            chunks[c, 1] = min(ROW_TILE, n * gq - f)
+            c += 1
+        off += n
+    return perm, chunks
+
+
+def _row_split_buffers(name, q, r1, kv, s):
+    """``(scratch, plan, n_split, split_blocks, cap)`` of a bf16 flat-token
+    kernel: its split partials, its row plan and their sizes (float32:
+    none)."""
+    if q.dtype != torch.bfloat16:
+        return None, None, 0, 0, 0
+    t, qh, d = q.shape
+    cap = row_chunk_capacity(t, qh // kv, r1)
+    if (3 * t + 11 * r1 + cap > PLAN_SMEM_INTS or kv > 65535
+            or cap > 65535):
+        raise ValueError(f"{name}: {t} tokens x {qh // kv} query heads on "
+                         f"{r1} cache rows and {kv} KV heads exceed the "
+                         "kernel's row plan or grid")
+    n_split, per = tree_split_plan(s)
+    scratch = torch.empty(n_split * t * qh * (d + 2), dtype=torch.float32,
+                          device=q.device)
+    # perm and key limits [T each], then int4 chunk entries (16-byte
+    # aligned) and an arrival counter per (chunk, KV head)
+    plan = torch.empty(-(-2 * t // 4) * 4 + (4 + kv) * cap,
+                       dtype=torch.int32, device=q.device)
+    return scratch, plan, n_split, per, cap
+
+
+def _split_partials(scores, vals, live, split_id, n_split):
+    """Softmax partials of flat rows per split, natural base: ``scores [T,
+    KV, G, N]`` (unmasked), ``vals [T, KV, N, D]``, ``live bool[T, N]``,
+    ``split_id [N]`` the split of each key.  Returns ``m, l [n_split, T,
+    KV * G]`` and ``acc [n_split, T, KV * G, D]``; a split with no live key
+    of a row gives ``m = NEG_INF``, ``l = 0``, ``acc = 0``."""
+    t = scores.shape[0]
+    ms, ls, accs = [], [], []
+    for j in range(n_split):
+        lv = (live & (split_id == j)[None, :])[:, None, None, :]
+        sc = scores.masked_fill(~lv, NEG_INF)
+        mj = sc.amax(-1)
+        w = torch.exp(sc - mj[..., None]) * lv
+        ms.append(mj.reshape(t, -1))
+        ls.append(w.sum(-1).reshape(t, -1))
+        accs.append(torch.einsum("tkgn,tknd->tkgd", w, vals).reshape(
+            t, ms[-1].shape[1], -1))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+# ---------------------------------------------------------------------------
 # K1: decode attention
 # ---------------------------------------------------------------------------
 def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale,
@@ -311,6 +401,34 @@ def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale,
         o = torch.einsum("tkgs,tksd->tkgd", w, v_tok)
         out[sl] = o.reshape(-1, qh, d).to(q.dtype)
     return out
+
+
+def decode_split_partials_plain(q, k_cache, v_cache, rows, positions,
+                                scale, k_scale=None, v_scale=None,
+                                page_table=None, page_size=0, slopes=None):
+    """Plain version of the bf16 decode kernel's split pass (any device):
+    each token's ``(m, l, acc)`` per split of :func:`tree_split_plan` over
+    its keys ``<= clamp(positions, 0, S - 1)``, f32, natural base (the
+    kernel keeps m in base 2).  Returns ``m, l [n_split, T, QH]`` and
+    ``acc [n_split, T, QH, D]``; :func:`merge_partials_plain` combines
+    them."""
+    t, qh, d = q.shape
+    r1, kv, s, _ = k_cache.shape
+    n_split, per = tree_split_plan(s)
+    rows = rows.long().clamp(0, r1 - 1)
+    pos = positions.long()
+    key_pos = torch.arange(s, device=q.device)
+    k_tok = _rows_f32(k_cache, k_scale, page_table, page_size, rows)
+    v_tok = _rows_f32(v_cache, v_scale, page_table, page_size, rows)
+    qr = q.float().reshape(t, kv, qh // kv, d)
+    scores = torch.einsum("tkgd,tksd->tkgs", qr, k_tok) * scale
+    if slopes is not None:
+        rel = (key_pos[None, :] - pos[:, None]).float()
+        scores = scores + (slopes.float().reshape(kv, -1)[None, :, :, None]
+                           * rel[:, None, None, :])
+    live = key_pos[None, :] <= pos.clamp(0, s - 1)[:, None]
+    return _split_partials(scores, v_tok, live,
+                           key_pos // (per * PAGE_BLOCK), n_split)
 
 
 def _check_slopes(name, slopes, qh) -> None:
@@ -350,13 +468,15 @@ def decode_attention(q, k_cache, v_cache, rows, positions, scale: float,
         raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
     gq = qh // kv
     _check_kernel_args(name, q, k_cache, v_cache, rows, positions, t, gq)
+    split = _row_split_buffers(name, q, r1, kv, s)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             _ptr(page_table), _ptr(slopes), rows.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), t, kv, gq, r1, s, d,
-            page_size, float(scale), _DTYPE_CODES[q.dtype], stream)
+            positions.data_ptr(), _ptr(split[0]), _ptr(split[1]),
+            out.data_ptr(), t, kv, gq, r1, s, d, page_size, *split[2:],
+            float(scale), _DTYPE_CODES[q.dtype], stream)
     _count(decode_attention, k_scale, page_table, slopes)
     return out
 
@@ -483,12 +603,13 @@ def tree_attention_batched_plain(q, k_cache, v_cache, k_spec, v_spec, rows,
 
 
 def tree_split_plan(s_len: int):
-    """``(n_split, split_blocks)``: the bf16 batched tree kernel cuts each
-    request's committed prefix into splits of ``split_blocks`` whole
-    :data:`PAGE_BLOCK`-key blocks, ``n_split`` of them covering a cache of
-    ``s_len`` positions.  The plan depends on shapes only, so the device
-    path reads no ``clens`` back; the splits past a request's committed
-    blocks are empty, except the last, which also takes the spec segment."""
+    """``(n_split, split_blocks)``: the bf16 split-KV kernels (decode, both
+    tree layouts) cut each cache row's committed prefix into splits of
+    ``split_blocks`` whole :data:`PAGE_BLOCK`-key blocks, ``n_split`` of
+    them covering a cache of ``s_len`` positions.  The plan depends on
+    shapes only, so the device path reads no positions or ``clens`` back;
+    the splits past a row's keys are empty, except the tree kernels' last,
+    which also takes the spec segment."""
     blocks = -(-s_len // PAGE_BLOCK)
     return max(1, -(-blocks // SPLIT_BLOCKS)), SPLIT_BLOCKS
 
@@ -507,55 +628,54 @@ def split_blocks(clen: int, s_len: int):
     return out
 
 
+def tree_token_split_partials_plain(q, k_cache, v_cache, k_spec, v_spec,
+                                    rows, clens, amask, scale, k_scale=None,
+                                    v_scale=None, page_table=None,
+                                    page_size=0):
+    """Plain version of the bf16 tree kernels' split pass (any device):
+    each flat token's ``(m, l, acc)`` per split of :func:`tree_split_plan`
+    over its committed keys ``< clens``, the last split also over the spec
+    keys under its mask, f32, natural base (the kernels keep m in base 2).
+    Returns ``m, l [n_split, T, QH]`` and ``acc [n_split, T, QH, D]``."""
+    t, qh, d = q.shape
+    r1, kv, s, _ = k_cache.shape
+    p = k_spec.shape[2]
+    n_split, per = tree_split_plan(s)
+    rows = rows.long().clamp(0, r1 - 1)
+    key_pos = torch.arange(s, device=q.device)
+    k_tok = torch.cat([_rows_f32(k_cache, k_scale, page_table, page_size,
+                                 rows), k_spec[rows].float()], dim=2)
+    v_tok = torch.cat([_rows_f32(v_cache, v_scale, page_table, page_size,
+                                 rows), v_spec[rows].float()], dim=2)
+    qr = q.float().reshape(t, kv, qh // kv, d)
+    scores = torch.einsum("tkgd,tksd->tkgs", qr, k_tok) * scale
+    live = torch.cat([key_pos[None, :] < clens.long().clamp(0, s)[:, None],
+                      amask], dim=1)
+    split_id = torch.cat([key_pos // (per * PAGE_BLOCK),
+                          torch.full((p,), n_split - 1, device=q.device)])
+    return _split_partials(scores, v_tok, live, split_id, n_split)
+
+
 def tree_split_partials_plain(q, k_cache, v_cache, k_spec, v_spec, rows,
                               clens, amask, scale, k_scale=None, v_scale=None,
                               page_table=None, page_size=0):
     """Plain version of the bf16 batched tree kernel's split pass (any
-    device): for each split of :func:`tree_split_plan`, each query's
-    ``(m, l, acc)`` over the split's keys in f32, natural base (the kernel
-    keeps m in base 2).  A split with no live key gives ``m = NEG_INF``,
-    ``l = 0``, ``acc = 0``.  Returns ``m, l [n_split, R, P, QH]`` and
-    ``acc [n_split, R, P, QH, D]``."""
+    device): :func:`tree_token_split_partials_plain` with each request's
+    row, depth and mask rows repeated over its P tree tokens.  Returns
+    ``m, l [n_split, R, P, QH]`` and ``acc [n_split, R, P, QH, D]``."""
     r, p, qh, d = q.shape
-    r1, kv, s, _ = k_cache.shape
-    gq = qh // kv
-    n_split, _ = tree_split_plan(s)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m = torch.full((n_split, r, p, qh), NEG_INF, **f32)
-    l = torch.zeros((n_split, r, p, qh), **f32)
-    acc = torch.zeros((n_split, r, p, qh, d), **f32)
-    rows = rows.long().clamp(0, r1 - 1)
-    for i in range(r):
-        row = rows[i:i + 1]
-        k_t = _rows_f32(k_cache, k_scale, page_table, page_size, row)[0]
-        v_t = _rows_f32(v_cache, v_scale, page_table, page_size, row)[0]
-        clen = int(clens[i].clamp(0, s))
-        qr = q[i].float().reshape(p, kv, gq, d)
-        for j, (lo, hi) in enumerate(split_blocks(clen, s)):
-            keys = slice(lo * PAGE_BLOCK, min(hi * PAGE_BLOCK, clen))
-            kj, vj = k_t[:, keys], v_t[:, keys]
-            live = torch.ones(p, kj.shape[1], dtype=torch.bool,
-                              device=q.device)
-            if j == n_split - 1:
-                kj = torch.cat([kj, k_spec[rows[i]].float()], dim=1)
-                vj = torch.cat([vj, v_spec[rows[i]].float()], dim=1)
-                live = torch.cat([live, amask[i]], dim=1)
-            if kj.shape[1] == 0:
-                continue
-            lv = live[:, None, None, :]                      # [P, 1, 1, n]
-            sc = torch.einsum("bkgd,ksd->bkgs", qr, kj) * scale
-            sc = sc.masked_fill(~lv, NEG_INF)
-            mj = sc.amax(-1)
-            w = torch.exp(sc - mj[..., None]) * lv
-            m[j, i] = mj.reshape(p, qh)
-            l[j, i] = w.sum(-1).reshape(p, qh)
-            acc[j, i] = torch.einsum("bkgs,ksd->bkgd", w, vj).reshape(
-                p, qh, d)
-    return m, l, acc
+    m, l, acc = tree_token_split_partials_plain(
+        q.reshape(r * p, qh, d), k_cache, v_cache, k_spec, v_spec,
+        rows.repeat_interleave(p), clens.repeat_interleave(p),
+        amask.reshape(r * p, -1), scale, k_scale, v_scale, page_table,
+        page_size)
+    n = m.shape[0]
+    return (m.reshape(n, r, p, qh), l.reshape(n, r, p, qh),
+            acc.reshape(n, r, p, qh, d))
 
 
 def merge_partials_plain(m, l, acc):
-    """Plain version of the merge kernel (any device): split partials
+    """Plain version of the split kernels' merge (any device): split partials
     ``m, l [n_split, ...]``, ``acc [n_split, ..., D]`` (natural base) ->
     the f32 output ``[..., D]``.  A partial with ``m = NEG_INF`` (no live
     key) weighs 0; a row with none gives zeros."""
@@ -614,13 +734,15 @@ def tree_attention(q, k_cache, v_cache, k_spec, v_spec, rows, clens, amask,
     _check_kernel_args(name, q, k_cache, v_cache, rows, clens, t, gq,
                        TREE_GROUPS)
     _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, (t, p))
+    split = _row_split_buffers(name, q, r1, kv, s)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             _ptr(page_table), k_spec.data_ptr(), v_spec.data_ptr(),
             rows.data_ptr(), clens.data_ptr(), amask.data_ptr(),
-            out.data_ptr(), t, kv, gq, r1, s, p, d, page_size, float(scale),
+            _ptr(split[0]), _ptr(split[1]), out.data_ptr(), t, kv, gq, r1, s,
+            p, d, page_size, *split[2:], float(scale),
             _DTYPE_CODES[q.dtype], stream)
     _count(tree_attention, k_scale, page_table)
     return out

@@ -509,6 +509,62 @@ def test_decode_kernel_any_group(dev, dtype, gq, d):
                         (rows, pos), (d ** -0.5,), slopes=slopes)
 
 
+@pytest.mark.parametrize("gq,d", [(3, 128), (48, 128), (71, 64)])
+def test_decode_kernel_row_groups(dev, gq, d):
+    """The bf16 row-grouped K1 where its row plan and splits have edges,
+    in the four variants, with and without ALiBi: 100 prompt tokens of one
+    row at consecutive positions (an ALiBi prefill), tokens of other rows
+    scattered through the batch at positions on the block and split
+    boundaries of S = 2048, pads on the scratch row."""
+    from flexflow_tpu_torch.serve import alibi_slopes
+
+    g = torch.Generator().manual_seed(20 + gq)
+    kv, s, r, page = (2 if gq == 3 else 1), 2048, 5, 512
+    bounds = [0, 63, 64, 255, 256, 257, 511, 512, s - 1]
+    rows = [0] * 100 + [1 + i % 4 for i in range(len(bounds))] + [r] * 20
+    pos = list(range(1500, 1600)) + bounds + [0] * 20
+    order = torch.randperm(len(rows), generator=g)
+    rows = torch.tensor(rows, dtype=torch.int32)[order].to(dev)
+    pos = torch.tensor(pos, dtype=torch.int32)[order].to(dev)
+    q = torch.randn(len(order), kv * gq, d, generator=g).to(dev,
+                                                           torch.bfloat16)
+    kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, torch.bfloat16)
+              for _ in range(2))
+    for slopes in (None, alibi_slopes(kv * gq, dev)):
+        _check_variants("decode_attention", dev, torch.bfloat16, q, kc, vc,
+                        page, (rows, pos), (d ** -0.5,), slopes=slopes)
+
+
+@pytest.mark.parametrize("gq", [1, 4])
+def test_tree_kernel_row_groups(dev, gq):
+    """The bf16 row-grouped K3 per-token kernel, in the four variants:
+    requests of a 7-token tree scattered through the batch at committed
+    depths on the block and split boundaries, one request with 70 tokens
+    (two 64-row chunks at gq 1), pads (scratch row, depth 0, empty mask)
+    giving zeros."""
+    g = torch.Generator().manual_seed(30 + gq)
+    kv, s, p, r, d, page = 2, 2048, 8, 6, 128, 512
+    depth = [0, 1, 63, 257, s]
+    rows = [i // 7 for i in range(35)] + [5] * 70 + [r] * 10
+    clens = [depth[i // 7] for i in range(35)] + [1000] * 70 + [0] * 10
+    order = torch.randperm(len(rows), generator=g)
+    rows = torch.tensor(rows, dtype=torch.int32)[order].to(dev)
+    clens = torch.tensor(clens, dtype=torch.int32)[order].to(dev)
+    t = len(order)
+    q = torch.randn(t, kv * gq, d, generator=g).to(dev, torch.bfloat16)
+    kc, vc, sk, sv = (torch.randn(r + 1, kv, n, d, generator=g).to(
+        dev, torch.bfloat16) for n in (s, s, p, p))
+    amask = torch.rand(t, p, generator=g) < 0.4
+    amask[:, 0] = True
+    pads = rows.cpu() == r
+    amask[pads] = False
+    got = _check_variants("tree_attention", dev, torch.bfloat16, q, kc, vc,
+                          page, (sk, sv, rows, clens, amask.to(dev)),
+                          (d ** -0.5,))
+    for out in got.values():
+        assert not out[pads.to(dev)].float().abs().sum()
+
+
 def test_wrappers_reject_bad_cache_variants(dev):
     q = torch.randn(2, 4, 16, device=dev)
     kq = torch.zeros(3, 2, 128, 16, dtype=torch.int8, device=dev)

@@ -127,13 +127,14 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _attend_blocks(qr, keys, vals, ksc, vsc, live, scale, state=None):
+def _attend_blocks(qr, keys, vals, ksc, vsc, live, scale, state=None,
+                   bias=None):
     """One CTA's walk over 64-key blocks as the bf16 kernels do it: f32
     online softmax in base 2, scores times scale * log2 e (then times the
-    int8 key's scale), P (int8: P * vs) rounded to bf16 before P.V.  qr
-    [M, D], keys/vals [N, D] (int8 values as float), ksc/vsc [N] or None,
-    live [M, N]; ``state`` the (m, l, acc) to go on from.  Returns (m, l,
-    acc) in base 2."""
+    int8 key's scale, then plus ``bias`` [M, N] in base 2: K1's ALiBi), P
+    (int8: P * vs) rounded to bf16 before P.V.  qr [M, D], keys/vals [N, D]
+    (int8 values as float), ksc/vsc [N] or None, live [M, N]; ``state`` the
+    (m, l, acc) to go on from.  Returns (m, l, acc) in base 2."""
     n_rows, d = qr.shape
     m, l, acc = state or (torch.full((n_rows,), NEG), torch.zeros(n_rows),
                           torch.zeros(n_rows, d))
@@ -142,6 +143,8 @@ def _attend_blocks(qr, keys, vals, ksc, vsc, live, scale, state=None):
         s = qr @ keys[b].T * (scale * LOG2E)
         if ksc is not None:
             s = s * ksc[b]
+        if bias is not None:
+            s = s + bias[:, b]
         s = s.masked_fill(~live[:, b], NEG)
         m_new = torch.maximum(m, s.amax(1))
         alpha = torch.exp2(m - m_new)
