@@ -27,11 +27,17 @@ and prints no result):
    plain version back to back.  In bfloat16 every kernel runs on the tensor cores
    (mma.sync m16n8k16, a cp.async ring; K1 and both K3 layouts split-KV,
    K1 and K3 per-token after a row plan kernel that groups the flat tokens
-   by cache row on the device); float32 keeps the CUDA-core kernels;
-2b. edge kernels: the bf16 K2 at a ragged shape (3 query heads per KV
-   head, tiles of 40 at positions off the 64-key grid) and the bf16 K3
-   batched layout at committed lengths on the block and split boundaries
-   with a pad request, every variant, held against the plain versions;
+   by cache row on the device); in float32 K2 and K3's batched layout do
+   too, as error-compensated TF32 (three mma.sync m16n8k8 passes, two for
+   int8 caches; both split-KV), while f32 K1 and K3 per-token keep the
+   CUDA-core kernels.  A float32 kernel's bound counts its flops at
+   the TF32 tensor-core rate times its passes (3, or 2 for int8), beside
+   the CUDA-core bound (``cuda_core_bound_ms``);
+2b. edge kernels: K2 at a ragged shape (3 query heads per KV head, tiles
+   of 40 at positions off the block grid, one across f32's key splits)
+   and the K3 batched layout at committed lengths on the block and split
+   boundaries with a pad request, bf16 and f32, every variant, held
+   against the plain versions;
 2c. row edge kernels: the bf16 row-grouped K1 and K3 per-token kernels,
    every variant, held against the plain versions (``1e-2``), paged ==
    contiguous: K1 at 3 query heads per KV head (with and without ALiBi)
@@ -96,7 +102,12 @@ and prints no result):
    ALiBi model's prefill runs through K1; K2 never);
 10. family serve: OPT-6.7B and StarCoder at full width, 2 layers, bf16,
    the 8 prompts, 16 new tokens: every request finishes with in-range
-   tokens, and K1 and K2 launch.
+   tokens, and K1 and K2 launch;
+11. f32 serve: the published Llama-2-7B shape in float32 (the reference's
+   default serving dtype; TF32 off for the GEMMs) serves the 8 prompts, 16
+   new tokens each, through ``RequestManager.generate`` (f32 K2 on the
+   prefill), then through ``SpecDecodeScan`` with the llama-68m-shaped
+   draft (f32 K3 batched on the verify).
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -107,8 +118,9 @@ tokens equal to the incremental run is printed, not required (bf16 streams
 may part at a rounding tie).
 
 The last three lines of standard output are the card's name and power
-limit, the kernels' JSON record (one entry per kernel and cache variant,
-K1's ALiBi variants, and K1 at 71 and 48 query heads per KV head)
+limit, the kernels' JSON record (one entry per kernel and cache variant
+in bf16 and, suffixed ``/f32``, in float32, K1's ALiBi variants, and K1
+at 71 and 48 query heads per KV head)
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
 device.
 """
@@ -121,7 +133,8 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM, data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, data sheet
+# dense, data sheet: f32 on the CUDA cores, TF32 and bf16 tensor cores
+PEAK_FLOPS = {"float32": 67e12, "tf32": 494.7e12, "bfloat16": 989e12}
 VARIANTS = ("fp", "int8", "paged", "int8+paged")
 PAGE = 512          # the serve path's page size (the reference's default)
 
@@ -224,10 +237,22 @@ def prefill_work(rows, pstart, bq, s, kv, qh, d, itemsize, kbytes):
     return nbytes, flops
 
 
-def bound(nbytes, flops, dtype_name):
+def bound(nbytes, flops, dtype_name, variant="fp"):
+    """(least ms, "bytes" or "operations", CUDA-core ms or None): bytes at
+    the HBM rate against flops at the dtype's peak; float32 flops as
+    error-compensated TF32 on the tensor cores, 3 passes (2 for an int8
+    cache, whose values are exact in TF32), with the bound at the CUDA
+    cores' f32 rate third."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    core = None
+    if dtype_name == "float32":
+        passes = 2 if variant.startswith("int8") else 3
+        t_ops = passes * flops / PEAK_FLOPS["tf32"] * 1e3
+        core = max(t_bytes, flops / PEAK_FLOPS["float32"] * 1e3)
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (core,)
 
 
 def cache_variants(att, kv_quant, kc, vc, seed):
@@ -276,7 +301,7 @@ def run_variants(att, torch, name, dn, tol, variants, head, tail, work,
             out[(name, var, dn)] = dict(max_abs_err=err)
             continue
         nb, nf = work(var)
-        bms, by = bound(nb, nf, dn)
+        bms, by, core = bound(nb, nf, dn, var)
         key = var if slopes is None else f"{var}+alibi"
         out[(name, key, dn)] = dict(
             max_abs_err=err, ms=time_ms(lambda: fn(*args, **kw), iters),
@@ -286,6 +311,8 @@ def run_variants(att, torch, name, dn, tol, variants, head, tail, work,
             plain_ms=call_ms(lambda: plain(*args, **kw), 2),
             bound_ms=bms, bound_by=by,
             library_ms=library_ms if var == "fp" else None)
+        if core is not None:
+            out[(name, key, dn)]["cuda_core_bound_ms"] = core
         del want
     for paged, contiguous in (("paged", "fp"), ("int8+paged", "int8")):
         if paged in got and not torch.equal(got[paged], got[contiguous]):
@@ -370,51 +397,60 @@ def phase_kernels(att, kv_quant, torch, dev):
 
 
 def phase_edge_kernels(att, kv_quant, torch, dev):
-    """The bf16 tensor-core K2 and split-KV K3 batched kernels at ragged
-    shapes, in every cache variant, vs their plain versions (``1e-2``),
-    paged == contiguous: K2 with 3 query heads per KV head and tiles of 40
-    (120 folded rows: a full and a part 64-row chunk) at positions off the
-    64-key grid, the last tile ending at S - 1; K3 batched with committed
-    lengths at the block and split boundaries (0, 1, 63, 64, 65, S - 1) and
-    a pad request with no live key (zeros)."""
-    bf = torch.bfloat16
-    tol = dict(atol=1e-2, rtol=1e-2)
+    """K2 and the split-KV K3 batched kernel at ragged shapes, bf16 and
+    f32 (the tensor-core kernels of both), in every cache variant, vs
+    their plain versions (``1e-2`` bf16, ``2e-5`` f32), paged ==
+    contiguous: K2 with 3 query heads per KV head and tiles of 40 (120
+    folded rows: a full and a part 64-row chunk) at positions off the
+    block grid, one across f32's two key splits, the last tile ending at
+    S - 1; K3 batched with committed
+    lengths at the block and split boundaries (0, 1, 31, 32, 63, 64, 65,
+    S - 1) and a pad request with no live key (zeros)."""
     d, s = 128, 2048
     g = torch.Generator().manual_seed(5)
-    kc, vc = (torch.randn(9, 4, s, d, generator=g).to(dev, bf)
-              for _ in range(2))
-    variants = cache_variants(att, kv_quant, kc, vc, 6)
-    q2 = torch.randn(3, 40, 12, d, generator=g).to(dev, bf)
-    res = run_variants(att, torch, "prefill_attention", "bfloat16", tol,
-                       variants, (q2,), (
-                           torch.tensor([0, 5, 2], dtype=torch.int32,
-                                        device=dev),
-                           torch.tensor([100, 0, s - 40], dtype=torch.int32,
-                                        device=dev), d ** -0.5),
-                       None, None, 0)
-    clens = [0, 1, 63, 64, 65, s - 1, 0]
-    r, p, pb = len(clens), 7, 8
-    q3 = torch.randn(r, p, 8, d, generator=g).to(dev, bf)
-    sk, sv = (torch.randn(9, 4, pb, d, generator=g).to(dev, bf)
-              for _ in range(2))
-    amask = torch.rand(r, p, pb, generator=g) < 0.4
-    amask[:, :, 0] = True
-    amask[-1] = False
-    tail = (sk, sv, torch.tensor(list(range(r - 1)) + [8], dtype=torch.int32,
-                                 device=dev),
-            torch.tensor(clens, dtype=torch.int32, device=dev),
-            amask.to(dev), d ** -0.5)
-    res.update(run_variants(att, torch, "tree_attention_batched", "bfloat16",
-                            tol, variants, (q3,), tail, None, None, 0))
-    for var, (k, v, kw) in variants.items():
-        out = att.tree_attention_batched(q3, k, v, *tail, **kw)
-        if out[-1].float().abs().sum().item() != 0:
-            raise AssertionError(f"tree_attention_batched {var}: a request "
-                                 "with no live key gave non-zeros")
+    res = {}
+    for dtype, tol in ((torch.bfloat16, dict(atol=1e-2, rtol=1e-2)),
+                       (torch.float32, dict(atol=2e-5, rtol=2e-5))):
+        dn = str(dtype).replace("torch.", "")
+        kc, vc = (torch.randn(9, 4, s, d, generator=g).to(dev, dtype)
+                  for _ in range(2))
+        variants = cache_variants(att, kv_quant, kc, vc, 6)
+        q2 = torch.randn(3, 40, 12, d, generator=g).to(dev, dtype)
+        res.update(run_variants(
+            att, torch, "prefill_attention", dn, tol, variants, (q2,), (
+                torch.tensor([0, 5, 2], dtype=torch.int32, device=dev),
+                torch.tensor([1000, 0, s - 40], dtype=torch.int32,
+                             device=dev), d ** -0.5),
+            None, None, 0))
+        clens = [0, 1, 31, 32, 63, 64, 65, s - 1, 0]
+        r, p, pb = len(clens), 7, 8
+        q3 = torch.randn(r, p, 8, d, generator=g).to(dev, dtype)
+        sk, sv = (torch.randn(r + 1, 4, pb, d, generator=g).to(dev, dtype)
+                  for _ in range(2))
+        kc, vc = (torch.randn(r + 1, 4, s, d, generator=g).to(dev, dtype)
+                  for _ in range(2))
+        variants = cache_variants(att, kv_quant, kc, vc, 6)
+        amask = torch.rand(r, p, pb, generator=g) < 0.4
+        amask[:, :, 0] = True
+        amask[-1] = False
+        tail = (sk, sv, torch.tensor(list(range(r - 1)) + [r],
+                                     dtype=torch.int32, device=dev),
+                torch.tensor(clens, dtype=torch.int32, device=dev),
+                amask.to(dev), d ** -0.5)
+        res.update(run_variants(att, torch, "tree_attention_batched", dn,
+                                tol, variants, (q3,), tail, None, None, 0))
+        for var, (k, v, kw) in variants.items():
+            out = att.tree_attention_batched(q3, k, v, *tail, **kw)
+            if out[-1].float().abs().sum().item() != 0:
+                raise AssertionError(f"tree_attention_batched {var} {dn}: a "
+                                     "request with no live key gave "
+                                     "non-zeros")
+        del kc, vc, variants
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    log("edge kernels (bf16, ragged K2, K3 split boundaries): " + " ".join(
-        f"{name}/{var} err={v['max_abs_err']:.3g}"
-        for (name, var, _), v in res.items()))
+    log("edge kernels (ragged K2, K3 split boundaries): " + " ".join(
+        f"{name}/{var}/{dn} err={v['max_abs_err']:.3g}"
+        for (name, var, dn), v in res.items()))
 
 
 def phase_row_edge_kernels(att, kv_quant, torch, dev):
@@ -1169,20 +1205,20 @@ class Serving:
 
         self.TimedRM, self.TimedSpec = TimedRM, TimedSpec
 
-    def generate(self, label, manager, prompts, ref=None):
-        """``manager.generate(prompts)``, 64 tokens each; returns (streams,
-        launches, mean TTFT s, mean TPOT ms)."""
+    def generate(self, label, manager, prompts, ref=None, n_new=64):
+        """``manager.generate(prompts)``, ``n_new`` tokens each; returns
+        (streams, launches, mean TTFT s, mean TPOT ms)."""
         self.stamps.clear()
         t0 = time.perf_counter()
         outs, n = counted(self.att, lambda: manager.generate(prompts))
         self.torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        check_streams(outs, 64, self.vocab, label)
+        check_streams(outs, n_new, self.vocab, label)
         ttft, tpot = stream_times(self.stamps, t0)
         extra = ""
         if ref is not None:
             extra = (f", tokens per LLM verify pass per request "
-                     f"{63 * len(prompts) / manager.rows_verified:.3f} "
+                     f"{(n_new - 1) * len(prompts) / manager.rows_verified:.3f} "
                      f"({manager.llm_steps} passes), equal to incremental "
                      f"{equal_share(outs, ref):.4f}")
         log(f"serve {label}: wall {wall:.2f}s, "
@@ -1192,9 +1228,10 @@ class Serving:
             + " | TPOT ms " + " ".join(f"{x:.2f}" for x in tpot))
         return outs, n, sum(ttft) / len(ttft), sum(tpot) / len(tpot)
 
-    def scan(self, label, llm, ssm, prompts, width, depth, window, ref):
+    def scan(self, label, llm, ssm, prompts, width, depth, window, ref,
+             n_new=64):
         """Prefill (held), then windows of ``window`` macro steps (one
-        read-back each) until every request has its 64 tokens."""
+        read-back each) until every request has its ``n_new`` tokens."""
         import numpy as np
 
         n_req = len(prompts)
@@ -1207,7 +1244,7 @@ class Serving:
         lens = [len(p) for p in prompts]
         sc = self.serve.SpecDecodeScan(llm, ssm, width=width, depth=depth)
         carry = sc.init_carry(firsts, lens, lens, [False] * n_req,
-                              budget=[63] * n_req)
+                              budget=[n_new - 1] * n_req)
         ems = []
 
         def loop(carry):
@@ -1222,15 +1259,16 @@ class Serving:
         em = np.concatenate(ems)
         outs = [[firsts[i]] + [int(t) for t in em[:, i].reshape(-1)
                                if t >= 0] for i in range(n_req)]
-        check_streams(outs, 64, self.vocab, label)
+        check_streams(outs, n_new, self.vocab, label)
         # macro steps each request took part in: one LLM pass each
         took = [int(np.nonzero((em[:, i] >= 0).any(1))[0].max()) + 1
                 for i in range(n_req)]
+        after = n_new - 1
         log(f"serve {label}: prefill {t_prefill:.2f}s, {len(em)} macro "
             f"steps in {len(ems)} windows {wall:.2f}s, "
-            f"{63 * n_req / wall:.1f} tok/s after the first token, TPOT "
-            f"{1e3 * wall / 63:.2f} ms, tokens per LLM pass per request "
-            f"{63 * n_req / sum(took):.3f}, equal to incremental "
+            f"{after * n_req / wall:.1f} tok/s after the first token, TPOT "
+            f"{1e3 * wall / after:.2f} ms, tokens per LLM pass per request "
+            f"{after * n_req / sum(took):.3f}, equal to incremental "
             f"{equal_share(outs, ref):.4f}; launches {short(n)}")
         return outs, n
 
@@ -1488,8 +1526,56 @@ def phase_serve_families(serve, att, torch, dev):
     return launches
 
 
-TC_KERNELS = ("prefill_tc_kernel", "tree_split_kernel", "tree_merge_kernel",
-              "decode_split_kernel", "tree_token_split_kernel")
+def phase_serve_f32(serve, att, torch, dev):
+    """The published Llama-2-7B shape in float32 (TF32 off for the GEMMs),
+    the 8 prompts, 16 new tokens each: incremental (f32 K2 on the
+    prefill), then ``SpecDecodeScan`` with the llama-68m-shaped draft (f32
+    K3 batched on the verify).  Returns {path: launches}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = serve.ServeModelConfig(dtype="float32")   # Llama-2-7B defaults
+    kw = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
+              max_spec_tokens=8, device=dev)
+    n_new = 16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    im = serve.InferenceManager(serve.build_model(cfg), **kw)
+    im.init_operators_inference(seed=0)
+    torch.cuda.synchronize()
+    w_bytes = sum(p.numel() * p.element_size()
+                  for p in im.model.parameters())
+    log(f"f32 serve: 7B f32 init {time.perf_counter() - t0:.1f}s, weights "
+        f"{w_bytes / 1e9:.2f} GB, KV cache + spec buffers "
+        f"{im.kv.allocated_bytes() / 1e9:.2f} GB")
+    run = Serving(serve, att, torch, cfg.vocab_size)
+    prompts = serve_prompts(cfg.vocab_size)
+    launches = {}
+    incr, launches["incremental"], ttft, tpot = run.generate(
+        "f32 incremental", run.TimedRM(im, serve.GenerationConfig(
+            max_new_tokens=n_new)), prompts, n_new=n_new)
+    require_launches(launches["incremental"], "f32 incremental", "fp",
+                     ("decode_attention", "prefill_attention"))
+    draft = serve.InferenceManager(
+        serve.build_model(draft_config(serve, "float32")), topk=2, **kw)
+    draft.init_operators_inference(seed=1)
+    _, launches["spec device"] = run.scan(
+        "f32 spec device (llama-68m draft)", im, draft, prompts, 2, 3, 15,
+        incr, n_new=n_new)
+    require_launches(launches["spec device"], "f32 spec device", "fp",
+                     ("tree_attention_batched", "tree_attention"))
+    log(f"f32 serve: mean TTFT {ttft:.3f}s, mean TPOT {tpot:.2f} ms, "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del im, draft
+    torch.cuda.empty_cache()
+    return launches
+
+
+TC_KERNELS = ("prefill_tc_kernel", "prefill_tf32_kernel",
+              "tree_split_tf32_kernel", "tree_split_kernel",
+              "tree_merge_kernel", "decode_split_kernel",
+              "tree_token_split_kernel")
 
 
 def tc_reports(text):
@@ -1576,13 +1662,27 @@ def main():
     mpt = timed("mpt serve", lambda: phase_serve_mpt(serve, att, torch, dev))
     fams = timed("family serve", lambda: phase_serve_families(
         serve, att, torch, dev))
+    f32 = timed("f32 serve", lambda: phase_serve_f32(serve, att, torch,
+                                                      dev))
 
     # each kernel variant's launches on the path that runs it: fp on the
     # 7B bf16 serve path, int8+paged on the 7B int8 serve path, int8 and
     # paged on the 2-layer variant-parity paths; K1's ALiBi variants on the
     # MPT-7B serve paths (fp, int8+paged) and the 2-layer MPT parity paths
     # (int8, paged); K1 at 71 and 48 query heads per KV head on the
-    # Falcon-7B parity path and the StarCoder serve path
+    # Falcon-7B parity path and the StarCoder serve path; float32: fp on
+    # the 7B f32 serve path, the others on the (f32) variant-parity paths
+    def path_counts_f32(var):
+        if var == "fp":
+            return {"decode_attention": f32["incremental"],
+                    "prefill_attention": f32["incremental"],
+                    "tree_attention": f32["spec device"],
+                    "tree_attention_batched": f32["spec device"]}
+        return {"decode_attention": parity[var]["incremental"],
+                "prefill_attention": parity[var]["incremental"],
+                "tree_attention": parity[var]["spec host"],
+                "tree_attention_batched": parity[var]["spec device"]}
+
     def path_counts(var):
         if var == "fp":
             return {"decode_attention": launches["incremental"],
@@ -1621,6 +1721,11 @@ def main():
             # the serve path's dtype
             entry(name, var, kres[(name, var, "bfloat16")],
                   counts[name][(name, var)])
+    for var in VARIANTS:
+        counts = path_counts_f32(var)
+        for name in COUNTED:
+            entry(name, "f32" if var == "fp" else f"{var}/f32",
+                  kres[(name, var, "float32")], counts[name][(name, var)])
     k1 = "decode_attention"
     for var in att.ALIBI_VARIANTS:
         n = (mpt[var] if var in mpt else fam_parity[("mpt", var)])

@@ -37,8 +37,9 @@
 //     warp computes a decode chunk: resident CTAs bound the blocks in
 //     flight).  Pad tokens (pos 0 on the scratch row) share one chunk
 //     group reading one key;
-//   * float32 (decode_kernel): the tensor cores have no f32 mode, so f32
-//     keeps the CUDA-core design: one CTA per (token, kv head, chunk of
+//   * float32 (decode_kernel): f32 keeps the CUDA-core design (its
+//     redesign as error-compensated TF32 on the tensor cores, as K2's, is
+//     later work): one CTA per (token, kv head, chunk of
 //     query heads); the causal clamp is the loop bound, so no byte beyond
 //     pos[t] is fetched; the query heads of a group are processed GQ at a
 //     time, GQ in {1, 2, 4, 8} a template parameter that sizes registers

@@ -1,8 +1,9 @@
 // Device helpers shared by the attention kernels (decode_attention.cu,
 // prefill_attention.cu, tree_attention.cu): vector loads of cache rows in
 // float, bfloat16 or int8 with their conversion to f32 in registers, the
-// addressing of a head's key rows through an optional page table, and the
-// host-side dispatch from runtime arguments to template instantiations.
+// addressing of a head's key rows through an optional page table, the
+// merge of split-KV partials, and the host-side dispatch from runtime
+// arguments to template instantiations.
 //
 // Cache layout: K and V are [R+1, KV, S, D]; an int8 cache carries f32
 // dequant scales [R+1, KV, S] beside it (one per key vector); a paged cache
@@ -172,6 +173,53 @@ template <bool PAGED>
 __device__ __forceinline__ size_t head_keys(int row, int num_kv, int h,
                                             int s_len) {
   return PAGED ? 0 : (static_cast<size_t>(row) * num_kv + h) * s_len;
+}
+
+// ---------------------------------------------------------------------------
+// split-KV partials
+// ---------------------------------------------------------------------------
+// scratch holds f32 (m, l) pairs [n_split][total], then acc [n_split]
+// [total][D], total = n_req * num_kv * m_rows rows in (request or tile, kv
+// head, folded row) order, m in base 2 (scores times log2 e).  One warp
+// per row (kMergeRows rows a CTA, lanes over D <= 128) combines the row's
+// partials in split order, weighting one by exp2(m_i - m) and skipping one
+// with m_i = kNegInf (no live key), so a row with no live key gives zeros,
+// into out [n_req][m_rows / gq][num_kv * gq][D] in T.
+constexpr int kMergeRows = 4;
+
+template <typename T>
+__device__ __forceinline__ void merge_split_row(
+    const float* __restrict__ scratch, T* __restrict__ out, int n_req,
+    int p_tok, int num_kv, int gq, int d_head, int n_split) {
+  const int m_rows = p_tok * gq;
+  const size_t total = (size_t)n_req * num_kv * m_rows;
+  const size_t r = (size_t)blockIdx.x * kMergeRows + threadIdx.x / 32;
+  if (r >= total) return;
+  const int lane = threadIdx.x & 31;
+  const float2* part_ml = reinterpret_cast<const float2*>(scratch);
+  const float* part_acc = scratch + 2 * (size_t)n_split * total;
+  float mx = kNegInf;
+  for (int j = 0; j < n_split; ++j) mx = fmaxf(mx, part_ml[j * total + r].x);
+  float lsum = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};   // d = lane + 32 * e
+  for (int j = 0; j < n_split; ++j) {
+    const float2 ml = part_ml[j * total + r];
+    if (ml.x == kNegInf) continue;       // no live key in this split
+    const float w = exp2f(ml.x - mx);
+    lsum = fmaf(ml.y, w, lsum);
+    const float* ap = part_acc + (j * total + r) * d_head;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (lane + 32 * e < d_head) o[e] = fmaf(ap[lane + 32 * e], w, o[e]);
+  }
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
+  const int mg = r % m_rows;
+  const int h = (r / m_rows) % num_kv;
+  const int req = r / ((size_t)m_rows * num_kv);
+  T* op = out + (((size_t)req * p_tok + mg / gq) * num_kv * gq + h * gq +
+                 mg % gq) * d_head;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (lane + 32 * e < d_head) op[lane + 32 * e] = from_float<T>(o[e] * inv);
 }
 
 // ---------------------------------------------------------------------------

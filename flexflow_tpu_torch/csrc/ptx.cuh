@@ -1,7 +1,8 @@
 // Thin wrappers over the PTX instructions of the tensor-core attention
-// kernels (tc_attention.cuh): cp.async copies into shared memory with
-// zero fill, ldmatrix fragment loads, and the bf16 mma.sync product
-// m16n8k16 with f32 accumulation.
+// kernels (tc_attention.cuh, tc_attention_f32.cuh): cp.async copies into
+// shared memory with zero fill, ldmatrix fragment loads, the bf16 mma.sync
+// product m16n8k16 and the TF32 product m16n8k8, both with f32
+// accumulation, and the round-to-nearest conversion of f32 to TF32.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for
 // lane l of a warp, g = l / 4 and t = l % 4:
@@ -16,6 +17,19 @@
 // ldmatrix .x4 loads four 8x8 b16 matrices whose rows lanes 0-7, 8-15,
 // 16-23 and 24-31 address; lane l receives (row l / 4, cols 2(l % 4),
 // +1) of each, or with .trans (rows 2(l % 4), +1; col l / 4).
+//
+// "Matrix fragments for mma.m16n8k8" with .tf32 operands, one TF32 value
+// (an f32 bit pattern whose low 13 mantissa bits the product ignores) per
+// 32-bit register:
+//   A (16 x 8, row-major): a0 = (row g, col t), a1 = (row g + 8, col t),
+//     a2 = (row g, col t + 4), a3 = (row g + 8, col t + 4);
+//   B (8 x 8, "col"): b0 = (k t; n g), b1 = (k t + 4; n g);
+//   C/D (16 x 8 f32): as for m16n8k16 above.
+// The product ignores the low bits rather than rounding them away, so
+// operands are rounded first (tc_attention_f32.cuh's split, held against
+// tf32_rna on the card).  The card test
+// tests/test_torch_cuda.py::test_tf32x3_fragments_exact pins this layout
+// with exact integer products.
 
 #pragma once
 
@@ -90,6 +104,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b, TF32 operands (see tf32_rna), f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32, to nearest with ties away from zero (the magnitude's
+// bit pattern plus 0x1000, low 13 bits cleared), as an f32 bit pattern
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
 // two floats rounded to bf16 (nearest even), lo in the low 16 bits

@@ -32,9 +32,9 @@
 //     also takes the spec segment under each token's mask; the last split
 //     CTA of a chunk to finish merges its rows' partials; rows with no
 //     live key (pads: clens 0, empty mask) give zeros;
-//   * per-token layout, float32 (tree_token_kernel): the tensor cores have
-//     no f32 mode, so f32 keeps K1's CUDA-core design
-//     (decode_attention.cu): one CTA per (token, kv head), lane groups
+//   * per-token layout, float32 (tree_token_kernel): f32 keeps K1's
+//     CUDA-core design (decode_attention.cu; a tensor-core redesign is
+//     later work): one CTA per (token, kv head), lane groups
 //     streaming 16-byte K/V vectors, each group with its own softmax
 //     state, merged once; the committed clamp is the loop bound, so a pad
 //     token (clens 0, empty mask) reads nothing.  Tokens of one request
@@ -61,13 +61,22 @@
 //     The merge kernel combines each row's partials in split order, weighting
 //     a partial by exp2(m_i - m) and skipping one with m_i = kNegInf, so a
 //     row with no live key still gives zeros;
-//   * batched layout, float32 (tree_batched_kernel): the tensor cores have
-//     no f32 mode, so f32 keeps K2's CUDA-core design: one CTA per
-//     (request, kv head, chunk of 16 or 64 folded rows), 64-key K/V blocks
-//     staged in shared memory as f32, the spec buffer as the last blocks;
+//   * batched layout, float32 (tree_split_tf32_kernel + the same merge):
+//     the same split-KV plan and scratch, on the tensor cores as
+//     error-compensated TF32 (tc_attention_f32.cuh: three mma.sync m16n8k8
+//     passes on the operands' TF32 hi and lo parts, two for an int8
+//     cache's exact values; P kept in f32 and split), 32-key blocks in a
+//     three-stage cp.async ring.  A CTA holds one chunk of 16 folded rows
+//     (the 7 of the serve shape; more rows, as under GQA, take more chunks,
+//     which re-read the prefix from L2), and its four warps split each
+//     block's keys, one 8-key column tile each, every warp with its own
+//     softmax state over the same rows; the CTA merges the four states in
+//     shared memory before it writes its split's partial.  The merge
+//     kernel writes f32 without a bf16 rounding;
 //   * paged: f32 per-token threads translate a page once and reuse it; a
-//     64-key block (bf16, and f32 batched) sits inside one page (the
-//     wrapper requires pages of whole 64-key blocks) and translates once.
+//     key block (64 keys bf16, 32 keys f32 batched) sits inside one page
+//     (the wrapper requires pages of whole 64-key blocks) and translates
+//     once.
 //     Keys are visited in the contiguous layout's order, splits fall on the
 //     same block boundaries and merge in a fixed order, so the two give
 //     identical bits.
@@ -81,6 +90,7 @@
 #include "kv_access.cuh"
 #include "row_tiles.cuh"
 #include "tc_attention.cuh"
+#include "tc_attention_f32.cuh"
 
 namespace {
 
@@ -88,10 +98,9 @@ using namespace ffk;
 
 constexpr int kThreads = 128;   // per-token kernel
 constexpr int kUnroll = 4;
-constexpr int BN = 64;          // keys per shared-memory block (batched)
-constexpr int kBThreads = 256;  // batched kernel, f32
-constexpr int kTcThreads = 128; // bf16 split kernel: four warps
-constexpr int kMergeRows = 4;   // merge kernel: one warp per folded row
+constexpr int kTcThreads = 128; // split kernels: four warps
+constexpr int kTfRows = 16;     // f32 split kernel: folded rows per CTA
+constexpr int kTfStages = 3;    // f32 split kernel: ring depth
 using tc::bf16;
 
 // ---------------------------------------------------------------------------
@@ -273,281 +282,6 @@ tree_token_kernel(const T* __restrict__ q, const KT* __restrict__ k,
 // batched layout
 // ---------------------------------------------------------------------------
 
-template <int D, int BM, bool KVQ>
-constexpr size_t batched_smem_floats() {
-  // Qs [BM][D+1], Ks [BN][D+1], Vs [BN][D], Ss [BM][BN+1], m/l/alpha [BM],
-  // and for an int8 cache the block's K and V scales [BN] each
-  return (size_t)BM * (D + 1) + (size_t)BN * (D + 1) + (size_t)BN * D +
-         (size_t)BM * (BN + 1) + 3 * BM + (KVQ ? 2 * BN : 0);
-}
-
-// Stage keys [n0, n0 + BN) of one segment into Ks/Vs as f32, rows at and
-// past `limit` as zeros; k_rows/v_rows point at key row 0 of the block.
-template <typename E, int VEC, int D>
-__device__ __forceinline__ void stage_block(const E* __restrict__ kbk,
-                                            const E* __restrict__ vbk,
-                                            int n0, int limit, int tid,
-                                            float* Ks, float* Vs) {
-  constexpr int VPR = D / VEC;
-  constexpr int DP = D + 1;
-  for (int i = tid; i < BN * VPR; i += kBThreads) {
-    const int r = i / VPR, c = i % VPR, n = n0 + r;
-    float kf[VEC], vf[VEC];
-    if (n < limit) {
-      const size_t off = (size_t)r * D + c * VEC;
-      Vec<E, VEC> kr, vr;
-      kr.load(kbk + off);
-      vr.load(vbk + off);
-      kr.to_float(kf);
-      vr.to_float(vf);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      Ks[r * DP + c * VEC + e] = kf[e];
-      Vs[r * D + c * VEC + e] = vf[e];
-    }
-  }
-}
-
-// float32: CUDA-core FMAs (see the header)
-template <typename T, typename KT, int D, int BM, bool PAGED>
-__global__ void __launch_bounds__(kBThreads)
-tree_batched_kernel(const T* __restrict__ q, const KT* __restrict__ k,
-                    const KT* __restrict__ v, const float* __restrict__ ks,
-                    const float* __restrict__ vs,
-                    const int* __restrict__ table, const T* __restrict__ sk,
-                    const T* __restrict__ sv, const int* __restrict__ rows,
-                    const int* __restrict__ clens,
-                    const uint8_t* __restrict__ amask, T* __restrict__ out,
-                    int p_tok, int num_kv, int gq, int r1, int s_len,
-                    int p_len, int page, float scale) {
-  constexpr bool KVQ = std::is_same<KT, int8_t>::value;
-  // elements per staged vector: 16 bytes (an int8 row of D = 8: 8 bytes)
-  constexpr int VEC_T = 16 / sizeof(T);
-  constexpr int VEC_K = KVQ ? (D >= 16 ? 16 : 8) : VEC_T;
-  static_assert(D % VEC_T == 0 && D % VEC_K == 0,
-                "head dim must fill whole vectors");
-  constexpr int DP = D + 1;
-  constexpr int SP = BN + 1;
-  constexpr int DJ = (D + 15) / 16;     // output columns per thread
-  constexpr int RM = BM / 16;           // query rows per thread
-  constexpr int LPR = kBThreads / BM;   // softmax lanes per row
-  constexpr int KPL = BN / LPR;         // keys per softmax lane
-  static_assert(BM % 16 == 0 && LPR <= 32 && 32 % LPR == 0,
-                "a row's softmax lanes must sit in one warp");
-
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BM * DP;
-  float* Vs = Ks + BN * DP;
-  float* Ss = Vs + BN * D;
-  float* row_m = Ss + BM * SP;
-  float* row_l = row_m + BM;
-  float* row_a = row_l + BM;
-  float* Ksc = row_a + BM;              // int8 only: [BN] K scales
-  float* Vsc = Ksc + BN;                // int8 only: [BN] V scales
-
-  const int req = blockIdx.x;
-  const int h = blockIdx.y;
-  const int m0 = blockIdx.z * BM;
-  const int tid = threadIdx.x;
-  const int m_rows = p_tok * gq;
-  const int qh = num_kv * gq;
-  const int row = min(max(rows[req], 0), r1 - 1);
-  const int clen = min(max(clens[req], 0), s_len);
-
-  for (int i = tid; i < BM * D; i += kBThreads) {
-    const int r = i / D, d = i % D, mg = m0 + r;
-    float val = 0.f;
-    if (mg < m_rows) {
-      const int b = mg / gq, g = mg % gq;
-      val = to_float(q[(((size_t)req * p_tok + b) * qh + h * gq + g) * D + d]);
-    }
-    Qs[r * DP + d] = val;
-  }
-  if (tid < BM) {
-    row_m[tid] = kNegInf;
-    row_l[tid] = 0.f;
-  }
-
-  const int nb_c = (clen + BN - 1) / BN;     // committed blocks
-  const int nb_s = (p_len + BN - 1) / BN;    // spec-buffer blocks
-  const size_t head_base = head_keys<PAGED>(row, num_kv, h, s_len);
-  KeyRows<PAGED> keys(table, row, num_kv, h, s_len, page);
-  const size_t head = (size_t)row * num_kv + h;
-  const T* ksp = sk + head * p_len * D;
-  const T* vsp = sv + head * p_len * D;
-  const uint8_t* mrow = amask + (size_t)req * p_tok * p_len;
-
-  const int tx = tid % 16, ty = tid / 16;
-  float o[RM][DJ];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
-  __syncthreads();
-
-  for (int nb = 0; nb < nb_c + nb_s; ++nb) {
-    const bool spec = nb >= nb_c;
-    const int n0 = (spec ? nb - nb_c : nb) * BN;
-    const int limit = spec ? p_len : clen;
-    if (spec) {
-      stage_block<T, VEC_T, D>(ksp + (size_t)n0 * D, vsp + (size_t)n0 * D,
-                               n0, limit, tid, Ks, Vs);
-      if constexpr (KVQ) {
-        if (tid < BN) Ksc[tid] = Vsc[tid] = 1.f;
-      }
-    } else {
-      // key rows of this block: contiguous from here (a block never
-      // straddles a page)
-      const size_t kb0 = head_base + keys.key(n0);
-      stage_block<KT, VEC_K, D>(k + kb0 * D, v + kb0 * D, n0, limit, tid,
-                                Ks, Vs);
-      if constexpr (KVQ) {
-        if (tid < BN) {
-          const bool in = n0 + tid < limit;
-          Ksc[tid] = in ? ks[kb0 + tid] : 0.f;
-          Vsc[tid] = in ? vs[kb0 + tid] : 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    // scores: rows ty + 16*i, keys tx + 16*j
-    float s[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[RM], kb[4];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qa[i] = Qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty + 16 * i, mg = m0 + r;
-      const int b = mg / gq;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, n = n0 + c;
-        bool live = mg < m_rows && n < limit;
-        if (live && spec) live = mrow[(size_t)b * p_len + n] != 0;
-        float sc = s[i][j] * scale;
-        if constexpr (KVQ) sc *= Ksc[c];
-        Ss[r * SP + c] = live ? sc : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: LPR lanes per row, KPL keys each
-    {
-      const int r = tid / LPR, part = tid % LPR;
-      float mx = kNegInf;
-      for (int c = part * KPL; c < part * KPL + KPL; ++c)
-        mx = fmaxf(mx, Ss[r * SP + c]);
-#pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int c = part * KPL; c < part * KPL + KPL; ++c) {
-        const float sv_ = Ss[r * SP + c];
-        // masked entries hold exactly kNegInf: re-mask after the exp as
-        // the reference does (exp(NEG_INF - NEG_INF) would be 1)
-        const float p = sv_ == kNegInf ? 0.f : expf(sv_ - m_new);
-        // the denominator sums the unscaled p; P.V takes p * vs
-        Ss[r * SP + c] = KVQ ? p * Vsc[c] : p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (part == 0) {
-        const float alpha = expf(m_old - m_new);
-        row_a[r] = alpha;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const float a = row_a[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) o[i][j] *= a;
-    }
-#pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      float pv[RM], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) pv[i] = Ss[(ty + 16 * i) * SP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + 16 * j;
-        vv[j] = d < D ? Vs[c * D + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) o[i][j] = fmaf(pv[i], vv[j], o[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = ty + 16 * i, mg = m0 + r;
-    if (mg >= m_rows) continue;
-    const float inv = 1.f / fmaxf(row_l[r], 1e-30f);
-    const int b = mg / gq, g = mg % gq;
-    T* op = out + (((size_t)req * p_tok + b) * qh + h * gq + g) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) op[d] = from_float<T>(o[i][j] * inv);
-    }
-  }
-}
-
-template <typename T, typename KT, int D, int BM, bool PAGED>
-cudaError_t launch_batched(const void* q, const void* k, const void* v,
-                           const void* ks, const void* vs, const void* table,
-                           const void* sk, const void* sv, const void* rows,
-                           const void* clens, const void* amask, void* out,
-                           int n_req, int p_tok, int num_kv, int gq, int r1,
-                           int s_len, int p_len, int page, float scale,
-                           cudaStream_t stream) {
-  constexpr bool KVQ = std::is_same<KT, int8_t>::value;
-  const size_t smem = batched_smem_floats<D, BM, KVQ>() * sizeof(float);
-  cudaError_t err =
-      tc::allow_smem<tree_batched_kernel<T, KT, D, BM, PAGED>>(smem);
-  if (err != cudaSuccess) return err;
-  const int chunks = (p_tok * gq + BM - 1) / BM;
-  tree_batched_kernel<T, KT, D, BM, PAGED>
-      <<<dim3(n_req, num_kv, chunks), kBThreads, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const KT*>(k),
-          static_cast<const KT*>(v), static_cast<const float*>(ks),
-          static_cast<const float*>(vs), static_cast<const int*>(table),
-          static_cast<const T*>(sk), static_cast<const T*>(sv),
-          static_cast<const int*>(rows), static_cast<const int*>(clens),
-          static_cast<const uint8_t*>(amask), static_cast<T*>(out), p_tok,
-          num_kv, gq, r1, s_len, p_len, page, scale);
-  return cudaGetLastError();
-}
-
 // bfloat16, split-KV (see the header).  Grid (n_split, num_kv, n_req *
 // chunks), four warps: the first NW hold 16 folded rows each, and all
 // four issue the copies and widen int8 blocks.  Scratch: f32 (m, l) pairs
@@ -701,40 +435,13 @@ tree_split_kernel(const bf16* __restrict__ q, const KT* __restrict__ k,
 }
 
 // Merge each folded row's split partials (in split order) into the output
-// in bf16: one warp per row, lanes over D.
+// in T (bf16, or f32 without a rounding): merge_split_row (kv_access.cuh).
+template <typename T>
 __global__ void __launch_bounds__(kMergeRows * 32)
-tree_merge_kernel(const float* __restrict__ scratch, bf16* __restrict__ out,
+tree_merge_kernel(const float* __restrict__ scratch, T* __restrict__ out,
                   int n_req, int p_tok, int num_kv, int gq, int d_head,
                   int n_split) {
-  const int m_rows = p_tok * gq;
-  const size_t total = (size_t)n_req * num_kv * m_rows;
-  const size_t r = (size_t)blockIdx.x * kMergeRows + threadIdx.x / 32;
-  if (r >= total) return;
-  const int lane = threadIdx.x & 31;
-  const float2* part_ml = reinterpret_cast<const float2*>(scratch);
-  const float* part_acc = scratch + 2 * (size_t)n_split * total;
-  float mx = kNegInf;
-  for (int j = 0; j < n_split; ++j) mx = fmaxf(mx, part_ml[j * total + r].x);
-  float lsum = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};   // d = lane + 32 * e
-  for (int j = 0; j < n_split; ++j) {
-    const float2 ml = part_ml[j * total + r];
-    if (ml.x == kNegInf) continue;       // no live key in this split
-    const float w = exp2f(ml.x - mx);
-    lsum = fmaf(ml.y, w, lsum);
-    const float* ap = part_acc + (j * total + r) * d_head;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (lane + 32 * e < d_head) o[e] = fmaf(ap[lane + 32 * e], w, o[e]);
-  }
-  const float inv = 1.f / fmaxf(lsum, 1e-30f);
-  const int mg = r % m_rows;
-  const int h = (r / m_rows) % num_kv;
-  const int req = r / ((size_t)m_rows * num_kv);
-  bf16* op = out + (((size_t)req * p_tok + mg / gq) * num_kv * gq + h * gq +
-                    mg % gq) * d_head;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (lane + 32 * e < d_head) op[lane + 32 * e] = __float2bfloat16(o[e] * inv);
+  merge_split_row<T>(scratch, out, n_req, p_tok, num_kv, gq, d_head, n_split);
 }
 
 // bfloat16 per-token layout: the row-grouped split-KV kernels
@@ -751,6 +458,239 @@ __global__ void __launch_bounds__(
 tree_token_split_kernel(rt::Args a) {
   extern __shared__ __align__(16) unsigned char rt_smem[];
   rt::split_body<KT, D, PAGED, true>(a, rt_smem);
+}
+
+template <typename KT, int D>
+using TfRing = tf32::Ring<KT, D, true, kTfStages>;
+
+template <typename T>
+cudaError_t launch_merge(const void* scratch, void* out, int n_req,
+                         int p_tok, int num_kv, int gq, int d_head,
+                         int n_split, cudaStream_t stream) {
+  const long long total = (long long)n_req * num_kv * p_tok * gq;
+  tree_merge_kernel<T><<<(unsigned)((total + kMergeRows - 1) / kMergeRows),
+                         kMergeRows * 32, 0, stream>>>(
+      static_cast<const float*>(scratch), static_cast<T*>(out), n_req, p_tok,
+      num_kv, gq, d_head, n_split);
+  return cudaGetLastError();
+}
+
+// float32, split-KV on the tensor cores (see the header).  Grid (n_split,
+// num_kv, n_req * chunks of kTfRows folded rows), four warps on the same
+// rows, warp w on column tile w of each 32-key block; scratch as the bf16
+// split kernel's.
+template <typename KT, int D, bool PAGED>
+__global__ void __launch_bounds__(kTcThreads, 2)
+tree_split_tf32_kernel(const float* __restrict__ q, const KT* __restrict__ k,
+                       const KT* __restrict__ v, const float* __restrict__ ks,
+                       const float* __restrict__ vs,
+                       const int* __restrict__ table,
+                       const float* __restrict__ sk,
+                       const float* __restrict__ sv,
+                       const int* __restrict__ rows,
+                       const int* __restrict__ clens,
+                       const uint8_t* __restrict__ amask,
+                       float* __restrict__ scratch, int n_req, int p_tok,
+                       int num_kv, int gq, int r1, int s_len, int p_len,
+                       int page, int n_split, int split_blocks, float scale) {
+  using R = TfRing<KT, D>;
+  constexpr bool KVQ = R::KVQ;
+  constexpr int NT = kTcThreads;
+  constexpr int NS = kTfStages;
+  constexpr int BN = tf32::BN;
+  static_assert(BN == 8 * (kTcThreads / 32),
+                "each warp takes one 8-key column tile of a block");
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  unsigned char* ring = tc_smem;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m_rows = p_tok * gq;
+  const int chunks = (m_rows + kTfRows - 1) / kTfRows;
+  const int split = blockIdx.x, h = blockIdx.y;
+  const int req = blockIdx.z / chunks;
+  const int m0 = (blockIdx.z % chunks) * kTfRows;
+  const int qh = num_kv * gq;
+  const int row = min(max(rows[req], 0), r1 - 1);
+  const int clen = min(max(clens[req], 0), s_len);
+  // this split's committed blocks [c_lo, c_hi) (the plan counts 64-key
+  // blocks; these are BN-key ones, covering the same keys), then the spec
+  // blocks
+  const int per = split_blocks * (64 / BN);
+  const int nb_c = (clen + BN - 1) / BN;
+  const int c_lo = min(split * per, nb_c);
+  const int c_hi = min(c_lo + per, nb_c);
+  const int n_c = c_hi - c_lo;
+  const int n_s = split == n_split - 1 ? (p_len + BN - 1) / BN : 0;
+  const int n_blocks = n_c + n_s;
+  const size_t total = (size_t)n_req * num_kv * m_rows;
+  float2* part_ml = reinterpret_cast<float2*>(scratch);
+  float* part_acc = scratch + 2 * (size_t)n_split * total;
+  const size_t part0 = split * total + ((size_t)req * num_kv + h) * m_rows;
+
+  if (n_blocks == 0) {                  // nothing to see: weight 0
+    for (int r = tid; r < kTfRows; r += NT)
+      if (m0 + r < m_rows) part_ml[part0 + m0 + r] = make_float2(kNegInf, 0.f);
+    return;
+  }
+
+  const size_t head_base = head_keys<PAGED>(row, num_kv, h, s_len);
+  KeyRows<PAGED> keys(table, row, num_kv, h, s_len, page);
+  const size_t spec_base = ((size_t)row * num_kv + h) * p_len;
+  auto issue = [&](int nb) {
+    unsigned char* stg = R::stage(ring, nb);
+    if (nb < n_c) {
+      const int n0 = (c_lo + nb) * BN;
+      // a block never straddles a page
+      const size_t kb0 = head_base + keys.key(n0);
+      tf32::copy_block<R, KT, D>(stg, k + kb0 * D, v + kb0 * D,
+                                 KVQ ? ks + kb0 : nullptr,
+                                 KVQ ? vs + kb0 : nullptr,
+                                 min(BN, clen - n0), tid, NT);
+    } else {
+      const int n0 = (nb - n_c) * BN;
+      tf32::copy_tiles<D>(R::kt(stg), R::vt(stg), sk + (spec_base + n0) * D,
+                          sv + (spec_base + n0) * D, min(BN, p_len - n0), tid,
+                          NT);
+    }
+  };
+#pragma unroll
+  for (int nb = 0; nb < NS - 1; ++nb) {
+    if (nb < n_blocks) issue(nb);
+    cp_async_commit();
+  }
+
+  // every warp holds the chunk's rows; lane rows g and g + 8
+  const int mg0 = m0 + (lane >> 2), mg1 = mg0 + 8;
+  auto q_row = [&](int mg) -> const float* {
+    if (mg >= m_rows) return nullptr;
+    return q + (((size_t)req * p_tok + mg / gq) * qh + h * gq + mg % gq) * D;
+  };
+  tf32::Rows<D, tf32::QKeep::Split> st;
+  st.init(q_row(mg0), q_row(mg1), lane);
+  // the lane's two rows' ancestor-mask rows (null: a row past the tree)
+  const uint8_t* mrow0 =
+      mg0 < m_rows ? amask + ((size_t)req * p_tok + mg0 / gq) * p_len : nullptr;
+  const uint8_t* mrow1 =
+      mg1 < m_rows ? amask + ((size_t)req * p_tok + mg1 / gq) * p_len : nullptr;
+  const float scale2 = scale * tf32::kLog2e;
+
+  for (int nb = 0; nb < n_blocks; ++nb) {
+    if (nb + NS - 1 < n_blocks) issue(nb + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();             // block nb has landed
+    __syncthreads();
+    unsigned char* stg = R::stage(ring, nb);
+    if (nb >= n_c) {
+      const int n0 = (nb - n_c) * BN;
+      st.template attend<float, 1>(
+          R::kt(stg), R::vt(stg), nullptr, nullptr, warp, scale2, lane,
+          [&](int i, int c) {
+            const uint8_t* mr = i ? mrow1 : mrow0;
+            const int n = n0 + c;
+            return mr != nullptr && n < p_len && mr[n] != 0;
+          });
+    } else {
+      const int n0 = (c_lo + nb) * BN;
+      auto live = [&](int i, int c) {
+        return (i ? mg1 : mg0) < m_rows && n0 + c < clen;
+      };
+      if constexpr (KVQ)
+        st.template attend<int8_t, 1>(R::k8(stg), R::v8(stg), R::kscale(stg),
+                                      R::vscale(stg), warp, scale2, lane,
+                                      live);
+      else
+        st.template attend<float, 1>(R::kt(stg), R::vt(stg), nullptr,
+                                     nullptr, warp, scale2, lane, live);
+    }
+    __syncthreads();                     // the stage may be refilled
+  }
+  cp_async_wait<0>();
+  st.finish();
+
+  // merge the four warps' states of each row in shared memory (the ring
+  // is free): weights exp2(m_w - m) (0 for a warp with no live key), then
+  // the weighted sums in warp order
+  float2* red_ml = reinterpret_cast<float2*>(tc_smem);     // [4][kTfRows]
+  float* red_w = reinterpret_cast<float*>(red_ml + 4 * kTfRows);
+  float* red_o = red_w + 4 * kTfRows;                       // [4][rows][D]
+  if ((lane & 3) == 0) {
+    red_ml[warp * kTfRows + (lane >> 2)] = make_float2(st.m[0], st.l[0]);
+    red_ml[warp * kTfRows + (lane >> 2) + 8] = make_float2(st.m[1], st.l[1]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    st.store_row(i, lane, red_o + (warp * kTfRows + (lane >> 2) + 8 * i) * D,
+                 1.f);
+  __syncthreads();
+  if (tid < kTfRows) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, red_ml[w * kTfRows + tid].x);
+    float lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float2 ml = red_ml[w * kTfRows + tid];
+      const float wt = ml.x == kNegInf ? 0.f : exp2f(ml.x - mx);
+      red_w[w * kTfRows + tid] = wt;
+      lsum = fmaf(ml.y, wt, lsum);
+    }
+    if (m0 + tid < m_rows) part_ml[part0 + m0 + tid] = make_float2(mx, lsum);
+  }
+  __syncthreads();
+  for (int i = tid; i < kTfRows * (D / 4); i += NT) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    if (m0 + r >= m_rows) continue;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float wt = red_w[w * kTfRows + r];
+      const float4 x =
+          *reinterpret_cast<const float4*>(red_o + (w * kTfRows + r) * D + c);
+      acc.x = fmaf(x.x, wt, acc.x);
+      acc.y = fmaf(x.y, wt, acc.y);
+      acc.z = fmaf(x.z, wt, acc.z);
+      acc.w = fmaf(x.w, wt, acc.w);
+    }
+    *reinterpret_cast<float4*>(part_acc + (part0 + m0 + r) * D + c) = acc;
+  }
+}
+
+// shared memory of tree_split_tf32_kernel: the ring, or the warps' states
+// in the merge, whichever is the larger
+template <typename KT, int D>
+constexpr size_t tf32_split_smem() {
+  const size_t ring = TfRing<KT, D>::bytes();
+  const size_t merge = 4 * kTfRows * (8 + 4 + 4 * (size_t)D);
+  return ring > merge ? ring : merge;
+}
+
+template <typename KT, int D, bool PAGED>
+cudaError_t launch_split_tf32(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* table, const void* sk, const void* sv,
+    const void* rows, const void* clens, const void* amask, void* scratch,
+    void* out, int n_req, int p_tok, int num_kv, int gq, int r1, int s_len,
+    int p_len, int page, int n_split, int split_blocks, float scale,
+    cudaStream_t stream) {
+  const size_t smem = tf32_split_smem<KT, D>();
+  cudaError_t err =
+      tc::allow_smem<tree_split_tf32_kernel<KT, D, PAGED>>(smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (p_tok * gq + kTfRows - 1) / kTfRows;
+  tree_split_tf32_kernel<KT, D, PAGED>
+      <<<dim3(n_split, num_kv, n_req * chunks), kTcThreads, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const KT*>(k),
+          static_cast<const KT*>(v), static_cast<const float*>(ks),
+          static_cast<const float*>(vs), static_cast<const int*>(table),
+          static_cast<const float*>(sk), static_cast<const float*>(sv),
+          static_cast<const int*>(rows), static_cast<const int*>(clens),
+          static_cast<const uint8_t*>(amask), static_cast<float*>(scratch),
+          n_req, p_tok, num_kv, gq, r1, s_len, p_len, page, n_split,
+          split_blocks, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_merge<float>(scratch, out, n_req, p_tok, num_kv, gq, D,
+                             n_split, stream);
 }
 
 template <typename KT, int D, int NW, bool PAGED>
@@ -779,12 +719,8 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
           split_blocks, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long total = (long long)n_req * num_kv * m_rows;
-  tree_merge_kernel<<<(unsigned)((total + kMergeRows - 1) / kMergeRows),
-                      kMergeRows * 32, 0, stream>>>(
-      static_cast<const float*>(scratch), static_cast<bf16*>(out), n_req,
-      p_tok, num_kv, gq, D, n_split);
-  return cudaGetLastError();
+  return launch_merge<bf16>(scratch, out, n_req, p_tok, num_kv, gq, D,
+                           n_split, stream);
 }
 
 }  // namespace
@@ -866,10 +802,9 @@ extern "C" int ff_tree_attention(
 // Batched layout.  q [n_req, p_tok, num_kv*gq, D]; k, v, k_scale, v_scale,
 // table, sk, sv as above (a paged table: page_size a multiple of 64
 // dividing s_len); rows, clens int32[n_req]; amask bool[n_req, p_tok,
-// p_len]; out like q.  bfloat16 only: scratch f32 [n_split * n_req * num_kv
-// * p_tok * gq * (D + 2)] for the split partials, each split of
-// split_blocks 64-key blocks of the committed prefix, n_split of them
-// covering s_len (float32: scratch null, no splits).
+// p_len]; out like q; scratch f32 [n_split * n_req * num_kv * p_tok * gq *
+// (D + 2)] for the split partials, each split of split_blocks 64-key
+// blocks of the committed prefix, n_split of them covering s_len.
 extern "C" int ff_tree_attention_batched(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* table, const void* sk, const void* sv,
@@ -887,19 +822,14 @@ extern "C" int ff_tree_attention_batched(
         constexpr int D = decltype(dd)::value;
         constexpr bool PAGED = decltype(pp)::value;
         using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
+        if (scratch == nullptr || n_split < 1 || split_blocks < 1)
+          return cudaErrorInvalidValue;
         if constexpr (std::is_same<T, float>::value) {
-          if (p_tok * gq <= 16)
-            return launch_batched<T, KT, D, 16, PAGED>(
-                q, k, v, k_scale, v_scale, table, sk, sv, rows, clens,
-                amask, out, n_req, p_tok, num_kv, gq, r1, s_len, p_len,
-                page_size, scale, st);
-          return launch_batched<T, KT, D, 64, PAGED>(
+          return launch_split_tf32<KT, D, PAGED>(
               q, k, v, k_scale, v_scale, table, sk, sv, rows, clens, amask,
-              out, n_req, p_tok, num_kv, gq, r1, s_len, p_len, page_size,
-              scale, st);
+              scratch, out, n_req, p_tok, num_kv, gq, r1, s_len, p_len,
+              page_size, n_split, split_blocks, scale, st);
         } else {
-          if (scratch == nullptr || n_split < 1 || split_blocks < 1)
-            return cudaErrorInvalidValue;
           if (p_tok * gq <= 16)
             return launch_split<KT, D, 1, PAGED>(
                 q, k, v, k_scale, v_scale, table, sk, sv, rows, clens,

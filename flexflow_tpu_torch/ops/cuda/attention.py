@@ -21,9 +21,18 @@ hand-written CUDA C++ for sm_90a (``flexflow_tpu_torch/csrc/``), built by
 ``nvcc`` on first use (:mod:`.build`) and called through a plain C
 interface.  In bfloat16 every kernel runs on the tensor cores
 (``csrc/tc_attention.cuh``: ``mma.sync`` products, P rounded to bfloat16
-before P.V, K/V blocks in the cache's dtype through a ``cp.async`` ring).
-``decode_attention``, ``tree_attention`` and ``tree_attention_batched`` are
-split-KV: the committed prefix in splits of :data:`SPLIT_BLOCKS` blocks
+before P.V, K/V blocks in the cache's dtype through a ``cp.async`` ring);
+in float32 ``prefill_attention`` and ``tree_attention_batched`` do too
+(``csrc/tc_attention_f32.cuh``: error-compensated TF32, each product as
+three ``mma.sync`` passes on the operands' TF32 high and low parts, two
+for an int8 cache, P kept in float32; :func:`tf32x3_probe` exposes the
+fragment layout to the card tests), while float32 ``decode_attention`` and
+``tree_attention`` keep the CUDA-core kernels.  float32
+``prefill_attention`` reads each tile's keys in splits
+(:func:`prefill_split_plan`) merged by a second kernel.
+``decode_attention`` and ``tree_attention`` in bfloat16, and
+``tree_attention_batched`` in both dtypes, are split-KV: the committed
+prefix in splits of :data:`SPLIT_BLOCKS` blocks
 (:func:`tree_split_plan`), one CTA each writing f32 partials to scratch
 this wrapper allocates, then merged (plain versions:
 :func:`decode_split_partials_plain`, :func:`tree_token_split_partials_plain`,
@@ -33,7 +42,7 @@ finish in the two flat-token kernels.  Those first group their tokens by
 cache row on the device (``csrc/row_tiles.cuh``; plain version
 :func:`row_plan_plain`), so the tokens and query heads of one row share
 chunks of up to :data:`ROW_TILE` folded rows that read each K/V block
-once.  float32 keeps the CUDA-core kernels.
+once.
 
 Each wrapper launches its kernel for CUDA tensors, or raises: there is no
 fall-back for them.  It takes the plain PyTorch version only when the
@@ -66,9 +75,14 @@ TREE_GROUPS = (1, 2, 4, 8)           # query heads per KV head (tree, per token)
 # kernel's batched layout stage 64-key blocks, and each block must sit in
 # one page so it translates through the table once
 PAGE_BLOCK = 64
-# the bf16 split-KV kernels read the committed prefix in splits of this
-# many blocks, one CTA per split (:func:`tree_split_plan`)
+# the split-KV kernels read the committed prefix in splits of this many
+# blocks, one CTA per split (:func:`tree_split_plan`)
 SPLIT_BLOCKS = 4
+# the f32 batched tree kernel holds this many folded rows per CTA
+TF32_TREE_ROWS = 16
+# the f32 prefill kernel reads each tile's keys in splits of this many
+# (:func:`prefill_split_plan`)
+PREFILL_SPLIT_KEYS = 1024
 # the bf16 flat-token kernels (decode, per-token tree) hold up to this many
 # folded (token, query head) rows of one cache row per CTA
 ROW_TILE = 64
@@ -88,9 +102,10 @@ _ARGTYPES = {
     # out, n_tokens, num_kv, gq, r1, s_len, head_dim, page_size, n_split,
     # split_blocks, cap, scale, dtype, stream
     "decode_attention": [_P] * 12 + [_I] * 10 + [_F, _I, _P],
-    # q, k, v, k_scale, v_scale, table, rows, pstart, out, n_tiles, bq,
-    # num_kv, gq, r1, s_len, head_dim, page_size, scale, dtype, stream
-    "prefill_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+    # q, k, v, k_scale, v_scale, table, rows, pstart, scratch, out,
+    # n_tiles, bq, num_kv, gq, r1, s_len, head_dim, page_size, n_split,
+    # split_keys, scale, dtype, stream
+    "prefill_attention": [_P] * 10 + [_I] * 10 + [_F, _I, _P],
     # q, k, v, k_scale, v_scale, table, sk, sv, rows, clens, amask,
     # scratch, plan, out, n_tokens, num_kv, gq, r1, s_len, p_len, head_dim,
     # page_size, n_split, split_blocks, cap, scale, dtype, stream
@@ -99,9 +114,12 @@ _ARGTYPES = {
     # scratch, out, n_req, p_tok, num_kv, gq, r1, s_len, p_len, head_dim,
     # page_size, n_split, split_blocks, scale, dtype, stream
     "tree_attention_batched": [_P] * 13 + [_I] * 11 + [_F, _I, _P],
+    # a, b, c, mode, head_dim, n, stream
+    "tf32x3_probe": [_P] * 3 + [_I] * 3 + [_P],
 }
 # the library (csrc/<source>.cu) each entry point lives in
-_SOURCE = {"tree_attention_batched": "tree_attention"}
+_SOURCE = {"tree_attention_batched": "tree_attention",
+           "tf32x3_probe": "prefill_attention"}
 
 
 def _kernel(name: str):
@@ -535,15 +553,36 @@ def prefill_attention(q, k_cache, v_cache, rows, pstart, scale: float,
         raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
     gq = qh // kv
     _check_kernel_args(name, q, k_cache, v_cache, rows, pstart, g, gq)
+    n_split, split_keys, scratch = 0, 0, None
+    if q.dtype == torch.float32:
+        # split-KV: the (m, l) pairs and accumulators of every split
+        n_split, split_keys = prefill_split_plan(s)
+        if g * kv * -(-bq * gq // 64) * n_split >= 2 ** 31:
+            raise ValueError(f"{name}: {g} tiles x {kv} KV heads exceed the "
+                             "kernel's grid")
+        if n_split > 1:
+            scratch = torch.empty(n_split * g * kv * bq * gq * (d + 2),
+                                  dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             _ptr(page_table), rows.data_ptr(), pstart.data_ptr(),
-            out.data_ptr(), g, bq, kv, gq, r1, s, d, page_size, float(scale),
+            _ptr(scratch), out.data_ptr(), g, bq, kv, gq, r1, s, d,
+            page_size, n_split, split_keys, float(scale),
             _DTYPE_CODES[q.dtype], stream)
     _count(prefill_attention, k_scale, page_table)
     return out
+
+
+def prefill_split_plan(s_len: int):
+    """``(n_split, split_keys)``: the f32 prefill kernel reads each tile's
+    keys in ``n_split`` splits of :data:`PREFILL_SPLIT_KEYS` keys (whole
+    32-key blocks) covering a cache of ``s_len`` positions, one CTA each,
+    so the deepest tiles' walks spread over the card; with more than one,
+    a merge kernel combines the splits' f32 partials.  The plan depends on
+    shapes only; a split past a chunk's causal frontier exits at once."""
+    return max(1, -(-s_len // PREFILL_SPLIT_KEYS)), PREFILL_SPLIT_KEYS
 
 
 # ---------------------------------------------------------------------------
@@ -603,8 +642,9 @@ def tree_attention_batched_plain(q, k_cache, v_cache, k_spec, v_spec, rows,
 
 
 def tree_split_plan(s_len: int):
-    """``(n_split, split_blocks)``: the bf16 split-KV kernels (decode, both
-    tree layouts) cut each cache row's committed prefix into splits of
+    """``(n_split, split_blocks)``: the split-KV kernels (bf16 decode and
+    both bf16 tree layouts, the f32 batched tree layout) cut each cache
+    row's committed prefix into splits of
     ``split_blocks`` whole :data:`PAGE_BLOCK`-key blocks, ``n_split`` of
     them covering a cache of ``s_len`` positions.  The plan depends on
     shapes only, so the device path reads no positions or ``clens`` back;
@@ -659,7 +699,7 @@ def tree_token_split_partials_plain(q, k_cache, v_cache, k_spec, v_spec,
 def tree_split_partials_plain(q, k_cache, v_cache, k_spec, v_spec, rows,
                               clens, amask, scale, k_scale=None, v_scale=None,
                               page_table=None, page_size=0):
-    """Plain version of the bf16 batched tree kernel's split pass (any
+    """Plain version of the batched tree kernels' split pass (any
     device): :func:`tree_token_split_partials_plain` with each request's
     row, depth and mask rows repeated over its P tree tokens.  Returns
     ``m, l [n_split, R, P, QH]`` and ``acc [n_split, R, P, QH, D]``."""
@@ -775,27 +815,64 @@ def tree_attention_batched(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
     gq = qh // kv
     _check_kernel_args(name, q, k_cache, v_cache, rows, clens, r, gq)
     _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, (r, p, pb))
-    n_split, per, scratch = 0, 0, None
-    if q.dtype == torch.bfloat16:
-        # split-KV: the (m, l) pairs and accumulators of every split
-        n_split, per = tree_split_plan(s)
+    # split-KV: the (m, l) pairs and accumulators of every split
+    n_split, per = tree_split_plan(s)
+    if q.dtype == torch.float32:
+        rows_per_cta = TF32_TREE_ROWS
+    else:
         rows_per_cta = 16 if p * gq <= 16 else 64
-        if kv > 65535 or r * -(-p * gq // rows_per_cta) > 65535:
-            raise ValueError(f"{name}: {r} requests x {kv} KV heads exceed "
-                             "the kernel's grid")
-        scratch = torch.empty(n_split * r * kv * p * gq * (d + 2),
-                              dtype=torch.float32, device=q.device)
+    if kv > 65535 or r * -(-p * gq // rows_per_cta) > 65535:
+        raise ValueError(f"{name}: {r} requests x {kv} KV heads exceed the "
+                         "kernel's grid")
+    scratch = torch.empty(n_split * r * kv * p * gq * (d + 2),
+                          dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             _ptr(page_table), k_spec.data_ptr(), v_spec.data_ptr(),
             rows.data_ptr(), clens.data_ptr(), amask.data_ptr(),
-            _ptr(scratch), out.data_ptr(), r, p, kv, gq, r1, s, pb, d,
+            scratch.data_ptr(), out.data_ptr(), r, p, kv, gq, r1, s, pb, d,
             page_size, n_split, per, float(scale), _DTYPE_CODES[q.dtype],
             stream)
     _count(tree_attention_batched, k_scale, page_table)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The f32 tile engine's fragment layout, for the card tests
+# ---------------------------------------------------------------------------
+def tf32x3_probe(mode: int, a, b=None):
+    """One warp of the f32 tile engine (``csrc/tc_attention_f32.cuh``) on
+    CUDA float32 tensors, through its fragment layout and 3xTF32 products:
+    mode 0, ``a [16, D] . b [8, D]^T`` (``[16, 8]``); mode 1, ``a [16, 8]
+    . b [8, D]`` (``[16, D]``); mode 2, the TF32 high and low parts of each
+    value of ``a`` as the products read them, then ``cvt.rna.tf32.f32`` of
+    the value and of the value minus its high part (``[n, 4]``).  Not on
+    the serve path: the card tests hold it against exact integer products,
+    which pins the layout, and the split against the hardware rounding."""
+    name = "tf32x3_probe"
+    a = a.contiguous()
+    if a.dtype != torch.float32 or a.device.type != "cuda":
+        raise ValueError(f"{name}: takes float32 CUDA tensors")
+    if mode == 2:
+        c = torch.empty(a.numel(), 4, dtype=torch.float32, device=a.device)
+        d, n, bp = 8, a.numel(), None
+    else:
+        b = b.contiguous()
+        d = b.shape[1]
+        if b.dtype != torch.float32 or b.device != a.device:
+            raise ValueError(f"{name}: takes float32 CUDA tensors")
+        if (d not in HEAD_DIMS or b.shape[0] != 8
+                or tuple(a.shape) != ((16, d) if mode == 0 else (16, 8))):
+            raise ValueError(f"{name}: shapes {tuple(a.shape)}, "
+                             f"{tuple(b.shape)} do not fit mode {mode}")
+        c = torch.empty(16, 8 if mode == 0 else d, dtype=torch.float32,
+                        device=a.device)
+        n, bp = 0, b.data_ptr()
+    _launch(name, _kernel(name), a.data_ptr(), bp, c.data_ptr(), mode, d, n,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    return c
 
 
 reset_counts()

@@ -5,8 +5,11 @@
     python scripts/profile_torch_serve.py --quantize --kv-dtype int8 \
         --kv-page-size 512 --no-spec
     python scripts/profile_torch_serve.py --model-type mpt
+    python scripts/profile_torch_serve.py --dtype float32
 
-Builds the Llama-2-7B serve shape (bfloat16, seeded random weights; depth
+Builds the Llama-2-7B serve shape (bfloat16, or with ``--dtype float32``
+float32 with TF32 off for the GEMMs, the reference's default serving
+dtype; seeded random weights; depth
 cut by ``--layers``), or with ``--model-type mpt`` MPT-7B's (ALiBi: its
 prefill runs through the decode kernel, and ``--no-spec`` is implied),
 admits 8 prompts of 256-1800 tokens, and times
@@ -35,8 +38,10 @@ from collections import defaultdict
 CLASSES = (   # (class, substrings of the kernel name), first match wins
     ("attention K1 decode", ("decode_kernel", "decode_plan_kernel",
                              "decode_split_kernel")),
-    ("attention K2 prefill", ("prefill_kernel", "prefill_tc_kernel")),
+    ("attention K2 prefill", ("prefill_kernel", "prefill_tc_kernel",
+                              "prefill_tf32_kernel")),
     ("attention K3 tree batched", ("tree_batched_kernel", "tree_split_kernel",
+                                   "tree_split_tf32_kernel",
                                    "tree_merge_kernel")),
     ("attention K3 tree per-token", ("tree_token_kernel",
                                      "tree_token_plan_kernel",
@@ -98,6 +103,8 @@ def report(label, wall, kernels):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model-type", default="llama", choices=["llama", "mpt"])
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--macro-steps", type=int, default=8)
@@ -121,13 +128,15 @@ def main(argv=None):
         os.path.abspath(__file__))))
     from flexflow_tpu_torch import serve
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if args.model_type == "mpt":   # mosaicml/mpt-7b's config.json
         cfg = serve.ServeModelConfig.from_hf_config(dict(
             model_type="mpt", d_model=4096, n_heads=32,
             n_layers=args.layers, expansion_ratio=4, vocab_size=50432,
-            no_bias=True, torch_dtype="bfloat16"))
+            no_bias=True, torch_dtype=args.dtype))
     else:
-        cfg = serve.ServeModelConfig(dtype="bfloat16",
+        cfg = serve.ServeModelConfig(dtype=args.dtype,
                                      num_hidden_layers=args.layers)
     im = serve.InferenceManager(
         serve.build_model(cfg), max_requests=8, max_tokens_per_batch=512,
@@ -141,7 +150,7 @@ def main(argv=None):
         serve.quantize_int8(im)
     w_bytes = sum(p.numel() * p.element_size()
                   for p in im.model.parameters())
-    print(f"{args.model_type}: weights {w_bytes / 1e9:.2f} GB, "
+    print(f"{args.model_type} {args.dtype}: weights {w_bytes / 1e9:.2f} GB, "
           f"KV {im.kv.allocated_bytes() / 1e9:.2f} GB (kv_dtype "
           f"{args.kv_dtype}, page {args.kv_page_size or 'none'})")
     rng = np.random.default_rng(0)
@@ -188,7 +197,7 @@ def profile_spec(args, torch, serve, im, prompts):
     draft = serve.InferenceManager(
         serve.build_model(serve.ServeModelConfig(
             hidden_size=768, intermediate_size=3072, num_hidden_layers=2,
-            num_attention_heads=12, dtype="bfloat16")),
+            num_attention_heads=12, dtype=args.dtype)),
         max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
         max_spec_tokens=8, topk=2)
     draft.init_operators_inference(seed=1)

@@ -641,3 +641,126 @@ def test_mpt_serving_on_card_matches_cpu(dev):
                     att.decode_attention.variant_launches.items() if n}
         assert list(launched) == [var]
         assert att.prefill_attention.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# float32 K2 and K3 batched: error-compensated TF32 on the tensor cores
+# ---------------------------------------------------------------------------
+def _tf32_rna(x):
+    """TF32 rounding to nearest, ties away from zero, on the int32 view
+    (the kernels' ``cvt.rna.tf32.f32``)."""
+    b = x.contiguous().view(torch.int32)
+    mag = ((b & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return ((b & ~0x7FFFFFFF) | mag).view(torch.float32)
+
+
+def test_tf32_split_rounds_to_nearest_on_card(dev):
+    """The kernels' TF32 split (hi = rna(x), lo = rna(x - hi), on the
+    integer view) equals the emulation and the hardware's
+    ``cvt.rna.tf32.f32`` bit for bit, ties (low 13 bits exactly 0x1000)
+    included, of either sign."""
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(4096, generator=g) * 10.0 ** torch.randint(
+        -8, 8, (4096,), generator=g)
+    ties = (x[:512].view(torch.int32) & ~0x1FFF) | 0x1000
+    x = torch.cat([x, ties.view(torch.float32)])
+    hi = _tf32_rna(x)
+    lo = _tf32_rna(x - hi)
+    got = att.tf32x3_probe(2, x.to(dev)).cpu().view(torch.int32)
+    for col, want in ((0, hi), (1, lo), (2, hi), (3, lo)):
+        assert torch.equal(got[:, col], want.view(torch.int32)), col
+
+
+def _exact_cases(g, m, k, n):
+    """(a [m, k], b [k, n], a . b as 3xTF32 gives it, exactly) for a
+    product over k: small integers (lo = 0: hi . hi alone); then a's lo
+    parts alone (a = 4 + v 2^-12, v in 0..7, so hi = 4 and lo = v 2^-12,
+    against b of integers whose pairs of rows 2c, 2c + 1 cancel, so each
+    8-deep step's hi . hi sums to 0); then b's lo parts alone (the same,
+    swapped).  Every partial sum is an integer, or a multiple of 2^-12
+    below 2, so the tensor cores' f32 accumulation is exact whatever its
+    order and truncation."""
+    def ints(*shape):
+        return torch.randint(-8, 9, shape, generator=g).double()
+
+    def lo_heavy(*shape):
+        v = torch.randint(0, 8, shape, generator=g).double()
+        return 4.0 + v * 2.0 ** -12, v * 2.0 ** -12
+
+    def cancelling(rows, cols):     # rows 2c + 1 = -rows 2c
+        x = ints(rows // 2, cols)
+        return torch.stack([x, -x], 1).reshape(rows, cols)
+
+    a, b = ints(m, k), ints(k, n)
+    yield a, b, a @ b
+    a, a_lo = lo_heavy(m, k)
+    b = cancelling(k, n)
+    yield a, b, a_lo @ b
+    a = cancelling(k, m).T.contiguous()
+    b, b_lo = lo_heavy(k, n)
+    yield a, b, a @ b_lo
+
+
+@pytest.mark.parametrize("d", att.HEAD_DIMS)
+def test_tf32x3_fragments_exact(dev, d):
+    """One warp of the f32 engine through its fragment layout: Q.K^T of a
+    16-row tile and an 8-key tile (k = D), then P.V of a 16 x 8 P and an
+    8-key V tile (k = 8), each on small integer matrices (exact: pins
+    every element's place in the hi fragments) and on values whose hi
+    products cancel step by step, leaving each operand's lo parts (pins
+    the lo fragments and passes)."""
+    g = torch.Generator().manual_seed(22)
+    for q, kt, want in _exact_cases(g, 16, d, 8):
+        got = att.tf32x3_probe(0, q.float().to(dev),
+                               kt.T.contiguous().float().to(dev)).cpu()
+        assert torch.equal(got.double(), want)
+    for p, v, want in _exact_cases(g, 16, 8, d):
+        got = att.tf32x3_probe(1, p.float().to(dev), v.float().to(dev)).cpu()
+        assert torch.equal(got.double(), want)
+
+
+@pytest.mark.parametrize("d", att.HEAD_DIMS)
+def test_prefill_f32_ragged_edges(dev, d):
+    """The f32 tensor-core K2 at ragged edges, in the four variants
+    (``2e-5``; paged == contiguous bit for bit): 3 query heads per KV head
+    and Bq 40 (120 folded rows: a full and a part 64-row chunk, rows past
+    Bq * gq), pstart off the 32-key grid, causal frontiers inside blocks,
+    a tile across the two 1024-key splits' boundary (its rows' partials
+    merged) and the last tile ending at S - 1."""
+    g = torch.Generator().manual_seed(23)
+    qh, kv, s, bq, page = 12, 4, 2048, 40, 512
+    q = torch.randn(3, bq, qh, d, generator=g).to(dev)
+    kc, vc = (torch.randn(4, kv, s, d, generator=g).to(dev)
+              for _ in range(2))
+    rows = torch.tensor([0, 2, 1], dtype=torch.int32, device=dev)
+    pstart = torch.tensor([1000, 0, s - bq], dtype=torch.int32, device=dev)
+    _check_variants("prefill_attention", dev, torch.float32, q, kc, vc,
+                    page, (rows, pstart), (d ** -0.5,))
+
+
+@pytest.mark.parametrize("d,qh", [(d, 8) for d in att.HEAD_DIMS]
+                         + [(64, 16)])
+def test_batched_tree_f32_split_boundaries(dev, d, qh):
+    """The f32 split-KV K3 batched layout, in the four variants (``2e-5``;
+    paged == contiguous bit for bit): committed lengths on the block and
+    split boundaries (0, 1, 31, 32, 63, 64, 65, 256, S - 1), a pad request
+    with no live key (zeros), 7-token trees of 2 query heads per KV head
+    (14 folded rows: one chunk) or 8 (56: four chunks)."""
+    g = torch.Generator().manual_seed(24)
+    kv, s, p, pb, page = 4 if qh == 8 else 2, 1024, 7, 8, 64
+    clens = [0, 1, 31, 32, 63, 64, 65, 256, s - 1, 0]
+    r = len(clens)
+    q = torch.randn(r, p, qh, d, generator=g).to(dev)
+    kc, vc, sk, sv = (torch.randn(r + 1, kv, n, d, generator=g).to(dev)
+                      for n in (s, s, pb, pb))
+    amask = torch.rand(r, p, pb, generator=g) < 0.4
+    amask[:, :, 0] = True
+    amask[-1] = False                 # the pad request: no live key at all
+    rows = torch.tensor(list(range(r - 1)) + [r], dtype=torch.int32,
+                        device=dev)
+    got = _check_variants(
+        "tree_attention_batched", dev, torch.float32, q, kc, vc, page,
+        (sk, sv, rows, torch.tensor(clens, dtype=torch.int32, device=dev),
+         amask.to(dev)), (d ** -0.5,))
+    for out in got.values():
+        assert not out[-1].abs().sum()   # zeros, not NaN
