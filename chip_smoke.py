@@ -24,30 +24,31 @@ and prints no result):
    (``time_ms``: the calls queued behind a sleep kernel, so the host's
    issue time is not counted), the kernel also back to back as the host
    issues it (``call_ms``: the host's time where that is the longer), the
-   plain version back to back.  In bfloat16 every kernel runs on the tensor cores
-   (mma.sync m16n8k16, a cp.async ring; K1 and both K3 layouts split-KV,
-   K1 and K3 per-token after a row plan kernel that groups the flat tokens
-   by cache row on the device); in float32 K2 and K3's batched layout do
-   too, as error-compensated TF32 (three mma.sync m16n8k8 passes, two for
-   int8 caches; both split-KV), while f32 K1 and K3 per-token keep the
-   CUDA-core kernels.  A float32 kernel's bound counts its flops at
-   the TF32 tensor-core rate times its passes (3, or 2 for int8), beside
-   the CUDA-core bound (``cuda_core_bound_ms``);
+   plain version back to back.  Every kernel runs on the tensor cores: in
+   bfloat16 as mma.sync m16n8k16 products fed by a cp.async ring, in
+   float32 as error-compensated TF32 (three mma.sync m16n8k8 passes, two
+   for int8 caches); K1 and both K3 layouts are split-KV, K1 and K3
+   per-token after a row plan kernel that groups the flat tokens by cache
+   row on the device (chunks of 64 folded rows in bf16, 16 in f32).  A
+   float32 kernel's bound counts its flops at the TF32 tensor-core rate
+   times its passes (3, or 2 for int8), beside the CUDA-core bound
+   (``cuda_core_bound_ms``);
 2b. edge kernels: K2 at a ragged shape (3 query heads per KV head, tiles
    of 40 at positions off the block grid, one across f32's key splits)
    and the K3 batched layout at committed lengths on the block and split
    boundaries with a pad request, bf16 and f32, every variant, held
    against the plain versions;
-2c. row edge kernels: the bf16 row-grouped K1 and K3 per-token kernels,
-   every variant, held against the plain versions (``1e-2``), paged ==
-   contiguous: K1 at 3 query heads per KV head (with and without ALiBi)
-   on 120 prompt tokens of one row at consecutive positions (an ALiBi
-   prefill: 360 folded rows in six chunks), tokens of other rows
-   scattered through the flat batch at positions on the block and split
-   boundaries, and pads on the scratch row; K1 at 48 and 71 query
-   heads on one KV head with scattered tokens and pads; K3 per-token at 2
-   query heads per KV head, 7-token trees scattered through the batch at
-   committed depths on the boundaries, pads giving zeros;
+2c. row edge kernels: the row-grouped K1 and K3 per-token kernels, bf16
+   (``1e-2``) and f32 (``2e-5``), every variant, held against the plain
+   versions, paged == contiguous: K1 at 3 query heads per KV head (with
+   and without ALiBi) on 120 prompt tokens of one row at consecutive
+   positions (an ALiBi prefill: 360 folded rows, six bf16 chunks or 23
+   f32 ones), tokens of other rows scattered through the flat batch at
+   positions on the block and split boundaries, and pads on the scratch
+   row; K1 at 48 and 71 query heads on one KV head with scattered tokens
+   and pads; K3 per-token at 2 query heads per KV head, and at 48 and 71
+   on one KV head, 7-token trees scattered through the batch at committed
+   depths on the boundaries, pads giving zeros;
 3. tree kernels: the tree-attention kernel in both layouts at the
    speculative serve shapes (per-token: 512 flat rows, 56 real = 8
    requests x a 7-node tree, the rest scratch-row pads; batched: [8, 7]),
@@ -106,8 +107,10 @@ and prints no result):
 11. f32 serve: the published Llama-2-7B shape in float32 (the reference's
    default serving dtype; TF32 off for the GEMMs) serves the 8 prompts, 16
    new tokens each, through ``RequestManager.generate`` (f32 K2 on the
-   prefill), then through ``SpecDecodeScan`` with the llama-68m-shaped
-   draft (f32 K3 batched on the verify).
+   prefill, f32 K1 on the decode steps), then through
+   ``SpecInferManager.generate`` (width 2, depth 3: f32 K3 per-token on
+   the verify) and ``SpecDecodeScan`` (f32 K3 batched on the verify) with
+   the llama-68m-shaped draft.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -454,17 +457,15 @@ def phase_edge_kernels(att, kv_quant, torch, dev):
 
 
 def phase_row_edge_kernels(att, kv_quant, torch, dev):
-    """The bf16 row-grouped K1 and K3 per-token kernels where the row plan
-    and the splits have edges, every cache variant, vs their plain
-    versions (``1e-2``), paged == contiguous (see the module docstring,
-    phase 2c)."""
+    """The row-grouped K1 and K3 per-token kernels where the row plan and
+    the splits have edges, bf16 and f32, every cache variant, vs their
+    plain versions (``1e-2`` bf16, ``2e-5`` f32), paged == contiguous (see
+    the module docstring, phase 2c)."""
     from flexflow_tpu_torch.serve import alibi_slopes
 
-    bf = torch.bfloat16
-    tol = dict(atol=1e-2, rtol=1e-2)
     s, r = 2048, 8                     # cache rows 0-7, scratch row 8
     g = torch.Generator().manual_seed(7)
-    boundary = [0, 63, 64, 255, 256, 257, 511, 512, s - 1]
+    boundary = [0, 31, 32, 63, 64, 255, 256, 257, 511, 512, s - 1]
     rows_k1 = [0] * 120 + [1 + i % 7 for i in range(len(boundary))] + [r] * 40
     pos_k1 = list(range(900, 1020)) + boundary + [0] * 40
     order = torch.randperm(len(rows_k1), generator=g).tolist()
@@ -472,26 +473,9 @@ def phase_row_edge_kernels(att, kv_quant, torch, dev):
                          device=dev)
     pos1 = torch.tensor([pos_k1[i] for i in order], dtype=torch.int32,
                         device=dev)
-    # (label, query heads, KV heads, D, with ALiBi too)
-    res = {}
-    for label, qh, kv, d, alibi in (("gq3", 12, 4, 128, True),
-                                    ("gq48", 48, 1, 128, False),
-                                    ("gq71", 71, 1, 64, False)):
-        kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, bf)
-                  for _ in range(2))
-        variants = cache_variants(att, kv_quant, kc, vc, 8)
-        q1 = torch.randn(len(rows_k1), qh, d, generator=g).to(dev, bf)
-        for slopes in (None, alibi_slopes(qh, dev)) if alibi else (None,):
-            out = run_variants(att, torch, "decode_attention", "bfloat16",
-                               tol, variants, (q1,),
-                               (rows1, pos1, d ** -0.5), None, None, 0,
-                               slopes=slopes)
-            tag = label + ("+alibi" if slopes is not None else "")
-            res.update({(n, f"{v}+{tag}"): x for (n, v, _), x in out.items()})
-        del kc, vc, variants, q1
     # K3 per-token: five requests of a 7-token tree and pads, shuffled
     clen_of = [0, 1, 63, 256, s]
-    p, pb, qh, kv, d = len(TREE_PARENTS), 8, 8, 4, 128
+    p, pb = len(TREE_PARENTS), 8
     mask1 = torch.from_numpy(tree_mask(TREE_PARENTS, pb))
     n_pad = 30
     rows_t = [i // p for i in range(len(clen_of) * p)] + [r] * n_pad
@@ -504,28 +488,56 @@ def phase_row_edge_kernels(att, kv_quant, torch, dev):
     for i in real:                 # each request's nodes in flat order
         amask[i] = mask1[node.setdefault(rows_t[i], 0)]
         node[rows_t[i]] += 1
-    kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, bf)
-              for _ in range(2))
-    sk, sv = (torch.randn(r + 1, kv, pb, d, generator=g).to(dev, bf)
-              for _ in range(2))
-    variants = cache_variants(att, kv_quant, kc, vc, 9)
-    q3 = torch.randn(len(rows_t), qh, d, generator=g).to(dev, bf)
-    tail = (sk, sv, torch.tensor(rows_t, dtype=torch.int32, device=dev),
-            torch.tensor(clens_t, dtype=torch.int32, device=dev),
-            amask.to(dev), d ** -0.5)
-    out = run_variants(att, torch, "tree_attention", "bfloat16", tol,
-                       variants, (q3,), tail, None, None, 0)
-    res.update({(n, f"{v}+gq2"): x for (n, v, _), x in out.items()})
     pads = torch.tensor([row == r for row in rows_t], device=dev)
-    for var, (k, v, kw) in variants.items():
-        got = att.tree_attention(q3, k, v, *tail, **kw)
-        if got[pads].float().abs().sum().item() != 0:
-            raise AssertionError(f"tree_attention {var}: a pad token gave "
-                                 "non-zeros")
+    tail3 = (torch.tensor(rows_t, dtype=torch.int32, device=dev),
+             torch.tensor(clens_t, dtype=torch.int32, device=dev),
+             amask.to(dev))
+    res = {}
+    for dtype, tol in ((torch.bfloat16, dict(atol=1e-2, rtol=1e-2)),
+                       (torch.float32, dict(atol=2e-5, rtol=2e-5))):
+        dn = str(dtype).replace("torch.", "")
+        # (label, query heads, KV heads, D, with ALiBi too)
+        for label, qh, kv, d, alibi in (("gq3", 12, 4, 128, True),
+                                        ("gq48", 48, 1, 128, False),
+                                        ("gq71", 71, 1, 64, False)):
+            kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
+                      for _ in range(2))
+            variants = cache_variants(att, kv_quant, kc, vc, 8)
+            q1 = torch.randn(len(rows_k1), qh, d, generator=g).to(dev, dtype)
+            for slopes in (None, alibi_slopes(qh, dev)) if alibi else (None,):
+                out = run_variants(att, torch, "decode_attention", dn, tol,
+                                   variants, (q1,), (rows1, pos1, d ** -0.5),
+                                   None, None, 0, slopes=slopes)
+                tag = label + ("+alibi" if slopes is not None else "")
+                res.update({(n, f"{v}+{tag}", dn_): x
+                            for (n, v, dn_), x in out.items()})
+            del kc, vc, variants, q1
+        # K3 per-token at 2 query heads per KV head, and at Falcon-7B's 71
+        # and StarCoder's 48 on one KV head
+        for label, qh, kv, d in (("gq2", 8, 4, 128), ("gq48", 48, 1, 128),
+                                 ("gq71", 71, 1, 64)):
+            kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
+                      for _ in range(2))
+            sk, sv = (torch.randn(r + 1, kv, pb, d, generator=g).to(dev, dtype)
+                      for _ in range(2))
+            variants = cache_variants(att, kv_quant, kc, vc, 9)
+            q3 = torch.randn(len(rows_t), qh, d, generator=g).to(dev, dtype)
+            tail = (sk, sv, *tail3, d ** -0.5)
+            out = run_variants(att, torch, "tree_attention", dn, tol,
+                               variants, (q3,), tail, None, None, 0)
+            res.update({(n, f"{v}+{label}", dn_): x
+                        for (n, v, dn_), x in out.items()})
+            for var, (k, v, kw) in variants.items():
+                got = att.tree_attention(q3, k, v, *tail, **kw)
+                if got[pads].float().abs().sum().item() != 0:
+                    raise AssertionError(f"tree_attention {var} {label} {dn}: "
+                                         "a pad token gave non-zeros")
+            del kc, vc, sk, sv, variants, q3
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    log("row edge kernels (bf16, row-grouped K1 and K3 per-token): " +
-        " ".join(f"{name}/{var} err={v['max_abs_err']:.3g}"
-                 for (name, var), v in res.items()))
+    log("row edge kernels (row-grouped K1 and K3 per-token): " +
+        " ".join(f"{name}/{var}/{dn} err={v['max_abs_err']:.3g}"
+                 for (name, var, dn), v in res.items()))
 
 
 def phase_parity(serve, torch, dev):
@@ -748,12 +760,10 @@ def phase_k1_families(att, kv_quant, torch, dev):
             for (name, var, dn_), v in res.items():
                 results[(name, var if alibi else f"{var}+{label}", dn_)] = v
             if not alibi:
-                # f32: ceil(gq / 8) CTAs per (token, KV head) each stream
-                # the K/V prefix; bf16: ceil(gq / ROW_TILE) chunks of a
-                # lone token's folded rows do; the must-move bytes count it
-                # once
-                chunks = -(-qh // (8 if dtype == torch.float32
-                                   else att.ROW_TILE))
+                # ceil(gq / row_tile) chunks of a lone token's folded rows
+                # each stream the K/V prefix (f32 16 rows, bf16 64); the
+                # must-move bytes count it once
+                chunks = -(-qh // att.row_tile(dtype))
                 kv_bytes = work("fp")[0] - decode_work(
                     rows_k1, pos_k1, s, kv, qh, d, itemsize, 0)[0]
                 rereads[f"{label} {dn}"] = (chunks - 1) * kv_bytes
@@ -1529,8 +1539,10 @@ def phase_serve_families(serve, att, torch, dev):
 def phase_serve_f32(serve, att, torch, dev):
     """The published Llama-2-7B shape in float32 (TF32 off for the GEMMs),
     the 8 prompts, 16 new tokens each: incremental (f32 K2 on the
-    prefill), then ``SpecDecodeScan`` with the llama-68m-shaped draft (f32
-    K3 batched on the verify).  Returns {path: launches}."""
+    prefill, f32 K1 on the decode steps), then ``SpecInferManager`` (f32
+    K3 per-token on the verify) and ``SpecDecodeScan`` (f32 K3 batched on
+    the verify) with the llama-68m-shaped draft.  Returns {path:
+    launches}."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = serve.ServeModelConfig(dtype="float32")   # Llama-2-7B defaults
@@ -1550,22 +1562,29 @@ def phase_serve_f32(serve, att, torch, dev):
         f"{im.kv.allocated_bytes() / 1e9:.2f} GB")
     run = Serving(serve, att, torch, cfg.vocab_size)
     prompts = serve_prompts(cfg.vocab_size)
+    gen = serve.GenerationConfig(max_new_tokens=n_new)
     launches = {}
     incr, launches["incremental"], ttft, tpot = run.generate(
-        "f32 incremental", run.TimedRM(im, serve.GenerationConfig(
-            max_new_tokens=n_new)), prompts, n_new=n_new)
+        "f32 incremental", run.TimedRM(im, gen), prompts, n_new=n_new)
     require_launches(launches["incremental"], "f32 incremental", "fp",
                      ("decode_attention", "prefill_attention"))
     draft = serve.InferenceManager(
         serve.build_model(draft_config(serve, "float32")), topk=2, **kw)
     draft.init_operators_inference(seed=1)
+    im.reset()
+    _, launches["spec host"], _, spec_tpot = run.generate(
+        "f32 spec host (llama-68m draft)",
+        run.TimedSpec(im, draft, gen, width=2, depth=3), prompts, incr,
+        n_new=n_new)
+    require_launches(launches["spec host"], "f32 spec host", "fp",
+                     ("tree_attention",))
     _, launches["spec device"] = run.scan(
         "f32 spec device (llama-68m draft)", im, draft, prompts, 2, 3, 15,
         incr, n_new=n_new)
     require_launches(launches["spec device"], "f32 spec device", "fp",
                      ("tree_attention_batched", "tree_attention"))
-    log(f"f32 serve: mean TTFT {ttft:.3f}s, mean TPOT {tpot:.2f} ms, "
-        f"max_memory_allocated "
+    log(f"f32 serve: mean TTFT {ttft:.3f}s, mean TPOT {tpot:.2f} ms "
+        f"(spec host {spec_tpot:.2f} ms), max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del im, draft
     torch.cuda.empty_cache()
@@ -1575,7 +1594,8 @@ def phase_serve_f32(serve, att, torch, dev):
 TC_KERNELS = ("prefill_tc_kernel", "prefill_tf32_kernel",
               "tree_split_tf32_kernel", "tree_split_kernel",
               "tree_merge_kernel", "decode_split_kernel",
-              "tree_token_split_kernel")
+              "tree_token_split_kernel", "decode_split_tf32_kernel",
+              "tree_token_split_tf32_kernel")
 
 
 def tc_reports(text):
@@ -1676,7 +1696,7 @@ def main():
         if var == "fp":
             return {"decode_attention": f32["incremental"],
                     "prefill_attention": f32["incremental"],
-                    "tree_attention": f32["spec device"],
+                    "tree_attention": f32["spec host"],
                     "tree_attention_batched": f32["spec device"]}
         return {"decode_attention": parity[var]["incremental"],
                 "prefill_attention": parity[var]["incremental"],

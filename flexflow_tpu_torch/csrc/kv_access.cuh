@@ -1,9 +1,7 @@
 // Device helpers shared by the attention kernels (decode_attention.cu,
-// prefill_attention.cu, tree_attention.cu): vector loads of cache rows in
-// float, bfloat16 or int8 with their conversion to f32 in registers, the
-// addressing of a head's key rows through an optional page table, the
-// merge of split-KV partials, and the host-side dispatch from runtime
-// arguments to template instantiations.
+// prefill_attention.cu, tree_attention.cu): the addressing of a head's key
+// rows through an optional page table, the merge of split-KV partials, and
+// the host-side dispatch from runtime arguments to template instantiations.
 //
 // Cache layout: K and V are [R+1, KV, S, D]; an int8 cache carries f32
 // dequant scales [R+1, KV, S] beside it (one per key vector); a paged cache
@@ -25,103 +23,12 @@ namespace ffk {
 constexpr float kNegInf = -1e30f;
 
 template <typename T>
-__device__ __forceinline__ void vec_to_float(const uint4& raw, float* out);
-
-template <>
-__device__ __forceinline__ void vec_to_float<float>(const uint4& raw,
-                                                    float* out) {
-  out[0] = __uint_as_float(raw.x);
-  out[1] = __uint_as_float(raw.y);
-  out[2] = __uint_as_float(raw.z);
-  out[3] = __uint_as_float(raw.w);
-}
-
-template <>
-__device__ __forceinline__ void vec_to_float<__nv_bfloat16>(const uint4& raw,
-                                                            float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-// the signed byte b of word w, as f32 (exact)
-__device__ __forceinline__ float byte_to_float(uint32_t w, int b) {
-  return static_cast<float>(static_cast<int32_t>(w << (24 - 8 * b)) >> 24);
-}
-
-template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ uint4 load16(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// VEC consecutive elements of type E held as raw words: 8 bytes, or a
-// whole number of 16-byte vectors (one load instruction each).
-template <typename E, int VEC>
-struct Vec {
-  static constexpr int BYTES = VEC * static_cast<int>(sizeof(E));
-  static constexpr int WORDS = BYTES >= 16 ? BYTES / 16 : 1;
-  static constexpr int PER_WORD = 16 / static_cast<int>(sizeof(E));
-  static_assert(BYTES == 8 || BYTES % 16 == 0,
-                "a vector is 8 bytes or whole 16-byte words");
-  uint4 w[WORDS];
-
-  __device__ __forceinline__ void load(const E* p) {
-    if constexpr (BYTES == 8) {
-      const uint2 h = *reinterpret_cast<const uint2*>(p);
-      w[0] = make_uint4(h.x, h.y, 0u, 0u);
-    } else {
-#pragma unroll
-      for (int i = 0; i < WORDS; ++i) w[i] = load16(p + i * PER_WORD);
-    }
-  }
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < WORDS; ++i) w[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  __device__ __forceinline__ void to_float(float* out) const {
-    if constexpr (std::is_same<E, int8_t>::value) {
-#pragma unroll
-      for (int i = 0; i < VEC / 4; ++i) {
-        const uint4& v = w[i / 4];
-        const uint32_t word =
-            (i % 4 == 0) ? v.x : (i % 4 == 1) ? v.y : (i % 4 == 2) ? v.z : v.w;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) out[4 * i + b] = byte_to_float(word, b);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < WORDS; ++i)
-        vec_to_float<E>(w[i], out + i * PER_WORD);
-    }
-  }
-};
-
-// Elements per lane for a key row read by a group of D / VEC lanes: one
-// 16-byte vector of the compute dtype, or for int8 caches 16 values (a
-// 16-byte load) where the group's registers allow it, else 8 (an 8-byte
-// load): with more than 2 query heads per KV head, 16 values per lane
-// would double the lane's q and accumulator registers.
-template <typename T, typename KT, int D, int GQ>
-__host__ __device__ constexpr int kv_vec() {
-  return sizeof(KT) == 1 ? ((GQ <= 2 && D >= 16) ? 16 : 8)
-                         : 16 / static_cast<int>(sizeof(T));
 }
 
 // The key rows of one (cache row, KV head): key(j) is the index, in key
@@ -249,17 +156,6 @@ cudaError_t with_head_dim(int d, F&& f) {
     case 32: return f(Int<32>{});
     case 64: return f(Int<64>{});
     case 128: return f(Int<128>{});
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename F>
-cudaError_t with_group(int gq, F&& f) {
-  switch (gq) {
-    case 1: return f(Int<1>{});
-    case 2: return f(Int<2>{});
-    case 4: return f(Int<4>{});
-    case 8: return f(Int<8>{});
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
 // Tensor-core attention tiles in float32, shared by the f32 kernels of K2
-// (prefill_attention.cu) and of K3's batched layout (tree_attention.cu):
-// the float32 counterpart of tc_attention.cuh.
+// (prefill_attention.cu), of K3's batched layout (tree_attention.cu) and
+// of K1 and K3's per-token layout (row_tiles.cuh): the float32 counterpart
+// of tc_attention.cuh.
 //
 // Products are error-compensated TF32 ("3xTF32"): each f32 operand x splits
 // into hi = tf32_rna(x) and lo = tf32_rna(x - hi), and a . b is taken as
@@ -15,12 +16,14 @@
 //     lo), 16 x D output accumulators and the online softmax state of the
 //     lane's two rows.
 //     A block call covers NTW of a block's 8-key column tiles: all four
-//     (K2: each warp its own rows), or one (K3: four warps on the same
-//     rows, each on its own keys, merged at the end).
+//     (K2: each warp its own rows), or one (K3, and K1 and K3 per-token:
+//     four warps on the same rows, each on its own keys, merged at the
+//     end).
 //   * 32-key K/V blocks arrive in a ring of shared-memory stages (K2: two,
-//     beside its Q tile; K3: three) through cp.async (16-byte copies; 8 bytes for an int8 row of D = 8),
-//     kept in the cache's dtype; an int8 block is widened to f32 in
-//     registers as its fragments load (-128..127 are exact).
+//     beside its Q tile; the others: three) through cp.async (16-byte
+//     copies; 8 bytes for an int8 row of D = 8), kept in the cache's
+//     dtype; an int8 block is widened to f32 in registers as its fragments
+//     load (-128..127 are exact).
 //   * Fragments come from ld.shared (ldmatrix is for 16-bit types).  The k
 //     index of Q.K^T (a head dim d) and of P.V (a key) is permuted within
 //     each product, the same way on both operands, so a lane's values are
@@ -36,9 +39,10 @@
 //     rows D + 16 bytes.
 //   * The softmax is online, in f32, in base 2 (scores times scale * log2
 //     e, then times the key's K scale for int8: the Pallas order (q . k_i8)
-//     * scale * ks), masked entries exactly kNegInf and their p forced to 0;
-//     the denominator sums the unscaled p; P.V takes p (int8: p * vs[key])
-//     split like any other operand (not rounded, unlike bf16's P).
+//     * scale * ks; K1's ALiBi bias after that), masked entries exactly
+//     kNegInf and their p forced to 0; the denominator sums the unscaled
+//     p; P.V takes p (int8: p * vs[key]) split like any other operand (not
+//     rounded, unlike bf16's P).
 
 #pragma once
 
@@ -413,12 +417,13 @@ struct Rows {
   // One block: Kb, Vb its K and V rows in the stage (dtype KT), column
   // tiles [nt0, nt0 + NTW).  live(i, c): whether the lane's row i (0: g,
   // 1: g + 8) sees the block's key c.  ksc/vsc: the block's int8 scales,
-  // or null.  scale2 = scale * log2 e.
-  template <typename KT, int NTW, typename Live>
+  // or null.  scale2 = scale * log2 e.  bias(i, c): added to the score in
+  // base 2 after the scales, before the mask (K1's ALiBi term).
+  template <typename KT, int NTW, typename Live, typename Bias = tc::NoBias>
   __device__ __forceinline__ void attend(const KT* Kb, const KT* Vb,
                                          const float* ksc, const float* vsc,
                                          int nt0, float scale2, int lane,
-                                         Live live) {
+                                         Live live, Bias bias = Bias()) {
     float s[NTW][4];
     scores<KT, NTW>(Kb, nt0, lane, s);
     const int t2 = (lane & 3) * 2;
@@ -430,6 +435,7 @@ struct Rows {
         const int i = e >> 1, c = (nt0 + n) * 8 + t2 + (e & 1);
         float x = s[n][e] * scale2;
         if (ksc != nullptr) x *= ksc[c];
+        if constexpr (!std::is_same<Bias, tc::NoBias>::value) x += bias(i, c);
         x = live(i, c) ? x : kNegInf;
         s[n][e] = x;
         mx[i] = fmaxf(mx[i], x);

@@ -23,25 +23,19 @@
 // Llama-2-7B verify shape (8 requests of a 7-token tree, committed lengths
 // 256-1800, 32 heads, D 128) the batched layout must move 134.7 MB, 0.041
 // ms at 3.35 TB/s.  What the design does about that:
-//   * per-token layout, bf16 (row_tiles.cuh: tree_token_plan_kernel,
-//     tree_token_split_kernel): K1's bf16 design.  The flat tokens are
+//   * per-token layout (row_tiles.cuh: tree_token_plan_kernel, then
+//     tree_token_split_kernel in bf16, tree_token_split_tf32_kernel in
+//     float32): K1's design (decode_attention.cu).  The flat tokens are
 //     grouped by cache row on the device, so a request's tree tokens (and
-//     pads, on the scratch row) share chunks of up to 64 folded rows and
-//     its committed prefix streams once per split, as in the batched
-//     layout, where each token once re-streamed it; the plan's last split
-//     also takes the spec segment under each token's mask; the last split
-//     CTA of a chunk to finish merges its rows' partials; rows with no
-//     live key (pads: clens 0, empty mask) give zeros;
-//   * per-token layout, float32 (tree_token_kernel): f32 keeps K1's
-//     CUDA-core design (decode_attention.cu; a tensor-core redesign is
-//     later work): one CTA per (token, kv head), lane groups
-//     streaming 16-byte K/V vectors, each group with its own softmax
-//     state, merged once; the committed clamp is the loop bound, so a pad
-//     token (clens 0, empty mask) reads nothing.  Tokens of one request
-//     each re-stream that request's prefix.  With an int8
-//     cache a lane holds K1's int8 vector width, and the spec keys are read
-//     at that width in the compute dtype (several 16-byte loads per key),
-//     so both segments share one lane layout and one softmax state;
+//     pads, on the scratch row) share chunks of folded rows (bf16 up to 64
+//     on bf16 tiles; f32 16 on error-compensated TF32 tiles, four warps
+//     each on one 8-key column tile of every 32-key block) and its
+//     committed prefix streams once per split, as in the batched layout,
+//     where each token once re-streamed it; any number of query heads per
+//     KV head folds into the chunks; the plan's last split also takes the
+//     spec segment under each token's mask; the last split CTA of a chunk
+//     to finish merges its rows' partials; rows with no live key (pads:
+//     clens 0, empty mask) give zeros;
 //   * batched layout, bf16 (tree_split_kernel + tree_merge_kernel):
 //     split-KV.  One request's committed prefix streams once, cut into
 //     splits of `split_blocks` 64-key blocks (the wrapper's plan), one CTA
@@ -73,8 +67,7 @@
 //     softmax state over the same rows; the CTA merges the four states in
 //     shared memory before it writes its split's partial.  The merge
 //     kernel writes f32 without a bf16 rounding;
-//   * paged: f32 per-token threads translate a page once and reuse it; a
-//     key block (64 keys bf16, 32 keys f32 batched) sits inside one page
+//   * paged: a key block (64 keys bf16, 32 keys f32) sits inside one page
 //     (the wrapper requires pages of whole 64-key blocks) and translates
 //     once.
 //     Keys are visited in the contiguous layout's order, splits fall on the
@@ -96,187 +89,10 @@ namespace {
 
 using namespace ffk;
 
-constexpr int kThreads = 128;   // per-token kernel
-constexpr int kUnroll = 4;
 constexpr int kTcThreads = 128; // split kernels: four warps
-constexpr int kTfRows = 16;     // f32 split kernel: folded rows per CTA
-constexpr int kTfStages = 3;    // f32 split kernel: ring depth
+constexpr int kTfRows = rt::kTfRows;      // f32 split kernels: folded rows
+constexpr int kTfStages = rt::kTfStages;  // f32 split kernels: ring depth
 using tc::bf16;
-
-// ---------------------------------------------------------------------------
-// per-token layout
-// ---------------------------------------------------------------------------
-
-// One lane group's online softmax over keys j = grp, grp + GROUPS, ... of
-// [0, n_keys) whose mask byte is set (mask == nullptr: all set).  kb/vb
-// point at key row 0 of the rows `keys` addresses (offset to this lane's
-// vector), ksb/vsb at its scale (int8 only).  The trip count is uniform
-// across the CTA, so every lane reaches the shuffles whichever keys are
-// live for its group.
-template <typename KT, int VEC, int D, int GQ, int UNROLL, bool KVQ,
-          bool PAGED>
-__device__ __forceinline__ void attend_keys(
-    const KT* __restrict__ kb, const KT* __restrict__ vb,
-    const float* __restrict__ ksb, const float* __restrict__ vsb,
-    KeyRows<PAGED>& keys, int n_keys, const uint8_t* __restrict__ mask,
-    int grp, const float (&qv)[GQ][VEC], float scale, float (&m)[GQ],
-    float (&l)[GQ], float (&acc)[GQ][VEC]) {
-  constexpr int TPK = D / VEC;
-  constexpr int GROUPS = kThreads / TPK;
-  const int per_iter = GROUPS * UNROLL;
-  const int iters = (n_keys + per_iter - 1) / per_iter;
-  for (int it = 0; it < iters; ++it) {
-    Vec<KT, VEC> kr[UNROLL], vr[UNROLL];
-    float ksr[UNROLL], vsr[UNROLL];
-    bool live[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int j = (it * UNROLL + u) * GROUPS + grp;
-      live[u] = j < n_keys && (mask == nullptr || mask[j] != 0);
-      if (live[u]) {
-        const size_t key = keys.key(j);
-        kr[u].load(kb + key * D);
-        vr[u].load(vb + key * D);
-        if constexpr (KVQ) {
-          ksr[u] = ksb[key];
-          vsr[u] = vsb[key];
-        }
-      } else {
-        kr[u].zero();
-        vr[u].zero();
-        if constexpr (KVQ) ksr[u] = vsr[u] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      float kf[VEC];
-      kr[u].to_float(kf);
-      float s[GQ];
-#pragma unroll
-      for (int g = 0; g < GQ; ++g) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) part = fmaf(qv[g][e], kf[e], part);
-#pragma unroll
-        for (int off = TPK / 2; off > 0; off >>= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, off);
-        s[g] = part * scale;
-        if constexpr (KVQ) s[g] *= ksr[u];
-      }
-      if (live[u]) {
-        float vf[VEC];
-        vr[u].to_float(vf);
-#pragma unroll
-        for (int g = 0; g < GQ; ++g) {
-          const float m_new = fmaxf(m[g], s[g]);
-          const float alpha = expf(m[g] - m_new);
-          const float p = expf(s[g] - m_new);
-          l[g] = l[g] * alpha + p;
-          const float pv = KVQ ? p * vsr[u] : p;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e)
-            acc[g][e] = fmaf(pv, vf[e], acc[g][e] * alpha);
-          m[g] = m_new;
-        }
-      }
-    }
-  }
-}
-
-template <typename T, typename KT, int D, int GQ, bool PAGED>
-__global__ void __launch_bounds__(kThreads)
-tree_token_kernel(const T* __restrict__ q, const KT* __restrict__ k,
-                  const KT* __restrict__ v, const float* __restrict__ ks,
-                  const float* __restrict__ vs, const int* __restrict__ table,
-                  const T* __restrict__ sk, const T* __restrict__ sv,
-                  const int* __restrict__ rows,
-                  const int* __restrict__ clens,
-                  const uint8_t* __restrict__ amask, T* __restrict__ out,
-                  int num_kv, int r1, int s_len, int p_len, int page,
-                  float scale) {
-  constexpr bool KVQ = std::is_same<KT, int8_t>::value;
-  constexpr int VEC = kv_vec<T, KT, D, GQ>();   // elements per lane
-  constexpr int TPK = D / VEC;                  // threads per key row
-  static_assert(D % VEC == 0, "head dim must fill whole vectors");
-  static_assert(TPK >= 1 && TPK <= 32 && 32 % TPK == 0,
-                "a key row must be read by a power-of-two lane group");
-  constexpr int GROUPS = kThreads / TPK;
-  // spec keys at the committed segment's lane width: several 16-byte
-  // loads each when that is wider than one vector of T, one key in flight
-  constexpr int SPEC_UNROLL = Vec<T, VEC>::WORDS > 1 ? 1 : kUnroll;
-
-  __shared__ float sm_m[GROUPS][GQ];
-  __shared__ float sm_l[GROUPS][GQ];
-  __shared__ float sm_acc[GROUPS][GQ][D];
-
-  const int t = blockIdx.x;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int grp = tid / TPK;
-  const int lane = tid % TPK;
-  const int qh = num_kv * GQ;
-  const int row = min(max(rows[t], 0), r1 - 1);
-  const int n_committed = min(max(clens[t], 0), s_len);
-
-  float qv[GQ][VEC];
-#pragma unroll
-  for (int g = 0; g < GQ; ++g) {
-    Vec<T, VEC> qr;
-    qr.load(q + ((size_t)t * qh + h * GQ + g) * D + lane * VEC);
-    qr.to_float(qv[g]);
-  }
-  float m[GQ], l[GQ], acc[GQ][VEC];
-#pragma unroll
-  for (int g = 0; g < GQ; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
-  }
-
-  // (a) committed keys [0, clens)
-  const size_t head_base = head_keys<PAGED>(row, num_kv, h, s_len);
-  KeyRows<PAGED> keys(table, row, num_kv, h, s_len, page);
-  attend_keys<KT, VEC, D, GQ, kUnroll, KVQ, PAGED>(
-      k + head_base * D + lane * VEC, v + head_base * D + lane * VEC,
-      KVQ ? ks + head_base : nullptr, KVQ ? vs + head_base : nullptr, keys,
-      n_committed, nullptr, grp, qv, scale, m, l, acc);
-  // (b) spec keys under the token's ancestor mask (compute dtype,
-  // slot-contiguous)
-  const size_t head = (size_t)row * num_kv + h;
-  KeyRows<false> spec_keys(nullptr, row, num_kv, h, p_len, 0);
-  attend_keys<T, VEC, D, GQ, SPEC_UNROLL, false, false>(
-      sk + head * p_len * D + lane * VEC, sv + head * p_len * D + lane * VEC,
-      nullptr, nullptr, spec_keys, p_len, amask + (size_t)t * p_len, grp, qv,
-      scale, m, l, acc);
-
-  // merge the groups' partial softmax states (a group that saw no live key
-  // holds m = kNegInf, l = 0 and weighs 0 unless no group saw one)
-#pragma unroll
-  for (int g = 0; g < GQ; ++g) {
-    if (lane == 0) {
-      sm_m[grp][g] = m[g];
-      sm_l[grp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) sm_acc[grp][g][lane * VEC + e] = acc[g][e];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < GQ * D; idx += kThreads) {
-    const int g = idx / D;
-    const int d = idx % D;
-    float mx = kNegInf;
-    for (int gr = 0; gr < GROUPS; ++gr) mx = fmaxf(mx, sm_m[gr][g]);
-    float lsum = 0.f, o = 0.f;
-    for (int gr = 0; gr < GROUPS; ++gr) {
-      const float w = expf(sm_m[gr][g] - mx);
-      lsum = fmaf(sm_l[gr][g], w, lsum);
-      o = fmaf(sm_acc[gr][g][d], w, o);
-    }
-    out[((size_t)t * qh + h * GQ + g) * D + d] =
-        from_float<T>(o / fmaxf(lsum, 1e-30f));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // batched layout
@@ -444,12 +260,13 @@ tree_merge_kernel(const float* __restrict__ scratch, T* __restrict__ out,
   merge_split_row<T>(scratch, out, n_req, p_tok, num_kv, gq, d_head, n_split);
 }
 
-// bfloat16 per-token layout: the row-grouped split-KV kernels
-// (row_tiles.cuh)
+// per-token layout: the row-grouped split-KV kernels (row_tiles.cuh); the
+// plan's chunks hold TILE folded rows (bf16 rt::BMR, f32 rt::kTfRows)
+template <int TILE>
 __global__ void __launch_bounds__(32 * rt::kPlanWarps)
 tree_token_plan_kernel(rt::Args a) {
   extern __shared__ int rt_counts[];
-  rt::plan_body<true>(a, rt_counts);
+  rt::plan_body<true, TILE>(a, rt_counts);
 }
 
 template <typename KT, int D, bool PAGED>
@@ -458,6 +275,13 @@ __global__ void __launch_bounds__(
 tree_token_split_kernel(rt::Args a) {
   extern __shared__ __align__(16) unsigned char rt_smem[];
   rt::split_body<KT, D, PAGED, true>(a, rt_smem);
+}
+
+template <typename KT, int D, bool PAGED>
+__global__ void __launch_bounds__(rt::kThreads, 2)
+tree_token_split_tf32_kernel(rt::Args a) {
+  extern __shared__ __align__(16) unsigned char rt_smem[];
+  rt::split_tf32_body<KT, D, PAGED, true>(a, rt_smem);
 }
 
 template <typename KT, int D>
@@ -728,13 +552,13 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
 // Per-token layout.  q [n_tokens, num_kv*gq, D]; k, v [r1, num_kv, s_len,
 // D] in q's dtype, or int8 with k_scale, v_scale f32 [r1, num_kv, s_len]
 // (null: fp cache); table int32 [r1, s_len / page_size] (null:
-// slot-contiguous); sk, sv [r1, num_kv, p_len, D] in q's dtype; rows, clens
-// int32[n_tokens]; amask bool[n_tokens, p_len]; out like q.  dtype:
-// 0 = float32, 1 = bfloat16.  bfloat16 also takes scratch f32 [n_split *
-// n_tokens * num_kv*gq * (D + 2)], plan int32 [round_up(2 * n_tokens, 4)
-// + (4 + num_kv) * cap] with cap = ceil(n_tokens * gq / 64) + r1, and the
-// split plan (a paged table: page_size a multiple of 64 dividing s_len);
-// float32 ignores them.  All tensors contiguous.
+// slot-contiguous; else page_size a multiple of 64 dividing s_len); sk, sv
+// [r1, num_kv, p_len, D] in q's dtype; rows, clens int32[n_tokens]; amask
+// bool[n_tokens, p_len]; out like q; scratch f32 [n_split * n_tokens *
+// num_kv*gq * (D + 2)]; plan int32 [round_up(2 * n_tokens, 4) + (4 +
+// num_kv) * cap] with cap = ceil(n_tokens * gq / tile) + r1 (tile 64 for
+// bfloat16, 16 for float32); the split plan.  dtype: 0 = float32, 1 =
+// bfloat16.  All tensors contiguous.
 extern "C" int ff_tree_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* table, const void* sk, const void* sv,
@@ -743,57 +567,35 @@ extern "C" int ff_tree_attention(
     int s_len, int p_len, int head_dim, int page_size, int n_split,
     int split_blocks, int cap, float scale, int dtype, void* stream) {
   if (n_tokens == 0) return 0;
+  if (scratch == nullptr || plan == nullptr || n_split < 1 ||
+      split_blocks < 1 || cap < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rt::Args a{
+      q, k, v, static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(table),
+      nullptr, sk, sv, static_cast<const uint8_t*>(amask),
+      static_cast<const int*>(rows), static_cast<const int*>(clens),
+      static_cast<int*>(plan), static_cast<float*>(scratch), out, n_tokens,
+      num_kv, gq, r1, s_len, p_len, page_size, n_split, split_blocks, cap,
+      scale};
   const cudaError_t err = with_dtype(dtype, [&](auto tt) {
     using T = typename decltype(tt)::type;
     return with_head_dim(head_dim, [&](auto dd) {
       constexpr int D = decltype(dd)::value;
-      if constexpr (std::is_same<T, bf16>::value) {
-        if (scratch == nullptr || plan == nullptr || n_split < 1 ||
-            split_blocks < 1 || cap < 1)
-          return cudaErrorInvalidValue;
-        const rt::Args a{
-            static_cast<const T*>(q), k, v,
-            static_cast<const float*>(k_scale),
-            static_cast<const float*>(v_scale),
-            static_cast<const int*>(table), nullptr,
-            static_cast<const T*>(sk), static_cast<const T*>(sv),
-            static_cast<const uint8_t*>(amask),
-            static_cast<const int*>(rows), static_cast<const int*>(clens),
-            static_cast<int*>(plan), static_cast<float*>(scratch),
-            static_cast<T*>(out), n_tokens, num_kv, gq, r1, s_len, p_len,
-            page_size, n_split, split_blocks, cap, scale};
-        return with_variant(k_scale != nullptr, table != nullptr,
-                            [&](auto qq, auto pp) {
-          constexpr bool PAGED = decltype(pp)::value;
-          using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
-          return rt::launch<tree_token_plan_kernel,
-                            tree_token_split_kernel<KT, D, PAGED>, KT, D,
-                            true>(a, st);
-        });
-      } else {
-        return with_group(gq, [&](auto gg) {
-          return with_variant(k_scale != nullptr, table != nullptr,
-                              [&](auto qq, auto pp) {
-            constexpr int GQ = decltype(gg)::value;
-            constexpr bool PAGED = decltype(pp)::value;
-            using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
-            tree_token_kernel<T, KT, D, GQ, PAGED>
-                <<<dim3(n_tokens, num_kv), kThreads, 0, st>>>(
-                    static_cast<const T*>(q), static_cast<const KT*>(k),
-                    static_cast<const KT*>(v),
-                    static_cast<const float*>(k_scale),
-                    static_cast<const float*>(v_scale),
-                    static_cast<const int*>(table),
-                    static_cast<const T*>(sk), static_cast<const T*>(sv),
-                    static_cast<const int*>(rows),
-                    static_cast<const int*>(clens),
-                    static_cast<const uint8_t*>(amask), static_cast<T*>(out),
-                    num_kv, r1, s_len, p_len, page_size, scale);
-            return cudaGetLastError();
-          });
-        });
-      }
+      return with_variant(k_scale != nullptr, table != nullptr,
+                          [&](auto qq, auto pp) {
+        constexpr bool PAGED = decltype(pp)::value;
+        using KT = std::conditional_t<decltype(qq)::value, int8_t, T>;
+        if constexpr (std::is_same<T, float>::value)
+          return rt::launch<tree_token_plan_kernel<rt::kTfRows>,
+                            tree_token_split_tf32_kernel<KT, D, PAGED>>(
+              a, rt::TfTiles<KT, D, true>::bytes, st);
+        else
+          return rt::launch<tree_token_plan_kernel<rt::BMR>,
+                            tree_token_split_kernel<KT, D, PAGED>>(
+              a, rt::Tiles<KT, D, true>::bytes, st);
+      });
     });
   });
   return static_cast<int>(err);

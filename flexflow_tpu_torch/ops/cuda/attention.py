@@ -13,36 +13,32 @@ cache row r is physical page ``table[r, j]``, which addresses row
 kernels' int8 and paging apply to the committed cache; the spec buffer
 stays in the compute dtype and slot-contiguous.  ``decode_attention`` also
 takes ALiBi slopes (``slopes`` f32 ``[QH]``, the Pallas kernel's
-``use_alibi`` path, :171-173) in each variant, and any number of query
-heads per KV head; the tree kernels take neither (the reference has no
-ALiBi tree kernel, :816) and the per-token tree layout takes 1, 2, 4 or 8
-query heads per KV head.  The kernels are
-hand-written CUDA C++ for sm_90a (``flexflow_tpu_torch/csrc/``), built by
-``nvcc`` on first use (:mod:`.build`) and called through a plain C
-interface.  In bfloat16 every kernel runs on the tensor cores
-(``csrc/tc_attention.cuh``: ``mma.sync`` products, P rounded to bfloat16
-before P.V, K/V blocks in the cache's dtype through a ``cp.async`` ring);
-in float32 ``prefill_attention`` and ``tree_attention_batched`` do too
-(``csrc/tc_attention_f32.cuh``: error-compensated TF32, each product as
-three ``mma.sync`` passes on the operands' TF32 high and low parts, two
-for an int8 cache, P kept in float32; :func:`tf32x3_probe` exposes the
-fragment layout to the card tests), while float32 ``decode_attention`` and
-``tree_attention`` keep the CUDA-core kernels.  float32
-``prefill_attention`` reads each tile's keys in splits
-(:func:`prefill_split_plan`) merged by a second kernel.
-``decode_attention`` and ``tree_attention`` in bfloat16, and
-``tree_attention_batched`` in both dtypes, are split-KV: the committed
-prefix in splits of :data:`SPLIT_BLOCKS` blocks
-(:func:`tree_split_plan`), one CTA each writing f32 partials to scratch
-this wrapper allocates, then merged (plain versions:
-:func:`decode_split_partials_plain`, :func:`tree_token_split_partials_plain`,
-:func:`tree_split_partials_plain`, :func:`merge_partials_plain`): by a
-merge kernel in the batched layout, by the last split CTA of a chunk to
-finish in the two flat-token kernels.  Those first group their tokens by
-cache row on the device (``csrc/row_tiles.cuh``; plain version
-:func:`row_plan_plain`), so the tokens and query heads of one row share
-chunks of up to :data:`ROW_TILE` folded rows that read each K/V block
-once.
+``use_alibi`` path, :171-173) in each variant; the tree kernels take none
+(the reference has no ALiBi tree kernel, :816).  Every kernel takes any
+number of query heads per KV head.  The kernels are hand-written CUDA C++
+for sm_90a (``flexflow_tpu_torch/csrc/``), built by ``nvcc`` on first use
+(:mod:`.build`) and called through a plain C interface.  Every kernel runs
+on the tensor cores: in bfloat16 through ``csrc/tc_attention.cuh``
+(``mma.sync`` products, P rounded to bfloat16 before P.V, K/V blocks in the
+cache's dtype through a ``cp.async`` ring); in float32 through
+``csrc/tc_attention_f32.cuh`` (error-compensated TF32, each product as
+three ``mma.sync`` passes on the operands' TF32 high and low parts, two for
+an int8 cache, P kept in float32; :func:`tf32x3_probe` exposes the fragment
+layout to the card tests).  float32 ``prefill_attention`` reads each
+tile's keys in splits (:func:`prefill_split_plan`) merged by a second
+kernel.  ``decode_attention``, ``tree_attention`` and
+``tree_attention_batched`` are split-KV: the committed prefix in splits of
+:data:`SPLIT_BLOCKS` blocks (:func:`tree_split_plan`), one CTA each writing
+f32 partials to scratch this wrapper allocates, then merged (plain
+versions: :func:`decode_split_partials_plain`,
+:func:`tree_token_split_partials_plain`, :func:`tree_split_partials_plain`,
+:func:`merge_partials_plain`): by a merge kernel in the batched layout, by
+the last split CTA of a chunk to finish in the two flat-token kernels.
+Those first group their tokens by cache row on the device
+(``csrc/row_tiles.cuh``; plain version :func:`row_plan_plain`), so the
+tokens and query heads of one row share chunks of up to :func:`row_tile`
+folded rows (bfloat16 :data:`ROW_TILE`, float32 :data:`TF32_ROW_TILE`)
+that read each K/V block once.
 
 Each wrapper launches its kernel for CUDA tensors, or raises: there is no
 fall-back for them.  It takes the plain PyTorch version only when the
@@ -70,7 +66,6 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (8, 16, 32, 64, 128)     # head dims the kernels are built for
-TREE_GROUPS = (1, 2, 4, 8)           # query heads per KV head (tree, per token)
 # a page holds whole 64-key blocks: the prefill kernel and the tree
 # kernel's batched layout stage 64-key blocks, and each block must sit in
 # one page so it translates through the table once
@@ -78,8 +73,9 @@ PAGE_BLOCK = 64
 # the split-KV kernels read the committed prefix in splits of this many
 # blocks, one CTA per split (:func:`tree_split_plan`)
 SPLIT_BLOCKS = 4
-# the f32 batched tree kernel holds this many folded rows per CTA
-TF32_TREE_ROWS = 16
+# the f32 split kernels (the batched tree layout, and the flat-token
+# kernels' row chunks) hold this many folded rows per CTA
+TF32_ROW_TILE = 16
 # the f32 prefill kernel reads each tile's keys in splits of this many
 # (:func:`prefill_split_plan`)
 PREFILL_SPLIT_KEYS = 1024
@@ -206,8 +202,7 @@ def check_cache_variant(name, k_cache, v_cache, k_scale, v_scale,
                          f"int32[{r1}, {s // page_size}]")
 
 
-def _check_kernel_args(name, q, k_cache, v_cache, idx_a, idx_b, n, gq,
-                       groups=None):
+def _check_kernel_args(name, q, k_cache, v_cache, idx_a, idx_b, n):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported "
                         f"(float32, bfloat16)")
@@ -220,9 +215,6 @@ def _check_kernel_args(name, q, k_cache, v_cache, idx_a, idx_b, n, gq,
     d = q.shape[-1]
     if k_cache.shape[-1] != d or d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not supported {HEAD_DIMS}")
-    if groups is not None and gq not in groups:
-        raise ValueError(f"{name}: {gq} query heads per KV head not "
-                         f"supported {groups}")
     for t in (idx_a, idx_b):
         if t.dtype != torch.int32 or t.shape != (n,):
             raise ValueError(f"{name}: index arrays must be int32[{n}]")
@@ -312,47 +304,52 @@ def _rows_f32(cache, scale, page_table, page_size, rows):
 
 
 # ---------------------------------------------------------------------------
-# The row plan and split partials of the bf16 flat-token kernels
+# The row plan and split partials of the flat-token kernels
 # ---------------------------------------------------------------------------
-def row_chunk_capacity(n_tokens: int, gq: int, r1: int) -> int:
-    """Entries of the row plan's chunk table: ``ceil(T * gq /``
-    :data:`ROW_TILE` ``)`` full chunks, plus at most one part chunk for
-    each of the ``r1`` cache rows."""
-    return -(-n_tokens * gq // ROW_TILE) + r1
+def row_tile(dtype) -> int:
+    """Folded rows per chunk of the flat-token kernels' row plan:
+    :data:`TF32_ROW_TILE` in float32 (the smallest tile of a TF32
+    ``mma``), :data:`ROW_TILE` in bfloat16."""
+    return TF32_ROW_TILE if dtype == torch.float32 else ROW_TILE
 
 
-def row_plan_plain(rows, r1: int, gq: int):
+def row_chunk_capacity(n_tokens: int, gq: int, r1: int,
+                       tile: int = ROW_TILE) -> int:
+    """Entries of the row plan's chunk table: ``ceil(T * gq / tile)`` full
+    chunks, plus at most one part chunk for each of the ``r1`` cache
+    rows."""
+    return -(-n_tokens * gq // tile) + r1
+
+
+def row_plan_plain(rows, r1: int, gq: int, tile: int = ROW_TILE):
     """Plain version of the row plan kernel (any device): the flat tokens
     sorted by their clamped cache row, stably, and each row's folded rows
-    (sorted slot * gq + query head) cut into chunks of at most
-    :data:`ROW_TILE`.  Returns ``perm`` int64 ``[T]`` (sorted slot ->
-    token) and the chunk table int32 ``[cap, 2]`` of (first folded row,
-    row count), ``cap =`` :func:`row_chunk_capacity`, the unused entries
-    ``(0, 0)``.  The kernel also stores each chunk's cache row and its
-    rows' largest key limit."""
+    (sorted slot * gq + query head) cut into chunks of at most ``tile``.
+    Returns ``perm`` int64 ``[T]`` (sorted slot -> token) and the chunk
+    table int32 ``[cap, 2]`` of (first folded row, row count), ``cap =``
+    :func:`row_chunk_capacity`, the unused entries ``(0, 0)``.  The kernel
+    also stores each chunk's cache row and its rows' largest key limit."""
     r = rows.long().clamp(0, r1 - 1)
     perm = torch.sort(r, stable=True).indices
     counts = torch.bincount(r, minlength=r1).tolist()
-    cap = row_chunk_capacity(r.shape[0], gq, r1)
+    cap = row_chunk_capacity(r.shape[0], gq, r1, tile)
     chunks = torch.zeros(cap, 2, dtype=torch.int32, device=rows.device)
     off = c = 0
     for n in counts:
-        for f in range(0, n * gq, ROW_TILE):
+        for f in range(0, n * gq, tile):
             chunks[c, 0] = off * gq + f
-            chunks[c, 1] = min(ROW_TILE, n * gq - f)
+            chunks[c, 1] = min(tile, n * gq - f)
             c += 1
         off += n
     return perm, chunks
 
 
 def _row_split_buffers(name, q, r1, kv, s):
-    """``(scratch, plan, n_split, split_blocks, cap)`` of a bf16 flat-token
-    kernel: its split partials, its row plan and their sizes (float32:
-    none)."""
-    if q.dtype != torch.bfloat16:
-        return None, None, 0, 0, 0
+    """``(scratch, plan, n_split, split_blocks, cap)`` of a flat-token
+    kernel: its split partials, its row plan (chunks of :func:`row_tile`
+    rows) and their sizes."""
     t, qh, d = q.shape
-    cap = row_chunk_capacity(t, qh // kv, r1)
+    cap = row_chunk_capacity(t, qh // kv, r1, row_tile(q.dtype))
     if (3 * t + 11 * r1 + cap > PLAN_SMEM_INTS or kv > 65535
             or cap > 65535):
         raise ValueError(f"{name}: {t} tokens x {qh // kv} query heads on "
@@ -424,7 +421,7 @@ def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale,
 def decode_split_partials_plain(q, k_cache, v_cache, rows, positions,
                                 scale, k_scale=None, v_scale=None,
                                 page_table=None, page_size=0, slopes=None):
-    """Plain version of the bf16 decode kernel's split pass (any device):
+    """Plain version of the decode kernel's split pass (any device):
     each token's ``(m, l, acc)`` per split of :func:`tree_split_plan` over
     its keys ``<= clamp(positions, 0, S - 1)``, f32, natural base (the
     kernel keeps m in base 2).  Returns ``m, l [n_split, T, QH]`` and
@@ -485,7 +482,7 @@ def decode_attention(q, k_cache, v_cache, rows, positions, scale: float,
     if qh % kv:
         raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
     gq = qh // kv
-    _check_kernel_args(name, q, k_cache, v_cache, rows, positions, t, gq)
+    _check_kernel_args(name, q, k_cache, v_cache, rows, positions, t)
     split = _row_split_buffers(name, q, r1, kv, s)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -552,7 +549,7 @@ def prefill_attention(q, k_cache, v_cache, rows, pstart, scale: float,
     if qh % kv:
         raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
     gq = qh // kv
-    _check_kernel_args(name, q, k_cache, v_cache, rows, pstart, g, gq)
+    _check_kernel_args(name, q, k_cache, v_cache, rows, pstart, g)
     n_split, split_keys, scratch = 0, 0, None
     if q.dtype == torch.float32:
         # split-KV: the (m, l) pairs and accumulators of every split
@@ -642,9 +639,9 @@ def tree_attention_batched_plain(q, k_cache, v_cache, k_spec, v_spec, rows,
 
 
 def tree_split_plan(s_len: int):
-    """``(n_split, split_blocks)``: the split-KV kernels (bf16 decode and
-    both bf16 tree layouts, the f32 batched tree layout) cut each cache
-    row's committed prefix into splits of
+    """``(n_split, split_blocks)``: the split-KV kernels (decode and both
+    tree layouts, in both dtypes) cut each cache row's committed prefix
+    into splits of
     ``split_blocks`` whole :data:`PAGE_BLOCK`-key blocks, ``n_split`` of
     them covering a cache of ``s_len`` positions.  The plan depends on
     shapes only, so the device path reads no positions or ``clens`` back;
@@ -672,7 +669,7 @@ def tree_token_split_partials_plain(q, k_cache, v_cache, k_spec, v_spec,
                                     rows, clens, amask, scale, k_scale=None,
                                     v_scale=None, page_table=None,
                                     page_size=0):
-    """Plain version of the bf16 tree kernels' split pass (any device):
+    """Plain version of the tree kernels' split pass (any device):
     each flat token's ``(m, l, acc)`` per split of :func:`tree_split_plan`
     over its committed keys ``< clens``, the last split also over the spec
     keys under its mask, f32, natural base (the kernels keep m in base 2).
@@ -771,8 +768,7 @@ def tree_attention(q, k_cache, v_cache, k_spec, v_spec, rows, clens, amask,
     if qh % kv:
         raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
     gq = qh // kv
-    _check_kernel_args(name, q, k_cache, v_cache, rows, clens, t, gq,
-                       TREE_GROUPS)
+    _check_kernel_args(name, q, k_cache, v_cache, rows, clens, t)
     _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, (t, p))
     split = _row_split_buffers(name, q, r1, kv, s)
     out = torch.empty_like(q)
@@ -813,12 +809,12 @@ def tree_attention_batched(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
     if qh % kv:
         raise ValueError(f"{name}: {qh} query heads not a multiple of {kv}")
     gq = qh // kv
-    _check_kernel_args(name, q, k_cache, v_cache, rows, clens, r, gq)
+    _check_kernel_args(name, q, k_cache, v_cache, rows, clens, r)
     _check_spec_args(name, q, k_cache, k_spec, v_spec, amask, (r, p, pb))
     # split-KV: the (m, l) pairs and accumulators of every split
     n_split, per = tree_split_plan(s)
     if q.dtype == torch.float32:
-        rows_per_cta = TF32_TREE_ROWS
+        rows_per_cta = TF32_ROW_TILE
     else:
         rows_per_cta = 16 if p * gq <= 16 else 64
     if kv > 65535 or r * -(-p * gq // rows_per_cta) > 65535:

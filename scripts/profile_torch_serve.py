@@ -36,16 +36,16 @@ import time
 from collections import defaultdict
 
 CLASSES = (   # (class, substrings of the kernel name), first match wins
-    ("attention K1 decode", ("decode_kernel", "decode_plan_kernel",
-                             "decode_split_kernel")),
+    ("attention K1 decode", ("decode_plan_kernel", "decode_split_kernel",
+                             "decode_split_tf32_kernel")),
     ("attention K2 prefill", ("prefill_kernel", "prefill_tc_kernel",
                               "prefill_tf32_kernel")),
     ("attention K3 tree batched", ("tree_batched_kernel", "tree_split_kernel",
                                    "tree_split_tf32_kernel",
                                    "tree_merge_kernel")),
-    ("attention K3 tree per-token", ("tree_token_kernel",
-                                     "tree_token_plan_kernel",
-                                     "tree_token_split_kernel")),
+    ("attention K3 tree per-token", ("tree_token_plan_kernel",
+                                     "tree_token_split_kernel",
+                                     "tree_token_split_tf32_kernel")),
     ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "sm90")),
     ("index / copy", ("index", "copy", "gather", "scatter", "cat")),
     ("elementwise / reduce", ("elementwise", "reduce", "softmax", "norm")),

@@ -565,6 +565,66 @@ def test_tree_kernel_row_groups(dev, gq):
         assert not out[pads.to(dev)].float().abs().sum()
 
 
+@pytest.mark.parametrize("gq,d", [(1, 128), (3, 128), (8, 64), (48, 128),
+                                  (71, 64)])
+def test_decode_f32_row_groups(dev, gq, d):
+    """The f32 row-grouped K1 (16-row chunks on 3xTF32 tiles) where its
+    row plan and splits have edges, in the four variants, with and without
+    ALiBi (``2e-5``; paged == contiguous bit for bit): 100 prompt tokens of
+    one row at consecutive positions, tokens of other rows scattered
+    through the batch at positions on the 32-key block and split
+    boundaries of S = 2048, pads on the scratch row."""
+    from flexflow_tpu_torch.serve import alibi_slopes
+
+    g = torch.Generator().manual_seed(40 + gq)
+    kv, s, r, page = (1 if gq > 8 else 2), 2048, 5, 512
+    bounds = [0, 31, 32, 63, 64, 255, 256, 257, 511, 512, s - 1]
+    rows = [0] * 100 + [1 + i % 4 for i in range(len(bounds))] + [r] * 20
+    pos = list(range(1500, 1600)) + bounds + [0] * 20
+    order = torch.randperm(len(rows), generator=g)
+    rows = torch.tensor(rows, dtype=torch.int32)[order].to(dev)
+    pos = torch.tensor(pos, dtype=torch.int32)[order].to(dev)
+    q = torch.randn(len(order), kv * gq, d, generator=g).to(dev)
+    kc, vc = (torch.randn(r + 1, kv, s, d, generator=g).to(dev)
+              for _ in range(2))
+    for slopes in (None, alibi_slopes(kv * gq, dev)):
+        _check_variants("decode_attention", dev, torch.float32, q, kc, vc,
+                        page, (rows, pos), (d ** -0.5,), slopes=slopes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gq", [1, 3, 8, 48, 71])
+def test_tree_kernel_any_group(dev, dtype, gq):
+    """K3 per-token at any number of query heads per KV head (Falcon-7B's
+    71 at D 64, StarCoder's 48 at D 128), in the four variants (paged ==
+    contiguous bit for bit):
+    requests of a 7-token tree scattered through the batch at committed
+    depths on the block and split boundaries, pads (scratch row, depth 0,
+    empty mask) giving zeros."""
+    g = torch.Generator().manual_seed(50 + gq)
+    kv, s, p, r, page = (1 if gq > 8 else 2), 2048, 8, 6, 512
+    d = 64 if gq == 71 else 128
+    depth = [0, 1, 31, 32, 257, s]
+    rows = [i // 7 for i in range(42)] + [r] * 10
+    clens = [depth[i // 7] for i in range(42)] + [0] * 10
+    order = torch.randperm(len(rows), generator=g)
+    rows = torch.tensor(rows, dtype=torch.int32)[order].to(dev)
+    clens = torch.tensor(clens, dtype=torch.int32)[order].to(dev)
+    t = len(order)
+    q = torch.randn(t, kv * gq, d, generator=g).to(dev, dtype)
+    kc, vc, sk, sv = (torch.randn(r + 1, kv, n, d, generator=g).to(
+        dev, dtype) for n in (s, s, p, p))
+    amask = torch.rand(t, p, generator=g) < 0.4
+    amask[:, 0] = True
+    pads = rows.cpu() == r
+    amask[pads] = False
+    got = _check_variants("tree_attention", dev, dtype, q, kc, vc, page,
+                          (sk, sv, rows, clens, amask.to(dev)),
+                          (d ** -0.5,))
+    for out in got.values():
+        assert not out[pads.to(dev)].float().abs().sum()
+
+
 def test_wrappers_reject_bad_cache_variants(dev):
     q = torch.randn(2, 4, 16, device=dev)
     kq = torch.zeros(3, 2, 128, 16, dtype=torch.int8, device=dev)

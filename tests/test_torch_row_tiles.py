@@ -7,8 +7,8 @@ compute differently from the plain versions is checked here, at the TINY
 size, from numpy inputs made from a seed:
 
 * ``row_plan_plain`` places every (token, query head) in exactly one chunk
-  of at most ``ROW_TILE`` rows, each chunk on one cache row, within the
-  chunk table's capacity;
+  of at most ``ROW_TILE`` rows (bf16; ``TF32_ROW_TILE`` in float32), each
+  chunk on one cache row, within the chunk table's capacity;
 * the plain split passes and the merge equal the unsplit plain versions in
   float32 (``atol=rtol=2e-5``: the same sums, split and rescaled), with
   zeros and no NaN on tree rows with no live key;
@@ -39,33 +39,40 @@ TILE = att.ROW_TILE
 # (a) the row plan
 # ---------------------------------------------------------------------------
 def _plan_case(case):
-    """(rows, r1, gq) of one grouping case; the last row is the scratch
-    row that pads use."""
+    """(rows, r1, gq, tile) of one grouping case; the last row is the
+    scratch row that pads use."""
     rng = np.random.default_rng(len(case))
     if case == "scattered":       # one row's tokens spread through the batch
         rows = [2, 0, 2, 1, -1, 2, 3, 0, 2, 9, 1, 2]    # -1, 9: clamped
-        return rows, 4, 3
+        return rows, 4, 3, TILE
     if case == "over_tile":       # 70 tokens of row 1: two chunks of 64 + 6
         rows = rng.permutation([1] * 70 + [0] * 5 + [2] * 3).tolist()
-        return rows, 3, 1
+        return rows, 3, 1, TILE
     if case == "empty_rows":      # rows 0, 2, 3 and 5 hold no token
-        return [4, 1, 4, 4, 1, 6, 6], 7, 6
-    return [5] * 40, 6, 6         # all pads: 240 folded rows, 4 chunks
+        return [4, 1, 4, 4, 1, 6, 6], 7, 6, TILE
+    if case == "tf32_scattered":  # f32 chunks of 16: 5 tokens of row 2 at gq
+        # 3 straddle a chunk boundary, and row 1's 18 tokens take two
+        rows = rng.permutation([2] * 6 + [1] * 18 + [0, 3, 3]).tolist()
+        return rows, 4, 3, att.TF32_ROW_TILE
+    if case == "tf32_71_heads":   # Falcon-7B's group: 5 chunks a token
+        return [0, 2, 1, 2, 2], 3, 71, att.TF32_ROW_TILE
+    return [5] * 40, 6, 6, TILE   # all pads: 240 folded rows, 4 chunks
 
 
 @pytest.mark.parametrize("case", ["scattered", "over_tile", "empty_rows",
-                                  "all_pad"])
+                                  "all_pad", "tf32_scattered",
+                                  "tf32_71_heads"])
 def test_row_plan_covers_each_token_head_once(case):
-    rows_l, r1, gq = _plan_case(case)
+    rows_l, r1, gq, tile = _plan_case(case)
     rows = torch.tensor(rows_l, dtype=torch.int32)
     t = len(rows_l)
-    perm, chunks = att.row_plan_plain(rows, r1, gq)
+    perm, chunks = att.row_plan_plain(rows, r1, gq, tile)
     clamped = rows.long().clamp(0, r1 - 1)
     assert sorted(perm.tolist()) == list(range(t))
     # sorted by row, stably: token index ascending within a row
     keys = [(int(clamped[p]), int(p)) for p in perm]
     assert keys == sorted(keys)
-    cap = att.row_chunk_capacity(t, gq, r1)
+    cap = att.row_chunk_capacity(t, gq, r1, tile)
     assert chunks.shape == (cap, 2)
     used = [(f0, n) for f0, n in chunks.tolist() if n]
     assert len(used) <= cap
@@ -73,7 +80,7 @@ def test_row_plan_covers_each_token_head_once(case):
     assert chunks[len(used):].abs().sum() == 0
     seen = []
     for f0, n in used:
-        assert 1 <= n <= TILE
+        assert 1 <= n <= tile
         f = torch.arange(f0, f0 + n)
         toks = perm[f // gq]
         assert len(set(clamped[toks].tolist())) == 1     # one cache row

@@ -109,12 +109,14 @@ def prod3(a, b, b_exact=False):
     return (al @ bh + ah @ bl) + ah @ bh
 
 
-def walk(qr, keys, vals, ksc, vsc, live, scale, step, int8, state=None):
+def walk(qr, keys, vals, ksc, vsc, live, scale, step, int8, state=None,
+         bias=None):
     """One warp's online softmax over ``keys`` in updates of ``step``
     keys, base 2: scores = prod3(q, k^T) * scale * log2 e (int8: times the
-    key's scale), masked to NEG; P (int8: P * vs) split into P.V.  qr [M,
-    D]; keys/vals [N, D] (int8 values as float); ksc/vsc [N] or None; live
-    [M, N].  Returns (m, l, acc), m in base 2."""
+    key's scale; then plus ``bias [M, N]`` in base 2, K1's ALiBi term),
+    masked to NEG; P (int8: P * vs) split into P.V.  qr [M, D]; keys/vals
+    [N, D] (int8 values as float); ksc/vsc [N] or None; live [M, N].
+    Returns (m, l, acc), m in base 2."""
     n_rows, d = qr.shape
     m, l, acc = state or (torch.full((n_rows,), NEG), torch.zeros(n_rows),
                           torch.zeros(n_rows, d))
@@ -123,6 +125,8 @@ def walk(qr, keys, vals, ksc, vsc, live, scale, step, int8, state=None):
         s = prod3(qr, keys[b].T, int8) * (scale * LOG2E)
         if ksc is not None:
             s = s * ksc[b]
+        if bias is not None:
+            s = s + bias[:, b]
         s = s.masked_fill(~live[:, b], NEG)
         m_new = torch.maximum(m, s.amax(1))
         alpha = torch.exp2(m - m_new)
