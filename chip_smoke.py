@@ -110,7 +110,16 @@ and prints no result):
    prefill, f32 K1 on the decode steps), then through
    ``SpecInferManager.generate`` (width 2, depth 3: f32 K3 per-token on
    the verify) and ``SpecDecodeScan`` (f32 K3 batched on the verify) with
-   the llama-68m-shaped draft.
+   the llama-68m-shaped draft;
+12. serve lifecycle: the same f32 Llama-2-7B on 512-position pages with
+   an 8 GiB host page tier, priority preemption and seeded ``decode_scan``
+   faults under ``serve_with_arrivals``: the 8 prompts and 16 new tokens,
+   a request whose TTL expires in the queue, two priority-5 arrivals that
+   preempt two rows (spilled to the tier, restored at readmission), and a
+   cancel; every ``ok`` stream equals an uninterrupted ``generate`` on the
+   same deployment, the cancelled one is a prefix of its stream, and the
+   spill, restore, checksum and page-copy times are logged beside their
+   bound over the host link.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -1591,6 +1600,195 @@ def phase_serve_f32(serve, att, torch, dev):
     return launches
 
 
+HOST_LINK_BYTES_PER_S = 64e9   # PCIe 5.0 x16, one direction (the spec)
+
+
+class StateClock:
+    """A virtual clock for ``serve_with_arrivals``: each reading advances
+    ``tick`` seconds, and each trigger ``(ready, fn)`` runs ``fn`` once, at
+    the first reading at which ``ready()`` holds."""
+
+    def __init__(self, tick=1e-3):
+        self.t = 0.0
+        self.tick = tick
+        self.triggers = []
+
+    def when(self, ready, fn):
+        self.triggers.append([ready, fn])
+
+    def __call__(self):
+        self.t += self.tick
+        for trig in self.triggers:
+            if trig[1] is not None and trig[0]():
+                fn, trig[1] = trig[1], None
+                fn()
+        return self.t
+
+
+def lifecycle_traffic(serve, rm, clock, prompts, n_new, vocab):
+    """The arrivals of the lifecycle phase and their triggers: the 8
+    prompts at t=0; a 9th at t=0 whose TTL expires in the queue; two
+    priority-5 arrivals at t=1000, which the clock jumps to once every
+    slot decodes, each preempting a row; and a cancel of request 0 once it
+    holds 4 tokens.  Returns (arrivals, the priority-5 prompts)."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    ttl_prompt, *urgent = [rng.integers(3, vocab, size=n).tolist()
+                           for n in (300, 900, 1400)]
+    arrivals = ([(0.0, p, n_new) for p in prompts]
+                + [(0.0, ttl_prompt, n_new, {"ttl_s": 0.005})]
+                + [(1000.0, p, n_new, {"priority": 5}) for p in urgent])
+    first = range(len(prompts))
+    clock.when(lambda: all(r in rm.requests and rm.requests[r].status is
+                           serve.RequestStatus.DECODING for r in first),
+               lambda: setattr(clock, "t", max(clock.t, 1000.0)))
+    clock.when(lambda: 0 in rm.requests
+               and len(rm.requests[0].generated) >= 4,
+               lambda: rm.cancel(0))
+    return arrivals, urgent
+
+
+def phase_serve_lifecycle(serve, att, torch, dev):
+    """The request lifecycle on the published Llama-2-7B shape in float32
+    (TF32 off), 512-position pages, 8 slots, an 8 GiB host page tier and
+    seeded ``decode_scan`` faults: ``serve_with_arrivals`` serves the 8
+    prompts, 16 new tokens each, a request whose TTL expires in the queue,
+    two priority-5 arrivals that preempt two rows (their pages spill to
+    the tier; a flush of the prefix index at each preemption stands for a
+    busy pool's churn, so the readmissions restore from the tier instead
+    of hitting their own released pages), and a cancel.  The oracle is
+    the same deployment after ``im.reset()``: a plain ``generate`` of the
+    10 prompts served.  Returns the path's launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = serve.ServeModelConfig(dtype="float32")   # Llama-2-7B defaults
+    n_new = 16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    im = serve.InferenceManager(
+        serve.build_model(cfg), max_requests=8, max_tokens_per_batch=512,
+        max_seq_len=2048, kv_page_size=PAGE, device=dev)
+    im.init_operators_inference(seed=0)
+    kv = im.kv
+    res = serve.ResilienceConfig(
+        preemption=True, host_tier_bytes=8 << 30,
+        retry=serve.RetryPolicy(max_retries=2, backoff_s=0.0))
+    # seed 1 draws under 0.3 at its 3rd and 5th decode_scan dispatch (the
+    # phase makes 7; seed 0's first such draw is its 15th)
+    inj = serve.FaultInjector(seed=1, p_by_site={"decode_scan": 0.3},
+                              max_faults=2)
+    rm = serve.RequestManager(im, serve.GenerationConfig(
+        max_new_tokens=n_new), resilience=res, fault_injector=inj)
+    rm.scan_chunk = 2   # decode stretches of 2 steps: 7 dispatches
+    swaps = {"spill": [], "restore": []}
+
+    def timed(kind, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = fn(*args, **kw)
+            torch.cuda.synchronize()
+            if info:
+                swaps[kind].append((time.perf_counter() - t0, info["pages"],
+                                    info["nbytes"]))
+            return info
+        return run
+
+    kv.spill = timed("spill", kv.spill)
+    kv.restore = timed("restore", kv.restore)
+    preempt = rm.preempt
+
+    def preempt_under_churn(rid):
+        preempt(rid)
+        for key in list(kv._entries):
+            kv._drop_entry(key)
+
+    rm.preempt = preempt_under_churn
+    clock = StateClock()
+    prompts = serve_prompts(cfg.vocab_size)
+    arrivals, urgent = lifecycle_traffic(serve, rm, clock, prompts, n_new,
+                                         cfg.vocab_size)
+    t0 = time.perf_counter()
+    records, n = counted(att, lambda: rm.serve_with_arrivals(
+        arrivals, clock=clock, quantum=2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require_launches(n, "lifecycle", "paged",
+                     ("decode_attention", "prefill_attention"))
+    outcomes = [records[r]["outcome"] for r in sorted(records)]
+    expected = ["cancelled"] + ["ok"] * 7 + ["timeout", "ok", "ok"]
+    if outcomes != expected:
+        raise AssertionError(f"lifecycle outcomes {outcomes} != {expected}")
+    snap = kv.snapshot()
+    preemptions = sum(r.preemptions for r in rm.requests.values())
+    counts = {"preemptions": preemptions,
+              "pages_spilled": snap["pages_spilled"],
+              "pages_restored": snap["pages_restored"],
+              "recompute_tokens_saved": snap["recompute_tokens_saved"],
+              "faults_injected": inj.injected,
+              "retries": rm.retries["decode_scan"]}
+    if preemptions < 2 or min(counts.values()) < 1:
+        raise AssertionError(f"lifecycle counters: {counts}")
+    if snap["restore_failures"]:
+        raise AssertionError(f"{snap['restore_failures']} restore failures")
+    # the oracle: the served prompts on the same deployment, uninterrupted
+    kv.attach_host_tier(0)
+    im.reset()
+    served = prompts + urgent
+    t_oracle = time.perf_counter()
+    want = serve.RequestManager(im, serve.GenerationConfig(
+        max_new_tokens=n_new)).generate(served)
+    t_oracle = time.perf_counter() - t_oracle
+    got = [records[r]["tokens"] for r in sorted(records) if r != 8]
+    for i, (g, w) in enumerate(zip(got, want)):
+        ok = g == w if i else (0 < len(g) < n_new and g == w[:len(g)])
+        if not ok:
+            raise AssertionError(f"lifecycle stream {i}: {g} vs the "
+                                 f"uninterrupted {w}")
+    check_streams(want, n_new, cfg.vocab_size, "lifecycle oracle")
+    log(f"lifecycle: 7B f32, 512-position pages: wall {wall:.2f}s (oracle "
+        f"{t_oracle:.2f}s); outcomes {outcomes}; {counts}, restore "
+        f"failures 0, swap bytes {snap['swap_bytes']}; launches {short(n)}")
+    for kind, runs in swaps.items():
+        pages = sum(p for _, p, _ in runs)
+        nbytes = sum(b for _, _, b in runs)
+        secs = sum(s for s, _, _ in runs)
+        log(f"lifecycle {kind}: {len(runs)} calls, {pages} pages, {nbytes} "
+            f"bytes in {secs * 1e3:.3f} ms: {secs * 1e3 / max(pages, 1):.3f} "
+            f"ms per page (D2H or H2D, CRC, page table), bound "
+            f"{nbytes / max(pages, 1) / HOST_LINK_BYTES_PER_S * 1e3:.3f} ms "
+            f"per page over the host link")
+    # one page's parts, three times: the copy out into its pinned blocks,
+    # the checksum, the copy in
+    page = kv._read_page(0)
+    parts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for blk, src in zip(page.blocks, kv._page_blocks(0)):
+            blk.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        page.verify()
+        t2 = time.perf_counter()
+        kv._write_page(0, page)
+        torch.cuda.synchronize()
+        parts.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+    bound = page.nbytes / HOST_LINK_BYTES_PER_S * 1e3
+    for label, i in (("D2H copy", 0), ("CRC32", 1), ("H2D copy", 2)):
+        log(f"lifecycle page {label}: " + " / ".join(
+            f"{p[i] * 1e3:.3f}" for p in parts) + f" ms for {page.nbytes} "
+            f"bytes (bound {bound:.3f} ms over the host link)")
+    log(f"lifecycle: phase wall {time.perf_counter() - t_phase:.1f}s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    del im, rm, page
+    torch.cuda.empty_cache()
+    return n
+
+
 TC_KERNELS = ("prefill_tc_kernel", "prefill_tf32_kernel",
               "tree_split_tf32_kernel", "tree_split_kernel",
               "tree_merge_kernel", "decode_split_kernel",
@@ -1684,6 +1882,8 @@ def main():
         serve, att, torch, dev))
     f32 = timed("f32 serve", lambda: phase_serve_f32(serve, att, torch,
                                                       dev))
+    life = timed("serve lifecycle", lambda: phase_serve_lifecycle(
+        serve, att, torch, dev))
 
     # each kernel variant's launches on the path that runs it: fp on the
     # 7B bf16 serve path, int8+paged on the 7B int8 serve path, int8 and
@@ -1691,17 +1891,23 @@ def main():
     # MPT-7B serve paths (fp, int8+paged) and the 2-layer MPT parity paths
     # (int8, paged); K1 at 71 and 48 query heads per KV head on the
     # Falcon-7B parity path and the StarCoder serve path; float32: fp on
-    # the 7B f32 serve path, the others on the (f32) variant-parity paths
+    # the 7B f32 serve path, the others on the (f32) variant-parity paths,
+    # K1 and K2 paged on the 7B f32 lifecycle path too
     def path_counts_f32(var):
         if var == "fp":
             return {"decode_attention": f32["incremental"],
                     "prefill_attention": f32["incremental"],
                     "tree_attention": f32["spec host"],
                     "tree_attention_batched": f32["spec device"]}
-        return {"decode_attention": parity[var]["incremental"],
-                "prefill_attention": parity[var]["incremental"],
-                "tree_attention": parity[var]["spec host"],
-                "tree_attention_batched": parity[var]["spec device"]}
+        counts = {"decode_attention": parity[var]["incremental"],
+                  "prefill_attention": parity[var]["incremental"],
+                  "tree_attention": parity[var]["spec host"],
+                  "tree_attention_batched": parity[var]["spec device"]}
+        if var == "paged":
+            for name in ("decode_attention", "prefill_attention"):
+                counts[name] = {k: c + life[k]
+                                for k, c in counts[name].items()}
+        return counts
 
     def path_counts(var):
         if var == "fp":

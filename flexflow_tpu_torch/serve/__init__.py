@@ -10,7 +10,11 @@ caches with copy-on-write prefix sharing (``kv_page_size``), through the
 int8 and paged variants of the kernels (slice 3); the OPT, Falcon, MPT
 and StarCoder families (LayerNorm, biases, learned positions, ALiBi
 through the decode kernel's slopes, multi-query attention with any number
-of query heads per KV head) and their HF state-dict converters (slice 5).
+of query heads per KV head) and their HF state-dict converters (slice 5);
+the request lifecycle: arrivals (``serve_with_arrivals``), cancel and
+deadlines, admission control, priority and page-pressure preemption with
+recompute, a host page tier that spills and restores a preempted request's
+pages, and dispatch retries under a seeded fault injector (slice 6).
 """
 
 from . import models  # noqa: F401  (registers the model builders)
@@ -31,6 +35,8 @@ from .inference_manager import (
 )
 from .kv_allocator import KVAllocator
 from .kv_paged import (
+    HostPageTier,
+    HostTierCorruption,
     PagedKVAllocator,
     PagePoolExhausted,
     PageTable,
@@ -40,10 +46,18 @@ from .models.base import MODEL_REGISTRY, ServeModelConfig, build_model
 from .ops import IncMultiHeadSelfAttention, alibi_slopes, apply_rope
 from .quant import quantize_int8
 from .request_manager import (
+    OUTCOMES,
+    TERMINAL_STATUSES,
     GenerationConfig,
     Request,
     RequestManager,
     RequestStatus,
+)
+from .resilience import (
+    FaultInjector,
+    ResilienceConfig,
+    RetryPolicy,
+    TransientServeError,
 )
 from .spec_infer import SpecInferManager, SpecRequest, TokenTreeNode
 from .spec_scan import SpecDecodeScan
@@ -62,6 +76,8 @@ __all__ = [
     "PagedKVAllocator",
     "PagePoolExhausted",
     "PageTable",
+    "HostPageTier",
+    "HostTierCorruption",
     "validate_page_tile",
     "quantize_int8",
     "pick_prefill_tile",
@@ -70,6 +86,12 @@ __all__ = [
     "Request",
     "RequestStatus",
     "GenerationConfig",
+    "TERMINAL_STATUSES",
+    "OUTCOMES",
+    "ResilienceConfig",
+    "RetryPolicy",
+    "FaultInjector",
+    "TransientServeError",
     "SpecInferManager",
     "SpecRequest",
     "TokenTreeNode",

@@ -3,12 +3,15 @@
 Port of ``flexflow_tpu/serve/inference_manager.py`` for one device:
 ``pick_prefill_tile`` (:184), ``sample_tokens`` (:197), ``__init__``,
 ``init_operators_inference``, ``step`` (:612) with the draft model's
-top-k (:596), and ``decode_scan`` (:757), over an int8 (``kv_dtype``) and/or
-paged (``kv_page_size``) KV cache.
+top-k (:596), ``decode_scan`` (:757) and ``prefill_scan`` (:958), over an
+int8 (``kv_dtype``) and/or paged (``kv_page_size``) KV cache.
 PyTorch runs eagerly, so the reference's jitted step is a plain call and
 its donated caches are caches updated in place.  ``decode_scan`` is a loop
 of steps whose batch advances on the device: nothing inside it reads a
 value back to the host, and the EOS freeze is a tensor op.
+``prefill_scan`` is a loop of prefill chunks, one dispatch to the caller.
+Each of the three consults the manager's ``fault_injector`` once, at its
+site name, before any device work (reference :618, :767, :973).
 
 Sampling: greedy is exact argmax.  Temperature/top-p draws are keyed, as
 in the reference, by (seed, request id, token index), so a request's draw
@@ -20,7 +23,7 @@ JAX's threefry, so seeded draws match the reference in distribution only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -96,6 +99,10 @@ def sample_tokens(logits: torch.Tensor,
 
 
 class InferenceManager:
+    # the seeded chaos hook a RequestManager sets (resilience.py); None:
+    # no dispatch ever faults
+    fault_injector = None
+
     def __init__(self, model: torch.nn.Module, max_requests: int = 8,
                  max_tokens_per_batch: int = 64, max_seq_len: int = 512,
                  device=None, max_spec_tokens: int = 0, topk: int = 0,
@@ -194,11 +201,24 @@ class InferenceManager:
             raise RuntimeError("call init_operators_inference() first")
         return self.model(bc, self.state, self.kv.page_view())
 
+    def _fault_site(self, site: str) -> None:
+        if self.fault_injector is not None:
+            self.fault_injector.maybe_fail(site)
+
     @torch.no_grad()
     def step(self, bc, sample: Optional[Sample] = None) -> InferenceResult:
         """Run one serving step (argmax when ``sample`` is None); with
         ``topk``, also the top-k of the log-softmax of the float32 logits
-        (reference :596-600)."""
+        (reference :596-600).  The ``step`` fault site."""
+        self._fault_site("step")
+        return self.run_step(bc, sample)
+
+    @torch.no_grad()
+    def run_step(self, bc, sample: Optional[Sample] = None
+                 ) -> InferenceResult:
+        """The body of :meth:`step` with no fault site: the steps inside
+        one dispatch (``decode_scan``, ``prefill_scan``, a
+        ``SpecDecodeScan`` macro step)."""
         logits = self.forward(bc)
         topk_ids = topk_lp = None
         if self.topk:
@@ -227,6 +247,7 @@ class InferenceManager:
         from ``bc`` if None, one sync before the loop).  Returns
         ``(tokens i32[n, T], live bool[n, T], bc)``.
         """
+        self._fault_site("decode_scan")
         if max_position is None:
             max_position = int(bc.token_position.max())
         if max_position + n_steps > self.max_seq_len:
@@ -243,7 +264,7 @@ class InferenceManager:
                 step_folds = sample[3].clone()
                 step_folds[:, 1] += i
                 stp = (sample[0], sample[1], sample[2], step_folds)
-            toks = self.step(bc, stp).token_ids
+            toks = self.run_step(bc, stp).token_ids
             tokens.append(toks)
             lives.append(alive)
             if allowed is not None:
@@ -255,6 +276,21 @@ class InferenceManager:
             bc = dataclasses.replace(
                 bc, request_index=torch.where(alive, bc.request_index, -1))
         return torch.stack(tokens), torch.stack(lives), bc
+
+    @torch.no_grad()
+    def prefill_scan(self, chunks: Sequence,
+                     samples: Optional[Sequence[Optional[Sample]]] = None
+                     ) -> torch.Tensor:
+        """The prefill stretch's dispatch (reference :958): run the
+        prefill batches ``chunks`` in order (each with its ``samples``
+        entry, None = greedy) and return their token ids stacked,
+        ``i32[len(chunks), max_tokens]``, read back by the caller once.
+        The ``prefill_scan`` fault site is consulted once, before the
+        first chunk, so a retry replays the whole stretch."""
+        self._fault_site("prefill_scan")
+        samples = samples or [None] * len(chunks)
+        return torch.stack([self.run_step(bc, s).token_ids
+                            for bc, s in zip(chunks, samples)])
 
 
 @torch.no_grad()

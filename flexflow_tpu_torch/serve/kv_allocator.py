@@ -12,7 +12,8 @@ zero-initialised f32 ``k_scale``/``v_scale`` planes ``[R+1, KV, S_pad]``
 per layer in the compute dtype (reference ``serve/ops.py:271-279``), plus
 the per-request attribution the RequestManager drives (``bind`` when a
 request takes a slot, ``release`` on every path it leaves one) and the
-no-op page hooks the paged subclass (:mod:`.kv_paged`) overrides.
+no-op page and host-tier hooks the paged subclass (:mod:`.kv_paged`)
+overrides.
 """
 
 from __future__ import annotations
@@ -37,6 +38,9 @@ class KVAllocator:
     # slot-contiguous: one reserved max_seq_len span per slot; the paged
     # subclass flips this and overrides the page hooks below
     paged = False
+    # the host page tier (paged subclass only); the manager gates every
+    # swap path on ``host_tier is not None``
+    host_tier = None
 
     def __init__(self, model: torch.nn.Module, max_requests: int,
                  max_seq_len: int, device: torch.device,
@@ -91,11 +95,15 @@ class KVAllocator:
 
     def bytes_per_token(self) -> float:
         """Committed-KV bytes one request-position costs across layers
-        (int8: 1-byte values plus the two 4-byte scales)."""
+        (int8: 1-byte values plus the two 4-byte scales), with the scratch
+        row's share spread over the request rows, as the reference prices
+        it (reference :164): ``bytes_per_token() * max_requests *
+        max_seq_len`` is the cache without its seq padding."""
         int8 = self.kv_dtype == "int8"
-        return float(sum(
+        per_row = sum(
             2 * kv * (d * (1 if int8 else dt.itemsize) + (4 if int8 else 0))
-            for _, kv, d, dt in self.layers))
+            for _, kv, d, dt in self.layers)
+        return float(per_row * (self.max_requests + 1) / self.max_requests)
 
     @property
     def capacity_tokens(self) -> int:
@@ -135,3 +143,14 @@ class KVAllocator:
 
     def attributed_rids(self) -> List[int]:
         return sorted(self._bound)
+
+    # ---- host-tier hooks: a slot-contiguous cache has no pages to spill,
+    # so recovery from preemption stays recompute (reference :319-337)
+    def attach_host_tier(self, capacity_bytes: int):
+        return None
+
+    def has_spill(self, rid: int) -> bool:
+        return False
+
+    def drop_spill(self, rid: int) -> None:
+        return None

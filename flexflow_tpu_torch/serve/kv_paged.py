@@ -1,7 +1,6 @@
-"""Paged KV cache with copy-on-write prefix sharing.
+"""Paged KV cache with copy-on-write prefix sharing and a host page tier.
 
-Port of ``flexflow_tpu/serve/kv_paged.py`` without its host-DRAM tier
-(``HostPageTier``, spill/restore), which waits for request preemption.
+Port of ``flexflow_tpu/serve/kv_paged.py``.
 
 * **Physical layout is unchanged.**  The caches stay the
   ``[max_requests+1, KV, S_pad, D]`` buffers (and int8 scale planes
@@ -19,7 +18,8 @@ Port of ``flexflow_tpu/serve/kv_paged.py`` without its host-DRAM tier
   slot-contiguous path's bits.
 * **On-demand pages.**  ``prepare_write(rid, lo, hi)``, called before
   every dispatch that writes, maps missing pages from the free pool;
-  exhaustion raises :class:`PagePoolExhausted`.
+  exhaustion raises :class:`PagePoolExhausted`, which the manager turns
+  into page-pressure preemption when its policy allows.
 * **Refcounted copy-on-write prefix sharing.**  Pages are keyed by a
   chained hash of the page-aligned token prefix that produced them (KV at
   a position is a function of the token prefix), plus a partial-tail entry
@@ -28,14 +28,24 @@ Port of ``flexflow_tpu/serve/kv_paged.py`` without its host-DRAM tier
   prompt prefill it once.  A write into a page another request maps, or
   into the extent an index entry vouches for, copies the page first.
   Index-only pages are evicted least recently used when the pool runs out.
+* **The host page tier** (:class:`HostPageTier`, attached by
+  ``attach_host_tier``): a preempted request's written pages ``spill`` to
+  host memory and ``restore`` onto its new row at readmission, and an
+  evicted full-page index entry is demoted there and promoted back by a
+  later ``bind``.  Each host page carries a CRC32 chained over its blocks'
+  bytes, verified before any upload; a corrupt or missing copy falls back
+  to recompute.  Host blocks are CPU tensors (pinned when the cache lives
+  on a CUDA device, so the copies run at the host link's rate): numpy has
+  no bfloat16.
 
 Everything here is host bookkeeping (numpy) plus host-ordered device copies
-(the COW page copy, the table upload).
+(the COW page copy, the table upload, the tier's page copies).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,7 +56,181 @@ from .kv_allocator import KV_BUFFER_NAMES, KVAllocator, padded_seq_len
 
 class PagePoolExhausted(RuntimeError):
     """No free page and nothing evictable: every page is held by a live
-    request (an admission gate sized with ``round_need`` prevents it)."""
+    request.  ``RequestManager._kv_prepare`` preempts a strictly
+    lower-priority victim when ``ResilienceConfig.preemption`` is on;
+    otherwise it propagates."""
+
+
+class HostTierCorruption(RuntimeError):
+    """A host-tier page failed its checksum on restore.  Not retryable
+    (the host copy itself is damaged): the caller drops the entry and
+    recomputes, which gives the same tokens."""
+
+
+# the integer view a block's checksum reads, by element size (bf16 as
+# int16, f32 as int32, int8 as itself)
+_INT_VIEW = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+def _crc(blocks: Sequence[torch.Tensor]) -> int:
+    """CRC32 chained over the bytes of CPU blocks, in order."""
+    crc = 0
+    for blk in blocks:
+        crc = zlib.crc32(blk.view(_INT_VIEW[blk.element_size()]).numpy(),
+                         crc)
+    return crc
+
+
+class _HostPage:
+    """One page's content in host memory: a CPU block per KV buffer in
+    :meth:`PagedKVAllocator._kv_buffers` order, and a CRC32 chained over
+    them, verified on every restore."""
+
+    __slots__ = ("blocks", "crc", "nbytes")
+
+    def __init__(self, blocks: List[torch.Tensor], crc: int, nbytes: int):
+        self.blocks = blocks
+        self.crc = crc
+        self.nbytes = nbytes
+
+    def verify(self) -> bool:
+        return _crc(self.blocks) == self.crc
+
+    def corrupt_for_test(self) -> None:
+        """Flip one byte of the first block without updating the checksum
+        (chaos-test hook: a restore must detect it and recompute)."""
+        self.blocks[0].view(torch.uint8).view(-1)[0] ^= 0xFF
+
+
+class _Spill:
+    """A preempted request's spilled pages: logical pages ``[0,
+    ceil(hi / page_size))`` of its row, the fed-token prefix that produced
+    them (restore checks it against the new feed), and the write frontier
+    ``hi`` the restore resumes at."""
+
+    __slots__ = ("pages", "tokens", "hi", "nbytes", "lru")
+
+    def __init__(self, pages: List[_HostPage], tokens: List[int], hi: int):
+        self.pages = pages
+        self.tokens = tokens
+        self.hi = hi
+        self.nbytes = sum(p.nbytes for p in pages)
+        self.lru = 0
+
+
+class _Demoted:
+    """A prefix-index page demoted to the host tier at LRU eviction: its
+    content, token identity and protected extent, so a later bind can
+    promote it back as if the index had never evicted it."""
+
+    __slots__ = ("page", "tokens", "protected", "lru")
+
+    def __init__(self, page: _HostPage, tokens: Tuple[int, ...],
+                 protected: int):
+        self.page = page
+        self.tokens = tokens
+        self.protected = protected
+        self.lru = 0
+
+
+class HostPageTier:
+    """Bounded host-memory pool under :class:`PagedKVAllocator`: spilled
+    request pages (one ``_Spill`` per rid) and demoted index pages (one
+    ``_Demoted`` per index key) under one LRU (reference :188-298).
+
+    Storing a unit evicts least recently used units until it fits; a unit
+    larger than the whole tier is refused (the caller recomputes).
+    ``signature`` is the owning allocator's
+    :meth:`PagedKVAllocator.swap_signature`."""
+
+    def __init__(self, capacity_bytes: int, signature: Tuple = ()):
+        self.capacity_bytes = int(capacity_bytes)
+        self.signature = signature
+        self.bytes_used = 0
+        self.evictions = 0
+        self._spills: Dict[int, _Spill] = {}
+        self._demoted: Dict[Tuple, _Demoted] = {}
+        self._lru_tick = 0
+
+    def _stamp(self, unit) -> None:
+        self._lru_tick += 1
+        unit.lru = self._lru_tick
+
+    def _make_room(self, need: int) -> bool:
+        if need > self.capacity_bytes:
+            return False
+        while self.bytes_used + need > self.capacity_bytes:
+            units = [(s.lru, 0, rid) for rid, s in self._spills.items()]
+            units += [(d.lru, 1, key) for key, d in self._demoted.items()]
+            if not units:
+                return False
+            _, kind, key = min(units)
+            if kind == 0:
+                self.drop_spill(key)
+            else:
+                self.drop_demoted(key)
+            self.evictions += 1
+        return True
+
+    # ---- spilled requests --------------------------------------------
+    def put_spill(self, rid: int, spill: _Spill) -> bool:
+        self.drop_spill(rid)
+        if not self._make_room(spill.nbytes):
+            return False
+        self._spills[int(rid)] = spill
+        self.bytes_used += spill.nbytes
+        self._stamp(spill)
+        return True
+
+    def get_spill(self, rid: int) -> Optional[_Spill]:
+        s = self._spills.get(int(rid))
+        if s is not None:
+            self._stamp(s)
+        return s
+
+    def pop_spill(self, rid: int) -> Optional[_Spill]:
+        s = self._spills.pop(int(rid), None)
+        if s is not None:
+            self.bytes_used -= s.nbytes
+        return s
+
+    def drop_spill(self, rid: int) -> None:
+        self.pop_spill(rid)
+
+    # ---- demoted index pages -----------------------------------------
+    def put_demoted(self, key: Tuple, rec: _Demoted) -> bool:
+        self.drop_demoted(key)
+        if not self._make_room(rec.page.nbytes):
+            return False
+        self._demoted[key] = rec
+        self.bytes_used += rec.page.nbytes
+        self._stamp(rec)
+        return True
+
+    def get_demoted(self, key: Tuple) -> Optional[_Demoted]:
+        d = self._demoted.get(key)
+        if d is not None:
+            self._stamp(d)
+        return d
+
+    def drop_demoted(self, key: Tuple) -> None:
+        d = self._demoted.pop(key, None)
+        if d is not None:
+            self.bytes_used -= d.page.nbytes
+
+    # ---- occupancy ----------------------------------------------------
+    def pages_held(self) -> int:
+        return (sum(len(s.pages) for s in self._spills.values())
+                + len(self._demoted))
+
+    def snapshot(self) -> Dict:
+        return {
+            "host_pages": self.pages_held(),
+            "host_bytes": self.bytes_used,
+            "host_capacity_bytes": self.capacity_bytes,
+            "host_spilled_requests": len(self._spills),
+            "host_evictions": self.evictions,
+        }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +315,15 @@ class PagedKVAllocator(KVAllocator):
         self.cow_copies = 0
         self.pages_evicted = 0
         self.pages_mapped = 0
+        # the host tier's traffic: pages copied out and back, their bytes,
+        # prefill positions a restore or promotion saved, and checksum
+        # misses (each one recomputed instead)
+        self.pages_spilled = 0
+        self.pages_restored = 0
+        self.swap_bytes = 0
+        self.recompute_tokens_saved = 0
+        self.restore_failures = 0
+        self.host_tier: Optional[HostPageTier] = None
         self._init_pool()
 
     # ------------------------------------------------------------------
@@ -185,8 +378,20 @@ class PagedKVAllocator(KVAllocator):
         if not victims:
             raise PagePoolExhausted(
                 f"page pool exhausted: {self.n_pages - 1} pages all held by "
-                "live requests (admission should gate on round_need)")
-        self._drop_entry(victims[0][1])
+                "live requests (enable ResilienceConfig.preemption for "
+                "page-pressure eviction)")
+        key = victims[0][1]
+        # a full-page entry is demoted to the host tier first, so a later
+        # bind matching its chain promotes it back (a partial tail is one
+        # sub-page of recompute, not worth a tier slot; reference :455)
+        if self.host_tier is not None and key[0] == "f":
+            e = self._entries[key]
+            rec = _Demoted(self._read_page(e.pid), e.tokens,
+                           int(self._protected.get(e.pid, self.page_size)))
+            if self.host_tier.put_demoted(key, rec):
+                self.pages_spilled += 1
+                self.swap_bytes += rec.page.nbytes
+        self._drop_entry(key)
         self.pages_evicted += 1
         return self._free.pop()
 
@@ -269,6 +474,10 @@ class PagedKVAllocator(KVAllocator):
         hit_pids: List[int] = []
         for k, h_k in enumerate(hashes):
             e = self._entries.get(("f", h_k))
+            if e is None and self.host_tier is not None:
+                # the index may have demoted this page to the host tier
+                e = self._promote_full(
+                    ("f", h_k), tuple(toks[k * ps:(k + 1) * ps]))
             if e is None or e.tokens != tuple(toks[k * ps:(k + 1) * ps]):
                 break
             hit_pids.append(e.pid)
@@ -408,6 +617,209 @@ class PagedKVAllocator(KVAllocator):
                 self._unmap(slot, k)
         return super().release(rid, tokens)
 
+    # ---- host-tier spill / restore (reference :759-1012) ---------------
+    def attach_host_tier(self, capacity_bytes: int) -> Optional[HostPageTier]:
+        """Attach a bounded host tier of ``capacity_bytes`` (idempotent;
+        0 or less detaches)."""
+        if capacity_bytes and int(capacity_bytes) > 0:
+            if (self.host_tier is None
+                    or self.host_tier.capacity_bytes != int(capacity_bytes)):
+                self.host_tier = HostPageTier(int(capacity_bytes))
+        else:
+            self.host_tier = None
+        return self.host_tier
+
+    def _kv_buffers(self):
+        """Every committed-KV buffer, in one fixed (layer, name) order
+        shared by the spill copy, the restore upload and
+        ``swap_signature``."""
+        for layer in sorted(self.state or {}):
+            bufs = self.state[layer]
+            for name in sorted(n for n in bufs if n in KV_BUFFER_NAMES):
+                yield bufs, name
+
+    def swap_signature(self) -> Tuple:
+        """Page geometry plus every KV buffer's per-page block shape and
+        dtype, in walk order: two allocators with equal signatures could
+        exchange host pages."""
+        return (self.page_size, tuple(
+            (name, (int(bufs[name].shape[1]),)
+             + tuple(int(d) for d in bufs[name].shape[3:]),
+             str(bufs[name].dtype))
+            for bufs, name in self._kv_buffers()))
+
+    def _page_blocks(self, pid: int):
+        """(buffer, its slice of physical page ``pid``) in walk order."""
+        ps = self.page_size
+        r, s = divmod(int(pid), self.pages_per_row)
+        for bufs, name in self._kv_buffers():
+            yield bufs[name][r, :, s * ps:(s + 1) * ps]
+
+    @torch.no_grad()
+    def _read_page(self, pid: int) -> _HostPage:
+        """Device -> host copy of one physical page across every KV
+        buffer, with its chained CRC32.  The blocks are carved from one
+        host buffer (pinned for a CUDA cache); the copies are waited for
+        before the checksum reads them."""
+        views = list(self._page_blocks(pid))
+        nbytes = sum(v.numel() * v.element_size() for v in views)
+        pin = self.device.type == "cuda"
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+        blocks, off = [], 0
+        for v in views:
+            n = v.numel() * v.element_size()
+            blk = host[off:off + n].view(v.dtype).view(v.shape)
+            blk.copy_(v, non_blocking=pin)
+            blocks.append(blk)
+            off += n
+        if pin:
+            torch.cuda.synchronize(self.device)
+        return _HostPage(blocks, _crc(blocks), nbytes)
+
+    @torch.no_grad()
+    def _write_page(self, pid: int, page: _HostPage) -> None:
+        """Host -> device upload of one page (the inverse of
+        :meth:`_read_page`), into physical page ``pid`` of every buffer."""
+        for dst, blk in zip(self._page_blocks(pid), page.blocks):
+            dst.copy_(blk)
+
+    def spill(self, rid: int, tokens: Sequence[int]) -> Optional[Dict]:
+        """Copy ``rid``'s written pages to the host tier, before its pages
+        are released (preemption).  ``tokens`` is the fed sequence that
+        produced them (prompt + generated), which restore checks against
+        the readmission's feed.  Returns ``{"pages", "nbytes", "tokens"}``,
+        or None when nothing spilled (no tier, nothing written, or the
+        tier refused it: recompute covers the readmission)."""
+        tier = self.host_tier
+        rid = int(rid)
+        slot = self._slot_of.get(rid)
+        info = self._chain.get(rid)
+        if tier is None or slot is None or info is None:
+            return None
+        toks = [int(t) for t in tokens]
+        hi = min(int(info["written_hi"]), len(toks))
+        ps = self.page_size
+        pages: List[_HostPage] = []
+        for k in range(-(-hi // ps)):
+            pid = int(self._table[slot, k])
+            if pid == self.scratch_pid:
+                hi = k * ps   # an unwritten hole: recompute from here
+                break
+            pages.append(self._read_page(pid))
+        if hi <= 0:
+            return None
+        rec = _Spill(pages, toks, hi)
+        tier.signature = self.swap_signature()
+        if not tier.put_spill(rid, rec):
+            return None
+        self.pages_spilled += len(pages)
+        self.swap_bytes += rec.nbytes
+        return {"pages": len(pages), "nbytes": rec.nbytes, "tokens": hi}
+
+    def restore(self, rid: int, align: int = 1) -> Optional[Dict]:
+        """Upload ``rid``'s spilled pages onto its rebound row, right after
+        ``bind`` at readmission, above what bind's prefix hits mapped, and
+        advance the write frontier.  The spill entry is consumed.
+
+        The spilled token prefix must equal the new feed's (else the entry
+        is stale and drops); every page needed is checksum-verified before
+        the table changes, and a corrupt one raises
+        :class:`HostTierCorruption` with the bind untouched.  Pool
+        exhaustion mid-upload restores a shorter span.  Returns
+        ``{"restored_tokens", "pages", "nbytes", "tokens_saved"}`` or
+        None."""
+        tier = self.host_tier
+        rid = int(rid)
+        slot = self._slot_of.get(rid)
+        info = self._chain.get(rid)
+        if tier is None or slot is None or info is None:
+            return None
+        ent = tier.get_spill(rid)
+        if ent is None:
+            return None
+        try:
+            toks = info["tokens"]
+            ps = self.page_size
+            # the last fed position is always recomputed: its logits are
+            # the next token's sample point
+            n = min(int(ent.hi), len(toks) - 1 if toks else 0)
+            if align > 1:
+                n -= n % align
+            cur = int(info["written_hi"])
+            if n <= cur or ent.tokens[:n] != toks[:n]:
+                return None   # stale, or prefix hits already cover it
+            k_lo, k_hi = cur // ps, (n - 1) // ps
+            for k in range(k_lo, k_hi + 1):
+                if not ent.pages[k].verify():
+                    self.restore_failures += 1
+                    raise HostTierCorruption(
+                        f"rid {rid}: host page {k} failed its checksum on "
+                        "restore")
+            restored, pages_up, nbytes = n, 0, 0
+            try:
+                for k in range(k_lo, k_hi + 1):
+                    pid = int(self._table[slot, k])
+                    if (pid == self.scratch_pid or self._req_refs[pid] != 1
+                            or self._idx_refs[pid]):
+                        # unmapped, shared or indexed: upload onto a fresh
+                        # private page
+                        dst = self._alloc_page()
+                        self._unmap(slot, k)
+                        self._map(slot, k, dst)
+                        pid = dst
+                    self._write_page(pid, ent.pages[k])
+                    pages_up += 1
+                    nbytes += ent.pages[k].nbytes
+            except PagePoolExhausted:
+                restored = k * ps
+                if align > 1:
+                    restored -= restored % align
+                if restored <= cur:
+                    return None
+            info["written_hi"] = restored
+            gained = restored - cur
+            self.pages_restored += pages_up
+            self.swap_bytes += nbytes
+            self.recompute_tokens_saved += gained
+            return {"restored_tokens": restored, "pages": pages_up,
+                    "nbytes": nbytes, "tokens_saved": gained}
+        finally:
+            tier.drop_spill(rid)
+
+    def has_spill(self, rid: int) -> bool:
+        return (self.host_tier is not None
+                and int(rid) in self.host_tier._spills)
+
+    def drop_spill(self, rid: int) -> None:
+        if self.host_tier is not None:
+            self.host_tier.drop_spill(rid)
+
+    def _promote_full(self, key: Tuple,
+                      want: Tuple[int, ...]) -> Optional[_Entry]:
+        """Re-register a demoted index page from the host tier (bind's
+        hit scan).  Takes a free page only: evicting to make room would
+        demote in turn."""
+        tier = self.host_tier
+        rec = tier.get_demoted(key)
+        if rec is None or rec.tokens != want or not self._free:
+            return None
+        if not rec.page.verify():
+            tier.drop_demoted(key)
+            self.restore_failures += 1
+            return None
+        pid = self._free.pop()
+        self._write_page(pid, rec.page)
+        self._register_entry(key, pid, rec.tokens, rec.protected)
+        e = self._entries.get(key)
+        if e is None or e.pid != pid:   # registration refused
+            self._free.append(pid)
+            return None
+        tier.drop_demoted(key)
+        self.pages_restored += 1
+        self.swap_bytes += rec.page.nbytes
+        self.recompute_tokens_saved += self.page_size
+        return e
+
     # ---- capacity, page-granular --------------------------------------
     @property
     def capacity_tokens(self) -> int:
@@ -426,9 +838,10 @@ class PagedKVAllocator(KVAllocator):
         return int(((self._req_refs + self._idx_refs) >= 2).sum())
 
     def snapshot(self) -> Dict:
-        """The pool's occupancy and the prefix/COW counters (reference
-        :1032, without the live-token gauges the port does not track)."""
-        return {
+        """The pool's occupancy, the prefix/COW counters and the host
+        tier's (reference :1032, without the live-token gauges the port
+        does not track)."""
+        snap = {
             "page_size": self.page_size,
             "pages_total": self.n_pages - 1,
             "pages_live": self.pages_held(),
@@ -441,4 +854,12 @@ class PagedKVAllocator(KVAllocator):
             "cow_copies": self.cow_copies,
             "pages_evicted": self.pages_evicted,
             "pages_mapped_total": self.pages_mapped,
+            "pages_spilled": self.pages_spilled,
+            "pages_restored": self.pages_restored,
+            "swap_bytes": self.swap_bytes,
+            "recompute_tokens_saved": self.recompute_tokens_saved,
+            "restore_failures": self.restore_failures,
         }
+        if self.host_tier is not None:
+            snap.update(self.host_tier.snapshot())
+        return snap

@@ -1,39 +1,56 @@
-"""RequestManager: request queue, continuous batching, decode stretches.
+"""RequestManager: request queue, continuous batching, decode stretches,
+and the resilient request lifecycle.
 
 Port of ``flexflow_tpu/serve/request_manager.py`` for the incremental
-path: ``Request``, ``RequestStatus``, ``GenerationConfig``,
-``register_new_request``, slot admission, ``_build_next_batch`` (:1063)
-with its tiled pure-prefill branch (:1086-1138) and tile-aligned prefill
-chunking (:1140-), the prefill stretch (:1414), ``serve_incr_decoding``
-(:2574) and ``generate`` (:2610).  A prefill stretch feeds whole prompts
-as tiled steps; a pure-decode stretch is one
-``InferenceManager.decode_scan``; each reads back once at its end.  The
-hooks the speculative manager builds on (``request_cls``,
-``_seq_len_needed``, ``_kv_bind``, ``_tick``) leave this path as it is.
-Under a paged KV cache, ``_kv_bind`` is the prefix-reuse hook (a request
-whose prompt prefix the page index holds starts its prefill there) and
-``_kv_prepare`` maps and copy-on-writes the pages of every span a dispatch
-writes before it runs (reference :1982-2011, :2120-2147); admission counts
-each request's need in whole pages (``round_need``, reference :425-442),
-and an exhausted pool raises ``PagePoolExhausted``.
+path: ``Request`` and its nine ``RequestStatus`` values,
+``GenerationConfig``, ``register_new_request`` with admission control
+(:506), slot admission by priority with preemption (:933-1031),
+``_build_next_batch`` (:1063) with its tiled pure-prefill branch and
+tile-aligned prefill chunking, the prefill stretch (:1414), the unchained
+decode stretch (:1864), ``serve_incr_decoding`` (:2574),
+``serve_with_arrivals`` (:2342) and ``generate`` (:2610).  A prefill
+stretch feeds whole prompts as tiled chunks of one ``prefill_scan``
+dispatch; a pure-decode stretch is one ``InferenceManager.decode_scan``;
+each reads back once at its end.
 
-Left out of this slice: telemetry and profiling, fault injection and
-retries, SLO lanes, migration, KV spill and the host page tier,
-preemption (and so page-pressure preemption), deadlines and
-``serve_with_arrivals``, and the chained decode stretch with mid-stretch
-joins.
+The lifecycle (reference :621-903): ``cancel`` and deadlines (``ttl_s``,
+``deadline_s``) are reaped at step boundaries (``_check_lifecycle``);
+``preempt`` releases a running request's slot and KV and requeues it to
+recompute ``prompt + generated`` (``Request.prefill_tokens``), which gives
+its uninterrupted stream, greedy or seeded; a strictly higher-priority
+arrival preempts under slot pressure (``_try_preempt``) and a page
+shortfall under page pressure (``_kv_prepare``).  Under a paged cache with
+a host tier (``ResilienceConfig.host_tier_bytes``) a preempted request's
+written pages spill to host memory and its readmission restores them
+(``_kv_spill``, ``_kv_restore``), recomputing only the unrestored tail.
+Every dispatch runs under the retry policy (``_guarded``); a fault past
+the budget requeues or fails the requests in that dispatch only.
+
+The hooks the speculative manager builds on (``request_cls``,
+``_seq_len_needed``, ``_kv_bind``, ``_release_slot``, ``preempt``,
+``_tick``) leave this path as it is.  Left out (ROADMAP): telemetry and
+profiler hooks, SLO lanes and brownout, live migration, the chained decode
+stretch with mid-stretch joins, and LM-head gating.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Counter, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .batch_config import BatchConfig, PrefillBatchConfig
+from .kv_paged import HostTierCorruption, PagePoolExhausted
+from .resilience import (
+    ResilienceConfig,
+    TransientServeError,
+    kv_bytes_per_token,
+)
 
 
 class RequestStatus(enum.Enum):
@@ -41,6 +58,48 @@ class RequestStatus(enum.Enum):
     PREFILLING = 1
     DECODING = 2
     COMPLETED = 3
+    # PREEMPTED requests wait in the pending queue and recompute prompt +
+    # generated on readmission; the rest are terminal
+    PREEMPTED = 4
+    CANCELLED = 5
+    TIMED_OUT = 6
+    REJECTED = 7
+    FAILED = 8
+
+
+TERMINAL_STATUSES = frozenset({
+    RequestStatus.COMPLETED, RequestStatus.CANCELLED,
+    RequestStatus.TIMED_OUT, RequestStatus.REJECTED, RequestStatus.FAILED,
+})
+
+# terminal status -> the ``outcome`` tag serving records carry
+OUTCOMES = {
+    RequestStatus.COMPLETED: "ok",
+    RequestStatus.CANCELLED: "cancelled",
+    RequestStatus.TIMED_OUT: "timeout",
+    RequestStatus.REJECTED: "rejected",
+    RequestStatus.FAILED: "failed",
+}
+
+# the options an arrival tuple's 4th element may carry
+ARRIVAL_OPTION_KEYS = frozenset({"priority", "ttl_s", "deadline_s"})
+
+
+def parse_arrival_options(rest) -> Tuple[Dict, Optional[str]]:
+    """An arrival tuple's optional options dict as
+    ``register_new_request`` kwargs: ``(opts, reject_reason)``, the reason
+    set for a malformed dict (unknown keys, values that do not coerce), so
+    one bad arrival registers as ``REJECTED`` instead of ending the serve
+    loop (reference :65)."""
+    if not rest:
+        return {}, None
+    if not isinstance(rest[0], dict) or set(rest[0]) - ARRIVAL_OPTION_KEYS:
+        return {}, f"bad arrival options {rest[0]!r}"
+    try:
+        return {k: (int(v) if k == "priority" else float(v))
+                for k, v in rest[0].items() if v is not None}, None
+    except (TypeError, ValueError):
+        return {}, f"bad arrival options {rest[0]!r}"
 
 
 @dataclasses.dataclass
@@ -50,19 +109,46 @@ class Request:
     max_new_tokens: int = 64
     status: RequestStatus = RequestStatus.PENDING
     generated: List[int] = dataclasses.field(default_factory=list)
-    prefill_offset: int = 0     # prompt tokens already fed to the model
+    prefill_offset: int = 0     # prefill tokens already fed to the model
     slot: int = -1
+    trace_id: str = ""
     # consecutive mixed steps whose tiled budget rounded this request's
     # prefill take to zero (the starvation fallback below)
     starved_steps: int = 0
     # prompt tokens a paged cache's prefix index held at admission (the
     # prefill started there)
     prefix_cached: int = 0
+    # the lifecycle: admission priority (preemption only evicts strictly
+    # lower), an absolute deadline on the manager's clock, the cancel flag
+    # reaped at the next step boundary, and the terminal outcome tag
+    priority: int = 0
+    deadline_s: Optional[float] = None
+    cancel_requested: bool = False
+    outcome: str = ""
+    preemptions: int = 0
+    requeues: int = 0
+    # after preemption the request re-prefills ``prefill_src`` = prompt +
+    # generated (None: the prompt); ``n_prefed`` generated tokens are in
+    # that feed, the correction ``seq_len`` needs while it is fed
+    prefill_src: Optional[List[int]] = None
+    n_prefed: int = 0
+    # this binding's cache was (partly) restored from the host tier; the
+    # lifecycle scan retires the recompute feed once the catch-up
+    # prefill is done
+    kv_restored: bool = False
+    # the largest committed-KV bytes any of its slot bindings held
+    kv_bytes: float = 0.0
+
+    @property
+    def prefill_tokens(self) -> List[int]:
+        """The token sequence prefill feeds: the prompt, or prompt +
+        generated while recovering from preemption."""
+        return self.prompt if self.prefill_src is None else self.prefill_src
 
     @property
     def seq_len(self) -> int:
         """Tokens currently in the KV cache (after the last step)."""
-        return self.prefill_offset + len(self.generated)
+        return self.prefill_offset + len(self.generated) - self.n_prefed
 
 
 @dataclasses.dataclass
@@ -81,23 +167,61 @@ class RequestManager:
     # mixed steps whose tiled budget rounds a prefill take to 0 before
     # the starved request takes an unaligned flat chunk
     starvation_limit = 4
+    # the decode-stretch cap while an active request has a deadline or a
+    # pending cancel: reaping happens at step boundaries
+    lifecycle_quantum = 8
+    # serve steps after which a pending request jumps every priority band
+    # (FIFO among the overdue); None: strict priority
+    starvation_bound_ticks: Optional[int] = None
 
-    def __init__(self, im, gen_config: Optional[GenerationConfig] = None):
+    def __init__(self, im, gen_config: Optional[GenerationConfig] = None,
+                 resilience: Optional[ResilienceConfig] = None,
+                 fault_injector=None, clock=None):
+        """``resilience``: the admission, deadline, preemption, retry and
+        host-tier policy (None: every knob off).  ``fault_injector``: a
+        seeded :class:`~.resilience.FaultInjector` the InferenceManager
+        consults at its dispatch sites.  ``clock``: the deadlines' clock
+        (default ``time.perf_counter``; ``serve_with_arrivals`` swaps in
+        its own for its duration)."""
         self.im = im
         self.gen = gen_config or GenerationConfig()
         self.requests: Dict[int, Request] = {}
         self.pending: List[int] = []
+        # serve-step stamp of each rid's entry into ``pending`` (the
+        # starvation bound's age)
+        self._pending_since: Dict[int, int] = {}
         self.slots: List[Optional[int]] = [None] * im.max_requests
         self._next_rid = 0
         self.steps = 0
         self.tokens_decoded = 0
         self.scan_runs = 0
+        self.res = resilience or ResilienceConfig()
+        if (self.res.kv_gate and self.res.kv_budget_bytes is not None
+                and kv_bytes_per_token(im) is None):
+            # a byte cap cannot price requests without allocated caches
+            raise ValueError(
+                "kv_budget_bytes needs allocated KV caches to price "
+                "requests in bytes; call init_operators_inference() "
+                "before building the RequestManager (or use "
+                "kv_headroom_frac, which gates in position units)")
+        # set on the InferenceManager every time, so a manager built
+        # without one never inherits an earlier manager's
+        self.injector = fault_injector
+        im.fault_injector = fault_injector
+        if self.res.host_tier_bytes:
+            im.kv.attach_host_tier(self.res.host_tier_bytes)
+        self.clock = clock or time.perf_counter
+        self._sleep = time.sleep    # the retry backoff's wait
+        # retries by site family ("step", "decode_scan", "kv_swap_in", ...)
+        self.retries: Counter = collections.Counter()
 
     # ------------------------------------------------------------------
     def _sample_for(self, points, n_rows: int):
         """The sampling argument of a step: ``(seed, temperature, top_p,
         folds)`` with ``folds[row] = (rid, index of the token to draw)``
-        for each sample point ``(row, rid)``; None for greedy."""
+        for each sample point ``(row, rid)``; None for greedy.  The key
+        depends only on (seed, rid, token index), so a sampled stream does
+        not depend on batching, preemption or retries."""
         if self.gen.temperature <= 0.0:
             return None
         folds = np.zeros((n_rows, 2), np.int32)
@@ -117,6 +241,9 @@ class RequestManager:
             return "empty prompt"
         if req.max_new_tokens < 0:
             return f"max_new_tokens {req.max_new_tokens} < 0"
+        if len(req.prompt) > self.im.max_seq_len:
+            return (f"prompt length {len(req.prompt)} exceeds max_seq_len "
+                    f"{self.im.max_seq_len}")
         need = self._seq_len_needed(req)
         if need > self.im.max_seq_len:
             return (f"request needs {need} cache slots (prompt "
@@ -125,75 +252,308 @@ class RequestManager:
                     f"{self.im.max_seq_len}")
         return None
 
+    def _admission_reason(self, req: Request) -> Optional[str]:
+        """The capacity gate (reference :394): a bounded pending queue,
+        and the worst-case cache need of every live request plus this one
+        (whole pages under a paged cache) against the KV budget.  The
+        rejection reason, or None to admit."""
+        res = self.res
+        if (res.max_pending is not None
+                and len(self.pending) >= res.max_pending):
+            return (f"pending queue full ({len(self.pending)} >= "
+                    f"{res.max_pending})")
+        if not res.kv_gate:
+            return None
+        per_tok = kv_bytes_per_token(self.im)
+        if per_tok is None and res.kv_budget_bytes is not None:
+            return ("kv_budget_bytes is a byte cap but the KV caches are "
+                    "unallocated (no byte price); re-allocate caches or "
+                    "gate with kv_headroom_frac")
+        per_tok = per_tok or 1.0   # position units for the fraction gate
+        kv = self.im.kv
+        live = [self.requests[r] for r in self.pending] + [
+            r for r in self._active()
+            if r.status in (RequestStatus.PREFILLING, RequestStatus.DECODING)]
+        committed = sum(kv.round_need(self._seq_len_needed(r))
+                        for r in live + [req])
+        cap_bytes = (res.kv_budget_bytes if res.kv_budget_bytes is not None
+                     else res.kv_headroom_frac * kv.capacity_tokens * per_tok)
+        if committed * per_tok > cap_bytes:
+            return (f"KV headroom: {committed * per_tok / 2**20:.2f} MiB "
+                    f"committed > {cap_bytes / 2**20:.2f} MiB budget")
+        return None
+
     def register_new_request(self, prompt_tokens: Sequence[int],
-                             max_new_tokens: Optional[int] = None) -> int:
-        """Queue a request; returns its rid.  A prompt that cannot fit the
-        cache raises ``ValueError``; ``max_new_tokens=0`` completes at
-        once."""
+                             max_new_tokens: Optional[int] = None, *,
+                             priority: int = 0, ttl_s: Optional[float] = None,
+                             deadline_s: Optional[float] = None,
+                             reject_invalid: bool = False,
+                             reject_reason: Optional[str] = None) -> int:
+        """Queue a request; returns its rid.
+
+        An invalid shape (empty prompt, negative ``max_new_tokens``, a
+        prompt or prompt + ``max_new_tokens`` past ``max_seq_len``) raises
+        ``ValueError``, unless ``reject_invalid`` (the arrival loop's),
+        which registers it ``REJECTED`` instead, as ``reject_reason`` does;
+        admission control always rejects that way.  A rejected request
+        keeps no prompt.  ``ttl_s`` (relative) or ``deadline_s`` (on the
+        manager's clock) arm a deadline; ``max_new_tokens=0`` completes at
+        once with an ``ok`` outcome.  ``priority``: higher admits first and
+        may preempt lower under ``ResilienceConfig.preemption``.
+        """
         req = self.request_cls(-1, [int(t) for t in prompt_tokens],
                                self.gen.max_new_tokens
                                if max_new_tokens is None
                                else int(max_new_tokens))
-        err = self._validate_request(req)
-        if err is not None:
+        err = (reject_reason if reject_reason is not None
+               else self._validate_request(req))
+        if err is not None and not reject_invalid:
             raise ValueError(err)
         req.rid = self._next_rid
         self._next_rid += 1
+        req.trace_id = f"r{req.rid:05d}"
+        req.priority = int(priority)
         self.requests[req.rid] = req
+        reason = err if err is not None else self._admission_reason(req)
+        if reason is not None:
+            req.status = RequestStatus.REJECTED
+            req.outcome = "rejected"
+            req.prompt = []   # shed load must not grow host memory
+            return req.rid
         if req.max_new_tokens == 0:
             req.status = RequestStatus.COMPLETED
+            req.outcome = "ok"
+            return req.rid
+        if deadline_s is not None:
+            req.deadline_s = float(deadline_s)
         else:
-            self.pending.append(req.rid)
+            ttl = ttl_s if ttl_s is not None else self.res.default_ttl_s
+            if ttl is not None:
+                req.deadline_s = self.clock() + float(ttl)
+        self.pending.append(req.rid)
+        self._pending_since[req.rid] = self.steps
         return req.rid
 
     # ------------------------------------------------------------------
-    def _admit(self) -> None:
-        """Fill free slots from the queue, first come first served, while
-        the cache holds every admitted request's worst-case need counted
-        in the allocator's granularity (reference :425-442)."""
-        kv = self.im.kv
-        committed = sum(kv.round_need(self._seq_len_needed(r))
-                        for r in self._active())
+    # the lifecycle: cancel, deadlines, preemption, dispatch failure
+    # ------------------------------------------------------------------
+    def cancel(self, rid: int) -> bool:
+        """Ask for ``rid``'s cancellation; returns whether it was live.  It
+        lands at the next step boundary (``_check_lifecycle``), keeping the
+        tokens already committed; a stretch in flight runs to its end
+        (stretches are capped at ``lifecycle_quantum`` steps once the flag
+        is visible)."""
+        req = self.requests.get(rid)
+        if req is None or req.status in TERMINAL_STATUSES:
+            return False
+        req.cancel_requested = True
+        return True
+
+    def _release_slot(self, req: Request) -> None:
+        """Every slot-leaving path (completion, cancel, timeout, failure,
+        preemption) releases the request's KV here; a request that never
+        took a slot has nothing to release."""
+        if req.slot < 0:
+            return
+        self.slots[req.slot] = None
+        req.slot = -1
+        req.kv_bytes = max(req.kv_bytes,
+                           self.im.kv.release(req.rid, req.seq_len))
+
+    def _terminate(self, req: Request, status: RequestStatus) -> None:
+        """Move a request to a terminal status, releasing its queue entry,
+        slot, KV and host-tier pages."""
+        if req.rid in self.pending:
+            self.pending.remove(req.rid)
+        self._pending_since.pop(req.rid, None)
+        self._release_slot(req)
+        req.prefill_src = None
+        self.im.kv.drop_spill(req.rid)
+        req.status = status
+        req.outcome = OUTCOMES[status]
+        if status is RequestStatus.REJECTED:
+            req.prompt = []
+
+    def _swap_clock(self, new_clock):
+        """Switch the deadline clock, rebasing every live armed deadline so
+        its remaining budget is kept; returns the previous clock."""
+        old = self.clock
+        if new_clock is old:
+            return old
+        live = [self.requests[r] for r in self.pending] + self._active()
+        armed = [r for r in live if r.deadline_s is not None]
+        if armed:
+            old_now, new_now = old(), new_clock()
+            for req in armed:
+                req.deadline_s = new_now + (req.deadline_s - old_now)
+        self.clock = new_clock
+        return old
+
+    def _check_lifecycle(self) -> None:
+        """Step-boundary reaping of cancellations and expired deadlines
+        over the live requests (queue and slots), and the retirement of a
+        restored request's recompute feed once its catch-up prefill is
+        done (``prefill_offset - n_prefed`` is the prompt-only offset an
+        uninterrupted run would hold, so ``seq_len`` is unchanged)."""
+        live = [self.requests[r] for r in self.pending] + self._active()
+        for r in live:
+            if (r.kv_restored and r.prefill_src is not None
+                    and r.prefill_offset >= len(r.prefill_src)):
+                r.prefill_offset -= r.n_prefed
+                r.n_prefed = 0
+                r.prefill_src = None
+                r.kv_restored = False
+        expirable = [r for r in live
+                     if r.cancel_requested or r.deadline_s is not None]
+        if not expirable:
+            return
+        now = self.clock()
+        for req in expirable:
+            if req.cancel_requested:
+                self._terminate(req, RequestStatus.CANCELLED)
+            elif now >= req.deadline_s:
+                self._terminate(req, RequestStatus.TIMED_OUT)
+
+    def preempt(self, rid: int) -> None:
+        """Evict a running request: its written pages spill to the host
+        tier when there is one, its slot and KV release, and it requeues
+        (``PREEMPTED``) to re-prefill ``prompt + generated`` at
+        readmission, after which it streams what an uninterrupted run
+        streams."""
+        req = self.requests[rid]
+        if req.status not in (RequestStatus.PREFILLING,
+                              RequestStatus.DECODING):
+            raise ValueError(
+                f"cannot preempt request {rid} in status {req.status.name}")
+        self._kv_spill(req)
+        self._release_slot(req)
+        req.prefill_src = list(req.prompt) + list(req.generated)
+        req.n_prefed = len(req.generated)
+        req.prefill_offset = 0
+        req.starved_steps = 0
+        req.kv_restored = False
+        req.status = RequestStatus.PREEMPTED
+        req.preemptions += 1
+        self.pending.append(rid)
+        self._pending_since[rid] = self.steps
+
+    def _rids_in_batch(self, bc) -> List[int]:
+        """The rids with tokens in a built batch (a slotted request can
+        sit a step out)."""
+        base = bc.base if hasattr(bc, "base") else bc
+        n = int(base.num_tokens)
+        slots = {int(s) for s in base.request_index[:n].tolist() if s >= 0}
+        return [self.slots[s] for s in sorted(slots)
+                if self.slots[s] is not None]
+
+    def _fail_inflight(self, affected_fn=None) -> None:
+        """A dispatch exhausted its retries: requeue the affected requests
+        for recompute (``on_dispatch_failure="requeue"``, at most
+        ``max_requeues`` times each) or fail them; everyone else keeps
+        serving.  ``affected_fn``: the rids in the failed dispatch
+        (default: every running slotted request, exact for a stretch)."""
+        affected = ([self.requests[rid] for rid in affected_fn()]
+                    if affected_fn is not None else self._active())
+        for req in affected:
+            if req.status not in (RequestStatus.PREFILLING,
+                                  RequestStatus.DECODING):
+                continue
+            if (self.res.on_dispatch_failure == "requeue"
+                    and req.requeues < self.res.max_requeues):
+                req.requeues += 1
+                self.preempt(req.rid)
+            else:
+                self._terminate(req, RequestStatus.FAILED)
+
+    def _guarded(self, site: str, fn, affected_fn=None, on_exhausted=None):
+        """Run one dispatch under the retry policy (reference :863): a
+        ``TransientServeError`` is retried with backoff up to
+        ``res.retry.max_retries`` times, each retry counted in
+        ``retries[site family]``.  Faults raise before any device work and
+        KV writes are positional, so a retry replays identical compute.
+        Returns ``fn()``, or None once the budget is spent, after
+        ``on_exhausted()`` (default: the affected requests are requeued or
+        failed by ``_fail_inflight``); the serve loop goes on."""
+        pol = self.res.retry
+        attempt = 0
+        while True:
+            try:
+                return fn()
+            except TransientServeError:
+                if attempt >= pol.max_retries:
+                    if on_exhausted is None:
+                        self._fail_inflight(affected_fn)
+                    else:
+                        on_exhausted()
+                    return None
+                attempt += 1
+                self.retries[site.split(":")[0]] += 1
+                delay = pol.backoff(attempt)
+                if delay > 0:
+                    self._sleep(delay)
+
+    # ------------------------------------------------------------------
+    # admission: priority queue, slot-pressure preemption
+    # ------------------------------------------------------------------
+    def _pop_pending(self) -> int:
+        """The highest-priority pending rid, FIFO within a priority; a
+        request pending ``starvation_bound_ticks`` steps or more jumps
+        every band (oldest first)."""
+        bound = self.starvation_bound_ticks
+        if bound is not None:
+            overdue = [i for i, rid in enumerate(self.pending)
+                       if self.steps - self._pending_since.setdefault(
+                           rid, self.steps) >= bound]
+            if overdue:
+                best = min(overdue, key=lambda i: (
+                    self._pending_since[self.pending[i]], i))
+                self._pending_since.pop(self.pending[best], None)
+                return self.pending.pop(best)
+        best = max(range(len(self.pending)),
+                   key=lambda i: (self.requests[self.pending[i]].priority, -i))
+        self._pending_since.pop(self.pending[best], None)
+        return self.pending.pop(best)
+
+    def _fill_slots(self) -> None:
         for i, occupant in enumerate(self.slots):
             if occupant is None and self.pending:
-                req = self.requests[self.pending[0]]
-                need = kv.round_need(self._seq_len_needed(req))
-                if committed + need > kv.capacity_tokens:
-                    return
-                committed += need
-                self.pending.pop(0)
+                req = self.requests[self._pop_pending()]
                 req.slot = i
                 req.status = RequestStatus.PREFILLING
                 self.slots[i] = req.rid
                 self._kv_bind(req.rid)
 
-    def _kv_bind(self, rid: int) -> None:
-        """A request took a slot.  Under a paged cache this is the
-        prefix-reuse hook (reference :1982): ``bind`` maps the registered
-        pages the prompt matches and returns the tile-aligned cached
-        offset, where the prefill starts."""
-        req = self.requests[rid]
-        info = self.im.kv.bind(rid, slot=req.slot, tokens=req.prompt,
-                               need=self._seq_len_needed(req),
-                               align=self.im.prefill_tile)
-        if info and info["cached_tokens"]:
-            req.prefill_offset = req.prefix_cached = info["cached_tokens"]
+    def _victims(self, priority: int, exclude: int = -1) -> List[Request]:
+        """Decoding requests preemption may evict for one of
+        ``priority``: strictly lower priority, under ``max_preemptions``."""
+        return [r for r in self._active()
+                if r.status is RequestStatus.DECODING and r.rid != exclude
+                and r.priority < priority
+                and r.preemptions < self.res.max_preemptions]
 
-    def _kv_prepare(self, spans, kv=None) -> None:
-        """Make the cache writable at every ``(rid, lo, hi)`` span the
-        next dispatch writes, before it runs (reference :2120): a paged
-        allocator maps missing pages and copy-on-writes shared ones here,
-        so the table is constant while the device works; a no-op for the
-        slot-contiguous allocator."""
-        kv = kv if kv is not None else self.im.kv
-        if kv.paged:
-            for rid, lo, hi in spans:
-                kv.prepare_write(rid, lo, hi)
+    def _try_preempt(self) -> bool:
+        """Preempt the lowest-priority decoding request (newest first among
+        equals) when a strictly higher-priority request waits and no slot
+        is free; returns whether one was evicted."""
+        if not self.pending or any(s is None for s in self.slots):
+            return False
+        victims = self._victims(max(self.requests[r].priority
+                                    for r in self.pending))
+        if not victims:
+            return False
+        self.preempt(min(victims, key=lambda r: (r.priority, -r.rid)).rid)
+        return True
 
-    def _release_slot(self, req: Request) -> None:
-        self.im.kv.release(req.rid, req.seq_len)
-        self.slots[req.slot] = None
-        req.slot = -1
+    def _admit(self) -> None:
+        """Fill free slots by priority; with preemption on, evict for a
+        higher-priority request while one waits (each round admits into
+        the freed slot or stops)."""
+        self._fill_slots()
+        if self.res.preemption:
+            for _ in range(len(self.slots)):
+                if not self._try_preempt():
+                    break
+                self._fill_slots()
 
     def _active(self) -> List[Request]:
         return [self.requests[rid] for rid in self.slots if rid is not None]
@@ -208,6 +568,104 @@ class RequestManager:
         for req in self._active():
             seq_lens[req.slot] = req.seq_len
         return seq_lens
+
+    # ------------------------------------------------------------------
+    # the KV cache: bind, prepare, spill and restore
+    # ------------------------------------------------------------------
+    def _kv_bind(self, rid: int) -> None:
+        """A request took a slot.  Under a paged cache this is the
+        prefix-reuse hook (reference :1982): ``bind`` maps the registered
+        pages its feed matches and returns the tile-aligned cached offset,
+        where the prefill starts (a readmitted request matches its own
+        released pages); then a host-tier restore may move the start
+        further."""
+        req = self.requests[rid]
+        kv = self.im.kv
+        align = self.im.prefill_tile
+        info = kv.bind(rid, slot=req.slot, tokens=req.prefill_tokens,
+                       need=self._seq_len_needed(req), align=align)
+        cached = info["cached_tokens"] if info else 0
+        if cached:
+            req.prefill_offset = req.prefix_cached = cached
+        restored = self._kv_restore(req, align)
+        if restored > cached:
+            req.prefill_offset = restored
+            req.kv_restored = True
+
+    def _kv_spill(self, req: Request) -> None:
+        """Copy a victim's written pages to the host tier before its slot
+        releases, under the retry policy at ``kv_swap_out:<rid>``; a spill
+        that exhausts its retries is skipped (recompute covers it)."""
+        kv = self.im.kv
+        if kv.host_tier is None or req.slot < 0:
+            return
+        site = f"kv_swap_out:{req.rid}"
+        tokens = list(req.prompt) + list(req.generated)
+
+        def spill():
+            if self.injector is not None:
+                self.injector.maybe_fail(site)
+            return kv.spill(req.rid, tokens)
+
+        self._guarded(site, spill, on_exhausted=lambda: kv.drop_spill(req.rid))
+
+    def _kv_restore(self, req: Request, align: int) -> int:
+        """Upload ``req``'s spilled pages after its readmission bind;
+        returns the restored write frontier (0: nothing restored, the
+        recompute feed covers everything).  Retried at
+        ``kv_swap_in:<rid>``; a checksum miss
+        (:class:`~.kv_paged.HostTierCorruption`) is not retried."""
+        kv = self.im.kv
+        if kv.host_tier is None or not kv.has_spill(req.rid):
+            return 0
+        site = f"kv_swap_in:{req.rid}"
+
+        def restore():
+            if self.injector is not None:
+                self.injector.maybe_fail(site)
+            return kv.restore(req.rid, align=align)
+
+        try:
+            info = self._guarded(site, restore,
+                                 on_exhausted=lambda: kv.drop_spill(req.rid))
+        except HostTierCorruption:
+            return 0   # the restore dropped the damaged spill
+        return int(info["restored_tokens"]) if info else 0
+
+    def _kv_prepare(self, spans, kv=None) -> None:
+        """Make the cache writable at every ``(rid, lo, hi)`` span the
+        next dispatch writes, before it runs (reference :2120): a paged
+        allocator maps missing pages and copy-on-writes shared ones here,
+        so the table is constant while the device works; a no-op for the
+        slot-contiguous allocator.  An exhausted pool preempts the
+        lowest-priority decoding request strictly below the span's owner
+        (newest first among equals) and retries; with no such victim the
+        exhaustion propagates."""
+        kv = kv if kv is not None else self.im.kv
+        if not kv.paged:
+            return
+        for rid, lo, hi in spans:
+            for _ in range(len(self.slots) + 1):
+                try:
+                    kv.prepare_write(rid, lo, hi)
+                    break
+                except PagePoolExhausted:
+                    victim = self._page_pressure_victim(rid)
+                    if victim is None:
+                        raise
+                    self.preempt(victim.rid)
+
+    def _page_pressure_victim(self, needer_rid: int) -> Optional[Request]:
+        """The request page pressure evicts for ``needer_rid`` (reference
+        :2149): as slot pressure, strictly lower priority only; None when
+        preemption is off or nothing qualifies."""
+        if not self.res.preemption:
+            return None
+        victims = self._victims(self.requests[needer_rid].priority,
+                                exclude=needer_rid)
+        if not victims:
+            return None
+        return min(victims, key=lambda r: (r.priority, -r.rid))
 
     # ------------------------------------------------------------------
     def prepare_next_batch(self) -> Tuple[object, List[Tuple[int, int]]]:
@@ -245,16 +703,16 @@ class RequestManager:
             for req in prefilling:
                 if budget < tile:
                     continue
+                feed = req.prefill_tokens
                 take = min((budget // tile) * tile,
-                           len(req.prompt) - req.prefill_offset)
+                           len(feed) - req.prefill_offset)
                 start = req.prefill_offset
-                segments.append(
-                    (req.slot, req.prompt[start: start + take], start))
+                segments.append((req.slot, feed[start: start + take], start))
                 spans.append((req.rid, start, start + take))
                 req.prefill_offset += take
                 req.starved_steps = 0
                 budget -= -(-take // tile) * tile
-                if req.prefill_offset == len(req.prompt):
+                if req.prefill_offset == len(feed):
                     sample_points.append((req.slot, req.rid))
             self._kv_prepare(spans)
             pbc, last_flat = PrefillBatchConfig.build(
@@ -270,7 +728,8 @@ class RequestManager:
         for req in prefilling:
             if budget <= 0:
                 continue
-            remaining = len(req.prompt) - req.prefill_offset
+            feed = req.prefill_tokens
+            remaining = len(feed) - req.prefill_offset
             if remaining <= budget:
                 take = remaining
             elif tile > 1 and req.prefill_offset % tile == 0:
@@ -294,22 +753,25 @@ class RequestManager:
                     if 0 < over < take:
                         take -= over
             start = req.prefill_offset
-            tokens.extend(req.prompt[start: start + take])
+            tokens.extend(feed[start: start + take])
             req_idx.extend([req.slot] * take)
             positions.extend(range(start, start + take))
             req.prefill_offset += take
             req.starved_steps = 0
             budget -= take
-            if req.prefill_offset == len(req.prompt):
+            if req.prefill_offset == len(feed):
                 sample_points.append((len(tokens) - 1, req.rid))
 
         written: Dict[int, Tuple[int, int]] = {}   # slot -> [lo, hi)
         for slot, p in zip(req_idx, positions):
             lo, hi = written.get(slot, (p, p + 1))
             written[slot] = (min(lo, p), max(hi, p + 1))
+        # the depths are read before the prepare: a page-pressure victim
+        # leaves its slot there, and its row's output is dropped
+        seq_lens = self._seq_lens()
         self._kv_prepare([(self.slots[slot], lo, hi)
                           for slot, (lo, hi) in written.items()])
-        bc = BatchConfig.build(tokens, req_idx, positions, self._seq_lens(),
+        bc = BatchConfig.build(tokens, req_idx, positions, seq_lens,
                                max_tokens=im.max_tokens,
                                max_requests=im.max_requests, device=im.device)
         return bc, sample_points
@@ -325,6 +787,11 @@ class RequestManager:
         token_ids = result.token_ids.cpu().numpy()
         for flat_idx, rid in sample_points:
             req = self.requests[rid]
+            if req.status not in (RequestStatus.PREFILLING,
+                                  RequestStatus.DECODING):
+                # it left its slot between batch build and read-back (page
+                # pressure preempted it): the readmission recomputes it
+                continue
             if req.status is RequestStatus.PREFILLING:
                 req.status = RequestStatus.DECODING
             self._append_token(req, int(token_ids[flat_idx]))
@@ -336,6 +803,8 @@ class RequestManager:
                 or (self.gen.stop_on_eos and eos is not None
                     and req.generated[-1] == eos)):
             req.status = RequestStatus.COMPLETED
+            req.outcome = "ok"
+            req.prefill_src = None
             self._release_slot(req)
 
     # ------------------------------------------------------------------
@@ -343,15 +812,20 @@ class RequestManager:
         """Decode steps the next stretch may run on the device: > 1 only
         when nothing waits for a slot and every active request decodes;
         bounded by the largest remaining budget (each row freezes on the
-        device when its own budget runs out) and the cache's room."""
+        device when its own budget runs out), the cache's room, and
+        ``lifecycle_quantum`` while a deadline or cancel is armed."""
         active = self._active()
         if (not active or self.pending
                 or any(r.status is not RequestStatus.DECODING
                        for r in active)):
             return 0
         n = max(r.max_new_tokens - len(r.generated) for r in active)
-        return min(n, self.scan_chunk,
-                   self.im.max_seq_len - max(r.seq_len for r in active) + 1)
+        n = min(n, self.scan_chunk,
+                self.im.max_seq_len - max(r.seq_len for r in active) + 1)
+        if any(r.deadline_s is not None or r.cancel_requested
+               for r in active):
+            n = min(n, self.lifecycle_quantum)
+        return n
 
     def _prefill_stretch_possible(self) -> bool:
         """Can the whole prefill wave run as tiled steps?  True when every
@@ -365,48 +839,64 @@ class RequestManager:
                         and r.prefill_offset % tile == 0 for r in active))
 
     def _prefill_stretch(self) -> None:
-        """Feed every active request's remaining prompt as single-request
-        tiled chunks (reference ``_prefill_stretch`` :1414, a step per
-        chunk instead of one scan), then read the first tokens back once."""
+        """Feed every active request's remaining prefill as single-request
+        tiled chunks in one ``prefill_scan`` dispatch (reference :1414),
+        then read the first tokens back once.  The offsets advance only
+        after the dispatch succeeds, so a retry replays the stretch from
+        its first chunk."""
         im = self.im
         tile = im.prefill_tile
-        self._kv_prepare([(r.rid, r.prefill_offset, len(r.prompt))
-                          for r in self._active()])
+        active = self._active()
+        self._kv_prepare([(r.rid, r.prefill_offset, len(r.prefill_tokens))
+                          for r in active])
         seq = self._seq_lens()
-        firsts = []   # (req, token ids of its last chunk, flat index)
-        for req in self._active():
-            while req.prefill_offset < len(req.prompt):
-                start = req.prefill_offset
-                take = min((im.max_tokens // tile) * tile,
-                           len(req.prompt) - start)
+        chunks, samples = [], []
+        points = []   # (req, its last chunk, flat index)
+        for req in active:
+            feed = req.prefill_tokens
+            start = req.prefill_offset
+            while start < len(feed):
+                take = min((im.max_tokens // tile) * tile, len(feed) - start)
                 seq[req.slot] = start + take
                 pbc, last_flat = PrefillBatchConfig.build(
-                    [(req.slot, req.prompt[start: start + take], start)],
+                    [(req.slot, feed[start: start + take], start)],
                     seq, tile, max_tokens=im.max_tokens,
                     max_requests=im.max_requests, device=im.device)
-                req.prefill_offset += take
-                done = req.prefill_offset == len(req.prompt)
+                start += take
                 flat = last_flat[req.slot]
-                res = im.step(pbc, sample=self._sample_for(
+                done = start == len(feed)
+                samples.append(self._sample_for(
                     [(flat, req.rid)] if done else [], im.max_tokens))
+                chunks.append(pbc)
                 if done:
-                    firsts.append((req, res.token_ids[flat]))
-                self.steps += 1
-        toks = torch.stack([t for _, t in firsts]).cpu().tolist()
-        for (req, _), tok in zip(firsts, toks):
+                    points.append((req, len(chunks) - 1, flat))
+        toks = self._guarded("prefill_scan",
+                             lambda: im.prefill_scan(chunks, samples))
+        if toks is None:
+            return   # requeued or failed: their offsets never moved
+        self.steps += len(chunks)
+        for req in active:
+            req.prefill_offset = len(req.prefill_tokens)
+        firsts = toks[[c for _, c, _ in points],
+                      [f for _, _, f in points]].cpu().tolist()
+        for (req, _, _), tok in zip(points, firsts):
             req.status = RequestStatus.DECODING
             self._append_token(req, tok)
             self._maybe_finish(req)
 
     def _decode_stretch(self, n: int) -> None:
-        """``n`` decode steps as one ``decode_scan``, one read-back."""
+        """``n`` decode steps as one ``decode_scan``, one read-back.  The
+        stretch writes n positions per request with no host boundary in
+        between, so the whole span is prepared up front, before the batch
+        is built: a page-pressure victim leaves it."""
         im = self.im
-        active = self._active()
-        rids = [r.rid for r in active]
-        # the stretch writes n positions per request with no host boundary
-        # in between: its whole span is prepared up front
         self._kv_prepare([(r.rid, r.seq_len - 1, r.seq_len - 1 + n)
-                          for r in active])
+                          for r in self._active()])
+        active = [r for r in self._active()
+                  if r.status is RequestStatus.DECODING]
+        if not active:
+            return
+        rids = [r.rid for r in active]
         bc = BatchConfig.build(
             [r.generated[-1] for r in active], [r.slot for r in active],
             [r.seq_len - 1 for r in active], self._seq_lens(),
@@ -416,12 +906,15 @@ class RequestManager:
         allowed = np.zeros(im.max_tokens, np.int32)
         allowed[:len(active)] = [r.max_new_tokens - len(r.generated)
                                  for r in active]
-        toks, live, _ = im.decode_scan(
-            bc, n, eos=eos, sample=self._sample_for(enumerate(rids),
-                                                    im.max_tokens),
+        smp = self._sample_for(enumerate(rids), im.max_tokens)
+        out = self._guarded("decode_scan", lambda: im.decode_scan(
+            bc, n, eos=eos, sample=smp,
             max_position=max(r.seq_len - 1 for r in active),
-            allowed=torch.from_numpy(allowed).to(im.device))
-        toks, live = toks.cpu().numpy(), live.cpu().numpy()
+            allowed=torch.from_numpy(allowed).to(im.device)))
+        self.scan_runs += 1
+        if out is None:
+            return
+        toks, live = out[0].cpu().numpy(), out[1].cpu().numpy()
         for s in range(n):
             for flat, rid in enumerate(rids):
                 req = self.requests[rid]
@@ -429,11 +922,10 @@ class RequestManager:
                     self._append_token(req, int(toks[s, flat]))
                     self._maybe_finish(req)
         self.steps += n
-        self.scan_runs += 1
 
     def _serve_tick(self) -> None:
         """One scheduling decision: a prefill stretch, a decode stretch,
-        or one mixed step."""
+        or one mixed step, each under the retry guard."""
         if self._prefill_stretch_possible():
             self._prefill_stretch()
             return
@@ -442,10 +934,12 @@ class RequestManager:
             self._decode_stretch(n)
             return
         bc, sample_points = self.prepare_next_batch()
-        rows = self.im.max_tokens
-        result = self.im.step(bc, sample=self._sample_for(sample_points,
-                                                          rows))
-        self.process_result(result, sample_points)
+        smp = self._sample_for(sample_points, self.im.max_tokens)
+        result = self._guarded(
+            "step", lambda: self.im.step(bc, sample=smp),
+            affected_fn=lambda: self._rids_in_batch(bc))
+        if result is not None:
+            self.process_result(result, sample_points)
         self.steps += 1
 
     def _tick(self) -> None:
@@ -453,10 +947,103 @@ class RequestManager:
         self._serve_tick()
 
     def serve_incr_decoding(self) -> Dict[int, List[int]]:
-        """Serve until every request completes; ``{rid: tokens}``."""
-        while self.has_work():
+        """Serve until every request is terminal, reaping cancellations
+        and deadlines at every step boundary; ``{rid: tokens}``."""
+        while True:
+            self._check_lifecycle()
+            if not self.has_work():
+                break
             self._tick()
         return {rid: r.generated for rid, r in self.requests.items()}
+
+    def serve_with_arrivals(self, arrivals, clock=None,
+                            quantum: int = 8) -> Dict[int, Dict]:
+        """Arrival-driven serving (reference :2342, its unchained path):
+        requests join the admit/retire loop at their offered times.
+
+        ``arrivals``: ``(t_offset_s, prompt_tokens, max_new_tokens or
+        None[, options])`` tuples, admitted once the clock passes their
+        offset; ``options`` is a dict of ``priority``, ``ttl_s`` and
+        ``deadline_s`` (a malformed one, like a malformed prompt,
+        registers ``REJECTED``).  ``clock``: a 0-argument seconds callable
+        (default ``time.perf_counter``), also the deadlines' clock for the
+        loop's duration.  ``quantum``: the decode stretch's cap while
+        arrivals are outstanding.
+
+        Returns ``{rid: record}`` with ``arrival_s``, ``admitted_s``,
+        ``prompt_len``, ``trace_id``, ``prefill_start_s`` (the start of the
+        step whose batch held the first prefill token), ``first_token_s``,
+        ``finish_s``, ``tokens``, a terminal ``outcome``, ``kv_bytes``, and
+        the TTFT decomposition ``queue_wait_s`` (arrival to prefill start)
+        and ``prefill_s`` (prefill start to first token, or to the
+        terminal stamp when no token came): for ``ok`` requests,
+        ``queue_wait_s + prefill_s == first_token_s - arrival_s``.  Stamps
+        are taken at step boundaries.
+        """
+        clock = clock or time.perf_counter
+        t0 = clock()
+        queue = sorted(arrivals, key=lambda a: a[0])
+        records: Dict[int, Dict] = {}
+        open_rids = set()   # records still waiting for a stamp
+
+        def admit_due():
+            now = clock() - t0
+            while queue and queue[0][0] <= now:
+                off, prompt, mnt, *rest = queue.pop(0)
+                opts, reject = parse_arrival_options(rest)
+                rid = self.register_new_request(
+                    prompt, mnt, reject_invalid=True, reject_reason=reject,
+                    **opts)
+                records[rid] = {"arrival_s": off, "admitted_s": now,
+                                "prompt_len": len(prompt),
+                                "trace_id": self.requests[rid].trace_id}
+                open_rids.add(rid)
+            return clock() - t0
+
+        def stamp(now):
+            for rid in list(open_rids):
+                rec, req = records[rid], self.requests[rid]
+                if "first_token_s" not in rec and req.generated:
+                    rec["first_token_s"] = now
+                if req.status in TERMINAL_STATUSES:
+                    rec.setdefault("finish_s", now)
+                    open_rids.discard(rid)
+
+        saved_chunk = self.scan_chunk
+        saved_clock = self._swap_clock(clock)
+        try:
+            while queue or self.has_work():
+                now = admit_due()
+                self._check_lifecycle()
+                stamp(clock() - t0)
+                if not self.has_work():
+                    if queue:   # idle until the next arrival
+                        time.sleep(min(1e-3, max(0.0, queue[0][0] - now)))
+                    continue
+                self.scan_chunk = quantum if queue else saved_chunk
+                starters = [rid for rid in open_rids
+                            if "prefill_start_s" not in records[rid]
+                            and self.requests[rid].prefill_offset == 0]
+                self._tick()
+                for rid in starters:
+                    if self.requests[rid].prefill_offset > 0:
+                        records[rid]["prefill_start_s"] = now
+                stamp(clock() - t0)
+        finally:
+            self.scan_chunk = saved_chunk
+            self._swap_clock(saved_clock)
+        end = clock() - t0
+        for rid, rec in records.items():
+            req = self.requests[rid]
+            rec["tokens"] = req.generated
+            rec["outcome"] = req.outcome or OUTCOMES.get(req.status, "ok")
+            rec["kv_bytes"] = req.kv_bytes
+            start = rec.get("prefill_start_s",
+                            rec.get("admitted_s", rec["arrival_s"]))
+            stop = rec.get("first_token_s", rec.get("finish_s", end))
+            rec["queue_wait_s"] = max(start - rec["arrival_s"], 0.0)
+            rec["prefill_s"] = max(stop - start, 0.0)
+        return records
 
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: Optional[int] = None) -> List[List[int]]:

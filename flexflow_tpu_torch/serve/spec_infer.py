@@ -25,11 +25,18 @@ verify step's commit destinations and the tree's span included
 slot, a tick is the incremental manager's (admission and prompt prefill),
 as in the reference; the speculative phases then sync the SSM's cache.
 
-Left out of this slice (see ROADMAP.md): seeded-sampling verification
-(a ``temperature > 0`` config raises ``NotImplementedError``), mixed
-spec/non-spec rows with ``set_spec_mode`` flips and their commit flush,
-preemption and recompute, ``serve_with_arrivals``, telemetry, profiling,
-SLO and brownout hooks.
+The lifecycle is the incremental manager's, reaped at macro-step
+boundaries: cancel, deadlines, priority and page-pressure preemption, and
+dispatch retries (each phase's LLM and SSM steps run under ``_guarded``
+at the reference's site names).  ``preempt`` releases both caches and
+resets the speculation state; readmission re-prefills ``prompt +
+generated`` into both models (reference :238, :333).
+
+Left out (see ROADMAP.md): seeded-sampling verification (a ``temperature
+> 0`` config raises ``NotImplementedError``), mixed spec/non-spec rows
+with ``set_spec_mode`` flips and their commit flush (so no row ever leaves
+the macro path holding commits, and the ``spec_commit_flush`` site has no
+dispatch), telemetry, profiling, SLO and brownout hooks.
 """
 
 from __future__ import annotations
@@ -89,8 +96,10 @@ class SpecInferManager(RequestManager):
     request_cls = SpecRequest
 
     def __init__(self, llm, ssm, gen_config: Optional[GenerationConfig] = None,
-                 width: int = 2, depth: int = 3):
-        super().__init__(llm, gen_config)
+                 width: int = 2, depth: int = 3, resilience=None,
+                 fault_injector=None, clock=None):
+        super().__init__(llm, gen_config, resilience=resilience,
+                         fault_injector=fault_injector, clock=clock)
         if self.gen.temperature > 0.0:
             raise NotImplementedError(
                 "speculative serving is greedy in this port: seeded-sampling "
@@ -130,8 +139,22 @@ class SpecInferManager(RequestManager):
         self.ssm.kv.bind(rid, slot=self.requests[rid].slot)
 
     def _release_slot(self, req: SpecRequest) -> None:
-        self.ssm.kv.release(req.rid, req.ssm_committed)
+        # both caches release on every slot-leaving path
+        if req.slot >= 0:
+            self.ssm.kv.release(req.rid, req.ssm_committed)
         super()._release_slot(req)
+
+    def preempt(self, rid: int) -> None:
+        """Preempt and recompute (reference :238): both caches release,
+        the speculation state resets, and readmission re-prefills prompt +
+        generated into the LLM and the SSM."""
+        super().preempt(rid)
+        req = self.requests[rid]
+        req.pending_commit = []
+        req.tree = []
+        req.llm_committed = 0
+        req.ssm_committed = 0
+        req.ssm_backlog = []
 
     def _seq_len_needed(self, req: Request) -> int:
         # verification scores up to `depth` positions past the last
@@ -147,7 +170,7 @@ class SpecInferManager(RequestManager):
         """Make the SSM's catch-up feed cover every position before the
         next draft root (``seq_len - 1``).  A request whose LLM prefill ran
         on the incremental path has none of it yet: its feed is rebuilt
-        from the prompt on (reference :750)."""
+        from the end of its prefill feed on (reference :750)."""
         if req.status is not RequestStatus.DECODING:
             return
         want = req.seq_len - 1
@@ -155,7 +178,7 @@ class SpecInferManager(RequestManager):
             return
         req.ssm_committed = 0
         req.ssm_backlog = [(self._token_at(req, p), p)
-                           for p in range(len(req.prompt), want)]
+                           for p in range(len(req.prefill_tokens), want)]
 
     def _plain_bc(self, im, toks, reqi, pos) -> BatchConfig:
         return BatchConfig.build(toks, reqi, pos, self._seq_lens(),
@@ -167,49 +190,59 @@ class SpecInferManager(RequestManager):
     # phase A: prompt prefill (both models) + SSM catch-up
     # ------------------------------------------------------------------
     def _prefill_phase(self) -> None:
-        """Reference :333-433."""
+        """Reference :333-433.  The feed is ``prefill_tokens``: the
+        prompt, or prompt + generated after a preemption.  A dispatch that
+        exhausts its retries ends the phase (its requests requeued or
+        failed)."""
         self._admit()
-        while True:   # LLM prompt prefill, chunked by its token budget
+        while True:   # LLM prefill, chunked by its token budget
             toks, reqi, pos, points, spans = [], [], [], [], []
             budget = self.llm.max_tokens
             for req in self._active():
                 if req.status is not RequestStatus.PREFILLING or budget <= 0:
                     continue
+                feed = req.prefill_tokens
                 st = req.prefill_offset
-                take = min(budget, len(req.prompt) - st)
-                toks += req.prompt[st: st + take]
+                take = min(budget, len(feed) - st)
+                toks += feed[st: st + take]
                 reqi += [req.slot] * take
                 pos += range(st, st + take)
                 spans.append((req.rid, st, st + take))
                 req.prefill_offset += take
                 budget -= take
-                if req.prefill_offset == len(req.prompt):
+                if req.prefill_offset == len(feed):
                     points.append((len(toks) - 1, req))
             if not toks:
                 break
             self._kv_prepare(spans)
-            ids = self.llm.step(self._plain_bc(self.llm, toks, reqi, pos)
-                                ).token_ids.cpu().numpy()
+            bc = self._plain_bc(self.llm, toks, reqi, pos)
+            res = self._guarded("spec_prefill", lambda: self.llm.step(bc))
+            if res is None:
+                return
+            ids = res.token_ids.cpu().numpy()
             self.llm_steps += 1
             for flat, req in points:
+                if req.status is not RequestStatus.PREFILLING:
+                    continue   # left its slot between build and read-back
                 req.status = RequestStatus.DECODING
-                req.llm_committed = len(req.prompt)
+                req.llm_committed = len(req.prefill_tokens)
                 self._append_token(req, int(ids[flat]))
                 self._maybe_finish(req)
 
         for req in self._active():
             self._ssm_sync(req)
-        while True:   # SSM prompt prefill + catch-up of accepted tokens
+        while True:   # SSM prefill + catch-up of accepted tokens
             toks, reqi, pos, spans = [], [], [], []
             budget = self.ssm.max_tokens
             for req in self._active():
                 if budget <= 0:
                     break
                 lo = len(pos)
-                if req.ssm_committed < len(req.prompt):
+                feed = req.prefill_tokens
+                if req.ssm_committed < len(feed):
                     st = req.ssm_committed
-                    take = min(budget, len(req.prompt) - st)
-                    toks += req.prompt[st: st + take]
+                    take = min(budget, len(feed) - st)
+                    toks += feed[st: st + take]
                     reqi += [req.slot] * take
                     pos += range(st, st + take)
                     req.ssm_committed += take
@@ -228,7 +261,10 @@ class SpecInferManager(RequestManager):
             if not toks:
                 break
             self._kv_prepare(spans, kv=self.ssm.kv)
-            self.ssm.step(self._plain_bc(self.ssm, toks, reqi, pos))
+            bc = self._plain_bc(self.ssm, toks, reqi, pos)
+            if self._guarded("spec_ssm_prefill",
+                             lambda: self.ssm.step(bc)) is None:
+                return
 
     # ------------------------------------------------------------------
     # phase B: draft-tree expansion through the SSM
@@ -261,9 +297,11 @@ class SpecInferManager(RequestManager):
                     pos.append(req.llm_committed + node.depth)
                     spec.append(ni)
                     points.append((len(toks) - 1, req, ni))
-            res = self.ssm.step(self._tree_bc(
-                TreeSearchBatchConfig, self.ssm, toks, reqi, pos, spec, masks,
-                "ssm_committed"))
+            bc = self._tree_bc(TreeSearchBatchConfig, self.ssm, toks, reqi,
+                               pos, spec, masks, "ssm_committed")
+            res = self._guarded("spec_draft", lambda: self.ssm.step(bc))
+            if res is None:
+                return []
             topk_ids = res.topk_ids.cpu().numpy()
             topk_lp = res.topk_logprobs.cpu().numpy()
             cands = {req.rid: [] for req in decoding}
@@ -342,10 +380,17 @@ class SpecInferManager(RequestManager):
         self._kv_prepare(spans)
         bc = self._tree_bc(TreeVerifyBatchConfig, self.llm, toks, reqi, pos,
                            spec, masks, "llm_committed", commit)
-        ids = self.llm.step(bc).token_ids.cpu().numpy()
+        res = self._guarded("spec_verify", lambda: self.llm.step(bc))
+        if res is None:
+            return
+        ids = res.token_ids.cpu().numpy()
         self.llm_steps += 1
 
         for req in verifying:
+            if req.status is not RequestStatus.DECODING:
+                # page pressure in the prepare above preempted it (its
+                # tree was reset): the readmission recomputes it
+                continue
             ni, accepted = 0, [0]
             while True:
                 want = int(ids[index_of[(req.rid, ni)]])

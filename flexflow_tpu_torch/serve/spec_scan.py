@@ -172,7 +172,7 @@ class SpecDecodeScan:
         # ---- 1. SSM catch-up: the previous step's accepted tokens ----
         nb = torch.where(fin, 0, c["backlog_n"])
         valid = kk < nb[:, None]                                 # [R, D+1]
-        self.ssm.step(BatchConfig(
+        self.ssm.run_step(BatchConfig(
             tokens=torch.where(valid, c["backlog_tok"], 0).reshape(-1),
             request_index=torch.where(valid, slot[:, None], -1).reshape(-1),
             token_position=(c["ssm_comm"][:, None] + kk).reshape(-1),
@@ -191,7 +191,7 @@ class SpecDecodeScan:
         for lvl in range(d):
             fs = self._frontier[lvl]
             f = fs.stop - fs.start
-            res = self.ssm.step(TreeSearchBatchConfig(
+            res = self.ssm.run_step(TreeSearchBatchConfig(
                 base=BatchConfig(
                     tokens=tok[:, fs].reshape(-1),
                     request_index=reqi_d[:, None].expand(r, f).reshape(-1),
@@ -222,7 +222,7 @@ class SpecDecodeScan:
         # ---- 3. LLM verify, after the previous step's commit ----
         reqi_v = torch.where(fin[:, None], -1, slot[:, None]).expand(r, p)
         commit_valid = kk < torch.where(fin, 0, c["commit_n"])[:, None]
-        res_v = self.llm.step(TreeVerifyBatchConfig(
+        res_v = self.llm.run_step(TreeVerifyBatchConfig(
             base=BatchConfig(
                 tokens=tok.reshape(-1),
                 request_index=reqi_v.reshape(-1),

@@ -824,3 +824,83 @@ def test_batched_tree_f32_split_boundaries(dev, d, qh):
          amask.to(dev)), (d ** -0.5,))
     for out in got.values():
         assert not out[-1].abs().sum()   # zeros, not NaN
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_preempt_spill_restore_on_card(dev, dtype):
+    """A small model on 64-position pages with a host page tier: a row
+    preempted mid-decode spills its pages to host memory and its
+    readmission restores them, each restored page's bytes exactly the
+    spilled ones; in float32 the streams equal the CPU port's
+    uninterrupted ones.  The paged kernels serve every segment: K2 and K1
+    before the preemption; after it, the restored row's catch-up tail
+    shares a step with the other row's decode token, so K1's flat path
+    serves it, and K1 serves the decode that follows."""
+    from flexflow_tpu_torch.serve import RequestStatus, ResilienceConfig
+
+    cfg = dataclasses.replace(SMALL, dtype=dtype)
+    kw = dict(max_requests=2, max_tokens_per_batch=16, max_seq_len=128,
+              kv_page_size=64)
+    cpu = InferenceManager(build_model(cfg), device="cpu",
+                           **kw).init_operators_inference(seed=3)
+    gpu = InferenceManager(build_model(cfg), device=dev, **kw)
+    gpu.init_operators_inference(dict(cpu.model.named_parameters()))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 97, size=n).tolist() for n in (70, 5)]
+    gen = GenerationConfig(max_new_tokens=10)
+    want = RequestManager(cpu, gen).generate(prompts)
+    kv = gpu.kv
+    rm = RequestManager(gpu, gen, resilience=ResilienceConfig(
+        host_tier_bytes=1 << 26))
+    rm.scan_chunk = 2
+
+    def paged_launches(*want_fns):
+        """Each kernel's paged launches since the last call (asserting
+        that ``want_fns`` launched and no other variant did)."""
+        got = {}
+        for fn in (att.decode_attention, att.prefill_attention):
+            assert fn.launches == fn.variant_launches["paged"]
+            got[fn.__name__] = fn.launches
+        for fn in want_fns:
+            assert got[fn.__name__] > 0, (fn.__name__, got)
+        att.reset_counts()
+        return got
+
+    att.reset_counts()
+    for p in prompts:
+        rm.register_new_request(p)
+    for _ in range(4):   # a prefill stretch, then decode stretches of 2
+        rm._tick()
+    assert all(r.status is RequestStatus.DECODING and len(r.generated) > 2
+               for r in rm.requests.values())
+    paged_launches(att.prefill_attention, att.decode_attention)
+    spilled = []
+    restore = kv.restore
+
+    def checked_restore(rid, align=1):
+        ent = kv.host_tier._spills[rid]
+        spilled.append([[b.clone() for b in p.blocks] for p in ent.pages])
+        info = restore(rid, align)
+        slot = kv._slot_of[rid]
+        for k in range(info["pages"]):
+            pid = int(kv._table[slot, k])
+            for got, blk in zip(kv._page_blocks(pid), spilled[-1][k]):
+                assert torch.equal(got.cpu().view(torch.uint8),
+                                   blk.view(torch.uint8))
+        return info
+
+    kv.restore = checked_restore
+    rm.preempt(0)
+    for key in list(kv._entries):   # no prefix hit: restore from the tier
+        kv._drop_entry(key)
+    rm._tick()   # readmission, restore, and the catch-up step
+    req = rm.requests[0]
+    assert req.kv_restored and req.status is RequestStatus.DECODING
+    paged_launches(att.decode_attention)
+    out = rm.serve_incr_decoding()
+    paged_launches(att.decode_attention)
+    assert spilled and kv.pages_restored > 0 and kv.restore_failures == 0
+    assert kv.host_tier._spills == {} and kv.attributed_rids() == []
+    assert all(len(out[r]) == 10 for r in (0, 1))
+    if dtype == "float32":
+        assert [out[0], out[1]] == want

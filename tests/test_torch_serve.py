@@ -329,7 +329,8 @@ def test_port_never_imports_jax_or_the_reference_package():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     assert {"spec_infer.py", "spec_scan.py", "opt.py", "falcon.py",
-            "mpt.py", "starcoder.py", "weights.py"} <= {f.name for f in files}
+            "mpt.py", "starcoder.py", "weights.py",
+            "resilience.py"} <= {f.name for f in files}
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -342,6 +343,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, flexflow_tpu_torch.serve, "
             "flexflow_tpu_torch.serve.weights, "
             "flexflow_tpu_torch.serve.models.mpt, "
+            "flexflow_tpu_torch.serve.resilience, "
             "flexflow_tpu_torch.ops.cuda.attention; "
             "bad = [m for m in sys.modules if m in ('jax', 'flexflow_tpu', "
             "'transformers') or m.startswith(('jax.', 'flexflow_tpu.', "
