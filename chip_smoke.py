@@ -119,7 +119,21 @@ and prints no result):
    cancel; every ``ok`` stream equals an uninterrupted ``generate`` on the
    same deployment, the cancelled one is a prefix of its stream, and the
    spill, restore, checksum and page-copy times are logged beside their
-   bound over the host link.
+   bound over the host link;
+13. api default path: the same f32 Llama-2-7B through the user's entry
+   point, ``LLM(ServeModelConfig(...)).compile(max_requests=8,
+   max_tokens_per_batch=512, max_seq_len=2048)`` with the reference's
+   defaults (LM-head gating, the chained decode stretch):
+   ``serve_with_arrivals`` on a clock that counts model passes, 4 of the
+   8 prompts at t=0 and 4 due once those decode, which join the running
+   stretch at a segment boundary; the streams must equal the same
+   deployment's with gating and chaining off, with joins, one read-back
+   per chained stretch, and K1 and K2 launched; the chain's segments,
+   joins, exit codes and the joiners' TTFT in passes (chained against
+   unchained) are logged, then the 8 prompts' prefill stretch gated
+   against ungated and the LM head alone; then ``ssms=[SSM(draft)]`` at 2
+   layers of full width with seeded sampling (T=0.8 twice equal, T=1e-4
+   equal to greedy).
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -1789,6 +1803,204 @@ def phase_serve_lifecycle(serve, att, torch, dev):
     return n
 
 
+class PassClock:
+    """A virtual clock for ``serve_with_arrivals`` that counts model
+    passes: each pass of ``im.run_step`` (a prefill chunk, a decode step,
+    a joiner's flat prefill step) advances it ``pass_s`` seconds, and each
+    reading ``tick_s`` more, so two serve paths on the same arrivals are
+    compared in passes, not in the host's time."""
+
+    def __init__(self, im, pass_s=1e-3, tick_s=1e-6):
+        self.t = 0.0
+        self.pass_s, self.tick_s = pass_s, tick_s
+        run_step = im.run_step
+
+        def counted(*args, **kw):
+            self.t += self.pass_s
+            return run_step(*args, **kw)
+
+        im.run_step = counted
+
+    def __call__(self):
+        self.t += self.tick_s
+        return self.t
+
+
+def api_traffic(prompts, n_new, max_tokens):
+    """The first 4 prompts at t=0; the other 4 due one pass after the
+    first 4's prefill chunks, once those decode."""
+    chunks = sum(-(-len(p) // max_tokens) for p in prompts[:4])
+    late = (chunks + 1.5) * 1e-3
+    return ([(0.0, p, n_new) for p in prompts[:4]]
+            + [(late, p, n_new) for p in prompts[4:]])
+
+
+def phase_api_default(serve, att, torch, dev):
+    """The reference's default serve path through the user's entry point:
+    ``LLM(ServeModelConfig(...)).compile(max_requests=8,
+    max_tokens_per_batch=512, max_seq_len=2048)`` on the published
+    Llama-2-7B shape in float32 (TF32 off), LM-head gating and the chained
+    stretch on (the defaults).  ``serve_with_arrivals`` on a pass-counting
+    clock: 4 prompts at t=0, 4 more due once those decode, which join the
+    running stretch.  The oracle is the same deployment with
+    ``gate_lm_head`` and ``chain_segments`` off: streams equal, joins > 0,
+    one read-back per chained stretch, K1 and K2 launched.  Then the
+    prefill stretch of the 8 prompts gated against ungated, and the LM head
+    alone; then ``ssms=[SSM(draft)]`` at 2 layers of full width: seeded
+    sampling at T=0.8 twice (equal), and T=1e-4 equal to greedy.  Returns
+    {path: launches}."""
+    import collections
+    import gc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = serve.ServeModelConfig(dtype="float32")   # Llama-2-7B defaults
+    caps = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048)
+    n_new = 16
+    # the earlier phases' managers sit in reference cycles (their wrapped
+    # methods): collect them before the 7B f32 deployment is built
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"api default: {torch.cuda.memory_allocated() / 1e9:.2f} GB held "
+        f"before the build")
+    t_phase = time.perf_counter()
+    llm = serve.LLM(cfg).compile(device=dev, **caps)
+    im, rm = llm.im, llm.rm
+    if not (im.gate_lm_head and rm.chain_segments):
+        raise AssertionError("LLM.compile's defaults: gating and chaining")
+    prompts = serve_prompts(cfg.vocab_size)
+    arrivals = api_traffic(prompts, n_new, caps["max_tokens_per_batch"])
+    stretches = []
+    inner = rm._decode_stretch
+
+    def stretch(n):
+        before = rm.readbacks
+        inner(n)
+        stretches.append((rm.readbacks - before, dict(rm.last_stretch),
+                          dict(rm.last_exit_codes)))
+
+    rm._decode_stretch = stretch
+    launches = {}
+    t0 = time.perf_counter()
+    rec, launches["chained"] = counted(att, lambda: rm.serve_with_arrivals(
+        arrivals, clock=PassClock(im)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require_launches(launches["chained"], "api default (chained, gated)",
+                     "fp", ("decode_attention", "prefill_attention"))
+    # the oracle: the same weights, gating and chaining off
+    im.reset()
+    im.gate_lm_head = False
+    oracle = serve.RequestManager(im, rm.gen)
+    oracle.chain_segments = False
+    t0 = time.perf_counter()
+    want, launches["oracle"] = counted(att, lambda: oracle.serve_with_arrivals(
+        arrivals, clock=PassClock(im)))
+    torch.cuda.synchronize()
+    wall_oracle = time.perf_counter() - t0
+    im.gate_lm_head = True
+    got = [rec[r]["tokens"] for r in sorted(rec)]
+    if got != [want[r]["tokens"] for r in sorted(want)]:
+        raise AssertionError("api default: the chained, gated streams differ "
+                             "from the oracle's")
+    if any(not 0 < len(s) <= n_new or not all(0 <= t < cfg.vocab_size
+                                              for t in s) for s in got):
+        raise AssertionError(f"api default: bad streams {got}")
+    joins = sum(s["joins"] for _, s, _ in stretches)
+    if not stretches or joins < 1 or any(n != 1 for n, _, _ in stretches):
+        raise AssertionError(f"api default: stretches {stretches}")
+    codes = collections.Counter(c for _, _, ex in stretches
+                                for c in ex.values())
+    names = {serve.EXIT_RUNNING: "running", serve.EXIT_EOS: "eos",
+             serve.EXIT_BUDGET: "budget"}
+    log(f"api default: 7B f32, gated + chained: {len(stretches)} stretches, "
+        f"segments {[s['segments'] for _, s, _ in stretches]}, steps "
+        f"{[s['steps'] for _, s, _ in stretches]}, joins {joins}, read-backs "
+        f"per stretch {[n for n, _, _ in stretches]}, exit codes "
+        f"{ {names[c]: k for c, k in codes.items()} }; read-backs in all "
+        f"{rm.readbacks} (oracle {oracle.readbacks}, {oracle.scan_runs} "
+        f"stretches); wall {wall:.2f}s (oracle {wall_oracle:.2f}s); streams "
+        f"equal the oracle's; launches {short(launches['chained'])} (oracle "
+        f"{short(launches['oracle'])})")
+    for r in sorted(rec)[4:]:
+        ttft = [(d[r]["first_token_s"] - d[r]["arrival_s"]) * 1e3
+                for d in (rec, want)]
+        log(f"api default: joiner {r} ({rec[r]['prompt_len']} tokens) TTFT "
+            f"{ttft[0]:.3f} passes chained (prefill start "
+            f"{(rec[r]['prefill_start_s'] - rec[r]['arrival_s']) * 1e3:.3f}) "
+            f"vs {ttft[1]:.3f} unchained, on the pass clock")
+    # the prefill stretch of the 8 prompts, gated and ungated, and the LM
+    # head alone: events around one call (the f32 GEMMs keep the device
+    # busy), the head by device time
+    tile = im.prefill_tile
+    mt = caps["max_tokens_per_batch"]
+    times = {}
+    for gate in (False, True):
+        chunks = []
+        for slot, p in enumerate(prompts):
+            for at in range(0, len(p), mt):
+                take = min(mt, len(p) - at)
+                seq = [0] * 8
+                seq[slot] = at + take
+                done = at + take == len(p)
+                chunks.append(serve.PrefillBatchConfig.build(
+                    [(slot, p[at: at + take], at)], seq, tile,
+                    max_tokens=mt, max_requests=8, device=dev,
+                    gate_slots=([slot] if done else []) if gate
+                    else None)[0])
+        im.reset()
+        times[gate] = call_ms(lambda c=chunks: im.prefill_scan(c), 1)
+    x = torch.randn(mt, cfg.hidden_size, device=dev)
+    head = {n: time_ms(lambda r=n: im.model.lm_head(x[:r]), 10)
+            for n in (mt, 8)}
+    n_chunks = len(chunks)
+    log(f"api default: prefill stretch of the 8 prompts ({n_chunks} chunks "
+        f"of {mt}), 7B f32: ungated {times[False]:.3f} ms, gated "
+        f"{times[True]:.3f} ms (events around one call); LM head "
+        f"[{mt}, 4096] x [4096, 32000] {head[mt]:.6f} ms, gathered "
+        f"[8, 4096] {head[8]:.6f} ms (device): {n_chunks} heads "
+        f"{n_chunks * head[mt]:.3f} ms, "
+        f"{n_chunks * head[mt] / times[False]:.4f} of the ungated stretch")
+    del llm, rm, oracle, im, chunks, x, stretch, inner
+    gc.collect()
+    torch.cuda.empty_cache()
+    # SpecInfer through the API: 2 layers of full width and the
+    # llama-68m-shaped draft, seeded sampling
+    wide = dataclasses.replace(cfg, num_hidden_layers=2)
+    sprompts = [p[:300] for p in prompts]
+
+    def spec(temperature, ssm=True):
+        gen = serve.GenerationConfig(max_new_tokens=n_new,
+                                     temperature=temperature, seed=7)
+        api = serve.LLM(wide).compile(
+            device=dev, generation_config=gen,
+            ssms=[serve.SSM(draft_config(serve, "float32"))] if ssm else (),
+            **caps)
+        return counted(att, lambda: api.generate(sprompts))
+
+    a, launches["spec"] = spec(0.8)
+    require_launches(launches["spec"], "api spec (T=0.8)", "fp",
+                     ("tree_attention",))
+    b, _ = spec(0.8)
+    if a != b:
+        raise AssertionError("api spec: two seeded runs differ")
+    tiny, _ = spec(1e-4)
+    greedy, _ = spec(0.0)
+    if tiny != greedy:
+        raise AssertionError("api spec: T=1e-4 differs from greedy")
+    incr, _ = spec(0.8, ssm=False)
+    log(f"api spec: 2-layer 7B-width f32 + llama-68m draft, T=0.8 seed 7: "
+        f"two runs equal, T=1e-4 equal to greedy; equal to sampled "
+        f"incremental {equal_share(a, incr):.4f} (greedy vs T=0.8 "
+        f"{equal_share(greedy, a):.4f}); launches {short(launches['spec'])}")
+    log(f"api default: phase wall {time.perf_counter() - t_phase:.1f}s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    torch.cuda.empty_cache()
+    return launches
+
+
 TC_KERNELS = ("prefill_tc_kernel", "prefill_tf32_kernel",
               "tree_split_tf32_kernel", "tree_split_kernel",
               "tree_merge_kernel", "decode_split_kernel",
@@ -1884,6 +2096,12 @@ def main():
                                                       dev))
     life = timed("serve lifecycle", lambda: phase_serve_lifecycle(
         serve, att, torch, dev))
+    api = timed("api default path", lambda: phase_api_default(
+        serve, att, torch, dev))
+
+    def plus(*counts):
+        return {k: sum(c.get(k, 0) for c in counts)
+                for k in set().union(*counts)}
 
     # each kernel variant's launches on the path that runs it: fp on the
     # 7B bf16 serve path, int8+paged on the 7B int8 serve path, int8 and
@@ -1892,12 +2110,16 @@ def main():
     # (int8, paged); K1 at 71 and 48 query heads per KV head on the
     # Falcon-7B parity path and the StarCoder serve path; float32: fp on
     # the 7B f32 serve path, the others on the (f32) variant-parity paths,
-    # K1 and K2 paged on the 7B f32 lifecycle path too
+    # K1 and K2 paged on the 7B f32 lifecycle path too; f32 fp adds the
+    # API's default path (K1 and K2 chained and gated, K3 per-token under
+    # sampled SpecInfer)
     def path_counts_f32(var):
         if var == "fp":
-            return {"decode_attention": f32["incremental"],
-                    "prefill_attention": f32["incremental"],
-                    "tree_attention": f32["spec host"],
+            return {"decode_attention": plus(f32["incremental"],
+                                             api["chained"]),
+                    "prefill_attention": plus(f32["incremental"],
+                                              api["chained"]),
+                    "tree_attention": plus(f32["spec host"], api["spec"]),
                     "tree_attention_batched": f32["spec device"]}
         counts = {"decode_attention": parity[var]["incremental"],
                   "prefill_attention": parity[var]["incremental"],

@@ -14,10 +14,16 @@ of query heads per KV head) and their HF state-dict converters (slice 5);
 the request lifecycle: arrivals (``serve_with_arrivals``), cancel and
 deadlines, admission control, priority and page-pressure preemption with
 recompute, a host page tier that spills and restores a preempted request's
-pages, and dispatch retries under a seeded fault injector (slice 6).
+pages, and dispatch retries under a seeded fault injector (slice 6); the
+reference's default serve path (slice 7): LM-head gating, the chained
+decode stretch with joins at segment boundaries, seeded speculative
+sampling, and the user's entry point ``LLM(model).compile(...)`` and
+``llm.generate(prompts)`` with ``SSM`` drafts (``load_hf_model`` reads a
+local HF checkpoint).
 """
 
 from . import models  # noqa: F401  (registers the model builders)
+from .api import LLM, SSM
 from .batch_config import (
     MAX_NUM_REQUESTS,
     MAX_NUM_TOKENS,
@@ -29,6 +35,10 @@ from .batch_config import (
 )
 from .convert import params_from_jax
 from .inference_manager import (
+    EXIT_BUDGET,
+    EXIT_EOS,
+    EXIT_NOT_IN_BATCH,
+    EXIT_RUNNING,
     InferenceManager,
     pick_prefill_tile,
     sample_tokens,
@@ -61,7 +71,7 @@ from .resilience import (
 )
 from .spec_infer import SpecInferManager, SpecRequest, TokenTreeNode
 from .spec_scan import SpecDecodeScan
-from .weights import CONVERTERS, convert_state_dict
+from .weights import CONVERTERS, convert_state_dict, load_hf_model
 
 __all__ = [
     "BatchConfig",
@@ -72,6 +82,10 @@ __all__ = [
     "MAX_NUM_REQUESTS",
     "MAX_NUM_TOKENS",
     "InferenceManager",
+    "EXIT_NOT_IN_BATCH",
+    "EXIT_RUNNING",
+    "EXIT_EOS",
+    "EXIT_BUDGET",
     "KVAllocator",
     "PagedKVAllocator",
     "PagePoolExhausted",
@@ -105,4 +119,7 @@ __all__ = [
     "params_from_jax",
     "CONVERTERS",
     "convert_state_dict",
+    "load_hf_model",
+    "LLM",
+    "SSM",
 ]

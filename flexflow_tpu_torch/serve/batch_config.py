@@ -4,9 +4,10 @@ Port of ``flexflow_tpu/serve/batch_config.py``: the same fields and the
 same contracts, as dataclasses of int32 tensors.  A step processes up to
 ``max_tokens`` flat tokens of up to ``max_requests`` request slots; pad
 tokens carry ``request_index == -1`` and write to the scratch cache row.
-LM-head gating (``logit_slots``) is not ported: every step computes the
-logits of all its flat tokens, which is the reference's ``gate_lm_head=
-False`` behaviour.
+A prefill chunk may carry ``logit_slots`` (LM-head gating): its step then
+computes logits only at each completing request's last prompt token,
+``[max_requests, vocab]`` indexed by slot, instead of ``[max_tokens,
+vocab]``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.platform import resolve_device
+from ..utils.platform import host_to_device, resolve_device
 
 MAX_NUM_REQUESTS = 8
 MAX_NUM_TOKENS = 64
@@ -59,6 +60,34 @@ class BatchConfig:
             seq_lens=seq_lens,
         )
 
+    def join_row(self, dst: int, tok: torch.Tensor, slot: int, pos: int,
+                 seq_len: int, num_tokens: int,
+                 active: Optional[torch.Tensor] = None) -> "BatchConfig":
+        """Splice one staged arrival into a running stretch's batch
+        (reference :86): flat row ``dst`` decodes slot ``slot`` from token
+        ``tok`` at position ``pos``, the slot's depth becomes ``seq_len``
+        and the batch holds ``num_tokens`` rows.  ``tok`` and ``active``
+        (bool[], None = True) are device values and stay so: nothing is
+        read back.  An inactive row is installed frozen
+        (``request_index`` -1), for a joiner whose first token was its
+        EOS."""
+        tok = tok.reshape(()).to(self.tokens.dtype)
+        ridx = torch.full((), slot, dtype=self.request_index.dtype,
+                          device=self.tokens.device)
+        if active is not None:
+            ridx = torch.where(active, ridx, -1)
+        tokens = self.tokens.clone()
+        tokens[dst] = tok
+        request_index = self.request_index.clone()
+        request_index[dst] = ridx
+        token_position = self.token_position.clone()
+        token_position[dst] = pos
+        seq_lens = self.seq_lens.clone()
+        seq_lens[slot] = seq_len
+        return BatchConfig(tokens, request_index, token_position,
+                           torch.full_like(self.num_tokens, num_tokens),
+                           seq_lens)
+
     @staticmethod
     def build(token_ids, request_indices, positions, seq_lens,
               max_tokens: int = MAX_NUM_TOKENS,
@@ -83,8 +112,7 @@ class BatchConfig:
     @staticmethod
     def from_numpy(fields, device=None) -> "BatchConfig":
         dev = resolve_device(device)
-        return BatchConfig(*(torch.from_numpy(np.ascontiguousarray(f))
-                             .to(dev) for f in fields))
+        return BatchConfig(*(host_to_device(f, dev) for f in fields))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,10 +126,17 @@ class PrefillBatchConfig:
     belong to one request, (b) sit at the tile's head with pads only at the
     tail, (c) have contiguous ascending positions and (d) start at a
     tile-aligned position, so each tile's KV is one whole block write.
+
+    LM-head gating (reference :213): ``logit_slots`` (i32[max_requests],
+    the flat index of slot r's prompt-final token in this chunk, -1 where
+    the chunk completes no prompt of r) makes the LM head gather those
+    rows and compute ``[max_requests, vocab]`` logits; the step's results
+    are then indexed by slot.  None: the logits of every flat token.
     """
 
     base: BatchConfig
     tile_size: int
+    logit_slots: Optional[torch.Tensor] = None
 
     @property
     def num_tiles(self) -> int:
@@ -110,16 +145,33 @@ class PrefillBatchConfig:
     @staticmethod
     def build(segments, seq_lens, tile_size: int,
               max_tokens: int = MAX_NUM_TOKENS,
-              max_requests: int = MAX_NUM_REQUESTS, device=None
+              max_requests: int = MAX_NUM_REQUESTS, device=None,
+              gate_slots: Optional[Iterable[int]] = None
               ) -> Tuple["PrefillBatchConfig", Dict[int, int]]:
         """``segments``: iterable of ``(slot, token_ids, start_pos)``.
         Returns ``(pbc, last_flat)`` with ``last_flat[slot]`` the flat
-        index of that segment's final token."""
+        index of that segment's final token.  ``gate_slots``: the slots
+        whose segment ends its prompt in this chunk, which gates the LM
+        head (None: full logits)."""
         fields, last_flat = PrefillBatchConfig.np_fields(
             segments, seq_lens, tile_size, max_tokens, max_requests)
+        ls = None
+        if gate_slots is not None:
+            ls = host_to_device(PrefillBatchConfig.np_logit_slots(
+                gate_slots, last_flat, max_requests), resolve_device(device))
         return (PrefillBatchConfig(BatchConfig.from_numpy(fields, device),
-                                   tile_size),
+                                   tile_size, ls),
                 last_flat)
+
+    @staticmethod
+    def np_logit_slots(gate_slots: Iterable[int], last_flat: Dict[int, int],
+                       max_requests: int) -> np.ndarray:
+        """The i32[max_requests] ``logit_slots`` of the completing slots
+        (reference :253)."""
+        ls = np.full(max_requests, -1, np.int32)
+        for slot in gate_slots:
+            ls[slot] = last_flat[slot]
+        return ls
 
     @staticmethod
     def np_fields(segments: Iterable, seq_lens, tile_size: int,
@@ -206,9 +258,10 @@ class TreeVerifyBatchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class InferenceResult:
-    """Per-step device output: the next token per flat slot and its logit;
-    with ``topk > 0`` on the manager, the top-k token ids and their
-    log-probabilities (the draft model's beam candidates)."""
+    """Per-step device output: the next token per flat slot and its logit
+    (per request slot after a gated prefill chunk); with ``topk > 0`` on
+    the manager, the top-k token ids and their log-probabilities (the
+    draft model's beam candidates)."""
 
     token_ids: torch.Tensor            # i32[max_tokens]
     logits_max: torch.Tensor           # f32[max_tokens]

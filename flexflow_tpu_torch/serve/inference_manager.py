@@ -4,14 +4,19 @@ Port of ``flexflow_tpu/serve/inference_manager.py`` for one device:
 ``pick_prefill_tile`` (:184), ``sample_tokens`` (:197), ``__init__``,
 ``init_operators_inference``, ``step`` (:612) with the draft model's
 top-k (:596), ``decode_scan`` (:757) and ``prefill_scan`` (:958), over an
-int8 (``kv_dtype``) and/or paged (``kv_page_size``) KV cache.
+int8 (``kv_dtype``) and/or paged (``kv_page_size``) KV cache, with
+LM-head gating (``gate_lm_head``, :265) and the chained stretch's
+``decode_scan_async`` (:783) and ``join_slot`` (:827).
 PyTorch runs eagerly, so the reference's jitted step is a plain call and
-its donated caches are caches updated in place.  ``decode_scan`` is a loop
-of steps whose batch advances on the device: nothing inside it reads a
-value back to the host, and the EOS freeze is a tensor op.
-``prefill_scan`` is a loop of prefill chunks, one dispatch to the caller.
-Each of the three consults the manager's ``fault_injector`` once, at its
-site name, before any device work (reference :618, :767, :973).
+its donated caches are caches updated in place.  ``decode_scan_async`` is
+a loop of steps whose batch advances on the device: nothing inside it
+reads a value back to the host, and the EOS and budget freezes and the
+per-row exit codes (``EXIT_*``) are tensor ops; its launches queue on the
+stream, so segments issued back to back with joins between them run with
+no host wait.  ``prefill_scan`` is a loop of prefill chunks, one dispatch
+to the caller.  Each of the three consults the manager's
+``fault_injector`` once, at its site name, before any device work
+(reference :618, :767, :973).
 
 Sampling: greedy is exact argmax.  Temperature/top-p draws are keyed, as
 in the reference, by (seed, request id, token index), so a request's draw
@@ -38,6 +43,13 @@ from .quant import int8_layout
 Sample = Tuple[int, float, float, torch.Tensor]
 
 _M32 = 0xFFFFFFFF
+
+# why a decode-scan row stopped, read back with the stretch (reference
+# :36-39; SpecDecodeScan reports the same codes)
+EXIT_NOT_IN_BATCH = -1  # padding, or frozen before this scan began
+EXIT_RUNNING = 0        # budget left and no EOS: resumes next segment
+EXIT_EOS = 1            # emitted the stop token (frozen since)
+EXIT_BUDGET = 2         # emitted its whole remaining budget
 
 
 def pick_prefill_tile(max_tokens_per_batch: int, max_seq_len: int) -> int:
@@ -107,7 +119,8 @@ class InferenceManager:
                  max_tokens_per_batch: int = 64, max_seq_len: int = 512,
                  device=None, max_spec_tokens: int = 0, topk: int = 0,
                  kv_dtype: Optional[str] = None,
-                 kv_page_size: Optional[int] = None):
+                 kv_page_size: Optional[int] = None,
+                 gate_lm_head: bool = True, prefill_overlap: bool = True):
         """``model``: a serve model from ``build_model`` (parameters on
         ``meta`` until :meth:`init_operators_inference` fills them; a
         model whose parameters already lie on ``device`` keeps them, so
@@ -129,7 +142,17 @@ class InferenceManager:
         Writes need mapped pages: the RequestManager prepares them before
         every dispatch; a caller driving ``step`` itself calls
         ``kv.bind(rid, slot=...)`` and ``kv.prepare_write(rid, lo, hi)``
-        first (an unprepared write lands in the scratch page)."""
+        first (an unprepared write lands in the scratch page).
+
+        ``gate_lm_head`` (reference :265): prefill chunks a RequestManager
+        builds carry ``logit_slots``, so their LM head computes logits
+        only at the completing prompts' last tokens; it is read when a
+        batch is built, so it can be switched between calls.
+        ``prefill_overlap`` is taken for the reference's signature and
+        does nothing: there it lets XLA schedule the next chunk's layer-0
+        QKV projection inside the prefill scan (:426-442,
+        ``_project_chunk0`` :849), a compiler device with no counterpart
+        in eager PyTorch, whose launches already queue back to back."""
         self.device = resolve_device(device)
         self.max_requests = max_requests
         self.max_tokens = max_tokens_per_batch
@@ -155,7 +178,19 @@ class InferenceManager:
         else:
             self.kv = KVAllocator(self.model, max_requests, max_seq_len,
                                   self.device, max_spec_tokens, kv_dtype)
+        self._gate_lm_head = bool(gate_lm_head)
         self.ready = False
+
+    @property
+    def gate_lm_head(self) -> bool:
+        """Whether prefill chunks gate the LM head: the flag, and a model
+        whose LM head takes ``logit_slots`` (reference :467-476)."""
+        return self._gate_lm_head and getattr(self.model, "gates_lm_head",
+                                              False)
+
+    @gate_lm_head.setter
+    def gate_lm_head(self, value) -> None:
+        self._gate_lm_head = bool(value)
 
     @property
     def state(self):
@@ -193,7 +228,8 @@ class InferenceManager:
 
     @torch.no_grad()
     def forward(self, bc) -> torch.Tensor:
-        """One step's float32 logits ``[max_tokens, vocab]``; the caches
+        """One step's float32 logits ``[max_tokens, vocab]`` (``[max_requests,
+        vocab]`` for a gated prefill chunk); the caches
         take this step's K/V in place, through the page table of a paged
         cache (uploaded here after the allocator changed it, reused by
         the steps of a stretch)."""
@@ -235,28 +271,53 @@ class InferenceManager:
                     sample: Optional[Sample] = None,
                     max_position: Optional[int] = None,
                     allowed: Optional[torch.Tensor] = None):
-        """``n_steps`` pure-decode steps whose batch advances on the device.
-
-        Slots that emit ``eos``, or whose ``allowed`` budget (i32[T], the
-        tokens each flat row may still emit; None = no limit) runs out,
-        are frozen: request index -1, so their later writes go to the
-        scratch row and their emissions are masked out of ``live``
-        (reference ``decode_scan_async`` :783).  With ``sample``, each
-        row's token index advances one per step.  ``max_position``: the
-        batch's highest position as the caller's host bookkeeping (read
-        from ``bc`` if None, one sync before the loop).  Returns
-        ``(tokens i32[n, T], live bool[n, T], bc)``.
-        """
-        self._fault_site("decode_scan")
+        """``n_steps`` pure-decode steps (reference :757): the synchronous
+        form of :meth:`decode_scan_async`, which reads ``max_position``
+        from ``bc`` when the caller has none (one sync before the loop).
+        Returns ``(tokens i32[n, T], live bool[n, T], bc)``."""
         if max_position is None:
             max_position = int(bc.token_position.max())
+        tokens, live, _, bc = self.decode_scan_async(
+            bc, n_steps, eos=eos, sample=sample, allowed=allowed,
+            max_position=max_position)
+        return tokens, live, bc
+
+    @torch.no_grad()
+    def decode_scan_async(self, bc: BatchConfig, n_steps: int,
+                          eos: Optional[int] = None,
+                          sample: Optional[Sample] = None,
+                          allowed: Optional[torch.Tensor] = None,
+                          max_position: Optional[int] = None):
+        """One chained-stretch segment (reference :783, its scan body
+        :700-720): ``n_steps`` pure-decode steps whose batch advances on
+        the device, with no read-back and no host read of ``bc``.
+
+        Rows that emit ``eos``, or whose ``allowed`` budget (i32[T], the
+        tokens each flat row may still emit; None = no limit) runs out,
+        are frozen: request index -1, so their later writes go to the
+        scratch row and their emissions are masked out of ``live``; a row
+        that enters with no budget is frozen before the first step.  With
+        ``sample``, each row's token index advances one per step.
+        ``max_position``: the batch's highest position as the caller's
+        host bookkeeping (required: this path must not sync to check
+        it).  Returns device values ``(tokens i32[n, T], live bool[n, T],
+        exit_codes i32[T], bc)``, the codes ``EXIT_*``.
+        """
+        if max_position is None:
+            raise ValueError("decode_scan_async needs the host's "
+                             "max_position")
+        self._fault_site("decode_scan")
         if max_position + n_steps > self.max_seq_len:
             raise ValueError(
                 f"decode_scan would reach position {max_position + n_steps}"
                 f" > max_seq_len {self.max_seq_len}")
-        alive = bc.request_index >= 0
+        present = bc.request_index >= 0
+        alive = present
         if allowed is not None:
             alive = alive & (allowed > 0)
+            bc = dataclasses.replace(
+                bc, request_index=torch.where(alive, bc.request_index, -1))
+        eos_hit = torch.zeros_like(present)
         tokens, lives = [], []
         for i in range(n_steps):
             stp = None
@@ -271,11 +332,31 @@ class InferenceManager:
                 allowed = allowed - alive.to(allowed.dtype)
                 alive = alive & (allowed > 0)
             if eos is not None:
-                alive = alive & (toks != eos)
+                hit = lives[-1] & (toks == eos)
+                eos_hit = eos_hit | hit
+                alive = alive & ~hit
             bc = bc.advance(toks)
             bc = dataclasses.replace(
                 bc, request_index=torch.where(alive, bc.request_index, -1))
-        return torch.stack(tokens), torch.stack(lives), bc
+        codes = torch.where(
+            ~present, EXIT_NOT_IN_BATCH,
+            torch.where(eos_hit, EXIT_EOS,
+                        torch.where(alive, EXIT_RUNNING, EXIT_BUDGET)))
+        return (torch.stack(tokens), torch.stack(lives),
+                codes.to(torch.int32), bc)
+
+    @torch.no_grad()
+    def join_slot(self, bc: BatchConfig, tok_src: torch.Tensor, src_idx: int,
+                  dst: int, slot: int, pos: int, seq_len: int,
+                  num_tokens: int, eos: Optional[int] = None) -> BatchConfig:
+        """Splice one staged arrival into a running stretch's batch
+        (reference :827): its token is ``tok_src[src_idx]``, the device
+        result of its last prefill chunk (never read here), and the row
+        is installed frozen when that token is ``eos``."""
+        tok = tok_src[src_idx]
+        active = None if eos is None else tok != eos
+        return bc.join_row(dst, tok, slot, pos, seq_len, num_tokens,
+                           active=active)
 
     @torch.no_grad()
     def prefill_scan(self, chunks: Sequence,
@@ -284,7 +365,8 @@ class InferenceManager:
         """The prefill stretch's dispatch (reference :958): run the
         prefill batches ``chunks`` in order (each with its ``samples``
         entry, None = greedy) and return their token ids stacked,
-        ``i32[len(chunks), max_tokens]``, read back by the caller once.
+        ``i32[len(chunks), max_tokens]`` (``max_requests``, indexed by
+        slot, when the chunks are gated), read back by the caller once.
         The ``prefill_scan`` fault site is consulted once, before the
         first chunk, so a retry replays the whole stretch."""
         self._fault_site("prefill_scan")

@@ -144,6 +144,14 @@ class KVAllocator:
     def attributed_rids(self) -> List[int]:
         return sorted(self._bound)
 
+    def snapshot(self) -> Dict:
+        """The cache's size and the requests bound to it (reference
+        :1032, without the live-token gauges the port does not track);
+        the paged subclass adds its pool and tier counters."""
+        return {"capacity_tokens": self.capacity_tokens,
+                "allocated_bytes": self.allocated_bytes(),
+                "bound_requests": len(self._bound)}
+
     # ---- host-tier hooks: a slot-contiguous cache has no pages to spill,
     # so recovery from preemption stays recompute (reference :319-337)
     def attach_host_tier(self, capacity_bytes: int):

@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.platform import host_to_device
 from .kv_allocator import KV_BUFFER_NAMES, KVAllocator, padded_seq_len
 
 
@@ -364,7 +365,7 @@ class PagedKVAllocator(KVAllocator):
         step of a dispatch) and reused until the next one."""
         if self._device_table is None:
             self._device_table = PageTable(
-                torch.tensor(self._table, device=self.device),
+                host_to_device(self._table.copy(), self.device),
                 self.page_size, self.pages_per_row)
         return self._device_table
 
@@ -842,6 +843,7 @@ class PagedKVAllocator(KVAllocator):
         tier's (reference :1032, without the live-token gauges the port
         does not track)."""
         snap = {
+            **super().snapshot(),
             "page_size": self.page_size,
             "pages_total": self.n_pages - 1,
             "pages_live": self.pages_held(),

@@ -127,6 +127,25 @@ class ServeModelConfig:
         return ServeModelConfig(**kw)
 
 
+class GatedLMHead:
+    """The LM head of a serve model, gated (reference ``ops/linear.py:98-108``,
+    marked by ``mark_gated_lm_head``, inference_manager.py:167): a batch
+    with ``logit_slots`` (a gated prefill chunk) gathers those hidden rows
+    before the product, a slot of -1 clamping to row 0 (its logits are
+    never read), so the step computes ``[max_requests, vocab]`` logits
+    instead of ``[max_tokens, vocab]``.  Every family mixes it in: the
+    reference marks each one's LM head."""
+
+    gates_lm_head = True
+
+    def logits(self, x: torch.Tensor, bc) -> torch.Tensor:
+        """Float32 logits of the final hidden states ``x`` [T, E]."""
+        slots = getattr(bc, "logit_slots", None)
+        if slots is not None:
+            x = x.index_select(0, slots.clamp(0, x.shape[0] - 1).long())
+        return self.lm_head(x).float()
+
+
 def name_attention_layers(model: torch.nn.Module) -> None:
     """Give each attention module its path in ``model``: the key of its
     caches in the allocator's state."""

@@ -22,7 +22,12 @@ from ...ops.linear import Linear
 from ...ops.norm import LayerNorm
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import ServeModelConfig, name_attention_layers, register_model
+from .base import (
+    GatedLMHead,
+    ServeModelConfig,
+    name_attention_layers,
+    register_model,
+)
 
 
 class FalconMLP(nn.Module):
@@ -73,7 +78,7 @@ class FalconModel(nn.Module):
                               dtype=dtype)
 
 
-class FalconForServe(nn.Module):
+class FalconForServe(GatedLMHead, nn.Module):
     def __init__(self, cfg: ServeModelConfig):
         super().__init__()
         if cfg.new_decoder_architecture:
@@ -95,7 +100,7 @@ class FalconForServe(nn.Module):
         x = self.transformer.word_embeddings(base.tokens)
         for layer in self.transformer.h:
             x = layer(x, bc, state, pages)
-        return self.lm_head(self.transformer.ln_f(x)).float()
+        return self.logits(self.transformer.ln_f(x), bc)
 
 
 @register_model("falcon")

@@ -20,7 +20,12 @@ from ...ops.linear import Linear
 from ...ops.norm import ResidualRMSNorm, RMSNorm, SigmoidSiluMulti
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import ServeModelConfig, name_attention_layers, register_model
+from .base import (
+    GatedLMHead,
+    ServeModelConfig,
+    name_attention_layers,
+    register_model,
+)
 
 
 class LlamaMLP(nn.Module):
@@ -62,7 +67,7 @@ class LlamaModel(nn.Module):
         self.norm = ResidualRMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
 
 
-class LlamaForServe(nn.Module):
+class LlamaForServe(GatedLMHead, nn.Module):
     def __init__(self, cfg: ServeModelConfig):
         super().__init__()
         self.config = cfg
@@ -73,7 +78,8 @@ class LlamaForServe(nn.Module):
 
     def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
                 pages=None) -> torch.Tensor:
-        """Float32 logits ``[T, vocab]`` of one step; ``state`` holds each
+        """Float32 logits ``[T, vocab]`` of one step (``[max_requests,
+        vocab]`` for a gated prefill chunk); ``state`` holds each
         attention layer's caches, which are updated in place; ``pages`` is
         the page table of a paged cache (None: slot-contiguous)."""
         base = getattr(bc, "base", bc)
@@ -89,7 +95,7 @@ class LlamaForServe(nn.Module):
             residual, mlp_in = layer.post_attention_layernorm(attn, residual)
             mlp_out = layer.mlp(mlp_in)
         _, normed = self.model.norm(mlp_out, residual)
-        return self.lm_head(normed).float()
+        return self.logits(normed, bc)
 
 
 @register_model("llama")

@@ -19,7 +19,12 @@ from ...ops.linear import Linear
 from ...ops.norm import LayerNorm
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import ServeModelConfig, name_attention_layers, register_model
+from .base import (
+    GatedLMHead,
+    ServeModelConfig,
+    name_attention_layers,
+    register_model,
+)
 
 
 class MPTFFN(nn.Module):
@@ -61,7 +66,7 @@ class MPTModel(nn.Module):
                                 use_bias=False, dtype=dtype)
 
 
-class MPTForServe(nn.Module):
+class MPTForServe(GatedLMHead, nn.Module):
     def __init__(self, cfg: ServeModelConfig):
         super().__init__()
         self.config = cfg
@@ -78,7 +83,7 @@ class MPTForServe(nn.Module):
         x = self.transformer.wte(base.tokens)
         for block in self.transformer.blocks:
             x = block(x, bc, state, pages)
-        return self.lm_head(self.transformer.norm_f(x)).float()
+        return self.logits(self.transformer.norm_f(x), bc)
 
 
 @register_model("mpt")

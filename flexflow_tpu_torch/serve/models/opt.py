@@ -21,7 +21,12 @@ from ...ops.linear import Linear
 from ...ops.norm import LayerNorm
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import ServeModelConfig, name_attention_layers, register_model
+from .base import (
+    GatedLMHead,
+    ServeModelConfig,
+    name_attention_layers,
+    register_model,
+)
 
 
 class OPTDecoderLayer(nn.Module):
@@ -72,7 +77,7 @@ class OPTModel(nn.Module):
         self.decoder = OPTDecoder(cfg, dtype)
 
 
-class OPTForServe(nn.Module):
+class OPTForServe(GatedLMHead, nn.Module):
     def __init__(self, cfg: ServeModelConfig):
         super().__init__()
         self.config = cfg
@@ -98,7 +103,7 @@ class OPTForServe(nn.Module):
             x = dec.final_layer_norm(x)
         if hasattr(dec, "project_out"):
             x = dec.project_out(x)
-        return self.lm_head(x).float()
+        return self.logits(x, bc)
 
 
 @register_model("opt")

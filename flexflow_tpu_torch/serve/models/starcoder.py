@@ -19,7 +19,12 @@ from ...ops.linear import Linear
 from ...ops.norm import LayerNorm
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import ServeModelConfig, name_attention_layers, register_model
+from .base import (
+    GatedLMHead,
+    ServeModelConfig,
+    name_attention_layers,
+    register_model,
+)
 
 
 class StarCoderMLP(nn.Module):
@@ -62,7 +67,7 @@ class StarCoderModel(nn.Module):
                               dtype=dtype)
 
 
-class StarCoderForServe(nn.Module):
+class StarCoderForServe(GatedLMHead, nn.Module):
     def __init__(self, cfg: ServeModelConfig):
         super().__init__()
         self.config = cfg
@@ -80,7 +85,7 @@ class StarCoderForServe(nn.Module):
         x = tr.wpe(tr.wte(base.tokens), base.token_position)
         for block in tr.h:
             x = block(x, bc, state, pages)
-        return self.lm_head(tr.ln_f(x)).float()
+        return self.logits(tr.ln_f(x), bc)
 
 
 @register_model("gpt_bigcode")

@@ -6,12 +6,17 @@ path: ``Request`` and its nine ``RequestStatus`` values,
 ``GenerationConfig``, ``register_new_request`` with admission control
 (:506), slot admission by priority with preemption (:933-1031),
 ``_build_next_batch`` (:1063) with its tiled pure-prefill branch and
-tile-aligned prefill chunking, the prefill stretch (:1414), the unchained
-decode stretch (:1864), ``serve_incr_decoding`` (:2574),
-``serve_with_arrivals`` (:2342) and ``generate`` (:2610).  A prefill
-stretch feeds whole prompts as tiled chunks of one ``prefill_scan``
-dispatch; a pure-decode stretch is one ``InferenceManager.decode_scan``;
-each reads back once at its end.
+tile-aligned prefill chunking, the prefill stretch (:1414), the chained
+decode stretch (:1526) and the unchained one (:1864),
+``serve_incr_decoding`` (:2574), ``serve_with_arrivals`` (:2342) and
+``generate`` (:2610).  A prefill stretch feeds whole prompts as tiled
+chunks of one ``prefill_scan`` dispatch, their LM head gated to the
+completing prompts' last tokens when the InferenceManager's
+``gate_lm_head`` is on (the default); a decode stretch is a chain of
+``decode_scan_async`` segments issued back to back, which arrivals join
+at segment boundaries while a slot is free (``chain_segments``; off: one
+``decode_scan``); each reads back once at its end (``readbacks`` counts
+the host's waits for results).
 
 The lifecycle (reference :621-903): ``cancel`` and deadlines (``ttl_s``,
 ``deadline_s``) are reaped at step boundaries (``_check_lifecycle``);
@@ -29,8 +34,8 @@ the budget requeues or fails the requests in that dispatch only.
 The hooks the speculative manager builds on (``request_cls``,
 ``_seq_len_needed``, ``_kv_bind``, ``_release_slot``, ``preempt``,
 ``_tick``) leave this path as it is.  Left out (ROADMAP): telemetry and
-profiler hooks, SLO lanes and brownout, live migration, the chained decode
-stretch with mid-stretch joins, and LM-head gating.
+profiler hooks, SLO lanes and brownout, and live migration (with its
+``admission_closed`` gate).
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ from typing import Counter, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.platform import host_to_device
 from .batch_config import BatchConfig, PrefillBatchConfig
+from .inference_manager import EXIT_NOT_IN_BATCH
 from .kv_paged import HostTierCorruption, PagePoolExhausted
 from .resilience import (
     ResilienceConfig,
@@ -173,6 +180,18 @@ class RequestManager:
     # serve steps after which a pending request jumps every priority band
     # (FIFO among the overdue); None: strict priority
     starvation_bound_ticks: Optional[int] = None
+    # chain decode segments back to back up to scan_chunk steps, joining
+    # arrivals at segment boundaries; False: one decode_scan a stretch
+    chain_segments = True
+    # serve_with_arrivals' hooks into the chain: the pump registers the
+    # arrivals due at a segment boundary, the stamp records a joiner's
+    # prefill start
+    _arrival_pump = None
+    _join_stamp = None
+    # rid -> EXIT_* code of the last chained stretch, and its shape
+    # (steps, segments, joins); rebound per stretch
+    last_exit_codes: Dict[int, int] = {}
+    last_stretch: Dict[str, int] = {}
 
     def __init__(self, im, gen_config: Optional[GenerationConfig] = None,
                  resilience: Optional[ResilienceConfig] = None,
@@ -195,6 +214,7 @@ class RequestManager:
         self.steps = 0
         self.tokens_decoded = 0
         self.scan_runs = 0
+        self.readbacks = 0
         self.res = resilience or ResilienceConfig()
         if (self.res.kv_gate and self.res.kv_budget_bytes is not None
                 and kv_bytes_per_token(im) is None):
@@ -219,18 +239,39 @@ class RequestManager:
     def _sample_for(self, points, n_rows: int):
         """The sampling argument of a step: ``(seed, temperature, top_p,
         folds)`` with ``folds[row] = (rid, index of the token to draw)``
-        for each sample point ``(row, rid)``; None for greedy.  The key
-        depends only on (seed, rid, token index), so a sampled stream does
-        not depend on batching, preemption or retries."""
+        for each sample point ``(row, rid)`` or ``(row, rid, offset)``,
+        the index being ``len(generated)`` plus the offset (a verify
+        row's tree depth, a chained segment's uncommitted tokens); None
+        for greedy.  The key depends only on (seed, rid, token index), so
+        a sampled stream does not depend on batching, preemption, retries
+        or speculation (reference :324)."""
         if self.gen.temperature <= 0.0:
             return None
         folds = np.zeros((n_rows, 2), np.int32)
-        for row, rid in points:
+        for row, rid, *off in points:
             req = self.requests[rid]
-            folds[row] = (req.rid & 0x7FFFFFFF, len(req.generated))
+            folds[row] = (req.rid & 0x7FFFFFFF,
+                          len(req.generated) + (off[0] if off else 0))
         return (self.gen.seed, float(self.gen.temperature),
-                float(self.gen.top_p),
-                torch.from_numpy(folds).to(self.im.device))
+                float(self.gen.top_p), host_to_device(folds, self.im.device))
+
+    def _read_back(self, *tensors: torch.Tensor) -> List[np.ndarray]:
+        """The host's wait for the device: ``tensors`` (integer or bool
+        device values) copied back in one transfer, as int32 arrays of
+        their shapes, counted in ``readbacks``."""
+        self.readbacks += 1
+        host = torch.cat([t.reshape(-1).to(torch.int32)
+                          for t in tensors]).cpu().numpy()
+        out, at = [], 0
+        for t in tensors:
+            out.append(host[at: at + t.numel()].reshape(tuple(t.shape)))
+            at += t.numel()
+        return out
+
+    def kv_snapshot(self) -> Dict:
+        """The deployment's KV view (reference :2169): the allocator's
+        ``snapshot``."""
+        return self.im.kv.snapshot()
 
     def _seq_len_needed(self, req: Request) -> int:
         """Cache depth a request may reach (speculation adds headroom)."""
@@ -715,11 +756,16 @@ class RequestManager:
                 if req.prefill_offset == len(feed):
                     sample_points.append((req.slot, req.rid))
             self._kv_prepare(spans)
+            # a gated chunk's results are indexed by slot (reference
+            # :1115-1135)
+            gate = im.gate_lm_head
             pbc, last_flat = PrefillBatchConfig.build(
                 segments, self._seq_lens(), tile,
                 max_tokens=im.max_tokens, max_requests=im.max_requests,
-                device=im.device)
-            return pbc, [(last_flat[slot], rid)
+                device=im.device,
+                gate_slots=([slot for slot, _ in sample_points] if gate
+                            else None))
+            return pbc, [(slot if gate else last_flat[slot], rid)
                          for slot, rid in sample_points]
 
         # then prefill chunks fill the remaining budget; mid-prompt cuts
@@ -784,7 +830,7 @@ class RequestManager:
     def process_result(self, result, sample_points) -> None:
         if not sample_points:
             return   # mid-prompt step: nothing to read back
-        token_ids = result.token_ids.cpu().numpy()
+        token_ids, = self._read_back(result.token_ids)
         for flat_idx, rid in sample_points:
             req = self.requests[rid]
             if req.status not in (RequestStatus.PREFILLING,
@@ -809,15 +855,22 @@ class RequestManager:
 
     # ------------------------------------------------------------------
     def _scan_steps_possible(self) -> int:
-        """Decode steps the next stretch may run on the device: > 1 only
-        when nothing waits for a slot and every active request decodes;
-        bounded by the largest remaining budget (each row freezes on the
-        device when its own budget runs out), the cache's room, and
-        ``lifecycle_quantum`` while a deadline or cancel is armed."""
+        """Decode steps the next stretch (or its first segment) may run on
+        the device: > 1 only when every active request decodes and
+        pending work could not be admitted now anyway: no slot is free
+        and no preemption would fire (reference :1308-1323; unchained,
+        any pending work blocks).  Bounded by the largest remaining
+        budget (each row freezes on the device when its own budget runs
+        out), the cache's room, and ``lifecycle_quantum`` while a
+        deadline or cancel is armed."""
         active = self._active()
-        if (not active or self.pending
+        if (not active
                 or any(r.status is not RequestStatus.DECODING
                        for r in active)):
+            return 0
+        if self.pending and (not self.chain_segments
+                             or any(s is None for s in self.slots)
+                             or self._preempt_would_fire()):
             return 0
         n = max(r.max_new_tokens - len(r.generated) for r in active)
         n = min(n, self.scan_chunk,
@@ -826,6 +879,15 @@ class RequestManager:
                for r in active):
             n = min(n, self.lifecycle_quantum)
         return n
+
+    def _preempt_would_fire(self) -> bool:
+        """Would ``_try_preempt`` evict a row for the queue now (reference
+        :1343)?  Such work goes to the per-step path: a chained stretch
+        must not preempt a row the device is decoding."""
+        if not self.res.preemption or not self.pending:
+            return False
+        return bool(self._victims(max(self.requests[r].priority
+                                      for r in self.pending)))
 
     def _prefill_stretch_possible(self) -> bool:
         """Can the whole prefill wave run as tiled steps?  True when every
@@ -849,27 +911,33 @@ class RequestManager:
         active = self._active()
         self._kv_prepare([(r.rid, r.prefill_offset, len(r.prefill_tokens))
                           for r in active])
+        # gated chunks compute logits at their completing prompt's last
+        # token only, results indexed by slot (reference :1428-1490)
+        gate = im.gate_lm_head
+        n_rows = im.max_requests if gate else im.max_tokens
         seq = self._seq_lens()
         chunks, samples = [], []
-        points = []   # (req, its last chunk, flat index)
+        points = []   # (req, its last chunk, result index)
         for req in active:
             feed = req.prefill_tokens
             start = req.prefill_offset
             while start < len(feed):
                 take = min((im.max_tokens // tile) * tile, len(feed) - start)
                 seq[req.slot] = start + take
+                done = start + take == len(feed)
                 pbc, last_flat = PrefillBatchConfig.build(
                     [(req.slot, feed[start: start + take], start)],
                     seq, tile, max_tokens=im.max_tokens,
-                    max_requests=im.max_requests, device=im.device)
+                    max_requests=im.max_requests, device=im.device,
+                    gate_slots=([req.slot] if done else []) if gate
+                    else None)
                 start += take
-                flat = last_flat[req.slot]
-                done = start == len(feed)
+                idx = req.slot if gate else last_flat[req.slot]
                 samples.append(self._sample_for(
-                    [(flat, req.rid)] if done else [], im.max_tokens))
+                    [(idx, req.rid)] if done else [], n_rows))
                 chunks.append(pbc)
                 if done:
-                    points.append((req, len(chunks) - 1, flat))
+                    points.append((req, len(chunks) - 1, idx))
         toks = self._guarded("prefill_scan",
                              lambda: im.prefill_scan(chunks, samples))
         if toks is None:
@@ -877,18 +945,266 @@ class RequestManager:
         self.steps += len(chunks)
         for req in active:
             req.prefill_offset = len(req.prefill_tokens)
-        firsts = toks[[c for _, c, _ in points],
-                      [f for _, _, f in points]].cpu().tolist()
+        firsts, = self._read_back(toks[[c for _, c, _ in points],
+                                       [f for _, _, f in points]])
         for (req, _, _), tok in zip(points, firsts):
             req.status = RequestStatus.DECODING
-            self._append_token(req, tok)
+            self._append_token(req, int(tok))
             self._maybe_finish(req)
 
     def _decode_stretch(self, n: int) -> None:
-        """``n`` decode steps as one ``decode_scan``, one read-back.  The
-        stretch writes n positions per request with no host boundary in
-        between, so the whole span is prepared up front, before the batch
-        is built: a page-pressure victim leaves it."""
+        """One decode stretch, one read-back (reference :1526).  With
+        ``chain_segments`` it is a chain of ``decode_scan_async``
+        segments issued back to back, ``n`` steps first, extended while
+        any row has budget left, up to ``scan_chunk`` steps in all:
+
+        * rows of unequal budgets ride one stretch: each freezes on the
+          device at its own budget and reports an exit code
+          (``last_exit_codes``);
+        * cancels and armed deadlines are checked on the host's clock
+          between segments, which ``lifecycle_quantum`` bounds;
+        * arrivals the pump registers join the running batch at a
+          segment boundary while a slot is free (``_stretch_join``);
+        * a later segment's pages are prepared without preemption
+          (``_kv_prepare_nopreempt``); a shortfall ends the stretch.
+
+        Everything is read back once, at the end, and committed in
+        dispatch order, with the per-step loop's folds and masks: the
+        streams are the unchained streams."""
+        if not self.chain_segments:
+            return self._decode_stretch_single(n)
+        im = self.im
+        eos = self.gen.eos_token_id if self.gen.stop_on_eos else None
+        # the first segment's spans before the batch is built: a
+        # page-pressure victim leaves it
+        self._kv_prepare([(r.rid, r.seq_len - 1, r.seq_len - 1 + n)
+                          for r in self._active()])
+        active = [r for r in self._active()
+                  if r.status is RequestStatus.DECODING]
+        if not active:
+            return
+        rows = [(req, flat) for flat, req in enumerate(active)]
+        sched = {r.rid: 0 for r in active}      # tokens issued, uncommitted
+        dev_seq = {r.rid: r.seq_len for r in active}   # depth on the device
+        bc = BatchConfig.build(
+            [r.generated[-1] for r in active], [r.slot for r in active],
+            [r.seq_len - 1 for r in active], self._seq_lens(),
+            max_tokens=im.max_tokens, max_requests=im.max_requests,
+            device=im.device)
+
+        def remaining(req):
+            return req.max_new_tokens - len(req.generated) - sched[req.rid]
+
+        # ("scan", steps, [(flat, rid)], tokens, live, codes) per segment,
+        # ("join", req, token source, index) per joiner: device values
+        # until the read-back
+        commits: List[Tuple] = []
+        total = segments = 0
+        seg = n
+        while True:
+            allowed = np.zeros(im.max_tokens, np.int32)
+            ks = {}
+            for req, flat in rows:
+                ks[req.rid] = max(min(seg, remaining(req)), 0)
+                # the row's whole budget, not the segment's: a row that
+                # outlives the segment ends it running, not at its budget
+                allowed[flat] = max(remaining(req), 0)
+            smp = self._sample_for(
+                [(flat, req.rid, sched[req.rid]) for req, flat in rows],
+                im.max_tokens)
+            max_pos = max(dev_seq[r.rid] - 1 + ks[r.rid]
+                          for r, _ in rows) - seg
+            this_seg = seg
+            out = self._guarded("decode_scan", lambda: im.decode_scan_async(
+                bc, this_seg, eos=eos, sample=smp,
+                allowed=host_to_device(allowed, im.device),
+                max_position=max_pos))
+            if out is None:
+                # nothing was committed: the requeued requests recompute
+                # every token of the stretch
+                self.scan_runs += 1
+                return
+            toks, live, codes, bc = out
+            commits.append(("scan", this_seg,
+                            [(flat, req.rid) for req, flat in rows],
+                            toks, live, codes))
+            for req, _ in rows:
+                sched[req.rid] += ks[req.rid]
+                dev_seq[req.rid] += ks[req.rid]
+            total += this_seg
+            segments += 1
+
+            # ---- segment boundary: stop, join, or extend ----
+            reqs = [req for req, _ in rows]
+            if any(r.cancel_requested for r in reqs):
+                break                 # reaped at the tick boundary
+            if any(r.slot < 0 or self.slots[r.slot] != r.rid for r in reqs):
+                break                 # a clock callback took a row out
+            if self._arrival_pump is not None:
+                self._arrival_pump()
+            rem_cap = self.scan_chunk - total
+            if rem_cap < 2:
+                break
+            if (self.pending and len(rows) < im.max_tokens
+                    and any(s is None for s in self.slots)):
+                bc = self._stretch_join(bc, rows, sched, dev_seq, commits,
+                                        eos)
+            armed = [r.deadline_s for r, _ in rows if r.deadline_s is not None]
+            if armed and self.clock() >= min(armed):
+                break
+            rem_max = max(remaining(req) for req, _ in rows)
+            if rem_max < 2:
+                break   # a one-step trailer rides the next tick
+            # not rounded to a power of two: that bounds the reference's
+            # compiled scan lengths, and eager launches compile nothing
+            seg = min(rem_cap, rem_max)
+            if armed:
+                seg = min(seg, self.lifecycle_quantum)
+            spans = [(req.rid, dev_seq[req.rid] - 1,
+                      dev_seq[req.rid] - 1 + min(seg, remaining(req)))
+                     for req, _ in rows if remaining(req) > 0]
+            if not self._kv_prepare_nopreempt(spans):
+                break   # page pressure resolves on the per-step path
+
+        # ---- the one read-back, then the commits in dispatch order ----
+        values = []
+        for item in commits:
+            values += (list(item[3:]) if item[0] == "scan"
+                       else [item[2][item[3]]])
+        host = iter(self._read_back(*values))
+        codes_by_rid: Dict[int, int] = {}
+        for item in commits:
+            if item[0] == "join":
+                req, tok = item[1], int(next(host))
+                if req.status not in (RequestStatus.PREFILLING,
+                                      RequestStatus.DECODING):
+                    continue   # left its slot: the readmission recomputes
+                req.status = RequestStatus.DECODING
+                self._append_token(req, tok)
+                self._maybe_finish(req)
+                continue
+            steps, pts = item[1], item[2]
+            toks, live, codes = next(host), next(host), next(host)
+            for s in range(steps):
+                for flat, rid in pts:
+                    req = self.requests[rid]
+                    if req.status is RequestStatus.DECODING and live[s, flat]:
+                        self._append_token(req, int(toks[s, flat]))
+                        self._maybe_finish(req)
+            for flat, rid in pts:
+                if codes[flat] != EXIT_NOT_IN_BATCH:
+                    codes_by_rid[rid] = int(codes[flat])
+        self.last_exit_codes = codes_by_rid
+        self.last_stretch = {
+            "steps": total, "segments": segments,
+            "joins": sum(item[0] == "join" for item in commits)}
+        self.steps += total
+        self.scan_runs += 1
+
+    def _stretch_join(self, bc, rows, sched, dev_seq, commits, eos):
+        """Admit pending arrivals into the running stretch (reference
+        :1737): fill the free slots, prefill each joiner's prompt as flat
+        steps whose results stay on the device, and splice its first
+        token into the batch with ``join_slot``; the device decodes it
+        from the next segment on.  A joiner whose pages or prefill fail
+        goes back to the queue (``_unjoin``)."""
+        im = self.im
+        before = set(self.slots)
+        self._fill_slots()
+        joined = []
+        for rid in [r for r in self.slots
+                    if r is not None and r not in before]:
+            req = self.requests[rid]
+            if len(rows) >= im.max_tokens:
+                continue   # stays slotted: it prefills on the next tick
+            out = self._stretch_prefill(req, rows, dev_seq)
+            if out is None:
+                if (req.status is RequestStatus.PREFILLING and req.slot >= 0
+                        and self.slots[req.slot] == req.rid):
+                    self._unjoin(req)
+                continue
+            tok_src, src = out
+            joined.append(rid)
+            commits.append(("join", req, tok_src, src))
+            if req.max_new_tokens - len(req.generated) <= 1:
+                continue   # its first token is its whole budget
+            n_prompt = len(req.prefill_tokens)
+            dst = len(rows)
+            bc = im.join_slot(bc, tok_src, src, dst, req.slot, n_prompt,
+                              n_prompt + 1, dst + 1, eos=eos)
+            rows.append((req, dst))
+            sched[req.rid] = 1
+            dev_seq[req.rid] = n_prompt + 1
+        if joined and self._join_stamp is not None:
+            self._join_stamp(joined)
+        return bc
+
+    def _stretch_prefill(self, req: Request, rows, dev_seq):
+        """Feed a joiner's remaining prompt as flat steps (reference
+        :1787); returns ``(token_ids, index)`` of its first generated
+        token, a device value, or None when its pages or a dispatch
+        failed (the retry guard has then requeued or failed it)."""
+        im = self.im
+        feed = req.prefill_tokens
+        if not self._kv_prepare_nopreempt(
+                [(req.rid, req.prefill_offset, len(feed))]):
+            return None
+        out = None
+        while req.prefill_offset < len(feed):
+            start = req.prefill_offset
+            take = min(im.max_tokens, len(feed) - start)
+            # the running rows' depths are the device's, ahead of the host
+            seq_lens = np.zeros(im.max_requests, np.int32)
+            for r2, _ in rows:
+                seq_lens[r2.slot] = dev_seq[r2.rid]
+            seq_lens[req.slot] = start + take
+            bc = BatchConfig.build(
+                feed[start: start + take], [req.slot] * take,
+                range(start, start + take), seq_lens,
+                max_tokens=im.max_tokens, max_requests=im.max_requests,
+                device=im.device)
+            smp = (self._sample_for([(take - 1, req.rid)], im.max_tokens)
+                   if start + take == len(feed) else None)
+            res = self._guarded(
+                "step", lambda b=bc, s=smp: im.step(b, sample=s),
+                affected_fn=lambda: [req.rid])
+            if res is None:
+                return None
+            req.prefill_offset = start + take
+            out = (res.token_ids, take - 1)
+        return out
+
+    def _unjoin(self, req: Request) -> None:
+        """Back a failed join out to the head of the queue (reference
+        :1834): the per-step path readmits it with the preemption the
+        stretch must not run."""
+        self._release_slot(req)
+        req.prefill_offset = 0
+        req.status = (RequestStatus.PREEMPTED if req.preemptions
+                      else RequestStatus.PENDING)
+        self.pending.insert(0, req.rid)
+        self._pending_since.setdefault(req.rid, self.steps)
+
+    def _kv_prepare_nopreempt(self, spans) -> bool:
+        """Pages for a dispatch inside a running chain (reference :1846):
+        no preemption (its victim would be a row the device decodes);
+        False when the pool runs out."""
+        kv = self.im.kv
+        if not kv.paged:
+            return True
+        try:
+            for rid, lo, hi in spans:
+                kv.prepare_write(rid, lo, hi)
+        except PagePoolExhausted:
+            return False
+        return True
+
+    def _decode_stretch_single(self, n: int) -> None:
+        """``n`` decode steps as one ``decode_scan``, one read-back: the
+        ``chain_segments=False`` stretch (reference :1864).  The stretch
+        writes n positions per request with no host boundary in between,
+        so the whole span is prepared up front, before the batch is
+        built: a page-pressure victim leaves it."""
         im = self.im
         self._kv_prepare([(r.rid, r.seq_len - 1, r.seq_len - 1 + n)
                           for r in self._active()])
@@ -910,11 +1226,11 @@ class RequestManager:
         out = self._guarded("decode_scan", lambda: im.decode_scan(
             bc, n, eos=eos, sample=smp,
             max_position=max(r.seq_len - 1 for r in active),
-            allowed=torch.from_numpy(allowed).to(im.device)))
+            allowed=host_to_device(allowed, im.device)))
         self.scan_runs += 1
         if out is None:
             return
-        toks, live = out[0].cpu().numpy(), out[1].cpu().numpy()
+        toks, live = self._read_back(out[0], out[1])
         for s in range(n):
             for flat, rid in enumerate(rids):
                 req = self.requests[rid]
@@ -934,7 +1250,9 @@ class RequestManager:
             self._decode_stretch(n)
             return
         bc, sample_points = self.prepare_next_batch()
-        smp = self._sample_for(sample_points, self.im.max_tokens)
+        gated = getattr(bc, "logit_slots", None) is not None
+        smp = self._sample_for(sample_points, self.im.max_requests if gated
+                               else self.im.max_tokens)
         result = self._guarded(
             "step", lambda: self.im.step(bc, sample=smp),
             affected_fn=lambda: self._rids_in_batch(bc))
@@ -958,8 +1276,8 @@ class RequestManager:
 
     def serve_with_arrivals(self, arrivals, clock=None,
                             quantum: int = 8) -> Dict[int, Dict]:
-        """Arrival-driven serving (reference :2342, its unchained path):
-        requests join the admit/retire loop at their offered times.
+        """Arrival-driven serving (reference :2342): requests join the
+        admit/retire loop at their offered times.
 
         ``arrivals``: ``(t_offset_s, prompt_tokens, max_new_tokens or
         None[, options])`` tuples, admitted once the clock passes their
@@ -968,7 +1286,10 @@ class RequestManager:
         registers ``REJECTED``).  ``clock``: a 0-argument seconds callable
         (default ``time.perf_counter``), also the deadlines' clock for the
         loop's duration.  ``quantum``: the decode stretch's cap while
-        arrivals are outstanding.
+        arrivals are outstanding, unchained only (``chain_segments``
+        False): the chained stretch registers due arrivals at its segment
+        boundaries and joins them into the running batch while a slot is
+        free.
 
         Returns ``{rid: record}`` with ``arrival_s``, ``admitted_s``,
         ``prompt_len``, ``trace_id``, ``prefill_start_s`` (the start of the
@@ -978,7 +1299,8 @@ class RequestManager:
         and ``prefill_s`` (prefill start to first token, or to the
         terminal stamp when no token came): for ``ok`` requests,
         ``queue_wait_s + prefill_s == first_token_s - arrival_s``.  Stamps
-        are taken at step boundaries.
+        are taken at step boundaries; a joiner's prefill start at the
+        segment boundary where it joined.
         """
         clock = clock or time.perf_counter
         t0 = clock()
@@ -1000,6 +1322,12 @@ class RequestManager:
                 open_rids.add(rid)
             return clock() - t0
 
+        def stamp_joined(rids):
+            now = clock() - t0
+            for rid in rids:
+                if rid in records:
+                    records[rid].setdefault("prefill_start_s", now)
+
         def stamp(now):
             for rid in list(open_rids):
                 rec, req = records[rid], self.requests[rid]
@@ -1011,7 +1339,10 @@ class RequestManager:
 
         saved_chunk = self.scan_chunk
         saved_clock = self._swap_clock(clock)
+        chained = self.chain_segments
         try:
+            self._arrival_pump = admit_due if chained else None
+            self._join_stamp = stamp_joined if chained else None
             while queue or self.has_work():
                 now = admit_due()
                 self._check_lifecycle()
@@ -1020,17 +1351,19 @@ class RequestManager:
                     if queue:   # idle until the next arrival
                         time.sleep(min(1e-3, max(0.0, queue[0][0] - now)))
                     continue
-                self.scan_chunk = quantum if queue else saved_chunk
+                if not chained:
+                    self.scan_chunk = quantum if queue else saved_chunk
                 starters = [rid for rid in open_rids
                             if "prefill_start_s" not in records[rid]
                             and self.requests[rid].prefill_offset == 0]
                 self._tick()
                 for rid in starters:
                     if self.requests[rid].prefill_offset > 0:
-                        records[rid]["prefill_start_s"] = now
+                        records[rid].setdefault("prefill_start_s", now)
                 stamp(clock() - t0)
         finally:
             self.scan_chunk = saved_chunk
+            self._arrival_pump = self._join_stamp = None
             self._swap_clock(saved_clock)
         end = clock() - t0
         for rid, rec in records.items():

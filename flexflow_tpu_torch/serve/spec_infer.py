@@ -1,8 +1,8 @@
 """SpecInfer: tree-based speculative decoding (SSM draft + LLM verify).
 
 Port of ``flexflow_tpu/serve/spec_infer.py`` (the SpecInfer ASPLOS'24
-design) for greedy serving with every request in speculation mode.  Per
-macro-step, per request:
+design), greedy or seeded sampling, with every request in speculation
+mode.  Per macro-step, per request:
 
 1. *catch-up*: feed the tokens accepted last round into the draft model's
    (SSM's) committed cache as a plain ``BatchConfig``; the LLM's copies
@@ -12,12 +12,17 @@ macro-step, per request:
    ``width`` through the SSM (``TreeSearchBatchConfig``), ranked by
    cumulative draft log-probability; the nodes live in the spec buffer.
 3. *verify*: the whole tree in ONE ``TreeVerifyBatchConfig`` step of the
-   LLM under the tree mask, then the greedy walk from the root: the
-   longest path of drafted tokens equal to the LLM's own argmax is
-   accepted, plus one bonus token from the LLM.
+   LLM under the tree mask, then the walk from the root: the longest
+   path of drafted tokens equal to the LLM's own choice (its argmax, or
+   with ``temperature > 0`` its seeded sample at each node) is accepted,
+   plus one bonus token from the LLM.
 
-Greedy invariant: the output equals plain incremental decoding with the
-LLM, token for token, whatever the draft model.  Int8 and paged caches
+Invariant: the output equals plain incremental decoding with the LLM,
+token for token, whatever the draft model: greedy, and sampled, since a
+node at tree depth d of request rid draws with the key (seed, rid,
+``len(generated) + d``) the incremental loop uses for that token
+(``_verify_sample``, reference :714-737), as does the prefill's first
+token.  Int8 and paged caches
 ride along: both allocators bind every request (the LLM's with prefix
 reuse) and prepare every span a dispatch writes before it runs, the
 verify step's commit destinations and the tree's span included
@@ -32,10 +37,9 @@ at the reference's site names).  ``preempt`` releases both caches and
 resets the speculation state; readmission re-prefills ``prompt +
 generated`` into both models (reference :238, :333).
 
-Left out (see ROADMAP.md): seeded-sampling verification (a ``temperature
-> 0`` config raises ``NotImplementedError``), mixed spec/non-spec rows
-with ``set_spec_mode`` flips and their commit flush (so no row ever leaves
-the macro path holding commits, and the ``spec_commit_flush`` site has no
+Left out (see ROADMAP.md): mixed spec/non-spec rows with
+``set_spec_mode`` flips and their commit flush (so no row ever leaves the
+macro path holding commits, and the ``spec_commit_flush`` site has no
 dispatch), telemetry, profiling, SLO and brownout hooks.
 """
 
@@ -47,6 +51,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.platform import host_to_device
 from .batch_config import (
     BatchConfig,
     TreeSearchBatchConfig,
@@ -100,10 +105,6 @@ class SpecInferManager(RequestManager):
                  fault_injector=None, clock=None):
         super().__init__(llm, gen_config, resilience=resilience,
                          fault_injector=fault_injector, clock=clock)
-        if self.gen.temperature > 0.0:
-            raise NotImplementedError(
-                "speculative serving is greedy in this port: seeded-sampling "
-                "verification is not ported yet (temperature must be <= 0)")
         self.llm = llm
         self.ssm = ssm
         self.width = int(width)
@@ -143,6 +144,15 @@ class SpecInferManager(RequestManager):
         if req.slot >= 0:
             self.ssm.kv.release(req.rid, req.ssm_committed)
         super()._release_slot(req)
+
+    def kv_snapshot(self):
+        """Both deployments' caches (reference :297): the LLM's snapshot
+        with the draft's sizes added in."""
+        snap = super().kv_snapshot()
+        draft = self.ssm.kv.snapshot()
+        for key in ("capacity_tokens", "allocated_bytes"):
+            snap[key] += draft[key]
+        return snap
 
     def preempt(self, rid: int) -> None:
         """Preempt and recompute (reference :238): both caches release,
@@ -216,7 +226,11 @@ class SpecInferManager(RequestManager):
                 break
             self._kv_prepare(spans)
             bc = self._plain_bc(self.llm, toks, reqi, pos)
-            res = self._guarded("spec_prefill", lambda: self.llm.step(bc))
+            # the first token draws with the incremental loop's key
+            smp = self._sample_for([(flat, req.rid) for flat, req in points],
+                                   self.llm.max_tokens)
+            res = self._guarded("spec_prefill",
+                                lambda: self.llm.step(bc, sample=smp))
             if res is None:
                 return
             ids = res.token_ids.cpu().numpy()
@@ -345,13 +359,13 @@ class SpecInferManager(RequestManager):
                 cri[i], csi[i], cdp[i] = slot, src, dst
             fields += [cri, csi, cdp]
         return cls(self._plain_bc(im, toks, reqi, pos),
-                   *(torch.from_numpy(f).to(im.device) for f in fields))
+                   *(host_to_device(f, im.device) for f in fields))
 
     # ------------------------------------------------------------------
     # phase C: LLM tree verification + accept walk
     # ------------------------------------------------------------------
     def _verify_phase(self, verifying: List[SpecRequest]) -> None:
-        """ONE LLM step over every request's tree, then the greedy walk,
+        """ONE LLM step over every request's tree, then the accept walk,
         the bonus token and next round's commit (reference :579)."""
         if not verifying:
             return
@@ -380,7 +394,9 @@ class SpecInferManager(RequestManager):
         self._kv_prepare(spans)
         bc = self._tree_bc(TreeVerifyBatchConfig, self.llm, toks, reqi, pos,
                            spec, masks, "llm_committed", commit)
-        res = self._guarded("spec_verify", lambda: self.llm.step(bc))
+        smp = self._verify_sample(verifying, index_of)
+        res = self._guarded("spec_verify",
+                            lambda: self.llm.step(bc, sample=smp))
         if res is None:
             return
         ids = res.token_ids.cpu().numpy()
@@ -417,6 +433,22 @@ class SpecInferManager(RequestManager):
                 self._maybe_finish(req)
                 if req.status is RequestStatus.COMPLETED:
                     break
+
+    def _verify_sample(self, verifying: List[SpecRequest], index_of):
+        """The verify step's sampling argument (reference :714-737): row
+        ``index_of[(rid, ni)]`` draws with the fold ``(rid,
+        len(generated) + depth(ni))``, the incremental loop's key for that
+        token; the walk then accepts a child whose draft token equals the
+        draw.  None for greedy.  A request that left ``DECODING`` since
+        the batch was built (page pressure reset its tree) is skipped, as
+        the walk skips it."""
+        if self.gen.temperature <= 0.0:
+            return None
+        return self._sample_for(
+            [(row, rid, self.requests[rid].tree[ni].depth)
+             for (rid, ni), row in index_of.items()
+             if self.requests[rid].status is RequestStatus.DECODING],
+            self.llm.max_tokens)
 
     # ------------------------------------------------------------------
     def _tick(self) -> None:

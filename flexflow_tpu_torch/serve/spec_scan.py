@@ -1,7 +1,7 @@
 """Speculative-decoding macro steps whose state stays on the device.
 
-Port of ``flexflow_tpu/serve/spec_scan.py`` (``SpecDecodeScan``) for greedy
-verification.  ``run(carry, n_macro)`` is a Python loop of ``n_macro``
+Port of ``flexflow_tpu/serve/spec_scan.py`` (``SpecDecodeScan``), greedy or
+with seeded sampling.  ``run(carry, n_macro)`` is a Python loop of ``n_macro``
 macro steps over device tensors with no read-back to the host inside it,
 as slice 1's ``InferenceManager.decode_scan``; each macro step is
 
@@ -19,8 +19,18 @@ as slice 1's ``InferenceManager.decode_scan``; each macro step is
    The layout rides on the batch (``tree_layout``): the port runs eagerly,
    so nothing binds a manager to one tree shape as the reference's jitted
    step does (its ``tree_token_layout``, inference_manager.py:422);
-4. *accept walk*: the greedy root-down walk, the per-slot budget cut, the
-   EOS cut, and the next step's commit and catch-up bookkeeping.
+4. *accept walk*: the root-down walk (against the LLM's argmax, or its
+   seeded draws), the per-slot budget cut, the EOS cut, and the next
+   step's commit and catch-up bookkeeping.
+
+``run(..., sample=(seed, temperature, top_p))`` samples the verify step:
+node j of slot r draws with the fold ``(r, macro step * n_tree + j)``
+through ``fold_uniform``, the macro-step counter riding in the carry
+(``macro_ctr``), as the reference folds its key per macro step (:184),
+so windows of ``run`` never replay a key.  The streams are seeded and
+deterministic; like the reference's, they are not the incremental path's
+sampled streams, whose keys follow (rid, token index).  ``temperature <=
+0`` is the greedy path.
 
 Emissions are ``-1`` where a slot emits nothing.  A slot whose budget runs
 out, or that emits the EOS token, freezes (``finished``), and its
@@ -29,9 +39,7 @@ with a paged cache, ``run`` maps (and copy-on-writes) up front every page
 each live slot's worst-case growth can reach, since committed depths
 advance on the device (reference spec_scan.py:224-242), and the caller
 keeps each slot's prompt pages mapped (the request stays bound to its
-slot while the scan runs).  Left out: stochastic verification (``run``
-with ``sample`` raises ``NotImplementedError``) and mixed spec/non-spec
-slots.
+slot while the scan runs).  Left out: mixed spec/non-spec slots.
 """
 
 from __future__ import annotations
@@ -45,12 +53,13 @@ from .batch_config import (
     TreeSearchBatchConfig,
     TreeVerifyBatchConfig,
 )
-
-# why a slot froze (the reference's EXIT_* codes, inference_manager.py:36)
-EXIT_NOT_IN_BATCH = -1  # finished before this window began
-EXIT_RUNNING = 0        # budget left and no EOS
-EXIT_EOS = 1            # emitted the stop token
-EXIT_BUDGET = 2         # emitted its whole budget
+# why a slot froze (EXIT_NOT_IN_BATCH: finished before this window began)
+from .inference_manager import (
+    EXIT_BUDGET,
+    EXIT_EOS,
+    EXIT_NOT_IN_BATCH,
+    EXIT_RUNNING,
+)
 
 # "no budget" sentinel: far above any reachable emission count
 _NO_BUDGET = 2 ** 30
@@ -61,7 +70,7 @@ def _i32(values, device) -> torch.Tensor:
 
 
 class SpecDecodeScan:
-    """Runs greedy speculative macro steps on the device for up to
+    """Runs speculative macro steps on the device for up to
     ``max_requests`` slots over an LLM and an SSM InferenceManager (their
     caches hold each slot's prompt and agree in depth)."""
 
@@ -96,6 +105,10 @@ class SpecDecodeScan:
         self._node_depth = _i32([0] + [lvl for lvl in range(1, d + 1)
                                        for _ in range(w)], self.dev)
         self._verify_spec = _i32(list(range(p)) * r, self.dev)
+        # a verify row's fold before the macro-step term: (slot, node)
+        self._verify_fold = torch.stack(
+            [torch.arange(r, device=self.dev).repeat_interleave(p),
+             torch.arange(p, device=self.dev).repeat(r)], 1).to(torch.int32)
 
     # ------------------------------------------------------------------
     def init_carry(self, root_tokens: Sequence[int],
@@ -121,6 +134,7 @@ class SpecDecodeScan:
             commit_n=zeros[:, 0].clone(), backlog_tok=zeros.clone(),
             backlog_n=zeros[:, 0].clone(), finished=fin,
             budget=_i32(budget, self.dev),
+            macro_ctr=torch.zeros((), dtype=torch.int32, device=self.dev),
             exit_code=torch.where(fin, EXIT_NOT_IN_BATCH,
                                   EXIT_RUNNING).to(torch.int32))
 
@@ -131,11 +145,11 @@ class SpecDecodeScan:
         depth+1], carry)``.  One read-back before the loop checks that no
         live slot can pass ``max_seq_len`` (each slot grows at most
         ``depth+1`` per step and ``budget + depth`` in all) and, for a
-        paged cache, prepares the pages of that growth."""
-        if sample is not None:
-            raise NotImplementedError(
-                "stochastic verification is not ported yet: SpecDecodeScan "
-                "is greedy")
+        paged cache, prepares the pages of that growth.  ``sample``:
+        ``(seed, temperature, top_p)``, seeded sampling of the verify
+        step (None, or ``temperature <= 0``: greedy)."""
+        if sample is not None and sample[1] <= 0.0:
+            sample = None
         d = self.depth
         grow = torch.clamp(carry["budget"].long() + d,
                            max=n_macro * (d + 1))
@@ -155,12 +169,12 @@ class SpecDecodeScan:
                         im.kv.prepare_slot_span(slot, lo, hi)
         emitted = []
         for _ in range(n_macro):
-            carry, e = self._macro_body(carry)
+            carry, e = self._macro_body(carry, sample)
             emitted.append(e)
         return torch.stack(emitted), carry
 
     # ------------------------------------------------------------------
-    def _macro_body(self, c):
+    def _macro_body(self, c, sample=None):
         """One macro step on device tensors (reference :264)."""
         r, w, d, p = (self.llm.max_requests, self.width, self.depth,
                       self.n_tree)
@@ -222,6 +236,11 @@ class SpecDecodeScan:
         # ---- 3. LLM verify, after the previous step's commit ----
         reqi_v = torch.where(fin[:, None], -1, slot[:, None]).expand(r, p)
         commit_valid = kk < torch.where(fin, 0, c["commit_n"])[:, None]
+        smp = None
+        if sample is not None:
+            folds = self._verify_fold.clone()
+            folds[:, 1] += c["macro_ctr"] * p
+            smp = (*sample, folds)
         res_v = self.llm.run_step(TreeVerifyBatchConfig(
             base=BatchConfig(
                 tokens=tok.reshape(-1),
@@ -239,10 +258,10 @@ class SpecDecodeScan:
                 commit_valid, c["commit_src"], 0).reshape(-1),
             commit_dst_position=torch.where(
                 commit_valid, c["commit_dst"], 0).reshape(-1),
-            tree_layout=(r, p)))
+            tree_layout=(r, p)), smp)
         ids2 = res_v.token_ids.reshape(r, p)
 
-        # ---- 4. greedy accept walk ----
+        # ---- 4. accept walk ----
         ni = torch.zeros(r, dtype=torch.int64, device=dev)
         alive = ~fin
         emits, srcs = [], []
@@ -300,6 +319,7 @@ class SpecDecodeScan:
             backlog_n=torch.where(cont, cnt, 0),
             finished=fin_new,
             budget=bud_new,
+            macro_ctr=c["macro_ctr"] + 1,
             exit_code=ecode,
         )
         return c2, e_out

@@ -9,10 +9,9 @@ one map serves both packages.  torch's ``nn.Linear.weight`` is
 ``[out, in]`` and the serve ``Linear`` kernel ``[in, out]``, so every
 projection transposes; Q, K and V fuse into the kv-head-major ``qkv [E,
 KV, q_per_kv + 2, D]`` of the attention layer, their biases into
-``qkv_bias [KV, q_per_kv + 2, D]``.  Loading a checkpoint from disk
-(``load_hf_model``) needs ``transformers`` and stays in the reference: the
-port takes the state dict and a config (``ServeModelConfig.from_hf_config``
-takes a config object or a plain dict).
+``qkv_bias [KV, q_per_kv + 2, D]``.  ``load_hf_model`` reads a local
+checkpoint directory through ``transformers``, imported inside it only:
+nothing else in the port needs that package.
 """
 
 from __future__ import annotations
@@ -235,3 +234,22 @@ def convert_state_dict(sd, cfg: ServeModelConfig) -> Params:
         raise ValueError(f"no weight converter for {cfg.model_type!r}; "
                          f"known: {sorted(CONVERTERS)}")
     return CONVERTERS[cfg.model_type](sd, cfg)
+
+
+def load_hf_model(path: str):
+    """A local HF checkpoint directory (reference :303-325): ``(state
+    dict, ServeModelConfig, tokenizer or None)``, the weights in float32.
+    Nothing is downloaded (``local_files_only=True``)."""
+    import transformers
+
+    hf_cfg = transformers.AutoConfig.from_pretrained(path,
+                                                     local_files_only=True)
+    model = transformers.AutoModelForCausalLM.from_pretrained(
+        path, local_files_only=True, torch_dtype=torch.float32)
+    try:
+        tok = transformers.AutoTokenizer.from_pretrained(
+            path, local_files_only=True)
+    except Exception:   # noqa: BLE001 -- as the reference: no tokenizer
+        tok = None      # (transformers raises several kinds when none)
+    return (model.state_dict(), ServeModelConfig.from_hf_config(hf_cfg),
+            tok)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 _DTYPES = {
@@ -27,6 +28,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch versions on the CPU")
     return dev
+
+
+def host_to_device(a, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on ``device``.  To a CUDA
+    device it goes through pinned memory without blocking the host: a
+    plain copy from pageable memory waits for everything queued on the
+    stream, so a batch built while the card still runs would sync."""
+    t = torch.as_tensor(np.ascontiguousarray(a) if isinstance(a, np.ndarray)
+                        else a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:

@@ -904,3 +904,127 @@ def test_preempt_spill_restore_on_card(dev, dtype):
     assert all(len(out[r]) == 10 for r in (0, 1))
     if dtype == "float32":
         assert [out[0], out[1]] == want
+
+
+# ---------------------------------------------------------------------------
+# the reference's default serve path: LM-head gating, the chained stretch,
+# seeded speculative sampling
+# ---------------------------------------------------------------------------
+WIDE = ServeModelConfig(num_hidden_layers=2)   # Llama-2-7B width, 2 layers
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gated_prefill_7b_width(dev, dtype):
+    """A 512-token prefill chunk of four prompts at Llama-2-7B width (2
+    layers): the gated step's ``[8, 32000]`` logits at the four sample
+    points against the ungated step's rows, float32 within ``1e-5``
+    (another GEMM row count, so not bit for bit) and equal tokens,
+    bfloat16 within ``1e-2``; the caches are equal."""
+    from flexflow_tpu_torch.serve import PrefillBatchConfig
+
+    cfg = dataclasses.replace(WIDE, dtype=dtype)
+    im = InferenceManager(build_model(cfg), max_requests=8,
+                          max_tokens_per_batch=512, max_seq_len=2048,
+                          device=dev).init_operators_inference(seed=0)
+    rng = np.random.default_rng(5)
+    segs = [(s, rng.integers(3, 32000, size=n).tolist(), 0)
+            for s, n in enumerate((128, 100, 128, 77))]
+    lens = [len(t) for _, t, _ in segs]
+    res, caches = {}, {}
+    for gate in (False, True):
+        im.reset()
+        pbc, last = PrefillBatchConfig.build(
+            segs, lens, im.prefill_tile, max_tokens=512, max_requests=8,
+            device=dev, gate_slots=[0, 1, 2, 3] if gate else None)
+        res[gate] = im.step(pbc)
+        caches[gate] = {n: b["k"].clone() for n, b in im.state.items()}
+    rows = [last[s] for s in range(4)]
+    tol = (dict(atol=1e-5, rtol=1e-5) if dtype == "float32"
+           else dict(atol=1e-2, rtol=1e-2))
+    torch.testing.assert_close(res[True].logits[:4].cpu(),
+                               res[False].logits[rows].cpu(), **tol)
+    if dtype == "float32":
+        assert (res[True].token_ids[:4].tolist()
+                == res[False].token_ids[rows].tolist())
+    for n, k in caches[True].items():
+        assert torch.equal(k, caches[False][n])
+
+
+def test_chained_stretch_with_join_on_card(dev, monkeypatch):
+    """A chained stretch on the card: an arrival joins at a segment
+    boundary, its flat prefill and every segment run K1 (no plain
+    version), one read-back, and the streams equal the unchained run's
+    and the CPU's."""
+    kw = dict(max_requests=2, max_tokens_per_batch=16, max_seq_len=128)
+    cpu = InferenceManager(build_model(SMALL), device="cpu",
+                           **kw).init_operators_inference(seed=3)
+    gpu = InferenceManager(build_model(SMALL), device=dev, **kw)
+    gpu.init_operators_inference(dict(cpu.model.named_parameters()))
+    prompts = [[3, 5, 7, 9, 11], [2, 4, 6, 8]]
+    gen = GenerationConfig(max_new_tokens=12)
+    want = RequestManager(cpu, gen).generate(prompts)
+    plain = []
+    for name in ("decode_attention", "prefill_attention"):
+        fn = getattr(att, name + "_plain")
+
+        def counting(*a, _fn=fn, _name=name, **k):
+            plain.append(_name)
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(att, name + "_plain", counting)
+    rm = RequestManager(gpu, gen)
+    r0 = rm.register_new_request(prompts[0])
+    while not rm.requests[r0].generated:
+        rm._serve_tick()
+    joined = []
+    rm._arrival_pump = lambda: joined or joined.append(
+        rm.register_new_request(prompts[1]))
+    att.reset_counts()
+    before = rm.readbacks
+    rm._decode_stretch(rm._scan_steps_possible())
+    rm._arrival_pump = None
+    assert rm.readbacks - before == 1
+    assert rm.last_stretch["joins"] == 1
+    assert att.decode_attention.variant_launches["fp"] > 0
+    while rm.has_work():
+        rm._serve_tick()
+    assert [rm.requests[r].generated for r in (r0, joined[0])] == want
+    gpu.reset()
+    rm_u = RequestManager(gpu, gen)
+    rm_u.chain_segments = False
+    assert rm_u.generate(prompts) == want
+    assert plain == []
+
+
+def test_sampled_host_spec_equals_sampled_incremental_on_card(dev):
+    """Seeded sampling at 2 layers of Llama-2-7B width in float32 (TF32
+    off), a llama-68m-shaped draft: ``SpecInferManager``'s streams equal
+    the incremental ``RequestManager``'s token for token (the verify rows
+    draw with the incremental loop's keys); K3 per-token serves the
+    verify steps."""
+    from flexflow_tpu_torch.serve import SpecInferManager
+
+    kw = dict(max_requests=4, max_tokens_per_batch=64, max_seq_len=512,
+              max_spec_tokens=8, device=dev)
+    llm = InferenceManager(build_model(WIDE),
+                           **kw).init_operators_inference(seed=0)
+    draft = InferenceManager(build_model(ServeModelConfig(
+        hidden_size=768, intermediate_size=3072, num_hidden_layers=2,
+        num_attention_heads=12, num_key_value_heads=12)), topk=2,
+        **kw).init_operators_inference(seed=1)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(3, 32000, size=n).tolist() for n in (40, 17, 64)]
+    gen = GenerationConfig(max_new_tokens=12, temperature=0.8, top_p=0.9,
+                           seed=7)
+    want = RequestManager(llm, gen).generate(prompts)
+    llm.reset()
+    att.reset_counts()
+    got = SpecInferManager(llm, draft, gen, width=2, depth=3).generate(
+        prompts)
+    assert att.tree_attention.launches > 0
+    flat_got = [t for s in got for t in s]
+    flat_want = [t for s in want for t in s]
+    same = [a == b for a, b in zip(flat_got, flat_want)]
+    first = same.index(False) if False in same else None
+    assert got == want, (f"equal share {sum(same) / len(same):.4f}, "
+                         f"first difference at flat index {first}")

@@ -111,12 +111,13 @@ def test_capacity_validation_and_sampling_raise(rigs):
         SpecInferManager(llm, ssm, width=3, depth=2)    # SSM top-2 < width 3
     with pytest.raises(ValueError, match="spec buffers too small"):
         SpecDecodeScan(llm, ssm, width=2, depth=4)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        SpecInferManager(llm, ssm, GenerationConfig(temperature=0.7))
+    # seeded sampling is accepted on both paths (test_torch_spec_sampling)
+    assert SpecInferManager(llm, ssm, GenerationConfig(
+        temperature=0.7)).gen.temperature == 0.7
     sc = SpecDecodeScan(llm, ssm, width=2, depth=2)
     carry = sc.init_carry([1, 2], [5, 4], [5, 4], [False, False])
-    with pytest.raises(NotImplementedError, match="greedy"):
-        sc.run(carry, 1, sample=(0, 0.7, 1.0))
+    with pytest.raises(ValueError, match="max_seq_len"):
+        sc.run(carry, 20, sample=(0, 0.7, 1.0))   # checked before any work
     with pytest.raises(ValueError, match="max_seq_len"):
         sc.run(carry, 20)      # 5 + 20*3 + 2 > 64
     # a request that cannot fit depth+1 positions of headroom
