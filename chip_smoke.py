@@ -151,6 +151,7 @@ and ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
 device.
 """
 
+import collections
 import dataclasses
 import json
 import os
@@ -2001,6 +2002,333 @@ def phase_api_default(serve, att, torch, dev):
     return launches
 
 
+def mixed_traffic(prompts, n_new):
+    """The 8 prompts in pairs, 4 passes apart, alternating ``{"spec":
+    True}`` and ``{"spec": False}``."""
+    return [((i // 2) * 4e-3, p, n_new, {"spec": i % 2 == 0})
+            for i, p in enumerate(prompts)]
+
+
+def narrow_draft_config(serve, family):
+    """A narrow draft of each family (1 layer, hidden 1024, the family's
+    attention layout and vocab)."""
+    f32 = dict(torch_dtype="float32")
+    if family == "mpt":
+        return mpt7b_config(serve, d_model=1024, n_heads=8, n_layers=1,
+                            **f32)
+    if family == "falcon":
+        return falcon7b_config(serve, hidden_size=1024,
+                               num_attention_heads=16, num_hidden_layers=1,
+                               **f32)
+    if family == "opt":
+        return opt67b_config(serve, hidden_size=1024, ffn_dim=4096,
+                             num_attention_heads=16, num_hidden_layers=1,
+                             word_embed_proj_dim=1024, **f32)
+    return starcoder_config(serve, n_embd=1024, n_head=8, n_layer=1,
+                            n_inner=4096, **f32)
+
+
+def spec_mixed_7b(serve, att, torch, dev, n_new=16):
+    """Phase 14's 7B part: Llama-2-7B f32 through ``LLM.compile(ssms=
+    [SSM(draft)])``, mixed spec and plain arrivals with flips, then
+    ``SpecDecodeScan`` with a spec mask and a perfect draft.  Returns
+    {path: launches}."""
+    import numpy as np
+
+    cfg = serve.ServeModelConfig(dtype="float32")   # Llama-2-7B defaults
+    caps = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048)
+    gen = serve.GenerationConfig(max_new_tokens=n_new)
+    llm = serve.LLM(cfg).compile(
+        device=dev, generation_config=gen,
+        ssms=[serve.SSM(draft_config(serve, "float32"))], **caps)
+    im, rm = llm.im, llm.rm
+    prompts = serve_prompts(cfg.vocab_size)
+    launches = {}
+    want, launches["oracle"] = counted(att, lambda: serve.RequestManager(
+        im, rm.gen).generate(prompts))
+    im.reset()
+    rm.ssm.reset()
+    live_states = (serve.RequestStatus.PREFILLING,
+                   serve.RequestStatus.DECODING)
+    st = dict(ticks=0, off=[], on=None, hwm=0, flush_tick=None,
+              rows={"spec": [0, 0], "plain": [0, 0]})
+    tick, sync, verify = rm._tick, rm._sync_kv, rm._verify_phase
+
+    def hooked_tick():
+        live = [r for r in rm._active()
+                if r.status is serve.RequestStatus.DECODING]
+        if not st["off"] and st["ticks"] >= 3 and any(
+                r.spec and r.pending_commit for r in live):
+            # every slotted spec row off: the next tick leaves speculation
+            for r in rm._active():
+                if r.spec:
+                    rm.set_spec_mode(r.rid, False)
+                    st["off"].append((r.rid, len(r.pending_commit)))
+        elif st["off"] and st["on"] is None and rm.flushes:
+            # a row that arrived plain, mid-decode
+            was_spec = {rid for rid, _ in st["off"]}
+            plain = [r for r in live if not r.spec and r.rid % 2
+                     and r.rid not in was_spec
+                     and len(r.generated) < n_new - 4]
+            if plain:
+                r = plain[0]
+                rm.set_spec_mode(r.rid, True)
+                st["on"] = (r.rid, len(r.generated), r.ssm_committed,
+                            len(r.ssm_backlog))
+        flushes = rm.flushes
+        tick()
+        if rm.flushes > flushes and st["flush_tick"] is None:
+            st["flush_tick"] = st["ticks"]
+        st["ticks"] += 1
+
+    def hooked_sync():
+        sync()
+        snap = rm.kv_snapshot()
+        live = [r for r in rm._active() if r.status in live_states]
+        expect = sum(r.seq_len + r.ssm_committed for r in live)
+        if (snap["live_tokens"] != expect or snap["occupancy_frac"]
+                != expect / snap["capacity_tokens"]):
+            raise AssertionError(f"spec mixed: KV gauges {snap} disagree "
+                                 f"with the live depths ({expect} tokens)")
+        st["hwm"] = max(st["hwm"], expect)
+
+    def hooked_verify(verifying):
+        before = {r.rid: (r.spec, len(r.generated)) for r in verifying}
+        verify(verifying)
+        for r in verifying:
+            spec, n0 = before[r.rid]
+            row = st["rows"]["spec" if spec else "plain"]
+            row[0] += len(r.generated) - n0
+            row[1] += 1
+
+    rm._tick, rm._sync_kv, rm._verify_phase = (hooked_tick, hooked_sync,
+                                               hooked_verify)
+    t0 = time.perf_counter()
+    rec, launches["mixed"] = counted(att, lambda: rm.serve_with_arrivals(
+        mixed_traffic(prompts, n_new), clock=PassClock(im)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = [rec[r]["tokens"] for r in sorted(rec)]
+    if got != want:
+        raise AssertionError("spec mixed 7B: the mixed streams differ from "
+                             "the incremental oracle's")
+    if any(r["outcome"] != "ok" for r in rec.values()):
+        raise AssertionError(f"spec mixed 7B: outcomes "
+                             f"{[r['outcome'] for r in rec.values()]}")
+    if not (st["off"] and st["on"] and rm.flushes and rm.macro_steps):
+        raise AssertionError(f"spec mixed 7B: flips {st}, flushes "
+                             f"{rm.flushes}, macro steps {rm.macro_steps}")
+    snap = rm.kv_snapshot()
+    if snap["hwm_tokens"] != st["hwm"] or snap["live_tokens"] != 0 or \
+            not max(map(len, prompts)) < st["hwm"] <= sum(
+                2 * (len(p) + n_new + 4) for p in prompts):
+        raise AssertionError(f"spec mixed 7B: gauges {snap}, live-depth "
+                             f"watermark {st['hwm']}")
+    require_launches(launches["mixed"], "spec mixed 7B", "fp", (
+        "decode_attention", "prefill_attention", "tree_attention"))
+    per = {k: v[0] / v[1] for k, v in st["rows"].items() if v[1]}
+    log(f"spec mixed 7B: Llama-2-7B f32 via LLM.compile(ssms=[llama-68m]), "
+        f"8 arrivals alternating spec/plain: {rm.macro_steps} macro steps, "
+        f"{rm.llm_steps} LLM passes on the spec path, flush dispatches "
+        f"{rm.flushes} (tick {st['flush_tick']}, rows flipped off with "
+        f"their pending commits {st['off']}), flipped on (rid, generated, "
+        f"SSM depth, rebuilt feed) {st['on']}; tokens per LLM verify pass "
+        f"per row: spec {per.get('spec', 0):.3f} over {st['rows']['spec'][1]}"
+        f" row-passes, plain {per.get('plain', 0):.3f} over "
+        f"{st['rows']['plain'][1]}; KV hwm {snap['hwm_tokens']} tokens "
+        f"({snap['hwm_bytes'] / 1e9:.3f} GB, target + draft), streams equal "
+        f"the oracle's, outcomes ok, wall {wall:.2f}s; launches "
+        f"{short(launches['mixed'])} (oracle {short(launches['oracle'])})")
+    # the device loop: spec_mask alternating, a perfect draft (the LLM's
+    # upper layers zeroed), against a new oracle on the changed weights
+    kw = dict(caps, max_spec_tokens=im.max_spec_tokens, device=dev)
+    perfect = perfect_draft(serve, im, cfg, kw)
+    im.reset()
+    want = serve.RequestManager(im, rm.gen).generate(prompts)
+    im.reset()
+    mask = [i % 2 == 0 for i in range(len(prompts))]
+    firsts = held_firsts(serve, im, prompts)
+    held_firsts(serve, perfect, prompts)
+    lens = [len(p) for p in prompts]
+    sc = serve.SpecDecodeScan(im, perfect, width=1, depth=3,
+                              eos_token_id=rm.gen.eos_token_id)
+    carry = sc.init_carry(firsts, lens, lens, [False] * len(prompts),
+                          spec_mask=mask, budget=[n_new - 1] * len(prompts))
+    ems = []
+
+    def loop(carry):
+        while not bool(carry["finished"].all()):
+            em, carry = sc.run(carry, 4)
+            ems.append(em.cpu().numpy())
+
+    t0 = time.perf_counter()
+    _, launches["scan"] = counted(att, lambda: loop(carry))
+    wall = time.perf_counter() - t0
+    release_held((im, perfect), len(prompts))
+    em = np.concatenate(ems)
+    outs = [[firsts[i]] + [int(t) for t in em[:, i].reshape(-1) if t >= 0]
+            for i in range(len(prompts))]
+    if outs != want:
+        raise AssertionError("spec mixed 7B scan: streams differ from the "
+                             "incremental oracle's")
+    live = (em >= 0).any(2)                       # [steps, R]
+    emit = (em >= 0).sum(2)
+    spec_rate = emit[:, mask].sum() / live[:, mask].sum()
+    plain = [i for i, m in enumerate(mask) if not m]
+    if not (spec_rate > 1 and (emit[:, plain][live[:, plain]] == 1).all()):
+        raise AssertionError(f"spec mixed 7B scan: tokens per macro step "
+                             f"spec {spec_rate}, plain {emit[:, plain]}")
+    require_launches(launches["scan"], "spec mixed 7B scan", "fp", (
+        "decode_attention", "tree_attention", "tree_attention_batched"))
+    log(f"spec mixed 7B scan: SpecDecodeScan spec_mask {mask}, perfect "
+        f"draft (width 1, depth 3): {len(em)} macro steps in {len(ems)} "
+        f"windows {wall:.2f}s; tokens per LLM pass per row: spec "
+        f"{spec_rate:.3f}, plain "
+        f"{emit[:, plain].sum() / live[:, plain].sum():.3f}; streams equal "
+        f"the oracle's; launches {short(launches['scan'])}")
+    del llm, im, rm, perfect, sc, carry
+    return launches
+
+
+def spec_families(serve, att, torch, dev, n_new=16):
+    """Phase 14's families part: MPT-7B, Falcon-7B, OPT-6.7B and StarCoder
+    at 2 layers of full width, f32, each on ``SpecInferManager`` and
+    ``SpecDecodeScan`` with a perfect draft (the LLM's modules, top-1) and
+    a narrow draft of its family: streams equal the incremental ones; MPT
+    launches no tree kernel, and its gather path is timed.  Returns
+    {family: launches}."""
+    import gc
+
+    caps = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
+                max_spec_tokens=8, device=dev)
+    gen = serve.GenerationConfig(max_new_tokens=n_new)
+    launches = {}
+    for family, cfg in (
+            ("mpt", mpt7b_config(serve, n_layers=2, torch_dtype="float32")),
+            ("falcon", falcon7b_config(serve, num_hidden_layers=2,
+                                       torch_dtype="float32")),
+            ("opt", opt67b_config(serve, num_hidden_layers=2,
+                                  torch_dtype="float32")),
+            ("starcoder", starcoder_config(serve, n_layer=2,
+                                           torch_dtype="float32"))):
+        t0 = time.perf_counter()
+        im = serve.InferenceManager(serve.build_model(cfg), **caps)
+        im.init_operators_inference(seed=0)
+        perfect = serve.InferenceManager(im.model, topk=1, **caps)
+        perfect.init_operators_inference(dict(im.model.named_parameters()))
+        narrow = serve.InferenceManager(
+            serve.build_model(narrow_draft_config(serve, family)), topk=2,
+            **caps)
+        narrow.init_operators_inference(seed=1)
+        prompts = [p[:300] for p in serve_prompts(cfg.vocab_size)]
+        want = serve.RequestManager(im, gen).generate(prompts)
+        n = collections.Counter()
+        passes = {}
+        captured = []
+        attn = next(m for m in im.model.modules()
+                    if isinstance(m, serve.IncMultiHeadSelfAttention))
+        if cfg.use_alibi:
+            inner = attn._alibi_tree_attend
+
+            def capture(*args, _inner=inner):
+                captured[:] = [args]
+                return _inner(*args)
+
+            attn._alibi_tree_attend = capture
+        for draft, width, depth in ((narrow, 2, 3), (perfect, 1, 3)):
+            name = "narrow" if draft is narrow else "perfect"
+            im.reset()
+            draft.reset()
+            sm = serve.SpecInferManager(im, draft, gen, width=width,
+                                        depth=depth)
+            rows = []
+            verify = sm._verify_phase
+
+            def counting_verify(verifying, _verify=verify):
+                rows.append(len(verifying))
+                _verify(verifying)
+
+            sm._verify_phase = counting_verify
+            host, c1 = counted(att, lambda: sm.generate(prompts))
+            im.reset()
+            draft.reset()
+            scan, c2 = counted(att, lambda: scan_streams(
+                serve, im, draft, prompts, n_new, width, depth))
+            if host != want or scan != want:
+                raise AssertionError(f"spec {family} ({name} draft): "
+                                     f"streams differ from incremental")
+            n.update(c1)
+            n.update(c2)
+            # tokens per request per verify pass it took part in
+            passes[name] = (sm.tokens_decoded - len(prompts)) / sum(rows)
+            if not cfg.use_alibi:
+                require_launches(c1, f"spec {family} host", "fp",
+                                 ("tree_attention",))
+                require_launches(c2, f"spec {family} scan", "fp",
+                                 ("tree_attention_batched",))
+        tree = sum(c for (k, _), c in n.items() if k.startswith("tree"))
+        extra = ""
+        if cfg.use_alibi:
+            if tree:
+                raise AssertionError(f"spec mpt: tree kernels launched {n}")
+            require_launches(n, "spec mpt", "fp+alibi",
+                             ("decode_attention",))
+            attn._alibi_tree_attend = inner
+            args = captured[0]
+            ms = time_ms(lambda: attn._alibi_tree_attend(*args), 10)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            attn._alibi_tree_attend(*args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            extra = (f"; gather path of one layer at a verify step "
+                     f"({args[0].shape[0]} flat tokens, cache "
+                     f"{list(args[1]['k'].shape)}): {ms:.4f} ms device, "
+                     f"{ms * cfg.num_hidden_layers:.4f} ms a 2-layer step, "
+                     f"transient {peak / 1e9:.3f} GB; max_memory_allocated "
+                     f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        launches[family] = dict(n)
+        log(f"spec {family}: 2 layers at full width f32 ({cfg.hidden_size} "
+            f"hidden, {cfg.num_attention_heads} heads on {cfg.kv_heads} KV "
+            f"heads), 8 prompts x {n_new} tokens: host and device spec "
+            f"streams equal incremental with the narrow and the perfect "
+            f"draft; tokens per LLM verify pass per request (host) narrow "
+            f"{passes['narrow']:.3f}, perfect {passes['perfect']:.3f}; tree "
+            f"kernel launches {tree}; wall {time.perf_counter() - t0:.1f}s"
+            f"{extra}; launches {short(n)}")
+        del im, perfect, narrow, sm, attn, captured
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_spec_mixed(serve, att, torch, dev):
+    """Phase 14: mixed spec and plain rows at 7B, then speculative serving
+    of every family.  Returns {path: launches}."""
+    import gc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the earlier phases' managers sit in reference cycles (their wrapped
+    # methods): collect them before the 7B f32 deployment is built
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"spec mixed: {torch.cuda.memory_allocated() / 1e9:.2f} GB held "
+        f"before the build")
+    t0 = time.perf_counter()
+    launches = spec_mixed_7b(serve, att, torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"spec mixed 7B: part wall {time.perf_counter() - t0:.1f}s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    launches["families"] = spec_families(serve, att, torch, dev)
+    log(f"spec mixed: phase wall {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
 TC_KERNELS = ("prefill_tc_kernel", "prefill_tf32_kernel",
               "tree_split_tf32_kernel", "tree_split_kernel",
               "tree_merge_kernel", "decode_split_kernel",
@@ -2098,6 +2426,8 @@ def main():
         serve, att, torch, dev))
     api = timed("api default path", lambda: phase_api_default(
         serve, att, torch, dev))
+    mixed = timed("spec mixed", lambda: phase_spec_mixed(
+        serve, att, torch, dev))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)
@@ -2112,15 +2442,19 @@ def main():
     # the 7B f32 serve path, the others on the (f32) variant-parity paths,
     # K1 and K2 paged on the 7B f32 lifecycle path too; f32 fp adds the
     # API's default path (K1 and K2 chained and gated, K3 per-token under
-    # sampled SpecInfer)
+    # sampled SpecInfer) and the 7B mixed spec and plain rows (K1 on the
+    # catch-up and the flush, K2 on the prefill, K3 per-token on verify
+    # steps with root-only trees, K3 batched with pad nodes)
     def path_counts_f32(var):
         if var == "fp":
             return {"decode_attention": plus(f32["incremental"],
-                                             api["chained"]),
+                                             api["chained"], mixed["mixed"]),
                     "prefill_attention": plus(f32["incremental"],
-                                              api["chained"]),
-                    "tree_attention": plus(f32["spec host"], api["spec"]),
-                    "tree_attention_batched": f32["spec device"]}
+                                              api["chained"], mixed["mixed"]),
+                    "tree_attention": plus(f32["spec host"], api["spec"],
+                                           mixed["mixed"]),
+                    "tree_attention_batched": plus(f32["spec device"],
+                                                   mixed["scan"])}
         counts = {"decode_attention": parity[var]["incremental"],
                   "prefill_attention": parity[var]["incremental"],
                   "tree_attention": parity[var]["spec host"],

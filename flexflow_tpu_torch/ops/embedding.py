@@ -4,7 +4,9 @@ Port of ``flexflow_tpu/ops/embedding.py`` for the serve path (a plain
 lookup: no aggregation, no vocabulary sharding) and of the serve graph's
 ``PositionEmbedding`` (``flexflow_tpu/serve/ops.py:997-1041``).  ``weight``
 is ``[vocab, embed]``, or ``[num_positions + offset, embed]``, as in the
-reference.
+reference.  The lookup comes out in the compute dtype the module was built
+with, whatever the dtype its weight was loaded in (reference
+``ops/embedding.py:87``).
 """
 
 from __future__ import annotations
@@ -18,12 +20,13 @@ class Embedding(nn.Module):
     def __init__(self, num_entries: int, out_dim: int,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(num_entries, out_dim, dtype=dtype, device=device),
             requires_grad=False)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight).to(self.compute_dtype)
 
 
 class PositionEmbedding(nn.Module):

@@ -15,6 +15,10 @@ approximation) and ``"gelu_exact"`` (erf).  An int8 ``kernel``
 (``serve/quant.py``) carries per-out-channel f32 scales in
 ``kernel_scale`` and is dequantized to x's dtype just before the product
 (reference :110-118); the dequantized copy lives for that product only.
+A floating kernel of another dtype than x (parameters loaded in another
+dtype than the compute dtype, ``LLM.compile(dtype=...)``) is cast to x's
+dtype at use, as the reference's product promotes it: a bf16 kernel
+under f32 compute is an f32 product of the same values.
 """
 
 from __future__ import annotations
@@ -34,9 +38,10 @@ ACTIVATIONS = {
 
 def dequant(w: torch.Tensor, scale, dtype: torch.dtype) -> torch.Tensor:
     """An int8 weight times its per-out-channel scales, in ``dtype``
-    (``flexflow_tpu/serve/quant.py:153``); any other weight as it is."""
+    (``flexflow_tpu/serve/quant.py:153``); any other weight cast to
+    ``dtype`` (a no-op when it has it)."""
     if w.dtype != torch.int8:
-        return w
+        return w.to(dtype)
     return (w * scale).to(dtype)   # int8 * f32 promotes to f32
 
 
@@ -70,9 +75,7 @@ class Linear(nn.Module):
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.kernel
-        if w.dtype == torch.int8:
-            w = dequant(w, self.kernel_scale, x.dtype)
+        w = dequant(self.kernel, getattr(self, "kernel_scale", None), x.dtype)
         y = torch.matmul(x, w)
         if self.bias is None and self.activation is None:
             return y

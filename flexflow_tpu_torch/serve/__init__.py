@@ -19,7 +19,11 @@ reference's default serve path (slice 7): LM-head gating, the chained
 decode stretch with joins at segment boundaries, seeded speculative
 sampling, and the user's entry point ``LLM(model).compile(...)`` and
 ``llm.generate(prompts)`` with ``SSM`` drafts (``load_hf_model`` reads a
-local HF checkpoint).
+local HF checkpoint); speculation per request (mixed spec and plain rows
+in one verify step, ``set_spec_mode`` flips, the commit flush, the
+``spec`` arrival option, ``SpecDecodeScan``'s ``spec_mask``) and the
+speculative serving of every family, ALiBi through the reference's
+gather path (slice 2, rest of 5).
 """
 
 from . import models  # noqa: F401  (registers the model builders)

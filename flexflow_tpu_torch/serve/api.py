@@ -62,8 +62,14 @@ class LLM:
                 spec_depth: int = 3, dtype=None, kv_dtype=None,
                 kv_page_size=None, resilience=None, fault_injector=None,
                 device=None) -> "LLM":
-        """Build the deployment (reference :53-152).  ``dtype`` overrides
-        the config's compute dtype; ``kv_dtype="int8"`` and
+        """Build the deployment (reference :53-152).  ``dtype`` is the
+        parameters' dtype, as in the reference (:124-129): a state dict
+        loads in ``dtype``, or float32 when it is None, whatever the
+        config's dtype; random weights are drawn in ``dtype`` (None: the
+        config's).  The compute and KV dtype stay ``config.dtype``: every
+        product casts a weight of another dtype at use, so a bf16
+        checkpoint loaded with ``dtype=None`` holds f32 weights, twice
+        its bytes, as the reference's does.  ``kv_dtype="int8"`` and
         ``kv_page_size`` choose the KV cache (see ``InferenceManager``);
         ``resilience`` and ``fault_injector`` are the lifecycle policy
         (see ``RequestManager``).  The first of ``ssms`` is compiled with
@@ -74,8 +80,7 @@ class LLM:
             raise NotImplementedError(
                 f"tp={tp}: tensor-parallel serving is the multi-GPU slice "
                 "of the port (ROADMAP), not ported yet")
-        cfg = (self.config if dtype is None
-               else dataclasses.replace(self.config, dtype=dtype))
+        cfg = self.config
         if ssms and not max_spec_tokens:
             max_spec_tokens = 1 + spec_width * spec_depth
         self.im = InferenceManager(
@@ -84,11 +89,12 @@ class LLM:
             max_seq_len=max_seq_len, device=device,
             max_spec_tokens=max_spec_tokens, topk=topk, kv_dtype=kv_dtype,
             kv_page_size=kv_page_size)
-        params = None
         if self._sd is not None:
-            params = params_from_jax(convert_state_dict(self._sd, cfg), cfg,
-                                     self.im.device)
-        self.im.init_operators_inference(params)
+            self.im.init_operators_inference(params_from_jax(
+                convert_state_dict(self._sd, cfg), cfg, self.im.device,
+                dtype or "float32"))
+        else:
+            self.im.init_operators_inference(dtype=dtype)
         gen = generation_config or GenerationConfig()
         if gen.eos_token_id is None and cfg.eos_token_id is not None:
             gen = dataclass_replace(gen, eos_token_id=cfg.eos_token_id)

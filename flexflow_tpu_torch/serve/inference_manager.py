@@ -33,7 +33,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..ops.cuda.attention import check_page_size
-from ..utils.platform import resolve_device
+from ..utils.platform import resolve_device, torch_dtype
 from .batch_config import BatchConfig, InferenceResult
 from .kv_allocator import KVAllocator, padded_seq_len
 from .kv_paged import PagedKVAllocator, validate_page_tile
@@ -198,15 +198,21 @@ class InferenceManager:
 
     @torch.no_grad()
     def init_operators_inference(self, params: Optional[Dict] = None,
-                                 seed: int = 0):
+                                 seed: int = 0, dtype=None):
         """Fill the parameters (``params``: a state dict, e.g. from
         :func:`~flexflow_tpu_torch.serve.convert.params_from_jax`, whose
-        int8 weights beside their ``_scale`` load as int8; None = random
-        from ``seed``) and allocate zeroed KV caches."""
+        int8 weights beside their ``_scale`` load as int8 and whose other
+        tensors keep their dtype; None = random from ``seed``, in ``dtype``
+        when given, else the model's) and allocate zeroed KV caches.  The
+        compute and KV dtype stay the model's: a weight in another dtype
+        is cast at use (reference :503-516)."""
         if params is None:
+            if dtype is not None:
+                param_layout(self.model, torch_dtype(dtype))
             init_random_params(self.model, seed)
         else:
             int8_layout(self.model, params)
+            param_layout(self.model, params)
             own = dict(self.model.named_parameters())
             if set(params) != set(own):
                 raise ValueError(
@@ -373,6 +379,27 @@ class InferenceManager:
         samples = samples or [None] * len(chunks)
         return torch.stack([self.run_step(bc, s).token_ids
                             for bc, s in zip(chunks, samples)])
+
+
+def param_layout(model: torch.nn.Module, dtypes) -> None:
+    """Re-slot the model's floating parameters (empty) in another dtype:
+    ``dtypes`` is one dtype for all, or a state dict whose floating
+    tensors give each parameter's; int8 weights and their scales stay."""
+    for mod_name, mod in model.named_modules():
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            if not p.is_floating_point():
+                continue
+            if isinstance(dtypes, torch.dtype):
+                dt = dtypes
+            else:
+                t = dtypes.get(f"{mod_name}.{pname}" if mod_name else pname)
+                if t is None or not t.is_floating_point():
+                    continue
+                dt = t.dtype
+            if dt != p.dtype:
+                setattr(mod, pname, torch.nn.Parameter(
+                    torch.empty(p.shape, dtype=dt, device=p.device),
+                    requires_grad=False))
 
 
 @torch.no_grad()

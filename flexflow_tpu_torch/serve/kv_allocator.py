@@ -9,16 +9,22 @@ zero-initialised f32 ``k_scale``/``v_scale`` planes ``[R+1, KV, S_pad]``
 (reference ``serve/ops.py:259-270``: an untouched position dequantizes to
 0 * 0 = 0, as an fp cache's zeros), with ``max_spec_tokens > 0`` a
 ``[R+1, KV, max_spec_tokens, D]`` speculation-tree buffer ``sk``/``sv``
-per layer in the compute dtype (reference ``serve/ops.py:271-279``), plus
-the per-request attribution the RequestManager drives (``bind`` when a
-request takes a slot, ``release`` on every path it leaves one) and the
-no-op page and host-tier hooks the paged subclass (:mod:`.kv_paged`)
-overrides.
+per layer in the compute dtype (reference ``serve/ops.py:271-279``) and,
+for an ALiBi layer, the spec slots' absolute positions ``spec_pos``
+int32 ``[R+1, max_spec_tokens]`` (reference :280-287).
+
+The per-request attribution the RequestManager drives (reference
+:342-402): ``bind`` when a request takes a slot, ``observe`` once a serve
+tick with every live request's cache depth (per-request peaks, the live
+high-water marks and the occupancy, headroom and fragmentation gauges of
+``snapshot``), ``release`` on every path it leaves one; plus the no-op
+page and host-tier hooks the paged subclass (:mod:`.kv_paged`) overrides.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Set, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -54,15 +60,20 @@ class KVAllocator:
         self.max_spec_tokens = max_spec_tokens
         self.kv_dtype = kv_dtype
         self.device = device
-        # (cache key, kv heads, head dim, compute dtype) per attention layer
-        self.layers: List[Tuple[str, int, int, torch.dtype]] = [
-            (m.name, m.num_kv_heads, m.head_dim, m.compute_dtype)
+        # (cache key, kv heads, head dim, compute dtype, ALiBi) per
+        # attention layer
+        self.layers: List[Tuple[str, int, int, torch.dtype, bool]] = [
+            (m.name, m.num_kv_heads, m.head_dim, m.compute_dtype,
+             m.use_alibi)
             for m in model.modules()
             if isinstance(m, IncMultiHeadSelfAttention)]
         self.state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
-        self._bound: Set[int] = set()   # rids holding a slot
+        self._live: Dict[int, int] = {}   # rid -> last observed cache depth
+        self._peak: Dict[int, int] = {}   # rid -> deepest this binding
+        self.hwm_tokens = 0
+        self.hwm_bytes = 0.0
 
-    def _buffers(self, kv: int, d: int, dt: torch.dtype):
+    def _buffers(self, kv: int, d: int, dt: torch.dtype, alibi: bool):
         """{name: (shape, dtype)} of one layer's buffers."""
         r1, s_pad = self.max_requests + 1, padded_seq_len(self.max_seq_len)
         kv_dt = torch.int8 if self.kv_dtype == "int8" else dt
@@ -73,17 +84,28 @@ class KVAllocator:
                                                torch.float32)
         if self.max_spec_tokens:
             out["sk"] = out["sv"] = ((r1, kv, self.max_spec_tokens, d), dt)
+            if alibi:
+                out["spec_pos"] = ((r1, self.max_spec_tokens), torch.int32)
         return out
 
     def allocate(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """(Re)allocate zeroed caches; returns the state dict."""
+        """(Re)allocate zeroed caches and forget every attribution;
+        returns the state dict."""
         self.state = None   # free the old buffers before the new ones land
         self.state = {
             name: {buf: torch.zeros(shape, dtype=dt, device=self.device)
-                   for buf, (shape, dt) in self._buffers(kv, d, cdt).items()}
-            for name, kv, d, cdt in self.layers}
-        self._bound.clear()
+                   for buf, (shape, dt) in self._buffers(*spec).items()}
+            for name, *spec in self.layers}
+        self.reset_attribution()
         return self.state
+
+    def reset_attribution(self) -> None:
+        """Forget the per-request attribution and the watermarks (a new
+        serving session; reference :237)."""
+        self._live.clear()
+        self._peak.clear()
+        self.hwm_tokens = 0
+        self.hwm_bytes = 0.0
 
     def allocated_bytes(self) -> int:
         """Bytes held by the cache buffers (scratch row, seq pad, scale
@@ -96,14 +118,17 @@ class KVAllocator:
     def bytes_per_token(self) -> float:
         """Committed-KV bytes one request-position costs across layers
         (int8: 1-byte values plus the two 4-byte scales), with the scratch
-        row's share spread over the request rows, as the reference prices
-        it (reference :164): ``bytes_per_token() * max_requests *
-        max_seq_len`` is the cache without its seq padding."""
-        int8 = self.kv_dtype == "int8"
-        per_row = sum(
-            2 * kv * (d * (1 if int8 else dt.itemsize) + (4 if int8 else 0))
-            for _, kv, d, dt in self.layers)
-        return float(per_row * (self.max_requests + 1) / self.max_requests)
+        row's share spread over the request rows: each buffer's bytes over
+        its request rows and padded positions, summed in the reference's
+        order (reference :164), so the float is the reference's to the
+        bit."""
+        total = 0.0
+        for _, *spec in self.layers:
+            for name, (shape, dt) in self._buffers(*spec).items():
+                if name in KV_BUFFER_NAMES:
+                    total += (math.prod(shape) * dt.itemsize
+                              / (max(shape[0] - 1, 1) * shape[2]))
+        return total
 
     @property
     def capacity_tokens(self) -> int:
@@ -122,10 +147,12 @@ class KVAllocator:
 
     def bind(self, rid: int, slot: Optional[int] = None, tokens=None,
              need: Optional[int] = None, align: int = 1) -> Optional[Dict]:
-        """A request took a slot.  The paged subclass also maps its pages
-        and returns ``{"cached_tokens", "hit_pages"}`` for a prefix it
-        already holds; nothing is ever cached here (None)."""
-        self._bound.add(int(rid))
+        """A request took a slot: its attribution starts.  The paged
+        subclass also maps its pages and returns ``{"cached_tokens",
+        "hit_pages"}`` for a prefix it already holds; nothing is ever
+        cached here (None)."""
+        self._live.setdefault(int(rid), 0)
+        self._peak.setdefault(int(rid), 0)
         return None
 
     def prepare_write(self, rid: int, lo: int, hi: int) -> None:
@@ -134,23 +161,71 @@ class KVAllocator:
         is reserved; the paged subclass maps and copy-on-writes pages)."""
         return None
 
-    def release(self, rid: int, tokens: int = 0) -> float:
+    def observe(self, usage: Dict[int, int]) -> Dict:
+        """One serve tick's live cache depths (``rid -> tokens`` of every
+        slotted prefilling or decoding request; reference :342): updates
+        the per-request peaks and the watermarks and returns the
+        snapshot (the reference's telemetry argument comes with the
+        port's telemetry)."""
+        self._live = {int(r): int(t) for r, t in usage.items()}
+        for rid, t in self._live.items():
+            if t > self._peak.get(rid, 0):
+                self._peak[rid] = t
+        per_tok = self.bytes_per_token()
+        live = sum(self._live.values())
+        live_bytes = live * per_tok if per_tok else 0.0
+        self.hwm_tokens = max(self.hwm_tokens, live)
+        self.hwm_bytes = max(self.hwm_bytes, live_bytes)
+        return self.snapshot(_per_tok=per_tok, _live=live)
+
+    def snapshot(self, _per_tok: Optional[float] = None,
+                 _live: Optional[int] = None) -> Dict:
+        """The occupancy, headroom and fragmentation view over the last
+        observed depths (reference :363-393), a pure read; the paged
+        subclass adds its pool and tier counters."""
+        per_tok = self.bytes_per_token() if _per_tok is None else _per_tok
+        live = sum(self._live.values()) if _live is None else _live
+        live_bytes = live * per_tok if per_tok else 0.0
+        cap_b = self.capacity_tokens * (per_tok or 1.0)
+        bound = len(self._live)
+        return {
+            "live_tokens": live,
+            "live_bytes": live_bytes,
+            "capacity_tokens": self.capacity_tokens,
+            "capacity_bytes": cap_b,
+            "headroom_bytes": cap_b - (live_bytes if per_tok else live),
+            "occupancy_frac": (live / self.capacity_tokens
+                               if self.capacity_tokens else 0.0),
+            # each bound slot reserves max_seq_len positions, of which only
+            # the live prefix is occupied
+            "fragmentation_frac": (
+                1.0 - live / (bound * self.max_seq_len)
+                if bound and self.max_seq_len else 0.0),
+            "bound_slots": bound,
+            "hwm_tokens": self.hwm_tokens,
+            "hwm_bytes": self.hwm_bytes,
+        }
+
+    def live_tokens(self) -> int:
+        return sum(self._live.values())
+
+    def live_requests(self) -> int:
+        """Slotted requests holding cache at the last observation."""
+        return len(self._live)
+
+    def release(self, rid: int, tokens: Optional[int] = None) -> float:
         """The request left its slot; returns the bytes it held at its
-        deepest (``tokens`` is its final cache depth: a slot-contiguous
-        request only grows)."""
-        self._bound.discard(int(rid))
-        return int(tokens) * self.bytes_per_token()
+        deepest: the larger of its observed peak and ``tokens``, its final
+        cache depth (a request can bind and finish between two
+        observations).  0 for a rid that never bound."""
+        rid = int(rid)
+        peak = max(self._peak.pop(rid, 0), self._live.pop(rid, 0))
+        if tokens is not None:
+            peak = max(peak, int(tokens))
+        return peak * (self.bytes_per_token() or 0.0)
 
     def attributed_rids(self) -> List[int]:
-        return sorted(self._bound)
-
-    def snapshot(self) -> Dict:
-        """The cache's size and the requests bound to it (reference
-        :1032, without the live-token gauges the port does not track);
-        the paged subclass adds its pool and tier counters."""
-        return {"capacity_tokens": self.capacity_tokens,
-                "allocated_bytes": self.allocated_bytes(),
-                "bound_requests": len(self._bound)}
+        return sorted(set(self._live) | set(self._peak))
 
     # ---- host-tier hooks: a slot-contiguous cache has no pages to spill,
     # so recovery from preemption stays recompute (reference :319-337)

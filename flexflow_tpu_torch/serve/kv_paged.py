@@ -605,7 +605,7 @@ class PagedKVAllocator(KVAllocator):
                 self._map(slot, k, dst)
                 self.cow_copies += 1
 
-    def release(self, rid: int, tokens: int = 0) -> float:
+    def release(self, rid: int, tokens: Optional[int] = None) -> float:
         """Unmap every page of the request's row after a last registration
         pass, so a finished request's shareable prefix outlives it."""
         rid = int(rid)
@@ -838,17 +838,29 @@ class PagedKVAllocator(KVAllocator):
         """Pages with more than one holder (requests and the index)."""
         return int(((self._req_refs + self._idx_refs) >= 2).sum())
 
-    def snapshot(self) -> Dict:
-        """The pool's occupancy, the prefix/COW counters and the host
-        tier's (reference :1032, without the live-token gauges the port
-        does not track)."""
-        snap = {
-            **super().snapshot(),
+    def snapshot(self, _per_tok: Optional[float] = None,
+                 _live: Optional[int] = None) -> Dict:
+        """The slot-contiguous snapshot with paged fragmentation and
+        headroom, the pool's occupancy, the prefix/COW counters and the
+        host tier's (reference :1032): fragmentation is the tail waste of
+        each request's last page, and headroom the free and evictable
+        pages."""
+        snap = super().snapshot(_per_tok, _live)
+        per_tok = snap["capacity_bytes"] / max(self.capacity_tokens, 1)
+        held = self.pages_held()
+        free = len(self._free)
+        evictable = sum(1 for e in self._entries.values()
+                        if self._req_refs[e.pid] == 0)
+        snap.update({
+            "fragmentation_frac": (1.0 - snap["live_tokens"]
+                                   / (held * self.page_size)
+                                   if held else 0.0),
+            "headroom_bytes": (free + evictable) * self.page_size * per_tok,
             "page_size": self.page_size,
             "pages_total": self.n_pages - 1,
-            "pages_live": self.pages_held(),
+            "pages_live": held,
             "pages_shared": self.pages_shared(),
-            "pages_free": len(self._free),
+            "pages_free": free,
             "pages_indexed": len(self._entries),
             "prefix_hits": self.prefix_hits,
             "prefix_misses": self.prefix_misses,
@@ -861,7 +873,7 @@ class PagedKVAllocator(KVAllocator):
             "swap_bytes": self.swap_bytes,
             "recompute_tokens_saved": self.recompute_tokens_saved,
             "restore_failures": self.restore_failures,
-        }
+        })
         if self.host_tier is not None:
             snap.update(self.host_tier.snapshot())
         return snap

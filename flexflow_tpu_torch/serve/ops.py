@@ -8,10 +8,12 @@ modes on one device, with int8 weights (``qkv``/``o_proj`` beside their
 :353-356), int8 KV caches (quantize-on-write, reference :429-496) and
 paged KV caches (writes translated through the page table, reference
 :50), and the other families' options (reference :164-193): RoPE or none,
-biased projections, ALiBi through the decode kernel's slopes.  No tensor
-parallelism, and no speculative steps on an ALiBi layer (the reference
-serves those through its gather path with a ``spec_pos`` buffer,
-:280-287, :831-836; ROADMAP Queue 1).  Layouts are the reference's: the
+biased projections, ALiBi through the decode kernel's slopes.  A
+speculative step of an ALiBi layer takes the reference's gather path
+(:830-836, :908-958) as torch ops, as no Pallas kernel computes it there:
+the spec slots' positions in a ``spec_pos`` buffer, ALiBi biases on the
+committed and the spec keys (``_alibi_tree_attend``).  No tensor
+parallelism.  Layouts are the reference's: the
 fused QKV weight is ``[E, KV, gq + 2, D]`` (per KV head, its gq query
 heads, then K, then V), ``o_proj`` is ``[QH*D, E]`` and the caches are
 kv-head-major ``[R+1, KV, S, D]`` with row ``R`` the pad tokens' scratch
@@ -33,6 +35,8 @@ import torch
 from torch import nn
 
 from ..ops.cuda.attention import (
+    NEG_INF,
+    _rows_f32,
     decode_attention,
     prefill_attention,
     tree_attention,
@@ -112,7 +116,8 @@ class IncMultiHeadSelfAttention(nn.Module):
     score by its head's slope times the key's distance (MPT, Falcon-RW).
     ``forward(x [T, E], bc, state, pages)`` with ``state = {"k", "v"}``
     this layer's caches (int8: and ``"k_scale"``, ``"v_scale"``; spec
-    steps: and ``"sk"``, ``"sv"``) and ``pages`` the page table of a paged
+    steps: and ``"sk"``, ``"sv"``, ALiBi: and ``"spec_pos"``) and
+    ``pages`` the page table of a paged
     cache (None: slot-contiguous); returns ``[T, E]``.  ``name`` is the
     module's path in the model, the key of its caches in the allocator's
     state; ``compute_dtype`` is the dtype of its activations and of fp
@@ -189,7 +194,7 @@ class IncMultiHeadSelfAttention(nn.Module):
         qkv = torch.matmul(x, w.reshape(self.embed_dim, -1)).reshape(
             t, self.num_kv_heads, self.q_per_kv + 2, self.head_dim)
         if self.use_bias:   # added to the product cast to x's dtype (:367)
-            qkv = qkv + self.qkv_bias
+            qkv = qkv + self.qkv_bias.to(qkv.dtype)
         q = qkv[:, :, : self.q_per_kv, :]          # [T, KV, gq, D]
         k = qkv[:, :, self.q_per_kv, :]            # [T, KV, D]
         v = qkv[:, :, self.q_per_kv + 1, :]        # [T, KV, D]
@@ -320,12 +325,6 @@ class IncMultiHeadSelfAttention(nn.Module):
         after this step's K/V lands in the spec buffer at ``spec_index``
         (reference :815).  Pad tokens use the scratch row with committed
         depth 0 and an empty mask, so they read no key."""
-        if self.use_alibi:
-            raise NotImplementedError(
-                "speculative steps on an ALiBi layer are not ported yet: the "
-                "reference serves them through its gather path with a "
-                "spec_pos buffer (ROADMAP Queue 1, speculative serving of "
-                "ALiBi families)")
         base = bc.base
         kc, vc, sk, sv = state["k"], state["v"], state["sk"], state["sv"]
         nreq = kc.shape[0] - 1
@@ -333,6 +332,10 @@ class IncMultiHeadSelfAttention(nn.Module):
         spec_idx = bc.spec_index.long().clamp(0, sk.shape[2] - 1)
         sk[rows, :, spec_idx] = k.to(sk.dtype)
         sv[rows, :, spec_idx] = v.to(sv.dtype)
+        if self.use_alibi:
+            state["spec_pos"][rows, spec_idx] = base.token_position
+            return self._alibi_tree_attend(q, state, bc, rows, spec_idx,
+                                           pages)
         real = rows < nreq
         req = rows.clamp(max=nreq - 1)
         clens = torch.where(real, bc.committed_lens[req], 0).to(torch.int32)
@@ -357,3 +360,70 @@ class IncMultiHeadSelfAttention(nn.Module):
             amask.reshape(r_t, p_t, -1).contiguous(),
             self.scaling_factor, **variant).reshape(t, self.num_q_heads,
                                                     self.head_dim)
+
+    def _alibi_tree_attend(self, q, state, bc, rows, spec_idx, pages=None):
+        """The gather path of an ALiBi layer's tree step (reference
+        :908-958) as torch ops: softmax over the committed keys below the
+        row's committed depth and the spec keys under the ancestor mask,
+        each score biased by its head's slope times (key position - query
+        position), the spec keys' positions read from ``spec_pos``.
+
+        The reference gathers each token's whole cache row (``[T, KV, S,
+        D]``); here the queries go to their row instead: a row's tree
+        tokens hold distinct spec slots (the spec buffer write above needs
+        that too), so ``q`` scatters into ``[R+1, P]`` by (row, spec
+        slot), every row's keys are read once (through the page table and
+        the int8 scales as the kernels' plain versions read them; an f32
+        contiguous cache is read in place), and each token reads its
+        output back from its (row, slot).  A token with no live key (a
+        pad, in the scratch row) gives zeros, as the tree kernels do.
+        f32 throughout, cast to q's dtype at the end."""
+        kc, vc, sk, sv = state["k"], state["v"], state["sk"], state["sv"]
+        r1, _, s, _ = kc.shape
+        nreq, p = r1 - 1, sk.shape[2]
+        kv, gq, d = self.num_kv_heads, self.q_per_kv, self.head_dim
+        dev = q.device
+        # [R+1, P, KV, gq, D] queries and [R+1, P] positions by slot
+        qr = q.new_zeros((r1, p, kv, gq, d), dtype=torch.float32)
+        qr[rows, spec_idx] = q.float()
+        qpos = torch.zeros((r1, p), dtype=torch.float32, device=dev)
+        qpos[rows, spec_idx] = bc.base.token_position.float()
+
+        def rows_f32(cache, scale):
+            # every logical row in f32: a view of an f32 contiguous cache
+            if pages is not None:
+                return _rows_f32(cache, scale, pages.table, pages.page_size,
+                                 torch.arange(r1, device=dev))
+            x = cache.float()
+            return x if scale is None else x * scale[..., None]
+
+        kr = rows_f32(kc, state.get("k_scale"))
+        vr = rows_f32(vc, state.get("v_scale"))
+        slopes = self.slopes(dev).reshape(kv, gq)[None, :, :, None, None]
+        key_pos = torch.arange(s, device=dev, dtype=torch.float32)
+        sc_c = torch.einsum("rpkgd,rksd->rkgps", qr, kr) * self.scaling_factor
+        sc_c = sc_c + slopes * (key_pos[None, None, :]
+                                - qpos[:, :, None])[:, None, None]
+        sc_p = torch.einsum("rpkgd,rkjd->rkgpj", qr, sk.float()
+                            ) * self.scaling_factor
+        sc_p = sc_p + slopes * (state["spec_pos"].float()[:, None, :]
+                                - qpos[:, :, None])[:, None, None]
+        clens = torch.zeros(r1, dtype=torch.long, device=dev)
+        clens[:nreq] = bc.committed_lens.long()
+        live_c = (key_pos[None, :] < clens[:, None])[:, None, None, None]
+        amask = torch.zeros((r1, p, p), dtype=torch.bool, device=dev)
+        amask[:nreq] = bc.ancestor_mask[:, :p, :p]
+        live_p = amask[:, None, None]
+        sc_c = sc_c.masked_fill(~live_c, NEG_INF)
+        sc_p = sc_p.masked_fill(~live_p, NEG_INF)
+        m = torch.maximum(sc_c.amax(-1), sc_p.amax(-1))[..., None]
+        w_c = torch.exp(sc_c - m) * live_c
+        w_p = torch.exp(sc_p - m) * live_p
+        o = (torch.einsum("rkgps,rksd->rkgpd", w_c, vr)
+             + torch.einsum("rkgpj,rkjd->rkgpd", w_p, sv.float()))
+        o = o / (w_c.sum(-1) + w_p.sum(-1)).clamp_min(1e-30)[..., None]
+        # each token's output from its (row, slot); pads give zeros
+        out = o.permute(0, 3, 1, 2, 4)[rows, spec_idx]      # [T, KV, gq, D]
+        out = torch.where((rows < nreq)[:, None, None, None], out, 0.0)
+        return out.reshape(q.shape[0], self.num_q_heads,
+                           self.head_dim).to(q.dtype)

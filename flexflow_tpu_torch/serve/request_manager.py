@@ -31,11 +31,16 @@ written pages spill to host memory and its readmission restores them
 Every dispatch runs under the retry policy (``_guarded``); a fault past
 the budget requeues or fails the requests in that dispatch only.
 
-The hooks the speculative manager builds on (``request_cls``,
+Each request carries a speculation mode (``register_new_request(spec=
+...)``, the ``spec`` arrival option, ``set_spec_mode``) that only the
+speculative manager reads.  The hooks it builds on (``request_cls``,
 ``_seq_len_needed``, ``_kv_bind``, ``_release_slot``, ``preempt``,
-``_tick``) leave this path as it is.  Left out (ROADMAP): telemetry and
-profiler hooks, SLO lanes and brownout, and live migration (with its
-``admission_closed`` gate).
+``_on_spec_flip``, ``_sync_kv``, ``_tick``) leave this path as it is.
+Once a tick, ``_sync_kv`` observes every live request's cache depth into
+the allocator, whose ``snapshot`` gauges (occupancy, headroom,
+fragmentation, watermarks) ``kv_snapshot`` returns.  Left out (ROADMAP):
+telemetry and profiler hooks, SLO lanes and brownout, and live migration
+(with its ``admission_closed`` gate).
 """
 
 from __future__ import annotations
@@ -89,7 +94,7 @@ OUTCOMES = {
 }
 
 # the options an arrival tuple's 4th element may carry
-ARRIVAL_OPTION_KEYS = frozenset({"priority", "ttl_s", "deadline_s"})
+ARRIVAL_OPTION_KEYS = frozenset({"priority", "ttl_s", "deadline_s", "spec"})
 
 
 def parse_arrival_options(rest) -> Tuple[Dict, Optional[str]]:
@@ -103,7 +108,8 @@ def parse_arrival_options(rest) -> Tuple[Dict, Optional[str]]:
     if not isinstance(rest[0], dict) or set(rest[0]) - ARRIVAL_OPTION_KEYS:
         return {}, f"bad arrival options {rest[0]!r}"
     try:
-        return {k: (int(v) if k == "priority" else float(v))
+        return {k: (int(v) if k == "priority"
+                    else bool(v) if k == "spec" else float(v))
                 for k, v in rest[0].items() if v is not None}, None
     except (TypeError, ValueError):
         return {}, f"bad arrival options {rest[0]!r}"
@@ -145,6 +151,11 @@ class Request:
     kv_restored: bool = False
     # the largest committed-KV bytes any of its slot bindings held
     kv_bytes: float = 0.0
+    # speculation mode, set at registration (``register_new_request(spec=
+    # ...)``) and flipped by ``set_spec_mode``: a SpecInferManager drafts
+    # and verifies a spec row's tree and decodes a plain row one token a
+    # macro step; the plain RequestManager ignores it
+    spec: bool = False
 
     @property
     def prefill_tokens(self) -> List[int]:
@@ -192,6 +203,9 @@ class RequestManager:
     # (steps, segments, joins); rebound per stretch
     last_exit_codes: Dict[int, int] = {}
     last_stretch: Dict[str, int] = {}
+    # the speculation mode of a request registered with ``spec=None``
+    # (the SpecInferManager's is True)
+    default_spec_mode = False
 
     def __init__(self, im, gen_config: Optional[GenerationConfig] = None,
                  resilience: Optional[ResilienceConfig] = None,
@@ -270,8 +284,17 @@ class RequestManager:
 
     def kv_snapshot(self) -> Dict:
         """The deployment's KV view (reference :2169): the allocator's
-        ``snapshot``."""
+        ``snapshot`` over the last observed depths."""
         return self.im.kv.snapshot()
+
+    def _sync_kv(self) -> None:
+        """Observe every live request's cache depth once a serve tick
+        (reference :2178): the per-request peaks, the watermarks and the
+        snapshot's gauges."""
+        self.im.kv.observe(
+            {r.rid: r.seq_len for r in self._active()
+             if r.status in (RequestStatus.PREFILLING,
+                             RequestStatus.DECODING)})
 
     def _seq_len_needed(self, req: Request) -> int:
         """Cache depth a request may reach (speculation adds headroom)."""
@@ -329,7 +352,8 @@ class RequestManager:
                              priority: int = 0, ttl_s: Optional[float] = None,
                              deadline_s: Optional[float] = None,
                              reject_invalid: bool = False,
-                             reject_reason: Optional[str] = None) -> int:
+                             reject_reason: Optional[str] = None,
+                             spec: Optional[bool] = None) -> int:
         """Queue a request; returns its rid.
 
         An invalid shape (empty prompt, negative ``max_new_tokens``, a
@@ -341,11 +365,14 @@ class RequestManager:
         manager's clock) arm a deadline; ``max_new_tokens=0`` completes at
         once with an ``ok`` outcome.  ``priority``: higher admits first and
         may preempt lower under ``ResilienceConfig.preemption``.
+        ``spec``: the request's speculation mode (None: the manager's
+        ``default_spec_mode``), which only a SpecInferManager reads.
         """
         req = self.request_cls(-1, [int(t) for t in prompt_tokens],
                                self.gen.max_new_tokens
                                if max_new_tokens is None
                                else int(max_new_tokens))
+        req.spec = bool(self.default_spec_mode if spec is None else spec)
         err = (reject_reason if reject_reason is not None
                else self._validate_request(req))
         if err is not None and not reject_invalid:
@@ -389,6 +416,23 @@ class RequestManager:
             return False
         req.cancel_requested = True
         return True
+
+    def set_spec_mode(self, rid: int, enabled: bool) -> bool:
+        """Flip a live request's speculation mode (reference :639); returns
+        whether it was live.  It takes effect at the next tick, so no
+        committed token changes.  Inert under this manager; the
+        SpecInferManager reacts in :meth:`_on_spec_flip`."""
+        req = self.requests.get(rid)
+        if req is None or req.status in TERMINAL_STATUSES:
+            return False
+        enabled = bool(enabled)
+        if req.spec != enabled:
+            req.spec = enabled
+            self._on_spec_flip(req)
+        return True
+
+    def _on_spec_flip(self, req: Request) -> None:
+        """Hook for a manager with per-mode state (reference :658)."""
 
     def _release_slot(self, req: Request) -> None:
         """Every slot-leaving path (completion, cancel, timeout, failure,
@@ -1272,6 +1316,7 @@ class RequestManager:
             if not self.has_work():
                 break
             self._tick()
+            self._sync_kv()
         return {rid: r.generated for rid, r in self.requests.items()}
 
     def serve_with_arrivals(self, arrivals, clock=None,
@@ -1281,15 +1326,15 @@ class RequestManager:
 
         ``arrivals``: ``(t_offset_s, prompt_tokens, max_new_tokens or
         None[, options])`` tuples, admitted once the clock passes their
-        offset; ``options`` is a dict of ``priority``, ``ttl_s`` and
-        ``deadline_s`` (a malformed one, like a malformed prompt,
-        registers ``REJECTED``).  ``clock``: a 0-argument seconds callable
-        (default ``time.perf_counter``), also the deadlines' clock for the
-        loop's duration.  ``quantum``: the decode stretch's cap while
-        arrivals are outstanding, unchained only (``chain_segments``
-        False): the chained stretch registers due arrivals at its segment
-        boundaries and joins them into the running batch while a slot is
-        free.
+        offset; ``options`` is a dict of ``priority``, ``ttl_s``,
+        ``deadline_s`` and ``spec`` (a malformed one, like a malformed
+        prompt, registers ``REJECTED``).  ``clock``: a 0-argument seconds
+        callable (default ``time.perf_counter``), also the deadlines'
+        clock for the loop's duration.  ``quantum``: the decode stretch's
+        cap while arrivals are outstanding, unchained only
+        (``chain_segments`` False): the chained stretch registers due
+        arrivals at its segment boundaries and joins them into the running
+        batch while a slot is free.
 
         Returns ``{rid: record}`` with ``arrival_s``, ``admitted_s``,
         ``prompt_len``, ``trace_id``, ``prefill_start_s`` (the start of the
@@ -1357,6 +1402,7 @@ class RequestManager:
                             if "prefill_start_s" not in records[rid]
                             and self.requests[rid].prefill_offset == 0]
                 self._tick()
+                self._sync_kv()
                 for rid in starters:
                     if self.requests[rid].prefill_offset > 0:
                         records[rid].setdefault("prefill_start_s", now)

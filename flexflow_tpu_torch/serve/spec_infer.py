@@ -1,8 +1,8 @@
 """SpecInfer: tree-based speculative decoding (SSM draft + LLM verify).
 
 Port of ``flexflow_tpu/serve/spec_infer.py`` (the SpecInfer ASPLOS'24
-design), greedy or seeded sampling, with every request in speculation
-mode.  Per macro-step, per request:
+design), greedy or seeded sampling.  Per macro-step, per request in
+speculation mode:
 
 1. *catch-up*: feed the tokens accepted last round into the draft model's
    (SSM's) committed cache as a plain ``BatchConfig``; the LLM's copies
@@ -37,16 +37,28 @@ at the reference's site names).  ``preempt`` releases both caches and
 resets the speculation state; readmission re-prefills ``prompt +
 generated`` into both models (reference :238, :333).
 
-Left out (see ROADMAP.md): mixed spec/non-spec rows with
-``set_spec_mode`` flips and their commit flush (so no row ever leaves the
-macro path holding commits, and the ``spec_commit_flush`` site has no
-dispatch), telemetry, profiling, SLO and brownout hooks.
+Mixed rows (reference :28-39): speculation is per request
+(``register_new_request(spec=...)``, default True here, the ``spec``
+arrival option, ``set_spec_mode`` at runtime).  A plain row joins the
+same verify step as a root-only tree and decodes one token a macro step;
+it skips the draft model, whose cache catches up from scratch when the
+row flips on (``_on_spec_flip``).  While no slotted request is in spec
+mode, a tick is the incremental manager's (prefill and chained decode
+stretches), after ``_flush_commits`` has fed every accepted but
+uncommitted position back as one plain batch (``spec_commit_flush``).
+The recomputed entries are the ones the verify step's commit would have
+copied, up to summation order: from the second layer on, a position's
+K/V depends on which attention kernel produced the layer's input.
+
+The KV gauges (reference :272-323) sum the target's and the draft's
+allocators, with one combined watermark.  Left out (see ROADMAP.md):
+telemetry, profiling, SLO and brownout hooks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +111,8 @@ class SpecInferManager(RequestManager):
     """
 
     request_cls = SpecRequest
+    # requests registered with spec=None speculate (reference :111)
+    default_spec_mode = True
 
     def __init__(self, llm, ssm, gen_config: Optional[GenerationConfig] = None,
                  width: int = 2, depth: int = 3, resilience=None,
@@ -130,6 +144,11 @@ class SpecInferManager(RequestManager):
                 f"SSM InferenceManager needs topk >= width ({self.width})")
         self.macro_steps = 0
         self.llm_steps = 0
+        # spec_commit_flush dispatches (each one plain LLM batch)
+        self.flushes = 0
+        # the combined (target + draft) live-token and byte watermarks
+        self._kv_hwm_tokens = 0
+        self._kv_hwm_bytes = 0.0
 
     # ------------------------------------------------------------------
     def _kv_bind(self, rid: int) -> None:
@@ -140,19 +159,52 @@ class SpecInferManager(RequestManager):
         self.ssm.kv.bind(rid, slot=self.requests[rid].slot)
 
     def _release_slot(self, req: SpecRequest) -> None:
-        # both caches release on every slot-leaving path
-        if req.slot >= 0:
-            self.ssm.kv.release(req.rid, req.ssm_committed)
-        super()._release_slot(req)
+        """Both caches release on every slot-leaving path (reference
+        :220); the request's bytes are the two bindings' sum."""
+        if req.slot < 0:
+            return
+        draft = self.ssm.kv.release(req.rid, req.ssm_committed)
+        target = self.llm.kv.release(req.rid, req.seq_len)
+        self.slots[req.slot] = None
+        req.slot = -1
+        req.kv_bytes = max(req.kv_bytes, target + draft)
 
-    def kv_snapshot(self):
-        """Both deployments' caches (reference :297): the LLM's snapshot
-        with the draft's sizes added in."""
-        snap = super().kv_snapshot()
-        draft = self.ssm.kv.snapshot()
-        for key in ("capacity_tokens", "allocated_bytes"):
-            snap[key] += draft[key]
+    def _combine_snaps(self, snap: Dict, snap_s: Dict) -> Dict:
+        """The draft's snapshot folded into the target's (reference
+        :272): summed tokens, bytes and capacity, the fractions
+        recomputed, and the watermark of the summed live stream, which
+        any true observation may raise."""
+        for k in ("live_tokens", "live_bytes", "capacity_tokens",
+                  "capacity_bytes", "headroom_bytes"):
+            snap[k] += snap_s[k]
+        self._kv_hwm_tokens = max(self._kv_hwm_tokens, snap["live_tokens"])
+        self._kv_hwm_bytes = max(self._kv_hwm_bytes, snap["live_bytes"])
+        snap["hwm_tokens"] = self._kv_hwm_tokens
+        snap["hwm_bytes"] = self._kv_hwm_bytes
+        snap["occupancy_frac"] = (
+            snap["live_tokens"] / snap["capacity_tokens"]
+            if snap["capacity_tokens"] else 0.0)
+        kv_l, kv_s = self.llm.kv, self.ssm.kv
+        reserved = (kv_l.live_requests() * kv_l.max_seq_len
+                    + kv_s.live_requests() * kv_s.max_seq_len)
+        snap["fragmentation_frac"] = (
+            1.0 - snap["live_tokens"] / reserved if reserved else 0.0)
         return snap
+
+    def kv_snapshot(self) -> Dict:
+        """Both deployments' caches as one view (reference :297)."""
+        return self._combine_snaps(self.llm.kv.snapshot(),
+                                   self.ssm.kv.snapshot())
+
+    def _sync_kv(self) -> None:
+        """Observe both allocators (reference :305): the target at each
+        live request's depth, the draft at its SSM depth."""
+        live = [r for r in self._active()
+                if r.status in (RequestStatus.PREFILLING,
+                                RequestStatus.DECODING)]
+        self._combine_snaps(
+            self.llm.kv.observe({r.rid: r.seq_len for r in live}),
+            self.ssm.kv.observe({r.rid: r.ssm_committed for r in live}))
 
     def preempt(self, rid: int) -> None:
         """Preempt and recompute (reference :238): both caches release,
@@ -166,6 +218,14 @@ class SpecInferManager(RequestManager):
         req.ssm_committed = 0
         req.ssm_backlog = []
 
+    def _on_spec_flip(self, req: Request) -> None:
+        """A runtime flip (reference :255): enabling rebuilds the draft
+        cache's catch-up feed when it lags; disabling needs nothing (the
+        row stops drafting next macro step, and its pending commit flows
+        through the next verify step or the flush)."""
+        if req.spec:
+            self._ssm_sync(req)
+
     def _seq_len_needed(self, req: Request) -> int:
         # verification scores up to `depth` positions past the last
         # committed token, so the cache needs headroom beyond max_new
@@ -178,9 +238,10 @@ class SpecInferManager(RequestManager):
 
     def _ssm_sync(self, req: SpecRequest) -> None:
         """Make the SSM's catch-up feed cover every position before the
-        next draft root (``seq_len - 1``).  A request whose LLM prefill ran
-        on the incremental path has none of it yet: its feed is rebuilt
-        from the end of its prefill feed on (reference :750)."""
+        next draft root (``seq_len - 1``).  A request that reaches the
+        macro path lagging (its LLM prefill or decode ran on the
+        incremental path, or it served plain rounds) has its feed rebuilt
+        from scratch, a value-deterministic overwrite (reference :750)."""
         if req.status is not RequestStatus.DECODING:
             return
         want = req.seq_len - 1
@@ -243,14 +304,19 @@ class SpecInferManager(RequestManager):
                 self._append_token(req, int(ids[flat]))
                 self._maybe_finish(req)
 
+        # plain rows skip the draft model; a spec row may reach the macro
+        # path with its draft cache behind
         for req in self._active():
-            self._ssm_sync(req)
+            if req.spec:
+                self._ssm_sync(req)
         while True:   # SSM prefill + catch-up of accepted tokens
             toks, reqi, pos, spans = [], [], [], []
             budget = self.ssm.max_tokens
             for req in self._active():
                 if budget <= 0:
                     break
+                if not req.spec:
+                    continue
                 lo = len(pos)
                 feed = req.prefill_tokens
                 if req.ssm_committed < len(feed):
@@ -285,25 +351,28 @@ class SpecInferManager(RequestManager):
     # ------------------------------------------------------------------
     def _draft_phase(self) -> List[SpecRequest]:
         """Build every decoding request's tree for this round (reference
-        :447); returns the requests to verify."""
+        :447): spec rows expand ``depth`` beam levels through the SSM,
+        plain rows keep a root-only tree; returns the requests to
+        verify."""
         decoding = [r for r in self._active()
                     if r.status is RequestStatus.DECODING]
         if not decoding:
             return []
         p = self.ssm.max_spec_tokens
         masks = np.zeros((self.ssm.max_requests, p, p), bool)
-        frontier = {}   # rid -> node indices at the current depth
         for req in decoding:
-            # the LLM's committed depth is the prefix before the root
+            # the LLM's committed depth is the prefix before the root (a
+            # row that served incremental ticks resyncs here)
             req.llm_committed = req.seq_len - 1
             req.tree = [TokenTreeNode(req.generated[-1], -1, 0, 0.0)]
             masks[req.slot, 0, 0] = True
-            frontier[req.rid] = [0]
+        drafting = [r for r in decoding if r.spec]
+        frontier = {req.rid: [0] for req in drafting}
         # feeding depth-d nodes yields depth-(d+1) children; the last
         # level is never fed (only the LLM's verify needs its K/V)
-        for _ in range(self.depth):
+        for _ in range(self.depth if drafting else 0):
             toks, reqi, pos, spec, points = [], [], [], [], []
-            for req in decoding:
+            for req in drafting:
                 for ni in frontier[req.rid]:
                     node = req.tree[ni]
                     toks.append(node.token)
@@ -318,13 +387,13 @@ class SpecInferManager(RequestManager):
                 return []
             topk_ids = res.topk_ids.cpu().numpy()
             topk_lp = res.topk_logprobs.cpu().numpy()
-            cands = {req.rid: [] for req in decoding}
+            cands = {req.rid: [] for req in drafting}
             for flat, req, ni in points:
                 base_lp = req.tree[ni].logprob
                 cands[req.rid] += [(base_lp + float(topk_lp[flat, j]),
                                     int(topk_ids[flat, j]), ni)
                                    for j in range(self.width)]
-            for req in decoding:
+            for req in drafting:
                 nxt = []
                 for lp, tok, parent in sorted(cands[req.rid],
                                               reverse=True)[: self.width]:
@@ -366,7 +435,9 @@ class SpecInferManager(RequestManager):
     # ------------------------------------------------------------------
     def _verify_phase(self, verifying: List[SpecRequest]) -> None:
         """ONE LLM step over every request's tree, then the accept walk,
-        the bonus token and next round's commit (reference :579)."""
+        the bonus token and next round's commit (reference :579).  A plain
+        row's root-only tree accepts no child: it emits the bonus token, a
+        one-token decode in the same batch."""
         if not verifying:
             return
         r, p = self.llm.max_requests, self.llm.max_spec_tokens
@@ -384,12 +455,11 @@ class SpecInferManager(RequestManager):
                 pos.append(req.llm_committed + node.depth)
                 spec.append(ni)
             commit += [(req.slot, src, dst) for src, dst in req.pending_commit]
-            # the cache positions this step commits (the last round's
-            # accepted nodes) and those the tree's accepted nodes will
-            # take; the spec buffer itself is never paged
-            spans.append((req.rid, min([d for _, d in req.pending_commit],
-                                       default=req.llm_committed),
-                          req.llm_committed + self.depth + 1))
+            if req.pending_commit:
+                # the cache positions this step's commit writes (the last
+                # round's accepted nodes; the spec buffer is never paged)
+                dsts = [d for _, d in req.pending_commit]
+                spans.append((req.rid, min(dsts), max(dsts) + 1))
             req.pending_commit = []
         self._kv_prepare(spans)
         bc = self._tree_bc(TreeVerifyBatchConfig, self.llm, toks, reqi, pos,
@@ -424,10 +494,12 @@ class SpecInferManager(RequestManager):
                 req.pending_commit.append(
                     (i, req.llm_committed + req.tree[i].depth))
             req.llm_committed += len(accepted)
-            # the SSM takes the same accepted tokens into its cache
-            base_pos = req.ssm_committed + len(req.ssm_backlog)
-            req.ssm_backlog += [(req.tree[i].token, base_pos + k)
-                                for k, i in enumerate(accepted)]
+            # the SSM takes the same accepted tokens into its cache; a
+            # plain row's feed is rebuilt when it flips on instead
+            if req.spec:
+                base_pos = req.ssm_committed + len(req.ssm_backlog)
+                req.ssm_backlog += [(req.tree[i].token, base_pos + k)
+                                    for k, i in enumerate(accepted)]
             for t in new_tokens:
                 self._append_token(req, t)
                 self._maybe_finish(req)
@@ -451,15 +523,72 @@ class SpecInferManager(RequestManager):
             self.llm.max_tokens)
 
     # ------------------------------------------------------------------
+    # the spec-aware tick: the mixed macro step, or the incremental path
+    # ------------------------------------------------------------------
+    def _spec_live(self) -> bool:
+        """Any slotted request in spec mode (reference :738).  The pending
+        queue is ignored on purpose: a spec arrival waiting behind plain
+        decoders must not move them onto the macro path (one token a row
+        a pass) while it waits; it admits through the incremental path,
+        and the next tick sees it."""
+        return any(r.spec for r in self._active())
+
+    def _flush_commits(self) -> bool:
+        """Commit every accepted but uncommitted position (reference
+        :770) before the tick leaves speculation: with no next verify
+        step, the pending positions are fed again as plain batches under
+        ``spec_commit_flush``, so the incremental step that follows sees
+        the whole prefix.  Returns whether the flush completed: a fault
+        past the retry budget requeues or fails only the rows of the
+        failed batch, and rows a token budget deferred to a later batch
+        keep their commits (the next tick retries)."""
+        flush = [r for r in self._active()
+                 if r.status is RequestStatus.DECODING and r.pending_commit]
+        while flush:
+            toks, reqi, pos, spans = [], [], [], []
+            budget = self.llm.max_tokens
+            for req in flush:
+                if not req.pending_commit or budget <= 0:
+                    continue
+                take = min(budget, len(req.pending_commit))
+                part = req.pending_commit[:take]
+                req.pending_commit = req.pending_commit[take:]
+                for _, dst in part:
+                    toks.append(self._token_at(req, dst))
+                    reqi.append(req.slot)
+                    pos.append(dst)
+                spans.append((req.rid, min(d for _, d in part),
+                              max(d for _, d in part) + 1))
+                budget -= take
+            if not toks:
+                break
+            self._kv_prepare(spans)
+            bc = self._plain_bc(self.llm, toks, reqi, pos)
+            if self._guarded("spec_commit_flush",
+                             lambda: self.llm.step(bc),
+                             affected_fn=lambda: self._rids_in_batch(bc)
+                             ) is None:
+                return False
+            self.llm_steps += 1
+            self.flushes += 1
+        return True
+
+    def flush_pending_commits(self) -> bool:
+        """Commit every accepted but uncommitted token now (reference
+        :822), as the tick does when it leaves speculation."""
+        return self._flush_commits()
+
     def _tick(self) -> None:
-        """A speculative macro step while any request holds a slot, else
-        the incremental tick, which admits and prefills (reference
-        :833)."""
-        if self._active():
+        """The mixed macro step while a slotted request is in spec mode
+        (plain rows ride the verify batch as root-only trees); otherwise
+        the pending commits flush, then the incremental tick (admission,
+        prefill and chained decode stretches), so an all-plain population
+        never pays for the macro path (reference :833)."""
+        if self._spec_live():
             self._prefill_phase()
             self._verify_phase(self._draft_phase())
             self.macro_steps += 1
-        else:
+        elif self._flush_commits():
             self._serve_tick()
 
     def serve_spec_infer(self):

@@ -39,7 +39,15 @@ with a paged cache, ``run`` maps (and copy-on-writes) up front every page
 each live slot's worst-case growth can reach, since committed depths
 advance on the device (reference spec_scan.py:224-242), and the caller
 keeps each slot's prompt pages mapped (the request stays bound to its
-slot while the scan runs).  Left out: mixed spec/non-spec slots.
+slot while the scan runs).
+
+Mixed slots (reference :147-195): ``init_carry(spec_mask=...)`` marks
+each slot's speculation mode.  A plain slot drafts nothing (its frontier
+ships as pads), verifies a root-only tree (its nodes past the root are
+pads of its kernel row, with an empty mask) and accepts no child, so it
+decodes one token a macro step in the same verify batch.  It still rides
+the SSM catch-up feed, so a flip on the host between ``run`` windows
+needs no rebuild.
 """
 
 from __future__ import annotations
@@ -114,14 +122,19 @@ class SpecDecodeScan:
     def init_carry(self, root_tokens: Sequence[int],
                    llm_committed: Sequence[int],
                    ssm_committed: Sequence[int], finished: Sequence[bool],
+                   spec_mask: Optional[Sequence[bool]] = None,
                    budget: Optional[Sequence[int]] = None
                    ) -> Dict[str, torch.Tensor]:
         """The loop state from host bookkeeping after prefill (reference
         :147).  ``root_tokens[r]``: slot r's last generated token;
         ``llm_committed``/``ssm_committed``: its committed cache depths;
-        ``finished``: slots that emit and write nothing; ``budget[r]``:
-        tokens slot r may still emit (None: no limit)."""
+        ``finished``: slots that emit and write nothing; ``spec_mask[r]``:
+        slot r speculates (None: every slot), else it decodes one token a
+        macro step; ``budget[r]``: tokens slot r may still emit (None: no
+        limit)."""
         r, d = self.llm.max_requests, self.depth
+        if spec_mask is None:
+            spec_mask = [True] * r
         if budget is None:
             budget = [_NO_BUDGET] * r
         fin = torch.tensor(list(finished), dtype=torch.bool, device=self.dev)
@@ -133,6 +146,8 @@ class SpecDecodeScan:
             commit_src=zeros.clone(), commit_dst=zeros.clone(),
             commit_n=zeros[:, 0].clone(), backlog_tok=zeros.clone(),
             backlog_n=zeros[:, 0].clone(), finished=fin,
+            spec=torch.tensor(list(spec_mask), dtype=torch.bool,
+                              device=self.dev),
             budget=_i32(budget, self.dev),
             macro_ctr=torch.zeros((), dtype=torch.int32, device=self.dev),
             exit_code=torch.where(fin, EXIT_NOT_IN_BATCH,
@@ -180,6 +195,7 @@ class SpecDecodeScan:
                       self.n_tree)
         dev = self.dev
         fin = c["finished"]
+        smask = c["spec"]
         slot = torch.arange(r, dtype=torch.int32, device=dev)
         kk = torch.arange(d + 1, dtype=torch.int32, device=dev)[None, :]
 
@@ -201,7 +217,8 @@ class SpecDecodeScan:
         cumlp = torch.zeros((r, p), dtype=torch.float32, device=dev)
         amask = torch.zeros((r, p, p), dtype=torch.bool, device=dev)
         amask[:, 0, 0] = True
-        reqi_d = torch.where(fin, -1, slot)
+        # a plain slot's frontier ships as pads: no writes, no candidates
+        reqi_d = torch.where(fin | ~smask, -1, slot)
         for lvl in range(d):
             fs = self._frontier[lvl]
             f = fs.stop - fs.start
@@ -234,7 +251,9 @@ class SpecDecodeScan:
             amask[:, n0: n0 + w] = rows
 
         # ---- 3. LLM verify, after the previous step's commit ----
-        reqi_v = torch.where(fin[:, None], -1, slot[:, None]).expand(r, p)
+        # a plain slot ships its root only: its other nodes are pads
+        node_ok = smask[:, None] | (torch.arange(p, device=dev) == 0)[None]
+        reqi_v = torch.where(fin[:, None] | ~node_ok, -1, slot[:, None])
         commit_valid = kk < torch.where(fin, 0, c["commit_n"])[:, None]
         smp = None
         if sample is not None:
@@ -268,7 +287,9 @@ class SpecDecodeScan:
         for _ in range(d):
             want = ids2.gather(1, ni[:, None])[:, 0]
             match = (par == ni[:, None]) & (tok == want[:, None])  # [R, P]
-            found = match.any(1) & alive
+            # a plain slot accepts no child (its nodes past the root hold
+            # unexpanded values): it emits the bonus token only
+            found = match.any(1) & alive & smask
             child = match.to(torch.int8).argmax(1)
             emits.append(torch.where(alive, want, -1))
             srcs.append(torch.where(found, child, -1).to(torch.int32))
@@ -318,6 +339,7 @@ class SpecDecodeScan:
             backlog_tok=torch.cat([tok[:, :1], emits], 1),
             backlog_n=torch.where(cont, cnt, 0),
             finished=fin_new,
+            spec=smask,
             budget=bud_new,
             macro_ctr=c["macro_ctr"] + 1,
             exit_code=ecode,

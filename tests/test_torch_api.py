@@ -109,10 +109,21 @@ def test_generate_ids_and_strings_single_and_batched(pair):
 
 
 def test_memory_report(pair):
-    _, llm = pair
+    """The reference's gauges under its key names, after a served run
+    (their values tick by tick: ``test_torch_api_parity.py``): the
+    watermark holds the most tokens the run had live at a tick."""
+    jllm, llm = pair
+    llm.generate(PROMPTS, max_new_tokens=4)
     kv = llm.memory_report()["kv"]
+    jkv = jllm.memory_report()["kv"]
+    assert set(kv) == set(jkv)
     assert kv["capacity_tokens"] == 2 * 64
-    assert kv["allocated_bytes"] == llm.im.kv.allocated_bytes() > 0
+    assert kv["capacity_bytes"] == jkv["capacity_bytes"] > 0
+    # the prefill stretch's tick holds both prompts and their first
+    # tokens' depths; the decode stretch then finishes both
+    assert kv["hwm_tokens"] == sum(len(p) + 1 for p in PROMPTS)
+    assert kv["hwm_bytes"] == kv["hwm_tokens"] * llm.im.kv.bytes_per_token()
+    assert kv["live_tokens"] == kv["bound_slots"] == 0
     assert LLM(CFG).memory_report() is None
 
 

@@ -1028,3 +1028,135 @@ def test_sampled_host_spec_equals_sampled_incremental_on_card(dev):
     first = same.index(False) if False in same else None
     assert got == want, (f"equal share {sum(same) / len(same):.4f}, "
                          f"first difference at flat index {first}")
+
+
+# ---------------------------------------------------------------------------
+# mixed spec and plain rows: root-only trees, pad nodes inside a kernel row
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tree_kernel_root_only_trees(dev, dtype):
+    """A mixed verify batch at the Llama-2-7B verify shape: slot 0 ships a
+    7-node tree, slots 1 and 2 a root-only tree (each token sees its
+    committed prefix and itself), and pads sit on the scratch row; every
+    variant against its plain version, paged == contiguous."""
+    g = torch.Generator().manual_seed(11)
+    qh, kv, d, s, pb, page = 32, 32, 128, 2048, 8, 512
+    r = 3
+    parents = [-1, 0, 0, 1, 1, 2, 2]
+    rows = [0] * 7 + [1, 2, 3, 3]
+    clens = [700] * 7 + [s - 1, 1] + [0, 0]
+    amask = torch.zeros(len(rows), pb, dtype=torch.bool)
+    for i, par in enumerate(parents):
+        if par >= 0:
+            amask[i] = amask[par]
+        amask[i, i] = True
+    amask[7, 0] = amask[8, 0] = True        # the root-only trees
+    q = torch.randn(len(rows), qh, d, generator=g).to(dev, dtype)
+    kc, vc, sk, sv = (torch.randn(r + 1, kv, n, d, generator=g).to(dev, dtype)
+                      for n in (s, s, pb, pb))
+    got = _check_variants(
+        "tree_attention", dev, dtype, q, kc, vc, page,
+        (sk, sv, torch.tensor(rows, dtype=torch.int32, device=dev),
+         torch.tensor(clens, dtype=torch.int32, device=dev), amask.to(dev)),
+        (d ** -0.5,))
+    assert not got["fp"][9:].float().abs().sum()   # pads: zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_tree_kernel_pad_nodes(dev, dtype):
+    """``SpecDecodeScan``'s mixed verify in the [R, P] layout: slots 0 and
+    2 ship 7-node trees, slots 1 and 3 their root only, their other nodes
+    pads of the same kernel row (the slot's row and depth, an empty
+    mask), and a finished slot is all pads on the scratch row; every
+    variant against its plain version, paged == contiguous."""
+    g = torch.Generator().manual_seed(12)
+    qh, kv, d, s, p, pb, page = 32, 32, 128, 2048, 7, 8, 512
+    r = 5
+    parents = [-1, 0, 0, 1, 1, 2, 2]
+    tree = torch.zeros(p, pb, dtype=torch.bool)
+    for i, par in enumerate(parents):
+        if par >= 0:
+            tree[i] = tree[par]
+        tree[i, i] = True
+    amask = torch.zeros(r, p, pb, dtype=torch.bool)
+    amask[0] = amask[2] = tree
+    amask[1, 0, 0] = amask[3, 0, 0] = True
+    q = torch.randn(r, p, qh, d, generator=g).to(dev, dtype)
+    kc, vc, sk, sv = (torch.randn(r + 1, kv, n, d, generator=g).to(dev, dtype)
+                      for n in (s, s, pb, pb))
+    got = _check_variants(
+        "tree_attention_batched", dev, dtype, q, kc, vc, page,
+        (sk, sv, torch.tensor([0, 1, 2, 3, 5], dtype=torch.int32,
+                              device=dev),
+         torch.tensor([513, s - 7, 64, 1, 0], dtype=torch.int32, device=dev),
+         amask.to(dev)), (d ** -0.5,))
+    assert not got["fp"][4].float().abs().sum()    # the finished slot
+
+
+def test_mixed_rows_7b_width_on_card(dev):
+    """2 layers at Llama-2-7B width in float32 (TF32 off) with a
+    llama-68m-shaped draft: a spec row and a plain row in one
+    ``SpecInferManager``, a flip off that flushes the pending commits and
+    a flip on, and ``SpecDecodeScan`` with ``spec_mask``, all equal to
+    incremental decoding on the card; the flush runs through K1."""
+    from flexflow_tpu_torch.serve import (
+        BatchConfig,
+        SpecDecodeScan,
+        SpecInferManager,
+    )
+
+    kw = dict(max_requests=4, max_tokens_per_batch=128, max_seq_len=512,
+              max_spec_tokens=8, device=dev)
+    llm = InferenceManager(build_model(WIDE),
+                           **kw).init_operators_inference(seed=0)
+    draft = InferenceManager(build_model(ServeModelConfig(
+        hidden_size=768, intermediate_size=3072, num_hidden_layers=2,
+        num_attention_heads=12, num_key_value_heads=12)), topk=2,
+        **kw).init_operators_inference(seed=1)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(3, 32000, size=n).tolist() for n in (40, 17, 64)]
+    gen = GenerationConfig(max_new_tokens=12)
+    want = RequestManager(llm, gen).generate(prompts)
+    llm.reset()
+    sm = SpecInferManager(llm, draft, gen, width=2, depth=3)
+    rids = [sm.register_new_request(p, spec=i != 1)
+            for i, p in enumerate(prompts)]
+    for _ in range(3):
+        sm._check_lifecycle()
+        sm._tick()
+    assert any(sm.requests[r].pending_commit for r in rids)
+    for r in rids:
+        sm.set_spec_mode(r, False)
+    k1 = att.decode_attention.launches
+    sm._check_lifecycle()
+    sm._tick()
+    assert sm.flushes == 1 and att.decode_attention.launches > k1
+    sm.set_spec_mode(rids[1], True)
+    out = sm.serve_spec_infer()
+    assert [out[r] for r in rids] == want
+
+    llm.reset()
+    draft.reset()
+    lens = [len(p) for p in prompts]
+    bc = BatchConfig.build(
+        [t for p in prompts for t in p],
+        [i for i, n in enumerate(lens) for _ in range(n)],
+        [j for n in lens for j in range(n)], lens + [0], max_tokens=128,
+        max_requests=4, device=dev)
+    draft.step(bc)
+    ids = llm.step(bc).token_ids.cpu().tolist()
+    ends = np.cumsum(lens) - 1
+    firsts = [ids[e] for e in ends] + [0]
+    sc = SpecDecodeScan(llm, draft, width=2, depth=3)
+    carry = sc.init_carry(firsts, lens + [0], lens + [0],
+                          [False] * 3 + [True],
+                          spec_mask=[True, False, True, False],
+                          budget=[11] * 4)
+    n0 = att.tree_attention_batched.launches
+    em, _ = sc.run(carry, 11)
+    assert att.tree_attention_batched.launches > n0
+    em = em.cpu().numpy()
+    assert ((em[:, 1] >= 0).sum(1) <= 1).all()     # the plain slot
+    scan = [[firsts[i]] + [int(t) for t in em[:, i].reshape(-1) if t >= 0]
+            for i in range(3)]
+    assert scan == want

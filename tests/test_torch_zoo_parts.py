@@ -9,7 +9,9 @@ the CPU (K1 with ALiBi: ``tests/test_torch_zoo_kernels.py``).
   model of each family, built as ``tests/test_model_zoo.py`` builds it,
   the port's converter output equals the JAX converter's array for array,
   and the port's greedy stream equals ``model.generate``'s;
-* refusals: speculative steps on an ALiBi layer.
+* MPT's speculative steps (the gather path with ``spec_pos``): logits,
+  caches and spec state against the JAX model's, float32
+  ``atol=rtol=1e-5``.
 """
 
 import dataclasses
@@ -24,6 +26,7 @@ from flexflow_tpu.ops.linear import Linear as JaxLinear
 from flexflow_tpu.ops.norm import LayerNorm as JaxLayerNorm
 from flexflow_tpu.serve.batch_config import BatchConfig as JaxBatchConfig
 from flexflow_tpu.serve.ops import PositionEmbedding as JaxPositionEmbedding
+from flexflow_tpu_torch.ops.cuda import attention as att
 from flexflow_tpu_torch.ops.embedding import PositionEmbedding
 from flexflow_tpu_torch.ops.linear import Linear
 from flexflow_tpu_torch.ops.norm import LayerNorm
@@ -33,7 +36,6 @@ from flexflow_tpu_torch.serve import (
     InferenceManager,
     RequestManager,
     ServeModelConfig,
-    TreeSearchBatchConfig,
     build_model,
     convert_state_dict,
     params_from_jax,
@@ -107,22 +109,57 @@ def test_position_embedding(offset):
 
 
 # ---------------------------------------------------------------------------
-# refusals
+# speculative steps on an ALiBi layer: the gather path
 # ---------------------------------------------------------------------------
-def test_speculative_step_on_alibi_layer_is_refused():
+def test_speculative_steps_on_alibi_layers_match_reference(monkeypatch):
+    """MPT's tree steps take the reference's gather path (``spec_pos``,
+    ALiBi on the committed and the spec keys): a prefill, a TreeSearch
+    step, then a TreeVerify step with a commit descriptor, against the
+    JAX model's ``_tree_attend`` (every layer's, through the logits) at
+    the real tokens, with the caches, spec buffers and ``spec_pos`` after
+    each step; no tree kernel runs."""
+    from test_torch_spec import (
+        TOL,
+        _assert_state_close,
+        _both_tree_bcs,
+        _jax_step,
+        _tree_masks,
+    )
+    from test_torch_zoo import jax_im, params_np
+
+    def no_tree_kernel(*a, **k):
+        raise AssertionError("an ALiBi tree step reached a tree kernel")
+
+    for name in ("tree_attention_plain", "tree_attention_batched_plain"):
+        monkeypatch.setattr(att, name, no_tree_kernel)
+    jim = jax_im("mpt", max_tokens=16, max_seq=32, max_spec=8)
     _, cfg = configs("mpt")
-    im = InferenceManager(build_model(cfg), max_requests=2,
-                          max_tokens_per_batch=8, max_seq_len=64,
-                          max_spec_tokens=4,
-                          device="cpu").init_operators_inference(seed=0)
-    bc = TreeSearchBatchConfig(
-        base=BatchConfig.build([1], [0], [3], [4], max_tokens=8,
-                               max_requests=2, device="cpu"),
-        spec_index=torch.zeros(8, dtype=torch.int32),
-        ancestor_mask=torch.ones(2, 4, 4, dtype=torch.bool),
-        committed_lens=torch.tensor([3, 0], dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ALiBi"):
-        im.forward(bc)
+    tim = InferenceManager(build_model(cfg), max_requests=2,
+                           max_tokens_per_batch=16, max_seq_len=32,
+                           device="cpu", max_spec_tokens=8)
+    tim.init_operators_inference(params_from_jax(params_np(jim), cfg, "cpu"))
+    args = ([5, 9, 2, 11, 3, 4, 4, 8], [0] * 5 + [1] * 3,
+            list(range(5)) + [0, 1, 2], [5, 3])
+    tim.forward(BatchConfig.build(*args, max_tokens=16, max_requests=2,
+                                  device="cpu"))
+    _jax_step(jim, JaxBatchConfig.build(*args, max_tokens=16,
+                                        max_requests=2))
+    steps = [_both_tree_bcs(
+        "search", [7, 12, 30, 1], [0, 0, 0, 1], [5, 6, 6, 3], [6, 7],
+        [0, 1, 2, 0], _tree_masks(8, {0: [-1, 0, 0], 1: [-1]}), [5, 3]),
+        _both_tree_bcs(
+        "verify", [13, 2, 40, 9, 22], [0, 0, 0, 1, 1], [7, 8, 9, 4, 5],
+        [8, 5], [0, 1, 2, 0, 1], _tree_masks(8, {0: [-1, 0, 1], 1: [-1, 0]}),
+        [7, 4], commit=[(0, 0, 5), (0, 1, 6), (1, 0, 3)])]
+    for n, (jbc, tbc) in zip((4, 5), steps):
+        got = tim.forward(tbc)
+        np.testing.assert_allclose(got[:n].numpy(), _jax_step(jim, jbc)[:n],
+                                   **TOL["float32"])
+        _assert_state_close(tim, jim)
+        for name, bufs in jim.state.items():
+            np.testing.assert_array_equal(
+                tim.state[name]["spec_pos"][:2].numpy(),
+                np.asarray(bufs["spec_pos"])[:2])
 
 
 # ---------------------------------------------------------------------------
