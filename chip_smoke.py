@@ -134,6 +134,24 @@ and prints no result):
    against ungated and the LM head alone; then ``ssms=[SSM(draft)]`` at 2
    layers of full width with seeded sampling (T=0.8 twice equal, T=1e-4
    equal to greedy).
+14. spec mixed: mixed spec and plain rows at 7B f32 with flips and the
+   commit flush, a ``spec_mask`` scan, then speculative serving of every
+   family at 2 layers of full width.
+15. control plane: the published Llama-2-7B shape in bf16 compiled through
+   ``LLM.compile`` (defaults, a llama-68m-shaped draft in ``ssms``) with
+   an SLO policy (latency-critical and batch lanes) and a brownout ladder
+   that escalates on KV occupancy: ``serve_with_arrivals`` of the 8
+   prompts, 32 new tokens, lanes alternating, on a pass-counting clock,
+   with every observation hook off and on (``Telemetry``,
+   ``StepProfiler``, a ``PlanHealthMonitor`` whose plan predicts the
+   hooks-off run's median TTFT and TPOT), three times each, alternating:
+   records equal; at least one level change and one output cap; the
+   hooks' host overhead share of the median wall, the profiler's per-tick
+   phase budget (``host_admit``, ``host_prepare``, ``dispatch``,
+   ``readback``) and counters (``host_syncs`` equal to the read-backs);
+   the spec manager with its hooks (K3), equal to it with them off; the
+   exports validated and summarised by ``tools.trace_report``, and two
+   hooks-on runs' counters equal under ``tools.bench_compare``.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -2329,6 +2347,237 @@ def phase_spec_mixed(serve, att, torch, dev):
     return launches
 
 
+def control_traffic(prompts, n_new, max_tokens):
+    """``api_traffic`` with the two lanes alternating: even requests
+    batch, odd ones latency-critical."""
+    return [(t, p, n, {"slo_class": "latency_critical" if i % 2
+                       else "batch"})
+            for i, (t, p, n) in enumerate(api_traffic(prompts, n_new,
+                                                       max_tokens))]
+
+
+def median_spread(xs):
+    """(median, max - min) of a list of floats."""
+    xs = sorted(xs)
+    return xs[len(xs) // 2], xs[-1] - xs[0]
+
+
+def phase_control_plane(serve, att, torch, dev, card):
+    """Phase 15: the serving control plane on the card.  The published
+    Llama-2-7B shape in bf16 (the host-bound case), compiled through
+    ``LLM.compile`` with the reference's defaults and a llama-68m-shaped
+    draft (``ssms``), an SLO policy (a latency-critical and a batch lane)
+    and a brownout ladder that escalates on KV occupancy.  On a
+    pass-counting clock, ``serve_with_arrivals`` of the 8 prompts, 32 new
+    tokens, lanes alternating: with every observation hook off (no
+    telemetry, profiler or plan-health monitor) and on, three times each,
+    alternating; streams, outcomes and records equal (the profiler's
+    ``work`` aside); the hooks' host overhead as a share of the median
+    wall; the profiler's phase budget per tick and its counters; the
+    spec manager with its hooks (K3); the JSONL summarised by the port's
+    ``trace_report``; two hooks-on runs' counters through its
+    ``bench_compare`` (exit 0).  Returns {path: launches}."""
+    import gc
+    import statistics
+
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.obs.report import summarize_jsonl
+    from flexflow_tpu_torch.tools import bench_compare, trace_report
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = serve.ServeModelConfig(dtype="bfloat16")   # Llama-2-7B defaults
+    caps = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048)
+    n_new = 32
+    gen = serve.GenerationConfig(max_new_tokens=n_new)
+    prompts = serve_prompts(cfg.vocab_size)
+    arrivals = control_traffic(prompts, n_new, caps["max_tokens_per_batch"])
+    slo = serve.SLOPolicy.default(lc_reservation_frac=0.0,
+                                  degraded_max_new_tokens=8)
+    # the 8 prompts hold half the cache: the ladder climbs from the first
+    # tick on and steps back once the batch lane has drained
+    ladder = serve.BrownoutConfig(check_every=1, kv_pressure_frac=0.35,
+                                  escalate_after=1, deescalate_after=2)
+
+    def hooks(on, plan=None):
+        tel = obs.Telemetry() if on else None
+        kw = dict(slo=slo, brownout=serve.BrownoutController(
+            slo, ladder, telemetry=tel))
+        if on:
+            kw.update(telemetry=tel, profiler=obs.StepProfiler(),
+                      plan_health=obs.PlanHealthMonitor(tel, plan))
+        return kw
+
+    draft = serve.SSM(draft_config(serve, "bfloat16"))
+    llm = serve.LLM(cfg).compile(device=dev, generation_config=gen,
+                                 ssms=[draft], spec_width=2, spec_depth=3,
+                                 **hooks(False), **caps)
+    im = llm.im
+    log(f"control plane: 7B bf16 compiled in "
+        f"{time.perf_counter() - t_phase:.1f}s through LLM.compile (gating "
+        f"{im.gate_lm_head}, chaining {llm.rm.chain_segments}, ssms: "
+        f"{type(llm.rm).__name__})")
+
+    run_step = im.run_step
+
+    def serve_once(rm):
+        """One run on fresh caches: (records, launches, wall s, median
+        TTFT and TPOT ms from the tokens' host stamps)."""
+        stamps = {}
+        inner = rm._append_token
+
+        def stamp(req, tok):
+            inner(req, tok)
+            stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+        rm._append_token = stamp
+        im.reset()
+        if hasattr(rm, "ssm"):
+            rm.ssm.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            recs, n = counted(att, lambda: rm.serve_with_arrivals(
+                arrivals, clock=PassClock(im)))
+            torch.cuda.synchronize()
+        finally:
+            im.run_step = run_step
+        wall = time.perf_counter() - t0
+        ttft = [(s[0] - t0) * 1e3 for s in stamps.values()]
+        tpot = [(s[-1] - s[0]) * 1e3 / (len(s) - 1)
+                for s in stamps.values() if len(s) > 1]
+        return (recs, n, wall, statistics.median(ttft),
+                statistics.median(tpot))
+
+    def strip(recs):
+        return {r: {k: v for k, v in rec.items() if k != "work"}
+                for r, rec in recs.items()}
+
+    launches = {}
+    walls = {False: [], True: []}
+    base = plan = None
+    runs = []
+    for i in range(6):
+        on = bool(i % 2)
+        rm = serve.RequestManager(im, gen, **hooks(on, plan))
+        recs, n, wall, ttft, tpot = serve_once(rm)
+        walls[on].append(wall)
+        if base is None:
+            base = strip(recs)
+            plan = {"plan_key": im.plan_key, "ttft_ms": ttft,
+                    "tpot_ms": tpot}
+            launches["incremental"] = n
+        elif strip(recs) != base:
+            raise AssertionError(f"control plane: run {i} (hooks "
+                                 f"{'on' if on else 'off'}) records differ "
+                                 "from the first hooks-off run's")
+        if on:
+            runs.append((rm, recs))
+        del rm
+    require_launches(launches["incremental"], "control plane", "fp",
+                     ("decode_attention", "prefill_attention"))
+    outcomes = collections.Counter(r["outcome"] for r in base.values())
+    capped = [r for r in base.values() if r.get("slo_class") == "batch"
+              and r["outcome"] == "ok" and len(r["tokens"]) < n_new]
+    rm, recs = runs[-1]
+    tel, prof = rm.telemetry, rm.profiler
+    m = tel.metrics.snapshot()
+    bo = rm.brownout
+    if not bo.history or not m.get("lane_degraded_total"):
+        raise AssertionError(f"control plane: the ladder {bo.history} made "
+                             f"no level change or no output cap")
+    if any(len(r["tokens"]) > n_new or not all(0 <= t < cfg.vocab_size
+                                               for t in r["tokens"])
+           for r in base.values()):
+        raise AssertionError("control plane: bad streams")
+    lanes = ("lane_", "brownout_")
+    off, spread_off = median_spread(walls[False])
+    on_, spread_on = median_spread(walls[True])
+    log(f"control plane: 7B bf16, 8 arrivals x {n_new} tokens, lanes "
+        f"alternating, pass clock [{card}]: records and streams equal hooks "
+        f"off and on in all 6 runs; outcomes {dict(outcomes)}, batch "
+        f"requests capped {len(capped)}; ladder (evaluation, level, "
+        f"reason) {[(e, int(lv), why) for e, lv, why in bo.history]}; lane "
+        f"counters { {k: m[k] for k in sorted(m) if k.startswith(lanes)} }")
+    log(f"control plane: wall median {off * 1e3:.3f} ms hooks off (spread "
+        f"{spread_off * 1e3:.3f}), {on_ * 1e3:.3f} ms on (spread "
+        f"{spread_on * 1e3:.3f}): host overhead share "
+        f"{(on_ - off) / off:+.4f} [{card}]")
+    rep = prof.report()
+    ticks = rep["ticks"]
+    budget = {k: rep["phases"][k]["ms"] / ticks
+              for k in ("host_admit", "host_prepare", "dispatch", "readback")
+              if k in rep["phases"]}
+    work = rep["work"]
+    log(f"control plane: profiler, {ticks} ticks: per-tick ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in budget.items())
+        + f" [{card}]; dispatches {work['dispatches']}, host_syncs "
+        f"{work['host_syncs']} (read-backs {rm.readbacks}), flops "
+        f"{work['flops']:.6e}, hbm_bytes_read {work['hbm_bytes_read']:.6e}, "
+        f"recompiles_total {work['recompiles_total']}")
+    if work["host_syncs"] != rm.readbacks:
+        raise AssertionError("control plane: host_syncs != readbacks")
+    report = rm.plan_health.check()
+    log(f"control plane: plan health {report['reasons']} (checks "
+        f"{report['checks']}, predicted TTFT {plan['ttft_ms']:.3f} ms, TPOT "
+        f"{plan['tpot_ms']:.3f} ms from the first hooks-off run) [{card}]")
+    # two hooks-on runs' counters: exact
+    docs = [{"work": r.profiler.report()["work"],
+             "requests": {str(k): v["work"] for k, v in rr.items()}}
+            for r, rr in runs[:2]]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "control_plane")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i, doc in enumerate(docs):
+        paths.append(os.path.join(out_dir, f"counters{i}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(doc, f)
+    if bench_compare.main([paths[0], paths[1], "--json",
+                           os.path.join(out_dir, "compare.json")]) != 0:
+        raise AssertionError("control plane: bench_compare found a counter "
+                             "that differs between two hooks-on runs")
+    # the spec manager's hooks: K3 on the verify steps
+    spec_on = llm.rm.__class__(im, llm.rm.ssm, gen, width=2, depth=3,
+                               **hooks(True, plan))
+    spec_off = llm.rm
+    s_off = serve_once(spec_off)[0]
+    s_on, launches["spec"], s_wall, _, _ = serve_once(spec_on)
+    if strip(s_on) != strip(s_off):
+        raise AssertionError("control plane: spec records differ with the "
+                             "hooks on")
+    require_launches(launches["spec"], "control plane spec", "fp",
+                     ("tree_attention",))
+    sm = spec_on.telemetry.metrics.snapshot()
+    log(f"control plane: spec (llama-68m draft), hooks on: wall "
+        f"{s_wall * 1e3:.3f} ms [{card}], verify rounds "
+        f"{sm.get('spec_verify_rounds')}, spec mode changes "
+        f"{sm.get('spec_mode_changes', 0)}, profiler dispatches "
+        f"{spec_on.profiler.work['dispatches']}; launches "
+        f"{short(launches['spec'])}")
+    path = spec_on.telemetry.export(out_dir, prefix="spec")["jsonl"]
+    paths = rm.telemetry.export(out_dir, prefix="incremental")
+    if trace_report.main(["--check", paths["jsonl"]]) != 0 or \
+            trace_report.main(["--check", path]) != 0:
+        raise AssertionError("control plane: an export fails --check")
+    summary = summarize_jsonl(paths["jsonl"])
+    log(f"control plane: trace_report of the incremental export: "
+        f"{summary['requests']} requests, outcomes {summary['outcomes']}, "
+        f"events {summary['events']}, dropped {summary['dropped']}, TTFT "
+        f"p50 {summary['ttft_p50_ms']} ms, TPOT p50 {summary['tpot_p50_ms']}"
+        f" ms [{card}], brownout changes "
+        f"{[c['level_name'] for c in summary['slo']['brownout_changes']]}")
+    log(f"control plane: phase wall {time.perf_counter() - t_phase:.1f}s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    del llm, im, spec_on, spec_off, rm, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 TC_KERNELS = ("prefill_tc_kernel", "prefill_tf32_kernel",
               "tree_split_tf32_kernel", "tree_split_kernel",
               "tree_merge_kernel", "decode_split_kernel",
@@ -2428,6 +2677,8 @@ def main():
         serve, att, torch, dev))
     mixed = timed("spec mixed", lambda: phase_spec_mixed(
         serve, att, torch, dev))
+    control = timed("control plane", lambda: phase_control_plane(
+        serve, att, torch, dev, card))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)
@@ -2467,9 +2718,14 @@ def main():
 
     def path_counts(var):
         if var == "fp":
-            return {"decode_attention": launches["incremental"],
-                    "prefill_attention": launches["incremental"],
-                    "tree_attention": launches["spec host"],
+            # the 7B bf16 serve path, and phase 15's first run (hooks off)
+            # and its speculative run
+            return {"decode_attention": plus(launches["incremental"],
+                                             control["incremental"]),
+                    "prefill_attention": plus(launches["incremental"],
+                                              control["incremental"]),
+                    "tree_attention": plus(launches["spec host"],
+                                           control["spec"]),
                     "tree_attention_batched": launches["spec device"]}
         if var == "int8+paged":
             return {"decode_attention": int8["incremental"],

@@ -73,6 +73,13 @@ from .resilience import (
     RetryPolicy,
     TransientServeError,
 )
+from .slo import (
+    BrownoutConfig,
+    BrownoutController,
+    BrownoutLevel,
+    SLOClass,
+    SLOPolicy,
+)
 from .spec_infer import SpecInferManager, SpecRequest, TokenTreeNode
 from .spec_scan import SpecDecodeScan
 from .weights import CONVERTERS, convert_state_dict, load_hf_model
@@ -110,6 +117,11 @@ __all__ = [
     "RetryPolicy",
     "FaultInjector",
     "TransientServeError",
+    "SLOClass",
+    "SLOPolicy",
+    "BrownoutLevel",
+    "BrownoutConfig",
+    "BrownoutController",
     "SpecInferManager",
     "SpecRequest",
     "TokenTreeNode",

@@ -11,10 +11,11 @@ card unless ``device`` says otherwise) and a
 :class:`~.spec_infer.SpecInferManager` over the first SSM, with the
 reference's defaults: LM-head gating and the chained decode stretch on.
 
-Left out (ROADMAP, the control-plane slice): the reference's
-``telemetry``, ``plan_health``, ``profiler``, ``slo`` and ``brownout``
-arguments, ``health``, ``attach_migration`` and ``fleet``; ``tp > 1`` waits
-for the multi-GPU slice.
+``compile``'s ``telemetry``, ``plan_health``, ``profiler``, ``slo`` and
+``brownout`` reach either manager as in the reference (:150-160);
+``health`` runs one plan-health check.  Left out: ``attach_migration`` and
+``fleet`` (live migration and the fleet router, ROADMAP slice 8b) raise
+``NotImplementedError``; ``tp > 1`` waits for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -60,8 +61,9 @@ class LLM:
                 generation_config: Optional[GenerationConfig] = None,
                 ssms: Sequence["LLM"] = (), spec_width: int = 2,
                 spec_depth: int = 3, dtype=None, kv_dtype=None,
-                kv_page_size=None, resilience=None, fault_injector=None,
-                device=None) -> "LLM":
+                kv_page_size=None, telemetry=None, resilience=None,
+                fault_injector=None, plan_health=None, profiler=None,
+                slo=None, brownout=None, device=None) -> "LLM":
         """Build the deployment (reference :53-152).  ``dtype`` is the
         parameters' dtype, as in the reference (:124-129): a state dict
         loads in ``dtype``, or float32 when it is None, whatever the
@@ -71,9 +73,11 @@ class LLM:
         checkpoint loaded with ``dtype=None`` holds f32 weights, twice
         its bytes, as the reference's does.  ``kv_dtype="int8"`` and
         ``kv_page_size`` choose the KV cache (see ``InferenceManager``);
-        ``resilience`` and ``fault_injector`` are the lifecycle policy
-        (see ``RequestManager``).  The first of ``ssms`` is compiled with
-        this model's capacities and ``topk = max(spec_width, 1)``.  The
+        ``resilience`` and ``fault_injector`` are the lifecycle policy,
+        ``telemetry``, ``plan_health``, ``profiler``, ``slo`` and
+        ``brownout`` the control plane (see ``RequestManager``).  The
+        first of ``ssms`` is compiled with this model's capacities and
+        ``topk = max(spec_width, 1)``.  The
         EOS id comes from the config when ``generation_config`` has
         none.  ``device=None`` is the CUDA card."""
         if tp != 1:
@@ -109,18 +113,55 @@ class LLM:
                             kv_page_size=kv_page_size, device=device)
             self.rm = SpecInferManager(
                 self.im, ssm.im, gen, width=spec_width, depth=spec_depth,
-                resilience=resilience, fault_injector=fault_injector)
+                telemetry=telemetry, resilience=resilience,
+                fault_injector=fault_injector, plan_health=plan_health,
+                profiler=profiler, slo=slo, brownout=brownout)
         else:
-            self.rm = RequestManager(self.im, gen, resilience=resilience,
-                                     fault_injector=fault_injector)
+            self.rm = RequestManager(self.im, gen, telemetry=telemetry,
+                                     resilience=resilience,
+                                     fault_injector=fault_injector,
+                                     plan_health=plan_health,
+                                     profiler=profiler, slo=slo,
+                                     brownout=brownout)
         return self
 
+    def health(self):
+        """Run and return one plan-health check now (reference :163):
+        live TTFT and TPOT against the plan's predictions and the SLO
+        targets, workload drift, KV pressure.  None when no monitor was
+        attached at :meth:`compile`.  With no re-search function (the
+        port has no planner yet) an unhealthy check reports and
+        recommends nothing."""
+        if self.rm is None or self.rm.plan_health is None:
+            return None
+        return self.rm.plan_health.check()
+
+    def attach_migration(self, build_manager, config=None, plan=None):
+        """Live plan migration (reference :178) is ROADMAP slice 8b,
+        not ported yet."""
+        raise NotImplementedError(
+            "attach_migration: live plan migration is slice 8b of the "
+            "port (ROADMAP), not ported yet")
+
+    @staticmethod
+    def fleet(llms, **kwargs):
+        """The fault-tolerant fleet router (reference :202) is ROADMAP
+        slice 8b, not ported yet."""
+        raise NotImplementedError(
+            "LLM.fleet: the fleet router is slice 8b of the port "
+            "(ROADMAP), not ported yet")
+
     def memory_report(self):
-        """``{"kv": the manager's KV snapshot}``; None before
+        """``{"kv": the manager's KV snapshot}``, with ``"ledger"``, the
+        telemetry's predicted-against-allocated memory report, when a
+        handle was attached (reference :223); None before
         :meth:`compile`."""
         if self.rm is None:
             return None
-        return {"kv": self.rm.kv_snapshot()}
+        report = {"kv": self.rm.kv_snapshot()}
+        if self.rm.telemetry.enabled:
+            report["ledger"] = self.rm.telemetry.memory.report()
+        return report
 
     def generate(self, prompts: Union[str, Sequence],
                  max_new_tokens: Optional[int] = None):

@@ -18,6 +18,15 @@ to the caller.  Each of the three consults the manager's
 ``fault_injector`` once, at its site name, before any device work
 (reference :618, :767, :973).
 
+Observability (reference :235-250): the ``telemetry`` and ``profiler``
+handles a RequestManager sets (no-ops by default).  Each ``step``,
+``decode_scan_async`` segment, ``join_slot`` and ``prefill_scan`` call
+counts one dispatch and times its host side under the ``dispatch`` phase;
+all but the join record a span on the ``dispatch`` track (reference
+:624-628, :769-781, :806-817, :839-842, :975-981).  No hook reads a
+device value.  ``publish_memory`` records the deployment's predicted and
+allocated bytes into the telemetry's memory ledger (reference :523).
+
 Sampling: greedy is exact argmax.  Temperature/top-p draws are keyed, as
 in the reference, by (seed, request id, token index), so a request's draw
 does not depend on what else is in the batch; the random numbers come
@@ -32,6 +41,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..obs.profiler import NULL_PROFILER
+from ..obs.telemetry import NULL_TELEMETRY
 from ..ops.cuda.attention import check_page_size
 from ..utils.platform import resolve_device, torch_dtype
 from .batch_config import BatchConfig, InferenceResult
@@ -114,6 +125,10 @@ class InferenceManager:
     # the seeded chaos hook a RequestManager sets (resilience.py); None:
     # no dispatch ever faults
     fault_injector = None
+    # the observability handles a RequestManager syncs (always: a shared
+    # manager never keeps an earlier RequestManager's live handle)
+    telemetry = NULL_TELEMETRY
+    profiler = NULL_PROFILER
 
     def __init__(self, model: torch.nn.Module, max_requests: int = 8,
                  max_tokens_per_batch: int = 64, max_seq_len: int = 512,
@@ -179,6 +194,10 @@ class InferenceManager:
             self.kv = KVAllocator(self.model, max_requests, max_seq_len,
                                   self.device, max_spec_tokens, kv_dtype)
         self._gate_lm_head = bool(gate_lm_head)
+        # the LM head is marked for gating at construction only (reference
+        # :358-361): the cost card prices a marked head per logit row
+        self.lm_head_marked = bool(gate_lm_head) and getattr(
+            self.model, "gates_lm_head", False)
         self.ready = False
 
     @property
@@ -195,6 +214,38 @@ class InferenceManager:
     @property
     def state(self):
         return self.kv.state
+
+    @property
+    def plan_key(self) -> str:
+        """The deployment in the serve search's ``tp{t}_pp{p}_m{m}``
+        convention (reference :491): one device."""
+        return "tp1_pp1_m1"
+
+    def publish_memory(self, telemetry, key: Optional[str] = None) -> None:
+        """Record this deployment's predicted and allocated HBM in the
+        telemetry's memory ledger (reference :523): predicted = the
+        memory parts of :mod:`.cost` (the reference's
+        ``plan_memory_parts``), allocated = the parameters' and the cache
+        buffers' real bytes (int8 values and scales, padding and spec
+        buffers included).  ``key`` overrides the plan key (the spec
+        draft's ``_draft`` record).  A no-op for a disabled handle; the
+        allocated side waits for the caches."""
+        if telemetry is None or not getattr(telemetry, "enabled", False):
+            return
+        from ..obs.memory import publish_predicted_parts
+        from .cost import compose_stage_parts, plan_memory_parts
+
+        key = key or self.plan_key
+        publish_predicted_parts(
+            telemetry, key, compose_stage_parts([plan_memory_parts(self)]))
+        if not self.kv.state:
+            return
+        w = float(sum(p.numel() * p.element_size()
+                      for p in self.model.parameters()))
+        kv = float(self.kv.allocated_bytes())
+        telemetry.memory_plan_allocated(
+            key, weights_gb=w / 1e9, kv_gb=kv / 1e9,
+            static_gb=(w + kv) / 1e9)
 
     @torch.no_grad()
     def init_operators_inference(self, params: Optional[Dict] = None,
@@ -253,7 +304,12 @@ class InferenceManager:
         ``topk``, also the top-k of the log-softmax of the float32 logits
         (reference :596-600).  The ``step`` fault site."""
         self._fault_site("step")
-        return self.run_step(bc, sample)
+        prof = self.profiler
+        if prof.enabled:
+            prof.count("dispatches")
+        with self.telemetry.span("step_dispatch", cat="dispatch",
+                                 track="dispatch"), prof.phase("dispatch"):
+            return self.run_step(bc, sample)
 
     @torch.no_grad()
     def run_step(self, bc, sample: Optional[Sample] = None
@@ -312,11 +368,24 @@ class InferenceManager:
         if max_position is None:
             raise ValueError("decode_scan_async needs the host's "
                              "max_position")
-        self._fault_site("decode_scan")
         if max_position + n_steps > self.max_seq_len:
             raise ValueError(
                 f"decode_scan would reach position {max_position + n_steps}"
                 f" > max_seq_len {self.max_seq_len}")
+        self._fault_site("decode_scan")
+        prof = self.profiler
+        if prof.enabled:
+            prof.count("dispatches")
+        with self.telemetry.span("decode_scan_dispatch", cat="dispatch",
+                                 track="dispatch",
+                                 n_steps=n_steps), prof.phase("dispatch"):
+            out = self._decode_steps(bc, n_steps, eos, sample, allowed)
+        if self.telemetry.enabled:
+            self.telemetry.metrics.counter("decode_scan_steps").inc(n_steps)
+        return out
+
+    def _decode_steps(self, bc, n_steps, eos, sample, allowed):
+        """The body of :meth:`decode_scan_async`."""
         present = bc.request_index >= 0
         alive = present
         if allowed is not None:
@@ -359,10 +428,14 @@ class InferenceManager:
         (reference :827): its token is ``tok_src[src_idx]``, the device
         result of its last prefill chunk (never read here), and the row
         is installed frozen when that token is ``eos``."""
-        tok = tok_src[src_idx]
-        active = None if eos is None else tok != eos
-        return bc.join_row(dst, tok, slot, pos, seq_len, num_tokens,
-                           active=active)
+        prof = self.profiler
+        if prof.enabled:
+            prof.count("dispatches")
+        with prof.phase("dispatch"):
+            tok = tok_src[src_idx]
+            active = None if eos is None else tok != eos
+            return bc.join_row(dst, tok, slot, pos, seq_len, num_tokens,
+                               active=active)
 
     @torch.no_grad()
     def prefill_scan(self, chunks: Sequence,
@@ -377,8 +450,14 @@ class InferenceManager:
         first chunk, so a retry replays the whole stretch."""
         self._fault_site("prefill_scan")
         samples = samples or [None] * len(chunks)
-        return torch.stack([self.run_step(bc, s).token_ids
-                            for bc, s in zip(chunks, samples)])
+        prof = self.profiler
+        if prof.enabled:
+            prof.count("dispatches")
+        with self.telemetry.span("prefill_scan_dispatch", cat="dispatch",
+                                 track="dispatch", n_chunks=len(chunks)), \
+                prof.phase("dispatch"):
+            return torch.stack([self.run_step(bc, s).token_ids
+                                for bc, s in zip(chunks, samples)])
 
 
 def param_layout(model: torch.nn.Module, dtypes) -> None:

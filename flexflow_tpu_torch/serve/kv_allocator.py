@@ -161,12 +161,12 @@ class KVAllocator:
         is reserved; the paged subclass maps and copy-on-writes pages)."""
         return None
 
-    def observe(self, usage: Dict[int, int]) -> Dict:
+    def observe(self, usage: Dict[int, int], telemetry=None) -> Dict:
         """One serve tick's live cache depths (``rid -> tokens`` of every
         slotted prefilling or decoding request; reference :342): updates
-        the per-request peaks and the watermarks and returns the
-        snapshot (the reference's telemetry argument comes with the
-        port's telemetry)."""
+        the per-request peaks and the watermarks, publishes the gauge set
+        to a live ``telemetry`` handle (``kv_usage``), and returns the
+        snapshot."""
         self._live = {int(r): int(t) for r, t in usage.items()}
         for rid, t in self._live.items():
             if t > self._peak.get(rid, 0):
@@ -176,7 +176,10 @@ class KVAllocator:
         live_bytes = live * per_tok if per_tok else 0.0
         self.hwm_tokens = max(self.hwm_tokens, live)
         self.hwm_bytes = max(self.hwm_bytes, live_bytes)
-        return self.snapshot(_per_tok=per_tok, _live=live)
+        snap = self.snapshot(_per_tok=per_tok, _live=live)
+        if telemetry is not None and getattr(telemetry, "enabled", False):
+            telemetry.kv_usage(snap)
+        return snap
 
     def snapshot(self, _per_tok: Optional[float] = None,
                  _live: Optional[int] = None) -> Dict:

@@ -38,9 +38,22 @@ speculative manager reads.  The hooks it builds on (``request_cls``,
 ``_on_spec_flip``, ``_sync_kv``, ``_tick``) leave this path as it is.
 Once a tick, ``_sync_kv`` observes every live request's cache depth into
 the allocator, whose ``snapshot`` gauges (occupancy, headroom,
-fragmentation, watermarks) ``kv_snapshot`` returns.  Left out (ROADMAP):
-telemetry and profiler hooks, SLO lanes and brownout, and live migration
-(with its ``admission_closed`` gate).
+fragmentation, watermarks) ``kv_snapshot`` returns.
+
+The control plane (reference :179-315): one ``Telemetry`` handle and one
+``StepProfiler`` shared with the InferenceManager take every ``request_*``
+lifecycle event, the batch mix, prefix hits, preemption, spill and
+restore, retries and faults, the KV gauges, and per tick the profiler's
+phases (``host_admit``, ``host_prepare``, ``dispatch``, ``readback``) and
+deterministic work counters; neither reads a device value.  An
+``SLOPolicy`` resolves each request's ``slo_class`` lane (a priority band,
+a per-class queue bound and KV reservation); a ``BrownoutController`` is
+evaluated every ``check_every`` ticks and defers, degrades (speculation
+off, output caps), spills or sheds degradable lanes (``_maybe_brownout``);
+a ``PlanHealthMonitor`` is checked every ``health_check_every`` ticks and
+once when a loop drains.  Left out (ROADMAP slice 8b): live migration
+(``_maybe_migrate``, the ``admission_closed`` gate), the fleet router's
+failover hook, and traffic-trace recording (``trace_run_meta``).
 """
 
 from __future__ import annotations
@@ -54,6 +67,8 @@ from typing import Counter, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..obs.profiler import profiler_or_null
+from ..obs.telemetry import telemetry_or_null
 from ..utils.platform import host_to_device
 from .batch_config import BatchConfig, PrefillBatchConfig
 from .inference_manager import EXIT_NOT_IN_BATCH
@@ -63,6 +78,7 @@ from .resilience import (
     TransientServeError,
     kv_bytes_per_token,
 )
+from .slo import reservation_reason
 
 
 class RequestStatus(enum.Enum):
@@ -94,7 +110,8 @@ OUTCOMES = {
 }
 
 # the options an arrival tuple's 4th element may carry
-ARRIVAL_OPTION_KEYS = frozenset({"priority", "ttl_s", "deadline_s", "spec"})
+ARRIVAL_OPTION_KEYS = frozenset({"priority", "ttl_s", "deadline_s", "spec",
+                                 "slo_class"})
 
 
 def parse_arrival_options(rest) -> Tuple[Dict, Optional[str]]:
@@ -109,7 +126,9 @@ def parse_arrival_options(rest) -> Tuple[Dict, Optional[str]]:
         return {}, f"bad arrival options {rest[0]!r}"
     try:
         return {k: (int(v) if k == "priority"
-                    else bool(v) if k == "spec" else float(v))
+                    else bool(v) if k == "spec"
+                    else str(v) if k == "slo_class"
+                    else float(v))
                 for k, v in rest[0].items() if v is not None}, None
     except (TypeError, ValueError):
         return {}, f"bad arrival options {rest[0]!r}"
@@ -156,6 +175,10 @@ class Request:
     # and verifies a spec row's tree and decodes a plain row one token a
     # macro step; the plain RequestManager ignores it
     spec: bool = False
+    # the SLO lane the request resolved to at registration ("": no policy)
+    # and the brownout windows it spent held in the queue
+    slo_class: str = ""
+    deferred_ticks: int = 0
 
     @property
     def prefill_tokens(self) -> List[int]:
@@ -206,16 +229,28 @@ class RequestManager:
     # the speculation mode of a request registered with ``spec=None``
     # (the SpecInferManager's is True)
     default_spec_mode = False
+    # serve ticks between plan-health checks (reference :1387)
+    health_check_every = 16
 
     def __init__(self, im, gen_config: Optional[GenerationConfig] = None,
-                 resilience: Optional[ResilienceConfig] = None,
-                 fault_injector=None, clock=None):
-        """``resilience``: the admission, deadline, preemption, retry and
+                 telemetry=None, resilience: Optional[ResilienceConfig] = None,
+                 fault_injector=None, clock=None, plan_health=None,
+                 profiler=None, slo=None, brownout=None):
+        """``telemetry``: a :class:`~..obs.telemetry.Telemetry` handle
+        (None: the no-op one), shared with the InferenceManager.
+        ``resilience``: the admission, deadline, preemption, retry and
         host-tier policy (None: every knob off).  ``fault_injector``: a
         seeded :class:`~.resilience.FaultInjector` the InferenceManager
         consults at its dispatch sites.  ``clock``: the deadlines' clock
         (default ``time.perf_counter``; ``serve_with_arrivals`` swaps in
-        its own for its duration)."""
+        its own for its duration).  ``plan_health``: a
+        :class:`~..obs.plan_health.PlanHealthMonitor`, given the KV
+        allocator, the lane policy and the brownout controller unless it
+        has its own.  ``profiler``: a :class:`~..obs.profiler.StepProfiler`
+        shared with the InferenceManager.  ``slo``: an
+        :class:`~.slo.SLOPolicy`; ``brownout``: a
+        :class:`~.slo.BrownoutController` (its policy when ``slo`` is
+        None)."""
         self.im = im
         self.gen = gen_config or GenerationConfig()
         self.requests: Dict[int, Request] = {}
@@ -229,6 +264,21 @@ class RequestManager:
         self.tokens_decoded = 0
         self.scan_runs = 0
         self.readbacks = 0
+        # one telemetry handle and one profiler across the stack, always
+        # synced onto the InferenceManager (reference :197-232)
+        self.telemetry = telemetry_or_null(telemetry)
+        im.telemetry = self.telemetry
+        self._tstamps: Dict[int, Dict[str, float]] = {}   # rid -> stamps
+        self.profiler = profiler_or_null(profiler)
+        im.profiler = self.profiler
+        if self.profiler.enabled:
+            self.profiler.install(im)
+            self.profiler.bind(self.telemetry)
+        # a fresh manager restarts rids from 0: no attribution left by an
+        # earlier manager on this deployment may alias them
+        im.kv.reset_attribution()
+        if self.telemetry.enabled:
+            im.publish_memory(self.telemetry)
         self.res = resilience or ResilienceConfig()
         if (self.res.kv_gate and self.res.kv_budget_bytes is not None
                 and kv_bytes_per_token(im) is None):
@@ -248,6 +298,21 @@ class RequestManager:
         self._sleep = time.sleep    # the retry backoff's wait
         # retries by site family ("step", "decode_scan", "kv_swap_in", ...)
         self.retries: Counter = collections.Counter()
+        self.plan_health = plan_health
+        if (plan_health is not None
+                and getattr(plan_health, "kv_allocator", None) is None):
+            plan_health.kv_allocator = im.kv
+        self._health_ticks = 0
+        self.slo = slo
+        self.brownout = brownout
+        if brownout is not None and slo is None:
+            self.slo = brownout.policy
+        self._brownout_ticks = 0
+        if plan_health is not None:
+            if getattr(plan_health, "slo", None) is None:
+                plan_health.slo = self.slo
+            if getattr(plan_health, "brownout", None) is None:
+                plan_health.brownout = self.brownout
 
     # ------------------------------------------------------------------
     def _sample_for(self, points, n_rows: int):
@@ -272,7 +337,16 @@ class RequestManager:
     def _read_back(self, *tensors: torch.Tensor) -> List[np.ndarray]:
         """The host's wait for the device: ``tensors`` (integer or bool
         device values) copied back in one transfer, as int32 arrays of
-        their shapes, counted in ``readbacks``."""
+        their shapes, counted in ``readbacks`` and as the profiler's
+        ``host_syncs``, timed under its ``readback`` phase."""
+        with self.profiler.phase("readback"):
+            out = self._fetch(*tensors)
+        self.profiler.host_sync()
+        return out
+
+    def _fetch(self, *tensors: torch.Tensor) -> List[np.ndarray]:
+        """The body of :meth:`_read_back`: one wait, counted in
+        ``readbacks``."""
         self.readbacks += 1
         host = torch.cat([t.reshape(-1).to(torch.int32)
                           for t in tensors]).cpu().numpy()
@@ -290,11 +364,11 @@ class RequestManager:
     def _sync_kv(self) -> None:
         """Observe every live request's cache depth once a serve tick
         (reference :2178): the per-request peaks, the watermarks and the
-        snapshot's gauges."""
+        snapshot's gauges, published as ``kv_usage`` to live telemetry."""
         self.im.kv.observe(
             {r.rid: r.seq_len for r in self._active()
              if r.status in (RequestStatus.PREFILLING,
-                             RequestStatus.DECODING)})
+                             RequestStatus.DECODING)}, self.telemetry)
 
     def _seq_len_needed(self, req: Request) -> int:
         """Cache depth a request may reach (speculation adds headroom)."""
@@ -326,6 +400,9 @@ class RequestManager:
                 and len(self.pending) >= res.max_pending):
             return (f"pending queue full ({len(self.pending)} >= "
                     f"{res.max_pending})")
+        reason = self._lane_admission_reason(req)
+        if reason is not None:
+            return reason
         if not res.kv_gate:
             return None
         per_tok = kv_bytes_per_token(self.im)
@@ -345,6 +422,52 @@ class RequestManager:
         if committed * per_tok > cap_bytes:
             return (f"KV headroom: {committed * per_tok / 2**20:.2f} MiB "
                     f"committed > {cap_bytes / 2**20:.2f} MiB budget")
+        # the reserved lanes: each class's need charges its own
+        # reservation first, only the overflow shares the pool
+        return self._lane_reservation_reason(
+            req, live, cap_bytes,
+            lambda r: kv.round_need(self._seq_len_needed(r)) * per_tok)
+
+    def _lane_reservation_reason(self, req: Request, live, budget: float,
+                                 price) -> Optional[str]:
+        """The per-class reserved-KV check (reference :461); None without
+        a policy or when no class reserves anything."""
+        slo = self.slo
+        if slo is None or not any(c.kv_reservation_frac
+                                  for c in slo.classes.values()):
+            return None
+        cls = slo.resolve(req.slo_class)
+        if cls is None:
+            return None
+        by_cls: Dict[str, float] = {}
+        for r in live:
+            rc = slo.resolve(r.slo_class)
+            key = rc.name if rc is not None else r.slo_class
+            by_cls[key] = by_cls.get(key, 0.0) + price(r)
+        return reservation_reason(slo, by_cls, cls, price(req), budget)
+
+    def _lane_admission_reason(self, req: Request) -> Optional[str]:
+        """The lane gates (reference :482): the brownout ladder's
+        admission gate for degradable classes (a ``lane_shed``) and the
+        per-class bounded queue; None without a policy."""
+        if self.slo is None:
+            return None
+        cls = self.slo.resolve(req.slo_class)
+        if cls is None:
+            return None   # an unknown class is the caller's invalidity
+        bo = self.brownout
+        if bo is not None and not bo.admits(cls.name):
+            if self.telemetry.enabled:
+                self.telemetry.lane_shed(cls.name, trace_id=req.trace_id,
+                                         reason=f"brownout:{bo.level.name}")
+            return (f"brownout {bo.level.name}: class {cls.name!r} "
+                    "admissions shed")
+        if cls.max_pending is not None:
+            depth = sum(1 for rid in self.pending
+                        if self.requests[rid].slo_class == cls.name)
+            if depth >= cls.max_pending:
+                return (f"class {cls.name!r} pending queue full "
+                        f"({depth} >= {cls.max_pending})")
         return None
 
     def register_new_request(self, prompt_tokens: Sequence[int],
@@ -353,7 +476,8 @@ class RequestManager:
                              deadline_s: Optional[float] = None,
                              reject_invalid: bool = False,
                              reject_reason: Optional[str] = None,
-                             spec: Optional[bool] = None) -> int:
+                             spec: Optional[bool] = None,
+                             slo_class: Optional[str] = None) -> int:
         """Queue a request; returns its rid.
 
         An invalid shape (empty prompt, negative ``max_new_tokens``, a
@@ -367,31 +491,67 @@ class RequestManager:
         may preempt lower under ``ResilienceConfig.preemption``.
         ``spec``: the request's speculation mode (None: the manager's
         ``default_spec_mode``), which only a SpecInferManager reads.
+        ``slo_class``: its lane under an attached policy (None or "": the
+        policy's default class; an unknown name is rejected like a bad
+        shape); the class's priority band adds to ``priority``, and an
+        in-force DEGRADE output cap truncates ``max_new_tokens``.
         """
         req = self.request_cls(-1, [int(t) for t in prompt_tokens],
                                self.gen.max_new_tokens
                                if max_new_tokens is None
                                else int(max_new_tokens))
         req.spec = bool(self.default_spec_mode if spec is None else spec)
+        band = 0
+        if self.slo is not None:
+            cls = self.slo.resolve(slo_class)
+            if cls is None:
+                req.slo_class = str(slo_class)
+            else:
+                req.slo_class = cls.name
+                band = cls.priority_band
         err = (reject_reason if reject_reason is not None
                else self._validate_request(req))
+        if (err is None and self.slo is not None
+                and self.slo.resolve(slo_class) is None):
+            err = f"unknown slo_class {slo_class!r}"
         if err is not None and not reject_invalid:
             raise ValueError(err)
         req.rid = self._next_rid
         self._next_rid += 1
         req.trace_id = f"r{req.rid:05d}"
-        req.priority = int(priority)
+        req.priority = int(priority) + band
         self.requests[req.rid] = req
+        tel = self.telemetry
+        if tel.enabled:
+            self._tstamps[req.rid] = {"enqueue": tel.request_enqueued(
+                req.trace_id, prompt_len=len(req.prompt))}
         reason = err if err is not None else self._admission_reason(req)
         if reason is not None:
             req.status = RequestStatus.REJECTED
             req.outcome = "rejected"
             req.prompt = []   # shed load must not grow host memory
+            if tel.enabled:
+                tel.request_rejected(req.trace_id, reason=reason)
             return req.rid
         if req.max_new_tokens == 0:
             req.status = RequestStatus.COMPLETED
             req.outcome = "ok"
+            if tel.enabled:
+                tel.request_finished(req.trace_id, n_tokens=0,
+                                     slo_class=req.slo_class or None)
             return req.rid
+        if self.brownout is not None and self.brownout.degrades(
+                req.slo_class):
+            # DEGRADE in force: speculation off and the class's output cap
+            # up front; counted only when something changed
+            changed = req.spec
+            req.spec = False
+            cap = self.brownout.output_cap(req.slo_class)
+            if cap is not None and cap < req.max_new_tokens:
+                req.max_new_tokens = cap
+                changed = True
+            if changed and tel.enabled:
+                tel.lane_degraded(req.slo_class)
         if deadline_s is not None:
             req.deadline_s = float(deadline_s)
         else:
@@ -429,6 +589,8 @@ class RequestManager:
         if req.spec != enabled:
             req.spec = enabled
             self._on_spec_flip(req)
+            if self.telemetry.enabled:
+                self.telemetry.spec_mode_changed(req.trace_id, spec=enabled)
         return True
 
     def _on_spec_flip(self, req: Request) -> None:
@@ -445,9 +607,11 @@ class RequestManager:
         req.kv_bytes = max(req.kv_bytes,
                            self.im.kv.release(req.rid, req.seq_len))
 
-    def _terminate(self, req: Request, status: RequestStatus) -> None:
+    def _terminate(self, req: Request, status: RequestStatus,
+                   site: str = "") -> None:
         """Move a request to a terminal status, releasing its queue entry,
-        slot, KV and host-tier pages."""
+        slot, KV and host-tier pages; ``site`` names the dispatch site
+        whose retries a ``FAILED`` request exhausted."""
         if req.rid in self.pending:
             self.pending.remove(req.rid)
         self._pending_since.pop(req.rid, None)
@@ -458,6 +622,18 @@ class RequestManager:
         req.outcome = OUTCOMES[status]
         if status is RequestStatus.REJECTED:
             req.prompt = []
+        tel = self.telemetry
+        if tel.enabled:
+            n = len(req.generated)
+            if status is RequestStatus.CANCELLED:
+                tel.request_cancelled(req.trace_id, n_tokens=n)
+            elif status is RequestStatus.TIMED_OUT:
+                tel.request_timed_out(req.trace_id, n_tokens=n)
+            elif status is RequestStatus.REJECTED:
+                tel.request_rejected(req.trace_id,
+                                     reason=site or "brownout shed")
+            elif status is RequestStatus.FAILED:
+                tel.request_failed(req.trace_id, site=site)
 
     def _swap_clock(self, new_clock):
         """Switch the deadline clock, rebasing every live armed deadline so
@@ -521,6 +697,9 @@ class RequestManager:
         req.preemptions += 1
         self.pending.append(rid)
         self._pending_since[rid] = self.steps
+        if self.telemetry.enabled:
+            self.telemetry.request_preempted(
+                req.trace_id, recompute_tokens=len(req.prefill_src))
 
     def _rids_in_batch(self, bc) -> List[int]:
         """The rids with tokens in a built batch (a slotted request can
@@ -531,7 +710,7 @@ class RequestManager:
         return [self.slots[s] for s in sorted(slots)
                 if self.slots[s] is not None]
 
-    def _fail_inflight(self, affected_fn=None) -> None:
+    def _fail_inflight(self, site: str, affected_fn=None) -> None:
         """A dispatch exhausted its retries: requeue the affected requests
         for recompute (``on_dispatch_failure="requeue"``, at most
         ``max_requeues`` times each) or fail them; everyone else keeps
@@ -548,7 +727,7 @@ class RequestManager:
                 req.requeues += 1
                 self.preempt(req.rid)
             else:
-                self._terminate(req, RequestStatus.FAILED)
+                self._terminate(req, RequestStatus.FAILED, site=site)
 
     def _guarded(self, site: str, fn, affected_fn=None, on_exhausted=None):
         """Run one dispatch under the retry policy (reference :863): a
@@ -558,43 +737,83 @@ class RequestManager:
         KV writes are positional, so a retry replays identical compute.
         Returns ``fn()``, or None once the budget is spent, after
         ``on_exhausted()`` (default: the affected requests are requeued or
-        failed by ``_fail_inflight``); the serve loop goes on."""
+        failed by ``_fail_inflight``); the serve loop goes on.  Each fault
+        is a ``dispatch_fault`` event, each retry a ``dispatch_retry``."""
         pol = self.res.retry
+        tel = self.telemetry
         attempt = 0
         while True:
             try:
                 return fn()
-            except TransientServeError:
+            except TransientServeError as e:
+                if tel.enabled:
+                    tel.fault_observed(site, detail=str(e))
                 if attempt >= pol.max_retries:
                     if on_exhausted is None:
-                        self._fail_inflight(affected_fn)
+                        self._fail_inflight(site, affected_fn)
                     else:
                         on_exhausted()
                     return None
                 attempt += 1
                 self.retries[site.split(":")[0]] += 1
                 delay = pol.backoff(attempt)
+                if tel.enabled:
+                    tel.dispatch_retry(site, attempt=attempt,
+                                       backoff_s=delay)
                 if delay > 0:
                     self._sleep(delay)
+
+    def _prof_account(self, spans, passes: int = 1, logit_rows=None,
+                      im=None) -> None:
+        """The profiler's work for one dispatch (reference :900): each
+        ``(rid, lo, hi)`` span feeds ``hi - lo`` tokens and reads the
+        ``hi``-deep live prefix.  Host arithmetic only."""
+        prof = self.profiler
+        if not prof.enabled or not spans:
+            return
+        prof.account(prof.card_for(im or self.im),
+                     [(rid, hi - lo, hi) for rid, lo, hi in spans],
+                     passes=passes, logit_rows=logit_rows)
 
     # ------------------------------------------------------------------
     # admission: priority queue, slot-pressure preemption
     # ------------------------------------------------------------------
-    def _pop_pending(self) -> int:
-        """The highest-priority pending rid, FIFO within a priority; a
-        request pending ``starvation_bound_ticks`` steps or more jumps
-        every band (oldest first)."""
+    def _held(self, req: Request) -> bool:
+        """Is this queued request held out of the slots by the brownout
+        ladder (DEFER, reference :925)?"""
+        return (self.brownout is not None
+                and self.brownout.holds(req.slo_class))
+
+    def _eligible(self) -> List[int]:
+        """The pending rids no brownout hold keeps out of the slots."""
+        return [rid for rid in self.pending
+                if not self._held(self.requests[rid])]
+
+    def _pop_pending(self) -> Optional[int]:
+        """The highest-priority eligible pending rid, FIFO within a
+        priority; a request pending ``starvation_bound_ticks`` steps or
+        more jumps every band (oldest first).  A held request's age
+        restarts (a hold is not priority starvation).  None when every
+        pending request is held."""
+        cands = []
+        for i, rid in enumerate(self.pending):
+            if self._held(self.requests[rid]):
+                self._pending_since[rid] = self.steps
+            else:
+                cands.append(i)
+        if not cands:
+            return None
         bound = self.starvation_bound_ticks
         if bound is not None:
-            overdue = [i for i, rid in enumerate(self.pending)
+            overdue = [i for i in cands
                        if self.steps - self._pending_since.setdefault(
-                           rid, self.steps) >= bound]
+                           self.pending[i], self.steps) >= bound]
             if overdue:
                 best = min(overdue, key=lambda i: (
                     self._pending_since[self.pending[i]], i))
                 self._pending_since.pop(self.pending[best], None)
                 return self.pending.pop(best)
-        best = max(range(len(self.pending)),
+        best = max(cands,
                    key=lambda i: (self.requests[self.pending[i]].priority, -i))
         self._pending_since.pop(self.pending[best], None)
         return self.pending.pop(best)
@@ -602,11 +821,23 @@ class RequestManager:
     def _fill_slots(self) -> None:
         for i, occupant in enumerate(self.slots):
             if occupant is None and self.pending:
-                req = self.requests[self._pop_pending()]
+                rid = self._pop_pending()
+                if rid is None:
+                    break   # everything pending is brownout-held
+                req = self.requests[rid]
                 req.slot = i
                 req.status = RequestStatus.PREFILLING
                 self.slots[i] = req.rid
                 self._kv_bind(req.rid)
+                tel = self.telemetry
+                if tel.enabled:
+                    # once a request: a readmission is not an admission
+                    ts = self._tstamps.setdefault(rid, {})
+                    if "admit" not in ts:
+                        ts["admit"] = tel.request_admitted(
+                            req.trace_id,
+                            queue_wait_s=(tel.now() - ts["enqueue"]
+                                          if "enqueue" in ts else None))
 
     def _victims(self, priority: int, exclude: int = -1) -> List[Request]:
         """Decoding requests preemption may evict for one of
@@ -622,8 +853,11 @@ class RequestManager:
         is free; returns whether one was evicted."""
         if not self.pending or any(s is None for s in self.slots):
             return False
+        eligible = self._eligible()   # a held request evicts no one
+        if not eligible:
+            return False
         victims = self._victims(max(self.requests[r].priority
-                                    for r in self.pending))
+                                    for r in eligible))
         if not victims:
             return False
         self.preempt(min(victims, key=lambda r: (r.priority, -r.rid)).rid)
@@ -669,13 +903,22 @@ class RequestManager:
         align = self.im.prefill_tile
         info = kv.bind(rid, slot=req.slot, tokens=req.prefill_tokens,
                        need=self._seq_len_needed(req), align=align)
-        cached = info["cached_tokens"] if info else 0
+        if info is None:
+            return   # the slot-contiguous cache: nothing to reuse
+        cached = info["cached_tokens"]
         if cached:
             req.prefill_offset = req.prefix_cached = cached
         restored = self._kv_restore(req, align)
         if restored > cached:
             req.prefill_offset = restored
             req.kv_restored = True
+        tel = self.telemetry
+        if tel.enabled:
+            if cached:
+                tel.prefix_cache_hit(req.trace_id, tokens_reused=cached,
+                                     pages=int(info.get("hit_pages", 0)))
+            else:
+                tel.prefix_cache_miss(req.trace_id)
 
     def _kv_spill(self, req: Request) -> None:
         """Copy a victim's written pages to the host tier before its slot
@@ -692,7 +935,12 @@ class RequestManager:
                 self.injector.maybe_fail(site)
             return kv.spill(req.rid, tokens)
 
-        self._guarded(site, spill, on_exhausted=lambda: kv.drop_spill(req.rid))
+        info = self._guarded(site, spill,
+                             on_exhausted=lambda: kv.drop_spill(req.rid))
+        if info and self.telemetry.enabled:
+            self.telemetry.kv_spilled(req.trace_id, pages=info["pages"],
+                                      nbytes=info["nbytes"],
+                                      tokens=info["tokens"])
 
     def _kv_restore(self, req: Request, align: int) -> int:
         """Upload ``req``'s spilled pages after its readmission bind;
@@ -710,12 +958,29 @@ class RequestManager:
                 self.injector.maybe_fail(site)
             return kv.restore(req.rid, align=align)
 
+        tel = self.telemetry
+
+        def exhausted():
+            kv.drop_spill(req.rid)
+            if tel.enabled:
+                tel.kv_restore_failed(
+                    req.trace_id, reason=f"retry budget exhausted at {site}")
+
         try:
-            info = self._guarded(site, restore,
-                                 on_exhausted=lambda: kv.drop_spill(req.rid))
-        except HostTierCorruption:
-            return 0   # the restore dropped the damaged spill
-        return int(info["restored_tokens"]) if info else 0
+            info = self._guarded(site, restore, on_exhausted=exhausted)
+        except HostTierCorruption as e:
+            kv.drop_spill(req.rid)   # the damaged copy goes: recompute
+            if tel.enabled:
+                tel.kv_restore_failed(req.trace_id, reason=str(e))
+            return 0
+        if not info:
+            return 0
+        if tel.enabled:
+            tel.kv_restored(req.trace_id, pages=info["pages"],
+                            nbytes=info["nbytes"],
+                            tokens_resumed=info["restored_tokens"],
+                            tokens_saved=info["tokens_saved"])
+        return int(info["restored_tokens"])
 
     def _kv_prepare(self, spans, kv=None) -> None:
         """Make the cache writable at every ``(rid, lo, hi)`` span the
@@ -756,9 +1021,13 @@ class RequestManager:
     def prepare_next_batch(self) -> Tuple[object, List[Tuple[int, int]]]:
         """Admit, then build the next step's batch.  Returns ``(bc,
         sample_points)`` with ``sample_points = [(flat index, rid)]`` the
-        slots whose output is that request's next token."""
-        self._admit()
-        return self._build_next_batch()
+        slots whose output is that request's next token.  The
+        profiler times admission as ``host_admit`` and the build as
+        ``host_prepare``."""
+        with self.profiler.phase("host_admit"):
+            self._admit()
+        with self.profiler.phase("host_prepare"):
+            return self._build_next_batch()
 
     def _build_next_batch(self):
         im = self.im
@@ -776,6 +1045,7 @@ class RequestManager:
                 positions.append(req.seq_len - 1)
                 sample_points.append((len(tokens) - 1, req.rid))
                 budget -= 1
+        n_decode = len(tokens)
 
         # a pure-prefill step ships tile-aligned chunks to the tiled
         # prefill kernel; mixed decode+prefill steps keep the flat layout
@@ -803,12 +1073,16 @@ class RequestManager:
             # a gated chunk's results are indexed by slot (reference
             # :1115-1135)
             gate = im.gate_lm_head
+            seq_lens = self._seq_lens()
             pbc, last_flat = PrefillBatchConfig.build(
-                segments, self._seq_lens(), tile,
+                segments, seq_lens, tile,
                 max_tokens=im.max_tokens, max_requests=im.max_requests,
                 device=im.device,
                 gate_slots=([slot for slot, _ in sample_points] if gate
                             else None))
+            self._prof_account(
+                spans, logit_rows=len(sample_points) if gate else None)
+            self._note_batch(0, sum(len(s[1]) for s in segments), seq_lens)
             return pbc, [(slot if gate else last_flat[slot], rid)
                          for slot, rid in sample_points]
 
@@ -859,17 +1133,43 @@ class RequestManager:
         # the depths are read before the prepare: a page-pressure victim
         # leaves its slot there, and its row's output is dropped
         seq_lens = self._seq_lens()
-        self._kv_prepare([(self.slots[slot], lo, hi)
-                          for slot, (lo, hi) in written.items()])
+        spans = [(self.slots[slot], lo, hi)
+                 for slot, (lo, hi) in written.items()]
+        self._kv_prepare(spans)
         bc = BatchConfig.build(tokens, req_idx, positions, seq_lens,
                                max_tokens=im.max_tokens,
                                max_requests=im.max_requests, device=im.device)
+        self._prof_account(spans)
+        self._note_batch(n_decode, len(tokens) - n_decode, seq_lens)
         return bc, sample_points
+
+    def _note_batch(self, n_decode: int, n_prefill: int, seq_lens) -> None:
+        """One step's batch mix for the telemetry (reference :1217):
+        token split, slot occupancy, KV utilization."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return
+        tel.batch_composition(
+            n_decode, n_prefill,
+            active_requests=sum(1 for s in self.slots if s is not None),
+            max_requests=self.im.max_requests,
+            kv_tokens=int(np.sum(seq_lens)),
+            kv_capacity=self.im.max_requests * self.im.max_seq_len)
 
     # ------------------------------------------------------------------
     def _append_token(self, req: Request, tok: int) -> None:
+        """Commit one generated token: the one place the first-token
+        (TTFT) stamp lives, whatever path produced it."""
         req.generated.append(tok)
         self.tokens_decoded += 1
+        tel = self.telemetry
+        if tel.enabled and len(req.generated) == 1:
+            ts = self._tstamps.setdefault(req.rid, {})
+            ts["first_token"] = tel.request_first_token(
+                req.trace_id,
+                ttft_s=(tel.now() - ts["enqueue"]
+                        if "enqueue" in ts else None),
+                slo_class=req.slo_class or None)
 
     def process_result(self, result, sample_points) -> None:
         if not sample_points:
@@ -896,6 +1196,17 @@ class RequestManager:
             req.outcome = "ok"
             req.prefill_src = None
             self._release_slot(req)
+            tel = self.telemetry
+            if tel.enabled:
+                ts = self._tstamps.get(req.rid, {})
+                now = tel.now()
+                first = ts.get("first_token")
+                tel.request_finished(
+                    req.trace_id, n_tokens=len(req.generated),
+                    tpot_s=((now - first) / max(len(req.generated) - 1, 1)
+                            if first is not None else None),
+                    kv_bytes=req.kv_bytes or None,
+                    slo_class=req.slo_class or None)
 
     # ------------------------------------------------------------------
     def _scan_steps_possible(self) -> int:
@@ -903,41 +1214,48 @@ class RequestManager:
         the device: > 1 only when every active request decodes and
         pending work could not be admitted now anyway: no slot is free
         and no preemption would fire (reference :1308-1323; unchained,
-        any pending work blocks).  Bounded by the largest remaining
-        budget (each row freezes on the device when its own budget runs
-        out), the cache's room, and ``lifecycle_quantum`` while a
-        deadline or cancel is armed."""
+        any pending work blocks).  Bounded by the smallest remaining
+        budget (a chain extends it to the largest), the cache's room, and
+        ``lifecycle_quantum`` while a deadline or cancel is armed, and
+        rounded down to a power of two, as the reference's (its compile
+        classes): eager launches compile nothing, but the same rounding
+        gives the same schedule, so every telemetry event and work
+        counter equals the reference's tick for tick."""
         active = self._active()
         if (not active
                 or any(r.status is not RequestStatus.DECODING
                        for r in active)):
             return 0
-        if self.pending and (not self.chain_segments
-                             or any(s is None for s in self.slots)
-                             or self._preempt_would_fire()):
-            return 0
-        n = max(r.max_new_tokens - len(r.generated) for r in active)
+        if self._eligible() and (not self.chain_segments
+                                 or any(s is None for s in self.slots)
+                                 or self._preempt_would_fire()):
+            return 0   # (a brownout-held queue waits regardless)
+        n = min(r.max_new_tokens - len(r.generated) for r in active)
         n = min(n, self.scan_chunk,
                 self.im.max_seq_len - max(r.seq_len for r in active) + 1)
         if any(r.deadline_s is not None or r.cancel_requested
                for r in active):
             n = min(n, self.lifecycle_quantum)
+        if n > 1:
+            n = 1 << (n.bit_length() - 1)
         return n
 
     def _preempt_would_fire(self) -> bool:
         """Would ``_try_preempt`` evict a row for the queue now (reference
         :1343)?  Such work goes to the per-step path: a chained stretch
         must not preempt a row the device is decoding."""
-        if not self.res.preemption or not self.pending:
+        eligible = self._eligible()
+        if not self.res.preemption or not eligible:
             return False
         return bool(self._victims(max(self.requests[r].priority
-                                      for r in self.pending)))
+                                      for r in eligible)))
 
     def _prefill_stretch_possible(self) -> bool:
         """Can the whole prefill wave run as tiled steps?  True when every
         active request is prefilling at a tile-aligned offset (no decode
         latency to protect)."""
-        self._admit()
+        with self.profiler.phase("host_admit"):
+            self._admit()
         active = self._active()
         tile = self.im.prefill_tile
         return (tile > 1 and bool(active)
@@ -946,10 +1264,11 @@ class RequestManager:
 
     def _prefill_stretch(self) -> None:
         """Feed every active request's remaining prefill as single-request
-        tiled chunks in one ``prefill_scan`` dispatch (reference :1414),
-        then read the first tokens back once.  The offsets advance only
-        after the dispatch succeeds, so a retry replays the stretch from
-        its first chunk."""
+        tiled chunks (reference :1414): ``prefill_scan`` dispatches of a
+        power of two chunks each, issued back to back, then the first
+        tokens read back at the end, one read-back a dispatch.  The
+        offsets advance only after every dispatch succeeds, so a retry
+        replays a dispatch from its first chunk."""
         im = self.im
         tile = im.prefill_tile
         active = self._active()
@@ -975,6 +1294,11 @@ class RequestManager:
                     max_requests=im.max_requests, device=im.device,
                     gate_slots=([req.slot] if done else []) if gate
                     else None)
+                # one model pass a chunk; a gated chunk's logits only at
+                # its completing prompt's slot
+                self._prof_account(
+                    [(req.rid, start, start + take)],
+                    logit_rows=(1 if done else 0) if gate else None)
                 start += take
                 idx = req.slot if gate else last_flat[req.slot]
                 samples.append(self._sample_for(
@@ -982,15 +1306,34 @@ class RequestManager:
                 chunks.append(pbc)
                 if done:
                     points.append((req, len(chunks) - 1, idx))
-        toks = self._guarded("prefill_scan",
-                             lambda: im.prefill_scan(chunks, samples))
-        if toks is None:
-            return   # requeued or failed: their offsets never moved
+        # segments of a power of two chunks (at most 64), one dispatch
+        # each, as the reference's scans (:1480): the same dispatches and
+        # the same telemetry
+        outs, at = [], 0
+        while at < len(chunks):
+            seg = 1 << (min(len(chunks) - at, 64).bit_length() - 1)
+            toks = self._guarded(
+                "prefill_scan",
+                lambda a=at, n=seg: im.prefill_scan(chunks[a: a + n],
+                                                    samples[a: a + n]))
+            if toks is None:
+                return   # requeued or failed: their offsets never moved
+            outs.append((at, toks))
+            at += seg
         self.steps += len(chunks)
         for req in active:
             req.prefill_offset = len(req.prefill_tokens)
-        firsts, = self._read_back(toks[[c for _, c, _ in points],
-                                       [f for _, _, f in points]])
+        # every segment's first tokens are read back at the end, a
+        # segment at a time: one phase, a host sync each (reference :1512)
+        firsts = []
+        with self.profiler.phase("readback"):
+            for a, toks in outs:
+                mine = [(c - a, f) for _, c, f in points
+                        if a <= c < a + toks.shape[0]]
+                vals, = self._fetch(toks[[c for c, _ in mine],
+                                         [f for _, f in mine]])
+                firsts += list(vals)
+        self.profiler.host_sync(len(outs))
         for (req, _, _), tok in zip(points, firsts):
             req.status = RequestStatus.DECODING
             self._append_token(req, int(tok))
@@ -1027,14 +1370,16 @@ class RequestManager:
                   if r.status is RequestStatus.DECODING]
         if not active:
             return
-        rows = [(req, flat) for flat, req in enumerate(active)]
-        sched = {r.rid: 0 for r in active}      # tokens issued, uncommitted
-        dev_seq = {r.rid: r.seq_len for r in active}   # depth on the device
-        bc = BatchConfig.build(
-            [r.generated[-1] for r in active], [r.slot for r in active],
-            [r.seq_len - 1 for r in active], self._seq_lens(),
-            max_tokens=im.max_tokens, max_requests=im.max_requests,
-            device=im.device)
+        prof = self.profiler
+        with prof.phase("host_prepare"):
+            rows = [(req, flat) for flat, req in enumerate(active)]
+            sched = {r.rid: 0 for r in active}   # tokens issued, uncommitted
+            dev_seq = {r.rid: r.seq_len for r in active}   # device depth
+            bc = BatchConfig.build(
+                [r.generated[-1] for r in active], [r.slot for r in active],
+                [r.seq_len - 1 for r in active], self._seq_lens(),
+                max_tokens=im.max_tokens, max_requests=im.max_requests,
+                device=im.device)
 
         def remaining(req):
             return req.max_new_tokens - len(req.generated) - sched[req.rid]
@@ -1053,6 +1398,16 @@ class RequestManager:
                 # the row's whole budget, not the segment's: a row that
                 # outlives the segment ends it running, not at its budget
                 allowed[flat] = max(remaining(req), 0)
+            if prof.enabled:
+                # k decode steps a row: each streams the weights and reads
+                # the growing live prefix
+                prof.account(
+                    prof.card_for(im),
+                    [(req.rid, ks[req.rid],
+                      ks[req.rid] * dev_seq[req.rid]
+                      + ks[req.rid] * (ks[req.rid] - 1) // 2)
+                     for req, _ in rows if ks[req.rid] > 0],
+                    passes=seg)
             smp = self._sample_for(
                 [(flat, req.rid, sched[req.rid]) for req, flat in rows],
                 im.max_tokens)
@@ -1085,12 +1440,14 @@ class RequestManager:
             if any(r.slot < 0 or self.slots[r.slot] != r.rid for r in reqs):
                 break                 # a clock callback took a row out
             if self._arrival_pump is not None:
-                self._arrival_pump()
+                with prof.phase("host_admit"):
+                    self._arrival_pump()
             rem_cap = self.scan_chunk - total
             if rem_cap < 2:
                 break
             if (self.pending and len(rows) < im.max_tokens
-                    and any(s is None for s in self.slots)):
+                    and any(s is None for s in self.slots)
+                    and self._eligible()):
                 bc = self._stretch_join(bc, rows, sched, dev_seq, commits,
                                         eos)
             armed = [r.deadline_s for r, _ in rows if r.deadline_s is not None]
@@ -1099,11 +1456,14 @@ class RequestManager:
             rem_max = max(remaining(req) for req, _ in rows)
             if rem_max < 2:
                 break   # a one-step trailer rides the next tick
-            # not rounded to a power of two: that bounds the reference's
-            # compiled scan lengths, and eager launches compile nothing
+            # rounded to a power of two as the reference's segments are
+            # (see _scan_steps_possible)
             seg = min(rem_cap, rem_max)
             if armed:
                 seg = min(seg, self.lifecycle_quantum)
+            seg = 1 << (seg.bit_length() - 1)
+            if seg < 2:
+                break
             spans = [(req.rid, dev_seq[req.rid] - 1,
                       dev_seq[req.rid] - 1 + min(seg, remaining(req)))
                      for req, _ in rows if remaining(req) > 0]
@@ -1144,6 +1504,10 @@ class RequestManager:
             "joins": sum(item[0] == "join" for item in commits)}
         self.steps += total
         self.scan_runs += 1
+        if prof.enabled:
+            prof.note(decode_quantum=n, stretch_steps=total,
+                      stretch_segments=segments,
+                      stretch_joins=self.last_stretch["joins"])
 
     def _stretch_join(self, bc, rows, sched, dev_seq, commits, eos):
         """Admit pending arrivals into the running stretch (reference
@@ -1153,11 +1517,13 @@ class RequestManager:
         from the next segment on.  A joiner whose pages or prefill fail
         goes back to the queue (``_unjoin``)."""
         im = self.im
-        before = set(self.slots)
-        self._fill_slots()
+        with self.profiler.phase("host_admit"):
+            before = set(self.slots)
+            self._fill_slots()
+            newly = [r for r in self.slots
+                     if r is not None and r not in before]
         joined = []
-        for rid in [r for r in self.slots
-                    if r is not None and r not in before]:
+        for rid in newly:
             req = self.requests[rid]
             if len(rows) >= im.max_tokens:
                 continue   # stays slotted: it prefills on the next tick
@@ -1179,8 +1545,12 @@ class RequestManager:
             rows.append((req, dst))
             sched[req.rid] = 1
             dev_seq[req.rid] = n_prompt + 1
-        if joined and self._join_stamp is not None:
-            self._join_stamp(joined)
+        if joined:
+            if self._join_stamp is not None:
+                self._join_stamp(joined)
+            if self.telemetry.enabled:
+                self.telemetry.metrics.counter("stretch_joins").inc(
+                    len(joined))
         return bc
 
     def _stretch_prefill(self, req: Request, rows, dev_seq):
@@ -1197,18 +1567,21 @@ class RequestManager:
         while req.prefill_offset < len(feed):
             start = req.prefill_offset
             take = min(im.max_tokens, len(feed) - start)
-            # the running rows' depths are the device's, ahead of the host
-            seq_lens = np.zeros(im.max_requests, np.int32)
-            for r2, _ in rows:
-                seq_lens[r2.slot] = dev_seq[r2.rid]
-            seq_lens[req.slot] = start + take
-            bc = BatchConfig.build(
-                feed[start: start + take], [req.slot] * take,
-                range(start, start + take), seq_lens,
-                max_tokens=im.max_tokens, max_requests=im.max_requests,
-                device=im.device)
+            with self.profiler.phase("host_prepare"):
+                # the running rows' depths are the device's, ahead of the
+                # host
+                seq_lens = np.zeros(im.max_requests, np.int32)
+                for r2, _ in rows:
+                    seq_lens[r2.slot] = dev_seq[r2.rid]
+                seq_lens[req.slot] = start + take
+                bc = BatchConfig.build(
+                    feed[start: start + take], [req.slot] * take,
+                    range(start, start + take), seq_lens,
+                    max_tokens=im.max_tokens, max_requests=im.max_requests,
+                    device=im.device)
             smp = (self._sample_for([(take - 1, req.rid)], im.max_tokens)
                    if start + take == len(feed) else None)
+            self._prof_account([(req.rid, start, start + take)])
             res = self._guarded(
                 "step", lambda b=bc, s=smp: im.step(b, sample=s),
                 affected_fn=lambda: [req.rid])
@@ -1256,12 +1629,20 @@ class RequestManager:
                   if r.status is RequestStatus.DECODING]
         if not active:
             return
-        rids = [r.rid for r in active]
-        bc = BatchConfig.build(
-            [r.generated[-1] for r in active], [r.slot for r in active],
-            [r.seq_len - 1 for r in active], self._seq_lens(),
-            max_tokens=im.max_tokens, max_requests=im.max_requests,
-            device=im.device)
+        prof = self.profiler
+        with prof.phase("host_prepare"):
+            rids = [r.rid for r in active]
+            bc = BatchConfig.build(
+                [r.generated[-1] for r in active], [r.slot for r in active],
+                [r.seq_len - 1 for r in active], self._seq_lens(),
+                max_tokens=im.max_tokens, max_requests=im.max_requests,
+                device=im.device)
+        if prof.enabled:
+            # n decode steps: each streams the weights and reads the
+            # growing live prefix
+            prof.account(prof.card_for(im),
+                         [(r.rid, n, n * r.seq_len + n * (n - 1) // 2)
+                          for r in active], passes=n)
         eos = self.gen.eos_token_id if self.gen.stop_on_eos else None
         allowed = np.zeros(im.max_tokens, np.int32)
         allowed[:len(active)] = [r.max_new_tokens - len(r.generated)
@@ -1282,27 +1663,35 @@ class RequestManager:
                     self._append_token(req, int(toks[s, flat]))
                     self._maybe_finish(req)
         self.steps += n
+        if prof.enabled:
+            prof.note(decode_quantum=n, stretch_steps=n,
+                      stretch_segments=1, stretch_joins=0)
 
     def _serve_tick(self) -> None:
         """One scheduling decision: a prefill stretch, a decode stretch,
-        or one mixed step, each under the retry guard."""
+        or one mixed step, each under the retry guard and in its telemetry
+        span (reference :1932)."""
+        tel = self.telemetry
         if self._prefill_stretch_possible():
-            self._prefill_stretch()
+            with tel.span("prefill_stretch", cat="serve"):
+                self._prefill_stretch()
             return
         n = self._scan_steps_possible()
         if n > 1:
-            self._decode_stretch(n)
+            with tel.span("decode_stretch", cat="serve", steps=n):
+                self._decode_stretch(n)
             return
-        bc, sample_points = self.prepare_next_batch()
-        gated = getattr(bc, "logit_slots", None) is not None
-        smp = self._sample_for(sample_points, self.im.max_requests if gated
-                               else self.im.max_tokens)
-        result = self._guarded(
-            "step", lambda: self.im.step(bc, sample=smp),
-            affected_fn=lambda: self._rids_in_batch(bc))
-        if result is not None:
-            self.process_result(result, sample_points)
-        self.steps += 1
+        with tel.span("serve_step", cat="serve"):
+            bc, sample_points = self.prepare_next_batch()
+            gated = getattr(bc, "logit_slots", None) is not None
+            smp = self._sample_for(sample_points, self.im.max_requests
+                                   if gated else self.im.max_tokens)
+            result = self._guarded(
+                "step", lambda: self.im.step(bc, sample=smp),
+                affected_fn=lambda: self._rids_in_batch(bc))
+            if result is not None:
+                self.process_result(result, sample_points)
+            self.steps += 1
 
     def _tick(self) -> None:
         """One serving tick (the speculative manager overrides it)."""
@@ -1310,14 +1699,129 @@ class RequestManager:
 
     def serve_incr_decoding(self) -> Dict[int, List[int]]:
         """Serve until every request is terminal, reaping cancellations
-        and deadlines at every step boundary; ``{rid: tokens}``."""
+        and deadlines at every step boundary; ``{rid: tokens}``.  Each
+        tick is the profiler's, then the KV gauges, the plan-health check
+        and the brownout ladder run at its boundary (reference :2574)."""
         while True:
             self._check_lifecycle()
             if not self.has_work():
                 break
+            self.profiler.tick_begin()
             self._tick()
+            self.profiler.tick_end()
             self._sync_kv()
+            self._maybe_check_health()
+            self._maybe_brownout()
+        self._maybe_check_health(force=True)
         return {rid: r.generated for rid, r in self.requests.items()}
+
+    def _maybe_check_health(self, force: bool = False) -> None:
+        """Check the attached plan-health monitor every
+        ``health_check_every`` ticks, and once when a loop drains
+        (``force``; reference :2191)."""
+        if self.plan_health is None:
+            return
+        self._health_ticks += 1
+        if force or self._health_ticks % self.health_check_every == 0:
+            self.plan_health.check()
+
+    def apply_output_cap(self, rid: int, cap: int) -> bool:
+        """Cap a live request's ``max_new_tokens`` (DEGRADE, reference
+        :2201): its stream stays a prefix of the uncapped one; a request
+        at or past the cap completes here with an ``ok`` outcome.
+        Returns whether the cap shortened it."""
+        req = self.requests.get(rid)
+        if req is None or req.status in TERMINAL_STATUSES:
+            return False
+        new_max = max(int(cap), len(req.generated))
+        if new_max >= req.max_new_tokens:
+            return False
+        req.max_new_tokens = new_max
+        if (req.status is RequestStatus.DECODING
+                and len(req.generated) >= req.max_new_tokens):
+            self._maybe_finish(req)
+        return True
+
+    def _maybe_brownout(self) -> None:
+        """Evaluate the attached BrownoutController every
+        ``config.check_every`` ticks and apply its level at this tick
+        boundary (reference :2219): shed or hold queued degradable work,
+        spill degradable decoders' pages under KV pressure (host tier
+        attached), shed live degradable work at CRITICAL_ONLY, or turn
+        speculation off and cap outputs at DEGRADE."""
+        bo = self.brownout
+        if bo is None:
+            return
+        self._brownout_ticks += 1
+        if self._brownout_ticks % bo.config.check_every:
+            return
+        slo = self.slo
+        tel = self.telemetry
+        kv = self.im.kv
+        occ = (kv.live_tokens() / kv.capacity_tokens
+               if kv.capacity_tokens else 0.0)
+        depths: Dict[str, int] = {c: 0 for c in slo.classes}
+        lc_depth = 0
+        for rid in self.pending:
+            cls = slo.resolve(self.requests[rid].slo_class)
+            if cls is None:
+                continue
+            depths[cls.name] = depths.get(cls.name, 0) + 1
+            if not cls.degradable:
+                lc_depth += 1
+        if tel.enabled:
+            tel.lane_depths(depths)
+        bo.evaluate(lc_queue_depth=lc_depth, kv_occupancy_frac=occ)
+        if bo.level == 0:
+            return
+        deferred: Dict[str, int] = {}
+        for rid in list(self.pending):
+            req = self.requests[rid]
+            if req.status in TERMINAL_STATUSES:
+                continue
+            if bo.sheds_queued(req.slo_class):
+                if tel.enabled:
+                    tel.lane_shed(req.slo_class, trace_id=req.trace_id,
+                                  reason=f"brownout:{bo.level.name}")
+                self._terminate(req, RequestStatus.REJECTED)
+            elif self._held(req):
+                req.deferred_ticks += 1
+                deferred[req.slo_class] = deferred.get(req.slo_class, 0) + 1
+        if tel.enabled:
+            for cname, cnt in deferred.items():
+                tel.lane_deferred(cname, count=cnt)
+        if kv.host_tier is not None and occ >= bo.config.kv_pressure_frac:
+            # spill degradable decoders while the pressure holds: each
+            # preemption spills first, so readmission restores
+            victims = sorted(
+                (r for r in self._active()
+                 if r.status is RequestStatus.DECODING
+                 and bo.spills(r.slo_class)
+                 and r.preemptions < self.res.max_preemptions),
+                key=lambda r: (r.priority, -r.rid))
+            cap_toks = max(kv.capacity_tokens, 1)
+            for req in victims:
+                if kv.live_tokens() / cap_toks < bo.config.kv_pressure_frac:
+                    break
+                self.preempt(req.rid)
+        for req in list(self._active()):
+            if bo.sheds_live(req.slo_class):
+                # CRITICAL_ONLY: live degradable work ends REJECTED, its
+                # committed tokens kept
+                self._release_slot(req)
+                if tel.enabled:
+                    tel.lane_shed(req.slo_class, trace_id=req.trace_id,
+                                  reason="brownout:CRITICAL_ONLY")
+                self._terminate(req, RequestStatus.REJECTED)
+            elif bo.degrades(req.slo_class):
+                changed = False
+                if req.spec:
+                    changed = self.set_spec_mode(req.rid, False) or changed
+                cap = bo.output_cap(req.slo_class)
+                if cap is not None:
+                    changed = self.apply_output_cap(req.rid, cap) or changed
+                if changed and tel.enabled:
+                    tel.lane_degraded(req.slo_class)
 
     def serve_with_arrivals(self, arrivals, clock=None,
                             quantum: int = 8) -> Dict[int, Dict]:
@@ -1330,7 +1834,8 @@ class RequestManager:
         ``deadline_s`` and ``spec`` (a malformed one, like a malformed
         prompt, registers ``REJECTED``).  ``clock``: a 0-argument seconds
         callable (default ``time.perf_counter``), also the deadlines'
-        clock for the loop's duration.  ``quantum``: the decode stretch's
+        clock for the loop's duration; ``options`` may also name an
+        ``slo_class``.  ``quantum``: the decode stretch's
         cap while arrivals are outstanding, unchained only
         (``chain_segments`` False): the chained stretch registers due
         arrivals at its segment boundaries and joins them into the running
@@ -1339,7 +1844,9 @@ class RequestManager:
         Returns ``{rid: record}`` with ``arrival_s``, ``admitted_s``,
         ``prompt_len``, ``trace_id``, ``prefill_start_s`` (the start of the
         step whose batch held the first prefill token), ``first_token_s``,
-        ``finish_s``, ``tokens``, a terminal ``outcome``, ``kv_bytes``, and
+        ``finish_s``, ``tokens``, a terminal ``outcome``, ``kv_bytes``, the
+        request's ``slo_class`` and ``deferred_ticks`` (when set), its
+        profiler ``work`` (with a profiler), and
         the TTFT decomposition ``queue_wait_s`` (arrival to prefill start)
         and ``prefill_s`` (prefill start to first token, or to the
         terminal stamp when no token came): for ``ok`` requests,
@@ -1367,11 +1874,17 @@ class RequestManager:
                 open_rids.add(rid)
             return clock() - t0
 
+        tel = self.telemetry
+
         def stamp_joined(rids):
             now = clock() - t0
             for rid in rids:
-                if rid in records:
-                    records[rid].setdefault("prefill_start_s", now)
+                rec = records.get(rid)
+                if rec is not None and "prefill_start_s" not in rec:
+                    rec["prefill_start_s"] = now
+                    if tel.enabled:
+                        tel.request_prefill_started(
+                            self.requests[rid].trace_id)
 
         def stamp(now):
             for rid in list(open_rids):
@@ -1400,13 +1913,25 @@ class RequestManager:
                     self.scan_chunk = quantum if queue else saved_chunk
                 starters = [rid for rid in open_rids
                             if "prefill_start_s" not in records[rid]
-                            and self.requests[rid].prefill_offset == 0]
+                            and self.requests[rid].prefill_offset == 0
+                            and self.requests[rid].status
+                            not in TERMINAL_STATUSES]
+                self.profiler.tick_begin()
                 self._tick()
+                self.profiler.tick_end()
                 self._sync_kv()
+                self._maybe_check_health()
+                self._maybe_brownout()
                 for rid in starters:
-                    if self.requests[rid].prefill_offset > 0:
-                        records[rid].setdefault("prefill_start_s", now)
+                    # a joiner stamped (and reported) its own start
+                    if (self.requests[rid].prefill_offset > 0
+                            and "prefill_start_s" not in records[rid]):
+                        records[rid]["prefill_start_s"] = now
+                        if tel.enabled:
+                            tel.request_prefill_started(
+                                self.requests[rid].trace_id)
                 stamp(clock() - t0)
+            self._maybe_check_health(force=True)
         finally:
             self.scan_chunk = saved_chunk
             self._arrival_pump = self._join_stamp = None
@@ -1416,7 +1941,13 @@ class RequestManager:
             req = self.requests[rid]
             rec["tokens"] = req.generated
             rec["outcome"] = req.outcome or OUTCOMES.get(req.status, "ok")
+            if req.slo_class:
+                rec["slo_class"] = req.slo_class
+            if req.deferred_ticks:
+                rec["deferred_ticks"] = req.deferred_ticks
             rec["kv_bytes"] = req.kv_bytes
+            if self.profiler.enabled:
+                rec["work"] = self.profiler.request_work(rid)
             start = rec.get("prefill_start_s",
                             rec.get("admitted_s", rec["arrival_s"]))
             stop = rec.get("first_token_s", rec.get("finish_s", end))

@@ -51,8 +51,16 @@ copied, up to summation order: from the second layer on, a position's
 K/V depends on which attention kernel produced the layer's input.
 
 The KV gauges (reference :272-323) sum the target's and the draft's
-allocators, with one combined watermark.  Left out (see ROADMAP.md):
-telemetry, profiling, SLO and brownout hooks.
+allocators, with one combined watermark, published as one ``kv_usage``.
+
+The control plane (reference :173-191): the draft shares the manager's
+profiler (its dispatches count, its work is priced with its own cost card)
+and records its memory under ``<plan_key>_draft``; each macro step is a
+``spec_macro_step`` span, each verify a ``spec_verify_round`` span with
+the batch's spec and plain rows (``spec_batch_mix``) and each spec row's
+``spec_acceptance``; every phase's read-back is a ``host_sync``.  SLO
+lanes and brownout come with the base manager (DEGRADE turns a row's
+speculation off through ``set_spec_mode``).
 """
 
 from __future__ import annotations
@@ -115,10 +123,14 @@ class SpecInferManager(RequestManager):
     default_spec_mode = True
 
     def __init__(self, llm, ssm, gen_config: Optional[GenerationConfig] = None,
-                 width: int = 2, depth: int = 3, resilience=None,
-                 fault_injector=None, clock=None):
-        super().__init__(llm, gen_config, resilience=resilience,
-                         fault_injector=fault_injector, clock=clock)
+                 width: int = 2, depth: int = 3, telemetry=None,
+                 resilience=None, fault_injector=None, clock=None,
+                 plan_health=None, profiler=None, slo=None, brownout=None):
+        super().__init__(llm, gen_config, telemetry=telemetry,
+                         resilience=resilience,
+                         fault_injector=fault_injector, clock=clock,
+                         plan_health=plan_health, profiler=profiler,
+                         slo=slo, brownout=brownout)
         self.llm = llm
         self.ssm = ssm
         self.width = int(width)
@@ -149,6 +161,18 @@ class SpecInferManager(RequestManager):
         # the combined (target + draft) live-token and byte watermarks
         self._kv_hwm_tokens = 0
         self._kv_hwm_bytes = 0.0
+        # the draft is a co-resident deployment: it shares the profiler,
+        # restarts its attribution, widens the plan-health KV view, and
+        # records its memory under its own key
+        ssm.profiler = self.profiler
+        if self.profiler.enabled:
+            self.profiler.install(ssm)
+        ssm.kv.reset_attribution()
+        if (self.plan_health is not None
+                and self.plan_health.kv_allocator is llm.kv):
+            self.plan_health.kv_allocator = [llm.kv, ssm.kv]
+        if self.telemetry.enabled:
+            ssm.publish_memory(self.telemetry, key=ssm.plan_key + "_draft")
 
     # ------------------------------------------------------------------
     def _kv_bind(self, rid: int) -> None:
@@ -202,9 +226,11 @@ class SpecInferManager(RequestManager):
         live = [r for r in self._active()
                 if r.status in (RequestStatus.PREFILLING,
                                 RequestStatus.DECODING)]
-        self._combine_snaps(
+        snap = self._combine_snaps(
             self.llm.kv.observe({r.rid: r.seq_len for r in live}),
             self.ssm.kv.observe({r.rid: r.ssm_committed for r in live}))
+        if self.telemetry.enabled:
+            self.telemetry.kv_usage(snap)
 
     def preempt(self, rid: int) -> None:
         """Preempt and recompute (reference :238): both caches release,
@@ -251,6 +277,16 @@ class SpecInferManager(RequestManager):
         req.ssm_backlog = [(self._token_at(req, p), p)
                            for p in range(len(req.prefill_tokens), want)]
 
+    def _host(self, *tensors: torch.Tensor):
+        """A speculative phase's read-back: the tensors as numpy arrays
+        in one wait, timed under the profiler's ``readback`` phase and
+        counted as one ``host_sync`` (reference :375-377, :507-510,
+        :649-651)."""
+        with self.profiler.phase("readback"):
+            out = [t.cpu().numpy() for t in tensors]
+        self.profiler.host_sync()
+        return out[0] if len(out) == 1 else out
+
     def _plain_bc(self, im, toks, reqi, pos) -> BatchConfig:
         return BatchConfig.build(toks, reqi, pos, self._seq_lens(),
                                  max_tokens=im.max_tokens,
@@ -286,6 +322,7 @@ class SpecInferManager(RequestManager):
             if not toks:
                 break
             self._kv_prepare(spans)
+            self._prof_account(spans)
             bc = self._plain_bc(self.llm, toks, reqi, pos)
             # the first token draws with the incremental loop's key
             smp = self._sample_for([(flat, req.rid) for flat, req in points],
@@ -294,8 +331,8 @@ class SpecInferManager(RequestManager):
                                 lambda: self.llm.step(bc, sample=smp))
             if res is None:
                 return
-            ids = res.token_ids.cpu().numpy()
             self.llm_steps += 1
+            ids = self._host(res.token_ids)
             for flat, req in points:
                 if req.status is not RequestStatus.PREFILLING:
                     continue   # left its slot between build and read-back
@@ -341,6 +378,7 @@ class SpecInferManager(RequestManager):
             if not toks:
                 break
             self._kv_prepare(spans, kv=self.ssm.kv)
+            self._prof_account(spans, im=self.ssm)
             bc = self._plain_bc(self.ssm, toks, reqi, pos)
             if self._guarded("spec_ssm_prefill",
                              lambda: self.ssm.step(bc)) is None:
@@ -382,11 +420,18 @@ class SpecInferManager(RequestManager):
                     points.append((len(toks) - 1, req, ni))
             bc = self._tree_bc(TreeSearchBatchConfig, self.ssm, toks, reqi,
                                pos, spec, masks, "ssm_committed")
+            prof = self.profiler
+            if prof.enabled and toks:
+                per: Dict[int, int] = {}
+                for _, req, _ni in points:
+                    per[req.rid] = per.get(req.rid, 0) + 1
+                prof.account(prof.card_for(self.ssm),
+                             [(rid, c, self.requests[rid].seq_len)
+                              for rid, c in per.items()])
             res = self._guarded("spec_draft", lambda: self.ssm.step(bc))
             if res is None:
                 return []
-            topk_ids = res.topk_ids.cpu().numpy()
-            topk_lp = res.topk_logprobs.cpu().numpy()
+            topk_ids, topk_lp = self._host(res.topk_ids, res.topk_logprobs)
             cands = {req.rid: [] for req in drafting}
             for flat, req, ni in points:
                 base_lp = req.tree[ni].logprob
@@ -465,12 +510,25 @@ class SpecInferManager(RequestManager):
         bc = self._tree_bc(TreeVerifyBatchConfig, self.llm, toks, reqi, pos,
                            spec, masks, "llm_committed", commit)
         smp = self._verify_sample(verifying, index_of)
-        res = self._guarded("spec_verify",
-                            lambda: self.llm.step(bc, sample=smp))
+        prof, tel = self.profiler, self.telemetry
+        if prof.enabled:
+            # each row ships its whole tree (a plain row its root) and
+            # reads its live prefix
+            prof.account(prof.card_for(self.llm),
+                         [(r.rid, len(r.tree), r.seq_len)
+                          for r in verifying])
+        n_spec = sum(1 for r in verifying if len(r.tree) > 1)
+        n_plain = len(verifying) - n_spec
+        if tel.enabled:
+            tel.spec_batch_mix(n_spec, n_plain)
+        with tel.span("spec_verify_round", cat="spec", track="spec",
+                      n_spec=n_spec, n_plain=n_plain, tree_tokens=len(toks)):
+            res = self._guarded("spec_verify",
+                                lambda: self.llm.step(bc, sample=smp))
         if res is None:
             return
-        ids = res.token_ids.cpu().numpy()
         self.llm_steps += 1
+        ids = self._host(res.token_ids)
 
         for req in verifying:
             if req.status is not RequestStatus.DECODING:
@@ -494,6 +552,9 @@ class SpecInferManager(RequestManager):
                 req.pending_commit.append(
                     (i, req.llm_committed + req.tree[i].depth))
             req.llm_committed += len(accepted)
+            if tel.enabled and len(req.tree) > 1:
+                # the drafted tokens that survived the walk this round
+                tel.spec_acceptance(len(accepted) - 1, len(req.tree) - 1)
             # the SSM takes the same accepted tokens into its cache; a
             # plain row's feed is rebuilt when it flips on instead
             if req.spec:
@@ -563,6 +624,7 @@ class SpecInferManager(RequestManager):
             if not toks:
                 break
             self._kv_prepare(spans)
+            self._prof_account(spans)
             bc = self._plain_bc(self.llm, toks, reqi, pos)
             if self._guarded("spec_commit_flush",
                              lambda: self.llm.step(bc),
@@ -585,8 +647,10 @@ class SpecInferManager(RequestManager):
         prefill and chained decode stretches), so an all-plain population
         never pays for the macro path (reference :833)."""
         if self._spec_live():
-            self._prefill_phase()
-            self._verify_phase(self._draft_phase())
+            with self.telemetry.span("spec_macro_step", cat="spec",
+                                     track="spec"):
+                self._prefill_phase()
+                self._verify_phase(self._draft_phase())
             self.macro_steps += 1
         elif self._flush_commits():
             self._serve_tick()

@@ -113,15 +113,19 @@ def test_memory_report(pair):
     (their values tick by tick: ``test_torch_api_parity.py``): the
     watermark holds the most tokens the run had live at a tick."""
     jllm, llm = pair
+    # the fixture's deployment served the earlier tests: this run's
+    # watermark starts afresh
+    llm.im.kv.reset_attribution()
     llm.generate(PROMPTS, max_new_tokens=4)
     kv = llm.memory_report()["kv"]
     jkv = jllm.memory_report()["kv"]
     assert set(kv) == set(jkv)
     assert kv["capacity_tokens"] == 2 * 64
     assert kv["capacity_bytes"] == jkv["capacity_bytes"] > 0
-    # the prefill stretch's tick holds both prompts and their first
-    # tokens' depths; the decode stretch then finishes both
-    assert kv["hwm_tokens"] == sum(len(p) + 1 for p in PROMPTS)
+    # the decode stretch runs the 3 tokens left after the first at the
+    # reference's power of two, 2 steps: its tick leaves both rows live at
+    # their prompt and 3 tokens, and a one-step trailer finishes both
+    assert kv["hwm_tokens"] == sum(len(p) + 3 for p in PROMPTS)
     assert kv["hwm_bytes"] == kv["hwm_tokens"] * llm.im.kv.bytes_per_token()
     assert kv["live_tokens"] == kv["bound_slots"] == 0
     assert LLM(CFG).memory_report() is None

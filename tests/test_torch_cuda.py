@@ -1160,3 +1160,136 @@ def test_mixed_rows_7b_width_on_card(dev):
     scan = [[firsts[i]] + [int(t) for t in em[:, i].reshape(-1) if t >= 0]
             for i in range(3)]
     assert scan == want
+
+
+def _control_plane(tel=True):
+    """Every observation handle of the control plane (fresh), and an SLO
+    policy with a brownout ladder; ``tel=False``: none of them."""
+    from flexflow_tpu_torch import obs
+    from flexflow_tpu_torch.serve import BrownoutController, SLOPolicy
+
+    if not tel:
+        return {}
+    t = obs.Telemetry()
+    slo = SLOPolicy.default()
+    return dict(telemetry=t, profiler=obs.StepProfiler(), slo=slo,
+                brownout=BrownoutController(slo, telemetry=t),
+                plan_health=obs.PlanHealthMonitor(
+                    t, {"plan_key": "tp1_pp1_m1", "tpot_ms": 1.0,
+                        "ttft_ms": 1.0}))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hooks_on_and_off_bit_identical_on_card(dev, dtype):
+    """Telemetry, the profiler, plan health and the SLO lanes change no
+    token and no record on the card: arrivals joining chained stretches
+    on a virtual clock, in both dtypes (exact)."""
+    from test_serving_under_load import VirtualClock
+
+    cfg = dataclasses.replace(SMALL, dtype=dtype)
+    kw = dict(max_requests=2, max_tokens_per_batch=16, max_seq_len=128,
+              device=dev)
+    gpu = InferenceManager(build_model(cfg), **kw).init_operators_inference(
+        seed=3)
+    arrivals = [(0.0, [3, 5, 7], 12), (0.075, [2, 4, 6, 8], 8),
+                (0.3, [9, 8, 7, 6, 5], 8), (0.31, [11, 12], 6)]
+    runs = []
+    for on in (False, True, False):
+        gpu.reset()
+        rm = RequestManager(gpu, GenerationConfig(max_new_tokens=8),
+                            **_control_plane(on))
+        recs = rm.serve_with_arrivals(arrivals, clock=VirtualClock())
+        runs.append({r: {k: v for k, v in rec.items()
+                         if k not in ("work", "slo_class")}
+                     for r, rec in recs.items()})
+        if on:
+            assert rm.telemetry.metrics.snapshot()["requests_finished"] == 4
+    assert runs[0] == runs[1] == runs[2]
+
+
+def test_host_syncs_equal_readbacks_on_card(dev):
+    """A chained stretch with a join reads back once on the card: the
+    profiler's ``host_syncs`` moves with ``readbacks``, one each, and a
+    dispatch counts each segment and the join's steps (exact)."""
+    from flexflow_tpu_torch import obs
+
+    kw = dict(max_requests=2, max_tokens_per_batch=16, max_seq_len=128,
+              device=dev)
+    gpu = InferenceManager(build_model(SMALL), **kw).init_operators_inference(
+        seed=3)
+    prof = obs.StepProfiler()
+    rm = RequestManager(gpu, GenerationConfig(max_new_tokens=16),
+                        profiler=prof, telemetry=obs.Telemetry())
+    r0 = rm.register_new_request([3, 5, 7, 9, 11])
+    while not rm.requests[r0].generated:
+        rm._serve_tick()
+    joined = []
+    rm._arrival_pump = lambda: joined or joined.append(
+        rm.register_new_request([2, 4, 6, 8]))
+    w0, r_0 = dict(prof.work), rm.readbacks
+    rm._decode_stretch(rm._scan_steps_possible())
+    rm._arrival_pump = None
+    assert rm.last_stretch["joins"] == 1 and rm.readbacks - r_0 == 1
+    assert prof.work["host_syncs"] - w0["host_syncs"] == 1
+    # the segments, the joiner's prefill step and its join
+    assert (prof.work["dispatches"] - w0["dispatches"]
+            == rm.last_stretch["segments"] + 2)
+    while rm.has_work():
+        rm._serve_tick()
+    assert prof.work["host_syncs"] == rm.readbacks
+    assert prof.report()["work"]["recompiles_total"] == 0
+
+
+def test_no_hook_syncs_the_card(dev):
+    """Every hook of a hooks-on decode stretch tick (the telemetry and
+    profiler handles, the monitor, the ladder, the manager's accounting,
+    batch-mix and KV-gauge hooks) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: none raises, so none
+    waits for the card."""
+    kw = dict(max_requests=2, max_tokens_per_batch=16, max_seq_len=128,
+              device=dev)
+    gpu = InferenceManager(build_model(SMALL), **kw).init_operators_inference(
+        seed=3)
+    hooks = _control_plane()
+    hooks["brownout"].config.check_every = 1
+    rm = RequestManager(gpu, GenerationConfig(max_new_tokens=16), **hooks)
+    for p in ([3, 5, 7, 9, 11], [2, 4, 6, 8]):
+        rm.register_new_request(p)
+    rm._serve_tick()                       # the prefill stretch
+    calls = []
+
+    def strict(fn, name):
+        def run(*a, **k):
+            calls.append(name)
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return run
+
+    targets = [(hooks["telemetry"], None), (hooks["profiler"], None),
+               (hooks["plan_health"], ("check",)),
+               (hooks["brownout"], ("evaluate",)),
+               (gpu.kv, ("observe",)),
+               (rm, ("_prof_account", "_note_batch", "_maybe_check_health",
+                     "_maybe_brownout"))]
+    for obj, names in targets:
+        names = names or [n for n in dir(obj) if not n.startswith("_")
+                          and callable(getattr(obj, n))]
+        for name in names:
+            setattr(obj, name, strict(getattr(obj, name), name))
+    n = rm._scan_steps_possible()
+    assert n > 1
+    rm.health_check_every = 1
+    rm.profiler.tick_begin()
+    rm._serve_tick()                       # a decode stretch
+    rm.profiler.tick_end()
+    rm._sync_kv()
+    rm._maybe_check_health()
+    rm._maybe_brownout()
+    torch.cuda.synchronize()
+    for name in ("span", "account", "observe", "tick_end", "check",
+                 "evaluate", "phase", "host_sync"):
+        assert name in calls, name

@@ -19,11 +19,11 @@ the three holds fewer tests than ``test_kv_allocator.py``, so xdist's
 it as it did before they existed.
 
 Clocks: ``VirtualClock`` (``tests/test_serving_under_load.py``) and the
-state-triggered ``TriggerClock`` (``tests/test_resilience.py``).  The
-port's tick count differs from the reference's (no power-of-two stretch
-rounding, no prefill scan), so what depends on when a deadline fires is
-held to the contract (a ``timeout`` outcome, a prefix of the stream), not
-to the reference tick for tick.
+state-triggered ``TriggerClock`` (``tests/test_resilience.py``).  What
+depends on when a deadline fires is held to the contract (a ``timeout``
+outcome, a prefix of the stream); the port's schedule equals the
+reference's tick for tick (``tests/test_torch_obs.py`` holds their
+telemetry events equal).
 """
 
 import numpy as np

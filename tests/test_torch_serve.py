@@ -335,8 +335,11 @@ def test_port_never_imports_jax_or_the_reference_package():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     assert {"spec_infer.py", "spec_scan.py", "opt.py", "falcon.py",
-            "mpt.py", "starcoder.py", "weights.py",
-            "resilience.py"} <= {f.name for f in files}
+            "mpt.py", "starcoder.py", "weights.py", "resilience.py",
+            "slo.py", "cost.py", "telemetry.py", "trace.py", "metrics.py",
+            "calibration.py", "drift.py", "memory.py", "profiler.py",
+            "plan_health.py", "report.py", "trace_report.py",
+            "bench_compare.py"} <= {f.name for f in files}
     for path in files:
         for mod, func in _imported_modules(path):
             top = mod.split(".")[0]
@@ -354,6 +357,10 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.serve.weights, "
             "flexflow_tpu_torch.serve.models.mpt, "
             "flexflow_tpu_torch.serve.resilience, "
+            "flexflow_tpu_torch.serve.slo, flexflow_tpu_torch.obs, "
+            "flexflow_tpu_torch.obs.report, "
+            "flexflow_tpu_torch.tools.trace_report, "
+            "flexflow_tpu_torch.tools.bench_compare, "
             "flexflow_tpu_torch.ops.cuda.attention; "
             "bad = [m for m in sys.modules if m in ('jax', 'flexflow_tpu', "
             "'transformers') or m.startswith(('jax.', 'flexflow_tpu.', "
