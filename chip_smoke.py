@@ -152,6 +152,23 @@ and prints no result):
    the spec manager with its hooks (K3), equal to it with them off; the
    exports validated and summarised by ``tools.trace_report``, and two
    hooks-on runs' counters equal under ``tools.bench_compare``.
+16. fleet, migration and replay: the published Llama-2-7B shape in float32
+   (TF32 off), every deployment serving one model's parameter tensors
+   with its own KV (4 slots, ``max_seq_len`` 2048), the 8 prompts, 16 new
+   tokens: a one-replica oracle; ``LLM.fleet`` over two replicas with
+   replica 0 killed mid-decode (streams equal the oracle's, every request
+   ``ok``, the victim's requests failed over under their rids, and
+   ``torch.cuda.memory_allocated`` falls by the victim's KV bytes); a
+   rolling contiguous → paged migration over the fleet (a replica keeps
+   admission open at every tick); ``LLM.attach_migration`` on a
+   speculative deployment (contiguous → paged mid-decode, then a spec-off
+   flip on the fast path); the kill run again with seeded sampling and
+   one injected ``fleet_dispatch`` fault, recorded with a
+   ``TrafficTraceRecorder``, replayed on a fresh fleet with zero
+   mismatches, and ``tools/replay_report.py --check`` exiting 0 on the
+   artifact.  Logs each migration's drain, rebuild and readmit walls,
+   the recompute tokens, the downtime in admission-closed ticks and the
+   failed-over requests' passes from the kill to their next token.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -1827,21 +1844,39 @@ class PassClock:
     passes: each pass of ``im.run_step`` (a prefill chunk, a decode step,
     a joiner's flat prefill step) advances it ``pass_s`` seconds, and each
     reading ``tick_s`` more, so two serve paths on the same arrivals are
-    compared in passes, not in the host's time."""
+    compared in passes, not in the host's time.  ``attach`` counts the
+    passes of more deployments (a fleet's replicas, a migration's
+    successor: one card runs them in turn); each trigger ``(ready, fn)``
+    runs ``fn`` once, at the first reading at which ``ready()`` holds."""
 
-    def __init__(self, im, pass_s=1e-3, tick_s=1e-6):
+    def __init__(self, im=None, pass_s=1e-3, tick_s=1e-6):
         self.t = 0.0
+        self.passes = 0
         self.pass_s, self.tick_s = pass_s, tick_s
+        self.triggers = []
+        if im is not None:
+            self.attach(im)
+
+    def attach(self, im):
         run_step = im.run_step
 
         def counted(*args, **kw):
             self.t += self.pass_s
+            self.passes += 1
             return run_step(*args, **kw)
 
         im.run_step = counted
+        return im
+
+    def when(self, ready, fn):
+        self.triggers.append([ready, fn])
 
     def __call__(self):
         self.t += self.tick_s
+        for trig in self.triggers:
+            if trig[1] is not None and trig[0]():
+                fn, trig[1] = trig[1], None
+                fn()
         return self.t
 
 
@@ -2585,6 +2620,419 @@ TC_KERNELS = ("prefill_tc_kernel", "prefill_tf32_kernel",
               "tree_token_split_tf32_kernel")
 
 
+def migration_walls(serve, torch):
+    """Time each drain, rebuild and readmit of every migration controller
+    (the fleet's rolling one included) with the card synchronized on both
+    sides, and count the tokens each drain sends to recompute (prompt +
+    generated of every request it preempts).  Returns (the list the
+    timings land in, a function that restores the class)."""
+    from flexflow_tpu_torch.serve import migration
+
+    cls = migration.MigrationController
+    saved = {name: getattr(cls, name)
+             for name in ("_drain", "_build", "_readmit")}
+    walls = []
+
+    def timed(name, fn):
+        def run(self, rm, *args):
+            recompute = 0
+            if name == "_drain":
+                recompute = sum(len(r.prompt) + len(r.generated)
+                                for r in rm._active() if r.status in (
+                                    serve.RequestStatus.PREFILLING,
+                                    serve.RequestStatus.DECODING))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, rm, *args)
+            torch.cuda.synchronize()
+            walls.append((name[1:], time.perf_counter() - t0, recompute))
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(cls, name, timed(name, fn))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+
+    return walls, restore
+
+
+def log_migrations(label, walls):
+    """One line per migration: its drain, rebuild and readmit walls and
+    the drain's recompute tokens."""
+    names = [w[0] for w in walls]
+    for i in range(names.count("drain")):
+        parts = {n: [w for w in walls if w[0] == n][i]
+                 for n in ("drain", "build", "readmit")
+                 if names.count(n) > i}
+        log(f"{label} migration {i}: " + ", ".join(
+            f"{n} {w[1] * 1e3:.3f} ms" for n, w in parts.items())
+            + f"; recompute tokens {parts['drain'][2]}")
+
+
+def phase_fleet_migration_replay(serve, att, torch, dev):
+    """Phase 16: live plan migration, the fleet router and traffic-trace
+    replay on the published Llama-2-7B shape in float32 (TF32 off), the
+    serve prompts, 16 new tokens, every deployment ``max_requests=4``,
+    ``max_seq_len=2048``, all serving one model's parameter tensors
+    (``LLM.compile(share_weights_with=...)``), each with its own KV:
+
+    a. one replica's greedy run, the oracle (``serve_with_arrivals`` on a
+       pass-counting clock);
+    b. ``LLM.fleet`` over two replicas, replica 0 killed mid-decode by
+       ``schedule_kill``: streams equal (a), every outcome ``ok``, the
+       victim's requests fail over under their rids, and
+       ``torch.cuda.memory_allocated`` falls by the victim's KV bytes;
+    c. a rolling contiguous → paged migration over a two-replica fleet:
+       at every fleet tick a replica keeps admission open; streams equal
+       (a);
+    d. ``LLM.attach_migration`` on a speculative deployment (a
+       llama-68m-shaped draft): contiguous → paged mid-decode, then a
+       spec-off flip on the fast path; streams equal (a);
+    e. (b) with seeded sampling and one injected ``fleet_dispatch`` fault,
+       recorded by a ``TrafficTraceRecorder``, replayed by
+       ``ReplayHarness`` on a freshly built fleet: ``verify`` at zero
+       mismatches, and ``tools/replay_report.py --check`` exits 0 on the
+       artifact (``build/fleet_replay/trace.jsonl``).
+
+    Logs the wall, peak memory, each migration's drain, rebuild and
+    readmit walls and recompute tokens, the downtime in admission-closed
+    ticks, and the failed-over requests' passes from the kill to their
+    next token against their TTFT in (a).  Returns {(kernel, variant):
+    launches} summed over the runs."""
+    import gc
+
+    from flexflow_tpu_torch.obs.replay import (
+        ReplayHarness,
+        TrafficTrace,
+        TrafficTraceRecorder,
+        VirtualClock,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    held_before = torch.cuda.memory_allocated()
+    cfg = serve.ServeModelConfig(dtype="float32")   # Llama-2-7B defaults
+    n_new = 16
+    caps = dict(max_requests=4, max_tokens_per_batch=512, max_seq_len=2048,
+                device=dev)
+    paged = f"tp1_pp1_m1_paged{PAGE}"
+    prompts = serve_prompts(cfg.vocab_size)
+    arrivals = [(0.0, p, n_new) for p in prompts]
+    launches = collections.Counter()
+    decoding = serve.RequestStatus.DECODING
+
+    def counted_run(fn):
+        out, n = counted(att, fn)
+        launches.update(n)
+        return out
+
+    def streams(recs, what):
+        got = [recs[r]["tokens"] for r in sorted(recs)]
+        bad = [r for r in sorted(recs) if recs[r]["outcome"] != "ok"]
+        if bad:
+            raise AssertionError(f"{what}: requests {bad} did not end ok")
+        return got
+
+    def equal_to_oracle(got, what):
+        if got != want:
+            raise AssertionError(f"{what}: streams differ from the one-"
+                                 f"replica run: {got} vs {want}")
+
+    base = serve.LLM(cfg).compile(**caps)
+    model = base.im.model
+    gen = base.rm.gen
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"fleet: 7B f32 compiled in {time.perf_counter() - t_phase:.1f}s; "
+        f"weights {weights / 1e9:.2f} GB shared by every deployment, KV "
+        f"{base.im.kv.allocated_bytes() / 1e9:.2f} GB each")
+
+    def replica(gen_cfg=gen, **kw):
+        return serve.LLM(cfg).compile(generation_config=gen_cfg,
+                                      share_weights_with=base, **caps, **kw)
+
+    def free():
+        """Drop an ended run's deployments; every cache must be gone (the
+        shared weights stay)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() - held_before
+        if held > weights + (1 << 30):
+            raise AssertionError(f"fleet: {held} bytes still allocated "
+                                 f"after a run, weights {weights}")
+        return held
+
+    # ---- a: the one-replica oracle --------------------------------------
+    clock = PassClock(base.im)
+    recs = counted_run(lambda: base.rm.serve_with_arrivals(arrivals,
+                                                          clock=clock))
+    want = streams(recs, "one replica")
+    if any(not 0 < len(o) <= n_new for o in want) or any(
+            not 0 <= t < cfg.vocab_size for o in want for t in o):
+        raise AssertionError(f"one replica: bad streams {want}")
+    ttft_a = {r: (rec["first_token_s"] - rec["arrival_s"]) / clock.pass_s
+              for r, rec in recs.items()}
+    passes_a = clock.passes
+    base.im.kv.teardown()   # base keeps the weights, not its cache
+    free()
+
+    def fleet_of(llms, clock=None, **kw):
+        fleet = serve.LLM.fleet(llms, gen=llms[0].rm.gen, **kw)
+        for rep in fleet.replicas:
+            if clock is not None:
+                clock.attach(rep.rm.im)
+            rep.rm.scan_chunk = 4    # a kill at tick 3 lands mid-decode
+        return fleet
+
+    # ---- b: a replica killed mid-decode -----------------------------------
+    def kill_run():
+        clock = PassClock()
+        fleet = fleet_of([replica(), replica()], clock)
+        kill = fleet.kill_replica
+        death = {}
+
+        def measured_kill(name, reason="operator kill"):
+            rep = fleet._by_name(name)
+            torch.cuda.synchronize()
+            death["victims"] = {r.rid: len(r.generated)
+                                for r in rep.rm._active()
+                                if r.status is decoding}
+            death["kv"] = rep.rm.im.kv.allocated_bytes()
+            death["passes"] = clock.passes
+            before = torch.cuda.memory_allocated()
+            moved = kill(name, reason)
+            torch.cuda.synchronize()
+            death["drop"] = before - torch.cuda.memory_allocated()
+            death["moved"] = moved
+            return moved
+
+        fleet.kill_replica = measured_kill
+        next_token = {}
+        for rep in fleet.replicas:
+            def stamped(req, tok, _append=rep.rm._append_token):
+                _append(req, tok)
+                if "passes" in death and req.rid in death["victims"]:
+                    next_token.setdefault(req.rid, clock.passes)
+            rep.rm._append_token = stamped
+        fleet.schedule_kill("replica0", at_tick=3)
+        t0 = time.perf_counter()
+        recs = counted_run(lambda: fleet.serve_with_arrivals(arrivals,
+                                                             clock=clock))
+        wall_b = time.perf_counter() - t0
+        equal_to_oracle(streams(recs, "fleet kill"), "fleet kill")
+        victims = death.get("victims") or {}
+        if not victims or any(n < 1 for n in victims.values()):
+            raise AssertionError(f"fleet kill: not mid-decode: {death}")
+        if sorted(death["moved"]) != sorted(victims):
+            raise AssertionError(f"fleet kill: failed over {death['moved']}, "
+                                 f"decoding {sorted(victims)}")
+        for rid in victims:
+            if (recs[rid]["failovers"] != 1
+                    or recs[rid]["replica"] != "replica1"
+                    or rid not in next_token):
+                raise AssertionError(f"fleet kill: request {rid} {recs[rid]}")
+        dead = fleet._by_name("replica0")
+        if dead.leaked or death["drop"] < death["kv"] or death["kv"] <= 0:
+            raise AssertionError(
+                f"fleet kill: teardown freed {death['drop']} bytes of "
+                f"{death['kv']} KV bytes, leaked {dead.leaked}")
+        recompute = sum(len(prompts[r]) + n for r, n in victims.items())
+        log(f"fleet kill: wall {wall_b:.2f}s, {clock.passes} passes (one "
+            f"replica {passes_a}); killed at pass {death['passes']} with "
+            f"{sorted(victims.items())} (rid, tokens) decoding; "
+            f"memory_allocated fell {death['drop']} bytes, victim KV "
+            f"{death['kv']} bytes; "
+            f"recompute tokens {recompute}")
+        log("fleet failover TTFT in passes (kill to next token; one-replica "
+            "TTFT): " + ", ".join(
+                f"r{r} {next_token[r] - death['passes']} ({ttft_a[r]:.0f})"
+                for r in sorted(victims)))
+
+    kill_run()
+    free()
+
+    # ---- c: a rolling contiguous -> paged migration -----------------------
+    walls, restore = migration_walls(serve, torch)
+    try:
+        def rolling_run():
+            clock = PassClock()
+            fleet = fleet_of([replica(), replica()], clock)
+
+            def build_paged(cand):
+                im = serve.InferenceManager(model, kv_page_size=PAGE, **caps)
+                im.allocate_kv_cache()
+                return clock.attach(im)
+
+            fleet.request_rolling_migration(
+                paged, build_paged, migration_config=serve.MigrationConfig(
+                    auto=False, defer_ticks=1, drain_grace_ticks=1))
+            floor = []
+            fleet_tick = fleet._fleet_tick
+
+            def watched_tick():
+                fleet_tick()
+                floor.append(fleet.replicas_serving())
+
+            fleet._fleet_tick = watched_tick
+            t0 = time.perf_counter()
+            recs = counted_run(lambda: fleet.serve_with_arrivals(arrivals,
+                                                                 clock=clock))
+            wall_c = time.perf_counter() - t0
+            equal_to_oracle(streams(recs, "rolling migration"),
+                            "rolling migration")
+            done = [h for h in fleet.history
+                    if h["event"] == "rolling_migration_completed"]
+            if (not floor or min(floor) < 1 or len(done) != 1
+                    or any(r["outcome"] != "completed"
+                           for r in done[0]["replicas"])
+                    or not all(rep.rm.im.kv.paged for rep in fleet.replicas)):
+                raise AssertionError(f"rolling migration: serving floor "
+                                     f"{floor}, records {done}")
+            log(f"rolling migration: wall {wall_c:.2f}s, {clock.passes} "
+                f"passes, {len(floor)} fleet ticks, replicas serving per "
+                f"tick {floor}; "
+                + "; ".join(f"{r['replica']} {r['outcome']}, downtime "
+                            f"{r['downtime_ticks']} ticks, preempted "
+                            f"{r['preempted_requests']}"
+                            for r in done[0]["replicas"]))
+            log_migrations("rolling", walls)
+
+        rolling_run()
+        free()
+
+        # ---- d: attach_migration on a speculative deployment ----------
+        walls.clear()
+
+        def attach_run():
+            draft = serve.SSM(draft_config(serve, "float32"))
+            llm = replica(ssms=[draft], spec_width=2, spec_depth=3)
+            clock = PassClock()
+            clock.attach(llm.im)
+            clock.attach(draft.im)
+            spec = f"{paged}_spec_w2d3"
+
+            def build_spec_pair(cand):
+                kw = dict(kv_page_size=PAGE,
+                          max_spec_tokens=llm.im.max_spec_tokens, **caps)
+                pair = (serve.InferenceManager(model, **kw),
+                        serve.InferenceManager(draft.im.model, topk=2, **kw))
+                for im in pair:
+                    im.allocate_kv_cache()
+                    clock.attach(im)
+                return pair
+
+            ctrl = llm.attach_migration(
+                build_spec_pair, plan={"plan_key": "tp1_pp1_m1_spec_w2d3"},
+                config=serve.MigrationConfig(auto=False, defer_ticks=1,
+                                             drain_grace_ticks=1))
+            ctrl.request_migration(spec)
+            # the flip once the paged spec deployment decodes again
+            clock.when(lambda: len(ctrl.history) == 1 and any(
+                r.status is decoding and len(r.generated) >= 8
+                for r in ctrl.rm._active()),
+                lambda: ctrl.request_migration(paged))
+            first_rm = llm.rm
+            t0 = time.perf_counter()
+            recs = counted_run(lambda: first_rm.serve_with_arrivals(
+                arrivals, clock=clock))
+            wall_d = time.perf_counter() - t0
+            equal_to_oracle(streams(recs, "attach_migration"),
+                            "attach_migration")
+            modes = [(h["outcome"], h.get("mode")) for h in ctrl.history]
+            if (modes != [("completed", "rebuild"), ("completed", "spec_flip")]
+                    or llm.rm is first_rm or not llm.im.kv.paged
+                    or llm.rm.default_spec_mode):
+                raise AssertionError(f"attach_migration: {ctrl.history}")
+            log(f"attach_migration: wall {wall_d:.2f}s, {clock.passes} "
+                "passes; " + "; ".join(
+                    f"{h['incumbent']} -> {h['candidate']} ({h['mode']})"
+                    f": downtime {h['downtime_ticks']} admission-closed "
+                    f"ticks, preempted {h['preempted_requests']}"
+                    + (f", flipped {h['flipped_requests']}"
+                       if "flipped_requests" in h else "")
+                    for h in ctrl.history))
+            log_migrations("attach_migration", walls)
+
+        attach_run()
+        free()
+    finally:
+        restore()
+
+    # ---- e: a seeded fleet run with a fault, recorded and replayed --------
+    seeded = dataclasses.replace(gen, temperature=0.8, top_p=0.9, seed=5)
+
+    def chaos_fleet(**kw):
+        return fleet_of([replica(seeded), replica(seeded)], **kw)
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "fleet_replay")
+    path = os.path.join(out_dir, "trace.jsonl")
+    inj = serve.FaultInjector(seed=0, p_by_site={"fleet_dispatch": 1.0},
+                              max_faults=1)
+
+    def record_run():
+        fleet = chaos_fleet(fault_injector=inj)
+        fleet.schedule_kill("replica0", at_tick=3)
+        recorder = TrafficTraceRecorder(path=path)
+        t0 = time.perf_counter()
+        recs = counted_run(lambda: fleet.serve_with_arrivals(
+            arrivals, clock=VirtualClock(), record_trace=recorder))
+        return recs, time.perf_counter() - t0
+
+    recorded, wall_rec = record_run()
+    free()
+    failovers = sum(r["failovers"] for r in recorded.values())
+    outcomes = [r["outcome"] for r in recorded.values()]
+    if inj.injected != 1 or not failovers or set(outcomes) != {"ok"}:
+        raise AssertionError(f"recorded run: {inj.injected} faults, "
+                             f"{failovers} failovers, outcomes {outcomes}")
+    trace = TrafficTrace.load(path)
+    errors = trace.validate()
+    harness = ReplayHarness(trace)
+
+    def replay_run():
+        fleet = chaos_fleet()          # fresh caches, no injector, no kill
+        t0 = time.perf_counter()
+        recs = counted_run(lambda: harness.replay(fleet))
+        return recs, time.perf_counter() - t0
+
+    replayed, wall_replay = replay_run()
+    free()
+    fidelity = harness.verify(replayed)
+    check = subprocess.run(
+        [sys.executable, "-m", "flexflow_tpu_torch.tools.replay_report",
+         "--check", path], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if errors or not fidelity["bit_identical"] or check.returncode:
+        raise AssertionError(
+            f"replay: validate {errors}, mismatches "
+            f"{fidelity['mismatches']}, replay_report --check rc "
+            f"{check.returncode} {check.stdout} {check.stderr}")
+    greedy_share = equal_share(
+        [recorded[r]["tokens"] for r in sorted(recorded)], want)
+    log(f"replay: recorded {len(recorded)} requests (seeded T=0.8, 1 "
+        f"fleet_dispatch fault, {failovers} failovers) in {wall_rec:.2f}s, "
+        f"replayed in {wall_replay:.2f}s on a fresh fleet: "
+        f"{len(fidelity['mismatches'])} mismatches over "
+        f"{fidelity['requests']} requests; replay_report --check rc 0; "
+        f"seeded tokens equal to greedy {greedy_share:.4f}")
+    need = [(k, v) for k in ("decode_attention", "prefill_attention",
+                             "tree_attention") for v in ("fp", "paged")]
+    if any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"fleet: a kernel never launched: "
+                             f"{short(launches)}")
+    log(f"fleet: phase wall {time.perf_counter() - t_phase:.1f}s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB; launches {short(launches)}")
+    return dict(launches)
+
+
 def tc_reports(text):
     """(kernel, "registers, shared memory, spills") of each tensor-core
     kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
@@ -2679,6 +3127,8 @@ def main():
         serve, att, torch, dev))
     control = timed("control plane", lambda: phase_control_plane(
         serve, att, torch, dev, card))
+    fleet = timed("fleet, migration and replay", lambda:
+                  phase_fleet_migration_replay(serve, att, torch, dev))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)
@@ -2695,15 +3145,20 @@ def main():
     # API's default path (K1 and K2 chained and gated, K3 per-token under
     # sampled SpecInfer) and the 7B mixed spec and plain rows (K1 on the
     # catch-up and the flush, K2 on the prefill, K3 per-token on verify
-    # steps with root-only trees, K3 batched with pad nodes)
+    # steps with root-only trees, K3 batched with pad nodes); f32 fp and
+    # paged add phase 16's runs (the fleet, the migrations, the replay: K1
+    # and K2, K3 per-token on the speculative deployment before and after
+    # its move to pages)
     def path_counts_f32(var):
         if var == "fp":
             return {"decode_attention": plus(f32["incremental"],
-                                             api["chained"], mixed["mixed"]),
+                                             api["chained"], mixed["mixed"],
+                                             fleet),
                     "prefill_attention": plus(f32["incremental"],
-                                              api["chained"], mixed["mixed"]),
+                                              api["chained"], mixed["mixed"],
+                                              fleet),
                     "tree_attention": plus(f32["spec host"], api["spec"],
-                                           mixed["mixed"]),
+                                           mixed["mixed"], fleet),
                     "tree_attention_batched": plus(f32["spec device"],
                                                    mixed["scan"])}
         counts = {"decode_attention": parity[var]["incremental"],
@@ -2712,8 +3167,8 @@ def main():
                   "tree_attention_batched": parity[var]["spec device"]}
         if var == "paged":
             for name in ("decode_attention", "prefill_attention"):
-                counts[name] = {k: c + life[k]
-                                for k, c in counts[name].items()}
+                counts[name] = plus(counts[name], life, fleet)
+            counts["tree_attention"] = plus(counts["tree_attention"], fleet)
         return counts
 
     def path_counts(var):

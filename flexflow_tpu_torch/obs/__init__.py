@@ -2,8 +2,8 @@
 the step profiler, plan health, and the JSONL reports.
 
 Copies of the JAX package's ``flexflow_tpu/obs`` modules (host-side
-Python; the profiler's cost card reads :mod:`..serve.cost`), without
-trace replay, which comes with live migration and the fleet router.  The
+Python; the profiler's cost card reads :mod:`..serve.cost`), traffic-trace
+capture and replay (:mod:`.replay`) among them.  The
 serving stack (``RequestManager``, ``SpecInferManager``,
 ``InferenceManager``, ``LLM.compile``) is instrumented behind one
 :class:`Telemetry` handle and one :class:`StepProfiler`; neither reads a
@@ -46,6 +46,13 @@ from .profiler import (
     StepProfiler,
     plan_cost_card,
     profiler_or_null,
+)
+from .replay import (
+    TRACE_VERSION,
+    ReplayHarness,
+    TrafficTrace,
+    TrafficTraceRecorder,
+    VirtualClock,
 )
 from .report import (
     memory_section,
@@ -103,4 +110,9 @@ __all__ = [
     "COMPONENTS",
     "TIME_COMPONENT_FIELDS",
     "WORK_COUNTERS",
+    "TrafficTraceRecorder",
+    "TrafficTrace",
+    "ReplayHarness",
+    "VirtualClock",
+    "TRACE_VERSION",
 ]

@@ -23,7 +23,11 @@ local HF checkpoint); speculation per request (mixed spec and plain rows
 in one verify step, ``set_spec_mode`` flips, the commit flush, the
 ``spec`` arrival option, ``SpecDecodeScan``'s ``spec_mask``) and the
 speculative serving of every family, ALiBi through the reference's
-gather path (slice 2, rest of 5).
+gather path (slice 2, rest of 5); the control plane: telemetry, the step
+profiler, SLO lanes and brownout, plan health (slice 8a), live plan
+migration (``MigrationController``, ``LLM.attach_migration``), the
+fault-tolerant fleet router over replicas (``FleetRouter``,
+``LLM.fleet``) and traffic-trace replay (``obs.replay``; slice 8b).
 """
 
 from . import models  # noqa: F401  (registers the model builders)
@@ -55,6 +59,13 @@ from .kv_paged import (
     PagePoolExhausted,
     PageTable,
     validate_page_tile,
+)
+from .fleet import FleetConfig, FleetRouter, ReplicaState
+from .migration import (
+    MigrationConfig,
+    MigrationController,
+    MigrationRollback,
+    build_deployment,
 )
 from .models.base import MODEL_REGISTRY, ServeModelConfig, build_model
 from .ops import IncMultiHeadSelfAttention, alibi_slopes, apply_rope
@@ -138,4 +149,11 @@ __all__ = [
     "load_hf_model",
     "LLM",
     "SSM",
+    "MigrationController",
+    "MigrationConfig",
+    "MigrationRollback",
+    "build_deployment",
+    "FleetRouter",
+    "FleetConfig",
+    "ReplicaState",
 ]

@@ -13,9 +13,10 @@ reference's defaults: LM-head gating and the chained decode stretch on.
 
 ``compile``'s ``telemetry``, ``plan_health``, ``profiler``, ``slo`` and
 ``brownout`` reach either manager as in the reference (:150-160);
-``health`` runs one plan-health check.  Left out: ``attach_migration`` and
-``fleet`` (live migration and the fleet router, ROADMAP slice 8b) raise
-``NotImplementedError``; ``tp > 1`` waits for the multi-GPU slice.
+``health`` runs one plan-health check; ``attach_migration`` attaches a
+live-migration controller and ``LLM.fleet`` builds the fleet router over
+compiled ``LLM``s (reference :178-218).  Left out: ``tp > 1`` waits for
+the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ class LLM:
                 spec_depth: int = 3, dtype=None, kv_dtype=None,
                 kv_page_size=None, telemetry=None, resilience=None,
                 fault_injector=None, plan_health=None, profiler=None,
-                slo=None, brownout=None, device=None) -> "LLM":
+                slo=None, brownout=None, device=None,
+                share_weights_with: Optional["LLM"] = None) -> "LLM":
         """Build the deployment (reference :53-152).  ``dtype`` is the
         parameters' dtype, as in the reference (:124-129): a state dict
         loads in ``dtype``, or float32 when it is None, whatever the
@@ -79,7 +81,12 @@ class LLM:
         first of ``ssms`` is compiled with this model's capacities and
         ``topk = max(spec_width, 1)``.  The
         EOS id comes from the config when ``generation_config`` has
-        none.  ``device=None`` is the CUDA card."""
+        none.  ``device=None`` is the CUDA card.
+        ``share_weights_with``: a compiled ``LLM`` of the same config whose
+        model (its parameter tensors, not a copy) this deployment serves
+        with its own KV cache: replicas of one model on one card for
+        :meth:`fleet` (the port's; the reference builds each replica's
+        weights anew)."""
         if tp != 1:
             raise NotImplementedError(
                 f"tp={tp}: tensor-parallel serving is the multi-GPU slice "
@@ -87,13 +94,21 @@ class LLM:
         cfg = self.config
         if ssms and not max_spec_tokens:
             max_spec_tokens = 1 + spec_width * spec_depth
+        shared = share_weights_with
+        if shared is not None and (shared.im is None
+                                   or shared.config != cfg):
+            raise ValueError("share_weights_with needs a compiled LLM of "
+                             "the same config")
         self.im = InferenceManager(
-            build_model(cfg), max_requests=max_requests,
+            build_model(cfg) if shared is None else shared.im.model,
+            max_requests=max_requests,
             max_tokens_per_batch=max_tokens_per_batch,
             max_seq_len=max_seq_len, device=device,
             max_spec_tokens=max_spec_tokens, topk=topk, kv_dtype=kv_dtype,
             kv_page_size=kv_page_size)
-        if self._sd is not None:
+        if shared is not None:
+            self.im.allocate_kv_cache()
+        elif self._sd is not None:
             self.im.init_operators_inference(params_from_jax(
                 convert_state_dict(self._sd, cfg), cfg, self.im.device,
                 dtype or "float32"))
@@ -137,19 +152,40 @@ class LLM:
         return self.rm.plan_health.check()
 
     def attach_migration(self, build_manager, config=None, plan=None):
-        """Live plan migration (reference :178) is ROADMAP slice 8b,
-        not ported yet."""
-        raise NotImplementedError(
-            "attach_migration: live plan migration is slice 8b of the "
-            "port (ROADMAP), not ported yet")
+        """Attach a live-migration controller (``serve/migration.py``,
+        reference :178) and return it: it acts on the plan-health
+        monitor's ``replan_recommended`` and on ``request_migration``,
+        switching plans at a serve tick boundary (drain, rebuild through
+        ``build_manager(candidate)``, readmit under the same rids, with
+        rollback).  ``self.rm`` and ``self.im`` follow the active
+        deployment.  With no planner ported, a recommendation carries no
+        candidate: migrations are requested by hand."""
+        if self.rm is None:
+            raise RuntimeError("call compile() first")
+        from .migration import MigrationController
+
+        def on_switch(new_rm):
+            self.rm = new_rm
+            self.im = new_rm.im
+
+        return MigrationController(self.rm, build_manager, plan=plan,
+                                   config=config, on_switch=on_switch)
 
     @staticmethod
     def fleet(llms, **kwargs):
-        """The fault-tolerant fleet router (reference :202) is ROADMAP
-        slice 8b, not ported yet."""
-        raise NotImplementedError(
-            "LLM.fleet: the fleet router is slice 8b of the port "
-            "(ROADMAP), not ported yet")
+        """A :class:`~.fleet.FleetRouter` over compiled ``LLM``s, one
+        replica each (reference :202); for the streams of one replica
+        they share weights and generation config.  Keyword arguments go
+        to the router (``gen``, ``telemetry``, ``resilience``,
+        ``fault_injector``, ``clock``, ``profiler``, ``config``, ...)."""
+        from .fleet import FleetRouter
+
+        rms = []
+        for llm in llms:
+            if llm.rm is None:
+                raise RuntimeError("compile() every fleet member first")
+            rms.append(llm.rm)
+        return FleetRouter(rms, **kwargs)
 
     def memory_report(self):
         """``{"kv": the manager's KV snapshot}``, with ``"ledger"``, the

@@ -139,7 +139,8 @@ class InferenceManager:
         """``model``: a serve model from ``build_model`` (parameters on
         ``meta`` until :meth:`init_operators_inference` fills them; a
         model whose parameters already lie on ``device`` keeps them, so
-        two managers can share modules).  ``device=None`` is the CUDA
+        two managers can share modules: ``allocate_kv_cache`` then
+        readies the second).  ``device=None`` is the CUDA
         card; pass ``"cpu"`` to run the plain versions of the kernels on
         the CPU.  ``max_spec_tokens > 0`` allocates the speculation-tree
         buffers; ``topk > 0`` makes every step return the top-k token ids
@@ -174,8 +175,12 @@ class InferenceManager:
         self.max_seq_len = max_seq_len
         self.max_spec_tokens = max_spec_tokens
         self.topk = topk
+        # a model whose parameters already lie on the device (another
+        # manager's) needs only its caches: ``allocate_kv_cache``
+        self._params_ready = True
         if any(p.is_meta for p in model.parameters()):
             model = model.to_empty(device=self.device)
+            self._params_ready = False
         elif any(p.device.type != self.device.type
                  for p in model.parameters()):
             raise ValueError(f"model parameters are not on {self.device}")
@@ -198,7 +203,6 @@ class InferenceManager:
         # :358-361): the cost card prices a marked head per logit row
         self.lm_head_marked = bool(gate_lm_head) and getattr(
             self.model, "gates_lm_head", False)
-        self.ready = False
 
     @property
     def gate_lm_head(self) -> bool:
@@ -214,6 +218,12 @@ class InferenceManager:
     @property
     def state(self):
         return self.kv.state
+
+    @property
+    def ready(self) -> bool:
+        """Parameters filled and caches allocated (a torn-down allocator
+        leaves the manager unready)."""
+        return self._params_ready and self.kv.state is not None
 
     @property
     def plan_key(self) -> str:
@@ -272,11 +282,14 @@ class InferenceManager:
                     f"{sorted(set(params) - set(own))[:4]}")
             for name, p in own.items():
                 p.copy_(params[name])
+        self._params_ready = True
         self.allocate_kv_cache()
-        self.ready = True
         return self
 
     def allocate_kv_cache(self):
+        """(Re)allocate zeroed caches; for a manager built on a model
+        whose parameters another manager filled, this alone readies it
+        (the two share the weights, each has its own KV)."""
         return self.kv.allocate()
 
     def reset(self):

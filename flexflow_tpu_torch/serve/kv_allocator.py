@@ -17,8 +17,10 @@ The per-request attribution the RequestManager drives (reference
 :342-402): ``bind`` when a request takes a slot, ``observe`` once a serve
 tick with every live request's cache depth (per-request peaks, the live
 high-water marks and the occupancy, headroom and fragmentation gauges of
-``snapshot``), ``release`` on every path it leaves one; plus the no-op
-page and host-tier hooks the paged subclass (:mod:`.kv_paged`) overrides.
+``snapshot``), ``release`` on every path it leaves one, and ``teardown``
+when a live migration or the fleet router retires the deployment (the
+buffers drop, so the card's memory is freed); plus the no-op page and
+host-tier hooks the paged subclass (:mod:`.kv_paged`) overrides.
 """
 
 from __future__ import annotations
@@ -230,6 +232,20 @@ class KVAllocator:
     def attributed_rids(self) -> List[int]:
         return sorted(set(self._live) | set(self._peak))
 
+    def teardown(self) -> List[int]:
+        """Give up the deployment's cache (reference :423): every
+        attribution left releases, the watermarks reset and the buffers
+        drop (``state = None``; on the card their memory returns to the
+        caching allocator at once).  Returns the rids that still held
+        attribution: after a full drain every request released on its
+        slot-leaving path, so a non-empty list is a leak."""
+        leaked = self.attributed_rids()
+        for rid in leaked:
+            self.release(rid)
+        self.reset_attribution()
+        self.state = None
+        return leaked
+
     # ---- host-tier hooks: a slot-contiguous cache has no pages to spill,
     # so recovery from preemption stays recompute (reference :319-337)
     def attach_host_tier(self, capacity_bytes: int):
@@ -240,3 +256,6 @@ class KVAllocator:
 
     def drop_spill(self, rid: int) -> None:
         return None
+
+    def adopt_spills(self, other, rids) -> int:
+        return 0

@@ -618,6 +618,14 @@ class PagedKVAllocator(KVAllocator):
                 self._unmap(slot, k)
         return super().release(rid, tokens)
 
+    def teardown(self) -> List[int]:
+        """The base teardown, then a fresh page pool and prefix index
+        (reference :747): the buffers are gone, so no index entry may
+        vouch for their pages, and the device page table goes too."""
+        leaked = super().teardown()
+        self._init_pool()
+        return leaked
+
     # ---- host-tier spill / restore (reference :759-1012) ---------------
     def attach_host_tier(self, capacity_bytes: int) -> Optional[HostPageTier]:
         """Attach a bounded host tier of ``capacity_bytes`` (idempotent;
@@ -794,6 +802,28 @@ class PagedKVAllocator(KVAllocator):
     def drop_spill(self, rid: int) -> None:
         if self.host_tier is not None:
             self.host_tier.drop_spill(rid)
+
+    def adopt_spills(self, other, rids: Sequence[int]) -> int:
+        """Move ``rids``' spills from another allocator's host tier onto
+        this one (a migration's readmission, a fleet failover; reference
+        :961), only when the swap signatures are equal: a reshaped
+        successor recomputes instead.  A tier is attached here if there is
+        none, with the source's capacity.  Returns the spills moved."""
+        src = getattr(other, "host_tier", None)
+        if src is None or other is self:
+            return 0
+        sig = self.swap_signature()
+        if src.signature != sig:
+            return 0
+        if self.host_tier is None:
+            self.host_tier = HostPageTier(src.capacity_bytes)
+        self.host_tier.signature = sig
+        moved = 0
+        for rid in rids:
+            s = src.pop_spill(int(rid))
+            if s is not None and self.host_tier.put_spill(int(rid), s):
+                moved += 1
+        return moved
 
     def _promote_full(self, key: Tuple,
                       want: Tuple[int, ...]) -> Optional[_Entry]:

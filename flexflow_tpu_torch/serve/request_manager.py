@@ -51,9 +51,18 @@ a per-class queue bound and KV reservation); a ``BrownoutController`` is
 evaluated every ``check_every`` ticks and defers, degrades (speculation
 off, output caps), spills or sheds degradable lanes (``_maybe_brownout``);
 a ``PlanHealthMonitor`` is checked every ``health_check_every`` ticks and
-once when a loop drains.  Left out (ROADMAP slice 8b): live migration
-(``_maybe_migrate``, the ``admission_closed`` gate), the fleet router's
-failover hook, and traffic-trace recording (``trace_run_meta``).
+once when a loop drains.
+
+Live migration and the fleet (reference :282-288, :813-822, :2311-2571):
+an attached :class:`~.migration.MigrationController` (``migration``) gets
+a slot at every tick boundary of both serve loops (``_maybe_migrate``),
+which hand the rest of the run to the successor manager once a plan
+switch commits; while it drains, ``admission_closed`` keeps new work out
+of the slots (requests still queue).  ``on_exhausted`` is the fleet
+router's failover hook, consulted when a dispatch exhausts its retries
+before the requests are requeued or failed here.  ``serve_with_arrivals``
+records a traffic trace (``record_trace``, :mod:`..obs.replay`) headed by
+``trace_run_meta``.
 """
 
 from __future__ import annotations
@@ -231,6 +240,13 @@ class RequestManager:
     default_spec_mode = False
     # serve ticks between plan-health checks (reference :1387)
     health_check_every = 16
+    # the fleet router's failover hook (reference :813-822):
+    # ``on_exhausted(rm, site, exc, affected_fn)`` is consulted when a
+    # dispatch exhausts its retries; True means it took the affected
+    # requests over (the fleet preempts them and fails them over to a
+    # surviving replica), False or no hook keeps this manager's requeue
+    # or FAILED
+    on_exhausted = None
 
     def __init__(self, im, gen_config: Optional[GenerationConfig] = None,
                  telemetry=None, resilience: Optional[ResilienceConfig] = None,
@@ -313,6 +329,11 @@ class RequestManager:
                 plan_health.slo = self.slo
             if getattr(plan_health, "brownout", None) is None:
                 plan_health.brownout = self.brownout
+        # live plan migration (serve/migration.py): the controller polled
+        # at every tick boundary, and the drain's gate that keeps new work
+        # out of the slots while requests still queue
+        self.migration = None
+        self.admission_closed = False
 
     # ------------------------------------------------------------------
     def _sample_for(self, points, n_rows: int):
@@ -736,9 +757,11 @@ class RequestManager:
         ``retries[site family]``.  Faults raise before any device work and
         KV writes are positional, so a retry replays identical compute.
         Returns ``fn()``, or None once the budget is spent, after
-        ``on_exhausted()`` (default: the affected requests are requeued or
-        failed by ``_fail_inflight``); the serve loop goes on.  Each fault
-        is a ``dispatch_fault`` event, each retry a ``dispatch_retry``."""
+        ``on_exhausted()`` (default: the manager's ``on_exhausted`` hook,
+        then, unless the hook took them, the affected requests are
+        requeued or failed by ``_fail_inflight``); the serve loop goes
+        on.  Each fault is a ``dispatch_fault`` event, each retry a
+        ``dispatch_retry``."""
         pol = self.res.retry
         tel = self.telemetry
         attempt = 0
@@ -749,10 +772,12 @@ class RequestManager:
                 if tel.enabled:
                     tel.fault_observed(site, detail=str(e))
                 if attempt >= pol.max_retries:
-                    if on_exhausted is None:
-                        self._fail_inflight(site, affected_fn)
-                    else:
+                    if on_exhausted is not None:
                         on_exhausted()
+                    elif not (self.on_exhausted is not None
+                              and self.on_exhausted(self, site, e,
+                                                    affected_fn)):
+                        self._fail_inflight(site, affected_fn)
                     return None
                 attempt += 1
                 self.retries[site.split(":")[0]] += 1
@@ -866,7 +891,10 @@ class RequestManager:
     def _admit(self) -> None:
         """Fill free slots by priority; with preemption on, evict for a
         higher-priority request while one waits (each round admits into
-        the freed slot or stops)."""
+        the freed slot or stops).  Nothing takes a slot while a migration
+        drains (``admission_closed``)."""
+        if self.admission_closed:
+            return
         self._fill_slots()
         if self.res.preemption:
             for _ in range(len(self.slots)):
@@ -1226,7 +1254,8 @@ class RequestManager:
                 or any(r.status is not RequestStatus.DECODING
                        for r in active)):
             return 0
-        if self._eligible() and (not self.chain_segments
+        chained = self.chain_segments and not self.admission_closed
+        if self._eligible() and (not chained
                                  or any(s is None for s in self.slots)
                                  or self._preempt_would_fire()):
             return 0   # (a brownout-held queue waits regardless)
@@ -1445,7 +1474,8 @@ class RequestManager:
             rem_cap = self.scan_chunk - total
             if rem_cap < 2:
                 break
-            if (self.pending and len(rows) < im.max_tokens
+            if (self.pending and not self.admission_closed
+                    and len(rows) < im.max_tokens
                     and any(s is None for s in self.slots)
                     and self._eligible()):
                 bc = self._stretch_join(bc, rows, sched, dev_seq, commits,
@@ -1705,6 +1735,9 @@ class RequestManager:
         while True:
             self._check_lifecycle()
             if not self.has_work():
+                new_rm = self._maybe_migrate(idle=True)
+                if new_rm is not None:
+                    return new_rm.serve_incr_decoding()
                 break
             self.profiler.tick_begin()
             self._tick()
@@ -1712,8 +1745,40 @@ class RequestManager:
             self._sync_kv()
             self._maybe_check_health()
             self._maybe_brownout()
+            new_rm = self._maybe_migrate()
+            if new_rm is not None:
+                return new_rm.serve_incr_decoding()
         self._maybe_check_health(force=True)
         return {rid: r.generated for rid, r in self.requests.items()}
+
+    def _maybe_migrate(self, idle: bool = False):
+        """The attached migration controller's slot at a tick boundary
+        (reference :2311): the successor manager when a plan switch
+        committed here (the serve loop hands the run over to it), else
+        None.  ``idle``: the loop has no work, so a staged migration runs
+        at once (nothing to preempt)."""
+        if self.migration is None:
+            return None
+        new_rm = self.migration.tick(self, idle=idle)
+        return new_rm if new_rm is not None and new_rm is not self else None
+
+    def trace_run_meta(self) -> Dict:
+        """The header a traffic trace (:mod:`..obs.replay`) records for
+        this deployment (reference :2323): the generation config with its
+        seed, the plan key and engine shape, the fault injector's
+        schedule and the SLO policy, what a replay needs to rebuild the
+        same run."""
+        from ..obs.replay import engine_shape_of, injector_meta
+
+        meta: Dict = {
+            "driver": type(self).__name__,
+            "gen": dataclasses.asdict(self.gen),
+            "plan": engine_shape_of(self.im),
+            "fault": injector_meta(self.injector),
+        }
+        if self.slo is not None and hasattr(self.slo, "snapshot"):
+            meta["slo"] = self.slo.snapshot()
+        return meta
 
     def _maybe_check_health(self, force: bool = False) -> None:
         """Check the attached plan-health monitor every
@@ -1823,8 +1888,9 @@ class RequestManager:
                 if changed and tel.enabled:
                     tel.lane_degraded(req.slo_class)
 
-    def serve_with_arrivals(self, arrivals, clock=None,
-                            quantum: int = 8) -> Dict[int, Dict]:
+    def serve_with_arrivals(self, arrivals, clock=None, quantum: int = 8,
+                            record_trace=None, _t0=None, _records=None,
+                            _open=None) -> Dict[int, Dict]:
         """Arrival-driven serving (reference :2342): requests join the
         admit/retire loop at their offered times.
 
@@ -1853,17 +1919,34 @@ class RequestManager:
         ``queue_wait_s + prefill_s == first_token_s - arrival_s``.  Stamps
         are taken at step boundaries; a joiner's prefill start at the
         segment boundary where it joined.
+
+        ``record_trace``: a :class:`~..obs.replay.TrafficTraceRecorder`
+        that takes the run's header on entry, every offered arrival as it
+        is admitted (its raw options) and every finished record at the
+        end; it only appends, so a recorded run equals an unrecorded one.
+        ``_t0``, ``_records`` and ``_open`` carry a run across a live
+        migration: the successor manager re-enters this loop with the
+        arrivals left, on the first manager's time base and records.
         """
         clock = clock or time.perf_counter
-        t0 = clock()
+        t0 = clock() if _t0 is None else _t0
+        if record_trace is not None:
+            # a successor's header lands as a continuation
+            record_trace.begin_run(self.trace_run_meta())
         queue = sorted(arrivals, key=lambda a: a[0])
-        records: Dict[int, Dict] = {}
-        open_rids = set()   # records still waiting for a stamp
+        records: Dict[int, Dict] = {} if _records is None else _records
+        # records still waiting for a stamp
+        open_rids = set() if _open is None else _open
 
         def admit_due():
             now = clock() - t0
             while queue and queue[0][0] <= now:
                 off, prompt, mnt, *rest = queue.pop(0)
+                if record_trace is not None:
+                    # the raw options: a malformed dict replays its
+                    # rejection
+                    record_trace.record_arrival(
+                        off, prompt, mnt, rest[0] if rest else None)
                 opts, reject = parse_arrival_options(rest)
                 rid = self.register_new_request(
                     prompt, mnt, reject_invalid=True, reject_reason=reject,
@@ -1895,6 +1978,14 @@ class RequestManager:
                     rec.setdefault("finish_s", now)
                     open_rids.discard(rid)
 
+        def continue_on(new_rm):
+            # a plan switch committed: the successor holds every request
+            # under its rid and serves the arrivals left
+            return new_rm.serve_with_arrivals(
+                queue, clock=clock, quantum=quantum,
+                record_trace=record_trace, _t0=t0, _records=records,
+                _open=open_rids)
+
         saved_chunk = self.scan_chunk
         saved_clock = self._swap_clock(clock)
         chained = self.chain_segments
@@ -1906,6 +1997,9 @@ class RequestManager:
                 self._check_lifecycle()
                 stamp(clock() - t0)
                 if not self.has_work():
+                    new_rm = self._maybe_migrate(idle=True)
+                    if new_rm is not None:
+                        return continue_on(new_rm)
                     if queue:   # idle until the next arrival
                         time.sleep(min(1e-3, max(0.0, queue[0][0] - now)))
                     continue
@@ -1931,6 +2025,9 @@ class RequestManager:
                             tel.request_prefill_started(
                                 self.requests[rid].trace_id)
                 stamp(clock() - t0)
+                new_rm = self._maybe_migrate()
+                if new_rm is not None:
+                    return continue_on(new_rm)
             self._maybe_check_health(force=True)
         finally:
             self.scan_chunk = saved_chunk
@@ -1953,6 +2050,9 @@ class RequestManager:
             stop = rec.get("first_token_s", rec.get("finish_s", end))
             rec["queue_wait_s"] = max(start - rec["arrival_s"], 0.0)
             rec["prefill_s"] = max(stop - start, 0.0)
+        if record_trace is not None:
+            # only the last manager of a migration chain gets here
+            record_trace.finalize(records)
         return records
 
     def generate(self, prompts: Sequence[Sequence[int]],

@@ -174,6 +174,17 @@ class SpecInferManager(RequestManager):
         if self.telemetry.enabled:
             ssm.publish_memory(self.telemetry, key=ssm.plan_key + "_draft")
 
+    def trace_run_meta(self) -> Dict:
+        """The base header plus the draft tree's shape and the draft
+        deployment's engine shape (reference :194): a replay rebuilds the
+        same speculation."""
+        from ..obs.replay import engine_shape_of
+
+        meta = super().trace_run_meta()
+        meta["spec"] = {"width": self.width, "depth": self.depth,
+                        "draft_plan": engine_shape_of(self.ssm)}
+        return meta
+
     # ------------------------------------------------------------------
     def _kv_bind(self, rid: int) -> None:
         # the LLM's allocator reuses a cached prompt prefix; the draft's
@@ -637,7 +648,9 @@ class SpecInferManager(RequestManager):
 
     def flush_pending_commits(self) -> bool:
         """Commit every accepted but uncommitted token now (reference
-        :822), as the tick does when it leaves speculation."""
+        :822), as the tick does when it leaves speculation: a migration's
+        drain calls it, so a row that completes in the grace window
+        finishes on a whole cache prefix."""
         return self._flush_commits()
 
     def _tick(self) -> None:

@@ -1293,3 +1293,128 @@ def test_no_hook_syncs_the_card(dev):
     for name in ("span", "account", "observe", "tick_end", "check",
                  "evaluate", "phase", "host_sync"):
         assert name in calls, name
+
+
+# ---------------------------------------------------------------------------
+# the fleet router and live migration on the card
+# ---------------------------------------------------------------------------
+def _shared(device, params=None, n=2, page=None):
+    """``n`` deployments of one SMALL float32 model sharing its parameter
+    tensors (each with its own KV), on ``device``."""
+    model = build_model(SMALL)
+    ims = []
+    for i in range(n):
+        im = InferenceManager(model, max_requests=2, max_tokens_per_batch=16,
+                              max_seq_len=128, device=device,
+                              kv_page_size=page)
+        if i:
+            im.allocate_kv_cache()
+        else:
+            im.init_operators_inference(params, seed=3)
+        ims.append(im)
+    return ims
+
+
+def _fleet_run(ims, on_kill=None):
+    from flexflow_tpu_torch.serve import FleetRouter
+
+    fleet = FleetRouter(ims, gen=GenerationConfig(max_new_tokens=8))
+    for rep in fleet.replicas:
+        rep.rm.scan_chunk = 2
+    if on_kill is not None:
+        kill = fleet.kill_replica
+
+        def spy(name, reason="operator kill"):
+            return on_kill(lambda: kill(name, reason), fleet._by_name(name))
+
+        fleet.kill_replica = spy
+    fleet.schedule_kill("replica0", at_tick=3)
+    out = fleet.generate([[3, 5, 7, 9, 11], [2, 4, 6], [13, 8, 1]])
+    return out, fleet
+
+
+def test_fleet_kill_on_card_matches_cpu(dev):
+    """Two float32 replicas sharing one model, replica0 killed mid-decode:
+    the card serves the CPU fleet's streams, the victim's requests fail
+    over, and its teardown returns its KV bytes to the card
+    (``memory_allocated`` falls by at least them; exact streams)."""
+    cpu = _shared("cpu")
+    want, cpu_fleet = _fleet_run(cpu)
+    params = {k: p.to(dev) for k, p in cpu[0].model.named_parameters()}
+    freed = {}
+
+    def measure(kill, rep):
+        torch.cuda.synchronize()
+        freed["kv"] = rep.rm.im.kv.allocated_bytes()
+        before = torch.cuda.memory_allocated()
+        moved = kill()
+        torch.cuda.synchronize()
+        freed["drop"] = before - torch.cuda.memory_allocated()
+        freed["moved"] = moved
+        return moved
+
+    att.reset_counts()
+    got, fleet = _fleet_run(_shared(dev, params), measure)
+    assert got == want
+    assert fleet._failover_counts == cpu_fleet._failover_counts
+    assert freed["moved"] and freed["kv"] > 0
+    assert freed["drop"] >= freed["kv"]
+    assert fleet._by_name("replica0").leaked == []
+    assert att.decode_attention.variant_launches["fp"] > 0
+    assert att.prefill_attention.variant_launches["fp"] > 0
+
+
+def test_migration_contiguous_to_paged_on_card_matches_cpu(dev):
+    """A contiguous → paged live migration landing mid-decode: the card
+    serves the CPU run's streams, the successor launches the paged
+    kernels, and the incumbent's teardown returns its KV bytes."""
+    from flexflow_tpu_torch.serve import MigrationConfig, MigrationController
+
+    prompts = [[3, 5, 7, 9, 11], [2, 4, 6], [13, 8, 1]]
+
+    def run(device, params=None):
+        inc, = _shared(device, params, n=1)
+        model = inc.model
+        freed = {}
+
+        def build(cand):
+            im = InferenceManager(model, max_requests=2,
+                                  max_tokens_per_batch=16, max_seq_len=128,
+                                  device=device, kv_page_size=64)
+            im.allocate_kv_cache()
+            return im
+
+        rm = RequestManager(inc, GenerationConfig(max_new_tokens=8))
+        rm.scan_chunk = 2
+        ctrl = MigrationController(
+            rm, build, plan={"plan_key": "tp1_pp1_m1"},
+            config=MigrationConfig(defer_ticks=2, drain_grace_ticks=1))
+        teardown = ctrl._teardown
+
+        def measure(old):
+            if device != "cpu":
+                torch.cuda.synchronize()
+                freed["kv"] = old.im.kv.allocated_bytes()
+                before = torch.cuda.memory_allocated()
+            leaked = teardown(old)
+            if device != "cpu":
+                torch.cuda.synchronize()
+                freed["drop"] = before - torch.cuda.memory_allocated()
+            return leaked
+
+        ctrl._teardown = measure
+        ctrl.request_migration("tp1_pp1_m1_paged64")
+        return rm.generate(prompts), ctrl, freed
+
+    want, _, _ = run("cpu")
+    cpu = _shared("cpu", n=1)[0]
+    params = {k: p.to(dev) for k, p in cpu.model.named_parameters()}
+    att.reset_counts()
+    got, ctrl, freed = run(dev, params)
+    assert got == want
+    rec = ctrl.history[-1]
+    assert rec["outcome"] == "completed" and rec["preempted_requests"] > 0
+    assert rec["kv_leaked_rids"] == []
+    assert freed["kv"] > 0 and freed["drop"] >= freed["kv"]
+    for fn in (att.decode_attention, att.prefill_attention):
+        assert fn.variant_launches["paged"] > 0

@@ -27,8 +27,8 @@ read of the loop (``LoopClock``), which the telemetry reads without moving
 
 Also: the port's streams are bit-identical with every hook on and off,
 ``LLM.compile(telemetry=..., slo=...)`` equals driving the managers
-directly, ``LLM.health`` and the slice-8b stubs, the CLI report, and the
-calibration store's default.
+directly, ``LLM.health`` and the live-migration and fleet entry points,
+the CLI report, and the calibration store's default.
 """
 
 import json
@@ -451,7 +451,9 @@ def test_llm_compile_hooks_equal_driving_the_managers():
     """``LLM.compile(telemetry=..., profiler=..., slo=..., brownout=...,
     plan_health=...)`` reaches the manager as the reference's does: the
     events equal those of a RequestManager built by hand on the same
-    weights; ``health()`` runs the monitor; the 8b entry points raise."""
+    weights; ``health()`` runs the monitor; ``attach_migration`` attaches
+    a controller to the manager and ``LLM.fleet`` routes over it, the
+    telemetry handle shared."""
     cfg = PS.ServeModelConfig(**{**CFG.__dict__})
     caps = dict(max_requests=2, max_tokens_per_batch=16, max_seq_len=128,
                 device="cpu")
@@ -485,10 +487,13 @@ def test_llm_compile_hooks_equal_driving_the_managers():
     report = llm.health()
     assert report["plan"] == "tp1_pp1_m1" and report["checks"] >= 2
     assert "ledger" in llm.memory_report()
-    for call in (lambda: llm.attach_migration(lambda plan: None),
-                 lambda: PS.LLM.fleet([llm])):
-        with pytest.raises(NotImplementedError, match="slice 8b"):
-            call()
+    ctrl = llm.attach_migration(lambda plan: None)
+    assert isinstance(ctrl, PS.MigrationController)
+    assert llm.rm.migration is ctrl and ctrl.rm is llm.rm
+    fleet = PS.LLM.fleet([llm], telemetry=h1["telemetry"])
+    assert isinstance(fleet, PS.FleetRouter)
+    assert fleet.replicas[0].rm is llm.rm
+    assert fleet.telemetry is h1["telemetry"]
     assert PS.LLM(cfg).health() is None
 
 
