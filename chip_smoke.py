@@ -169,6 +169,30 @@ and prints no result):
    artifact.  Logs each migration's drain, rebuild and readmit walls,
    the recompute tokens, the downtime in admission-closed ticks and the
    failed-over requests' passes from the kill to their next token.
+17. tensor parallelism, two shards on the one card (``devices=["cuda:0",
+   "cuda:0"]``: the collectives' local implementation; NCCL across cards
+   needs two cards): K1, K2 and both K3 layouts at the shard-local shapes
+   of Llama-2-7B at ``tp=2`` (16 query heads on 16 KV heads: held against
+   the plain versions and timed, fp caches) and of a 70B shape at ``tp=4``
+   (16 query heads on 2 KV heads, a group of 8: held and timed), each
+   beside one SDPA call (grouped heads folded into the query length);
+   then (a) parity:
+   Llama-2-7B at full width, 4 layers, float32 (TF32 off), ``tp=2``
+   against ``tp=1`` from the same seeded weights (the ``tp=1`` deployment
+   built, recorded and freed first): a prefill chunk's logits within
+   ``atol=rtol=1e-3`` (float32 GEMMs whose two halves are summed apart),
+   and equal 16-token greedy streams incrementally, through
+   ``SpecInferManager`` and ``SpecDecodeScan`` (a ``tp=2`` llama-68m-shaped
+   draft), and on int8 weights + int8 KV + 512-position pages; StarCoder's
+   shape (48 query heads on one KV head: replicated attention) and
+   MPT-7B's (ALiBi: each shard's slice of the slopes) at 2 layers; each
+   shard's K1, K2 and K3 launches counted on its own; (b) serve: bf16
+   Llama-2-7B at full depth through ``LLM.compile(tp=2)``, the 8 prompts,
+   64 new tokens: TTFT, TPOT, each shard's weight and KV bytes and the
+   collective calls, and the share of tokens equal to ``tp=1``'s (bf16
+   partial sums round apart, so the share is printed, not required).
+   Its times are two shards on one card: the shards' host issue and the
+   reduces, not a speed-up.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -180,8 +204,10 @@ may part at a rounding tie).
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record (one entry per kernel and cache variant
-in bf16 and, suffixed ``/f32``, in float32, K1's ALiBi variants, and K1
-at 71 and 48 query heads per KV head)
+in bf16 and, suffixed ``/f32``, in float32, K1's ALiBi variants, K1
+at 71 and 48 query heads per KV head, and, suffixed ``7b-tp2-shard``,
+the kernels at phase 17's shard-local shape with its launches over both
+shards: all four in float32, K1 and K2 in bf16)
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
 device.
 """
@@ -340,6 +366,38 @@ def cache_variants(att, kv_quant, kc, vc, seed):
     }
 
 
+def sdpa_ms(q, k, v, mask, scale):
+    """Device milliseconds of one SDPA call computing attention of ``q``
+    ``[N, QH, L, D]`` on ``k``/``v`` ``[N, KV, S, D]`` under ``mask``
+    ``[N, 1, L, S]``, query head ``h`` reading KV head ``h // (QH / KV)``:
+    the library yardstick of K1, K2 and K3.  Grouped query heads are
+    folded into the query length (``q`` as ``[N, KV, G*L, D]``, the mask
+    repeated ``G`` times), so the one call reads each KV head once, as the
+    kernels do; the fold is checked once against the call on K and V
+    repeated for every query head."""
+    import torch
+    import torch.nn.functional as F
+
+    n, qh, length, d = q.shape
+    g = qh // k.shape[1]
+    qf = q.reshape(n, k.shape[1], g * length, d)
+    mf = mask.repeat(1, 1, g, 1)
+
+    def call():
+        return F.scaled_dot_product_attention(qf, k, v, attn_mask=mf,
+                                              scale=scale)
+
+    if g > 1:
+        want = F.scaled_dot_product_attention(
+            q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1),
+            attn_mask=mask, scale=scale)
+        tol = 1e-3 if q.dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(call().reshape(n, qh, length, d), want,
+                                   atol=tol, rtol=tol)
+        del want
+    return time_ms(call, 20)
+
+
 def run_variants(att, torch, name, dn, tol, variants, head, tail, work,
                  library_ms, iters, slopes=None):
     """Kernel ``name`` on ``(*head, k, v, *tail)`` in each cache variant
@@ -383,12 +441,12 @@ def run_variants(att, torch, name, dn, tol, variants, head, tail, work,
     return out
 
 
-def phase_kernels(att, kv_quant, torch, dev):
-    """K1 and K2 at the 7B attention shapes, in every cache variant, vs
-    their plain versions."""
-    import torch.nn.functional as F
-
-    qh = kv = 32
+def phase_kernels(att, kv_quant, torch, dev, qh=32, kv=32,
+                  variants=VARIANTS, label=""):
+    """K1 and K2 at the 7B attention shapes (``qh`` query heads on ``kv``
+    KV heads: the whole model's 32 on 32 by default), in each cache
+    variant of ``variants``, vs their plain versions, each beside one SDPA
+    call (``sdpa_ms``)."""
     d, s, r = 128, 2048, 8
     rows_k1 = list(range(8)) + [r] * 504            # 8 real tokens, 504 pads
     pos_k1 = [0, 2047, 1023, 300, 1800, 64, 1500, 777] + [0] * 504
@@ -402,7 +460,8 @@ def phase_kernels(att, kv_quant, torch, dev):
             else dict(atol=1e-2, rtol=1e-2)
         kc = torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
         vc = torch.randn(r + 1, kv, s, d, generator=g).to(dev, dtype)
-        variants = cache_variants(att, kv_quant, kc, vc, 1)
+        caches = {k: v for k, v in cache_variants(
+            att, kv_quant, kc, vc, 1).items() if k in variants}
         scale = d ** -0.5
         itemsize = kc.element_size()
 
@@ -415,12 +474,10 @@ def phase_kernels(att, kv_quant, torch, dev):
         kg, vg = kc[ridx], vc[ridx]
         mask = (torch.arange(s, device=dev)[None, :]
                 <= pos1[:8, None].long())[:, None, None, :]
-        qs = q1[:8, :, None, :]
-        lib1 = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, scale=scale), 20)
+        lib1 = sdpa_ms(q1[:8, :, None, :], kg, vg, mask, scale)
         del kg, vg
         results.update(run_variants(
-            att, torch, "decode_attention", dn, tol, variants, (q1,),
+            att, torch, "decode_attention", dn, tol, caches, (q1,),
             (rows1, pos1, scale),
             lambda var: (decode_work(rows_k1, pos_k1, s, kv, qh, d, itemsize,
                                      key_bytes(var, d, itemsize))[0]
@@ -437,12 +494,10 @@ def phase_kernels(att, kv_quant, torch, dev):
         qpos = ps2.long()[:, None] + torch.arange(bq, device=dev)
         mask = (torch.arange(s, device=dev)[None, None, :]
                 <= qpos[:, :, None])[:, None]
-        qs = q2.transpose(1, 2)                     # [G, QH, Bq, D]
-        lib2 = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask, scale=scale), 20)
+        lib2 = sdpa_ms(q2.transpose(1, 2), kg, vg, mask, scale)  # [G,QH,Bq,D]
         del kg, vg
         results.update(run_variants(
-            att, torch, "prefill_attention", dn, tol, variants, (q2,),
+            att, torch, "prefill_attention", dn, tol, caches, (q2,),
             (rows2, ps2, scale),
             lambda var: (prefill_work(rows_k2, pstart, bq, s, kv, qh, d,
                                       itemsize, key_bytes(var, d, itemsize)
@@ -450,10 +505,10 @@ def phase_kernels(att, kv_quant, torch, dev):
                          prefill_work(rows_k2, pstart, bq, s, kv, qh, d,
                                       itemsize, 0)[1]),
             lib2, 20))
-        del kc, vc, variants, q1, q2
+        del kc, vc, caches, q1, q2
         torch.cuda.empty_cache()
     for (name, var, dn), res in results.items():
-        log(f"kernel {name} {var} {dn}: " + " ".join(
+        log(f"kernel{label} {name} {var} {dn}: " + " ".join(
             f"{k}={v}" for k, v in res.items()))
     return results
 
@@ -673,14 +728,13 @@ def tree_mask(parents, pb):
     return m
 
 
-def phase_tree_kernels(att, kv_quant, torch, dev):
-    """K3 at the speculative serve shapes, both layouts, every cache
-    variant, vs its plain version; timed beside one SDPA call over
-    [committed; spec] keys."""
+def phase_tree_kernels(att, kv_quant, torch, dev, qh=32, kv=32,
+                       variants=VARIANTS, label=""):
+    """K3 at the speculative serve shapes (``qh`` query heads on ``kv`` KV
+    heads), both layouts, each cache variant of ``variants``, vs its plain
+    version; timed beside one SDPA call over [committed; spec] keys."""
     import numpy as np
-    import torch.nn.functional as F
 
-    qh = kv = 32
     d, s, r, pb = 128, 2048, 8, 8
     lens = np.linspace(256, 1800, r).astype(int).tolist()
     p = len(TREE_PARENTS)
@@ -701,7 +755,8 @@ def phase_tree_kernels(att, kv_quant, torch, dev):
                   for _ in range(2))
         sk, sv = (torch.randn(r + 1, kv, pb, d, generator=g).to(dev, dtype)
                   for _ in range(2))
-        variants = cache_variants(att, kv_quant, kc, vc, 2)
+        caches = {k: v for k, v in cache_variants(
+            att, kv_quant, kc, vc, 2).items() if k in variants}
         q = torch.randn(n_flat, qh, d, generator=g).to(dev, dtype)
         scale = d ** -0.5
         itemsize = kc.element_size()
@@ -722,15 +777,14 @@ def phase_tree_kernels(att, kv_quant, torch, dev):
                      < bat_tail[3][:, None].long())           # [R, S]
         lib_mask = torch.cat([committed[:, None, :].expand(r, p, s),
                               bat_tail[4]], dim=2)[:, None]   # [R,1,P,S+Pb]
-        qs = qb.transpose(1, 2)                               # [R, QH, P, D]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=lib_mask, scale=scale), 20)
+        lib = sdpa_ms(qb.transpose(1, 2), kg, vg, lib_mask,   # [R,QH,P,D]
+                      scale)
         del kg, vg
         for name, head, tail, flat in (
                 ("tree_attention", (q,), tok_tail, n_flat),
                 ("tree_attention_batched", (qb,), bat_tail, real)):
             results.update(run_variants(
-                att, torch, name, dn, tol, variants, head, tail,
+                att, torch, name, dn, tol, caches, head, tail,
                 lambda var, flat=flat: (
                     tree_work(lens, [mask1] * r, flat, pb, kv, qh, d,
                               itemsize, key_bytes(var, d, itemsize))[0]
@@ -738,10 +792,10 @@ def phase_tree_kernels(att, kv_quant, torch, dev):
                     tree_work(lens, [mask1] * r, flat, pb, kv, qh, d,
                               itemsize, 0)[1]),
                 lib, 20))
-        del kc, vc, sk, sv, q, qb, variants, tok_tail, bat_tail
+        del kc, vc, sk, sv, q, qb, caches, tok_tail, bat_tail
         torch.cuda.empty_cache()
     for (name, var, dn), res in results.items():
-        log(f"kernel {name} {var} {dn}: " + " ".join(
+        log(f"kernel{label} {name} {var} {dn}: " + " ".join(
             f"{k}={v}" for k, v in res.items()))
     return results
 
@@ -3033,6 +3087,275 @@ def phase_fleet_migration_replay(serve, att, torch, dev):
     return dict(launches)
 
 
+def shard_probe(att, shards):
+    """Book each kernel launch to the tensor-parallel shard that made it:
+    every shard's forward generator is wrapped, so the launches between
+    two of its collectives count for that shard.  Returns one Counter of
+    {(kernel, variant): launches} per shard, cleared by the caller."""
+    per = [collections.Counter() for _ in shards]
+
+    def snap():
+        return {(name, var): n for name in COUNTED
+                for var, n in getattr(att, name).variant_launches.items()}
+
+    def book(counter, before):
+        counter.update({k: n - before.get(k, 0) for k, n in snap().items()
+                        if n > before.get(k, 0)})
+
+    for model, counter in zip(shards, per):
+        inner = model.forward_gen
+
+        def probed(*args, _inner=inner, _counter=counter, **kw):
+            gen = _inner(*args, **kw)
+            reply = None
+            while True:
+                before = snap()
+                try:
+                    msg = gen.send(reply)
+                except StopIteration as stop:
+                    book(_counter, before)
+                    return stop.value
+                book(_counter, before)
+                reply = yield msg
+
+        model.forward_gen = probed
+    return per
+
+
+def phase_tensor_parallel(serve, att, kv_quant, torch, dev):
+    """Two tensor-parallel shards on the one card: the kernels at the
+    shard-local shapes, (a) float32 parity of ``tp=2`` with ``tp=1`` on
+    every serve path and (b) the bf16 7B served through
+    ``LLM.compile(tp=2)``.  Returns the shard-local kernel results
+    ({label: {(name, variant, dtype): result}}) and the ``tp=2`` runs'
+    launches, summed over the shards: ``"f32"`` of (a)'s float32 fp paths
+    and ``"bf16"`` of (b)."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch.parallel import make_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    devices = [dev, dev]
+    t_phase = time.perf_counter()
+    # the kernels at the shard-local shapes: Llama-2-7B at tp=2, and a
+    # 70B shape (64 query heads on 8 KV heads) at tp=4
+    shard_kres = {}
+    for qh, kv, label in ((16, 16, "7b-tp2-shard"),
+                          (16, 2, "70b-tp4-shard")):
+        res = phase_kernels(att, kv_quant, torch, dev, qh, kv, ("fp",),
+                            f" {label}")
+        res.update(phase_tree_kernels(att, kv_quant, torch, dev, qh, kv,
+                                      ("fp",), f" {label}"))
+        shard_kres[label] = res
+    log(f"tensor parallel: shard-local kernels done in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    # (a) parity, float32, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def where(tp):
+        return (dict(device=dev) if tp == 1
+                else dict(mesh=make_mesh({"tp": tp}, devices)))
+
+    def shard_counts(probes, n):
+        return [dict(c) for c in probes] if probes else [n]
+
+    kw = dict(max_requests=2, max_tokens_per_batch=128, max_seq_len=1024,
+              max_spec_tokens=8)
+    cfg = serve.ServeModelConfig(num_hidden_layers=4, dtype="float32")
+    dcfg = draft_config(serve, "float32")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in (560, 200)]
+    gen = serve.GenerationConfig(max_new_tokens=16)
+    pbc, _ = serve.PrefillBatchConfig.build(
+        [(0, prompts[0][:128], 0)], [128], 128, max_tokens=128,
+        max_requests=2, device=dev)
+
+    def deploy(tp, c, seed, topk=0, **extra):
+        im = serve.InferenceManager(serve.build_model(c), topk=topk,
+                                    **dict(kw, **extra), **where(tp))
+        return im.init_operators_inference(seed=seed)
+
+    def llama_paths(tp):
+        llm, ssm = deploy(tp, cfg, 1), deploy(tp, dcfg, 2, topk=2)
+        logits = llm.forward(pbc).cpu()
+        probes = shard_probe(att, llm.shards) if tp > 1 else None
+        outs, per = {}, {}
+        for path, fn in (
+                ("incremental", lambda: serve.RequestManager(
+                    llm, gen).generate(prompts)),
+                ("spec host", lambda: serve.SpecInferManager(
+                    llm, ssm, gen, width=2, depth=3).generate(prompts)),
+                ("spec device", lambda: scan_streams(
+                    serve, llm, ssm, prompts, 16))):
+            llm.reset()
+            ssm.reset()
+            for c in probes or ():
+                c.clear()
+            outs[path], n = counted(att, fn)
+            per[path] = shard_counts(probes, n)
+        calls = dict(llm.mesh.comm.calls) if tp > 1 else None
+        del llm, ssm
+        llm = deploy(tp, cfg, 1, kv_dtype="int8", kv_page_size=PAGE)
+        serve.quantize_int8(llm)
+        probes = shard_probe(att, llm.shards) if tp > 1 else None
+        outs["int8+paged"], n = counted(att, lambda: serve.RequestManager(
+            llm, gen).generate(prompts))
+        per["int8+paged"] = shard_counts(probes, n)
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+        return logits, outs, per, calls
+
+    t0 = time.perf_counter()
+    logits1, want, _, _ = llama_paths(1)          # recorded, then freed
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits2, got, per, calls = llama_paths(2)
+    t_two = time.perf_counter() - t0
+    err = (logits2 - logits1).abs().max().item()
+    torch.testing.assert_close(logits2, logits1, atol=1e-3, rtol=1e-3)
+    needs = {"incremental": ("fp", ("decode_attention", "prefill_attention")),
+             "spec host": ("fp", ("tree_attention",)),
+             "spec device": ("fp", ("tree_attention_batched",)),
+             "int8+paged": ("int8+paged", ("decode_attention",
+                                           "prefill_attention"))}
+    for path, toks in got.items():
+        if toks != want[path]:
+            raise AssertionError(f"tp=2 {path}: {toks} != tp=1 "
+                                 f"{want[path]}")
+        variant, names = needs[path]
+        if len(per[path]) != 2:
+            raise AssertionError(f"tp=2 {path}: launches of "
+                                 f"{len(per[path])} shards")
+        for rank, n in enumerate(per[path]):
+            require_launches(collections.Counter(n),
+                             f"tp=2 {path} shard {rank}", variant, names)
+    log(f"tensor parallel (a): 4-layer 7B-width f32, tp=2 on one card == "
+        f"tp=1 on incremental, spec host, spec device and int8 weights + "
+        f"int8 paged KV ({got['incremental'][0][:4]}...); prefill logits "
+        f"max |diff| {err:.3e}; serve tp=1 {t_one:.1f}s, tp=2 "
+        f"{t_two:.1f}s; collective calls {calls}")
+    for path, shards in per.items():
+        log(f"tensor parallel (a) {path}: launches per shard " + " | ".join(
+            str(short(n)) for n in shards))
+
+    fam_gen = serve.GenerationConfig(max_new_tokens=16)
+    fkw = dict(max_requests=2, max_tokens_per_batch=128, max_seq_len=512)
+    for family, fcfg in (
+            ("starcoder", starcoder_config(serve, n_layer=2,
+                                           torch_dtype="float32")),
+            ("mpt", mpt7b_config(serve, n_layers=2, torch_dtype="float32"))):
+        rng = np.random.default_rng(8)
+        fprompts = [rng.integers(3, fcfg.vocab_size, size=n).tolist()
+                    for n in (64, 200)]
+        variant = "fp+alibi" if fcfg.use_alibi else "fp"
+        names = (("decode_attention",) if fcfg.use_alibi
+                 else ("decode_attention", "prefill_attention"))
+        streams = {}
+        for tp in (1, 2):
+            im = serve.InferenceManager(serve.build_model(fcfg), **fkw,
+                                        **where(tp))
+            im.init_operators_inference(seed=5)
+            probes = shard_probe(att, im.shards) if tp > 1 else None
+            streams[tp], n = counted(att, lambda: serve.RequestManager(
+                im, fam_gen).generate(fprompts))
+            for rank, c in enumerate(shard_counts(probes, n)):
+                require_launches(collections.Counter(c),
+                                 f"{family} tp={tp} shard {rank}", variant,
+                                 names)
+            sharded = sum(m.head_sharded for m in im.model.modules()
+                          if isinstance(m, serve.ops.IncMultiHeadSelfAttention))
+            del im
+            gc.collect()
+            torch.cuda.empty_cache()
+        if streams[2] != streams[1]:
+            raise AssertionError(f"{family}: tp=2 {streams[2]} != tp=1 "
+                                 f"{streams[1]}")
+        log(f"tensor parallel (a) {family}: 2-layer full-width f32 "
+            f"({fcfg.num_attention_heads} heads on {fcfg.kv_heads} KV heads, "
+            f"{sharded} of {fcfg.num_hidden_layers} attention layers "
+            f"head-sharded), tp=2 == tp=1 {streams[2][0][:4]}...; "
+            f"launches per shard " + " | ".join(
+                str(short(c)) for c in shard_counts(probes, n)))
+
+    # (b) the bf16 7B through LLM.compile(tp=2), two shards on one card;
+    # no stop token, so every request runs its 64 tokens
+    cfg = serve.ServeModelConfig(dtype="bfloat16", eos_token_id=None)
+    caps = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
+                generation_config=serve.GenerationConfig(max_new_tokens=64))
+    prompts = serve_prompts(cfg.vocab_size)
+    def serve_once(tp):
+        """One deployment's run (its names die with the call, so the
+        ``tp=1`` deployment is freed before ``tp=2`` is built)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        llm = serve.LLM(cfg).compile(
+            **caps, **(dict(device=dev) if tp == 1
+                       else dict(tp=2, devices=devices)))
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        stamps = {}
+        inner = llm.rm._append_token
+
+        def stamped(req, tok):
+            inner(req, tok)
+            stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+        llm.rm._append_token = stamped
+        calls0 = dict(llm.im.mesh.comm.calls) if tp > 1 else {}
+        t0 = time.perf_counter()
+        outs, n = counted(att, lambda: llm.generate(prompts))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_streams(outs, 64, cfg.vocab_size, f"serve tp={tp}")
+        require_launches(n, f"serve tp={tp}", "fp",
+                         ("decode_attention", "prefill_attention"))
+        ttft, tpot = stream_times(stamps, t0)
+        w = [sum(p.numel() * p.element_size() for p in m.parameters())
+             for m in llm.im.shards]
+        calls = {k: v - calls0.get(k, 0)
+                 for k, v in (llm.im.mesh.comm.calls.items() if tp > 1
+                              else ())}
+        where_ = ("two shards on one card" if tp > 1 else "one device")
+        log(f"tensor parallel (b) bf16 7B tp={tp} ({where_}) through "
+            f"LLM.compile: init {t_init:.1f}s, wall {wall:.2f}s, "
+            f"{sum(map(len, outs)) / wall:.1f} tok/s, mean TTFT "
+            f"{sum(ttft) / len(ttft):.3f}s, mean TPOT "
+            f"{sum(tpot) / len(tpot):.2f} ms; weights per shard GB "
+            f"{[round(x / 1e9, 3) for x in w]}, KV per shard "
+            f"{llm.im.kv.allocated_bytes(per_device=True) / 1e9:.3f} GB; "
+            f"collective calls {calls}; launches {short(n)}; "
+            f"max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        log(f"tensor parallel (b) tp={tp}: TTFT s " + " ".join(
+            f"{x:.3f}" for x in ttft) + " | TPOT ms " + " ".join(
+            f"{x:.2f}" for x in tpot))
+        llm.rm._append_token = inner     # no cycle keeps the deployment
+        return outs, n
+
+    streams, launches = {}, {}
+    for tp in (1, 2):
+        streams[tp], launches[tp] = serve_once(tp)
+    log(f"tensor parallel (b): tp=2 tokens equal to tp=1 "
+        f"{equal_share(streams[2], streams[1]):.4f} (bf16: printed, not "
+        f"required)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = collections.Counter()
+    for path in ("incremental", "spec host", "spec device"):
+        for n in per[path]:
+            f32.update(n)
+    return {"kernels": shard_kres, "f32": f32, "bf16": launches[2]}
+
+
 def tc_reports(text):
     """(kernel, "registers, shared memory, spills") of each tensor-core
     kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
@@ -3129,6 +3452,8 @@ def main():
         serve, att, torch, dev, card))
     fleet = timed("fleet, migration and replay", lambda:
                   phase_fleet_migration_replay(serve, att, torch, dev))
+    tp = timed("tensor parallel", lambda: phase_tensor_parallel(
+        serve, att, kv_quant, torch, dev))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)
@@ -3227,6 +3552,16 @@ def main():
           fam_parity[("falcon", "fp")][(k1, "fp")])
     entry(k1, "fp+gq48", kres[(k1, "fp+gq48", "bfloat16")],
           fams["starcoder"][(k1, "fp")])
+    # the shard-local shape of Llama-2-7B at tp=2 (16 query heads on 16 KV
+    # heads), with phase 17's launches over both shards: f32 on (a)'s fp
+    # paths, bf16 K1 and K2 on (b)'s serve path
+    shard = tp["kernels"]["7b-tp2-shard"]
+    for name in COUNTED:
+        entry(name, "f32+7b-tp2-shard", shard[(name, "fp", "float32")],
+              tp["f32"][(name, "fp")])
+    for name in ("decode_attention", "prefill_attention"):
+        entry(name, "7b-tp2-shard", shard[(name, "fp", "bfloat16")],
+              tp["bf16"][(name, "fp")])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -74,9 +74,8 @@ def plan_key_of(im) -> str:
         mesh = meshes[0] if meshes else None
     tp = 1
     if mesh is not None:
-        try:
-            tp = int(dict(zip(mesh.axis_names, mesh.devices.shape))
-                     .get("tp", 1))
+        try:   # a jax Mesh's and the port's ``parallel.Mesh``'s shape
+            tp = int(dict(mesh.shape).get("tp", 1))
         except Exception:
             tp = 1
     m = int(getattr(im, "n_micro", 1) or 1)

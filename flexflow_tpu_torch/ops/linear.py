@@ -19,6 +19,12 @@ A floating kernel of another dtype than x (parameters loaded in another
 dtype than the compute dtype, ``LLM.compile(dtype=...)``) is cast to x's
 dtype at use, as the reference's product promotes it: a bf16 kernel
 under f32 compute is an f32 product of the same values.
+
+Under tensor parallelism (``parallel/tp.py``) ``tp_mode`` places the
+layer: ``"col"`` holds a slice of the output columns (and of the bias),
+``"row"`` a slice of the input rows, whose product is a partial sum.
+:meth:`Linear.gen` yields the collectives that placement needs (see
+``parallel/comm.py``); ``forward`` is the layer alone.
 """
 
 from __future__ import annotations
@@ -57,6 +63,8 @@ def add_bias(y: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 class Linear(nn.Module):
+    tp_mode = None   # "col" | "row": set by parallel.tp.shard_model
+
     def __init__(self, in_dim: int, out_dim: int,
                  dtype: torch.dtype = torch.float32, device=None,
                  use_bias: bool = False,
@@ -74,9 +82,31 @@ class Linear(nn.Module):
                                   requires_grad=False)
                      if use_bias else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = dequant(self.kernel, getattr(self, "kernel_scale", None), x.dtype)
-        y = torch.matmul(x, w)
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ kernel``, the kernel dequantized to x's dtype."""
+        return torch.matmul(x, dequant(
+            self.kernel, getattr(self, "kernel_scale", None), x.dtype))
+
+    def finish(self, y: torch.Tensor) -> torch.Tensor:
+        """The bias and activation on the whole product ``y``."""
         if self.bias is None and self.activation is None:
             return y
         return add_bias(y, self.bias, self.activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.finish(self.product(x))
+
+    def gen(self, x: torch.Tensor, out: str = "full"):
+        """The layer as a generator of its collectives.  Row-sharded: the
+        partial product is all-reduced, then the bias and activation
+        apply once.  Column-sharded: ``out`` says who needs the output
+        whole: ``"full"`` every shard (all-gather), ``"first"`` shard 0
+        only (the logits: the other shards get None), ``"local"`` nobody
+        (the row-sharded layer it feeds takes the slice).  A layer that is
+        not sharded yields nothing."""
+        if self.tp_mode == "row":
+            return self.finish((yield ("all_reduce", self.product(x))))
+        y = self(x)
+        if self.tp_mode == "col" and out != "local":
+            y = yield ("all_gather" if out == "full" else "gather", y)
+        return y

@@ -1,0 +1,175 @@
+"""Megatron tensor parallelism of a serve model: the placement rules and
+the shard-local models they give.
+
+:func:`tensor_parallel_strategy` is a copy of
+``flexflow_tpu/serve/inference_manager.py:42-80`` over the port's module
+paths, which are the reference's node names: an attention layer is
+head-sharded when its KV heads divide by the degree (else replicated:
+Falcon-7B's 71 query heads and StarCoder's 48 on one KV head), the MLP's
+``gate_proj``/``up_proj``/``fc1``/``c_fc`` are column-sharded and
+``down_proj``/``fc2``/``c_proj`` row-sharded, and any other Linear whose
+output width divides (the LM head's vocabulary, Falcon's MLP, OPT's
+projections) column-sharded; embeddings and norms are replicated, and a
+dimension that does not divide stays whole.
+
+The parameters' placement follows the ops' (reference ``ops/linear.py:
+135-172``, ``serve/ops.py:964-980``): a column-sharded kernel ``[in, out]``
+and its bias split on ``out``, a row-sharded kernel on ``in`` (its bias
+whole, added after the reduce), an attention's fused ``qkv [E, KV, G, D]``
+and ``qkv_bias [KV, G, D]`` on the KV heads, ``o_proj [QH*D, E]`` on its
+rows (``o_bias`` whole, added after the reduce).  An int8 weight's
+per-output-channel scale (its shape minus the first dim) goes with the
+output dim (reference ``serve/quant.py:55``, ``_scale_sharding``): split
+with a column-sharded kernel or ``qkv``, whole with a row-sharded kernel
+or ``o_proj``.  Global parameters are quantized first and sliced after,
+so a row-sharded int8 weight keeps the global scale on every shard.
+
+:func:`shard_model` copies the global model (on ``meta``) into one shard's
+model: the same modules at shard-local shapes, each marked with its
+placement (``Linear.tp_mode``, the attention's ``head_shards`` and
+``head_offset``), which the forwards read to place their collectives.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..ops.linear import Linear
+from ..serve.ops import IncMultiHeadSelfAttention
+
+TP_AXES = ("tp",)
+COL_NAMES = ("gate_proj", "up_proj", "fc1", "c_fc")
+ROW_NAMES = ("down_proj", "fc2", "c_proj")
+
+
+def tensor_parallel_strategy(model: nn.Module, degree: int
+                             ) -> Dict[str, Dict]:
+    """``{module path: {"head" | "channel_out" | "channel_in": ("tp",)}}``
+    for every sharded attention layer and Linear of ``model`` (the global
+    model), as the reference's strategy for a ``tp`` mesh of ``degree``
+    devices (reference :42-80; a path the rules leave whole has no
+    entry)."""
+    strategy: Dict[str, Dict] = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, IncMultiHeadSelfAttention):
+            if mod.num_kv_heads % degree == 0:
+                strategy[name] = {"head": TP_AXES}
+        elif isinstance(mod, Linear):
+            in_dim, out_dim = mod.kernel.shape
+            if any(s in name for s in COL_NAMES):
+                if out_dim % degree == 0:
+                    strategy[name] = {"channel_out": TP_AXES}
+            elif any(s in name for s in ROW_NAMES):
+                if in_dim and in_dim % degree == 0:
+                    strategy[name] = {"channel_in": TP_AXES}
+            elif out_dim % degree == 0:
+                strategy[name] = {"channel_out": TP_AXES}
+    return strategy
+
+
+class TPPlan:
+    """The placement of one model over ``degree`` shards: the strategy,
+    and for each sharded parameter (by state-dict name) the dim it is
+    split on.  Parameters not listed are whole on every shard.  ``model``
+    is the global model.  At degree 1 every slice is the whole parameter:
+    a single device is the mesh of one shard."""
+
+    def __init__(self, model: nn.Module, degree: int):
+        self.degree = int(degree)
+        self.strategy = tensor_parallel_strategy(model, self.degree)
+        self.dims: Dict[str, int] = {}
+        for path, spec in self.strategy.items():
+            if "head" in spec:
+                mod = model.get_submodule(path)
+                self.dims[f"{path}.qkv"] = 1
+                self.dims[f"{path}.o_proj"] = 0
+                if mod.use_bias:
+                    self.dims[f"{path}.qkv_bias"] = 0
+            elif "channel_out" in spec:
+                self.dims[f"{path}.kernel"] = 1
+                if model.get_submodule(path).bias is not None:
+                    self.dims[f"{path}.bias"] = 0
+            else:
+                self.dims[f"{path}.kernel"] = 0
+
+    def dim(self, name: str) -> Optional[int]:
+        """The dim parameter ``name`` is split on (None: whole).  An int8
+        scale ``<w>_scale`` (``w``'s shape minus its first dim) follows
+        its weight's output dims."""
+        if name.endswith("_scale"):
+            d = self.dims.get(name[:-len("_scale")])
+            return None if d is None or d == 0 else d - 1
+        return self.dims.get(name)
+
+    def local(self, name: str, t: torch.Tensor, rank: int) -> torch.Tensor:
+        """Shard ``rank``'s part of the global parameter ``t``."""
+        d = self.dim(name)
+        if d is None or self.degree == 1:
+            return t
+        return t.chunk(self.degree, dim=d)[rank]
+
+    def global_shape(self, name: str, shape) -> torch.Size:
+        """The global shape of parameter ``name`` from a shard's
+        ``shape``."""
+        shape = list(shape)
+        d = self.dim(name)
+        if d is not None:
+            shape[d] *= self.degree
+        return torch.Size(shape)
+
+    def whole(self, name: str, parts: List[torch.Tensor]) -> torch.Tensor:
+        """The global parameter from the shards' parts (on the first
+        part's device)."""
+        d = self.dim(name)
+        if d is None or len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(parts[0].device) for p in parts], dim=d)
+
+
+def _param(p: nn.Parameter, shape) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=p.dtype, device=p.device),
+                        requires_grad=False)
+
+
+def shard_model(model: nn.Module, plan: TPPlan, rank: int) -> nn.Module:
+    """Shard ``rank``'s model: a copy of the global ``model`` whose sharded
+    parameters take their local shapes (still empty) and whose sharded
+    modules carry their placement.  The copy keeps the module paths, so
+    state-dict names are the global ones.  At degree 1 the shard is
+    ``model`` itself, unmarked (its layers yield no collective), so a
+    model whose parameters are already filled keeps them."""
+    shard = model
+    if plan.degree > 1:
+        shard = _sliced_copy(model, plan, rank)
+    shard.tp_plan = plan
+    shard.tp_rank = rank
+    return shard
+
+
+def _sliced_copy(model: nn.Module, plan: TPPlan, rank: int) -> nn.Module:
+    if any(not p.is_meta for p in model.parameters()):
+        raise ValueError("shard_model takes a model on the meta device "
+                         "(from build_model)")
+    shard = copy.deepcopy(model)
+    deg = plan.degree
+    for path, spec in plan.strategy.items():
+        mod = shard.get_submodule(path)
+        if "head" in spec:
+            mod.num_kv_heads //= deg
+            mod.num_q_heads //= deg
+            mod.head_sharded = True
+            mod.head_shards = deg
+            mod.head_offset = rank * mod.num_q_heads
+        else:
+            mod.tp_mode = "col" if "channel_out" in spec else "row"
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            d = plan.dim(f"{path}.{pname}")
+            if d is not None:
+                shape = list(p.shape)
+                shape[d] //= deg
+                setattr(mod, pname, _param(p, shape))
+    return shard

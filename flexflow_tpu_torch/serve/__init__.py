@@ -1,4 +1,4 @@
-"""flexflow_tpu_torch.serve: LLM serving on one CUDA device.
+"""flexflow_tpu_torch.serve: LLM serving on CUDA devices.
 
 Port of ``flexflow_tpu/serve``: incremental decoding with continuous
 batching, prefill and decode through hand-written CUDA attention kernels
@@ -27,7 +27,10 @@ gather path (slice 2, rest of 5); the control plane: telemetry, the step
 profiler, SLO lanes and brownout, plan health (slice 8a), live plan
 migration (``MigrationController``, ``LLM.attach_migration``), the
 fault-tolerant fleet router over replicas (``FleetRouter``,
-``LLM.fleet``) and traffic-trace replay (``obs.replay``; slice 8b).
+``LLM.fleet``) and traffic-trace replay (``obs.replay``; slice 8b);
+tensor-parallel serving on every path above (``LLM.compile(tp=N)``,
+``InferenceManager(mesh=...)``, ``flexflow_tpu_torch.parallel``; slice
+9a).
 """
 
 from . import models  # noqa: F401  (registers the model builders)

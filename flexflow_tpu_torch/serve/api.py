@@ -15,8 +15,8 @@ reference's defaults: LM-head gating and the chained decode stretch on.
 ``brownout`` reach either manager as in the reference (:150-160);
 ``health`` runs one plan-health check; ``attach_migration`` attaches a
 live-migration controller and ``LLM.fleet`` builds the fleet router over
-compiled ``LLM``s (reference :178-218).  Left out: ``tp > 1`` waits for
-the multi-GPU slice.
+compiled ``LLM``s (reference :178-218).  ``tp > 1`` serves the model
+tensor-parallel over ``devices`` (reference :107-109; ``parallel/``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Sequence, Union
 
+from ..parallel.mesh import make_mesh
 from .convert import params_from_jax
 from .inference_manager import InferenceManager
 from .models.base import ServeModelConfig, build_model
@@ -65,7 +66,8 @@ class LLM:
                 kv_page_size=None, telemetry=None, resilience=None,
                 fault_injector=None, plan_health=None, profiler=None,
                 slo=None, brownout=None, device=None,
-                share_weights_with: Optional["LLM"] = None) -> "LLM":
+                share_weights_with: Optional["LLM"] = None,
+                devices: Optional[Sequence] = None) -> "LLM":
         """Build the deployment (reference :53-152).  ``dtype`` is the
         parameters' dtype, as in the reference (:124-129): a state dict
         loads in ``dtype``, or float32 when it is None, whatever the
@@ -82,30 +84,41 @@ class LLM:
         ``topk = max(spec_width, 1)``.  The
         EOS id comes from the config when ``generation_config`` has
         none.  ``device=None`` is the CUDA card.
-        ``share_weights_with``: a compiled ``LLM`` of the same config whose
-        model (its parameter tensors, not a copy) this deployment serves
-        with its own KV cache: replicas of one model on one card for
-        :meth:`fleet` (the port's; the reference builds each replica's
-        weights anew)."""
-        if tp != 1:
-            raise NotImplementedError(
-                f"tp={tp}: tensor-parallel serving is the multi-GPU slice "
-                "of the port (ROADMAP), not ported yet")
+        ``tp > 1`` shards the model over ``devices`` (None: ``cuda:0`` ...
+        ``cuda:tp-1``, raising on a machine with fewer cards; list one
+        device twice, ``["cuda:0", "cuda:0"]``, to place two shards on
+        one card, or ``["cpu", "cpu"]``); the SSM is then compiled at
+        ``tp=1`` on the first of them, as the reference compiles it.
+        ``share_weights_with``: a compiled ``LLM`` of the same config and
+        mesh whose model (its parameter tensors, not a copy) this
+        deployment serves with its own KV cache: replicas of one model on
+        one card for :meth:`fleet` (the port's; the reference builds each
+        replica's weights anew)."""
         cfg = self.config
         if ssms and not max_spec_tokens:
             max_spec_tokens = 1 + spec_width * spec_depth
         shared = share_weights_with
-        if shared is not None and (shared.im is None
-                                   or shared.config != cfg):
-            raise ValueError("share_weights_with needs a compiled LLM of "
-                             "the same config")
+        if device is not None:
+            if tp != 1:
+                raise ValueError(f"tp={tp} places its shards on devices=, "
+                                 f"not on one device={device!r}")
+            devices = [device]
+        mesh = make_mesh({"tp": tp}, devices)
+        if shared is not None:
+            if shared.im is None or shared.config != cfg:
+                raise ValueError("share_weights_with needs a compiled LLM "
+                                 "of the same config")
+            if mesh.devices != shared.im.mesh.devices:
+                raise ValueError("share_weights_with needs a deployment on "
+                                 "the same mesh")
+            mesh = shared.im.mesh
         self.im = InferenceManager(
-            build_model(cfg) if shared is None else shared.im.model,
+            build_model(cfg) if shared is None else shared.im.shards,
             max_requests=max_requests,
             max_tokens_per_batch=max_tokens_per_batch,
-            max_seq_len=max_seq_len, device=device,
-            max_spec_tokens=max_spec_tokens, topk=topk, kv_dtype=kv_dtype,
-            kv_page_size=kv_page_size)
+            max_seq_len=max_seq_len, max_spec_tokens=max_spec_tokens,
+            topk=topk, kv_dtype=kv_dtype, kv_page_size=kv_page_size,
+            mesh=mesh)
         if shared is not None:
             self.im.allocate_kv_cache()
         elif self._sd is not None:
@@ -125,7 +138,8 @@ class LLM:
                             max_seq_len=max_seq_len,
                             max_spec_tokens=max_spec_tokens,
                             topk=max(spec_width, 1), kv_dtype=kv_dtype,
-                            kv_page_size=kv_page_size, device=device)
+                            kv_page_size=kv_page_size,
+                            device=self.im.device)
             self.rm = SpecInferManager(
                 self.im, ssm.im, gen, width=spec_width, depth=spec_depth,
                 telemetry=telemetry, resilience=resilience,
@@ -170,6 +184,28 @@ class LLM:
 
         return MigrationController(self.rm, build_manager, plan=plan,
                                    config=config, on_switch=on_switch)
+
+    def plan_builder(self, devices: Optional[Sequence] = None, **compile_kw):
+        """A ``build_manager`` for :meth:`attach_migration` and the fleet's
+        rolling migration: a candidate's plan key ``tp{t}_pp1_m1...``
+        builds this model (the same weights: the same state dict, or the
+        same seed) at ``tp=t``, on ``devices`` (tp > 1) or on their first
+        (tp = 1), with the other :meth:`compile` arguments in
+        ``compile_kw``, and returns its ready manager.  A key with
+        ``pp > 1`` raises (slice 9b)."""
+        from .migration import plan_shape
+
+        def build(candidate):
+            tp = plan_shape(candidate.get("plan_key", ""))["tp"]
+            kw = dict(compile_kw)
+            if tp > 1:
+                kw.pop("device", None)
+            src = self.config if self._sd is None else self._sd
+            llm = LLM(src, self.tokenizer, config=self.config)
+            llm.compile(tp=tp, devices=devices, **kw)
+            return llm.im
+
+        return build
 
     @staticmethod
     def fleet(llms, **kwargs):

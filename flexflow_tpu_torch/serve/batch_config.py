@@ -268,3 +268,18 @@ class InferenceResult:
     logits: Optional[torch.Tensor] = None  # f32[max_tokens, vocab]
     topk_ids: Optional[torch.Tensor] = None        # i32[max_tokens, k]
     topk_logprobs: Optional[torch.Tensor] = None   # f32[max_tokens, k]
+
+
+def batch_to(bc, device: torch.device):
+    """A batch config (any of the four, nested ``base`` included) with its
+    tensors on ``device``: itself when they are there already.  A
+    tensor-parallel step hands each shard the batch on its device."""
+    base = getattr(bc, "base", bc)
+    if base.tokens.device == device:
+        return bc
+    return dataclasses.replace(bc, **{
+        f.name: (v.to(device, non_blocking=True) if isinstance(v, torch.Tensor)
+                 else batch_to(v, device) if dataclasses.is_dataclass(v)
+                 else v)
+        for f in dataclasses.fields(bc)
+        for v in (getattr(bc, f.name),)})

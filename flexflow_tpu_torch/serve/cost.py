@@ -32,6 +32,15 @@ The reference's arithmetic, op by op, at the compiled batch of
   int32 ``spec_pos [R+1, P]``;
 * transient (inference): the largest single op output, ``T`` times the
   widest output (usually the vocabulary) at the config dtype's width.
+
+Under tensor parallelism every number is one device's, as the
+reference's ``_step_flops``, ``_step_param_bytes`` and ``_local_size``
+price a sharded plan: ``im.model`` is shard 0's model, whose modules have
+their local shapes (a row-sharded or head-sharded output is a partial
+sum at the whole width); the one global term is an int8 weight's scale
+count, which the reference takes from the global weight (errs high,
+``simulator.py:263-266``).  The KV price per token is the allocator's,
+over the global heads, as the reference's global arrays give it.
 """
 
 from __future__ import annotations
@@ -149,6 +158,7 @@ def plan_memory_parts(im) -> Dict[str, float]:
     ``kv_state``, ``transient`` (the largest single op output) and their
     ``total``."""
     size = _itemsize(_model_dtype(im))
+    plan = im.model.tp_plan
     params = 0.0
     for name, p in im.model.named_parameters():
         pname = name.rsplit(".", 1)[-1]
@@ -157,7 +167,11 @@ def plan_memory_parts(im) -> Dict[str, float]:
         n = p.numel()
         if (p.dtype == torch.int8 and pname in INT8_PARAM_NAMES
                 and p.dim() >= 2):
-            params += n + (n // p.shape[0]) * 4
+            # the global weight's scale count: split output dims times
+            # the degree
+            split = plan.dim(name) not in (None, 0)
+            params += n + (n // p.shape[0]) * 4 * (plan.degree if split
+                                                   else 1)
         else:
             params += n * size
     widths = [0]

@@ -1,6 +1,7 @@
-"""InferenceManager: place a serve model on its device and run steps.
+"""InferenceManager: place a serve model on its devices and run steps.
 
-Port of ``flexflow_tpu/serve/inference_manager.py`` for one device:
+Port of ``flexflow_tpu/serve/inference_manager.py`` over a
+``parallel.Mesh`` of one device or several (below):
 ``pick_prefill_tile`` (:184), ``sample_tokens`` (:197), ``__init__``,
 ``init_operators_inference``, ``step`` (:612) with the draft model's
 top-k (:596), ``decode_scan`` (:757) and ``prefill_scan`` (:958), over an
@@ -27,6 +28,20 @@ all but the join record a span on the ``dispatch`` track (reference
 device value.  ``publish_memory`` records the deployment's predicted and
 allocated bytes into the telemetry's memory ledger (reference :523).
 
+Tensor parallelism (``mesh=``; reference: one SPMD program over a
+``{"tp": n}`` mesh with ``tensor_parallel_strategy``, :42-80): ONE manager
+holds one shard-local model per mesh device (``shards``, ``parallel/tp.py``;
+on a mesh of one device, the model itself, whose layers yield nothing)
+and one allocator whose buffers are per shard, and advances the shards in
+lockstep: each step runs every shard's forward generator through
+``parallel.comm.run_shards``, which answers their collectives.  The
+logits are gathered on shard 0 and sampled there; the batch, built on
+shard 0's device, reaches another shard's device with its tokens before
+each of its steps, so the chained stretch and the joins feed every shard.
+Global parameters (a state dict, or random ones drawn at their global
+shapes from the seed, identical at every ``tp``) are sliced per shard.
+``self.model`` is shard 0's model.
+
 Sampling: greedy is exact argmax.  Temperature/top-p draws are keyed, as
 in the reference, by (seed, request id, token index), so a request's draw
 does not depend on what else is in the batch; the random numbers come
@@ -44,8 +59,11 @@ import torch
 from ..obs.profiler import NULL_PROFILER
 from ..obs.telemetry import NULL_TELEMETRY
 from ..ops.cuda.attention import check_page_size
+from ..parallel.comm import run_shards
+from ..parallel.mesh import make_mesh
+from ..parallel.tp import TPPlan, shard_model
 from ..utils.platform import resolve_device, torch_dtype
-from .batch_config import BatchConfig, InferenceResult
+from .batch_config import BatchConfig, InferenceResult, batch_to
 from .kv_allocator import KVAllocator, padded_seq_len
 from .kv_paged import PagedKVAllocator, validate_page_tile
 from .quant import int8_layout
@@ -135,7 +153,8 @@ class InferenceManager:
                  device=None, max_spec_tokens: int = 0, topk: int = 0,
                  kv_dtype: Optional[str] = None,
                  kv_page_size: Optional[int] = None,
-                 gate_lm_head: bool = True, prefill_overlap: bool = True):
+                 gate_lm_head: bool = True, prefill_overlap: bool = True,
+                 mesh=None):
         """``model``: a serve model from ``build_model`` (parameters on
         ``meta`` until :meth:`init_operators_inference` fills them; a
         model whose parameters already lie on ``device`` keeps them, so
@@ -168,8 +187,20 @@ class InferenceManager:
         does nothing: there it lets XLA schedule the next chunk's layer-0
         QKV projection inside the prefill scan (:426-442,
         ``_project_chunk0`` :849), a compiler device with no counterpart
-        in eager PyTorch, whose launches already queue back to back."""
-        self.device = resolve_device(device)
+        in eager PyTorch, whose launches already queue back to back.
+
+        ``mesh`` (a ``parallel.Mesh``, in place of ``device``) serves the
+        model tensor-parallel over the mesh's devices: ``model`` is
+        sharded here (on ``meta`` when the mesh has several devices), or
+        is another manager's ``shards`` on the same mesh (shared weights).
+        ``device`` builds the mesh of one device, whose one shard is
+        ``model`` itself."""
+        if mesh is None:
+            mesh = make_mesh({"tp": 1}, [resolve_device(device)])
+        elif device is not None:
+            raise ValueError("pass a device or a mesh, not both")
+        self.mesh = mesh
+        self.device = mesh.devices[0]
         self.max_requests = max_requests
         self.max_tokens = max_tokens_per_batch
         self.max_seq_len = max_seq_len
@@ -178,26 +209,37 @@ class InferenceManager:
         # a model whose parameters already lie on the device (another
         # manager's) needs only its caches: ``allocate_kv_cache``
         self._params_ready = True
-        if any(p.is_meta for p in model.parameters()):
-            model = model.to_empty(device=self.device)
-            self._params_ready = False
-        elif any(p.device.type != self.device.type
-                 for p in model.parameters()):
-            raise ValueError(f"model parameters are not on {self.device}")
-        self.model = model.eval()
+        if isinstance(model, (list, tuple)):
+            shards = list(model)
+            if (len(shards) != mesh.size
+                    or any(getattr(m, "tp_plan", None) is None
+                           or m.tp_plan.degree != mesh.size for m in shards)):
+                raise ValueError(f"{len(shards)} shard models do not fit "
+                                 f"{mesh}")
+        else:
+            plan = TPPlan(model, mesh.size)
+            shards = [shard_model(model, plan, r) for r in range(mesh.size)]
+        for i, (m, dev) in enumerate(zip(shards, mesh.devices)):
+            if any(p.is_meta for p in m.parameters()):
+                shards[i] = m.to_empty(device=dev)
+                self._params_ready = False
+            elif any(p.device.type != dev.type for p in m.parameters()):
+                raise ValueError(f"model parameters are not on {dev}")
+        self.shards = [m.eval() for m in shards]
+        self.model = self.shards[0]
         self.kv_dtype = kv_dtype
         self.kv_page_size = kv_page_size
         self.prefill_tile = pick_prefill_tile(max_tokens_per_batch,
                                               max_seq_len)
         if kv_page_size:
-            self.kv = PagedKVAllocator(self.model, max_requests, max_seq_len,
-                                       self.device, max_spec_tokens,
+            self.kv = PagedKVAllocator(self.shards, max_requests, max_seq_len,
+                                       mesh.devices, max_spec_tokens,
                                        kv_dtype, page_size=kv_page_size)
             validate_page_tile(kv_page_size, self.prefill_tile)
             check_page_size(kv_page_size, padded_seq_len(max_seq_len))
         else:
-            self.kv = KVAllocator(self.model, max_requests, max_seq_len,
-                                  self.device, max_spec_tokens, kv_dtype)
+            self.kv = KVAllocator(self.shards, max_requests, max_seq_len,
+                                  mesh.devices, max_spec_tokens, kv_dtype)
         self._gate_lm_head = bool(gate_lm_head)
         # the LM head is marked for gating at construction only (reference
         # :358-361): the cost card prices a marked head per logit row
@@ -226,10 +268,15 @@ class InferenceManager:
         return self._params_ready and self.kv.state is not None
 
     @property
+    def tp(self) -> int:
+        """The tensor-parallel degree (1 on one device)."""
+        return self.mesh.size
+
+    @property
     def plan_key(self) -> str:
         """The deployment in the serve search's ``tp{t}_pp{p}_m{m}``
-        convention (reference :491): one device."""
-        return "tp1_pp1_m1"
+        convention (reference :491)."""
+        return f"tp{self.tp}_pp1_m1"
 
     def publish_memory(self, telemetry, key: Optional[str] = None) -> None:
         """Record this deployment's predicted and allocated HBM in the
@@ -237,9 +284,10 @@ class InferenceManager:
         memory parts of :mod:`.cost` (the reference's
         ``plan_memory_parts``), allocated = the parameters' and the cache
         buffers' real bytes (int8 values and scales, padding and spec
-        buffers included).  ``key`` overrides the plan key (the spec
-        draft's ``_draft`` record).  A no-op for a disabled handle; the
-        allocated side waits for the caches."""
+        buffers included), both per device (one shard's).  ``key``
+        overrides the plan key (the spec draft's ``_draft`` record).  A
+        no-op for a disabled handle; the allocated side waits for the
+        caches."""
         if telemetry is None or not getattr(telemetry, "enabled", False):
             return
         from ..obs.memory import publish_predicted_parts
@@ -252,7 +300,7 @@ class InferenceManager:
             return
         w = float(sum(p.numel() * p.element_size()
                       for p in self.model.parameters()))
-        kv = float(self.kv.allocated_bytes())
+        kv = float(self.kv.allocated_bytes(per_device=True))
         telemetry.memory_plan_allocated(
             key, weights_gb=w / 1e9, kv_gb=kv / 1e9,
             static_gb=(w + kv) / 1e9)
@@ -266,22 +314,25 @@ class InferenceManager:
         tensors keep their dtype; None = random from ``seed``, in ``dtype``
         when given, else the model's) and allocate zeroed KV caches.  The
         compute and KV dtype stay the model's: a weight in another dtype
-        is cast at use (reference :503-516)."""
+        is cast at use (reference :503-516).  The parameters are global and
+        each shard takes its slice."""
         if params is None:
             if dtype is not None:
-                param_layout(self.model, torch_dtype(dtype))
-            init_random_params(self.model, seed)
+                for m in self.shards:
+                    param_layout(m, torch_dtype(dtype))
+            init_random_params(self.shards, seed)
         else:
-            int8_layout(self.model, params)
-            param_layout(self.model, params)
-            own = dict(self.model.named_parameters())
-            if set(params) != set(own):
-                raise ValueError(
-                    "params do not match the model: missing "
-                    f"{sorted(set(own) - set(params))[:4]}, unexpected "
-                    f"{sorted(set(params) - set(own))[:4]}")
-            for name, p in own.items():
-                p.copy_(params[name])
+            for r, m in enumerate(self.shards):
+                int8_layout(m, params)
+                param_layout(m, params)
+                own = dict(m.named_parameters())
+                if set(params) != set(own):
+                    raise ValueError(
+                        "params do not match the model: missing "
+                        f"{sorted(set(own) - set(params))[:4]}, unexpected "
+                        f"{sorted(set(params) - set(own))[:4]}")
+                for name, p in own.items():
+                    p.copy_(m.tp_plan.local(name, params[name], r))
         self._params_ready = True
         self.allocate_kv_cache()
         return self
@@ -305,7 +356,11 @@ class InferenceManager:
         the steps of a stretch)."""
         if not self.ready:
             raise RuntimeError("call init_operators_inference() first")
-        return self.model(bc, self.state, self.kv.page_view())
+        gens = [m.forward_gen(batch_to(bc, dev), state,
+                              self.kv.page_view(dev))
+                for m, dev, state in zip(self.shards, self.mesh.devices,
+                                         self.kv.states)]
+        return run_shards(gens, self.mesh.comm)[0]
 
     def _fault_site(self, site: str) -> None:
         if self.fault_injector is not None:
@@ -495,35 +550,45 @@ def param_layout(model: torch.nn.Module, dtypes) -> None:
 
 
 @torch.no_grad()
-def init_random_params(model: torch.nn.Module, seed: int) -> None:
+def init_random_params(shards: Sequence[torch.nn.Module], seed: int
+                       ) -> None:
     """Seeded random weights on the model's device, chosen by the module
     that owns each parameter: norm gains 1, norm shifts and every bias 0,
     token and position embeddings normal with std 1, every other weight
     normal with std 1/sqrt(fan-in) (its first dim), drawn in float32 from a
     ``torch.Generator`` in parameter order and cast.  Only the normal
     weights draw, so a model without biases (Llama) draws what it always
-    drew."""
+    drew.  ``shards``: the shard models of one mesh (``shard_model``):
+    each weight is drawn at its global shape on shard 0's device and every
+    shard copies its slice, so the global weights are the same at any
+    degree."""
     from ..ops.embedding import Embedding, PositionEmbedding
 
+    plan = shards[0].tp_plan
     owner = {}
-    for mod_name, mod in model.named_modules():
+    for mod_name, mod in shards[0].named_modules():
         for pname, _ in mod.named_parameters(recurse=False):
             owner[f"{mod_name}.{pname}" if mod_name else pname] = (mod, pname)
-    params = list(model.named_parameters())
-    dev = params[0][1].device if params else torch.device("cpu")
+    own = [dict(m.named_parameters()) for m in shards]
+    dev = next(iter(own[0].values())).device if own[0] else \
+        torch.device("cpu")
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    for name, p in params:
+    for name, p in own[0].items():
         mod, pname = owner[name]
         if pname == "gamma":
-            p.fill_(1.0)
+            for o in own:
+                o[name].fill_(1.0)
             continue
         if pname in ("beta", "bias", "qkv_bias", "o_bias"):
-            p.zero_()
+            for o in own:
+                o[name].zero_()
             continue
+        shape = plan.global_shape(name, p.shape)
         fan_in = (1 if isinstance(mod, (Embedding, PositionEmbedding))
-                  else p.shape[0])
-        w = torch.randn(p.shape, generator=gen, device=dev,
-                        dtype=torch.float32)
-        p.copy_(w.mul_(fan_in ** -0.5))
+                  else shape[0])
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32).mul_(fan_in ** -0.5)
+        for r, o in enumerate(own):
+            o[name].copy_(plan.local(name, w, r))
         del w

@@ -21,12 +21,20 @@ high-water marks and the occupancy, headroom and fragmentation gauges of
 when a live migration or the fleet router retires the deployment (the
 buffers drop, so the card's memory is freed); plus the no-op page and
 host-tier hooks the paged subclass (:mod:`.kv_paged`) overrides.
+
+Tensor parallelism (``parallel/tp.py``): given one model per shard and
+their devices, the allocator keeps ONE host-side bookkeeping and one set
+of buffers per shard (``states``), each holding that shard's KV heads of
+a head-sharded layer and every head of a replicated one.  The byte
+arithmetic is the reference's over its global arrays: ``bytes_per_token``
+prices the global heads, and ``allocated_bytes`` counts global bytes or,
+with ``per_device``, one shard's (reference :48, :146-161).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,9 +58,12 @@ class KVAllocator:
     # swap path on ``host_tier is not None``
     host_tier = None
 
-    def __init__(self, model: torch.nn.Module, max_requests: int,
-                 max_seq_len: int, device: torch.device,
+    def __init__(self, models: Sequence[torch.nn.Module],
+                 max_requests: int, max_seq_len: int,
+                 devices: Sequence[torch.device],
                  max_spec_tokens: int = 0, kv_dtype: Optional[str] = None):
+        """``models`` and ``devices``: one shard model per device of the
+        manager's mesh (one of each on a single device)."""
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (expected "
                              "None or 'int8'; fp caches always use the "
@@ -61,15 +72,24 @@ class KVAllocator:
         self.max_seq_len = max_seq_len
         self.max_spec_tokens = max_spec_tokens
         self.kv_dtype = kv_dtype
-        self.device = device
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
+        attns = [[m for m in mod.modules()
+                  if isinstance(m, IncMultiHeadSelfAttention)]
+                 for mod in models]
         # (cache key, kv heads, head dim, compute dtype, ALiBi) per
-        # attention layer
-        self.layers: List[Tuple[str, int, int, torch.dtype, bool]] = [
-            (m.name, m.num_kv_heads, m.head_dim, m.compute_dtype,
-             m.use_alibi)
-            for m in model.modules()
-            if isinstance(m, IncMultiHeadSelfAttention)]
-        self.state: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        # attention layer, per shard; ``layers`` counts the global heads
+        self.shard_layers: List[List[Tuple[str, int, int, torch.dtype,
+                                           bool]]] = [
+            [(m.name, m.num_kv_heads, m.head_dim, m.compute_dtype,
+              m.use_alibi) for m in ms] for ms in attns]
+        self.layers = [(m.name, m.num_kv_heads * m.head_shards, m.head_dim,
+                        m.compute_dtype, m.use_alibi) for m in attns[0]]
+        # how many shards hold a slice of each layer's heads
+        self._head_shards = {m.name: m.head_shards for m in attns[0]}
+        # one state dict per shard (None before allocate / after teardown)
+        self.states: Optional[List[Dict[str, Dict[str, torch.Tensor]]]] = \
+            None
         self._live: Dict[int, int] = {}   # rid -> last observed cache depth
         self._peak: Dict[int, int] = {}   # rid -> deepest this binding
         self.hwm_tokens = 0
@@ -90,14 +110,20 @@ class KVAllocator:
                 out["spec_pos"] = ((r1, self.max_spec_tokens), torch.int32)
         return out
 
+    @property
+    def state(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+        """Shard 0's state dict (the only one on a single device)."""
+        return self.states[0] if self.states else None
+
     def allocate(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """(Re)allocate zeroed caches and forget every attribution;
-        returns the state dict."""
-        self.state = None   # free the old buffers before the new ones land
-        self.state = {
-            name: {buf: torch.zeros(shape, dtype=dt, device=self.device)
-                   for buf, (shape, dt) in self._buffers(*spec).items()}
-            for name, *spec in self.layers}
+        """(Re)allocate zeroed caches on every shard and forget every
+        attribution; returns shard 0's state dict."""
+        self.states = None   # free the old buffers before the new ones land
+        self.states = [
+            {name: {buf: torch.zeros(shape, dtype=dt, device=dev)
+                    for buf, (shape, dt) in self._buffers(*spec).items()}
+             for name, *spec in layers}
+            for layers, dev in zip(self.shard_layers, self.devices)]
         self.reset_attribution()
         return self.state
 
@@ -109,13 +135,23 @@ class KVAllocator:
         self.hwm_tokens = 0
         self.hwm_bytes = 0.0
 
-    def allocated_bytes(self) -> int:
+    def allocated_bytes(self, per_device: bool = False) -> int:
         """Bytes held by the cache buffers (scratch row, seq pad, scale
-        planes and spec buffers included); 0 before :meth:`allocate`."""
-        if not self.state:
+        planes and spec buffers included); 0 before :meth:`allocate`.
+        Global bytes, as the reference's arrays count (a head-sharded
+        buffer's shards summed, a replicated one once), or with
+        ``per_device`` one shard's: the memory ledger's basis (reference
+        :146-161)."""
+        if not self.states:
             return 0
-        return sum(t.numel() * t.element_size()
-                   for bufs in self.state.values() for t in bufs.values())
+        total = 0
+        for name, bufs in self.states[0].items():
+            for buf, t in bufs.items():
+                n = t.numel() * t.element_size()
+                if not per_device and buf != "spec_pos":   # head-major
+                    n *= self._head_shards[name]
+                total += n
+        return total
 
     def bytes_per_token(self) -> float:
         """Committed-KV bytes one request-position costs across layers
@@ -142,9 +178,9 @@ class KVAllocator:
         the paged subclass rounds up to whole pages."""
         return int(tokens)
 
-    def page_view(self):
-        """The device page table of a paged cache (None: slot-contiguous
-        addressing)."""
+    def page_view(self, device: Optional[torch.device] = None):
+        """The page table of a paged cache on ``device`` (None: shard
+        0's); None: slot-contiguous addressing."""
         return None
 
     def bind(self, rid: int, slot: Optional[int] = None, tokens=None,
@@ -243,7 +279,7 @@ class KVAllocator:
         for rid in leaked:
             self.release(rid)
         self.reset_attribution()
-        self.state = None
+        self.states = None
         return leaked
 
     # ---- host-tier hooks: a slot-contiguous cache has no pages to spill,

@@ -37,6 +37,12 @@ Port of ``flexflow_tpu/serve/kv_paged.py``.
   to recompute.  Host blocks are CPU tensors (pinned when the cache lives
   on a CUDA device, so the copies run at the host link's rate): numpy has
   no bfloat16.
+* **Tensor parallelism.**  The table, the pool and the prefix index are
+  one host bookkeeping for every shard; a page id addresses the same
+  (row, slot) in each shard's buffers.  Each shard's device gets its copy
+  of the table; a COW copy, a spill and a restore move every shard's
+  blocks of the page, and a host page carries one checksum per shard,
+  every one verified before an upload.
 
 Everything here is host bookkeeping (numpy) plus host-ordered device copies
 (the COW page copy, the table upload, the tier's page copies).
@@ -73,29 +79,36 @@ class HostTierCorruption(RuntimeError):
 _INT_VIEW = {1: torch.int8, 2: torch.int16, 4: torch.int32}
 
 
-def _crc(blocks: Sequence[torch.Tensor]) -> int:
-    """CRC32 chained over the bytes of CPU blocks, in order."""
-    crc = 0
-    for blk in blocks:
-        crc = zlib.crc32(blk.view(_INT_VIEW[blk.element_size()]).numpy(),
-                         crc)
-    return crc
+def _crc(blocks: Sequence[torch.Tensor], shards: int = 1) -> Tuple[int, ...]:
+    """One CRC32 per shard, each chained over the bytes of that shard's
+    CPU blocks in order (the blocks are shard-major, an equal count
+    each)."""
+    per = len(blocks) // shards
+    out = []
+    for s in range(shards):
+        crc = 0
+        for blk in blocks[s * per:(s + 1) * per]:
+            crc = zlib.crc32(blk.view(_INT_VIEW[blk.element_size()]).numpy(),
+                             crc)
+        out.append(crc)
+    return tuple(out)
 
 
 class _HostPage:
     """One page's content in host memory: a CPU block per KV buffer in
-    :meth:`PagedKVAllocator._kv_buffers` order, and a CRC32 chained over
-    them, verified on every restore."""
+    :meth:`PagedKVAllocator._kv_buffers` order (shard-major), and a CRC32
+    per shard chained over its blocks, all verified on every restore."""
 
     __slots__ = ("blocks", "crc", "nbytes")
 
-    def __init__(self, blocks: List[torch.Tensor], crc: int, nbytes: int):
+    def __init__(self, blocks: List[torch.Tensor], crc: Tuple[int, ...],
+                 nbytes: int):
         self.blocks = blocks
         self.crc = crc
         self.nbytes = nbytes
 
     def verify(self) -> bool:
-        return _crc(self.blocks) == self.crc
+        return _crc(self.blocks, len(self.crc)) == self.crc
 
     def corrupt_for_test(self) -> None:
         """Flip one byte of the first block without updating the checksum
@@ -283,11 +296,12 @@ class PagedKVAllocator(KVAllocator):
 
     paged = True
 
-    def __init__(self, model: torch.nn.Module, max_requests: int,
-                 max_seq_len: int, device: torch.device,
+    def __init__(self, models: Sequence[torch.nn.Module],
+                 max_requests: int, max_seq_len: int,
+                 devices: Sequence[torch.device],
                  max_spec_tokens: int = 0, kv_dtype: Optional[str] = None,
                  page_size: int = 512):
-        super().__init__(model, max_requests, max_seq_len, device,
+        super().__init__(models, max_requests, max_seq_len, devices,
                          max_spec_tokens, kv_dtype)
         # the page must tile both the logical span (max_seq_len) and the
         # 128-padded physical seq axis the buffers allocate
@@ -347,7 +361,7 @@ class PagedKVAllocator(KVAllocator):
         # a write below it by anyone copies the page first
         self._protected: Dict[int, int] = {}
         self._lru_tick = 0
-        self._device_table: Optional[PageTable] = None
+        self._device_tables: Dict[torch.device, PageTable] = {}
 
     def allocate(self):
         """(Re)allocate zeroed buffers and reset the pool: zeroed caches
@@ -360,14 +374,17 @@ class PagedKVAllocator(KVAllocator):
         self._lru_tick += 1
         self._entries[key].lru = self._lru_tick
 
-    def page_view(self) -> PageTable:
-        """The table on the device, uploaded after a mutation (the first
-        step of a dispatch) and reused until the next one."""
-        if self._device_table is None:
-            self._device_table = PageTable(
-                host_to_device(self._table.copy(), self.device),
+    def page_view(self, device: Optional[torch.device] = None) -> PageTable:
+        """The table on ``device`` (None: shard 0's), uploaded after a
+        mutation (the first step of a dispatch) and reused until the next
+        one."""
+        dev = self.device if device is None else device
+        table = self._device_tables.get(dev)
+        if table is None:
+            table = self._device_tables[dev] = PageTable(
+                host_to_device(self._table.copy(), dev),
                 self.page_size, self.pages_per_row)
-        return self._device_table
+        return table
 
     # ---- pool primitives ----------------------------------------------
     def _alloc_page(self) -> int:
@@ -414,7 +431,7 @@ class PagedKVAllocator(KVAllocator):
         self._table[slot, k] = pid
         self._req_refs[pid] += 1
         self.pages_mapped += 1
-        self._device_table = None
+        self._device_tables.clear()
 
     def _unmap(self, slot: int, k: int) -> None:
         pid = int(self._table[slot, k])
@@ -424,7 +441,7 @@ class PagedKVAllocator(KVAllocator):
         self._req_refs[pid] -= 1
         if self._req_refs[pid] == 0 and self._idx_refs[pid] == 0:
             self._free.append(pid)
-        self._device_table = None
+        self._device_tables.clear()
 
     @torch.no_grad()
     def _copy_page(self, src: int, dst: int) -> None:
@@ -433,7 +450,7 @@ class PagedKVAllocator(KVAllocator):
         ps = self.page_size
         sr, ss = divmod(src, self.pages_per_row)
         dr, ds = divmod(dst, self.pages_per_row)
-        for bufs in (self.state or {}).values():
+        for bufs in (b for st in self.states or () for b in st.values()):
             for name in KV_BUFFER_NAMES:
                 if name in bufs:
                     arr = bufs[name]
@@ -639,13 +656,14 @@ class PagedKVAllocator(KVAllocator):
         return self.host_tier
 
     def _kv_buffers(self):
-        """Every committed-KV buffer, in one fixed (layer, name) order
-        shared by the spill copy, the restore upload and
+        """Every committed-KV buffer, in one fixed (shard, layer, name)
+        order shared by the spill copy, the restore upload and
         ``swap_signature``."""
-        for layer in sorted(self.state or {}):
-            bufs = self.state[layer]
-            for name in sorted(n for n in bufs if n in KV_BUFFER_NAMES):
-                yield bufs, name
+        for state in self.states or ():
+            for layer in sorted(state):
+                bufs = state[layer]
+                for name in sorted(n for n in bufs if n in KV_BUFFER_NAMES):
+                    yield bufs, name
 
     def swap_signature(self) -> Tuple:
         """Page geometry plus every KV buffer's per-page block shape and
@@ -682,8 +700,9 @@ class PagedKVAllocator(KVAllocator):
             blocks.append(blk)
             off += n
         if pin:
-            torch.cuda.synchronize(self.device)
-        return _HostPage(blocks, _crc(blocks), nbytes)
+            for dev in set(self.devices):
+                torch.cuda.synchronize(dev)
+        return _HostPage(blocks, _crc(blocks, len(self.devices)), nbytes)
 
     @torch.no_grad()
     def _write_page(self, pid: int, page: _HostPage) -> None:

@@ -65,6 +65,7 @@ from .request_manager import (
 from .resilience import RetryPolicy, TransientServeError
 
 _SPEC_SUFFIX = re.compile(r"_spec_w(\d+)d(\d+)$")
+_PLAN_SHAPE = re.compile(r"^tp(\d+)_pp(\d+)_m(\d+)(?:_|$)")
 
 # requests currently occupying an engine slot (the drain's preempt set)
 _RUNNING = (RequestStatus.PREFILLING, RequestStatus.DECODING)
@@ -81,6 +82,24 @@ def spec_shape(key: str) -> Optional[Tuple[int, int]]:
     """(width, depth) of a ``_spec_w{w}d{d}`` plan key, None if non-spec."""
     m = _SPEC_SUFFIX.search(key or "")
     return (int(m.group(1)), int(m.group(2))) if m else None
+
+
+def plan_shape(key: str) -> Dict[str, int]:
+    """``{"tp", "pp", "m"}`` of a ``tp{t}_pp{p}_m{m}...`` plan key (the
+    port's builders: ``LLM.plan_builder``).  A key with ``pp > 1``
+    raises: pipeline-parallel serving is slice 9b of the port."""
+    m = _PLAN_SHAPE.match(key or "")
+    if m is None:
+        raise ValueError(f"plan key {key!r} is not tp{{t}}_pp{{p}}_m{{m}}")
+    tp, pp, mb = (int(g) for g in m.groups())
+    if pp > 1:
+        raise NotImplementedError(
+            f"plan {key!r}: pipeline-parallel serving (pp={pp}) is slice "
+            "9b of the port (the graph IR and live_cuts), not ported yet")
+    if tp < 1 or mb != 1:
+        raise ValueError(f"plan key {key!r}: tp >= 1 and one micro-batch "
+                         "without pipeline stages")
+    return {"tp": tp, "pp": pp, "m": mb}
 
 
 class MigrationRollback(Exception):

@@ -16,6 +16,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ...parallel.comm import run_local
+
 MODEL_REGISTRY: Dict[str, Callable] = {}
 
 
@@ -134,16 +136,33 @@ class GatedLMHead:
     before the product, a slot of -1 clamping to row 0 (its logits are
     never read), so the step computes ``[max_requests, vocab]`` logits
     instead of ``[max_tokens, vocab]``.  Every family mixes it in: the
-    reference marks each one's LM head."""
+    reference marks each one's LM head.
+
+    The mixin also gives each family its ``forward``: the family writes
+    ``forward_gen(bc, state, pages)``, a generator that yields at its
+    tensor-parallel collectives (``parallel/comm.py``), and ``forward``
+    runs it alone with identity collectives; a tensor-parallel manager
+    runs one per shard in lockstep.  One forward serves both."""
 
     gates_lm_head = True
 
-    def logits(self, x: torch.Tensor, bc) -> torch.Tensor:
-        """Float32 logits of the final hidden states ``x`` [T, E]."""
+    def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
+                pages=None) -> torch.Tensor:
+        """Float32 logits ``[T, vocab]`` of one step (``[max_requests,
+        vocab]`` for a gated prefill chunk); ``state`` holds each
+        attention layer's caches, which are updated in place; ``pages`` is
+        the page table of a paged cache (None: slot-contiguous)."""
+        return run_local(self.forward_gen(bc, state, pages))
+
+    def logits(self, x: torch.Tensor, bc):
+        """Float32 logits of the final hidden states ``x`` [T, E], as a
+        generator: a vocabulary-sharded head gathers them on shard 0 (the
+        other shards return None)."""
         slots = getattr(bc, "logit_slots", None)
         if slots is not None:
             x = x.index_select(0, slots.clamp(0, x.shape[0] - 1).long())
-        return self.lm_head(x).float()
+        y = yield from self.lm_head.gen(x, out="first")
+        return None if y is None else y.float()
 
 
 def name_attention_layers(model: torch.nn.Module) -> None:

@@ -39,8 +39,11 @@ class FalconMLP(nn.Module):
         self.dense_4h_to_h = Linear(cfg.intermediate_size, cfg.hidden_size,
                                     dtype, use_bias=cfg.bias)
 
-    def forward(self, x):
-        return self.dense_4h_to_h(self.dense_h_to_4h(x))
+    def gen(self, x):
+        # both column-sharded (neither name is a row-parallel one): each
+        # output is gathered whole
+        h = yield from self.dense_h_to_4h.gen(x)
+        return (yield from self.dense_4h_to_h.gen(h))
 
 
 class FalconDecoderLayer(nn.Module):
@@ -57,14 +60,14 @@ class FalconDecoderLayer(nn.Module):
             self.post_attention_layernorm = LayerNorm(h, eps, dtype=dtype)
         self.mlp = FalconMLP(cfg, dtype)
 
-    def forward(self, x, bc, state, pages):
+    def gen(self, x, bc, state, pages):
         h = self.input_layernorm(x)
-        a = self.self_attention(h, bc, state[self.self_attention.name],
-                                pages)
+        a = yield from self.self_attention.gen(
+            h, bc, state[self.self_attention.name], pages)
         if self.parallel:   # Falcon-7B: both branches from the same LN
-            return x + (a + self.mlp(h))
+            return x + (a + (yield from self.mlp.gen(h)))
         x = x + a
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return x + (yield from self.mlp.gen(self.post_attention_layernorm(x)))
 
 
 class FalconModel(nn.Module):
@@ -92,15 +95,15 @@ class FalconForServe(GatedLMHead, nn.Module):
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, dtype)
         name_attention_layers(self)
 
-    def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
-                pages=None) -> torch.Tensor:
-        """Float32 logits ``[T, vocab]`` of one step (caches updated in
-        place, as :class:`~.llama.LlamaForServe`)."""
+    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
+                    pages=None):
+        """One step's logits (see ``GatedLMHead.forward``), yielding at
+        the collectives as :class:`~.llama.LlamaForServe`."""
         base = getattr(bc, "base", bc)
         x = self.transformer.word_embeddings(base.tokens)
         for layer in self.transformer.h:
-            x = layer(x, bc, state, pages)
-        return self.logits(self.transformer.ln_f(x), bc)
+            x = yield from layer.gen(x, bc, state, pages)
+        return (yield from self.logits(self.transformer.ln_f(x), bc))
 
 
 @register_model("falcon")

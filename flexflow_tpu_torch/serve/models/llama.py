@@ -36,8 +36,10 @@ class LlamaMLP(nn.Module):
         self.act = SigmoidSiluMulti()
         self.down_proj = Linear(cfg.intermediate_size, cfg.hidden_size, dtype)
 
-    def forward(self, x):
-        return self.down_proj(self.act(self.gate_proj(x), self.up_proj(x)))
+    def gen(self, x):
+        gate = yield from self.gate_proj.gen(x, out="local")
+        up = yield from self.up_proj.gen(x, out="local")
+        return (yield from self.down_proj.gen(self.act(gate, up)))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -76,12 +78,11 @@ class LlamaForServe(GatedLMHead, nn.Module):
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, dtype)
         name_attention_layers(self)
 
-    def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
-                pages=None) -> torch.Tensor:
-        """Float32 logits ``[T, vocab]`` of one step (``[max_requests,
-        vocab]`` for a gated prefill chunk); ``state`` holds each
-        attention layer's caches, which are updated in place; ``pages`` is
-        the page table of a paged cache (None: slot-contiguous)."""
+    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
+                    pages=None):
+        """One step's logits (see ``GatedLMHead.forward``), yielding at
+        the collectives: after each attention's and MLP's row-sharded
+        product, and at the LM head."""
         base = getattr(bc, "base", bc)
         residual = self.model.embed_tokens(base.tokens)
         mlp_out = None
@@ -90,12 +91,12 @@ class LlamaForServe(GatedLMHead, nn.Module):
                 attn_in = layer.input_layernorm(residual)
             else:
                 residual, attn_in = layer.input_layernorm(mlp_out, residual)
-            attn = layer.self_attn(attn_in, bc, state[layer.self_attn.name],
-                                   pages)
+            attn = yield from layer.self_attn.gen(
+                attn_in, bc, state[layer.self_attn.name], pages)
             residual, mlp_in = layer.post_attention_layernorm(attn, residual)
-            mlp_out = layer.mlp(mlp_in)
+            mlp_out = yield from layer.mlp.gen(mlp_in)
         _, normed = self.model.norm(mlp_out, residual)
-        return self.logits(normed, bc)
+        return (yield from self.logits(normed, bc))
 
 
 @register_model("llama")

@@ -35,8 +35,9 @@ class MPTFFN(nn.Module):
         self.down_proj = Linear(cfg.intermediate_size, cfg.hidden_size,
                                 dtype)
 
-    def forward(self, x):
-        return self.down_proj(self.up_proj(x))
+    def gen(self, x):
+        h = yield from self.up_proj.gen(x, out="local")
+        return (yield from self.down_proj.gen(h))
 
 
 class MPTBlock(nn.Module):
@@ -51,9 +52,11 @@ class MPTBlock(nn.Module):
         self.norm_2 = LayerNorm(h, eps, use_bias=False, dtype=dtype)
         self.ffn = MPTFFN(cfg, dtype)
 
-    def forward(self, x, bc, state, pages):
-        x = x + self.attn(self.norm_1(x), bc, state[self.attn.name], pages)
-        return x + self.ffn(self.norm_2(x))
+    def gen(self, x, bc, state, pages):
+        a = yield from self.attn.gen(self.norm_1(x), bc,
+                                     state[self.attn.name], pages)
+        x = x + a
+        return x + (yield from self.ffn.gen(self.norm_2(x)))
 
 
 class MPTModel(nn.Module):
@@ -75,15 +78,15 @@ class MPTForServe(GatedLMHead, nn.Module):
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, dtype)
         name_attention_layers(self)
 
-    def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
-                pages=None) -> torch.Tensor:
-        """Float32 logits ``[T, vocab]`` of one step (caches updated in
-        place, as :class:`~.llama.LlamaForServe`)."""
+    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
+                    pages=None):
+        """One step's logits (see ``GatedLMHead.forward``), yielding at
+        the collectives as :class:`~.llama.LlamaForServe`."""
         base = getattr(bc, "base", bc)
         x = self.transformer.wte(base.tokens)
         for block in self.transformer.blocks:
-            x = block(x, bc, state, pages)
-        return self.logits(self.transformer.norm_f(x), bc)
+            x = yield from block.gen(x, bc, state, pages)
+        return (yield from self.logits(self.transformer.norm_f(x), bc))
 
 
 @register_model("mpt")

@@ -43,13 +43,16 @@ class OPTDecoderLayer(nn.Module):
                           activation="relu")
         self.fc2 = Linear(cfg.intermediate_size, h, dtype, use_bias=True)
 
-    def forward(self, x, bc, state, pages):
+    def gen(self, x, bc, state, pages):
         h = self.self_attn_layer_norm(x) if self.pre else x
-        x = x + self.self_attn(h, bc, state[self.self_attn.name], pages)
+        a = yield from self.self_attn.gen(h, bc, state[self.self_attn.name],
+                                          pages)
+        x = x + a
         if not self.pre:
             x = self.self_attn_layer_norm(x)
         h = self.final_layer_norm(x) if self.pre else x
-        x = x + self.fc2(self.fc1(h))
+        h = yield from self.fc1.gen(h, out="local")
+        x = x + (yield from self.fc2.gen(h))
         return x if self.pre else self.final_layer_norm(x)
 
 
@@ -87,23 +90,24 @@ class OPTForServe(GatedLMHead, nn.Module):
                               cfg.vocab_size, dtype)
         name_attention_layers(self)
 
-    def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
-                pages=None) -> torch.Tensor:
-        """Float32 logits ``[T, vocab]`` of one step (caches updated in
-        place, as :class:`~.llama.LlamaForServe`)."""
+    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
+                    pages=None):
+        """One step's logits (see ``GatedLMHead.forward``), yielding at
+        the collectives as :class:`~.llama.LlamaForServe`; ``fc2``'s bias
+        is added after its reduce."""
         base = getattr(bc, "base", bc)
         dec = self.model.decoder
         x = dec.embed_tokens(base.tokens)
         if hasattr(dec, "project_in"):
-            x = dec.project_in(x)
+            x = yield from dec.project_in.gen(x)
         x = dec.embed_positions(x, base.token_position)
         for layer in dec.layers:
-            x = layer(x, bc, state, pages)
+            x = yield from layer.gen(x, bc, state, pages)
         if hasattr(dec, "final_layer_norm"):
             x = dec.final_layer_norm(x)
         if hasattr(dec, "project_out"):
-            x = dec.project_out(x)
-        return self.logits(x, bc)
+            x = yield from dec.project_out.gen(x)
+        return (yield from self.logits(x, bc))
 
 
 @register_model("opt")

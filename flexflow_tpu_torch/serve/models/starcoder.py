@@ -35,8 +35,9 @@ class StarCoderMLP(nn.Module):
         self.c_proj = Linear(cfg.intermediate_size, cfg.hidden_size, dtype,
                              use_bias=True)
 
-    def forward(self, x):
-        return self.c_proj(self.c_fc(x))
+    def gen(self, x):
+        h = yield from self.c_fc.gen(x, out="local")
+        return (yield from self.c_proj.gen(h))
 
 
 class StarCoderBlock(nn.Module):
@@ -50,9 +51,11 @@ class StarCoderBlock(nn.Module):
         self.ln_2 = LayerNorm(h, eps, dtype=dtype)
         self.mlp = StarCoderMLP(cfg, dtype)
 
-    def forward(self, x, bc, state, pages):
-        x = x + self.attn(self.ln_1(x), bc, state[self.attn.name], pages)
-        return x + self.mlp(self.ln_2(x))
+    def gen(self, x, bc, state, pages):
+        a = yield from self.attn.gen(self.ln_1(x), bc, state[self.attn.name],
+                                     pages)
+        x = x + a
+        return x + (yield from self.mlp.gen(self.ln_2(x)))
 
 
 class StarCoderModel(nn.Module):
@@ -76,16 +79,17 @@ class StarCoderForServe(GatedLMHead, nn.Module):
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, dtype)
         name_attention_layers(self)
 
-    def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
-                pages=None) -> torch.Tensor:
-        """Float32 logits ``[T, vocab]`` of one step (caches updated in
-        place, as :class:`~.llama.LlamaForServe`)."""
+    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
+                    pages=None):
+        """One step's logits (see ``GatedLMHead.forward``), yielding at
+        the collectives as :class:`~.llama.LlamaForServe`; ``c_proj``'s
+        bias is added after its reduce."""
         base = getattr(bc, "base", bc)
         tr = self.transformer
         x = tr.wpe(tr.wte(base.tokens), base.token_position)
         for block in tr.h:
-            x = block(x, bc, state, pages)
-        return self.logits(tr.ln_f(x), bc)
+            x = yield from block.gen(x, bc, state, pages)
+        return (yield from self.logits(tr.ln_f(x), bc))
 
 
 @register_model("gpt_bigcode")

@@ -12,8 +12,16 @@ biased projections, ALiBi through the decode kernel's slopes.  A
 speculative step of an ALiBi layer takes the reference's gather path
 (:830-836, :908-958) as torch ops, as no Pallas kernel computes it there:
 the spec slots' positions in a ``spec_pos`` buffer, ALiBi biases on the
-committed and the spec keys (``_alibi_tree_attend``).  No tensor
-parallelism.  Layouts are the reference's: the
+committed and the spec keys (``_alibi_tree_attend``).  Under tensor
+parallelism (:mod:`flexflow_tpu_torch.parallel.tp`) a head-sharded layer
+holds its shard's KV heads and their query heads and runs the kernels on
+those local shapes, as the reference's ``_head_shard_map`` (:528-556) runs
+the Pallas kernels under ``shard_map``; its ``o_proj`` product is a
+partial sum, reduced across the shards before ``o_bias`` is added once.
+A replicated layer (KV heads that do not divide) runs every head on every
+shard and its output is whole: the reference takes its gather path there
+(``_head_shard_map`` returns None), the same function.  Layouts are the
+reference's: the
 fused QKV weight is ``[E, KV, gq + 2, D]`` (per KV head, its gq query
 heads, then K, then V), ``o_proj`` is ``[QH*D, E]`` and the caches are
 kv-head-major ``[R+1, KV, S, D]`` with row ``R`` the pad tokens' scratch
@@ -43,6 +51,7 @@ from ..ops.cuda.attention import (
     tree_attention_batched,
 )
 from ..ops.linear import add_bias, dequant
+from ..parallel.comm import run_local
 from .batch_config import (
     BatchConfig,
     PrefillBatchConfig,
@@ -122,7 +131,16 @@ class IncMultiHeadSelfAttention(nn.Module):
     module's path in the model, the key of its caches in the allocator's
     state; ``compute_dtype`` is the dtype of its activations and of fp
     caches, whatever its weights are stored in.
+
+    Head-sharded (``head_sharded``, set by ``parallel.tp.shard_model``)
+    over ``head_shards`` shards, ``num_q_heads`` and ``num_kv_heads`` are
+    the shard's, its first query head is global head ``head_offset``, and
+    :meth:`gen` yields its partial output for the all-reduce.
     """
+
+    head_sharded = False
+    head_shards = 1
+    head_offset = 0
 
     def __init__(self, embed_dim: int, num_q_heads: int,
                  num_kv_heads: Optional[int] = None,
@@ -166,6 +184,13 @@ class IncMultiHeadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, bc, state: Dict[str, torch.Tensor],
                 pages=None) -> torch.Tensor:
+        return run_local(self.gen(x, bc, state, pages))
+
+    def gen(self, x: torch.Tensor, bc, state: Dict[str, torch.Tensor],
+            pages=None):
+        """The layer as a generator of its collectives (``parallel.comm``):
+        a head-sharded layer yields its partial ``o_proj`` product for the
+        all-reduce, then adds ``o_bias``; returns ``[T, E]``."""
         q, k, v = self._project(x, bc)
         if isinstance(bc, TreeVerifyBatchConfig):
             # last macro-step's accepted K/V joins the committed cache
@@ -183,6 +208,8 @@ class IncMultiHeadSelfAttention(nn.Module):
                       out.dtype)
         y = torch.matmul(out.reshape(t, self.num_q_heads * self.head_dim),
                          o_w)
+        if self.head_sharded:
+            y = yield ("all_reduce", y)
         return add_bias(y, self.o_bias) if self.use_bias else y
 
     def _project(self, x, bc) -> Tuple[torch.Tensor, ...]:
@@ -207,11 +234,16 @@ class IncMultiHeadSelfAttention(nn.Module):
     def slopes(self, device) -> Optional[torch.Tensor]:
         """The ALiBi slopes on ``device`` (None without ALiBi), made once:
         not a parameter, so state dicts carry none, as the reference's
-        params do not."""
+        params do not.  A head-sharded layer takes its heads' slice of the
+        global heads' slopes (slopes made for the local head count would
+        be other numbers)."""
         if not self.use_alibi:
             return None
         if self._slopes is None or self._slopes.device != device:
-            self._slopes = alibi_slopes(self.num_q_heads, device)
+            lo = self.head_offset
+            self._slopes = alibi_slopes(
+                self.num_q_heads * self.head_shards,
+                device)[lo:lo + self.num_q_heads].contiguous()
         return self._slopes
 
     @staticmethod

@@ -4,7 +4,10 @@ Port of ``flexflow_tpu/serve/quant.py``: weights are stored int8 with
 per-out-channel f32 scales beside them (``<name>_scale``) and dequantized to
 the compute dtype just before their product (``ops/linear.py``,
 ``serve/ops.py``); the dequantized copy is transient.  The planner-only
-``annotate_int8`` waits for the planner slice.
+``annotate_int8`` waits for the planner slice.  A tensor-parallel
+manager's weights are quantized whole, as the reference quantizes its
+global arrays, then sliced again (``parallel/tp.py``): the scale of a
+row-sharded weight is the global one on every shard.
 """
 
 from __future__ import annotations
@@ -35,8 +38,8 @@ def _quantize_array(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _weights(model: nn.Module, include: Optional[Sequence[str]],
-             attention: bool) -> Iterator[Tuple[nn.Module, str]]:
-    """(module, parameter name) of every weight :func:`quantize_int8`
+             attention: bool) -> Iterator[Tuple[str, str]]:
+    """(module path, parameter name) of every weight :func:`quantize_int8`
     covers: each Linear's ``kernel`` and, with ``attention``, each
     attention module's ``qkv`` and ``o_proj``; ``include`` keeps the
     modules whose path contains one of its strings."""
@@ -44,10 +47,10 @@ def _weights(model: nn.Module, include: Optional[Sequence[str]],
         if include and not any(s in name for s in include):
             continue
         if isinstance(mod, Linear):
-            yield mod, "kernel"
+            yield name, "kernel"
         elif attention and isinstance(mod, IncMultiHeadSelfAttention):
-            yield mod, "qkv"
-            yield mod, "o_proj"
+            yield name, "qkv"
+            yield name, "o_proj"
 
 
 def _set_int8(mod: nn.Module, pname: str, q: torch.Tensor,
@@ -66,12 +69,19 @@ def quantize_int8(im, include: Optional[Sequence[str]] = None,
     ``init_operators_inference``; int8 weights are skipped, so
     re-quantizing is a no-op.  Returns the number of weights quantized."""
     n = 0
-    for mod, pname in list(_weights(im.model, include, attention)):
-        w = getattr(mod, pname)
-        if w.dtype == torch.int8:
+    plan = im.model.tp_plan
+    for path, pname in list(_weights(im.model, include, attention)):
+        mods = [m.get_submodule(path) for m in im.shards]
+        if getattr(mods[0], pname).dtype == torch.int8:
             continue
-        q, scale = _quantize_array(w)
-        _set_int8(mod, pname, q, scale)   # the compute-dtype weight goes
+        key = f"{path}.{pname}" if path else pname
+        parts = [getattr(m, pname) for m in mods]
+        q, scale = _quantize_array(plan.whole(key, parts))
+        for r, (m, w) in enumerate(zip(mods, parts)):
+            _set_int8(m, pname,   # the compute-dtype weight goes
+                      plan.local(key, q, r).contiguous().to(w.device),
+                      plan.local(f"{key}_scale", scale, r).contiguous().to(
+                          w.device))
         n += 1
     return n
 

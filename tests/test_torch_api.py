@@ -181,9 +181,13 @@ def test_hf_checkpoint_by_path_matches_hf_and_jax(hf_dir):
 
 
 def test_tp_and_a_missing_card_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # tp > 1 places its shards on ``devices``; one ``device`` is refused
+    # rather than silently holding every shard
+    with pytest.raises(ValueError, match="devices"):
         LLM(CFG).compile(tp=2, device="cpu", **CAPS)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):   # devices=None: cards
+        LLM(CFG).compile(tp=2, **CAPS)
     with pytest.raises(RuntimeError, match="CUDA"):
         LLM(CFG).compile(**CAPS)
     with pytest.raises(RuntimeError, match="compile"):

@@ -225,8 +225,8 @@ def test_sole_holder_divergence_cannot_corrupt_the_index():
 # the pool
 # ---------------------------------------------------------------------------
 def _allocator(max_requests=1, max_seq_len=256, page=PAGE):
-    return PagedKVAllocator(build_model(CFG), max_requests, max_seq_len,
-                            torch.device("cpu"), page_size=page)
+    return PagedKVAllocator([build_model(CFG)], max_requests, max_seq_len,
+                            [torch.device("cpu")], page_size=page)
 
 
 def test_index_pages_evict_lru_and_exhaustion_raises():

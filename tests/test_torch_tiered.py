@@ -284,8 +284,8 @@ def test_host_page_checksum_detects_corruption():
 # the allocator's page copies
 # ---------------------------------------------------------------------------
 def _allocator(cfg=CFG, kv_dtype=None, max_requests=1):
-    kv = PagedKVAllocator(build_model(cfg), max_requests=max_requests,
-                          max_seq_len=128, device=torch.device("cpu"),
+    kv = PagedKVAllocator([build_model(cfg)], max_requests=max_requests,
+                          max_seq_len=128, devices=[torch.device("cpu")],
                           kv_dtype=kv_dtype, page_size=PAGE)
     kv.allocate()
     g = torch.Generator().manual_seed(0)
