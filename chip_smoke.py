@@ -207,7 +207,9 @@ limit, the kernels' JSON record (one entry per kernel and cache variant
 in bf16 and, suffixed ``/f32``, in float32, K1's ALiBi variants, K1
 at 71 and 48 query heads per KV head, and, suffixed ``7b-tp2-shard``,
 the kernels at phase 17's shard-local shape with its launches over both
-shards: all four in float32, K1 and K2 in bf16)
+shards and phase 18's ``pp=2 x tp=2`` launches: all four in float32, K1
+and K2 in bf16; suffixed ``7b-pp2``, phase 18's launches alone, beside
+the times of their shape)
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
 device.
 """
@@ -3356,6 +3358,252 @@ def phase_tensor_parallel(serve, att, kv_quant, torch, dev):
     return {"kernels": shard_kres, "f32": f32, "bf16": launches[2]}
 
 
+def phase_pipeline_parallel(serve, att, torch, dev):
+    """Phase 18: pipeline-parallel serving, every stage on the one card.
+    (a) Llama-2-7B at full width, 4 layers, float32, ``pp=2`` with two
+    micro-batches against ``pp=1`` on incremental, host speculation with
+    a pipelined target, int8 weights + int8 KV + 512-position pages and
+    ``pp=2 x tp=2``; each stage's own K1 and K2 once per micro-batch; a
+    ``tp1 -> pp2`` live migration mid-stream.  (b) the bf16 7B at full
+    depth through ``RequestManager.generate`` at ``pp=2``, ``n_micro`` 2
+    and 1, beside ``pp=1``.  Returns the ``pp=2`` runs' launches, summed
+    over stages and shards: ``"f32"`` of (a)'s fp paths at the 7B's heads,
+    ``"f32 shard"`` of (a)'s ``pp=2 x tp=2`` run at a shard's heads,
+    ``"bf16"`` of (b)'s two runs."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch.obs import Telemetry
+    from flexflow_tpu_torch.parallel import make_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(max_requests=2, max_tokens_per_batch=128, max_seq_len=1024,
+              max_spec_tokens=8)
+    cfg = serve.ServeModelConfig(num_hidden_layers=4, dtype="float32")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in (560, 200)]
+    gen = serve.GenerationConfig(max_new_tokens=16)
+    pbc, _ = serve.PrefillBatchConfig.build(
+        [(0, prompts[0][:128], 0)], [128], 128, max_tokens=128,
+        max_requests=2, device=dev)
+
+    def deploy(pp, tp=1, seed=1, **extra):
+        if pp == 1:
+            im = serve.InferenceManager(serve.build_model(cfg), device=dev,
+                                        **dict(kw, **extra))
+        else:
+            im = serve.PipelinedInferenceManager(
+                serve.build_model(cfg), mesh=make_mesh(
+                    {"pp": pp, "tp": tp}, [dev] * (pp * tp)), n_micro=2,
+                **dict(kw, **extra))
+        return im.init_operators_inference(seed=seed)
+
+    ssm = serve.InferenceManager(serve.build_model(draft_config(
+        serve, "float32")), device=dev, topk=2, **kw)
+    ssm.init_operators_inference(seed=2)
+
+    def paths(pp, tp=1):
+        """{path: streams}, {path: per-(stage, shard) launches}, the
+        prefill logits."""
+        outs, per = {}, {}
+        llm = deploy(pp, tp)
+        logits = (llm.forward(pbc) if pp == 1 else llm.step(pbc).logits)
+        logits = logits.cpu()
+        todo = [("incremental", lambda: serve.RequestManager(
+            llm, gen).generate(prompts))]
+        if tp == 1:
+            todo.append(("spec host", lambda: serve.SpecInferManager(
+                llm, ssm, gen, width=2, depth=3).generate(prompts)))
+        for path, fn in todo:
+            llm.reset()
+            ssm.reset()
+            probes = shard_probe(att, llm.shards) if pp > 1 else None
+            outs[path], n = counted(att, fn)
+            per[path] = [dict(c) for c in probes] if probes else [n]
+        if pp > 1:
+            # one decode macro step: each stage's own K1, once per
+            # micro-batch (two layers a stage, two micro-batches)
+            llm.reset()
+            probes = shard_probe(att, llm.shards)
+            bc = serve.BatchConfig.build(
+                [5, 7], [0, 1], [3, 3], [4, 4], max_tokens=128,
+                max_requests=2, device=dev)
+            counted(att, lambda: llm.step(bc))
+            k1 = [c[("decode_attention", "fp")] for c in probes]
+            want_k1 = cfg.num_hidden_layers // pp * llm.n_micro
+            if k1 != [want_k1] * len(probes):
+                raise AssertionError(f"pp={pp} tp={tp}: K1 per stage and "
+                                     f"shard {k1} on one decode step, not "
+                                     f"{want_k1} each")
+        del llm
+        if tp == 1:
+            llm = deploy(pp, kv_dtype="int8", kv_page_size=PAGE,
+                         max_spec_tokens=0)
+            serve.quantize_int8(llm)
+            probes = shard_probe(att, llm.shards) if pp > 1 else None
+            outs["int8+paged"], n = counted(
+                att, lambda: serve.RequestManager(llm, gen).generate(
+                    prompts))
+            per["int8+paged"] = [dict(c) for c in probes] if probes else [n]
+            del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+        return outs, per, logits
+
+    t_phase = time.perf_counter()
+    want, _, logits1 = paths(1)
+    got, per, logits2 = paths(2)
+    got_tp, per_tp, logits4 = paths(2, tp=2)
+    err = (logits2 - logits1).abs().max().item()
+    err_tp = (logits4 - logits1).abs().max().item()
+    torch.testing.assert_close(logits2, logits1, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(logits4, logits1, atol=1e-3, rtol=1e-3)
+    needs = {"incremental": ("fp", ("decode_attention",
+                                    "prefill_attention")),
+             "spec host": ("fp", ("tree_attention",)),
+             "int8+paged": ("int8+paged", ("decode_attention",
+                                           "prefill_attention"))}
+    for label, outs, counts, models in (("pp=2", got, per, 2),
+                                        ("pp=2 x tp=2", got_tp, per_tp, 4)):
+        for path, toks in outs.items():
+            if toks != want[path]:
+                raise AssertionError(f"{label} {path}: {toks} != pp=1 "
+                                     f"{want[path]}")
+            if len(counts[path]) != models:
+                raise AssertionError(f"{label} {path}: launches of "
+                                     f"{len(counts[path])} stage models")
+            variant, names = needs[path]
+            for i, n in enumerate(counts[path]):
+                require_launches(collections.Counter(n),
+                                 f"{label} {path} stage {i // (models // 2)}"
+                                 f" shard {i % (models // 2)}", variant,
+                                 names)
+    log(f"pipeline parallel (a): 4-layer 7B-width f32, pp=2 (n_micro=2) on "
+        f"one card == pp=1 on incremental, spec host (a pipelined target) "
+        f"and int8 weights + int8 paged KV ({got['incremental'][0][:4]}...),"
+        f" pp=2 x tp=2 == pp=1 on incremental; prefill logits max |diff| "
+        f"pp=2 {err:.3e}, pp=2 x tp=2 {err_tp:.3e}; one decode step: each "
+        f"stage's K1 once a layer and micro-batch")
+    for label, counts in (("pp=2", per), ("pp=2 x tp=2", per_tp)):
+        for path, models in counts.items():
+            log(f"pipeline parallel (a) {label} {path}: launches per stage"
+                f" model " + " | ".join(str(short(collections.Counter(n)))
+                                        for n in models))
+
+    # tp1 -> pp2 live migration mid-stream: the unmigrated streams
+    incumbent = deploy(1, max_spec_tokens=0)
+    rm = serve.RequestManager(incumbent, gen)
+    rm._sleep = lambda s: None
+    rm.scan_chunk = 2
+    ctrl = serve.MigrationController(
+        rm, lambda cand: deploy(2, max_spec_tokens=0),
+        plan={"plan_key": "tp1_pp1_m1"},
+        config=serve.MigrationConfig(defer_ticks=2, drain_grace_ticks=1))
+    ctrl.request_migration("tp1_pp2_m2")
+    migrated = rm.generate(prompts)
+    rec = ctrl.history[-1]
+    if (migrated != want["incremental"] or rec["outcome"] != "completed"
+            or rec["preempted_requests"] == 0 or ctrl.rm.im.pp != 2
+            or incumbent.state is not None):
+        raise AssertionError(f"tp1 -> pp2 migration: {rec}, streams "
+                             f"{migrated} != {want['incremental']}")
+    log(f"pipeline parallel (a): tp1 -> pp2 live migration mid-decode "
+        f"({rec['preempted_requests']} requests preempted) == the "
+        f"unmigrated streams")
+    del incumbent, rm, ctrl, ssm
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"pipeline parallel (a) done in {time.perf_counter() - t_phase:.1f}s")
+
+    # (b) the bf16 7B at full depth; no stop token, so every request runs
+    # its 64 tokens
+    cfg = serve.ServeModelConfig(dtype="bfloat16", eos_token_id=None)
+    caps = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048)
+    prompts = serve_prompts(cfg.vocab_size)
+    gen = serve.GenerationConfig(max_new_tokens=64)
+
+    def serve_once(pp, n_micro=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if pp == 1:
+            im = serve.InferenceManager(serve.build_model(cfg), device=dev,
+                                        **caps)
+        else:
+            im = serve.PipelinedInferenceManager(
+                serve.build_model(cfg), mesh=make_mesh({"pp": pp},
+                                                       [dev] * pp),
+                n_micro=n_micro, **caps)
+        im.init_operators_inference(seed=0)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        stamps = {}
+        tel = Telemetry()
+        rm = serve.RequestManager(im, gen, telemetry=tel)
+        inner = rm._append_token
+
+        def stamped(req, tok):
+            inner(req, tok)
+            stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+        rm._append_token = stamped
+        t0 = time.perf_counter()
+        outs, n = counted(att, lambda: rm.generate(prompts))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_streams(outs, 64, cfg.vocab_size, f"serve pp={pp}")
+        require_launches(n, f"serve pp={pp}", "fp",
+                         ("decode_attention", "prefill_attention"))
+        ttft, tpot = stream_times(stamps, t0)
+        groups = getattr(im, "shard_groups", [[im.model]])
+        w = [sum(p.numel() * p.element_size() for p in g[0].parameters())
+             for g in groups]
+        kv = (im.kv.stage_bytes(per_device=True))
+        hops = tel.metrics.snapshot().get("pp_hops", 0)
+        label = f"pp={pp}" + (f" n_micro={im.n_micro}" if pp > 1 else "")
+        log(f"pipeline parallel (b) bf16 7B {label} (one card): init "
+            f"{t_init:.1f}s, wall {wall:.2f}s, "
+            f"{sum(map(len, outs)) / wall:.1f} tok/s, mean TTFT "
+            f"{sum(ttft) / len(ttft):.3f}s, mean TPOT "
+            f"{sum(tpot) / len(tpot):.2f} ms; weights per stage GB "
+            f"{[round(x / 1e9, 3) for x in w]}, KV per stage GB "
+            f"{[round(x / 1e9, 3) for x in kv]}; pp_hops {hops}; launches "
+            f"{short(n)}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        log(f"pipeline parallel (b) {label}: TTFT s " + " ".join(
+            f"{x:.3f}" for x in ttft) + " | TPOT ms " + " ".join(
+            f"{x:.2f}" for x in tpot))
+        rm._append_token = inner
+        return outs, n
+
+    t0 = time.perf_counter()
+    streams, launches = {}, {}
+    for key, pp, m in (("pp1", 1, None), ("pp2_m2", 2, 2), ("pp2_m1", 2, 1)):
+        streams[key], launches[key] = serve_once(pp, m)
+    log(f"pipeline parallel (b): tokens equal to pp=1: n_micro=2 "
+        f"{equal_share(streams['pp2_m2'], streams['pp1']):.4f}, n_micro=1 "
+        f"{equal_share(streams['pp2_m1'], streams['pp1']):.4f} (bf16: "
+        f"printed, not required); (b) done in "
+        f"{time.perf_counter() - t0:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32, f32_shard = collections.Counter(), collections.Counter()
+    for path in ("incremental", "spec host"):
+        for n in per[path]:
+            f32.update(n)
+        for n in per_tp.get(path, []):
+            f32_shard.update(n)
+    bf16 = collections.Counter(launches["pp2_m2"])
+    bf16.update(launches["pp2_m1"])
+    return {"f32": f32, "f32 shard": f32_shard, "bf16": bf16}
+
+
 def tc_reports(text):
     """(kernel, "registers, shared memory, spills") of each tensor-core
     kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
@@ -3454,6 +3702,8 @@ def main():
                   phase_fleet_migration_replay(serve, att, torch, dev))
     tp = timed("tensor parallel", lambda: phase_tensor_parallel(
         serve, att, kv_quant, torch, dev))
+    pp = timed("pipeline parallel", lambda: phase_pipeline_parallel(
+        serve, att, torch, dev))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)
@@ -3473,17 +3723,19 @@ def main():
     # steps with root-only trees, K3 batched with pad nodes); f32 fp and
     # paged add phase 16's runs (the fleet, the migrations, the replay: K1
     # and K2, K3 per-token on the speculative deployment before and after
-    # its move to pages)
+    # its move to pages); f32 fp and bf16 fp add phase 18's pipelined runs
+    # at the 7B's heads (every stage's launches), which the 7b-pp2 rows
+    # also show alone
     def path_counts_f32(var):
         if var == "fp":
             return {"decode_attention": plus(f32["incremental"],
                                              api["chained"], mixed["mixed"],
-                                             fleet),
+                                             fleet, pp["f32"]),
                     "prefill_attention": plus(f32["incremental"],
                                               api["chained"], mixed["mixed"],
-                                              fleet),
+                                              fleet, pp["f32"]),
                     "tree_attention": plus(f32["spec host"], api["spec"],
-                                           mixed["mixed"], fleet),
+                                           mixed["mixed"], fleet, pp["f32"]),
                     "tree_attention_batched": plus(f32["spec device"],
                                                    mixed["scan"])}
         counts = {"decode_attention": parity[var]["incremental"],
@@ -3501,9 +3753,11 @@ def main():
             # the 7B bf16 serve path, and phase 15's first run (hooks off)
             # and its speculative run
             return {"decode_attention": plus(launches["incremental"],
-                                             control["incremental"]),
+                                             control["incremental"],
+                                             pp["bf16"]),
                     "prefill_attention": plus(launches["incremental"],
-                                              control["incremental"]),
+                                              control["incremental"],
+                                              pp["bf16"]),
                     "tree_attention": plus(launches["spec host"],
                                            control["spec"]),
                     "tree_attention_batched": launches["spec device"]}
@@ -3553,15 +3807,30 @@ def main():
     entry(k1, "fp+gq48", kres[(k1, "fp+gq48", "bfloat16")],
           fams["starcoder"][(k1, "fp")])
     # the shard-local shape of Llama-2-7B at tp=2 (16 query heads on 16 KV
-    # heads), with phase 17's launches over both shards: f32 on (a)'s fp
-    # paths, bf16 K1 and K2 on (b)'s serve path
+    # heads), with phase 17's launches over both shards (f32 on (a)'s fp
+    # paths, bf16 K1 and K2 on (b)'s serve path) and phase 18(a)'s pp=2 x
+    # tp=2 run's over its four stage shards (f32)
     shard = tp["kernels"]["7b-tp2-shard"]
     for name in COUNTED:
         entry(name, "f32+7b-tp2-shard", shard[(name, "fp", "float32")],
-              tp["f32"][(name, "fp")])
+              tp["f32"][(name, "fp")] + pp["f32 shard"][(name, "fp")])
     for name in ("decode_attention", "prefill_attention"):
         entry(name, "7b-tp2-shard", shard[(name, "fp", "bfloat16")],
               tp["bf16"][(name, "fp")])
+    # phase 18's launches alone (in the rows above too), each beside the
+    # times of its shape: every stage's kernels at the 7B shapes, f32 on
+    # (a)'s pp=2 fp paths, bf16 K1 and K2 on (b)'s two pp=2 runs; and f32
+    # K1 and K2 at a shard's heads, (a)'s pp=2 x tp=2 run (the times of
+    # the 7b-tp2-shard rows); a decode micro-batch is half the flat rows,
+    # not timed apart
+    for name in COUNTED[:3]:
+        entry(name, "f32+7b-pp2", kres[(name, "fp", "float32")],
+              pp["f32"][(name, "fp")])
+    for name in ("decode_attention", "prefill_attention"):
+        entry(name, "7b-pp2", kres[(name, "fp", "bfloat16")],
+              pp["bf16"][(name, "fp")])
+        entry(name, "f32+7b-pp2-tp2-shard", shard[(name, "fp", "float32")],
+              pp["f32 shard"][(name, "fp")])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -234,8 +234,12 @@ def _check_aligned(name, *tensors) -> None:
                          "a 16-byte boundary")
 
 
-def _launch(name, fn, *args):
-    err = fn(*args)
+def _launch(name, device, fn, *args):
+    """Call a kernel's C launcher with ``device`` current: its stream
+    argument is that device's, and a launch on another device's stream
+    fails (a pipeline stage or a shard on a second card)."""
+    with torch.cuda.device(device):
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -486,7 +490,7 @@ def decode_attention(q, k_cache, v_cache, rows, positions, scale: float,
     split = _row_split_buffers(name, q, r1, kv, s)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
+    _launch(name, q.device, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             _ptr(page_table), _ptr(slopes), rows.data_ptr(),
             positions.data_ptr(), _ptr(split[0]), _ptr(split[1]),
@@ -562,7 +566,7 @@ def prefill_attention(q, k_cache, v_cache, rows, pstart, scale: float,
                                   dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
+    _launch(name, q.device, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             _ptr(page_table), rows.data_ptr(), pstart.data_ptr(),
             _ptr(scratch), out.data_ptr(), g, bq, kv, gq, r1, s, d,
@@ -773,7 +777,7 @@ def tree_attention(q, k_cache, v_cache, k_spec, v_spec, rows, clens, amask,
     split = _row_split_buffers(name, q, r1, kv, s)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
+    _launch(name, q.device, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             _ptr(page_table), k_spec.data_ptr(), v_spec.data_ptr(),
             rows.data_ptr(), clens.data_ptr(), amask.data_ptr(),
@@ -824,7 +828,7 @@ def tree_attention_batched(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
                           dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _launch(name, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
+    _launch(name, q.device, _kernel(name), q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             _ptr(page_table), k_spec.data_ptr(), v_spec.data_ptr(),
             rows.data_ptr(), clens.data_ptr(), amask.data_ptr(),
@@ -866,8 +870,8 @@ def tf32x3_probe(mode: int, a, b=None):
         c = torch.empty(16, 8 if mode == 0 else d, dtype=torch.float32,
                         device=a.device)
         n, bp = 0, b.data_ptr()
-    _launch(name, _kernel(name), a.data_ptr(), bp, c.data_ptr(), mode, d, n,
-            torch.cuda.current_stream(a.device).cuda_stream)
+    _launch(name, a.device, _kernel(name), a.data_ptr(), bp, c.data_ptr(),
+            mode, d, n, torch.cuda.current_stream(a.device).cuda_stream)
     return c
 
 

@@ -1,15 +1,17 @@
 """A named mesh of torch devices.
 
 Port of ``flexflow_tpu/parallel/mesh.py:18-40`` (``make_mesh``) for the
-serve path's one axis, ``"tp"``: a :class:`Mesh` is the ordered list of
-devices that hold the shards of one deployment, shard ``r`` on
+serve path's two axes.  A ``{"tp": n}`` :class:`Mesh` is the ordered list
+of devices that hold the shards of one deployment, shard ``r`` on
 ``devices[r]``, and the :class:`~.comm.Comm` that joins them.  Which
 collective implementation the shards use is fixed here, when the mesh is
 built: NCCL across distinct CUDA devices, a local sum otherwise.
 
-Pipeline parallelism (a ``"pp"`` axis) is slice 9b of the port, with the
-graph IR it needs (``flexflow_tpu/serve/pp.py:46-48``): a mesh asking for
-it raises.
+A ``{"pp": p, "tp": t}`` mesh (pipeline-parallel serving,
+``serve/pp.py``) lists ``p * t`` devices pp-major: stage ``s`` holds
+``devices[s*t:(s+1)*t]``, its own ``{"tp": t}`` mesh
+(:meth:`Mesh.stage_meshes`, reference ``serve/pp.py:316-323``); the
+stages share no collective, so such a mesh has no ``comm``.
 """
 
 from __future__ import annotations
@@ -26,45 +28,50 @@ Device = Union[str, torch.device]
 
 class Mesh:
     """``shape`` ``{"tp": n}`` over ``n`` devices, with their collectives
-    (``comm``)."""
+    (``comm``), or ``{"pp": p, "tp": t}`` over ``p * t`` (no ``comm``)."""
 
     def __init__(self, shape: Dict[str, int], devices: Sequence[Device]):
         self.shape = dict(shape)
         self.devices: List[torch.device] = [torch.device(d) for d in devices]
-        self.comm = Comm(self.devices)
+        self.comm = None if "pp" in self.shape else Comm(self.devices)
+
+    def stage_meshes(self) -> List["Mesh"]:
+        """One ``{"tp": t}`` mesh per pipeline stage, pp-major (a mesh
+        without a ``pp`` axis is its own one stage)."""
+        t = self.shape["tp"]
+        return [Mesh({"tp": t}, self.devices[s:s + t])
+                for s in range(0, len(self.devices), t)]
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.shape}, {[str(d) for d in self.devices]}, "
-                f"comm={self.comm.kind})")
+        comm = "" if self.comm is None else f", comm={self.comm.kind}"
+        return f"Mesh({self.shape}, {[str(d) for d in self.devices]}{comm})"
 
 
 def make_mesh(shape: Dict[str, int],
               devices: Optional[Sequence[Device]] = None) -> Mesh:
     """A named mesh (reference :18).
 
-    ``shape`` is ``{"tp": n}``; a ``"pp"`` axis above 1 raises
-    ``NotImplementedError`` (slice 9b), any other shape ``ValueError``.
+    ``shape`` is ``{"tp": n}``, or ``{"pp": p, "tp": t}`` (``tp``
+    defaults to 1; ``pp=1`` is the plain ``{"tp": t}`` mesh) over ``n =
+    p * t`` devices, pp-major; any other axis raises ``ValueError``.
     ``devices=None`` is ``cuda:0`` ... ``cuda:n-1`` and raises when the
     machine has fewer cards.  A device may appear more than once only when
-    the caller lists it so (``["cuda:0", "cuda:0"]``: two shards on one
-    card; ``["cpu", "cpu"]`` in the tests): nothing is co-located
-    silently.  The devices must all be CUDA devices, or all the CPU."""
+    the caller lists it so (``["cuda:0", "cuda:0"]``: two shards or two
+    stages on one card; ``["cpu", "cpu"]`` in the tests): nothing is
+    co-located silently.  The devices must all be CUDA devices, or all
+    the CPU."""
     shape = {k: int(v) for k, v in shape.items()}
-    if shape.get("pp", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {shape}: pipeline-parallel serving is slice 9b of the "
-            "port (the graph IR, live_cuts and the stage-split manager), "
-            "not ported yet")
-    if set(shape) != {"tp"}:
+    if not set(shape) or set(shape) - {"pp", "tp"}:
         raise ValueError(f"mesh {shape}: the serve path's mesh is "
-                         "{'tp': n}")
-    n = shape["tp"]
-    if n < 1:
-        raise ValueError(f"mesh {shape}: tp must be at least 1")
+                         "{'tp': n} or {'pp': p, 'tp': t}")
+    pp, tp = shape.get("pp", 1), shape.get("tp", 1)
+    if pp < 1 or tp < 1:
+        raise ValueError(f"mesh {shape}: pp and tp must be at least 1")
+    n = pp * tp
     if devices is None:
         resolve_device("cuda")   # raises without CUDA
         have = torch.cuda.device_count()
@@ -87,4 +94,4 @@ def make_mesh(shape: Dict[str, int],
         devices = [torch.device("cuda", d.index if d.index is not None
                                 else torch.cuda.current_device())
                    for d in devices]
-    return Mesh({"tp": n}, devices)
+    return Mesh({"pp": pp, "tp": tp} if pp > 1 else {"tp": tp}, devices)

@@ -30,7 +30,9 @@ fault-tolerant fleet router over replicas (``FleetRouter``,
 ``LLM.fleet``) and traffic-trace replay (``obs.replay``; slice 8b);
 tensor-parallel serving on every path above (``LLM.compile(tp=N)``,
 ``InferenceManager(mesh=...)``, ``flexflow_tpu_torch.parallel``; slice
-9a).
+9a); pipeline-parallel serving (``PipelinedInferenceManager`` over a
+``{"pp": p, "tp": t}`` mesh, the serve graph split by
+``serve_stage_split``, micro-batch interleave, ``pp x tp``; slice 9b).
 """
 
 from . import models  # noqa: F401  (registers the model builders)
@@ -72,6 +74,7 @@ from .migration import (
 )
 from .models.base import MODEL_REGISTRY, ServeModelConfig, build_model
 from .ops import IncMultiHeadSelfAttention, alibi_slopes, apply_rope
+from .pp import PipelinedInferenceManager, serve_stage_split
 from .quant import quantize_int8
 from .request_manager import (
     OUTCOMES,
@@ -107,6 +110,8 @@ __all__ = [
     "MAX_NUM_REQUESTS",
     "MAX_NUM_TOKENS",
     "InferenceManager",
+    "PipelinedInferenceManager",
+    "serve_stage_split",
     "EXIT_NOT_IN_BATCH",
     "EXIT_RUNNING",
     "EXIT_EOS",

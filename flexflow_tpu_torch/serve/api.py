@@ -121,12 +121,8 @@ class LLM:
             mesh=mesh)
         if shared is not None:
             self.im.allocate_kv_cache()
-        elif self._sd is not None:
-            self.im.init_operators_inference(params_from_jax(
-                convert_state_dict(self._sd, cfg), cfg, self.im.device,
-                dtype or "float32"))
         else:
-            self.im.init_operators_inference(dtype=dtype)
+            self._load(self.im, dtype)
         gen = generation_config or GenerationConfig()
         if gen.eos_token_id is None and cfg.eos_token_id is not None:
             gen = dataclass_replace(gen, eos_token_id=cfg.eos_token_id)
@@ -187,17 +183,26 @@ class LLM:
 
     def plan_builder(self, devices: Optional[Sequence] = None, **compile_kw):
         """A ``build_manager`` for :meth:`attach_migration` and the fleet's
-        rolling migration: a candidate's plan key ``tp{t}_pp1_m1...``
+        rolling migration: a candidate's plan key ``tp{t}_pp{p}_m{m}...``
         builds this model (the same weights: the same state dict, or the
-        same seed) at ``tp=t``, on ``devices`` (tp > 1) or on their first
-        (tp = 1), with the other :meth:`compile` arguments in
-        ``compile_kw``, and returns its ready manager.  A key with
-        ``pp > 1`` raises (slice 9b)."""
+        same seed) and returns its ready manager: at ``pp = 1`` through
+        :meth:`compile` at ``tp=t``, on ``devices`` (tp > 1) or on their
+        first (tp = 1); at ``pp > 1`` a
+        :class:`~.pp.PipelinedInferenceManager` with ``m`` micro-batches
+        over a ``{"pp": p, "tp": t}`` mesh of ``devices`` (None: ``cuda:0``
+        ... ``cuda:p*t-1``).  ``compile_kw`` holds the other
+        :meth:`compile` arguments (the capacities, ``dtype``, the KV
+        options)."""
         from .migration import plan_shape
 
         def build(candidate):
-            tp = plan_shape(candidate.get("plan_key", ""))["tp"]
+            shape = plan_shape(candidate.get("plan_key", ""))
+            tp, pp = shape["tp"], shape["pp"]
             kw = dict(compile_kw)
+            if pp > 1:
+                kw.pop("device", None)
+                return self._pipelined(make_mesh({"pp": pp, "tp": tp},
+                                                 devices), shape["m"], **kw)
             if tp > 1:
                 kw.pop("device", None)
             src = self.config if self._sd is None else self._sd
@@ -206,6 +211,47 @@ class LLM:
             return llm.im
 
         return build
+
+    # compile's arguments that go to the request manager alone
+    _RM_ONLY = ("generation_config", "telemetry", "resilience",
+                "fault_injector", "plan_health", "profiler", "slo",
+                "brownout")
+
+    def _pipelined(self, mesh, n_micro: int, max_requests: int = 8,
+                   max_tokens_per_batch: int = 64, max_seq_len: int = 512,
+                   max_spec_tokens: int = 0, topk: int = 0,
+                   ssms: Sequence["LLM"] = (), spec_width: int = 2,
+                   spec_depth: int = 3, dtype=None, kv_dtype=None,
+                   kv_page_size=None, **rm_kw):
+        """A ready pipelined manager of this model over ``mesh``, sized
+        and loaded as :meth:`compile` sizes and loads its manager (``ssms``
+        set ``max_spec_tokens``); ``rm_kw`` may hold only compile's
+        request-manager arguments, which a manager does not take."""
+        from .pp import PipelinedInferenceManager
+
+        unknown = sorted(set(rm_kw) - set(self._RM_ONLY))
+        if unknown:
+            raise TypeError(f"a pipelined plan takes no {unknown}")
+        if ssms and not max_spec_tokens:
+            max_spec_tokens = 1 + spec_width * spec_depth
+        im = PipelinedInferenceManager(
+            build_model(self.config), max_requests=max_requests,
+            max_tokens_per_batch=max_tokens_per_batch,
+            max_seq_len=max_seq_len, mesh=mesh, n_micro=n_micro,
+            max_spec_tokens=max_spec_tokens, topk=topk, kv_dtype=kv_dtype,
+            kv_page_size=kv_page_size)
+        return self._load(im, dtype)
+
+    def _load(self, im, dtype):
+        """``im`` made ready with this model's weights: the state dict in
+        ``dtype`` (None: float32), or random ones drawn in ``dtype``
+        (None: the config's)."""
+        if self._sd is None:
+            return im.init_operators_inference(dtype=dtype)
+        cfg = self.config
+        return im.init_operators_inference(params_from_jax(
+            convert_state_dict(self._sd, cfg), cfg, im.device,
+            dtype or "float32"))
 
     @staticmethod
     def fleet(llms, **kwargs):

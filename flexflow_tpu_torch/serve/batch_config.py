@@ -88,6 +88,44 @@ class BatchConfig:
                            torch.full_like(self.num_tokens, num_tokens),
                            seq_lens)
 
+    def split_microbatches(self, n_micro: int) -> list:
+        """The flat batch as ``n_micro`` contiguous equal token ranges
+        (reference :117-143): the decode micro-batches a pipelined manager
+        interleaves across its stages.  Exact: a request's tokens lie
+        contiguously in ascending position, so each token still attends
+        to cache written by earlier flat rows only.  Each keeps the whole
+        ``seq_lens`` and clips ``num_tokens`` to its range; a count that
+        does not divide the capacity returns the batch whole."""
+        if n_micro <= 1 or self.max_tokens % n_micro:
+            return [self]
+        k = self.max_tokens // n_micro
+        return [BatchConfig(
+            tokens=self.tokens[lo:lo + k],
+            request_index=self.request_index[lo:lo + k],
+            token_position=self.token_position[lo:lo + k],
+            num_tokens=(self.num_tokens - lo).clamp(0, k),
+            seq_lens=self.seq_lens,
+        ) for lo in range(0, self.max_tokens, k)]
+
+    @staticmethod
+    def merge_microbatches(mbs) -> "BatchConfig":
+        """The inverse of :meth:`split_microbatches` after each
+        micro-batch advanced on its own (reference ``serve/pp.py:875-889``):
+        rows concatenated, each slot's depth the deepest any micro-batch
+        reached."""
+        if len(mbs) == 1:
+            return mbs[0]
+        seq = mbs[0].seq_lens
+        for mb in mbs[1:]:
+            seq = torch.maximum(seq, mb.seq_lens)
+        return BatchConfig(
+            tokens=torch.cat([mb.tokens for mb in mbs]),
+            request_index=torch.cat([mb.request_index for mb in mbs]),
+            token_position=torch.cat([mb.token_position for mb in mbs]),
+            num_tokens=sum(mb.num_tokens for mb in mbs),
+            seq_lens=seq,
+        )
+
     @staticmethod
     def build(token_ids, request_indices, positions, seq_lens,
               max_tokens: int = MAX_NUM_TOKENS,

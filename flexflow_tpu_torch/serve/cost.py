@@ -41,6 +41,11 @@ sum at the whole width); the one global term is an int8 weight's scale
 count, which the reference takes from the global weight (errs high,
 ``simulator.py:263-266``).  The KV price per token is the allocator's,
 over the global heads, as the reference's global arrays give it.
+
+Pipeline parallelism (``serve/pp.py``): the reference prices each stage's
+plan (``stage_plans``); here each stage's shard-0 model.  The cost card
+sums the stages, the memory parts are one stage's, composed per device
+by :func:`compose_stage_parts`.
 """
 
 from __future__ import annotations
@@ -67,53 +72,65 @@ def _model_dtype(im) -> str:
     return getattr(cfg, "dtype", "float32")
 
 
+def _stage_models(im):
+    """Shard 0's model of each pipeline stage (one on a plain manager):
+    the modules one device of each stage holds."""
+    return [shards[0] for shards in im.shard_groups]
+
+
 def _heavy_flops(im) -> Dict[str, float]:
     """The flops of one step at ``max_tokens`` rows, summed by family
-    (``attention``, ``mlp``, ``lm_head``), and the LM head's logit rows."""
+    (``attention``, ``mlp``, ``lm_head``) over every stage, and the LM
+    head's logit rows."""
     t, r, s = im.max_tokens, im.max_requests, im.max_seq_len
-    lm_head = getattr(im.model, "lm_head", None)
     marked = getattr(im, "lm_head_marked", False)
     fl = {"attention": 0.0, "mlp": 0.0, "lm_head": 0.0}
     lm_rows = 0
-    for mod in im.model.modules():
-        if isinstance(mod, IncMultiHeadSelfAttention):
-            e, qh, kv, d = (mod.embed_dim, mod.num_q_heads, mod.num_kv_heads,
-                            mod.head_dim)
-            proj = 2 * t * e * (qh + 2 * kv) * d + 2 * t * qh * d * e
-            fl["attention"] += proj + 2 * t * qh * d * s * 2
-        elif isinstance(mod, Linear):
-            k_in, k_out = mod.kernel.shape
-            if mod is lm_head and marked:
-                fl["lm_head"] += 2 * min(t, r) * k_in * k_out
-                lm_rows = min(t or 1, r) or 1
-            else:
-                fl["mlp"] += 2 * t * k_in * k_out
-        elif (isinstance(mod, Embedding)
-              and not isinstance(mod, PositionEmbedding)):
-            fl["mlp"] += t * mod.weight.shape[1]
+    for model in _stage_models(im):
+        lm_head = getattr(model, "lm_head", None)
+        for mod in model.modules():
+            if isinstance(mod, IncMultiHeadSelfAttention):
+                e, qh, kv, d = (mod.embed_dim, mod.num_q_heads,
+                                mod.num_kv_heads, mod.head_dim)
+                proj = 2 * t * e * (qh + 2 * kv) * d + 2 * t * qh * d * e
+                fl["attention"] += proj + 2 * t * qh * d * s * 2
+            elif isinstance(mod, Linear):
+                k_in, k_out = mod.kernel.shape
+                if mod is lm_head and marked:
+                    fl["lm_head"] += 2 * min(t, r) * k_in * k_out
+                    lm_rows = min(t or 1, r) or 1
+                else:
+                    fl["mlp"] += 2 * t * k_in * k_out
+            elif (isinstance(mod, Embedding)
+                  and not isinstance(mod, PositionEmbedding)):
+                fl["mlp"] += t * mod.weight.shape[1]
     return {**fl, "lm_rows": lm_rows}
 
 
 def weight_bytes(im) -> float:
-    """The weight bytes one model pass streams: every parameter at the
-    config dtype's width (an int8 weight's scale is not a parameter of
-    the reference's graph)."""
+    """The weight bytes one model pass streams over every stage: every
+    parameter at the config dtype's width (an int8 weight's scale is not
+    a parameter of the reference's graph)."""
     size = _itemsize(_model_dtype(im))
     total = 0.0
-    for name, p in im.model.named_parameters():
-        if name.endswith("_scale"):
-            continue
-        total += p.numel() * size
+    for model in _stage_models(im):
+        for name, p in model.named_parameters():
+            if name.endswith("_scale"):
+                continue
+            total += p.numel() * size
     return total
 
 
-def kv_state_bytes(im) -> float:
-    """The registered serve-state buffers of every attention layer."""
+def kv_state_bytes(im, model=None) -> float:
+    """The registered serve-state buffers of every attention layer of
+    ``model`` (None: of every stage)."""
+    if model is None:
+        return sum(kv_state_bytes(im, m) for m in _stage_models(im))
     r1, s, p = im.max_requests + 1, im.max_seq_len, im.max_spec_tokens
     dt = _model_dtype(im)
     kv_size = 1 if im.kv_dtype == "int8" else _itemsize(dt)
     total = 0.0
-    for mod in im.model.modules():
+    for mod in model.modules():
         if not isinstance(mod, IncMultiHeadSelfAttention):
             continue
         kv, d = mod.num_kv_heads, mod.head_dim
@@ -151,16 +168,18 @@ def plan_cost(im) -> Dict[str, float]:
     }
 
 
-def plan_memory_parts(im) -> Dict[str, float]:
-    """The predicted HBM of the deployment in bytes, by component
-    (reference ``simulator.py:plan_memory_parts(plan, training=False)``):
-    ``weights`` (int8 weights at one byte plus their scales),
-    ``kv_state``, ``transient`` (the largest single op output) and their
-    ``total``."""
+def plan_memory_parts(im, model=None) -> Dict[str, float]:
+    """The predicted HBM of one device of the deployment in bytes, by
+    component (reference ``simulator.py:plan_memory_parts(plan,
+    training=False)``): ``weights`` (int8 weights at one byte plus their
+    scales), ``kv_state``, ``transient`` (the largest single op output)
+    and their ``total``.  ``model``: a pipeline stage's shard model (its
+    stage plan's parts; None: ``im.model``)."""
+    model = im.model if model is None else model
     size = _itemsize(_model_dtype(im))
-    plan = im.model.tp_plan
+    plan = model.tp_plan
     params = 0.0
-    for name, p in im.model.named_parameters():
+    for name, p in model.named_parameters():
         pname = name.rsplit(".", 1)[-1]
         if pname.endswith("_scale"):
             continue
@@ -175,7 +194,7 @@ def plan_memory_parts(im) -> Dict[str, float]:
         else:
             params += n * size
     widths = [0]
-    for mod in im.model.modules():
+    for mod in model.modules():
         if isinstance(mod, IncMultiHeadSelfAttention):
             widths.append(mod.embed_dim)
         elif isinstance(mod, Linear):
@@ -183,7 +202,7 @@ def plan_memory_parts(im) -> Dict[str, float]:
         elif isinstance(mod, (Embedding, PositionEmbedding)):
             widths.append(mod.weight.shape[1])
     act = im.max_tokens * max(widths) * size
-    state = kv_state_bytes(im)
+    state = kv_state_bytes(im, model)
     return {"weights": params, "kv_state": state, "transient": act,
             "total": params + act + state}
 

@@ -139,6 +139,20 @@ def sample_tokens(logits: torch.Tensor,
     return (lg - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
 
 
+def step_result(logits: torch.Tensor, sample: Optional[Sample] = None,
+                topk: int = 0) -> InferenceResult:
+    """A step's result from its float32 logits: the sampled (argmax when
+    ``sample`` is None) token ids, the largest logits, and with ``topk``
+    the top-k of the log-softmax (reference :596-600)."""
+    topk_ids = topk_lp = None
+    if topk:
+        topk_lp, topk_ids = torch.log_softmax(logits, dim=-1).topk(
+            topk, dim=-1)
+        topk_ids = topk_ids.to(torch.int32)
+    return InferenceResult(sample_tokens(logits, sample),
+                           logits.amax(dim=-1), logits, topk_ids, topk_lp)
+
+
 class InferenceManager:
     # the seeded chaos hook a RequestManager sets (resilience.py); None:
     # no dispatch ever faults
@@ -199,6 +213,9 @@ class InferenceManager:
             mesh = make_mesh({"tp": 1}, [resolve_device(device)])
         elif device is not None:
             raise ValueError("pass a device or a mesh, not both")
+        elif "pp" in mesh.shape:
+            raise ValueError(f"{mesh} has a 'pp' axis: serve it with "
+                             "serve.PipelinedInferenceManager")
         self.mesh = mesh
         self.device = mesh.devices[0]
         self.max_requests = max_requests
@@ -273,6 +290,11 @@ class InferenceManager:
         return self.mesh.size
 
     @property
+    def shard_groups(self):
+        """The shard models, one list per pipeline stage (one here)."""
+        return [self.shards]
+
+    @property
     def plan_key(self) -> str:
         """The deployment in the serve search's ``tp{t}_pp{p}_m{m}``
         convention (reference :491)."""
@@ -322,17 +344,7 @@ class InferenceManager:
                     param_layout(m, torch_dtype(dtype))
             init_random_params(self.shards, seed)
         else:
-            for r, m in enumerate(self.shards):
-                int8_layout(m, params)
-                param_layout(m, params)
-                own = dict(m.named_parameters())
-                if set(params) != set(own):
-                    raise ValueError(
-                        "params do not match the model: missing "
-                        f"{sorted(set(own) - set(params))[:4]}, unexpected "
-                        f"{sorted(set(params) - set(own))[:4]}")
-                for name, p in own.items():
-                    p.copy_(m.tp_plan.local(name, params[name], r))
+            load_params(self.shards, params)
         self._params_ready = True
         self.allocate_kv_cache()
         return self
@@ -385,15 +397,7 @@ class InferenceManager:
         """The body of :meth:`step` with no fault site: the steps inside
         one dispatch (``decode_scan``, ``prefill_scan``, a
         ``SpecDecodeScan`` macro step)."""
-        logits = self.forward(bc)
-        topk_ids = topk_lp = None
-        if self.topk:
-            topk_lp, topk_ids = torch.log_softmax(logits, dim=-1).topk(
-                self.topk, dim=-1)
-            topk_ids = topk_ids.to(torch.int32)
-        return InferenceResult(sample_tokens(logits, sample),
-                               logits.amax(dim=-1), logits, topk_ids,
-                               topk_lp)
+        return step_result(self.forward(bc), sample, self.topk)
 
     @torch.no_grad()
     def decode_scan(self, bc: BatchConfig, n_steps: int,
@@ -550,45 +554,70 @@ def param_layout(model: torch.nn.Module, dtypes) -> None:
 
 
 @torch.no_grad()
-def init_random_params(shards: Sequence[torch.nn.Module], seed: int
-                       ) -> None:
+def load_params(shards: Sequence[torch.nn.Module], params: Dict) -> None:
+    """Fill shard models from a global state dict: each takes its slice
+    of the parameters it holds (a pipeline stage's models hold only their
+    own), int8 weights beside their ``_scale`` load as int8, the other
+    tensors keep their dtype; together the shards must hold exactly the
+    state dict's names."""
+    held = set()
+    for m in shards:
+        int8_layout(m, params)
+        param_layout(m, params)
+        held |= {n for n, _ in m.named_parameters()}
+    if set(params) != held:
+        raise ValueError(
+            "params do not match the model: missing "
+            f"{sorted(held - set(params))[:4]}, unexpected "
+            f"{sorted(set(params) - held)[:4]}")
+    for m in shards:
+        for name, p in m.named_parameters():
+            p.copy_(m.tp_plan.local(name, params[name], m.tp_rank))
+
+
+@torch.no_grad()
+def init_random_params(shards: Sequence[torch.nn.Module], seed: int,
+                       order: Optional[Sequence[str]] = None) -> None:
     """Seeded random weights on the model's device, chosen by the module
     that owns each parameter: norm gains 1, norm shifts and every bias 0,
     token and position embeddings normal with std 1, every other weight
     normal with std 1/sqrt(fan-in) (its first dim), drawn in float32 from a
     ``torch.Generator`` in parameter order and cast.  Only the normal
     weights draw, so a model without biases (Llama) draws what it always
-    drew.  ``shards``: the shard models of one mesh (``shard_model``):
-    each weight is drawn at its global shape on shard 0's device and every
-    shard copies its slice, so the global weights are the same at any
-    degree."""
+    drew.  ``shards``: shard models (``shard_model``), of one mesh or of
+    every stage of a pipeline: each weight is drawn at its global shape on
+    the first shard's device, in the global model's parameter ``order``
+    (default: the first shard's), and every shard holding it copies its
+    slice, so the global weights are the same at any degree and any
+    stage split (reference ``serve/pp.py:476-503``)."""
     from ..ops.embedding import Embedding, PositionEmbedding
 
-    plan = shards[0].tp_plan
-    owner = {}
-    for mod_name, mod in shards[0].named_modules():
-        for pname, _ in mod.named_parameters(recurse=False):
-            owner[f"{mod_name}.{pname}" if mod_name else pname] = (mod, pname)
     own = [dict(m.named_parameters()) for m in shards]
-    dev = next(iter(own[0].values())).device if own[0] else \
-        torch.device("cpu")
+    mods = [dict(m.named_modules()) for m in shards]
+    order = list(order) if order is not None else list(own[0])
+    first = next((p for o in own for p in o.values()), None)
+    dev = first.device if first is not None else torch.device("cpu")
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    for name, p in own[0].items():
-        mod, pname = owner[name]
+    for name in order:
+        holders = [i for i, o in enumerate(own) if name in o]
+        mod_name, _, pname = name.rpartition(".")
         if pname == "gamma":
-            for o in own:
-                o[name].fill_(1.0)
+            for i in holders:
+                own[i][name].fill_(1.0)
             continue
         if pname in ("beta", "bias", "qkv_bias", "o_bias"):
-            for o in own:
-                o[name].zero_()
+            for i in holders:
+                own[i][name].zero_()
             continue
-        shape = plan.global_shape(name, p.shape)
+        m0 = shards[holders[0]]
+        shape = m0.tp_plan.global_shape(name, own[holders[0]][name].shape)
+        mod = mods[holders[0]][mod_name]
         fan_in = (1 if isinstance(mod, (Embedding, PositionEmbedding))
                   else shape[0])
         w = torch.randn(shape, generator=gen, device=dev,
                         dtype=torch.float32).mul_(fan_in ** -0.5)
-        for r, o in enumerate(own):
-            o[name].copy_(plan.local(name, w, r))
+        for i in holders:
+            own[i][name].copy_(shards[i].tp_plan.local(
+                name, w, shards[i].tp_rank))
         del w

@@ -29,6 +29,13 @@ a head-sharded layer and every head of a replicated one.  The byte
 arithmetic is the reference's over its global arrays: ``bytes_per_token``
 prices the global heads, and ``allocated_bytes`` counts global bytes or,
 with ``per_device``, one shard's (reference :48, :146-161).
+
+Pipeline parallelism (``serve/pp.py``): the models are the stages' shard
+models, stage-major, and ``states`` holds every stage's buffers under the
+one bookkeeping (the reference's per-stage ``StageKV`` under one
+``KVAllocator``, :117, :186-225): ``layers`` is the union of the stages'
+layers, and the paged subclass's copy-on-write, spill and restore run
+over every stage's buffers.
 """
 
 from __future__ import annotations
@@ -61,33 +68,48 @@ class KVAllocator:
     def __init__(self, models: Sequence[torch.nn.Module],
                  max_requests: int, max_seq_len: int,
                  devices: Sequence[torch.device],
-                 max_spec_tokens: int = 0, kv_dtype: Optional[str] = None):
+                 max_spec_tokens: int = 0, kv_dtype: Optional[str] = None,
+                 stages: int = 1):
         """``models`` and ``devices``: one shard model per device of the
-        manager's mesh (one of each on a single device)."""
+        manager's mesh (one of each on a single device); a pipelined
+        manager passes ``stages`` groups of equal size, stage-major, each
+        stage's models holding only its own layers."""
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (expected "
                              "None or 'int8'; fp caches always use the "
                              "model's compute dtype)")
+        if stages < 1 or len(models) % stages:
+            raise ValueError(f"{len(models)} models do not split into "
+                             f"{stages} equal stages")
         self.max_requests = max_requests
         self.max_seq_len = max_seq_len
         self.max_spec_tokens = max_spec_tokens
         self.kv_dtype = kv_dtype
         self.devices = [torch.device(d) for d in devices]
         self.device = self.devices[0]
+        self.n_stages = int(stages)
+        self.stage_size = len(models) // self.n_stages
         attns = [[m for m in mod.modules()
                   if isinstance(m, IncMultiHeadSelfAttention)]
                  for mod in models]
         # (cache key, kv heads, head dim, compute dtype, ALiBi) per
-        # attention layer, per shard; ``layers`` counts the global heads
+        # attention layer, per shard model; ``layers`` counts the global
+        # heads of every layer, over the stages' first shards (reference
+        # ``KVAllocator(stages)`` :186-225)
         self.shard_layers: List[List[Tuple[str, int, int, torch.dtype,
                                            bool]]] = [
             [(m.name, m.num_kv_heads, m.head_dim, m.compute_dtype,
               m.use_alibi) for m in ms] for ms in attns]
-        self.layers = [(m.name, m.num_kv_heads * m.head_shards, m.head_dim,
-                        m.compute_dtype, m.use_alibi) for m in attns[0]]
+        firsts = attns[::self.stage_size]
+        self.stage_layers = [
+            [(m.name, m.num_kv_heads * m.head_shards, m.head_dim,
+              m.compute_dtype, m.use_alibi) for m in ms] for ms in firsts]
+        self.layers = [spec for ls in self.stage_layers for spec in ls]
         # how many shards hold a slice of each layer's heads
-        self._head_shards = {m.name: m.head_shards for m in attns[0]}
-        # one state dict per shard (None before allocate / after teardown)
+        self._head_shards = {m.name: m.head_shards
+                             for ms in firsts for m in ms}
+        # one state dict per shard model (None before allocate / after
+        # teardown)
         self.states: Optional[List[Dict[str, Dict[str, torch.Tensor]]]] = \
             None
         self._live: Dict[int, int] = {}   # rid -> last observed cache depth
@@ -135,38 +157,51 @@ class KVAllocator:
         self.hwm_tokens = 0
         self.hwm_bytes = 0.0
 
+    def stage_bytes(self, per_device: bool = False) -> List[int]:
+        """Bytes held by each stage's cache buffers (scratch row, seq
+        pad, scale planes and spec buffers included); zeros before
+        :meth:`allocate`.  Global bytes, as the reference's arrays count
+        (a head-sharded buffer's shards summed, a replicated one once),
+        or with ``per_device`` one shard's (reference :146-161)."""
+        out = []
+        for s in range(self.n_stages):
+            total = 0
+            for name, bufs in (self.states[s * self.stage_size].items()
+                               if self.states else ()):
+                for buf, t in bufs.items():
+                    n = t.numel() * t.element_size()
+                    if not per_device and buf != "spec_pos":  # head-major
+                        n *= self._head_shards[name]
+                    total += n
+            out.append(total)
+        return out
+
     def allocated_bytes(self, per_device: bool = False) -> int:
-        """Bytes held by the cache buffers (scratch row, seq pad, scale
-        planes and spec buffers included); 0 before :meth:`allocate`.
-        Global bytes, as the reference's arrays count (a head-sharded
-        buffer's shards summed, a replicated one once), or with
-        ``per_device`` one shard's: the memory ledger's basis (reference
-        :146-161)."""
-        if not self.states:
-            return 0
-        total = 0
-        for name, bufs in self.states[0].items():
-            for buf, t in bufs.items():
-                n = t.numel() * t.element_size()
-                if not per_device and buf != "spec_pos":   # head-major
-                    n *= self._head_shards[name]
-                total += n
-        return total
+        """Bytes held by the cache buffers, 0 before :meth:`allocate`:
+        every stage's global bytes, or with ``per_device`` the busiest
+        device's (one stage's one shard: the memory ledger's basis, the
+        maximum over stages as the pipelined manager composes it,
+        reference ``serve/pp.py:521-552``)."""
+        parts = self.stage_bytes(per_device)
+        return max(parts) if per_device else sum(parts)
 
     def bytes_per_token(self) -> float:
         """Committed-KV bytes one request-position costs across layers
         (int8: 1-byte values plus the two 4-byte scales), with the scratch
         row's share spread over the request rows: each buffer's bytes over
         its request rows and padded positions, summed in the reference's
-        order (reference :164), so the float is the reference's to the
-        bit."""
-        total = 0.0
-        for _, *spec in self.layers:
-            for name, (shape, dt) in self._buffers(*spec).items():
-                if name in KV_BUFFER_NAMES:
-                    total += (math.prod(shape) * dt.itemsize
-                              / (max(shape[0] - 1, 1) * shape[2]))
-        return total
+        order (reference :164, per stage, then the stages' sums), so the
+        float is the reference's to the bit."""
+        parts = []
+        for layers in self.stage_layers:
+            total = 0.0
+            for _, *spec in layers:
+                for name, (shape, dt) in self._buffers(*spec).items():
+                    if name in KV_BUFFER_NAMES:
+                        total += (math.prod(shape) * dt.itemsize
+                                  / (max(shape[0] - 1, 1) * shape[2]))
+            parts.append(total)
+        return parts[0] if len(parts) == 1 else sum(parts)
 
     @property
     def capacity_tokens(self) -> int:

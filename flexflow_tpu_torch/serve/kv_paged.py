@@ -43,6 +43,13 @@ Port of ``flexflow_tpu/serve/kv_paged.py``.
   of the table; a COW copy, a spill and a restore move every shard's
   blocks of the page, and a host page carries one checksum per shard,
   every one verified before an upload.
+* **Pipeline stages** (``serve/pp.py``, reference ``serve/pp.py:352-364``,
+  ``kv_paged.py:522``, :775, :1082): every stage's shards are shards of
+  this one bookkeeping, so one logical block table addresses every
+  stage's page pool, a COW copy, a spill and a restore run over every
+  stage's K/V and scale planes, and one spill page carries every stage's
+  blocks (a stage's shards hold only its layers, so the checksums take
+  each shard's own block count).
 
 Everything here is host bookkeeping (numpy) plus host-ordered device copies
 (the COW page copy, the table upload, the tier's page copies).
@@ -52,7 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -79,36 +86,42 @@ class HostTierCorruption(RuntimeError):
 _INT_VIEW = {1: torch.int8, 2: torch.int16, 4: torch.int32}
 
 
-def _crc(blocks: Sequence[torch.Tensor], shards: int = 1) -> Tuple[int, ...]:
-    """One CRC32 per shard, each chained over the bytes of that shard's
-    CPU blocks in order (the blocks are shard-major, an equal count
-    each)."""
-    per = len(blocks) // shards
-    out = []
-    for s in range(shards):
+def _crc(blocks: Sequence[torch.Tensor],
+         shards: Union[int, Sequence[int]] = 1) -> Tuple[int, ...]:
+    """One CRC32 per shard model, each chained over the bytes of that
+    shard's CPU blocks in order.  The blocks are shard-major: ``shards``
+    is the number of shards holding an equal count each, or each shard's
+    count (a pipeline stage's shards hold only its layers)."""
+    counts = ([len(blocks) // shards] * shards if isinstance(shards, int)
+              else list(shards))
+    out, lo = [], 0
+    for n in counts:
         crc = 0
-        for blk in blocks[s * per:(s + 1) * per]:
+        for blk in blocks[lo:lo + n]:
             crc = zlib.crc32(blk.view(_INT_VIEW[blk.element_size()]).numpy(),
                              crc)
         out.append(crc)
+        lo += n
     return tuple(out)
 
 
 class _HostPage:
     """One page's content in host memory: a CPU block per KV buffer in
     :meth:`PagedKVAllocator._kv_buffers` order (shard-major), and a CRC32
-    per shard chained over its blocks, all verified on every restore."""
+    per shard chained over its blocks (``counts``: each shard's block
+    count, None for equal counts), all verified on every restore."""
 
-    __slots__ = ("blocks", "crc", "nbytes")
+    __slots__ = ("blocks", "crc", "nbytes", "counts")
 
     def __init__(self, blocks: List[torch.Tensor], crc: Tuple[int, ...],
-                 nbytes: int):
+                 nbytes: int, counts: Optional[Sequence[int]] = None):
         self.blocks = blocks
         self.crc = crc
         self.nbytes = nbytes
+        self.counts = None if counts is None else tuple(counts)
 
     def verify(self) -> bool:
-        return _crc(self.blocks, len(self.crc)) == self.crc
+        return _crc(self.blocks, self.counts or len(self.crc)) == self.crc
 
     def corrupt_for_test(self) -> None:
         """Flip one byte of the first block without updating the checksum
@@ -300,9 +313,9 @@ class PagedKVAllocator(KVAllocator):
                  max_requests: int, max_seq_len: int,
                  devices: Sequence[torch.device],
                  max_spec_tokens: int = 0, kv_dtype: Optional[str] = None,
-                 page_size: int = 512):
+                 page_size: int = 512, stages: int = 1):
         super().__init__(models, max_requests, max_seq_len, devices,
-                         max_spec_tokens, kv_dtype)
+                         max_spec_tokens, kv_dtype, stages)
         # the page must tile both the logical span (max_seq_len) and the
         # 128-padded physical seq axis the buffers allocate
         s_pad = padded_seq_len(max_seq_len)
@@ -702,7 +715,9 @@ class PagedKVAllocator(KVAllocator):
         if pin:
             for dev in set(self.devices):
                 torch.cuda.synchronize(dev)
-        return _HostPage(blocks, _crc(blocks, len(self.devices)), nbytes)
+        counts = [sum(n in KV_BUFFER_NAMES for bufs in st.values()
+                      for n in bufs) for st in self.states]
+        return _HostPage(blocks, _crc(blocks, counts), nbytes, counts)
 
     @torch.no_grad()
     def _write_page(self, pid: int, page: _HostPage) -> None:

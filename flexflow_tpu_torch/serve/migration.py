@@ -86,19 +86,15 @@ def spec_shape(key: str) -> Optional[Tuple[int, int]]:
 
 def plan_shape(key: str) -> Dict[str, int]:
     """``{"tp", "pp", "m"}`` of a ``tp{t}_pp{p}_m{m}...`` plan key (the
-    port's builders: ``LLM.plan_builder``).  A key with ``pp > 1``
-    raises: pipeline-parallel serving is slice 9b of the port."""
+    port's builders: ``LLM.plan_builder``; ``pp > 1`` is a pipelined
+    deployment of ``m`` micro-batches, ``pp = 1`` has one)."""
     m = _PLAN_SHAPE.match(key or "")
     if m is None:
         raise ValueError(f"plan key {key!r} is not tp{{t}}_pp{{p}}_m{{m}}")
     tp, pp, mb = (int(g) for g in m.groups())
-    if pp > 1:
-        raise NotImplementedError(
-            f"plan {key!r}: pipeline-parallel serving (pp={pp}) is slice "
-            "9b of the port (the graph IR and live_cuts), not ported yet")
-    if tp < 1 or mb != 1:
-        raise ValueError(f"plan key {key!r}: tp >= 1 and one micro-batch "
-                         "without pipeline stages")
+    if tp < 1 or pp < 1 or mb < 1 or (pp == 1 and mb != 1):
+        raise ValueError(f"plan key {key!r}: tp, pp and m at least 1, and "
+                         "one micro-batch without pipeline stages")
     return {"tp": tp, "pp": pp, "m": mb}
 
 

@@ -6,16 +6,21 @@ nothing of the JAX package.  ``build_model`` returns an ``nn.Module`` whose
 parameters sit on the ``meta`` device: they take no memory until the
 :class:`~flexflow_tpu_torch.serve.inference_manager.InferenceManager`
 materialises them on its device, as the reference's builder only describes
-a graph.
+a graph.  The module also holds that graph (``model.graph``,
+``core/graph.py``), recorded by its family's ``build_graph`` from its
+modules, node for node the reference builder's; its forward runs the
+graph (:class:`GatedLMHead`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
+from ...core.graph import TOKENS, Graph, TensorSpec
+from ...core.interpreter import StepContext, dead_after, run_nodes
 from ...parallel.comm import run_local
 
 MODEL_REGISTRY: Dict[str, Callable] = {}
@@ -129,22 +134,181 @@ class ServeModelConfig:
         return ServeModelConfig(**kw)
 
 
-class GatedLMHead:
-    """The LM head of a serve model, gated (reference ``ops/linear.py:98-108``,
-    marked by ``mark_gated_lm_head``, inference_manager.py:167): a batch
-    with ``logit_slots`` (a gated prefill chunk) gathers those hidden rows
-    before the product, a slot of -1 clamping to row 0 (its logits are
-    never read), so the step computes ``[max_requests, vocab]`` logits
-    instead of ``[max_tokens, vocab]``.  Every family mixes it in: the
-    reference marks each one's LM head.
+def _call(op, ctx, *xs):
+    return op(*xs)
 
-    The mixin also gives each family its ``forward``: the family writes
-    ``forward_gen(bc, state, pages)``, a generator that yields at its
-    tensor-parallel collectives (``parallel/comm.py``), and ``forward``
-    runs it alone with identity collectives; a tensor-parallel manager
-    runs one per shard in lockstep.  One forward serves both."""
+
+def _position(op, ctx, x):
+    return op(x, ctx.base.token_position)
+
+
+def _dense(op, ctx, x):
+    return op.gen(x)
+
+
+def _dense_local(op, ctx, x):
+    return op.gen(x, out="local")
+
+
+def _attention(op, ctx, x):
+    return op.gen(x, ctx.bc, ctx.state[op.name], ctx.pages)
+
+
+def _add(op, ctx, a, b):
+    return a + b
+
+
+def _lm_head(op, ctx, x):
+    """Float32 logits of the final hidden states ``x`` [T, E]: a gated
+    prefill chunk's ``logit_slots`` gather their rows first (a slot of -1
+    clamps to row 0, whose logits are never read); a vocabulary-sharded
+    head gathers on shard 0 (the other shards return None)."""
+    slots = getattr(ctx.bc, "logit_slots", None)
+    if slots is not None:
+        x = x.index_select(0, slots.clamp(0, x.shape[0] - 1).long())
+    y = yield from op.gen(x, out="first")
+    return None if y is None else y.float()
+
+
+class GraphBuilder:
+    """Records a family's forward as the reference builder's serve graph
+    (its ``FFModel`` calls, one node each, ``flexflow_tpu/model.py:82-330``):
+    each method appends one node that calls the given module of the
+    model, named by that module's path, and returns the new tensor ids."""
+
+    def __init__(self, model: torch.nn.Module):
+        self.graph = Graph()
+        self._paths = {id(m): p for p, m in model.named_modules()}
+
+    def _node(self, op, kind, inputs, name, run, width=None, n_out=1):
+        if op is not None and self._paths.get(id(op)) != name:
+            raise ValueError(f"node {name!r} calls the module at "
+                             f"{self._paths.get(id(op))!r}")
+        spec = self.graph.spec(inputs[0])
+        if width is not None:
+            spec = TensorSpec((TOKENS, int(width)), getattr(
+                op, "compute_dtype", spec.dtype))
+        outs = self.graph.add_node(None if op is None else name, kind,
+                                   inputs, name, [spec] * n_out, run)
+        return outs[0] if n_out == 1 else outs
+
+    def create_tensor(self) -> int:
+        """The token ids, the graph's one input."""
+        return self.graph.add_input(TensorSpec((TOKENS,), torch.int32))
+
+    def embedding(self, x, op, name):
+        return self._node(op, "embedding", [x], name, _call,
+                          width=op.weight.shape[1])
+
+    def position_embedding(self, x, op, name):
+        return self._node(op, "position_embedding", [x], name, _position)
+
+    def dense(self, x, op, name, out="full"):
+        """``out="local"``: a column-sharded output that stays a slice
+        (the row-sharded layer it feeds takes it); see ``Linear.gen``."""
+        return self._node(op, "dense", [x], name,
+                          _dense_local if out == "local" else _dense,
+                          width=op.kernel.shape[1])
+
+    def norm(self, x, op, name):
+        return self._node(op, "norm", [x], name, _call)
+
+    def residual_rms_norm(self, x, residual, op, name):
+        """``(x + residual, rms_norm(x + residual))``: two outputs."""
+        return self._node(op, "residual_rms_norm", [x, residual], name,
+                          _call, n_out=2)
+
+    def sigmoid_silu_multi(self, a, b, op, name):
+        return self._node(op, "sigmoid_silu_multi", [a, b], name, _call)
+
+    def attention(self, x, op, name):
+        return self._node(op, "attention", [x], name, _attention,
+                          width=op.embed_dim)
+
+    def add(self, a, b, name):
+        return self._node(None, "add", [a, b], name, _add)
+
+    def lm_head(self, x, op, name):
+        return self._node(op, "lm_head", [x], name, _lm_head,
+                          width=op.kernel.shape[1])
+
+
+class StageSpan:
+    """The node range a model runs: the whole graph, or one pipeline
+    stage's contiguous nodes with the tensors that enter and leave it
+    (``serve/pp.py:serve_stage_split``); ``last`` ends at the logits.
+    ``drops`` holds the tensors each node leaves dead (fixed with the
+    range)."""
+
+    def __init__(self, nodes, entry_tids, exit_tids, last: bool):
+        self.nodes = list(nodes)
+        self.entry_tids = list(entry_tids)
+        self.exit_tids = list(exit_tids)
+        self.last = bool(last)
+        self.drops = dead_after(self.nodes, self.exit_tids)
+
+
+class GatedLMHead:
+    """The forward shared by every family: the model's serve ``graph``
+    (recorded by the family's ``build_graph`` from its modules, whose
+    LM head is gated, reference ``ops/linear.py:98-108``, marked by
+    ``mark_gated_lm_head``, inference_manager.py:167: a batch with
+    ``logit_slots`` computes ``[max_requests, vocab]`` logits instead of
+    ``[max_tokens, vocab]``), run node by node.
+
+    ``forward_gen(bc, state, pages)`` is a generator that yields at the
+    tensor-parallel collectives (``parallel/comm.py``); ``forward`` runs
+    it alone with identity collectives, and a tensor-parallel manager
+    runs one per shard in lockstep.  The model runs its ``span`` of the
+    graph: the whole graph, or a pipeline stage's nodes in a stage's
+    model (``serve/pp.py``), so one forward serves every degree and
+    every stage.  Nodes name their modules by path; the model looks them
+    up in itself, so a submodule swapped in later is the one that runs."""
 
     gates_lm_head = True
+    # (every (parent, key, child) on the span's module paths, the modules
+    # in node order): the lookup, kept while those entries stand; the
+    # model's own entries have parent None, so that no cycle keeps a
+    # dropped model's weights alive until the collector runs
+    _bound = None
+
+    def finish_graph(self) -> None:
+        """Name the attention layers and record the family's graph; the
+        last line of each family's ``__init__``."""
+        name_attention_layers(self)
+        ff = GraphBuilder(self)
+        self.build_graph(ff)
+        self.graph = g = ff.graph
+        self.set_span(StageSpan(g.nodes, g.input_tids,
+                                [g.nodes[-1].outputs[-1]], True))
+
+    def set_span(self, span: StageSpan) -> None:
+        self.span = span
+        self._bound = None
+
+    def span_ops(self) -> list:
+        """The module each node of the span calls (None: module-free),
+        looked up by path in this model; the lookup is kept while every
+        module on those paths is still the one registered there."""
+        bound = self._bound
+        if bound is not None and all(
+                (self if p is None else p)._modules.get(k) is c
+                for p, k, c in bound[0]):
+            return bound[1]
+        edges, ops = {}, []
+        for node in self.span.nodes:
+            mod = None if node.module is None else self
+            for key in () if mod is None else node.module.split("."):
+                child = mod._modules.get(key)
+                if child is None:
+                    raise ValueError(f"node {node.name!r}: the model holds "
+                                     f"no module at {node.module!r}")
+                edges[(id(mod), key)] = (None if mod is self else mod,
+                                         key, child)
+                mod = child
+            ops.append(mod)
+        self._bound = (list(edges.values()), ops)
+        return ops
 
     def forward(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
                 pages=None) -> torch.Tensor:
@@ -154,15 +318,20 @@ class GatedLMHead:
         the page table of a paged cache (None: slot-contiguous)."""
         return run_local(self.forward_gen(bc, state, pages))
 
-    def logits(self, x: torch.Tensor, bc):
-        """Float32 logits of the final hidden states ``x`` [T, E], as a
-        generator: a vocabulary-sharded head gathers them on shard 0 (the
-        other shards return None)."""
-        slots = getattr(bc, "logit_slots", None)
-        if slots is not None:
-            x = x.index_select(0, slots.clamp(0, x.shape[0] - 1).long())
-        y = yield from self.lm_head.gen(x, out="first")
-        return None if y is None else y.float()
+    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
+                    pages=None, xs: Optional[Sequence[torch.Tensor]] = None):
+        """One step over the model's span, as a generator of its
+        collectives.  The first span reads the batch's tokens; a later
+        stage's reads ``xs``, the tensors entering it.  Returns the
+        logits (the last span) or the list of tensors leaving the span."""
+        span = self.span
+        ctx = StepContext(bc, state, pages)
+        env = (dict(zip(span.entry_tids, xs)) if xs is not None
+               else {self.graph.input_tids[0]: ctx.base.tokens})
+        env = yield from run_nodes(span.nodes, self.span_ops(), span.drops,
+                                   env, ctx)
+        outs = [env[t] for t in span.exit_tids]
+        return outs[0] if span.last else outs
 
 
 def name_attention_layers(model: torch.nn.Module) -> None:

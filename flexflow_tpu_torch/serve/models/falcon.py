@@ -12,9 +12,6 @@ reference refuses it.  Module paths follow the reference's node names
 
 from __future__ import annotations
 
-from typing import Dict
-
-import torch
 from torch import nn
 
 from ...ops.embedding import Embedding
@@ -22,12 +19,7 @@ from ...ops.linear import Linear
 from ...ops.norm import LayerNorm
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import (
-    GatedLMHead,
-    ServeModelConfig,
-    name_attention_layers,
-    register_model,
-)
+from .base import GatedLMHead, ServeModelConfig, register_model
 
 
 class FalconMLP(nn.Module):
@@ -38,12 +30,6 @@ class FalconMLP(nn.Module):
                                     activation="gelu_exact")
         self.dense_4h_to_h = Linear(cfg.intermediate_size, cfg.hidden_size,
                                     dtype, use_bias=cfg.bias)
-
-    def gen(self, x):
-        # both column-sharded (neither name is a row-parallel one): each
-        # output is gathered whole
-        h = yield from self.dense_h_to_4h.gen(x)
-        return (yield from self.dense_4h_to_h.gen(h))
 
 
 class FalconDecoderLayer(nn.Module):
@@ -59,15 +45,6 @@ class FalconDecoderLayer(nn.Module):
         if not self.parallel:
             self.post_attention_layernorm = LayerNorm(h, eps, dtype=dtype)
         self.mlp = FalconMLP(cfg, dtype)
-
-    def gen(self, x, bc, state, pages):
-        h = self.input_layernorm(x)
-        a = yield from self.self_attention.gen(
-            h, bc, state[self.self_attention.name], pages)
-        if self.parallel:   # Falcon-7B: both branches from the same LN
-            return x + (a + (yield from self.mlp.gen(h)))
-        x = x + a
-        return x + (yield from self.mlp.gen(self.post_attention_layernorm(x)))
 
 
 class FalconModel(nn.Module):
@@ -93,17 +70,36 @@ class FalconForServe(GatedLMHead, nn.Module):
         dtype = torch_dtype(cfg.dtype)
         self.transformer = FalconModel(cfg, dtype)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, dtype)
-        name_attention_layers(self)
+        self.finish_graph()
 
-    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
-                    pages=None):
-        """One step's logits (see ``GatedLMHead.forward``), yielding at
-        the collectives as :class:`~.llama.LlamaForServe`."""
-        base = getattr(bc, "base", bc)
-        x = self.transformer.word_embeddings(base.tokens)
-        for layer in self.transformer.h:
-            x = yield from layer.gen(x, bc, state, pages)
-        return (yield from self.logits(self.transformer.ln_f(x), bc))
+    def build_graph(self, ff):
+        """The reference builder's graph (reference :22-62): both MLP
+        products are column-sharded (neither name is a row-parallel one),
+        so each output is gathered whole."""
+        tr = self.transformer
+        x = ff.embedding(ff.create_tensor(), tr.word_embeddings,
+                         "transformer.word_embeddings")
+        for i, layer in enumerate(tr.h):
+            p = f"transformer.h.{i}"
+            h = ff.norm(x, layer.input_layernorm, f"{p}.input_layernorm")
+            a = ff.attention(h, layer.self_attention, f"{p}.self_attention")
+            if layer.parallel:   # Falcon-7B: both branches from one LN
+                m = ff.dense(h, layer.mlp.dense_h_to_4h,
+                             f"{p}.mlp.dense_h_to_4h")
+                m = ff.dense(m, layer.mlp.dense_4h_to_h,
+                             f"{p}.mlp.dense_4h_to_h")
+                x = ff.add(x, ff.add(a, m, f"{p}.attn_mlp"), f"{p}.residual")
+            else:
+                x = ff.add(x, a, f"{p}.attn_residual")
+                h2 = ff.norm(x, layer.post_attention_layernorm,
+                             f"{p}.post_attention_layernorm")
+                m = ff.dense(h2, layer.mlp.dense_h_to_4h,
+                             f"{p}.mlp.dense_h_to_4h")
+                m = ff.dense(m, layer.mlp.dense_4h_to_h,
+                             f"{p}.mlp.dense_4h_to_h")
+                x = ff.add(x, m, f"{p}.mlp_residual")
+        x = ff.norm(x, tr.ln_f, "transformer.ln_f")
+        ff.lm_head(x, self.lm_head, "lm_head")
 
 
 @register_model("falcon")

@@ -5,14 +5,12 @@ Port of ``flexflow_tpu/serve/models/llama.py``: token embedding, per layer
 fused residual RMSNorm -> SwiGLU MLP], final fused norm, LM head.  Module
 paths follow the reference's node names (``model.embed_tokens``,
 ``model.layers.{i}.self_attn``, ``lm_head`` ...), so a state-dict key is
-``<node name>.<param name>`` and the reference's params map one to one.
+``<node name>.<param name>`` and the reference's params map one to one;
+``build_graph`` records the reference builder's graph over them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
-
-import torch
 from torch import nn
 
 from ...ops.embedding import Embedding
@@ -20,12 +18,7 @@ from ...ops.linear import Linear
 from ...ops.norm import ResidualRMSNorm, RMSNorm, SigmoidSiluMulti
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import (
-    GatedLMHead,
-    ServeModelConfig,
-    name_attention_layers,
-    register_model,
-)
+from .base import GatedLMHead, ServeModelConfig, register_model
 
 
 class LlamaMLP(nn.Module):
@@ -35,11 +28,6 @@ class LlamaMLP(nn.Module):
         self.up_proj = Linear(cfg.hidden_size, cfg.intermediate_size, dtype)
         self.act = SigmoidSiluMulti()
         self.down_proj = Linear(cfg.intermediate_size, cfg.hidden_size, dtype)
-
-    def gen(self, x):
-        gate = yield from self.gate_proj.gen(x, out="local")
-        up = yield from self.up_proj.gen(x, out="local")
-        return (yield from self.down_proj.gen(self.act(gate, up)))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -76,27 +64,39 @@ class LlamaForServe(GatedLMHead, nn.Module):
         dtype = torch_dtype(cfg.dtype)
         self.model = LlamaModel(cfg, dtype)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, dtype)
-        name_attention_layers(self)
+        self.finish_graph()
 
-    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
-                    pages=None):
-        """One step's logits (see ``GatedLMHead.forward``), yielding at
-        the collectives: after each attention's and MLP's row-sharded
-        product, and at the LM head."""
-        base = getattr(bc, "base", bc)
-        residual = self.model.embed_tokens(base.tokens)
-        mlp_out = None
-        for i, layer in enumerate(self.model.layers):
+    def build_graph(self, ff):
+        """The reference builder's graph (reference :17-66); the gate and
+        up projections keep their column slices for ``down_proj``."""
+        m = self.model
+        x = ff.embedding(ff.create_tensor(), m.embed_tokens,
+                         "model.embed_tokens")
+        residual, mlp_out = x, None
+        for i, layer in enumerate(m.layers):
+            p = f"model.layers.{i}"
             if i == 0:
-                attn_in = layer.input_layernorm(residual)
+                attn_in = ff.norm(residual, layer.input_layernorm,
+                                  f"{p}.input_layernorm")
             else:
-                residual, attn_in = layer.input_layernorm(mlp_out, residual)
-            attn = yield from layer.self_attn.gen(
-                attn_in, bc, state[layer.self_attn.name], pages)
-            residual, mlp_in = layer.post_attention_layernorm(attn, residual)
-            mlp_out = yield from layer.mlp.gen(mlp_in)
-        _, normed = self.model.norm(mlp_out, residual)
-        return (yield from self.logits(normed, bc))
+                residual, attn_in = ff.residual_rms_norm(
+                    mlp_out, residual, layer.input_layernorm,
+                    f"{p}.input_layernorm")
+            attn = ff.attention(attn_in, layer.self_attn, f"{p}.self_attn")
+            residual, mlp_in = ff.residual_rms_norm(
+                attn, residual, layer.post_attention_layernorm,
+                f"{p}.post_attention_layernorm")
+            gate = ff.dense(mlp_in, layer.mlp.gate_proj,
+                            f"{p}.mlp.gate_proj", out="local")
+            up = ff.dense(mlp_in, layer.mlp.up_proj, f"{p}.mlp.up_proj",
+                          out="local")
+            act = ff.sigmoid_silu_multi(gate, up, layer.mlp.act,
+                                        f"{p}.mlp.act")
+            mlp_out = ff.dense(act, layer.mlp.down_proj,
+                               f"{p}.mlp.down_proj")
+        _, normed = ff.residual_rms_norm(mlp_out, residual, m.norm,
+                                         "model.norm")
+        ff.lm_head(normed, self.lm_head, "lm_head")
 
 
 @register_model("llama")

@@ -9,9 +9,6 @@ the LM head.  Module paths follow the reference's node names
 
 from __future__ import annotations
 
-from typing import Dict
-
-import torch
 from torch import nn
 
 from ...ops.embedding import Embedding
@@ -19,12 +16,7 @@ from ...ops.linear import Linear
 from ...ops.norm import LayerNorm
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import (
-    GatedLMHead,
-    ServeModelConfig,
-    name_attention_layers,
-    register_model,
-)
+from .base import GatedLMHead, ServeModelConfig, register_model
 
 
 class MPTFFN(nn.Module):
@@ -34,10 +26,6 @@ class MPTFFN(nn.Module):
                               activation="gelu_exact")
         self.down_proj = Linear(cfg.intermediate_size, cfg.hidden_size,
                                 dtype)
-
-    def gen(self, x):
-        h = yield from self.up_proj.gen(x, out="local")
-        return (yield from self.down_proj.gen(h))
 
 
 class MPTBlock(nn.Module):
@@ -51,12 +39,6 @@ class MPTBlock(nn.Module):
             dtype=dtype)
         self.norm_2 = LayerNorm(h, eps, use_bias=False, dtype=dtype)
         self.ffn = MPTFFN(cfg, dtype)
-
-    def gen(self, x, bc, state, pages):
-        a = yield from self.attn.gen(self.norm_1(x), bc,
-                                     state[self.attn.name], pages)
-        x = x + a
-        return x + (yield from self.ffn.gen(self.norm_2(x)))
 
 
 class MPTModel(nn.Module):
@@ -76,17 +58,24 @@ class MPTForServe(GatedLMHead, nn.Module):
         dtype = torch_dtype(cfg.dtype)
         self.transformer = MPTModel(cfg, dtype)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, dtype)
-        name_attention_layers(self)
+        self.finish_graph()
 
-    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
-                    pages=None):
-        """One step's logits (see ``GatedLMHead.forward``), yielding at
-        the collectives as :class:`~.llama.LlamaForServe`."""
-        base = getattr(bc, "base", bc)
-        x = self.transformer.wte(base.tokens)
-        for block in self.transformer.blocks:
-            x = yield from block.gen(x, bc, state, pages)
-        return (yield from self.logits(self.transformer.norm_f(x), bc))
+    def build_graph(self, ff):
+        """The reference builder's graph (reference :15-39); ``up_proj``
+        keeps its column slice for ``down_proj``."""
+        tr = self.transformer
+        x = ff.embedding(ff.create_tensor(), tr.wte, "transformer.wte")
+        for i, blk in enumerate(tr.blocks):
+            p = f"transformer.blocks.{i}"
+            h = ff.norm(x, blk.norm_1, f"{p}.norm_1")
+            a = ff.attention(h, blk.attn, f"{p}.attn")
+            x = ff.add(x, a, f"{p}.attn_residual")
+            h = ff.norm(x, blk.norm_2, f"{p}.norm_2")
+            h = ff.dense(h, blk.ffn.up_proj, f"{p}.ffn.up_proj", out="local")
+            h = ff.dense(h, blk.ffn.down_proj, f"{p}.ffn.down_proj")
+            x = ff.add(x, h, f"{p}.mlp_residual")
+        x = ff.norm(x, tr.norm_f, "transformer.norm_f")
+        ff.lm_head(x, self.lm_head, "lm_head")
 
 
 @register_model("mpt")

@@ -11,9 +11,6 @@ follow the reference's node names (``model.decoder.layers.{i}.fc1`` ...).
 
 from __future__ import annotations
 
-from typing import Dict
-
-import torch
 from torch import nn
 
 from ...ops.embedding import Embedding, PositionEmbedding
@@ -21,12 +18,7 @@ from ...ops.linear import Linear
 from ...ops.norm import LayerNorm
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import (
-    GatedLMHead,
-    ServeModelConfig,
-    name_attention_layers,
-    register_model,
-)
+from .base import GatedLMHead, ServeModelConfig, register_model
 
 
 class OPTDecoderLayer(nn.Module):
@@ -42,18 +34,6 @@ class OPTDecoderLayer(nn.Module):
         self.fc1 = Linear(h, cfg.intermediate_size, dtype, use_bias=True,
                           activation="relu")
         self.fc2 = Linear(cfg.intermediate_size, h, dtype, use_bias=True)
-
-    def gen(self, x, bc, state, pages):
-        h = self.self_attn_layer_norm(x) if self.pre else x
-        a = yield from self.self_attn.gen(h, bc, state[self.self_attn.name],
-                                          pages)
-        x = x + a
-        if not self.pre:
-            x = self.self_attn_layer_norm(x)
-        h = self.final_layer_norm(x) if self.pre else x
-        h = yield from self.fc1.gen(h, out="local")
-        x = x + (yield from self.fc2.gen(h))
-        return x if self.pre else self.final_layer_norm(x)
 
 
 class OPTDecoder(nn.Module):
@@ -88,26 +68,43 @@ class OPTForServe(GatedLMHead, nn.Module):
         self.model = OPTModel(cfg, dtype)
         self.lm_head = Linear(cfg.word_embed_proj_dim or cfg.hidden_size,
                               cfg.vocab_size, dtype)
-        name_attention_layers(self)
+        self.finish_graph()
 
-    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
-                    pages=None):
-        """One step's logits (see ``GatedLMHead.forward``), yielding at
-        the collectives as :class:`~.llama.LlamaForServe`; ``fc2``'s bias
-        is added after its reduce."""
-        base = getattr(bc, "base", bc)
+    def build_graph(self, ff):
+        """The reference builder's graph (reference :19-61): pre-LN or
+        post-LN blocks, ``fc1`` keeping its column slice for ``fc2``
+        (whose bias is added after its reduce)."""
         dec = self.model.decoder
-        x = dec.embed_tokens(base.tokens)
+        x = ff.embedding(ff.create_tensor(), dec.embed_tokens,
+                         "model.decoder.embed_tokens")
         if hasattr(dec, "project_in"):
-            x = yield from dec.project_in.gen(x)
-        x = dec.embed_positions(x, base.token_position)
-        for layer in dec.layers:
-            x = yield from layer.gen(x, bc, state, pages)
+            x = ff.dense(x, dec.project_in, "model.decoder.project_in")
+        x = ff.position_embedding(x, dec.embed_positions,
+                                  "model.decoder.embed_positions")
+        for i, layer in enumerate(dec.layers):
+            p = f"model.decoder.layers.{i}"
+            pre = layer.pre
+            h = ff.norm(x, layer.self_attn_layer_norm,
+                        f"{p}.self_attn_layer_norm") if pre else x
+            a = ff.attention(h, layer.self_attn, f"{p}.self_attn")
+            x = ff.add(x, a, f"{p}.attn_residual")
+            if not pre:
+                x = ff.norm(x, layer.self_attn_layer_norm,
+                            f"{p}.self_attn_layer_norm")
+            h = ff.norm(x, layer.final_layer_norm,
+                        f"{p}.final_layer_norm") if pre else x
+            h = ff.dense(h, layer.fc1, f"{p}.fc1", out="local")
+            h = ff.dense(h, layer.fc2, f"{p}.fc2")
+            x = ff.add(x, h, f"{p}.mlp_residual")
+            if not pre:
+                x = ff.norm(x, layer.final_layer_norm,
+                            f"{p}.final_layer_norm")
         if hasattr(dec, "final_layer_norm"):
-            x = dec.final_layer_norm(x)
+            x = ff.norm(x, dec.final_layer_norm,
+                        "model.decoder.final_layer_norm")
         if hasattr(dec, "project_out"):
-            x = yield from dec.project_out.gen(x)
-        return (yield from self.logits(x, bc))
+            x = ff.dense(x, dec.project_out, "model.decoder.project_out")
+        ff.lm_head(x, self.lm_head, "lm_head")
 
 
 @register_model("opt")

@@ -9,9 +9,6 @@ and the LM head.  Module paths follow the reference's node names
 
 from __future__ import annotations
 
-from typing import Dict
-
-import torch
 from torch import nn
 
 from ...ops.embedding import Embedding, PositionEmbedding
@@ -19,12 +16,7 @@ from ...ops.linear import Linear
 from ...ops.norm import LayerNorm
 from ...utils.platform import torch_dtype
 from ..ops import IncMultiHeadSelfAttention
-from .base import (
-    GatedLMHead,
-    ServeModelConfig,
-    name_attention_layers,
-    register_model,
-)
+from .base import GatedLMHead, ServeModelConfig, register_model
 
 
 class StarCoderMLP(nn.Module):
@@ -34,10 +26,6 @@ class StarCoderMLP(nn.Module):
                            use_bias=True, activation="gelu")
         self.c_proj = Linear(cfg.intermediate_size, cfg.hidden_size, dtype,
                              use_bias=True)
-
-    def gen(self, x):
-        h = yield from self.c_fc.gen(x, out="local")
-        return (yield from self.c_proj.gen(h))
 
 
 class StarCoderBlock(nn.Module):
@@ -50,12 +38,6 @@ class StarCoderBlock(nn.Module):
             rotary_embedding=False, use_bias=True, dtype=dtype)
         self.ln_2 = LayerNorm(h, eps, dtype=dtype)
         self.mlp = StarCoderMLP(cfg, dtype)
-
-    def gen(self, x, bc, state, pages):
-        a = yield from self.attn.gen(self.ln_1(x), bc, state[self.attn.name],
-                                     pages)
-        x = x + a
-        return x + (yield from self.mlp.gen(self.ln_2(x)))
 
 
 class StarCoderModel(nn.Module):
@@ -77,19 +59,26 @@ class StarCoderForServe(GatedLMHead, nn.Module):
         dtype = torch_dtype(cfg.dtype)
         self.transformer = StarCoderModel(cfg, dtype)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, dtype)
-        name_attention_layers(self)
+        self.finish_graph()
 
-    def forward_gen(self, bc, state: Dict[str, Dict[str, torch.Tensor]],
-                    pages=None):
-        """One step's logits (see ``GatedLMHead.forward``), yielding at
-        the collectives as :class:`~.llama.LlamaForServe`; ``c_proj``'s
-        bias is added after its reduce."""
-        base = getattr(bc, "base", bc)
+    def build_graph(self, ff):
+        """The reference builder's graph (reference :15-38); ``c_fc``
+        keeps its column slice for ``c_proj`` (whose bias is added after
+        its reduce)."""
         tr = self.transformer
-        x = tr.wpe(tr.wte(base.tokens), base.token_position)
-        for block in tr.h:
-            x = yield from block.gen(x, bc, state, pages)
-        return (yield from self.logits(tr.ln_f(x), bc))
+        x = ff.embedding(ff.create_tensor(), tr.wte, "transformer.wte")
+        x = ff.position_embedding(x, tr.wpe, "transformer.wpe")
+        for i, blk in enumerate(tr.h):
+            p = f"transformer.h.{i}"
+            h = ff.norm(x, blk.ln_1, f"{p}.ln_1")
+            a = ff.attention(h, blk.attn, f"{p}.attn")
+            x = ff.add(x, a, f"{p}.attn_residual")
+            h = ff.norm(x, blk.ln_2, f"{p}.ln_2")
+            h = ff.dense(h, blk.mlp.c_fc, f"{p}.mlp.c_fc", out="local")
+            h = ff.dense(h, blk.mlp.c_proj, f"{p}.mlp.c_proj")
+            x = ff.add(x, h, f"{p}.mlp_residual")
+        x = ff.norm(x, tr.ln_f, "transformer.ln_f")
+        ff.lm_head(x, self.lm_head, "lm_head")
 
 
 @register_model("gpt_bigcode")

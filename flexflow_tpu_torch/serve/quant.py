@@ -69,20 +69,21 @@ def quantize_int8(im, include: Optional[Sequence[str]] = None,
     ``init_operators_inference``; int8 weights are skipped, so
     re-quantizing is a no-op.  Returns the number of weights quantized."""
     n = 0
-    plan = im.model.tp_plan
-    for path, pname in list(_weights(im.model, include, attention)):
-        mods = [m.get_submodule(path) for m in im.shards]
-        if getattr(mods[0], pname).dtype == torch.int8:
-            continue
-        key = f"{path}.{pname}" if path else pname
-        parts = [getattr(m, pname) for m in mods]
-        q, scale = _quantize_array(plan.whole(key, parts))
-        for r, (m, w) in enumerate(zip(mods, parts)):
-            _set_int8(m, pname,   # the compute-dtype weight goes
-                      plan.local(key, q, r).contiguous().to(w.device),
-                      plan.local(f"{key}_scale", scale, r).contiguous().to(
-                          w.device))
-        n += 1
+    for shards in im.shard_groups:   # one group per pipeline stage
+        plan = shards[0].tp_plan
+        for path, pname in list(_weights(shards[0], include, attention)):
+            mods = [m.get_submodule(path) for m in shards]
+            if getattr(mods[0], pname).dtype == torch.int8:
+                continue
+            key = f"{path}.{pname}" if path else pname
+            parts = [getattr(m, pname) for m in mods]
+            q, scale = _quantize_array(plan.whole(key, parts))
+            for r, (m, w) in enumerate(zip(mods, parts)):
+                _set_int8(m, pname,   # the compute-dtype weight goes
+                          plan.local(key, q, r).contiguous().to(w.device),
+                          plan.local(f"{key}_scale", scale, r).contiguous(
+                          ).to(w.device))
+            n += 1
     return n
 
 

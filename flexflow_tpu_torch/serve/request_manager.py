@@ -1280,16 +1280,22 @@ class RequestManager:
                                       for r in eligible)))
 
     def _prefill_stretch_possible(self) -> bool:
-        """Can the whole prefill wave run as tiled steps?  True when every
-        active request is prefilling at a tile-aligned offset (no decode
-        latency to protect)."""
+        """Can the whole prefill wave run as tiled steps (reference
+        :1400-1411)?  True when the manager has a ``prefill_scan`` (a
+        pipelined one has none: it prefills chunk by chunk through
+        ``step``), every active request is prefilling at a tile-aligned
+        offset (no decode latency to protect) and some still has prompt
+        left."""
         with self.profiler.phase("host_admit"):
             self._admit()
         active = self._active()
         tile = self.im.prefill_tile
-        return (tile > 1 and bool(active)
+        return (tile > 1 and hasattr(self.im, "prefill_scan")
+                and bool(active)
                 and all(r.status is RequestStatus.PREFILLING
-                        and r.prefill_offset % tile == 0 for r in active))
+                        and r.prefill_offset % tile == 0 for r in active)
+                and any(r.prefill_offset < len(r.prefill_tokens)
+                        for r in active))
 
     def _prefill_stretch(self) -> None:
         """Feed every active request's remaining prefill as single-request

@@ -90,6 +90,11 @@ class SpecDecodeScan:
         self.depth = int(depth)
         self.eos = eos_token_id
         self.n_tree = 1 + self.width * self.depth
+        if getattr(llm, "pp", 1) > 1 or getattr(ssm, "pp", 1) > 1:
+            raise ValueError(
+                "SpecDecodeScan runs one program per macro step; a "
+                "pipelined (pp > 1) manager speculates through the host "
+                "SpecInferManager (reference serve/pp.py:221-224)")
         r = llm.max_requests
         if ssm.max_requests != r:
             raise ValueError("LLM and SSM must agree on max_requests")

@@ -16,10 +16,9 @@ deployments (``max_seq_len`` 128, 64-position pages):
   ``LLM.attach_migration``.  Every switch tears the incumbent's caches
   down with no rid left holding attribution.
 
-The ``tp1 → pp2`` case of the reference waits for pipeline-parallel
-serving (the multi-GPU slice), and re-search through a planner for the
-planner slice; the auto path here runs the monitor's ``search_fn`` hook
-with a fixed candidate.
+The ``tp1 → pp2`` case of the reference is in ``test_torch_pp_paths.py``;
+re-search through a planner waits for the planner slice; the auto path
+here runs the monitor's ``search_fn`` hook with a fixed candidate.
 """
 
 import numpy as np

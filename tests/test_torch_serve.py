@@ -339,7 +339,10 @@ def test_port_never_imports_jax_or_the_reference_package():
             "slo.py", "cost.py", "telemetry.py", "trace.py", "metrics.py",
             "calibration.py", "drift.py", "memory.py", "profiler.py",
             "plan_health.py", "report.py", "trace_report.py",
-            "bench_compare.py"} <= {f.name for f in files}
+            "bench_compare.py", "pp.py"} <= {f.name for f in files}
+    # the serve graph IR (core/) is scanned with the rest
+    assert {"core/graph.py", "core/interpreter.py"} <= {
+        f"{f.parent.name}/{f.name}" for f in files}
     for path in files:
         for mod, func in _imported_modules(path):
             top = mod.split(".")[0]
@@ -361,7 +364,8 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.obs.report, "
             "flexflow_tpu_torch.tools.trace_report, "
             "flexflow_tpu_torch.tools.bench_compare, "
-            "flexflow_tpu_torch.ops.cuda.attention; "
+            "flexflow_tpu_torch.ops.cuda.attention, "
+            "flexflow_tpu_torch.core, flexflow_tpu_torch.serve.pp; "
             "bad = [m for m in sys.modules if m in ('jax', 'flexflow_tpu', "
             "'transformers') or m.startswith(('jax.', 'flexflow_tpu.', "
             "'transformers.'))]; "

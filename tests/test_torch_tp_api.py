@@ -17,7 +17,9 @@ from plan keys, against the port at ``tp=1`` on the same seeded weights
   and seeded, and tears the incumbent down;
 * a fleet of two ``tp=2`` replicas sharing weights, one killed mid-decode:
   the streams of one ``LLM``, the victim's shards' buffers dropped;
-* ``pp > 1`` raises, naming slice 9b: in a plan key and in a mesh.
+* ``pp > 1`` plan keys, meshes and plan builders are accepted (slice
+  9b; ``test_torch_pp*.py`` holds the pipelined manager to the JAX
+  package).
 """
 
 import pytest
@@ -142,14 +144,21 @@ def test_fleet_of_tp2_replicas_survives_a_kill():
 
 
 def test_pp_raises_naming_slice_9b():
+    """Slice 9b is ported: a ``pp > 1`` plan key, mesh and plan builder
+    are accepted now (the test keeps its name; it held the refusal
+    before), and a key that is not ``tp{t}_pp{p}_m{m}`` still raises."""
     assert plan_shape("tp2_pp1_m1_spec_w2d3") == {"tp": 2, "pp": 1, "m": 1}
-    with pytest.raises(NotImplementedError, match="slice 9b"):
-        plan_shape("tp1_pp2_m2")
+    assert plan_shape("tp1_pp2_m2") == {"tp": 1, "pp": 2, "m": 2}
+    mesh = make_mesh({"tp": 1, "pp": 2}, CPU2)
+    assert mesh.shape == {"pp": 2, "tp": 1} and mesh.comm is None
+    assert [m.devices for m in mesh.stage_meshes()] == [
+        [torch.device("cpu")]] * 2
     llm = PS.LLM(CFG).compile(device="cpu", **caps())
-    with pytest.raises(NotImplementedError, match="slice 9b"):
-        llm.plan_builder(devices=CPU2, **caps())({"plan_key": "tp2_pp2_m2"})
-    with pytest.raises(NotImplementedError, match="slice 9b"):
-        make_mesh({"tp": 1, "pp": 2}, CPU2)
+    im = llm.plan_builder(devices=CPU2 * 2, **caps())(
+        {"plan_key": "tp2_pp2_m2"})
+    assert isinstance(im, PS.PipelinedInferenceManager) and im.ready
+    assert im.plan_key == plan_key_of(im) == "tp2_pp2_m2"
+    assert [len(st.shards) for st in im.stages] == [2, 2]
     with pytest.raises(ValueError, match="not tp"):
         plan_shape("pp2")
 
