@@ -193,6 +193,16 @@ and prints no result):
    partial sums round apart, so the share is printed, not required).
    Its times are two shards on one card: the shards' host issue and the
    reduces, not a speed-up.
+18. pipeline parallelism, every stage on the one card (``pp=2``, and
+   ``pp=2 x tp=2``): streams equal to ``pp=1``, each stage's launches,
+   the bf16 7B at ``n_micro`` 2 and 1;
+19. planner: ``MachineModel.for_mesh`` of a CUDA mesh with
+   ``artifacts/h100_calib.json``'s measured constants (two of them
+   measured again beside it); ``search_serve_plan`` of bf16 Llama-2-7B
+   on ``meta`` at phase 7's capacities must choose ``tp1_pp1_m1``, its
+   predicted TPOT and TTFT beside phase 7's measured ones and into a
+   ``CalibrationLedger``; Llama-2-70B bf16 must be refused on one card
+   and fit 80 GB a stage on four (priced only).
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -3604,6 +3614,119 @@ def phase_pipeline_parallel(serve, att, torch, dev):
     return {"f32": f32, "f32 shard": f32_shard, "bf16": bf16}
 
 
+def llama70b_config(serve):
+    """Llama-2-70B's published shape (``meta-llama/Llama-2-70b-hf``), bf16:
+    80 layers, hidden 8192, 64 query heads on 8 KV heads, ffn 28672,
+    vocabulary 32000 (priced on ``meta``, never allocated)."""
+    return serve.ServeModelConfig(
+        dtype="bfloat16", num_hidden_layers=80, hidden_size=8192,
+        num_attention_heads=64, num_key_value_heads=8,
+        intermediate_size=28672, vocab_size=32000)
+
+
+def phase_planner(serve, torch, dev, ttft, tpot, card):
+    """Phase 19: the serve planner.  (a) The card's machine model:
+    ``MachineModel.for_mesh`` of a CUDA mesh is ``h100``, with the
+    constants ``artifacts/h100_calib.json`` measured; ``mxu_efficiency``
+    and the host link measured again here, beside the artifact's.  (b)
+    ``search_serve_plan`` of bf16 Llama-2-7B on ``meta`` at phase 7's
+    capacities on ``["cuda:0"]`` must choose ``tp1_pp1_m1``; its predicted
+    TPOT, TTFT and per-stage GB beside phase 7's measured TPOT and TTFT
+    (the same deployment, no second serve), and both into a
+    ``CalibrationLedger``.  (c) Llama-2-70B bf16 on ``meta``: one card
+    must refuse ("nothing fits": 138 GB of weights), four cards (priced
+    over ``["cuda:0"] * 4``, nothing allocated) must give a plan whose
+    stages fit 80 GB; the candidate table printed."""
+    from flexflow_tpu_torch import search
+    from flexflow_tpu_torch.obs import CalibrationLedger
+    from flexflow_tpu_torch.parallel import make_mesh
+    from flexflow_tpu_torch.search import measure
+
+    t0 = time.perf_counter()
+    calib = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "artifacts", "h100_calib.json")
+    with open(calib) as f:
+        doc = json.load(f)
+    mm = search.MachineModel.for_mesh(make_mesh({"tp": 1}, ["cuda:0"]))
+    if mm.spec.name != "h100":
+        raise AssertionError(f"a CUDA mesh priced as {mm.spec.name}")
+    mm = mm.with_calibration(calib)
+    eff, gemm_ms = measure.probe_mxu_efficiency(dev, mm.spec.peak_flops_bf16)
+    bw, lat, _ = measure.probe_host_link(dev)
+    log(f"planner (a): {card}: mxu_efficiency {eff:.4f} (GEMM "
+        f"{gemm_ms:.4f} ms; artifact {doc['mxu_efficiency']:.4f}), host "
+        f"link {bw / 1e9:.2f} GB/s + {lat * 1e6:.1f} us (artifact "
+        f"{doc['host_bandwidth'] / 1e9:.2f} GB/s + "
+        f"{doc['host_latency'] * 1e6:.1f} us), step_overhead (artifact) "
+        f"{doc['step_overhead'] * 1e6:.2f} us; artifact card {doc['card']}")
+
+    def priced(cfg, max_spec):
+        model = serve.build_model(cfg)
+        serve.register_serve_capacities(model, 8, 2048, max_spec,
+                                        max_tokens_per_batch=512)
+        serve.mark_gated_lm_head(model, 8)
+        return model
+
+    cfg = serve.ServeModelConfig(dtype="bfloat16")
+    model = priced(cfg, 8)
+    lens = [len(p) for p in serve_prompts(cfg.vocab_size)]
+    wl = {"mean_prompt_len": sum(lens) / len(lens), "mean_output_len": 64.0,
+          "arrival_rate_per_s": 0.0, "mean_occupancy": 1.0}
+    bare = search.search_serve_plan(model, 1, machine=mm,
+                                    devices=["cuda:0"], calibration=None)
+    best = search.search_serve_plan(model, 1, machine=mm,
+                                    devices=["cuda:0"], calibration=None,
+                                    workload=wl)
+    for plan in (bare, best):
+        if plan["plan_key"] != "tp1_pp1_m1":
+            raise AssertionError(f"7B on one card: {plan['plan_key']}")
+    for label, plan in (("full KV", bare), ("the 8 prompts", best)):
+        comps = " ".join(f"{k[:-3]} {v:.4f}"
+                         for k, v in plan["components_ms"].items())
+        log(f"planner (b): 7B bf16 tp1_pp1_m1, {label}: predicted TPOT "
+            f"{plan['tpot_ms']:.4f} ms ({comps}), per-stage "
+            f"{plan['per_stage_gb']} GB, parts "
+            f"{plan['memory_parts_gb']} GB")
+    log(f"planner (b): predicted TPOT {best['tpot_ms']:.4f} ms, TTFT "
+        f"{best['ttft_ms']:.4f} ms (mean prompt {wl['mean_prompt_len']:.1f}"
+        f" tokens) | measured (phase 7) TPOT {tpot:.4f} ms, TTFT "
+        f"{ttft * 1e3:.4f} ms: measured/predicted TPOT "
+        f"{tpot / best['tpot_ms']:.3f}, TTFT "
+        f"{ttft * 1e3 / best['ttft_ms']:.3f}")
+    led = CalibrationLedger()
+    led.predict(best["plan_key"], tpot_ms=best["tpot_ms"],
+                ttft_ms=best["ttft_ms"])
+    led.measure(best["plan_key"], tpot_ms=tpot, ttft_ms=ttft * 1e3)
+    comps = led.report()["components"]
+    log("planner (b): suggested scales " + ", ".join(
+        f"{k} {v['suggested_scale']:.4f}" for k, v in sorted(comps.items())))
+
+    m70 = priced(llama70b_config(serve), 0)
+    try:
+        search.search_serve_plan(m70, 1, machine=mm, devices=["cuda:0"],
+                                 calibration=None)
+    except ValueError as e:
+        if "fits" not in str(e):
+            raise
+        log(f"planner (c): 70B bf16 on one card refused: {str(e)[:160]}")
+    else:
+        raise AssertionError("70B bf16 priced as fitting one card")
+    best70 = search.search_serve_plan(m70, 4, machine=mm,
+                                      devices=["cuda:0"] * 4,
+                                      calibration=None)
+    if max(best70["per_stage_gb"]) > mm.spec.hbm_capacity / 1e9:
+        raise AssertionError(f"70B plan over 80 GB: {best70}")
+    for key, c in best70["candidates"].items():
+        tpots = " ".join(f"m{m} {v['tpot_ms']:.3f}"
+                         for m, v in c.get("by_micro", {}).items())
+        log(f"planner (c): 70B {key}: fits {c.get('fits')}, per-stage "
+            f"{c.get('per_stage_gb')} GB, TPOT ms {tpots}")
+    log(f"planner (c): 70B on 4 cards: {best70['plan_key']}, TPOT "
+        f"{best70['tpot_ms']:.4f} ms, per-stage {best70['per_stage_gb']} "
+        f"GB; phase 19 done in {time.perf_counter() - t0:.1f}s")
+    return best, best70
+
+
 def tc_reports(text):
     """(kernel, "registers, shared memory, spills") of each tensor-core
     kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
@@ -3704,6 +3827,8 @@ def main():
         serve, att, kv_quant, torch, dev))
     pp = timed("pipeline parallel", lambda: phase_pipeline_parallel(
         serve, att, torch, dev))
+    timed("planner", lambda: phase_planner(serve, torch, dev, ttft, tpot,
+                                           card))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)

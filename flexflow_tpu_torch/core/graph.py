@@ -34,6 +34,13 @@ class TensorSpec:
     def ndim(self) -> int:
         return len(self.shape)
 
+    def nbytes(self, rows: int) -> int:
+        """Bytes of the tensor at a flat batch of ``rows`` tokens."""
+        n = 1
+        for d in self.shape:
+            n *= rows if d == TOKENS else d
+        return n * torch.empty((), dtype=self.dtype).element_size()
+
     def __str__(self) -> str:
         return f"{str(self.dtype).replace('torch.', '')}{list(self.shape)}"
 

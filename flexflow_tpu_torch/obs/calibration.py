@@ -15,7 +15,7 @@ predicted TPOT/TTFT/memory next to the measured values, and
 ``MachineModel`` constant to tune and by how much.
 
 The :class:`CalibrationStore` closes it CONTINUOUSLY: a persisted JSON
-artifact (at a path the caller names) the ledger commits
+artifact (default ``artifacts/torch_calibration_store.json``) the ledger commits
 its per-component ``suggested_scale`` into after each measured run —
 EWMA-smoothed across runs, clamped to a sane range, and gated behind a
 minimum sample count — which ``MachineModel.with_store`` and
@@ -35,20 +35,29 @@ import math
 import os
 from typing import Dict, Optional
 
-# no default artifact: a store is read or written only at a path the
-# caller names.  The JAX package's store (``artifacts/calibration_store.json``
-# and its ``FLEXFLOW_TPU_CALIBRATION_STORE`` override) holds numbers
-# measured for its TPU plans, which must not steer this port.
-DEFAULT_STORE_PATH: Optional[str] = None
+# the port's own artifact (gitignored): deliberate persistence only —
+# nothing writes here unless a caller saves a store to it.  The JAX
+# package's store (``artifacts/calibration_store.json`` and its
+# ``FLEXFLOW_TPU_CALIBRATION_STORE`` override) holds numbers measured for
+# its TPU plans, which never steer this port.
+DEFAULT_STORE_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))),
+    "artifacts", "torch_calibration_store.json",
+)
+STORE_ENV = "FLEXFLOW_TPU_TORCH_CALIBRATION_STORE"
 
 
 def default_store_path() -> Optional[str]:
-    """The store a search consults when asked for ``calibration="auto"``:
-    None, so nothing is consulted automatically.  This port has no serve
-    search yet (the planner slice brings it); until then a
-    :class:`CalibrationStore` is only what a caller loads or saves at an
-    explicit path."""
-    return None
+    """The store path ``search_serve_plan(calibration="auto")`` consults
+    (for a CUDA mesh only: the store holds H100 numbers).
+
+    ``FLEXFLOW_TPU_TORCH_CALIBRATION_STORE`` overrides the port's
+    artifact: a path redirects, the empty string disables the consult."""
+    env = os.environ.get(STORE_ENV)
+    if env is not None:
+        return env or None
+    return DEFAULT_STORE_PATH
 
 
 class CalibrationLedger:
@@ -221,8 +230,9 @@ class CalibrationStore:
     def save(self, path: Optional[str] = None) -> str:
         path = path or self.path
         if path is None:
-            raise ValueError("CalibrationStore.save needs a path (the port "
-                             "keeps no default store)")
+            raise ValueError("CalibrationStore.save needs a path (a store "
+                             "writes the default artifact only when named: "
+                             "DEFAULT_STORE_PATH)")
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         tmp = path + ".tmp"
         with open(tmp, "w") as f:

@@ -26,8 +26,8 @@ greedy and seeded, under a recorded fault schedule too.
   every request's stream, outcome and failover count to the recording.
   *What-if replay* (:meth:`ReplayHarness.what_if`) runs the recorded
   arrivals through a slot-level simulation priced by a candidate's
-  ``tpot_s`` (a price dict; the planner that prices plans comes with its
-  own slice), and :meth:`ReplayHarness.diff` compares two summaries under
+  ``tpot_s`` (a price dict: ``search.serve_search.price_plan``'s), and
+  :meth:`ReplayHarness.diff` compares two summaries under
   ``tools/bench_compare.py``'s discipline.
 
 All of it is host-side Python: recording never reads the serve loop's

@@ -28,12 +28,19 @@ so a row-sharded int8 weight keeps the global scale on every shard.
 model: the same modules at shard-local shapes, each marked with its
 placement (``Linear.tp_mode``, the attention's ``head_shards`` and
 ``head_offset``), which the forwards read to place their collectives.
+
+:func:`tp_collectives` lists the collectives a stage of the serve graph
+needs under a plan, with the bytes each moves per device, as the
+reference's PCG inserts its parallel ops (``core/pcg.py:plan``, the
+resharding of ``parallel/parallel_ops.py:reshard_path``) and prices them
+(``comm_bytes``): the serve planner's TP communication term.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Optional
+import dataclasses
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -173,3 +180,106 @@ def _sliced_copy(model: nn.Module, plan: TPPlan, rank: int) -> nn.Module:
                 shape[d] //= deg
                 setattr(mod, pname, _param(p, shape))
     return shard
+
+
+# how a value lies over the tp shards: whole on each (REP), its last dim
+# split (SPLIT), or a partial sum on each (PARTIAL)
+REP, SPLIT, PARTIAL = "rep", "split", "partial"
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective of a stage (the reference's parallel op): its kind
+    (``allreduce``, ``combine`` = all-gather, ``reduction`` =
+    reduce-scatter, ``repartition`` = a local slice), the tensor it
+    moves, and the bytes it moves per device (reference
+    ``ParallelOp.comm_bytes``, ``parallel_ops.py:177-248``)."""
+
+    kind: str
+    tid: int
+    nbytes: int
+    axes: tuple = TP_AXES
+
+
+def _solution(kind: str, cfg: Dict, have: List[str]):
+    """(the layout each input must arrive in, the outputs' layouts) of a
+    node of ``kind`` under its strategy entry ``cfg``, given its
+    producers' layouts (the reference ops' ``apply_config``: a Linear,
+    ``ops/linear.py:135``; the attention, ``serve/ops.py:965``; the norms
+    want whole rows, ``ops/norm.py:27``; the gate propagates its first
+    input's split, :306; an add keeps a partial sum of two partial sums,
+    else wants the second input laid out as the first,
+    ``ops/elementwise.py:118``; the embeddings are replicated)."""
+    if kind in ("dense", "lm_head"):
+        if "channel_out" in cfg:
+            return [REP], [SPLIT]
+        if "channel_in" in cfg:
+            return [SPLIT], [PARTIAL]
+        return [REP], [REP]
+    if kind == "attention":
+        return [REP], [PARTIAL if "head" in cfg else REP]
+    if kind == "sigmoid_silu_multi":
+        sh = SPLIT if have[0] == SPLIT else REP
+        return [sh, sh], [sh]
+    if kind == "add":
+        if have[0] == have[1] == PARTIAL:
+            return [PARTIAL, PARTIAL], [PARTIAL]
+        sh = SPLIT if have[0] == SPLIT else REP
+        return [sh, sh], [sh]
+    if kind in ("embedding", "position_embedding", "norm",
+                "residual_rms_norm"):
+        n_out = 2 if kind == "residual_rms_norm" else 1
+        return [REP] * len(have), [REP] * n_out
+    raise ValueError(f"no tensor-parallel layout rule for a {kind!r} node")
+
+
+def _reshard(have: str, want: str, full: int, degree: int):
+    """The collective turning layout ``have`` into ``want`` of a tensor of
+    ``full`` bytes (reference ``reshard_path``), and its bytes per
+    device: None when the layouts agree."""
+    if have == want:
+        return None
+    if have == PARTIAL and want == SPLIT:
+        return "reduction", int(full * (degree - 1) / degree)
+    if have == PARTIAL and want == REP:
+        return "allreduce", int(2 * full * (degree - 1) / degree)
+    if have == SPLIT and want == REP:
+        return "combine", int(full * (degree - 1) / degree)
+    if have == REP and want == SPLIT:
+        return "repartition", 0
+    raise ValueError(f"cannot reshard {have} -> {want}")
+
+
+def tp_collectives(graph, nodes: Sequence, exit_tids: Sequence[int],
+                   plan: TPPlan, rows: int) -> List[Collective]:
+    """The collectives one stage's ``nodes`` of ``graph`` need under
+    ``plan``, in order, at a flat batch of ``rows`` tokens (the graph's
+    token axis): each input is resharded to the layout its node wants,
+    once per consuming node, as the reference's PCG does; a tensor
+    entering the stage arrives in its first consumer's layout; a partial
+    sum leaving the stage is all-reduced.  None at degree 1."""
+    degree = plan.degree
+    if degree <= 1:
+        return []
+    out: List[Collective] = []
+
+    def move(tid, have, want):
+        step = _reshard(have, want, graph.spec(tid).nbytes(rows), degree)
+        if step is not None:
+            out.append(Collective(step[0], tid, step[1]))
+
+    layout: Dict[int, str] = {}
+    for node in nodes:
+        cfg = plan.strategy.get(node.module, {}) if node.module else {}
+        have = [layout.get(t, REP) for t in node.inputs]
+        wants, outs = _solution(node.kind, cfg, have)
+        for t, want in zip(node.inputs, wants):
+            if t in layout:
+                move(t, layout[t], want)
+            else:
+                layout[t] = want
+        layout.update(zip(node.outputs, outs))
+    for t in exit_tids:
+        if layout.get(t, REP) == PARTIAL:
+            move(t, PARTIAL, REP)
+    return out

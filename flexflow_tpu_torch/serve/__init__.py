@@ -32,7 +32,10 @@ tensor-parallel serving on every path above (``LLM.compile(tp=N)``,
 ``InferenceManager(mesh=...)``, ``flexflow_tpu_torch.parallel``; slice
 9a); pipeline-parallel serving (``PipelinedInferenceManager`` over a
 ``{"pp": p, "tp": t}`` mesh, the serve graph split by
-``serve_stage_split``, micro-batch interleave, ``pp x tp``; slice 9b).
+``serve_stage_split``, micro-batch interleave, ``pp x tp``; slice 9b);
+the serve planner's inputs: ``register_serve_capacities``,
+``mark_gated_lm_head``, ``annotate_int8`` and the per-stage cost records
+of ``build_stage_plans`` (``flexflow_tpu_torch.search``; slice 10a).
 """
 
 from . import models  # noqa: F401  (registers the model builders)
@@ -53,7 +56,9 @@ from .inference_manager import (
     EXIT_NOT_IN_BATCH,
     EXIT_RUNNING,
     InferenceManager,
+    mark_gated_lm_head,
     pick_prefill_tile,
+    register_serve_capacities,
     sample_tokens,
 )
 from .kv_allocator import KVAllocator
@@ -74,8 +79,13 @@ from .migration import (
 )
 from .models.base import MODEL_REGISTRY, ServeModelConfig, build_model
 from .ops import IncMultiHeadSelfAttention, alibi_slopes, apply_rope
-from .pp import PipelinedInferenceManager, serve_stage_split
-from .quant import quantize_int8
+from .pp import (
+    PipelinedInferenceManager,
+    StageCost,
+    build_stage_plans,
+    serve_stage_split,
+)
+from .quant import annotate_int8, quantize_int8
 from .request_manager import (
     OUTCOMES,
     TERMINAL_STATUSES,
@@ -86,6 +96,7 @@ from .request_manager import (
 )
 from .resilience import (
     FaultInjector,
+    InjectedFault,
     ResilienceConfig,
     RetryPolicy,
     TransientServeError,
@@ -112,6 +123,10 @@ __all__ = [
     "InferenceManager",
     "PipelinedInferenceManager",
     "serve_stage_split",
+    "build_stage_plans",
+    "StageCost",
+    "register_serve_capacities",
+    "mark_gated_lm_head",
     "EXIT_NOT_IN_BATCH",
     "EXIT_RUNNING",
     "EXIT_EOS",
@@ -124,6 +139,7 @@ __all__ = [
     "HostTierCorruption",
     "validate_page_tile",
     "quantize_int8",
+    "annotate_int8",
     "pick_prefill_tile",
     "sample_tokens",
     "RequestManager",
@@ -135,6 +151,7 @@ __all__ = [
     "ResilienceConfig",
     "RetryPolicy",
     "FaultInjector",
+    "InjectedFault",
     "TransientServeError",
     "SLOClass",
     "SLOPolicy",

@@ -154,9 +154,11 @@ class LLM:
         """Run and return one plan-health check now (reference :163):
         live TTFT and TPOT against the plan's predictions and the SLO
         targets, workload drift, KV pressure.  None when no monitor was
-        attached at :meth:`compile`.  With no re-search function (the
-        port has no planner yet) an unhealthy check reports and
-        recommends nothing."""
+        attached at :meth:`compile`.  An unhealthy check re-searches
+        through the monitor's ``search_fn`` (for example ``lambda:
+        search.search_serve_plan(model, n, workload=tel.workload, ...)``
+        on a ``meta`` model) and recommends its candidate; a monitor
+        without one reports and recommends nothing."""
         if self.rm is None or self.rm.plan_health is None:
             return None
         return self.rm.plan_health.check()
@@ -168,8 +170,10 @@ class LLM:
         switching plans at a serve tick boundary (drain, rebuild through
         ``build_manager(candidate)``, readmit under the same rids, with
         rollback).  ``self.rm`` and ``self.im`` follow the active
-        deployment.  With no planner ported, a recommendation carries no
-        candidate: migrations are requested by hand."""
+        deployment.  A recommendation carries the searched candidate
+        (``search_serve_plan``'s plan dict, whose ``plan_key`` names its
+        ``tp{t}_pp{p}_m{m}`` shape, ``migration.plan_shape``); a
+        migration may also be requested by hand."""
         if self.rm is None:
             raise RuntimeError("call compile() first")
         from .migration import MigrationController

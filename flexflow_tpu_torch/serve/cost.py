@@ -6,14 +6,23 @@ The JAX package derives these from its compiled graph: the profiler's
 ``search/simulator.py``'s ``_step_flops`` and ``_step_param_bytes`` over
 the plan's steps, classified by ``serve_component_of``, and its
 ``publish_memory`` reads ``plan_memory_parts(plan, training=False)``
-(``simulator.py:228``).  This port has no graph IR, so the same numbers
+(``simulator.py:228``).  This port has no PCG plan, so the same numbers
 are computed here, once, from the serve model's modules and the
-InferenceManager's capacities; they equal the reference's field by field
+deployment's capacities; they equal the reference's field by field
 for every family, fp and int8 weights, int8 KV and the spec buffers
-(``tests/test_torch_profiler.py``).
+(``tests/test_torch_profiler.py``).  Each function prices one model
+(a pipeline stage's shard-0 model, or a whole model on one device) at
+a deployment's :class:`Capacities`: the manager's own
+(:func:`capacities_of`, which the profiler's wrappers :func:`plan_cost`
+and :func:`plan_memory_parts` pass), or those recorded on a model's
+modules by ``register_serve_capacities`` and ``mark_gated_lm_head``
+(:func:`recorded_capacities`, which the planner reads before any
+manager exists, ``serve/pp.py:build_stage_plans``).
 
 The reference's arithmetic, op by op, at the compiled batch of
-``T = max_tokens`` rows on one device:
+``T = max_tokens`` rows on one device, each op priced in its family
+(``attention``, the marked LM head ``lm_head``, everything else
+``mlp``: reference ``search/simulator.py:serve_component_of``):
 
 * attention (``serve/ops.py:986``): ``2 T E (QH + 2 KV) D + 2 T QH D E``
   for the projections plus ``4 T QH D S`` with ``S = max_seq_len``;
@@ -24,8 +33,9 @@ The reference's arithmetic, op by op, at the compiled batch of
   position embedding, norms and elementwise ops add no flops;
 * weight bytes: every parameter at the config dtype's width, whatever
   dtype it is stored in (``_step_param_bytes`` reads the parameter
-  specs); the memory parts count an int8 ``kernel``/``qkv``/``o_proj`` as
-  one byte an element plus a float32 scale per row of its first axis;
+  specs); the memory parts count an int8 ``kernel``/``qkv``/``o_proj``
+  (quantized, or marked by ``annotate_int8``) as one byte an element
+  plus a float32 scale per row of its first axis;
 * KV state: each attention layer's ``k``/``v`` caches ``[R+1, KV, S, D]``
   in the KV dtype, their float32 scales ``[R+1, KV, S]`` when int8, the
   spec buffers ``[R+1, KV, P, D]`` in the config dtype, and ALiBi's
@@ -45,12 +55,16 @@ over the global heads, as the reference's global arrays give it.
 Pipeline parallelism (``serve/pp.py``): the reference prices each stage's
 plan (``stage_plans``); here each stage's shard-0 model.  The cost card
 sums the stages, the memory parts are one stage's, composed per device
-by :func:`compose_stage_parts`.
+by :func:`compose_stage_parts`.  The KV stream the planner charges a
+macro step is :func:`kv_state_bytes` over ``KV_BUFFER_NAMES`` (the
+committed caches and their scales, not the spec buffers; reference
+``search/serve_search.py:_stage_kv_bytes``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -61,138 +75,185 @@ from .ops import IncMultiHeadSelfAttention
 
 # the weight matrices int8 quantization replaces (serve/quant.py)
 INT8_PARAM_NAMES = ("kernel", "qkv", "o_proj")
+FAMILIES = ("attention", "mlp", "lm_head")
+
+
+@dataclasses.dataclass(frozen=True)
+class Capacities:
+    """What a deployment prices at: the flat token batch, the request
+    rows and positions of its caches, its spec positions, its KV dtype
+    (None: the model's), and the rows its LM head is priced at when it
+    is marked for gating (None: unmarked, an MLP linear)."""
+
+    max_tokens: int
+    max_requests: int
+    max_seq_len: int
+    max_spec_tokens: int = 0
+    kv_dtype: Optional[str] = None
+    logit_rows: Optional[int] = None
+
+
+def capacities_of(im) -> Capacities:
+    """A manager's own capacities and LM-head mark."""
+    return Capacities(im.max_tokens, im.max_requests, im.max_seq_len,
+                      im.max_spec_tokens, im.kv_dtype,
+                      im.max_requests if getattr(im, "lm_head_marked", False)
+                      else None)
+
+
+def recorded_capacities(model) -> Optional[Capacities]:
+    """The capacities ``register_serve_capacities`` recorded on the
+    attention modules of ``model`` and the rows ``mark_gated_lm_head``
+    recorded on its LM head; None when nothing was registered."""
+    attn = next((m for m in model.modules()
+                 if isinstance(m, IncMultiHeadSelfAttention)), None)
+    if attn is None or getattr(attn, "cost_max_requests", None) is None:
+        return None
+    head = lm_head_of(model)
+    return Capacities(int(getattr(attn, "cost_max_tokens", 0) or 0),
+                      attn.cost_max_requests, attn.cost_seq_len,
+                      attn.cost_max_spec or 0, attn.kv_dtype,
+                      getattr(head, "cost_logit_rows", None))
+
+
+def lm_head_of(model) -> Optional[torch.nn.Module]:
+    """The module that produces the logits (None in a pipeline stage
+    that does not hold it)."""
+    return getattr(model, "lm_head", None)
 
 
 def _itemsize(dtype) -> int:
     return torch.empty((), dtype=torch_dtype(dtype)).element_size()
 
 
-def _model_dtype(im) -> str:
-    cfg = getattr(im.model, "config", None)
-    return getattr(cfg, "dtype", "float32")
+def _model_dtype(model) -> str:
+    return getattr(getattr(model, "config", None), "dtype", "float32")
 
 
-def _stage_models(im):
-    """Shard 0's model of each pipeline stage (one on a plain manager):
-    the modules one device of each stage holds."""
-    return [shards[0] for shards in im.shard_groups]
+def family_of(mod, marked_head=None) -> str:
+    """The cost family of one module (reference
+    ``search/simulator.py:serve_component_of``): ``attention`` (an
+    attention layer), ``lm_head`` (``marked_head``: the LM head when it is
+    marked for gating), else ``mlp`` (MLP linears, embeddings, norms'
+    weights)."""
+    if isinstance(mod, IncMultiHeadSelfAttention):
+        return "attention"
+    if mod is marked_head:
+        return "lm_head"
+    return "mlp"
 
 
-def _heavy_flops(im) -> Dict[str, float]:
-    """The flops of one step at ``max_tokens`` rows, summed by family
-    (``attention``, ``mlp``, ``lm_head``) over every stage, and the LM
-    head's logit rows."""
-    t, r, s = im.max_tokens, im.max_requests, im.max_seq_len
-    marked = getattr(im, "lm_head_marked", False)
-    fl = {"attention": 0.0, "mlp": 0.0, "lm_head": 0.0}
+def _marked_head(model, caps: Capacities):
+    """The LM head ``model`` holds when ``caps`` prices it per logit row
+    (None otherwise)."""
+    return lm_head_of(model) if caps.logit_rows is not None else None
+
+
+def heavy_flops(model, caps: Capacities) -> Dict[str, float]:
+    """The flops of one step of ``model`` at ``caps.max_tokens`` rows by
+    family (``attention``, ``mlp``, ``lm_head``), and the LM head's
+    logit rows (0 when unmarked or not held)."""
+    t, s = caps.max_tokens, caps.max_seq_len
+    head = _marked_head(model, caps)
+    fl = {f: 0.0 for f in FAMILIES}
     lm_rows = 0
-    for model in _stage_models(im):
-        lm_head = getattr(model, "lm_head", None)
-        for mod in model.modules():
-            if isinstance(mod, IncMultiHeadSelfAttention):
-                e, qh, kv, d = (mod.embed_dim, mod.num_q_heads,
-                                mod.num_kv_heads, mod.head_dim)
-                proj = 2 * t * e * (qh + 2 * kv) * d + 2 * t * qh * d * e
-                fl["attention"] += proj + 2 * t * qh * d * s * 2
-            elif isinstance(mod, Linear):
-                k_in, k_out = mod.kernel.shape
-                if mod is lm_head and marked:
-                    fl["lm_head"] += 2 * min(t, r) * k_in * k_out
-                    lm_rows = min(t or 1, r) or 1
-                else:
-                    fl["mlp"] += 2 * t * k_in * k_out
-            elif (isinstance(mod, Embedding)
-                  and not isinstance(mod, PositionEmbedding)):
-                fl["mlp"] += t * mod.weight.shape[1]
+    for mod in model.modules():
+        if isinstance(mod, IncMultiHeadSelfAttention):
+            e, qh, kv, d = (mod.embed_dim, mod.num_q_heads,
+                            mod.num_kv_heads, mod.head_dim)
+            proj = 2 * t * e * (qh + 2 * kv) * d + 2 * t * qh * d * e
+            fl["attention"] += proj + 2 * t * qh * d * s * 2
+        elif isinstance(mod, Linear):
+            k_in, k_out = mod.kernel.shape
+            if mod is head:
+                r = caps.logit_rows
+                fl["lm_head"] += 2 * min(t, r) * k_in * k_out
+                lm_rows = min(t or 1, r) or 1
+            else:
+                fl["mlp"] += 2 * t * k_in * k_out
+        elif (isinstance(mod, Embedding)
+              and not isinstance(mod, PositionEmbedding)):
+            fl["mlp"] += t * mod.weight.shape[1]
     return {**fl, "lm_rows": lm_rows}
 
 
-def weight_bytes(im) -> float:
-    """The weight bytes one model pass streams over every stage: every
+def family_weight_bytes(model, caps: Capacities) -> Dict[str, float]:
+    """The weight bytes one pass of ``model`` streams, by family: every
     parameter at the config dtype's width (an int8 weight's scale is not
     a parameter of the reference's graph)."""
-    size = _itemsize(_model_dtype(im))
-    total = 0.0
-    for model in _stage_models(im):
-        for name, p in model.named_parameters():
-            if name.endswith("_scale"):
+    size = _itemsize(_model_dtype(model))
+    head = _marked_head(model, caps)
+    out = {f: 0.0 for f in FAMILIES}
+    seen = set()
+    for mod in model.modules():
+        fam = family_of(mod, head)
+        for name, p in mod.named_parameters(recurse=False):
+            if name.endswith("_scale") or id(p) in seen:
                 continue
-            total += p.numel() * size
-    return total
+            seen.add(id(p))
+            out[fam] += p.numel() * size
+    return out
 
 
-def kv_state_bytes(im, model=None) -> float:
+def kv_state_bytes(model, caps: Capacities,
+                   names: Optional[Sequence[str]] = None) -> float:
     """The registered serve-state buffers of every attention layer of
-    ``model`` (None: of every stage)."""
-    if model is None:
-        return sum(kv_state_bytes(im, m) for m in _stage_models(im))
-    r1, s, p = im.max_requests + 1, im.max_seq_len, im.max_spec_tokens
-    dt = _model_dtype(im)
-    kv_size = 1 if im.kv_dtype == "int8" else _itemsize(dt)
+    ``model`` (``k``, ``v`` and, int8, ``k_scale``, ``v_scale``; the spec
+    buffers ``sk``, ``sv`` and ALiBi's ``spec_pos``), or only those in
+    ``names`` (``KV_BUFFER_NAMES``: the committed caches a macro step
+    reads)."""
+    r1, s, p = caps.max_requests + 1, caps.max_seq_len, caps.max_spec_tokens
+    dt = _model_dtype(model)
+    int8 = caps.kv_dtype == "int8"
+    kv_size = 1 if int8 else _itemsize(dt)
+
+    def want(name):
+        return names is None or name in names
+
     total = 0.0
     for mod in model.modules():
         if not isinstance(mod, IncMultiHeadSelfAttention):
             continue
         kv, d = mod.num_kv_heads, mod.head_dim
-        total += 2 * (r1 * kv * s * d * kv_size)
-        if im.kv_dtype == "int8":
-            total += 2 * (r1 * kv * s * 4)
+        total += (want("k") + want("v")) * (r1 * kv * s * d * kv_size)
+        if int8:
+            total += (want("k_scale") + want("v_scale")) * (r1 * kv * s * 4)
         if p:
-            total += 2 * (r1 * kv * p * d * _itemsize(dt))
-            if mod.use_alibi:
+            total += (want("sk") + want("sv")) * (r1 * kv * p * d
+                                                  * _itemsize(dt))
+            if mod.use_alibi and want("spec_pos"):
                 total += r1 * p * 4
     return total
 
 
-def plan_cost(im) -> Dict[str, float]:
-    """The fields of the profiler's ``PlanCostCard`` for one deployment
-    (reference ``obs/profiler.py:141``): per-token attention and MLP
-    flops, flops per logit row, streamed weight bytes, and the KV bytes a
-    token costs (the allocator's price once the caches exist, else the
-    state buffers over ``max_requests x max_seq_len``)."""
-    rows = int(im.max_tokens) or 1
-    fl = _heavy_flops(im)
-    kv_bpt = 0.0
-    if im.kv.state:
-        kv_bpt = im.kv.bytes_per_token() or 0.0
-    if not kv_bpt:
-        cap = (im.max_requests * im.max_seq_len) or 1
-        kv_bpt = kv_state_bytes(im) / cap
-    return {
-        "attn_flops_per_token": fl["attention"] / rows,
-        "mlp_flops_per_token": fl["mlp"] / rows,
-        "lm_head_flops_per_row": (fl["lm_head"] / fl["lm_rows"]
-                                  if fl["lm_rows"] else 0.0),
-        "weight_bytes": weight_bytes(im),
-        "kv_bytes_per_token": kv_bpt,
-    }
-
-
-def plan_memory_parts(im, model=None) -> Dict[str, float]:
-    """The predicted HBM of one device of the deployment in bytes, by
-    component (reference ``simulator.py:plan_memory_parts(plan,
-    training=False)``): ``weights`` (int8 weights at one byte plus their
-    scales), ``kv_state``, ``transient`` (the largest single op output)
-    and their ``total``.  ``model``: a pipeline stage's shard model (its
-    stage plan's parts; None: ``im.model``)."""
-    model = im.model if model is None else model
-    size = _itemsize(_model_dtype(im))
-    plan = model.tp_plan
+def memory_parts(model, caps: Capacities) -> Dict[str, float]:
+    """The predicted HBM of the one device that holds ``model``, in
+    bytes, by component (reference ``simulator.py:plan_memory_parts(plan,
+    training=False)``): ``weights`` (int8 weights, quantized or marked by
+    ``annotate_int8``, at one byte plus their scales), ``kv_state``,
+    ``transient`` (the largest single op output) and their ``total``."""
+    size = _itemsize(_model_dtype(model))
+    plan = getattr(model, "tp_plan", None)   # None: one device, whole
+    degree = plan.degree if plan is not None else 1
     params = 0.0
-    for name, p in model.named_parameters():
-        pname = name.rsplit(".", 1)[-1]
-        if pname.endswith("_scale"):
-            continue
-        n = p.numel()
-        if (p.dtype == torch.int8 and pname in INT8_PARAM_NAMES
-                and p.dim() >= 2):
-            # the global weight's scale count: split output dims times
-            # the degree
-            split = plan.dim(name) not in (None, 0)
-            params += n + (n // p.shape[0]) * 4 * (plan.degree if split
-                                                   else 1)
-        else:
-            params += n * size
+    seen = set()
+    for path, mod in model.named_modules():
+        q8 = getattr(mod, "quantization", None) == "int8"
+        for pname, p in mod.named_parameters(recurse=False):
+            if pname.endswith("_scale") or id(p) in seen:
+                continue
+            seen.add(id(p))
+            n = p.numel()
+            if ((q8 or p.dtype == torch.int8) and pname in INT8_PARAM_NAMES
+                    and p.dim() >= 2):
+                # the global weight's scale count: split output dims
+                # times the degree
+                name = f"{path}.{pname}" if path else pname
+                split = degree > 1 and plan.dim(name) not in (None, 0)
+                params += n + (n // p.shape[0]) * 4 * (degree if split
+                                                       else 1)
+            else:
+                params += n * size
     widths = [0]
     for mod in model.modules():
         if isinstance(mod, IncMultiHeadSelfAttention):
@@ -201,8 +262,8 @@ def plan_memory_parts(im, model=None) -> Dict[str, float]:
             widths.append(mod.kernel.shape[1])
         elif isinstance(mod, (Embedding, PositionEmbedding)):
             widths.append(mod.weight.shape[1])
-    act = im.max_tokens * max(widths) * size
-    state = kv_state_bytes(im, model)
+    act = caps.max_tokens * max(widths) * size
+    state = kv_state_bytes(model, caps)
     return {"weights": params, "kv_state": state, "transient": act,
             "total": params + act + state}
 
@@ -217,3 +278,53 @@ def compose_stage_parts(parts) -> Dict[str, float]:
            for c in ("weights", "kv_state", "transient", "total")},
         "static": max(p["weights"] + p["kv_state"] for p in parts),
     }
+
+
+# ---- a manager's wrappers (the profiler's cost card, publish_memory) ----
+def _stage_models(im):
+    """Shard 0's model of each pipeline stage (one on a plain manager):
+    the modules one device of each stage holds."""
+    return [shards[0] for shards in im.shard_groups]
+
+
+def plan_cost(im) -> Dict[str, float]:
+    """The fields of the profiler's ``PlanCostCard`` for one deployment
+    (reference ``obs/profiler.py:141``): per-token attention and MLP
+    flops, flops per logit row, streamed weight bytes (summed over the
+    stages), and the KV bytes a token costs (the allocator's price once
+    the caches exist, else the state buffers over ``max_requests x
+    max_seq_len``)."""
+    caps = capacities_of(im)
+    rows = int(im.max_tokens) or 1
+    fl = {f: 0.0 for f in FAMILIES}
+    lm_rows = 0
+    w_bytes = 0.0
+    kv = 0.0
+    for model in _stage_models(im):
+        f = heavy_flops(model, caps)
+        for fam in FAMILIES:
+            fl[fam] += f[fam]
+        lm_rows = f["lm_rows"] or lm_rows
+        w_bytes += sum(family_weight_bytes(model, caps).values())
+        kv += kv_state_bytes(model, caps)
+    kv_bpt = 0.0
+    if im.kv.state:
+        kv_bpt = im.kv.bytes_per_token() or 0.0
+    if not kv_bpt:
+        kv_bpt = kv / ((im.max_requests * im.max_seq_len) or 1)
+    return {
+        "attn_flops_per_token": fl["attention"] / rows,
+        "mlp_flops_per_token": fl["mlp"] / rows,
+        "lm_head_flops_per_row": (fl["lm_head"] / lm_rows
+                                  if lm_rows else 0.0),
+        "weight_bytes": w_bytes,
+        "kv_bytes_per_token": kv_bpt,
+    }
+
+
+def plan_memory_parts(im, model=None) -> Dict[str, float]:
+    """:func:`memory_parts` of one device of a manager's deployment at
+    its own capacities; ``model``: a pipeline stage's shard model (its
+    stage plan's parts; None: ``im.model``)."""
+    return memory_parts(im.model if model is None else model,
+                        capacities_of(im))

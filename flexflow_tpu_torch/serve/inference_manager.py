@@ -93,6 +93,53 @@ def pick_prefill_tile(max_tokens_per_batch: int, max_seq_len: int) -> int:
     return tile
 
 
+def register_serve_capacities(model, max_requests: int, max_seq_len: int,
+                              max_spec_tokens: int = 0,
+                              kv_dtype: Optional[str] = None,
+                              max_tokens_per_batch: Optional[int] = None
+                              ) -> None:
+    """Record the serving capacities and the KV dtype on the attention
+    modules of ``model`` (a model, or a list of shard models) so that the
+    planner (``search/serve_search.py``, ``serve/cost.py``) prices the
+    deployment's real buffers before any manager exists (reference
+    :152-164): ``cost_seq_len``, ``cost_max_requests``, ``cost_max_spec``
+    and ``kv_dtype``, and ``cost_max_tokens``, the flat token batch the
+    reference reads from its graph's shapes.  :class:`InferenceManager`
+    and the pipelined manager call it in ``__init__``."""
+    from .ops import IncMultiHeadSelfAttention
+
+    for m in model if isinstance(model, (list, tuple)) else [model]:
+        for mod in m.modules():
+            if isinstance(mod, IncMultiHeadSelfAttention):
+                mod.cost_seq_len = max_seq_len
+                mod.cost_max_requests = max_requests
+                mod.cost_max_spec = max_spec_tokens
+                mod.kv_dtype = kv_dtype
+                mod.cost_max_tokens = max_tokens_per_batch
+
+
+def mark_gated_lm_head(model, max_requests: int) -> bool:
+    """Mark the Linear that produces the logits (the serve graph's last
+    node) for LM-head gating (reference :167-181): ``lm_head_gated`` and
+    ``cost_logit_rows = max_requests``, which the cost model prices the
+    head at.  ``model``: a model or a list of shard models.  Returns
+    whether a Linear was marked: the guard ``gate_lm_head`` ANDs in."""
+    from ..ops.linear import Linear
+
+    marked = False
+    for m in model if isinstance(model, (list, tuple)) else [model]:
+        graph = getattr(m, "graph", None)
+        if not getattr(m, "gates_lm_head", False) or graph is None:
+            continue
+        path = graph.nodes[-1].module
+        mod = None if path is None else m.get_submodule(path)
+        if isinstance(mod, Linear):
+            mod.lm_head_gated = True
+            mod.cost_logit_rows = max_requests
+            marked = True
+    return marked
+
+
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     """``(h * c) mod 2**32`` for int64 tensors holding 32-bit values,
     split so no intermediate leaves int64."""
@@ -226,6 +273,12 @@ class InferenceManager:
         # a model whose parameters already lie on the device (another
         # manager's) needs only its caches: ``allocate_kv_cache``
         self._params_ready = True
+        # the capacities and the LM-head mark, on the modules the shards
+        # copy (reference :340-362), so the planner prices the deployment
+        register_serve_capacities(model, max_requests, max_seq_len,
+                                  max_spec_tokens, kv_dtype,
+                                  max_tokens_per_batch)
+        marked = gate_lm_head and mark_gated_lm_head(model, max_requests)
         if isinstance(model, (list, tuple)):
             shards = list(model)
             if (len(shards) != mesh.size
@@ -260,8 +313,7 @@ class InferenceManager:
         self._gate_lm_head = bool(gate_lm_head)
         # the LM head is marked for gating at construction only (reference
         # :358-361): the cost card prices a marked head per logit row
-        self.lm_head_marked = bool(gate_lm_head) and getattr(
-            self.model, "gates_lm_head", False)
+        self.lm_head_marked = bool(marked)
 
     @property
     def gate_lm_head(self) -> bool:

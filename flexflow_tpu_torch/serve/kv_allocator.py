@@ -208,6 +208,12 @@ class KVAllocator:
         """Position capacity of the slot-contiguous cache."""
         return self.max_requests * self.max_seq_len
 
+    def capacity_bytes(self) -> float:
+        """Byte capacity priced at :meth:`bytes_per_token` (reference
+        :271-275; token-slot units, 1.0 a token, where no price is
+        known)."""
+        return self.capacity_tokens * (self.bytes_per_token() or 1.0)
+
     def round_need(self, tokens: int) -> int:
         """Admission granularity of a cache need: exact positions here;
         the paged subclass rounds up to whole pages."""
@@ -262,7 +268,7 @@ class KVAllocator:
         per_tok = self.bytes_per_token() if _per_tok is None else _per_tok
         live = sum(self._live.values()) if _live is None else _live
         live_bytes = live * per_tok if per_tok else 0.0
-        cap_b = self.capacity_tokens * (per_tok or 1.0)
+        cap_b = self.capacity_bytes()
         bound = len(self._live)
         return {
             "live_tokens": live,

@@ -33,9 +33,13 @@ What the reference leaves out is left out here too: there is no
 ``prefill_scan`` (the request manager then prefills chunk by chunk through
 :meth:`PipelinedInferenceManager.step`), and ``SpecDecodeScan`` refuses a
 pipelined target (speculation runs through the host ``SpecInferManager``,
-its tree batches riding the chain whole).  ``build_stage_plans`` (the
-reference's per-stage PCG plans for the serve search) comes with the
-planner.
+its tree batches riding the chain whole).
+
+:func:`build_stage_plans` gives the serve planner (``search/
+serve_search.py``) one :class:`StageCost` record a stage, in place of the
+reference's per-stage PCG plans (the port has no PCG): the stage's
+shard-0 model priced at the capacities recorded on the model, and its
+tensor-parallel collectives.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from ..obs.profiler import NULL_PROFILER
 from ..obs.telemetry import NULL_TELEMETRY
 from ..ops.cuda.attention import check_page_size
 from ..parallel.comm import run_shards
-from ..parallel.tp import TPPlan, shard_model
+from ..parallel.tp import Collective, TPPlan, shard_model, tp_collectives
 from .batch_config import BatchConfig, InferenceResult, batch_to
 from .inference_manager import (
     EXIT_BUDGET,
@@ -62,8 +66,10 @@ from .inference_manager import (
     EXIT_RUNNING,
     init_random_params,
     load_params,
+    mark_gated_lm_head,
     param_layout,
     pick_prefill_tile,
+    register_serve_capacities,
     step_result,
 )
 from .kv_allocator import KVAllocator, padded_seq_len
@@ -158,6 +164,71 @@ def stage_model(model: torch.nn.Module, nodes, entry_tids, exit_tids,
                           exit_tids, last))
     _prune(sm, {id(op) for op in sm.span_ops() if op is not None})
     return sm
+
+
+@dataclasses.dataclass
+class StageCost:
+    """What one stage of a deployment costs one of its devices, for the
+    serve planner (the reference's stage plan, ``serve/pp.py:153-166``):
+    its mesh; the weight bytes it streams a pass and its flops at the
+    flat token batch, by family (``attention``, ``mlp``, ``lm_head``);
+    the committed KV bytes it reads a macro step (``KV_BUFFER_NAMES``);
+    its predicted memory parts (``serve/cost.py:memory_parts``); and its
+    tensor-parallel collectives with their bytes per device."""
+
+    mesh: object
+    weights: Dict[str, float]
+    flops: Dict[str, float]
+    kv_bytes: float
+    memory: Dict[str, float]
+    collectives: List[Collective]
+
+
+def build_stage_plans(model: torch.nn.Module, split, meshes,
+                      caps=None) -> List[StageCost]:
+    """One :class:`StageCost` a stage of ``split``
+    (:func:`serve_stage_split` of ``model.graph``), stage ``s`` over
+    ``meshes[s]`` (its ``{"tp": t}`` mesh; only its size matters): the
+    stage's model (:func:`stage_model`), sharded by the reference's
+    placement at ``t`` (``parallel/tp.py``), is priced through its
+    shard-0 model.  ``model`` lies on ``meta`` (``build_model``; nothing
+    is allocated, so a 70B shape prices on the CPU) and carries its
+    capacities (``register_serve_capacities``, and ``mark_gated_lm_head``
+    for a gated LM head); ``caps`` (``serve.cost.Capacities``) overrides
+    them."""
+    from .cost import (
+        family_weight_bytes,
+        heavy_flops,
+        kv_state_bytes,
+        memory_parts,
+        recorded_capacities,
+    )
+    from .kv_allocator import KV_BUFFER_NAMES
+
+    caps = caps or recorded_capacities(model)
+    if caps is None or not caps.max_tokens:
+        raise ValueError("the model carries no serve capacities: call "
+                         "register_serve_capacities(model, ..., "
+                         "max_tokens_per_batch=...) first")
+    out = []
+    for s, ((nodes, entry, exit_), mesh) in enumerate(zip(split, meshes)):
+        sm = (model if len(split) == 1
+              else stage_model(model, nodes, entry, exit_,
+                               s == len(split) - 1))
+        plan = TPPlan(sm, mesh.size)
+        # one device's model: a sliced copy at a degree above 1, the
+        # stage's model itself at 1 (left unmarked)
+        shard = shard_model(sm, plan, 0) if plan.degree > 1 else sm
+        fl = heavy_flops(shard, caps)
+        out.append(StageCost(
+            mesh=mesh,
+            weights=family_weight_bytes(shard, caps),
+            flops={f: fl[f] for f in ("attention", "mlp", "lm_head")},
+            kv_bytes=kv_state_bytes(shard, caps, names=KV_BUFFER_NAMES),
+            memory=memory_parts(shard, caps),
+            collectives=tp_collectives(model.graph, nodes, exit_, plan,
+                                       caps.max_tokens)))
+    return out
 
 
 class _Stage:
@@ -263,6 +334,10 @@ class PipelinedInferenceManager:
         # the global model (on meta): its config, graph and parameter
         # order; the stages hold the weights
         self.model = model
+        register_serve_capacities(model, max_requests, max_seq_len,
+                                  max_spec_tokens, kv_dtype,
+                                  max_tokens_per_batch)
+        marked = gate_lm_head and mark_gated_lm_head(model, max_requests)
         split = serve_stage_split(model.graph, self.pp)
         self.stage_meshes = mesh.stage_meshes()
         groups = []
@@ -297,8 +372,7 @@ class PipelinedInferenceManager:
         # by obs.replay.plan_key_of)
         self.stage_plans = self.stages
         self._gate_lm_head = bool(gate_lm_head)
-        self.lm_head_marked = bool(gate_lm_head) and getattr(
-            model, "gates_lm_head", False)
+        self.lm_head_marked = bool(marked)
         self._params_ready = False
 
     # ------------------------------------------------------------------

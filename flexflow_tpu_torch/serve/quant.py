@@ -3,8 +3,9 @@
 Port of ``flexflow_tpu/serve/quant.py``: weights are stored int8 with
 per-out-channel f32 scales beside them (``<name>_scale``) and dequantized to
 the compute dtype just before their product (``ops/linear.py``,
-``serve/ops.py``); the dequantized copy is transient.  The planner-only
-``annotate_int8`` waits for the planner slice.  A tensor-parallel
+``serve/ops.py``); the dequantized copy is transient.  The planner's
+``annotate_int8`` marks a model's weights as int8 without touching a
+tensor, for pricing before allocation.  A tensor-parallel
 manager's weights are quantized whole, as the reference quantizes its
 global arrays, then sliced again (``parallel/tp.py``): the scale of a
 row-sharded weight is the global one on every shard.
@@ -83,6 +84,33 @@ def quantize_int8(im, include: Optional[Sequence[str]] = None,
                           plan.local(key, q, r).contiguous().to(w.device),
                           plan.local(f"{key}_scale", scale, r).contiguous(
                           ).to(w.device))
+            n += 1
+    return n
+
+
+def annotate_int8(model: nn.Module, include: Optional[Sequence[str]] = None,
+                  attention: bool = True) -> int:
+    """Mark the weight matrices of ``model`` (a serve model, on ``meta``
+    or not) as int8 FOR CAPACITY PLANNING, touching no tensor (reference
+    :121-150): each Linear with a 2-D kernel and, with ``attention``,
+    each attention module gets ``quantization = "int8"``, which the
+    planner's memory parts (``serve/cost.py``) count at one byte an
+    element plus a float32 scale per output channel.  This is how a
+    7B-shape int8 deployment is budgeted before anything is allocated:
+    ``build_model``, ``annotate_int8``, ``register_serve_capacities(...,
+    kv_dtype="int8")``, then ``search_serve_plan``.  Same ``include`` and
+    ``attention`` rules as :func:`quantize_int8`; returns the number of
+    modules marked."""
+    n = 0
+    for name, mod in model.named_modules():
+        if include and not any(s in name for s in include):
+            continue
+        if isinstance(mod, Linear):
+            if mod.kernel.dim() == 2:
+                mod.quantization = "int8"
+                n += 1
+        elif attention and isinstance(mod, IncMultiHeadSelfAttention):
+            mod.quantization = "int8"
             n += 1
     return n
 

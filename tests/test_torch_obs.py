@@ -499,14 +499,25 @@ def test_llm_compile_hooks_equal_driving_the_managers():
 
 def test_calibration_store_never_reads_the_reference_store(monkeypatch,
                                                            tmp_path):
-    """The port has no default store: the JAX package's TPU-measured
-    artifact and its environment variable never reach it."""
+    """The port's default store is its own artifact: the JAX package's
+    TPU-measured store and its environment variable never reach it, and
+    its own variable redirects or (empty) disables it."""
+    import os
+
+    from flexflow_tpu.obs import calibration as jax_calibration
     from flexflow_tpu_torch.obs import calibration
 
     monkeypatch.setenv("FLEXFLOW_TPU_CALIBRATION_STORE",
                        str(tmp_path / "tpu.json"))
+    monkeypatch.delenv(calibration.STORE_ENV, raising=False)
+    assert calibration.default_store_path() == calibration.DEFAULT_STORE_PATH
+    assert calibration.DEFAULT_STORE_PATH.endswith(
+        os.path.join("artifacts", "torch_calibration_store.json"))
+    assert calibration.DEFAULT_STORE_PATH != jax_calibration.DEFAULT_STORE_PATH
+    monkeypatch.setenv(calibration.STORE_ENV, "")
     assert calibration.default_store_path() is None
-    assert calibration.DEFAULT_STORE_PATH is None
+    monkeypatch.setenv(calibration.STORE_ENV, str(tmp_path / "port.json"))
+    assert calibration.default_store_path() == str(tmp_path / "port.json")
     store = calibration.CalibrationStore.load()
     assert store.path is None and not store.components
     with pytest.raises(ValueError, match="path"):

@@ -20,7 +20,8 @@ deployments, on the CPU:
   a continuation;
 * the artifact's integrity stamps, the replay telemetry and
   ``tools/replay_report.py`` (``--check``, the summary, and
-  ``--what-if``, which needs the planner and says so).
+  ``--what-if``, priced by the planner's ``price_plan``;
+  ``test_torch_machine_model.py`` holds it to the reference's script).
 """
 
 import json
@@ -183,8 +184,8 @@ def mk_trace(side):
 
 
 def test_what_if_prices_as_the_reference():
-    """``what_if`` over a price dict (the planner is not ported; the
-    caller prices): the records, summary and outcome mix equal the
+    """``what_if`` over a price dict (here the caller's; the CLI takes the
+    planner's ``price_plan``): the records, summary and outcome mix equal the
     reference's for a fast and a slow candidate and a doubled fleet, and
     the diff takes ``tools/bench_compare.py``'s discipline."""
     harness = ReplayHarness(mk_trace("port"))
@@ -419,7 +420,8 @@ def test_healthy_replay_materializes_the_mismatch_counter():
 def test_replay_report_cli(tmp_path, capsys):
     """``--check`` exits 0 on a clean artifact and 1 on a tampered one;
     the summary is ``under_load_summary`` of the recorded outcomes;
-    ``--what-if`` refuses with the reason (no planner yet)."""
+    ``--what-if`` prices the candidate with the planner and runs it
+    through the what-if simulation."""
     path = tmp_path / "run.jsonl"
     recs, _ = record(PS.RequestManager(port_weights().im(), greedy()),
                      ARRIVALS, path)
@@ -438,7 +440,8 @@ def test_replay_report_cli(tmp_path, capsys):
         "".join(json.dumps(ln) + "\n" for ln in raw))
     assert replay_report.main(["--check", str(tmp_path / "bad.jsonl")]) == 1
     capsys.readouterr()
-    with pytest.raises(SystemExit) as exc:
-        replay_report.main([str(path), "--what-if", "tp1_pp2_m2"])
-    assert exc.value.code == 2
-    assert "planner" in capsys.readouterr().err
+    assert replay_report.main([str(path), "--what-if", "tp1_pp2_m2"]) == 0
+    doc = json.loads(capsys.readouterr().out)
+    [cand] = doc["what_if"]
+    assert cand["candidate"]["plan_key"] == "tp1_pp2_m2"
+    assert cand["summary"]["outcomes"] == {"ok": 3} and doc["diffs"] == []

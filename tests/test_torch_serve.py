@@ -339,9 +339,13 @@ def test_port_never_imports_jax_or_the_reference_package():
             "slo.py", "cost.py", "telemetry.py", "trace.py", "metrics.py",
             "calibration.py", "drift.py", "memory.py", "profiler.py",
             "plan_health.py", "report.py", "trace_report.py",
-            "bench_compare.py", "pp.py"} <= {f.name for f in files}
-    # the serve graph IR (core/) is scanned with the rest
-    assert {"core/graph.py", "core/interpreter.py"} <= {
+            "bench_compare.py", "pp.py", "machine_model.py",
+            "serve_search.py", "simulator.py", "measure.py"} <= {
+                f.name for f in files}
+    # the serve graph IR (core/) and the planner (search/) are scanned
+    # with the rest
+    assert {"core/graph.py", "core/interpreter.py",
+            "search/serve_search.py", "search/machine_model.py"} <= {
         f"{f.parent.name}/{f.name}" for f in files}
     for path in files:
         for mod, func in _imported_modules(path):
@@ -365,7 +369,9 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.tools.trace_report, "
             "flexflow_tpu_torch.tools.bench_compare, "
             "flexflow_tpu_torch.ops.cuda.attention, "
-            "flexflow_tpu_torch.core, flexflow_tpu_torch.serve.pp; "
+            "flexflow_tpu_torch.core, flexflow_tpu_torch.serve.pp, "
+            "flexflow_tpu_torch.search, flexflow_tpu_torch.search.measure, "
+            "flexflow_tpu_torch.tools.replay_report; "
             "bad = [m for m in sys.modules if m in ('jax', 'flexflow_tpu', "
             "'transformers') or m.startswith(('jax.', 'flexflow_tpu.', "
             "'transformers.'))]; "
