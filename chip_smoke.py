@@ -202,7 +202,18 @@ and prints no result):
    on ``meta`` at phase 7's capacities must choose ``tp1_pp1_m1``, its
    predicted TPOT and TTFT beside phase 7's measured ones and into a
    ``CalibrationLedger``; Llama-2-70B bf16 must be refused on one card
-   and fit 80 GB a stage on four (priced only).
+   and fit 80 GB a stage on four (priced only);
+20. searched strategy, two shards on the one card: (a) the 4-layer
+   float32 Llama of the 7B's widths served under ``strategy="search"``
+   (and through ``SpecInferManager``), the all-``sample`` dict the search
+   chooses at TINY widths, and a hand dict mixing ``sample``,
+   ``channel_out``, ``channel_in``, ``head`` and ``entry`` (an all-to-all
+   runs): each greedy stream equal to ``tp=1``'s, each shard launching K1
+   and K2 (K3 on the speculative run); (b) the bf16 Llama-2-7B at full
+   depth through ``InferenceManager(mesh=tp2 on one card,
+   strategy="search")``, 8 requests of 64 tokens: the searched dict, its
+   ``simulate`` total and ``plan_memory_bytes`` a device beside the
+   Megatron dict's, and the measured TTFT and TPOT.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -219,7 +230,8 @@ at 71 and 48 query heads per KV head, and, suffixed ``7b-tp2-shard``,
 the kernels at phase 17's shard-local shape with its launches over both
 shards and phase 18's ``pp=2 x tp=2`` launches: all four in float32, K1
 and K2 in bf16; suffixed ``7b-pp2``, phase 18's launches alone, beside
-the times of their shape)
+the times of their shape; phase 20's launches in the fp rows, f32 for
+(a) and bf16 for (b))
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
 device.
 """
@@ -3727,6 +3739,213 @@ def phase_planner(serve, torch, dev, ttft, tpot, card):
     return best, best70
 
 
+def sample_strategy(layers):
+    """The dict the search chooses for a TINY Llama at ``tp=2``:
+    ``sample`` (rows of the flat batch) on the attention, the MLP and the
+    LM head of every layer."""
+    tp = ("tp",)
+    out = {"lm_head": {"sample": tp}}
+    for i in range(layers):
+        for n in ("self_attn", "post_attention_layernorm", "mlp.gate_proj",
+                  "mlp.up_proj", "mlp.act", "mlp.down_proj"):
+            out[f"model.layers.{i}.{n}"] = {"sample": tp}
+    return out
+
+
+def mixed_strategy(layers):
+    """A hand dict: even layers Megatron's (``head``, ``channel_out``,
+    ``channel_in``), odd layers ``sample`` beside a ``channel_out`` up
+    projection (an all-to-all moves its split), the embedding split on
+    its vocabulary (``entry``), the LM head on its rows."""
+    tp = ("tp",)
+    out = {"model.embed_tokens": {"entry": tp}, "lm_head": {"sample": tp}}
+    for i in range(layers):
+        p = f"model.layers.{i}"
+        if i % 2 == 0:
+            out.update({f"{p}.self_attn": {"head": tp},
+                        f"{p}.mlp.gate_proj": {"channel_out": tp},
+                        f"{p}.mlp.up_proj": {"channel_out": tp},
+                        f"{p}.mlp.down_proj": {"channel_in": tp}})
+        else:
+            out.update({f"{p}.self_attn": {"sample": tp},
+                        f"{p}.mlp.gate_proj": {"sample": tp},
+                        f"{p}.mlp.up_proj": {"channel_out": tp},
+                        f"{p}.mlp.down_proj": {"sample": tp}})
+    return out
+
+
+def strategy_summary(im):
+    """The configs a plan's dict uses and its parallel steps, counted."""
+    cfgs = collections.Counter(k for v in im.strategy.values() for k in v)
+    steps = collections.Counter(s.node.op.type_name for s in im.plan.steps
+                                if s.is_parallel)
+    return dict(cfgs), dict(steps)
+
+
+def phase_searched_strategy(serve, att, torch, dev, card):
+    """Phase 20: serving under a searched strategy and under hand dicts,
+    two shards on the one card.  (a) float32 parity with ``tp=1``; (b)
+    the bf16 7B under ``strategy="search"``, its priced and its measured
+    costs.  Returns the launches summed over the shards: ``"f32"`` of
+    (a), ``"bf16"`` of (b)."""
+    import gc
+
+    import numpy as np
+
+    from flexflow_tpu_torch import search
+    from flexflow_tpu_torch.core.pcg import PCG, serve_graph
+    from flexflow_tpu_torch.parallel import make_mesh
+    from flexflow_tpu_torch.parallel.tp import tensor_parallel_strategy
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh2 = make_mesh({"tp": 2}, [dev, dev])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(max_requests=2, max_tokens_per_batch=128, max_seq_len=1024,
+              max_spec_tokens=8)
+    cfg = serve.ServeModelConfig(num_hidden_layers=4, dtype="float32")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in (560, 200)]
+    gen = serve.GenerationConfig(max_new_tokens=16)
+
+    def deploy(strategy, c=cfg, seed=1, topk=0, one=False):
+        im = serve.InferenceManager(
+            serve.build_model(c), topk=topk, **kw,
+            **(dict(device=dev) if one else dict(mesh=mesh2,
+                                                 strategy=strategy)))
+        return im.init_operators_inference(seed=seed)
+
+    t0 = time.perf_counter()
+    one = deploy(None, one=True)
+    want = serve.RequestManager(one, gen).generate(prompts)
+    ssm = deploy(None, draft_config(serve, "float32"), 2, topk=2, one=True)
+    want_spec = serve.SpecInferManager(one, ssm, gen, width=2,
+                                       depth=3).generate(prompts)
+    del one
+    gc.collect()
+    f32 = collections.Counter()
+    for label, strategy in (("search", "search"),
+                            ("sample", sample_strategy(4)),
+                            ("mixed", mixed_strategy(4))):
+        t1 = time.perf_counter()
+        im = deploy(strategy)
+        t_build = time.perf_counter() - t1
+        probes = shard_probe(att, im.shards)
+        calls0 = im.mesh.comm.calls["local"]
+        paths = [("incremental", lambda: serve.RequestManager(
+            im, gen).generate(prompts), want,
+            ("decode_attention", "prefill_attention"))]
+        if label == "search":
+            paths.append(("spec host", lambda: serve.SpecInferManager(
+                im, ssm, gen, width=2, depth=3).generate(prompts),
+                want_spec, ("prefill_attention", "tree_attention")))
+        for path, fn, ref, names in paths:
+            im.reset()
+            ssm.reset()
+            for c in probes:
+                c.clear()
+            got, _ = counted(att, fn)
+            if got != ref:
+                raise AssertionError(f"searched strategy (a) {label} "
+                                     f"{path}: {got} != tp=1 {ref}")
+            for rank, c in enumerate(probes):
+                require_launches(collections.Counter(c), f"strategy "
+                                 f"{label} {path} shard {rank}", "fp",
+                                 names)
+                f32.update(c)
+            log(f"searched strategy (a) {label} {path}: tp=2 == tp=1 "
+                f"({got[0][:4]}...); launches per shard " + " | ".join(
+                    str(short(c)) for c in probes))
+        cfgs, steps = strategy_summary(im)
+        log(f"searched strategy (a) {label}: built in {t_build:.1f}s, "
+            f"configs {cfgs}, parallel steps {steps}, collective calls "
+            f"{im.mesh.comm.calls['local'] - calls0}")
+        if label == "search":
+            log(f"searched strategy (a) search dict: {im.strategy}")
+        del im
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ssm
+    log(f"searched strategy (a) done in {time.perf_counter() - t0:.1f}s")
+
+    # (b) the bf16 7B at full depth, searched on the card's machine model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = serve.ServeModelConfig(dtype="bfloat16", eos_token_id=None)
+    caps = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048)
+    t0 = time.perf_counter()
+    im = serve.InferenceManager(serve.build_model(cfg), mesh=mesh2,
+                                strategy="search", **caps)
+    t_search = time.perf_counter() - t0
+    im.init_operators_inference(seed=3)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    mm = serve.inference_manager.default_machine(mesh2)
+    priced = serve.build_model(cfg)
+    serve.register_serve_capacities(priced, 8, 2048, 0,
+                                    max_tokens_per_batch=512)
+    serve.mark_gated_lm_head(priced, 8)
+    graph = serve_graph(priced, 512)
+    costs = {}
+    for label, strategy in (("searched", im.strategy),
+                            ("megatron", tensor_parallel_strategy(priced, 2)),
+                            ("none", {})):
+        plan = PCG(graph, mesh2, strategy).plan()
+        costs[label] = (search.simulate(plan, mm).total * 1e3,
+                        search.plan_memory_bytes(plan) / 1e9)
+    cfgs, steps = strategy_summary(im)
+    log(f"searched strategy (b): bf16 7B (32 layers, 4096 hidden, 32 "
+        f"heads) searched on {mm.spec.name} (mxu_efficiency "
+        f"{mm.spec.mxu_efficiency:.4f}) in {t_search:.1f}s, built in "
+        f"{t_init:.1f}s; configs {cfgs}, parallel steps {steps}")
+    log(f"searched strategy (b) dict: {im.strategy}")
+    for label, (ms, gb) in costs.items():
+        log(f"searched strategy (b) {label}: simulate total {ms:.4f} ms a "
+            f"step of 512 rows, plan_memory_bytes {gb:.3f} GB a device")
+    prompts = serve_prompts(cfg.vocab_size)
+    rm = serve.RequestManager(im, serve.GenerationConfig(max_new_tokens=64))
+    stamps = {}
+    inner = rm._append_token
+
+    def stamped(req, tok):
+        inner(req, tok)
+        stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+    rm._append_token = stamped
+    calls0 = im.mesh.comm.calls["local"]
+    t0 = time.perf_counter()
+    outs, n = counted(att, lambda: rm.generate(prompts))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_streams(outs, 64, cfg.vocab_size, "searched 7B")
+    require_launches(n, "searched 7B", "fp",
+                     ("decode_attention", "prefill_attention"))
+    ttft, tpot = stream_times(stamps, t0)
+    mean_tpot = sum(tpot) / len(tpot)
+    w = [sum(p.numel() * p.element_size() for p in m.parameters())
+         for m in im.shards]
+    log(f"searched strategy (b) on {card}: 8 requests x 64 tokens, wall "
+        f"{wall:.2f}s, mean TTFT {sum(ttft) / len(ttft):.4f}s, mean TPOT "
+        f"{mean_tpot:.3f} ms; measured TPOT / simulated step "
+        f"{mean_tpot / costs['searched'][0]:.2f}; weights per shard GB "
+        f"{[round(x / 1e9, 3) for x in w]}, KV per shard "
+        f"{im.kv.allocated_bytes(per_device=True) / 1e9:.3f} GB; collective "
+        f"calls {im.mesh.comm.calls['local'] - calls0}; launches {short(n)}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    log("searched strategy (b): TTFT s " + " ".join(
+        f"{x:.4f}" for x in ttft) + " | TPOT ms " + " ".join(
+        f"{x:.3f}" for x in tpot))
+    rm._append_token = inner
+    del rm, im
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"f32": f32, "bf16": collections.Counter(n)}
+
+
 def tc_reports(text):
     """(kernel, "registers, shared memory, spills") of each tensor-core
     kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
@@ -3829,6 +4048,8 @@ def main():
         serve, att, torch, dev))
     timed("planner", lambda: phase_planner(serve, torch, dev, ttft, tpot,
                                            card))
+    searched = timed("searched strategy", lambda: phase_searched_strategy(
+        serve, att, torch, dev, card))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)
@@ -3850,17 +4071,22 @@ def main():
     # and K2, K3 per-token on the speculative deployment before and after
     # its move to pages); f32 fp and bf16 fp add phase 18's pipelined runs
     # at the 7B's heads (every stage's launches), which the 7b-pp2 rows
-    # also show alone
+    # also show alone, and phase 20's runs under searched and hand
+    # strategies (both shards' launches: a head-sharded layer's at the
+    # shard's heads, the others at the 7B's)
     def path_counts_f32(var):
         if var == "fp":
             return {"decode_attention": plus(f32["incremental"],
                                              api["chained"], mixed["mixed"],
-                                             fleet, pp["f32"]),
+                                             fleet, pp["f32"],
+                                             searched["f32"]),
                     "prefill_attention": plus(f32["incremental"],
                                               api["chained"], mixed["mixed"],
-                                              fleet, pp["f32"]),
+                                              fleet, pp["f32"],
+                                              searched["f32"]),
                     "tree_attention": plus(f32["spec host"], api["spec"],
-                                           mixed["mixed"], fleet, pp["f32"]),
+                                           mixed["mixed"], fleet, pp["f32"],
+                                           searched["f32"]),
                     "tree_attention_batched": plus(f32["spec device"],
                                                    mixed["scan"])}
         counts = {"decode_attention": parity[var]["incremental"],
@@ -3879,10 +4105,10 @@ def main():
             # and its speculative run
             return {"decode_attention": plus(launches["incremental"],
                                              control["incremental"],
-                                             pp["bf16"]),
+                                             pp["bf16"], searched["bf16"]),
                     "prefill_attention": plus(launches["incremental"],
                                               control["incremental"],
-                                              pp["bf16"]),
+                                              pp["bf16"], searched["bf16"]),
                     "tree_attention": plus(launches["spec host"],
                                            control["spec"]),
                     "tree_attention_batched": launches["spec device"]}

@@ -16,7 +16,7 @@ batch capacity.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,15 +34,42 @@ class TensorSpec:
     def ndim(self) -> int:
         return len(self.shape)
 
-    def nbytes(self, rows: int) -> int:
-        """Bytes of the tensor at a flat batch of ``rows`` tokens."""
+    @property
+    def itemsize(self) -> int:
+        return torch.empty((), dtype=self.dtype).element_size()
+
+    @property
+    def size(self) -> int:
+        """Elements of a concrete spec (no token axis left)."""
         n = 1
         for d in self.shape:
-            n *= rows if d == TOKENS else d
-        return n * torch.empty((), dtype=self.dtype).element_size()
+            n *= d
+        return n
+
+    def resolve(self, rows: int) -> "TensorSpec":
+        """The concrete spec at a flat batch of ``rows`` tokens."""
+        return TensorSpec(tuple(rows if d == TOKENS else d
+                                for d in self.shape), self.dtype)
+
+    def nbytes(self, rows: Optional[int] = None) -> int:
+        """Bytes of the tensor at a flat batch of ``rows`` tokens (None: a
+        concrete spec)."""
+        spec = self if rows is None else self.resolve(rows)
+        return spec.size * self.itemsize
 
     def __str__(self) -> str:
         return f"{str(self.dtype).replace('torch.', '')}{list(self.shape)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """A weight owned by a node: its name and global spec (reference
+    :42)."""
+
+    name: str
+    spec: TensorSpec
+    initializer: object = None
+    trainable: bool = True
 
 
 @dataclasses.dataclass
@@ -50,7 +77,10 @@ class Node:
     """One operator instance: ``run(op, ctx, *inputs)``, with ``op`` the
     module at ``module`` in the model that runs the node, returns the
     outputs (a tuple when there are several), or is a generator that
-    yields the op's collectives and returns them."""
+    yields the op's collectives and returns them.  ``op`` is the node's
+    op IR (``core/op.py``) where the graph carries it: a module-free
+    node's own (the add's), or the module bound by ``core/pcg.py``'s
+    view of a model; a plan's parallel step holds its parallel op."""
 
     nid: int
     name: str
@@ -59,6 +89,7 @@ class Node:
     inputs: List[int]            # tensor ids
     outputs: List[int]           # tensor ids
     run: Optional[Callable] = None
+    op: Any = None
 
     def __repr__(self) -> str:
         ins = ",".join(f"t{t}" for t in self.inputs)
@@ -94,7 +125,7 @@ class Graph:
     def add_node(self, module: Optional[str], kind: str,
                  inputs: Sequence[int], name: str,
                  out_specs: Sequence[TensorSpec],
-                 run: Optional[Callable] = None) -> List[int]:
+                 run: Optional[Callable] = None, op=None) -> List[int]:
         """Append a node reading ``inputs`` and producing one tensor per
         entry of ``out_specs``; returns the new tensor ids."""
         for t in inputs:
@@ -103,7 +134,7 @@ class Graph:
         nid = len(self.nodes)
         outs = [self._new_tensor(s) for s in out_specs]
         self.nodes.append(Node(nid, self.unique_name(name), module, kind,
-                               list(inputs), outs, run))
+                               list(inputs), outs, run, op))
         for i, tid in enumerate(outs):
             self.producer[tid] = (nid, i)
         return outs

@@ -7,8 +7,9 @@ nodes one by one.  :func:`run_nodes` is a generator: each node's
 collectives (``parallel/comm.py``) pass through it, so a tensor-parallel
 manager steps one generator per shard in lockstep exactly as it steps a
 whole model, and pipeline stages run contiguous node ranges of one graph.
-The reference's SPMD placement machinery (``core/op.py``, ``core/pcg.py``)
-has its counterpart in ``parallel/tp.py``'s ``TPPlan``.
+A shard runs its plan's steps (``parallel/tp.py:PlanExecutor``) as such
+a node range: each op step its graph node over value ids, each parallel
+step a node that yields its collective.
 """
 
 from __future__ import annotations
@@ -23,12 +24,14 @@ import torch
 @dataclasses.dataclass
 class StepContext:
     """What a step's nodes read besides their inputs: the batch config,
-    the stage's KV state (``{layer: {buffer: tensor}}``) and the page
-    table of a paged cache (None: slot-contiguous)."""
+    the stage's KV state (``{layer: {buffer: tensor}}``), the page
+    table of a paged cache (None: slot-contiguous) and the shard's rank
+    on its mesh."""
 
     bc: Any
     state: Dict[str, Dict[str, torch.Tensor]]
     pages: Optional[Any] = None
+    rank: int = 0
 
     @property
     def base(self):

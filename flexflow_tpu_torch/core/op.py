@@ -1,0 +1,107 @@
+"""The op IR: what the planner asks of each operator.
+
+Port of the IR half of ``flexflow_tpu/core/op.py`` (``ShardingSolution``
+:58, ``Op`` :89-130 and its cost hints, the registry): the declarative
+description of which logical dimensions an op can be parallelized over
+(``parallel_dims``) and, for a parallel config ``{parallel dim: (mesh
+axes)}``, which shardings its inputs, parameters and outputs take
+(``apply_config``), as the SOAP dimensions of the MLSys'19 paper.  The
+PCG (``core/pcg.py``) inserts the parallel ops wherever a producer's
+sharding differs from a consumer's requirement.
+
+The reference's ``lower``/``OpContext`` half stays out: the port's
+``nn.Module``\\ s compute, and the plan executor (``parallel/tp.py``)
+gives each one its shard.  The serve modules take :class:`Op` as a mixin
+beside ``nn.Module`` (``ops/linear.py``, ``ops/embedding.py``,
+``ops/norm.py``, ``serve/ops.py``); a module-free node carries its own
+(``ops/elementwise.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+from .graph import ParamSpec, TensorSpec
+from .sharding import TensorSharding
+
+Config = Dict[str, Tuple[str, ...]]
+
+
+@dataclasses.dataclass
+class ShardingSolution:
+    """What ``Op.apply_config`` gives: the sharding each input must
+    arrive in, the shardings the outputs come out in, and the parameters'
+    (a parameter not listed is replicated)."""
+
+    inputs: List[TensorSharding]
+    outputs: List[TensorSharding]
+    params: Dict[str, TensorSharding] = dataclasses.field(
+        default_factory=dict)
+
+
+class Op:
+    """The IR of one operator.  Subclasses set ``type_name`` (the
+    reference op's) and implement the hooks."""
+
+    type_name: str = "op"
+
+    def infer_shapes(self, in_specs: List[TensorSpec]) -> List[TensorSpec]:
+        raise NotImplementedError
+
+    def params(self) -> List[ParamSpec]:
+        return []
+
+    def parallel_dims(self, in_specs: List[TensorSpec]) -> Dict[str, int]:
+        """Named shardable parallel dims -> global extent; by default the
+        leading (sample) dim of the first input."""
+        if in_specs and in_specs[0].ndim >= 1:
+            return {"sample": in_specs[0].shape[0]}
+        return {}
+
+    def apply_config(self, config: Config, in_specs: List[TensorSpec], mesh,
+                     in_shardings: Optional[List[Optional[TensorSharding]]]
+                     = None) -> ShardingSolution:
+        """Map a parallel config to tensor shardings.  ``in_shardings``
+        carries the producers' shardings (None for graph inputs), so a
+        propagating op can adopt them.  By default ``sample`` splits dim
+        0 of every input and output; parameters are replicated."""
+        sample_axes = tuple(config.get("sample", ()))
+        out_specs = self.infer_shapes(list(in_specs))
+
+        def sh(spec):
+            s = TensorSharding.replicated(spec.ndim)
+            if sample_axes and spec.ndim >= 1:
+                s = s.with_dim(0, sample_axes)
+            return s
+
+        return ShardingSolution(inputs=[sh(s) for s in in_specs],
+                                outputs=[sh(s) for s in out_specs])
+
+    def flops(self, in_specs: List[TensorSpec]) -> int:
+        """Approximate forward flops; by default one per output
+        element."""
+        return sum(s.size for s in self.infer_shapes(list(in_specs)))
+
+    def is_parallel_op(self) -> bool:
+        return False
+
+    def attr_signature(self) -> Tuple:
+        """A hashable signature of the op's scalar attributes (the key of
+        a measured cost)."""
+        items = []
+        for k, v in sorted(vars(self).items()):
+            if k.startswith("_"):
+                continue
+            if isinstance(v, (int, float, str, bool, tuple, type(None))):
+                items.append((k, v))
+        return (self.type_name, tuple(items))
+
+
+# op type name -> class, for strategy and serialisation round trips
+OP_REGISTRY: Dict[str, type] = {}
+
+
+def register_op(cls):
+    OP_REGISTRY[cls.type_name] = cls
+    return cls

@@ -20,11 +20,16 @@ dtype than the compute dtype, ``LLM.compile(dtype=...)``) is cast to x's
 dtype at use, as the reference's product promotes it: a bf16 kernel
 under f32 compute is an f32 product of the same values.
 
-Under tensor parallelism (``parallel/tp.py``) ``tp_mode`` places the
-layer: ``"col"`` holds a slice of the output columns (and of the bias),
-``"row"`` a slice of the input rows, whose product is a partial sum.
-:meth:`Linear.gen` yields the collectives that placement needs (see
-``parallel/comm.py``); ``forward`` is the layer alone.
+The op IR (reference :128-175, ``core/op.py``): ``parallel_dims``
+``sample`` (the token rows), ``channel_out`` (column-parallel: the
+kernel and bias split on their output dim, the output on its last dim)
+and ``channel_in`` (row-parallel: the input and the kernel split on the
+contracted dim, the output a partial sum), ``apply_config`` and
+``flops`` (an LM head marked for gating, ``cost_logit_rows``, priced at
+that many rows).  Under a plan (``parallel/tp.py``) a shard's layer holds
+its slice of the kernel and bias and computes on its block of the input;
+a partial output takes the bias on rank 0 only (``bias_once``, reference
+``core/op.py:bias_once``), so the sum counts it once.
 """
 
 from __future__ import annotations
@@ -34,6 +39,10 @@ from typing import Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ..core.graph import ParamSpec, TensorSpec
+from ..core.op import Op, ShardingSolution, register_op
+from ..core.sharding import TensorSharding
 
 ACTIVATIONS = {
     "relu": F.relu,
@@ -62,8 +71,16 @@ def add_bias(y: torch.Tensor, bias: Optional[torch.Tensor],
     return out.to(y.dtype)
 
 
-class Linear(nn.Module):
-    tp_mode = None   # "col" | "row": set by parallel.tp.shard_model
+@register_op
+class Linear(Op, nn.Module):
+    type_name = "linear"
+    # a partial output on a rank other than 0: no bias; the shards a
+    # ``sample`` config splits the rows over (parallel/tp.py)
+    skip_bias = False
+    row_shards = 1
+    # LM-head gating: set by serve.mark_gated_lm_head on the logits' Linear
+    lm_head_gated = False
+    cost_logit_rows: Optional[int] = None
 
     def __init__(self, in_dim: int, out_dim: int,
                  dtype: torch.dtype = torch.float32, device=None,
@@ -74,6 +91,7 @@ class Linear(nn.Module):
             raise ValueError(f"unknown activation {activation!r}; known: "
                              f"{sorted(ACTIVATIONS)}")
         self.activation = activation
+        self.compute_dtype = dtype
         self.kernel = nn.Parameter(
             torch.empty(in_dim, out_dim, dtype=dtype, device=device),
             requires_grad=False)
@@ -88,25 +106,90 @@ class Linear(nn.Module):
             self.kernel, getattr(self, "kernel_scale", None), x.dtype))
 
     def finish(self, y: torch.Tensor) -> torch.Tensor:
-        """The bias and activation on the whole product ``y``."""
-        if self.bias is None and self.activation is None:
+        """The bias and activation on the product ``y``."""
+        bias = None if self.skip_bias else self.bias
+        if bias is None and self.activation is None:
             return y
-        return add_bias(y, self.bias, self.activation)
+        return add_bias(y, bias, self.activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.finish(self.product(x))
 
-    def gen(self, x: torch.Tensor, out: str = "full"):
-        """The layer as a generator of its collectives.  Row-sharded: the
-        partial product is all-reduced, then the bias and activation
-        apply once.  Column-sharded: ``out`` says who needs the output
-        whole: ``"full"`` every shard (all-gather), ``"first"`` shard 0
-        only (the logits: the other shards get None), ``"local"`` nobody
-        (the row-sharded layer it feeds takes the slice).  A layer that is
-        not sharded yields nothing."""
-        if self.tp_mode == "row":
-            return self.finish((yield ("all_reduce", self.product(x))))
-        y = self(x)
-        if self.tp_mode == "col" and out != "local":
-            y = yield ("all_gather" if out == "full" else "gather", y)
-        return y
+    # ---- op IR (reference :70-175) --------------------------------------
+    @property
+    def in_dim(self) -> int:
+        return self.kernel.shape[0]
+
+    @property
+    def out_dim(self) -> int:
+        return self.kernel.shape[1]
+
+    @property
+    def use_bias(self) -> bool:
+        return self.bias is not None
+
+    def infer_shapes(self, in_specs):
+        x = in_specs[0]
+        if self.in_dim != x.shape[-1]:
+            raise ValueError(f"linear expects in_dim {self.in_dim}, got "
+                             f"{x.shape[-1]}")
+        return [TensorSpec(tuple(x.shape[:-1]) + (self.out_dim,),
+                           self.compute_dtype)]
+
+    def params(self):
+        ps = [ParamSpec("kernel", TensorSpec((self.in_dim, self.out_dim),
+                                             self.compute_dtype))]
+        if self.use_bias:
+            ps.append(ParamSpec("bias", TensorSpec((self.out_dim,),
+                                                   self.compute_dtype)))
+        return ps
+
+    def parallel_dims(self, in_specs):
+        return {"sample": in_specs[0].shape[0],
+                "channel_out": self.out_dim,
+                "channel_in": in_specs[0].shape[-1]}
+
+    def apply_config(self, config, in_specs, mesh, in_shardings=None):
+        x = in_specs[0]
+        sample = tuple(config.get("sample", ()))
+        c_out = tuple(config.get("channel_out", ()))
+        c_in = tuple(config.get("channel_in", ()))
+        if c_in and self.activation is not None:
+            raise ValueError("channel_in (row-parallel) sharding is "
+                             "incompatible with a fused activation: the "
+                             "output is a partial sum")
+        x_sh = TensorSharding.replicated(x.ndim)
+        if sample:
+            x_sh = x_sh.with_dim(0, sample)
+        if c_in:
+            x_sh = x_sh.with_dim(x.ndim - 1, c_in)
+        kernel_sh = TensorSharding.replicated(2)
+        if c_in:
+            kernel_sh = kernel_sh.with_dim(0, c_in)
+        if c_out:
+            kernel_sh = kernel_sh.with_dim(1, c_out)
+        out_sh = TensorSharding.replicated(x.ndim)
+        if sample:
+            out_sh = out_sh.with_dim(0, sample)
+        if c_out:
+            out_sh = out_sh.with_dim(x.ndim - 1, c_out)
+        if c_in:
+            out_sh = out_sh.with_partial(c_in)
+        params = {"kernel": kernel_sh}
+        if self.use_bias:
+            bias_sh = TensorSharding.replicated(1)
+            if c_out:
+                bias_sh = bias_sh.with_dim(0, c_out)
+            params["bias"] = bias_sh
+        return ShardingSolution(inputs=[x_sh], outputs=[out_sh],
+                                params=params)
+
+    def flops(self, in_specs):
+        x = in_specs[0]
+        batch = 1
+        for d in x.shape[:-1]:
+            batch *= d
+        if self.cost_logit_rows is not None:
+            # a gated LM head computes at most cost_logit_rows rows
+            batch = min(batch, self.cost_logit_rows)
+        return 2 * batch * x.shape[-1] * self.out_dim

@@ -5,6 +5,13 @@ Port of ``flexflow_tpu/ops/norm.py`` (``_layer_norm`` :33, ``LayerNorm``
 ``SigmoidSiluMulti`` :231).  The normalisation is computed in float32 and
 cast back to the input's dtype at the same place the reference casts, so
 bf16 models round where the reference rounds.
+
+The op IR (reference :27, :84-306): a normalisation reduces over the last
+(feature) dim, so that dim must be whole and not partial, and the
+leading dims propagate their producer's split (``_norm_sharding``); the
+SwiGLU junction is elementwise and propagates its first input's
+sharding to both inputs and its output.  Their configs change nothing
+else: a norm given a ``sample`` config runs on whatever rows reach it.
 """
 
 from __future__ import annotations
@@ -14,6 +21,19 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ..core.graph import ParamSpec, TensorSpec
+from ..core.op import Op, ShardingSolution, register_op
+from ..core.sharding import TensorSharding
+from .elementwise import propagate
+
+
+def _norm_sharding(spec: TensorSpec, in_sh) -> TensorSharding:
+    """The producer's sharding, no partial sum, the feature dim whole
+    (reference :27)."""
+    sh = propagate(in_sh, spec)
+    sh = TensorSharding(sh.dims, frozenset())
+    return sh.with_dim(spec.ndim - 1, ())
 
 
 def layer_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
@@ -52,13 +72,48 @@ def sigmoid_silu_multi(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return F.silu(x1) * x2
 
 
-class LayerNorm(nn.Module):
+class _NormIR(Op):
+    """The op IR the norms share: one input (the residual norm: two), its
+    sharding propagated with the feature dim whole."""
+
+    n_out = 1
+    flops_per_element = None   # None: one per output element
+
+    def infer_shapes(self, in_specs):
+        return [in_specs[0]] * self.n_out
+
+    def params(self):
+        ps = [ParamSpec("gamma", TensorSpec((self.dim,), self.compute_dtype))]
+        if getattr(self, "beta", None) is not None:
+            ps.append(ParamSpec("beta", TensorSpec((self.dim,),
+                                                   self.compute_dtype)))
+        return ps
+
+    def apply_config(self, config, in_specs, mesh, in_shardings=None):
+        sh = _norm_sharding(in_specs[0],
+                            in_shardings[0] if in_shardings else None)
+        return ShardingSolution(inputs=[sh] * len(in_specs),
+                                outputs=[sh] * self.n_out)
+
+    def flops(self, in_specs):
+        if self.flops_per_element is None:
+            return super().flops(in_specs)
+        return self.flops_per_element * in_specs[0].size
+
+
+@register_op
+class LayerNorm(_NormIR, nn.Module):
     """Affine LayerNorm with gain ``gamma`` and, with ``use_bias``, shift
     ``beta`` (MPT's norms have none)."""
+
+    type_name = "layer_norm"
+    flops_per_element = 8
 
     def __init__(self, dim: int, eps: float = 1e-5, use_bias: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.dim = int(dim)
+        self.compute_dtype = dtype
         self.eps = float(eps)
         self.gamma = nn.Parameter(
             torch.ones(dim, dtype=dtype, device=device), requires_grad=False)
@@ -71,10 +126,16 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.gamma, self.beta, self.eps)
 
 
-class RMSNorm(nn.Module):
+@register_op
+class RMSNorm(_NormIR, nn.Module):
+    type_name = "rms_norm"
+    flops_per_element = 5
+
     def __init__(self, dim: int, eps: float = 1e-6,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.dim = int(dim)
+        self.compute_dtype = dtype
         self.eps = float(eps)
         self.gamma = nn.Parameter(
             torch.ones(dim, dtype=dtype, device=device), requires_grad=False)
@@ -83,13 +144,33 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.gamma, self.eps)
 
 
+@register_op
 class ResidualRMSNorm(RMSNorm):
     """Returns ``(residual_sum, normed)`` like the reference op."""
+
+    type_name = "residual_rms_norm"
+    n_out = 2
+    flops_per_element = None
 
     def forward(self, x, residual):
         return residual_rms_norm(x, residual, self.gamma, self.eps)
 
 
-class SigmoidSiluMulti(nn.Module):
+@register_op
+class SigmoidSiluMulti(Op, nn.Module):
+    type_name = "sigmoid_silu_multi"
+
     def forward(self, x1, x2):
         return sigmoid_silu_multi(x1, x2)
+
+    def infer_shapes(self, in_specs):
+        return [in_specs[0]]
+
+    def apply_config(self, config, in_specs, mesh, in_shardings=None):
+        sh = propagate(in_shardings[0] if in_shardings else None,
+                       in_specs[0])
+        sh = TensorSharding(sh.dims, frozenset())
+        return ShardingSolution(inputs=[sh, sh], outputs=[sh])
+
+    def flops(self, in_specs):
+        return 5 * in_specs[0].size

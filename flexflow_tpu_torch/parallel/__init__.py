@@ -2,9 +2,10 @@
 
 One controller drives every shard (reference: one jitted program over a
 ``jax.sharding.Mesh``): :mod:`.mesh` names the devices, :mod:`.comm` is
-the collectives GSPMD inserts in the reference, and :mod:`.tp` the
-Megatron placement (``tensor_parallel_strategy``) and the shard-local
-models it makes.
+the collectives GSPMD inserts in the reference, :mod:`.parallel_ops` the
+PCG's parallel ops (priced, and run on a shard's block), and :mod:`.tp`
+the plan executor (the shard-local models a PCG plan gives, under any
+strategy dict; ``tensor_parallel_strategy`` is the Megatron one).
 """
 
 from .comm import Comm, run_local, run_shards

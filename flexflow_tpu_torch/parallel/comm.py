@@ -1,23 +1,27 @@
 """The collectives of tensor-parallel serving, and the lockstep driver.
 
 In the reference the shards are one SPMD program and GSPMD inserts the
-collectives (``flexflow_tpu/serve/inference_manager.py:42-80`` places the
-weights; XLA adds an all-reduce after each row-sharded product and an
-all-gather where a column-sharded output meets an op that needs the whole
-dimension).  Here one controller holds one model per shard, and each
-family's forward is a generator that yields at those points: ``("all_reduce",
-t)`` for a partial sum, ``("all_gather", t)`` for a column-sharded output
-every shard needs whole, ``("gather", t)`` for one that only shard 0 needs
-(the logits: sampling runs there).  :func:`run_shards` steps the shards'
-generators in lockstep and answers each round with one :class:`Comm` call;
-:func:`run_local` answers a lone model's yields with the identity, so one
-forward serves ``tp=1`` and ``tp>1``.
+collectives a plan's parallel ops constrain.  Here one controller holds
+one model per shard, and each shard runs its plan's steps
+(``parallel/tp.py:PlanExecutor``) as a generator that yields at each
+parallel step's collective: ``("all_reduce", t)`` for a partial sum,
+``("all_gather", t, dim)`` for a split every shard needs whole,
+``("gather", t, dim)`` for one that only shard 0 needs (a range's exit
+tensors: the logits, sampled there, and a stage's activations, sent on
+from there).  :func:`run_shards` steps the shards' generators in lockstep
+and answers each round with one :class:`Comm` call; :func:`run_local`
+answers a lone model's yields with the identity, so one forward serves
+``tp=1`` and ``tp>1``.  A split may be ragged (a flat batch's rows, the
+remainder on the low ranks): the gathers concatenate blocks of any
+length.
 
 :class:`Comm` has two implementations, fixed when the mesh is built and
 never swapped at run time:
 
 * ``"nccl"``: shards on distinct CUDA devices, single-process NCCL over
-  the device list (``torch.cuda.nccl``), one call per collective;
+  the device list (``torch.cuda.nccl``), one call per collective (a
+  ragged all-gather pads each block to the longest and cuts the pads
+  off after);
 * ``"local"``: shards that share a device, or live on the CPU: the shards'
   tensors are summed (or concatenated) in rank order on the first shard's
   device, and the result is copied to each shard, so every shard holds the
@@ -73,11 +77,21 @@ class Comm:
         self._check(tensors)
         self.calls[self.kind] += 1
         if self.kind == "nccl":
-            src = [t.contiguous() for t in tensors]
+            lens = [t.shape[dim] for t in tensors]
+            top = max(lens)
+            src = []
+            for t in tensors:
+                if t.shape[dim] < top:
+                    pad = list(t.shape)
+                    pad[dim] = top - t.shape[dim]
+                    t = torch.cat([t, t.new_zeros(pad)], dim=dim)
+                src.append(t.contiguous())
             out = [torch.empty((len(src),) + tuple(t.shape), dtype=t.dtype,
                                device=t.device) for t in src]
             torch.cuda.nccl.all_gather(src, out)
-            return [torch.cat(o.unbind(0), dim=dim) for o in out]
+            return [torch.cat([b.narrow(dim, 0, n) for b, n in
+                               zip(o.unbind(0), lens)], dim=dim)
+                    for o in out]
         dev0 = self.devices[0]
         return self._to_shards(torch.cat([t.to(dev0) for t in tensors],
                                          dim=dim))
@@ -133,8 +147,9 @@ def run_shards(gens: Sequence[Collectives], comm: Comm) -> list:
                 raise RuntimeError("tensor-parallel shards left lockstep: "
                                    f"{len(done)} of {n} finished")
             return done
-        ops = {m[0] for m in msgs}
+        ops = {(m[0],) + tuple(m[2:]) for m in msgs}
         if len(ops) != 1:
             raise RuntimeError(f"tensor-parallel shards left lockstep: "
                                f"{sorted(ops)} in one round")
-        replies = getattr(comm, ops.pop())([m[1] for m in msgs])
+        op, *args = ops.pop()
+        replies = getattr(comm, op)([m[1] for m in msgs], *args)

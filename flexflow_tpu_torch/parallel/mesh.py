@@ -18,6 +18,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
+
 import torch
 
 from ..utils.platform import resolve_device
@@ -45,6 +47,10 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def axis_names(self):
+        return tuple(self.shape)
 
     def __repr__(self) -> str:
         comm = "" if self.comm is None else f", comm={self.comm.kind}"
@@ -95,3 +101,21 @@ def make_mesh(shape: Dict[str, int],
                                 else torch.cuda.current_device())
                    for d in devices]
     return Mesh({"pp": pp, "tp": tp} if pp > 1 else {"tp": tp}, devices)
+
+
+def data_parallel_strategy(graph, mesh: Mesh, axes: Sequence[str] = ("dp",)):
+    """The data-parallel strategy (reference :49-63): ``sample`` over
+    ``axes`` on every op that exposes it and whose batch divides; ``{}``
+    on a mesh without those axes (every serve mesh), which is where the
+    search starts."""
+    axes = tuple(a for a in axes if a in mesh.shape and mesh.shape[a] > 1)
+    configs = {}
+    if not axes:
+        return configs
+    for node in graph.nodes:
+        in_specs = [graph.spec(t) for t in node.inputs]
+        pdims = node.op.parallel_dims(in_specs)
+        if "sample" in pdims and pdims["sample"] % int(
+                np.prod([mesh.shape[a] for a in axes])) == 0:
+            configs[node.name] = {"sample": axes}
+    return configs

@@ -1,39 +1,51 @@
-"""Megatron tensor parallelism of a serve model: the placement rules and
-the shard-local models they give.
+"""The plan executor: shard-local serving of any PCG plan.
+
+A strategy dict ``{node name: {parallel dim: ("tp",)}}`` (the Megatron
+rule below, a searched one, ``search/search.py:graph_optimize``, or one
+written by hand) is planned by the PCG (``core/pcg.py``) over a model's
+node range and a ``{"tp": n}`` mesh; :class:`TPPlan` holds that plan, and
+the plan is the one thing shard-local execution reads:
+
+* **parameters**: each node's ``ShardingSolution`` gives its parameters'
+  shardings; :func:`shard_model` gives each rank's module its blocks
+  (``TensorSharding.local_shape``) and :meth:`TPPlan.local` slices a
+  global weight into them.  An int8 weight's per-output-channel scale
+  (its shape minus the first dim) follows the weight's sharding without
+  its first dim (reference ``serve/quant.py:55``): split with a
+  column-split kernel or ``qkv``, whole with a row-split kernel or
+  ``o_proj``.  Global parameters are quantized first and sliced after.
+* **modules**: a ``head`` attention holds its shard's KV heads and their
+  query heads (``head_sharded``, ``head_offset``; the KV caches follow);
+  an embedding split on ``entry`` answers its rows' ids
+  (``entry_offset``); a node whose output is a partial sum adds its bias
+  on rank 0 only (``skip_bias`` elsewhere).  Every other config changes
+  no module: a node computes on the blocks its inputs arrive in.
+* **values**: :class:`PlanExecutor` turns the plan's steps into the node
+  range a shard model runs (``core/interpreter.py:run_nodes``): each op
+  step calls its node's module on its inputs' blocks, each parallel step
+  runs its op (``parallel/parallel_ops.py``, ``ParallelOp.run``) on the
+  rank's block and yields its collective, which ``parallel/comm.py:
+  run_shards`` answers.  The range's entry tensors are sliced to the
+  plan's input shardings (the token ids too: a ``sample`` split is the
+  rank's rows of the flat batch, computed per step from the batch's row
+  count, the remainder on the low ranks); its exit tensors leave whole on
+  shard 0 (a split one is gathered there).  The batch's metadata stays
+  whole on every shard: the nodes that read it per row (the attention,
+  the position embedding) take whole rows, as their op IR requires, and
+  a gated LM head split on ``sample`` gathers its rows first.
+
+A config the executor cannot run raises ``NotImplementedError`` naming
+the node and the config: one that names a parallel dim the node does not
+have (the reference's ops ignore such a key and run replicated; here
+nothing falls back to replicated).  The attention's ``sample`` is a dim
+its IR has and ignores (reference ``serve/ops.py:964-980``), and so does
+the executor.
 
 :func:`tensor_parallel_strategy` is a copy of
 ``flexflow_tpu/serve/inference_manager.py:42-80`` over the port's module
-paths, which are the reference's node names: an attention layer is
-head-sharded when its KV heads divide by the degree (else replicated:
-Falcon-7B's 71 query heads and StarCoder's 48 on one KV head), the MLP's
-``gate_proj``/``up_proj``/``fc1``/``c_fc`` are column-sharded and
-``down_proj``/``fc2``/``c_proj`` row-sharded, and any other Linear whose
-output width divides (the LM head's vocabulary, Falcon's MLP, OPT's
-projections) column-sharded; embeddings and norms are replicated, and a
-dimension that does not divide stays whole.
-
-The parameters' placement follows the ops' (reference ``ops/linear.py:
-135-172``, ``serve/ops.py:964-980``): a column-sharded kernel ``[in, out]``
-and its bias split on ``out``, a row-sharded kernel on ``in`` (its bias
-whole, added after the reduce), an attention's fused ``qkv [E, KV, G, D]``
-and ``qkv_bias [KV, G, D]`` on the KV heads, ``o_proj [QH*D, E]`` on its
-rows (``o_bias`` whole, added after the reduce).  An int8 weight's
-per-output-channel scale (its shape minus the first dim) goes with the
-output dim (reference ``serve/quant.py:55``, ``_scale_sharding``): split
-with a column-sharded kernel or ``qkv``, whole with a row-sharded kernel
-or ``o_proj``.  Global parameters are quantized first and sliced after,
-so a row-sharded int8 weight keeps the global scale on every shard.
-
-:func:`shard_model` copies the global model (on ``meta``) into one shard's
-model: the same modules at shard-local shapes, each marked with its
-placement (``Linear.tp_mode``, the attention's ``head_shards`` and
-``head_offset``), which the forwards read to place their collectives.
-
-:func:`tp_collectives` lists the collectives a stage of the serve graph
-needs under a plan, with the bytes each moves per device, as the
-reference's PCG inserts its parallel ops (``core/pcg.py:plan``, the
-resharding of ``parallel/parallel_ops.py:reshard_path``) and prices them
-(``comm_bytes``): the serve planner's TP communication term.
+paths, which are the reference's node names: one strategy dict among
+others.  :func:`tp_collectives` reads a plan's parallel steps, kind and
+bytes (``comm_bytes``): the serve planner's TP communication term.
 """
 
 from __future__ import annotations
@@ -45,8 +57,14 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
+from ..core.graph import Node
+from ..core.interpreter import dead_after
+from ..core.pcg import PCG, Plan, serve_graph
+from ..core.sharding import TensorSharding, mesh_coords, mesh_shape
+from ..ops.embedding import Embedding
 from ..ops.linear import Linear
-from ..serve.ops import IncMultiHeadSelfAttention
+
+ATTENTION = "inc_multihead_self_attention"   # serve/ops.py's op type
 
 TP_AXES = ("tp",)
 COL_NAMES = ("gate_proj", "up_proj", "fc1", "c_fc")
@@ -59,10 +77,13 @@ def tensor_parallel_strategy(model: nn.Module, degree: int
     for every sharded attention layer and Linear of ``model`` (the global
     model), as the reference's strategy for a ``tp`` mesh of ``degree``
     devices (reference :42-80; a path the rules leave whole has no
-    entry)."""
+    entry): attention head-sharded when its KV heads divide, the MLP's
+    ``gate_proj``/``up_proj``/``fc1``/``c_fc`` column-split and
+    ``down_proj``/``fc2``/``c_proj`` row-split, any other Linear whose
+    output width divides column-split."""
     strategy: Dict[str, Dict] = {}
     for name, mod in model.named_modules():
-        if isinstance(mod, IncMultiHeadSelfAttention):
+        if getattr(mod, "type_name", None) == ATTENTION:
             if mod.num_kv_heads % degree == 0:
                 strategy[name] = {"head": TP_AXES}
         elif isinstance(mod, Linear):
@@ -78,46 +99,79 @@ def tensor_parallel_strategy(model: nn.Module, degree: int
     return strategy
 
 
-class TPPlan:
-    """The placement of one model over ``degree`` shards: the strategy,
-    and for each sharded parameter (by state-dict name) the dim it is
-    split on.  Parameters not listed are whole on every shard.  ``model``
-    is the global model.  At degree 1 every slice is the whole parameter:
-    a single device is the mesh of one shard."""
+def _live_config(config: Dict, mesh) -> Dict:
+    """The entries of a node's config whose axes split something (a
+    degree above 1)."""
+    shape = mesh_shape(mesh)
+    out = {}
+    for k, axes in config.items():
+        deg = 1
+        for a in axes:
+            deg *= shape.get(a, 1)
+        if deg > 1:
+            out[k] = tuple(axes)
+    return out
 
-    def __init__(self, model: nn.Module, degree: int):
-        self.degree = int(degree)
-        self.strategy = tensor_parallel_strategy(model, self.degree)
-        self.dims: Dict[str, int] = {}
-        for path, spec in self.strategy.items():
-            if "head" in spec:
-                mod = model.get_submodule(path)
-                self.dims[f"{path}.qkv"] = 1
-                self.dims[f"{path}.o_proj"] = 0
-                if mod.use_bias:
-                    self.dims[f"{path}.qkv_bias"] = 0
-            elif "channel_out" in spec:
-                self.dims[f"{path}.kernel"] = 1
-                if model.get_submodule(path).bias is not None:
-                    self.dims[f"{path}.bias"] = 0
-            else:
-                self.dims[f"{path}.kernel"] = 0
+
+class TPPlan:
+    """The placement of ``model``'s node range (its ``span``: the whole
+    graph, or a pipeline stage's) over ``mesh``: the PCG plan of that
+    range under ``strategy`` (restricted to the range's nodes, reference
+    ``serve/pp.py:163``; None: :func:`tensor_parallel_strategy` at the
+    mesh's degree, ``{}`` on one device), its tensors' token axis at
+    ``rows`` rows (the flat batch, ``max_tokens_per_batch``, that a
+    ``sample`` split must divide, as the reference's graph shapes must;
+    default the mesh's size), and each parameter's sharding by
+    state-dict name."""
+
+    def __init__(self, model: nn.Module, mesh, strategy: Optional[Dict]
+                 = None, rows: Optional[int] = None):
+        self.mesh = mesh
+        self.degree = mesh.size
+        if strategy is None:
+            strategy = (tensor_parallel_strategy(model, self.degree)
+                        if self.degree > 1 else {})
+        names = {n.name for n in model.span.nodes}
+        self.strategy = {k: {d: tuple(a) for d, a in v.items()}
+                         for k, v in strategy.items() if k in names}
+        rows = rows or self.degree
+        self.pcg = PCG(serve_graph(model, rows), mesh, self.strategy,
+                       output_tids=list(model.span.exit_tids))
+        self.plan: Plan = self.pcg.plan()
+        self.shardings: Dict[str, TensorSharding] = {
+            f"{node}.{p}": sh
+            for node, group in self.plan.param_shardings.items()
+            for p, sh in group.items()}
+        _check_executable(self.plan, mesh)
+
+    def sharding(self, name: str) -> Optional[TensorSharding]:
+        """Parameter ``name``'s sharding (None: whole on every shard).  An
+        int8 scale ``<w>_scale`` follows its weight's output dims."""
+        sh = self.shardings.get(name)
+        if sh is None and name.endswith("_scale"):
+            w = self.shardings.get(name[:-len("_scale")])
+            if w is not None:
+                sh = TensorSharding(w.dims[1:])
+        return sh
 
     def dim(self, name: str) -> Optional[int]:
-        """The dim parameter ``name`` is split on (None: whole).  An int8
-        scale ``<w>_scale`` (``w``'s shape minus its first dim) follows
-        its weight's output dims."""
-        if name.endswith("_scale"):
-            d = self.dims.get(name[:-len("_scale")])
-            return None if d is None or d == 0 else d - 1
-        return self.dims.get(name)
+        """The dim parameter ``name`` is split on (None: whole)."""
+        sh = self.sharding(name)
+        if sh is None:
+            return None
+        split = [i for i in sh.split_dims()
+                 if sh.dim_degree(i, self.mesh) > 1]
+        if len(split) > 1:
+            raise NotImplementedError(f"parameter {name} is split on dims "
+                                      f"{split}: the executor splits one")
+        return split[0] if split else None
 
     def local(self, name: str, t: torch.Tensor, rank: int) -> torch.Tensor:
-        """Shard ``rank``'s part of the global parameter ``t``."""
-        d = self.dim(name)
-        if d is None or self.degree == 1:
+        """Shard ``rank``'s block of the global parameter ``t``."""
+        sh = self.sharding(name)
+        if sh is None or self.degree == 1:
             return t
-        return t.chunk(self.degree, dim=d)[rank]
+        return sh.local_slice(t, rank, self.mesh)
 
     def global_shape(self, name: str, shape) -> torch.Size:
         """The global shape of parameter ``name`` from a shard's
@@ -137,23 +191,42 @@ class TPPlan:
         return torch.cat([p.to(parts[0].device) for p in parts], dim=d)
 
 
+def _check_executable(plan: Plan, mesh) -> None:
+    """Raise ``NotImplementedError`` for a node whose config names a
+    parallel dim the node does not have (the op would ignore it and run
+    replicated)."""
+    for st in plan.steps:
+        if st.is_parallel:
+            continue
+        live = _live_config(st.config, mesh)
+        dims = st.node.op.parallel_dims(st.in_specs) if live else {}
+        bad = sorted(set(live) - set(dims))
+        if bad:
+            raise NotImplementedError(
+                f"node {st.name!r}: config {st.config} names {bad}, not a "
+                f"parallel dim of a {st.node.op.type_name} node "
+                f"({sorted(dims)}); the executor runs no other split")
+
+
 def _param(p: nn.Parameter, shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=p.dtype, device=p.device),
                         requires_grad=False)
 
 
 def shard_model(model: nn.Module, plan: TPPlan, rank: int) -> nn.Module:
-    """Shard ``rank``'s model: a copy of the global ``model`` whose sharded
-    parameters take their local shapes (still empty) and whose sharded
-    modules carry their placement.  The copy keeps the module paths, so
-    state-dict names are the global ones.  At degree 1 the shard is
-    ``model`` itself, unmarked (its layers yield no collective), so a
+    """Shard ``rank``'s model: a copy of the global ``model`` (on
+    ``meta``) whose parameters take their blocks' shapes (still empty)
+    and whose modules take their placement, running the plan's steps
+    (:class:`PlanExecutor`).  The copy keeps the module paths, so
+    state-dict names are the global ones.  On one device the shard is
+    ``model`` itself (every block is the whole, nothing is marked), so a
     model whose parameters are already filled keeps them."""
     shard = model
     if plan.degree > 1:
         shard = _sliced_copy(model, plan, rank)
     shard.tp_plan = plan
     shard.tp_rank = rank
+    shard.set_executor(PlanExecutor(plan, rank))
     return shard
 
 
@@ -161,125 +234,135 @@ def _sliced_copy(model: nn.Module, plan: TPPlan, rank: int) -> nn.Module:
     if any(not p.is_meta for p in model.parameters()):
         raise ValueError("shard_model takes a model on the meta device "
                          "(from build_model)")
-    shard = copy.deepcopy(model)
-    deg = plan.degree
-    for path, spec in plan.strategy.items():
+    # the global model's own plan and executor (a model served on one
+    # device before) are not the shard's
+    memo = {id(getattr(model, k, None)): None
+            for k in ("tp_plan", "_executor")}
+    shard = copy.deepcopy(model, memo)
+    mesh = plan.mesh
+    shape, coords = mesh_shape(mesh), mesh_coords(rank, mesh)
+    for st in plan.plan.steps:
+        if st.is_parallel or st.node.module is None:
+            continue
+        path = st.node.module
         mod = shard.get_submodule(path)
-        if "head" in spec:
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            sh = plan.sharding(f"{path}.{pname}")
+            if sh is not None and sh.used_axes():
+                setattr(mod, pname, _param(p, sh.local_shape(p.shape, mesh)))
+        partial = bool(st.out_shardings[0].partial_axes)
+        first = all(coords[a] == 0 for a in st.out_shardings[0].partial_axes)
+        live = _live_config(st.config, mesh)
+        attention = getattr(mod, "type_name", None) == ATTENTION
+        if attention and "head" in live:
+            head = TensorSharding.from_axes(1, {0: live["head"]}).dims[0]
+            deg = head.degree(shape)
             mod.num_kv_heads //= deg
             mod.num_q_heads //= deg
             mod.head_sharded = True
             mod.head_shards = deg
-            mod.head_offset = rank * mod.num_q_heads
-        else:
-            mod.tp_mode = "col" if "channel_out" in spec else "row"
-        for pname, p in list(mod.named_parameters(recurse=False)):
-            d = plan.dim(f"{path}.{pname}")
-            if d is not None:
-                shape = list(p.shape)
-                shape[d] //= deg
-                setattr(mod, pname, _param(p, shape))
+            mod.head_offset = head.index(coords, shape) * mod.num_q_heads
+        if isinstance(mod, Embedding) and "entry" in live:
+            entry = TensorSharding.from_axes(1, {0: live["entry"]}).dims[0]
+            mod.entry_offset = entry.index(coords, shape) * mod.weight.shape[0]
+        if attention or isinstance(mod, Linear):
+            mod.skip_bias = partial and not first
+        if isinstance(mod, Linear) and "sample" in live:
+            mod.row_shards = TensorSharding.from_axes(
+                1, {0: live["sample"]}).dims[0].degree(shape)
     return shard
 
 
-# how a value lies over the tp shards: whole on each (REP), its last dim
-# split (SPLIT), or a partial sum on each (PARTIAL)
-REP, SPLIT, PARTIAL = "rep", "split", "partial"
+def _parallel_run(pop, mesh):
+    def run(op, ctx, x):
+        return pop.run(x, ctx.rank, mesh)
+
+    return run
 
 
+class PlanExecutor:
+    """The node range one shard runs for a plan: ``nodes`` (the plan's
+    steps over its value ids: each op step its graph node, each parallel
+    step a node running its op), ``drops`` (the values each leaves dead,
+    ``core/interpreter.py:dead_after``), and how the range's tensors
+    enter (:meth:`enter`) and leave (:meth:`leave`)."""
+
+    def __init__(self, plan: TPPlan, rank: int):
+        p = plan.plan
+        self.mesh = plan.mesh
+        self.degree = plan.degree
+        self.rank = rank
+        self.entry = {t: (v, p.input_shardings[t])
+                      for t, v in p.input_vids.items()}
+        self.exit = list(zip(p.output_vids, p.output_shardings))
+        self.nodes: List[Node] = []
+        for st in p.steps:
+            if st.is_parallel:
+                self.nodes.append(Node(-1, st.name, None, "parallel",
+                                       list(st.in_vids), list(st.out_vids),
+                                       _parallel_run(st.node.op, self.mesh)))
+            else:
+                self.nodes.append(dataclasses.replace(
+                    st.node, inputs=list(st.in_vids),
+                    outputs=list(st.out_vids), op=None))
+        self.drops = dead_after(self.nodes, p.output_vids)
+
+    def enter(self, tids: Sequence[int], xs: Sequence[torch.Tensor]
+              ) -> Dict[int, torch.Tensor]:
+        """The values the range starts from: each entry tensor ``xs[i]``
+        (whole) of tensor id ``tids[i]``, as this rank's block of its
+        input sharding."""
+        env = {}
+        for t, x in zip(tids, xs):
+            vid, sh = self.entry[t]
+            env[vid] = (x if self.degree == 1
+                        else sh.local_slice(x, self.rank, self.mesh))
+        return env
+
+    def leave(self, env: Dict[int, torch.Tensor]):
+        """The range's exit tensors, whole on shard 0 (a split one is
+        gathered there; the other shards get None), as a generator of
+        those gathers."""
+        outs = []
+        for vid, sh in self.exit:
+            x = env[vid]
+            split = [i for i in sh.split_dims()
+                     if sh.dim_degree(i, self.mesh) > 1]
+            if len(split) > 1:
+                raise NotImplementedError(
+                    f"an exit tensor sharded {sh}: the executor gathers "
+                    "one split dim")
+            if split:
+                x = yield ("gather", x, split[0])
+            outs.append(x)
+        return outs
+
+
+# ---- the serve planner's view of a plan ------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Collective:
-    """One collective of a stage (the reference's parallel op): its kind
-    (``allreduce``, ``combine`` = all-gather, ``reduction`` =
-    reduce-scatter, ``repartition`` = a local slice), the tensor it
-    moves, and the bytes it moves per device (reference
-    ``ParallelOp.comm_bytes``, ``parallel_ops.py:177-248``)."""
+    """One collective of a plan (a parallel step): its kind (the parallel
+    op's ``type_name``: ``allreduce``, ``combine`` = all-gather,
+    ``reduction`` = reduce-scatter, ``repartition`` = a local slice,
+    ``all_to_all``, ``replicate``), the bytes it moves per device
+    (``comm_bytes``, reference ``parallel_ops.py:177-248``) and its mesh
+    axes."""
 
     kind: str
-    tid: int
     nbytes: int
     axes: tuple = TP_AXES
 
 
-def _solution(kind: str, cfg: Dict, have: List[str]):
-    """(the layout each input must arrive in, the outputs' layouts) of a
-    node of ``kind`` under its strategy entry ``cfg``, given its
-    producers' layouts (the reference ops' ``apply_config``: a Linear,
-    ``ops/linear.py:135``; the attention, ``serve/ops.py:965``; the norms
-    want whole rows, ``ops/norm.py:27``; the gate propagates its first
-    input's split, :306; an add keeps a partial sum of two partial sums,
-    else wants the second input laid out as the first,
-    ``ops/elementwise.py:118``; the embeddings are replicated)."""
-    if kind in ("dense", "lm_head"):
-        if "channel_out" in cfg:
-            return [REP], [SPLIT]
-        if "channel_in" in cfg:
-            return [SPLIT], [PARTIAL]
-        return [REP], [REP]
-    if kind == "attention":
-        return [REP], [PARTIAL if "head" in cfg else REP]
-    if kind == "sigmoid_silu_multi":
-        sh = SPLIT if have[0] == SPLIT else REP
-        return [sh, sh], [sh]
-    if kind == "add":
-        if have[0] == have[1] == PARTIAL:
-            return [PARTIAL, PARTIAL], [PARTIAL]
-        sh = SPLIT if have[0] == SPLIT else REP
-        return [sh, sh], [sh]
-    if kind in ("embedding", "position_embedding", "norm",
-                "residual_rms_norm"):
-        n_out = 2 if kind == "residual_rms_norm" else 1
-        return [REP] * len(have), [REP] * n_out
-    raise ValueError(f"no tensor-parallel layout rule for a {kind!r} node")
-
-
-def _reshard(have: str, want: str, full: int, degree: int):
-    """The collective turning layout ``have`` into ``want`` of a tensor of
-    ``full`` bytes (reference ``reshard_path``), and its bytes per
-    device: None when the layouts agree."""
-    if have == want:
-        return None
-    if have == PARTIAL and want == SPLIT:
-        return "reduction", int(full * (degree - 1) / degree)
-    if have == PARTIAL and want == REP:
-        return "allreduce", int(2 * full * (degree - 1) / degree)
-    if have == SPLIT and want == REP:
-        return "combine", int(full * (degree - 1) / degree)
-    if have == REP and want == SPLIT:
-        return "repartition", 0
-    raise ValueError(f"cannot reshard {have} -> {want}")
-
-
-def tp_collectives(graph, nodes: Sequence, exit_tids: Sequence[int],
-                   plan: TPPlan, rows: int) -> List[Collective]:
-    """The collectives one stage's ``nodes`` of ``graph`` need under
-    ``plan``, in order, at a flat batch of ``rows`` tokens (the graph's
-    token axis): each input is resharded to the layout its node wants,
-    once per consuming node, as the reference's PCG does; a tensor
-    entering the stage arrives in its first consumer's layout; a partial
-    sum leaving the stage is all-reduced.  None at degree 1."""
-    degree = plan.degree
-    if degree <= 1:
-        return []
-    out: List[Collective] = []
-
-    def move(tid, have, want):
-        step = _reshard(have, want, graph.spec(tid).nbytes(rows), degree)
-        if step is not None:
-            out.append(Collective(step[0], tid, step[1]))
-
-    layout: Dict[int, str] = {}
-    for node in nodes:
-        cfg = plan.strategy.get(node.module, {}) if node.module else {}
-        have = [layout.get(t, REP) for t in node.inputs]
-        wants, outs = _solution(node.kind, cfg, have)
-        for t, want in zip(node.inputs, wants):
-            if t in layout:
-                move(t, layout[t], want)
-            else:
-                layout[t] = want
-        layout.update(zip(node.outputs, outs))
-    for t in exit_tids:
-        if layout.get(t, REP) == PARTIAL:
-            move(t, PARTIAL, REP)
+def tp_collectives(plan: TPPlan) -> List[Collective]:
+    """The collectives of ``plan``'s parallel steps, in order: the
+    reference's plan steps are their one source."""
+    p = plan.plan
+    out = []
+    for st in p.steps:
+        if st.is_parallel:
+            op = st.node.op
+            out.append(Collective(
+                op.type_name,
+                op.comm_bytes(st.in_specs[0], st.in_shardings[0], p.mesh),
+                tuple(op.axes)))
     return out

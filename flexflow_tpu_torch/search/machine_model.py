@@ -280,7 +280,7 @@ class MachineModel:
                         mesh) -> float:
         """Ring-model time for a collective moving ``comm_bytes_per_device``
         over the given mesh axes (the (deg-1)/deg factors are already in
-        the bytes, ``parallel/tp.py:tp_collectives``)."""
+        the bytes, ``parallel/parallel_ops.py``'s ``comm_bytes``)."""
         if comm_bytes_per_device <= 0:
             return 0.0
         deg = 1

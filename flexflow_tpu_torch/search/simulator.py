@@ -1,22 +1,38 @@
-"""The serve half of the simulator: cost families and per-stage memory.
+"""The simulator: the cost of a planned PCG, and the serve planner's half.
 
-Port of the serve use of ``flexflow_tpu/search/simulator.py``:
-``serve_component_of`` (:76), ``step_state_bytes``'s KV stream (:177,
-here a stage record's ``kv_bytes``), ``plan_memory_parts`` (:228) and
-``compose_stage_parts`` (:290).  The port has no PCG: a "plan" here is a
-stage's :class:`~flexflow_tpu_torch.serve.pp.StageCost`, whose numbers
-``serve/cost.py`` computes, the one arithmetic the managers' memory
-ledger and the profiler's cost card use too.  ``simulate`` and the
-training half wait for the PCG planner.
+Port of ``flexflow_tpu/search/simulator.py`` for inference:
+``CostBreakdown`` (:38), ``_local_size`` (:55), the fusion-aware step
+costs (:64-175), ``step_state_bytes`` (:177), ``plan_memory_bytes`` and
+``plan_memory_parts`` (:206-287) and ``simulate`` (:305) with
+``training=False``, over the port's ``core/pcg.py:Plan``.  As in the
+reference, one compiled step is a serial walk over the plan's steps:
+only the heavy ops (GEMMs, attention, embedding gathers) pay their HBM
+traffic, the elementwise and norm glue adds flops only, weights that fit
+the resident budget (``vmem_resident_bytes``: the H100 spec puts its L2
+there) stream nothing, there is one step overhead a step, and the
+parallel steps cost their ``comm_bytes`` over the machine's link.  Here
+the machine is the port's (``machine_model.py``), so the ``h100`` spec
+prices a CUDA mesh.  The measured op-cost cache (``measured``) and
+``training=True`` come with slice 10b-ii and raise.
+
+The serve half prices a pipeline stage's ``serve.pp.StageCost``
+record, whose numbers ``serve/cost.py`` computes: ``serve_component_of``
+(:76), and ``plan_memory_parts`` of such a record.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
 
 from ..serve.cost import compose_stage_parts, family_of
+from .machine_model import MachineModel
 
-__all__ = ["compose_stage_parts", "plan_memory_parts", "serve_component_of"]
+__all__ = ["CostBreakdown", "compose_stage_parts", "plan_memory_bytes",
+           "plan_memory_parts", "serve_component_of", "simulate",
+           "step_state_bytes"]
 
 
 def serve_component_of(mod) -> str:
@@ -27,12 +43,218 @@ def serve_component_of(mod) -> str:
     return family_of(mod, mod if marked else None)
 
 
+def _not_yet(what: str):
+    return NotImplementedError(f"{what} comes with slice 10b-ii; the port "
+                               "prices inference (training=False, "
+                               "measured=None)")
+
+
+@dataclasses.dataclass
+class CostBreakdown:
+    compute: float = 0.0
+    comm: float = 0.0
+    grad_comm: float = 0.0
+
+    @property
+    def total(self) -> float:
+        return self.compute + self.comm + self.grad_comm
+
+    def __str__(self):
+        return (f"total={self.total * 1e3:.3f}ms (compute="
+                f"{self.compute * 1e3:.3f} comm={self.comm * 1e3:.3f} "
+                f"grad={self.grad_comm * 1e3:.3f})")
+
+
+def _local_size(spec, sh, mesh) -> int:
+    try:
+        shape = sh.local_shape(spec.shape, mesh)
+    except ValueError:
+        shape = spec.shape
+    return int(np.prod(shape)) if shape else 1
+
+
+# ops that run as their own kernels on the tensor cores or stream memory;
+# everything else is glue that fuses into its neighbours (reference :64)
+HEAVY_OPS = frozenset({
+    "linear", "batch_matmul", "conv2d", "embedding", "experts",
+    "multihead_attention", "inc_multihead_self_attention",
+    "spec_inc_multihead_self_attention", "tree_inc_multihead_self_attention",
+    "group_by", "aggregate", "aggregate_spec",
+})
+
+
+def _itemsize(spec) -> int:
+    return spec.nbytes() // max(spec.size, 1)
+
+
+def _step_flops(step, mesh) -> float:
+    """Local flops: the global flops scaled by the output's shard
+    fraction (and a partial output's contracted split)."""
+    global_flops = step.node.op.flops(step.in_specs)
+    shard_frac = 1.0
+    if step.out_specs:
+        g = int(np.prod(step.out_specs[0].shape)) or 1
+        loc = _local_size(step.out_specs[0], step.out_shardings[0], mesh)
+        shard_frac = loc / g
+        for a in step.out_shardings[0].partial_axes:
+            shard_frac /= mesh.shape[a]
+    return global_flops * shard_frac
+
+
+def _step_compute_time(step, mesh, mm: MachineModel,
+                       param_bytes: float = 0.0, fused: bool = True) -> float:
+    """One op's share of the step's time; ``param_bytes`` its local weight
+    bytes already scaled by the residency rule."""
+    spec_hw = mm.spec
+    op = step.node.op
+    heavy = op.type_name in HEAVY_OPS
+    flops = _step_flops(step, mesh)
+    if not (fused and not heavy):
+        bytes_accessed = param_bytes
+        for spec, sh in zip(step.in_specs, step.in_shardings):
+            bytes_accessed += _local_size(spec, sh, mesh) * _itemsize(spec)
+        for spec, sh in zip(step.out_specs, step.out_shardings):
+            bytes_accessed += _local_size(spec, sh, mesh) * _itemsize(spec)
+    else:
+        bytes_accessed = 0.0   # fused into a neighbour: flops only
+    if heavy:
+        peak = spec_hw.peak_flops_bf16 * spec_hw.mxu_efficiency
+    else:
+        dtype_bits = (8 * _itemsize(step.out_specs[0])
+                      if step.out_specs else 32)
+        peak = (spec_hw.peak_flops_bf16 if dtype_bits <= 16
+                else spec_hw.peak_flops_f32)
+        peak /= 8.0   # glue runs well below the matrix units' peak
+    fwd = max(flops / peak, bytes_accessed / spec_hw.hbm_bandwidth)
+    if not fused:
+        fwd += spec_hw.kernel_overhead
+    return fwd
+
+
+def _step_param_bytes(step, plan, mesh) -> float:
+    """Local weight bytes the op streams a step."""
+    pshs = plan.param_shardings.get(step.node.name, {})
+    total = 0.0
+    for p in step.node.op.params():
+        sh = pshs.get(p.name)
+        n = _local_size(p.spec, sh, mesh) if sh is not None else p.spec.size
+        total += n * _itemsize(p.spec)
+    return total
+
+
+def step_state_bytes(step, mesh, names=None) -> float:
+    """Local bytes of one op's registered serve-state buffers (KV caches
+    and spec buffers), sharded by the step's own ``head`` config;
+    ``names`` restricts to those buffers.  0 for an op without
+    registered capacities."""
+    op = step.node.op
+    if not (hasattr(op, "state_specs")
+            and getattr(op, "cost_max_requests", None)):
+        return 0.0
+    head_axes = tuple((step.config or {}).get("head", ()))
+    specs = op.state_specs(op.cost_max_requests,
+                           getattr(op, "cost_seq_len", 512),
+                           getattr(op, "cost_max_spec", 0), head_axes)
+    total = 0.0
+    for name, (shape, dt, sh) in specs.items():
+        if names is not None and name not in names:
+            continue
+        try:
+            local = sh.local_shape(shape, mesh)
+        except ValueError:
+            local = shape
+        total += int(np.prod(local)) * _dtype_size(dt)
+    return total
+
+
+def _dtype_size(dt) -> int:
+    import torch
+
+    return torch.empty((), dtype=dt).element_size()
+
+
+def plan_memory_bytes(plan, training: bool = False) -> float:
+    """Per-device peak-HBM estimate of a planned PCG (reference :206):
+    local weights, the serve-state buffers of the attention ops whose
+    capacities were registered (sharded by each plan's own ``head``
+    config), and the largest single activation.  An upper bound: the
+    search uses it to reject plans."""
+    return plan_memory_parts(plan, training=training)["total"]
+
+
+_INT8_PARAM_NAMES = ("kernel", "qkv", "o_proj")
+
+
 def plan_memory_parts(plan, training: bool = False) -> Dict[str, float]:
-    """The predicted HBM of one device of a stage, in bytes, by component
-    (``weights``, ``kv_state``, ``transient``, ``total``; reference
-    :228 with ``training=False``)."""
+    """The predicted HBM of one device, in bytes, by component
+    (``weights``, ``kv_state``, ``transient``, ``total``; reference :228
+    with ``training=False``), of a planned PCG or of a pipeline stage's
+    ``StageCost`` record (whose parts ``serve/cost.py`` computed)."""
     if training:
-        raise NotImplementedError("training memory waits for the PCG "
-                                  "planner; the serve planner prices "
-                                  "inference")
-    return dict(plan.memory)
+        raise _not_yet("training memory")
+    if not hasattr(plan, "steps"):
+        return dict(plan.memory)
+    mesh = plan.mesh
+    params, state, acts = 0.0, 0.0, []
+    for step in plan.steps:
+        if step.is_parallel:
+            continue
+        pshs = plan.param_shardings.get(step.node.name, {})
+        q8 = getattr(step.node.op, "quantization", None) == "int8"
+        for p in step.node.op.params():
+            sh = pshs.get(p.name)
+            n = _local_size(p.spec, sh, mesh) if sh is not None else p.spec.size
+            if q8 and p.name in _INT8_PARAM_NAMES and len(p.spec.shape) >= 2:
+                # int8 values and the global f32 scale count (errs high)
+                params += n + (p.spec.size // p.spec.shape[0]) * 4
+            else:
+                params += n * _itemsize(p.spec)
+        for spec, sh in zip(step.out_specs, step.out_shardings):
+            acts.append(_local_size(spec, sh, mesh) * _itemsize(spec))
+        state += step_state_bytes(step, mesh)
+    act = max(acts, default=0)
+    return {"weights": params, "kv_state": state, "transient": act,
+            "total": params + act + state}
+
+
+def simulate(plan, machine: Optional[MachineModel] = None,
+             training: bool = False, measured: Optional[Dict] = None,
+             overlap: Optional[float] = None,
+             fused: bool = True) -> CostBreakdown:
+    """One step's predicted time for ``plan`` (reference :305):
+    ``overlap`` is the share of communication hidden behind compute
+    (default the machine spec's), ``fused=False`` the per-op roofline."""
+    if training:
+        raise _not_yet("training-mode simulate")
+    if measured is not None:
+        raise _not_yet("the measured op-cost cache")
+    mesh = plan.mesh
+    mm = machine or MachineModel.for_mesh(mesh)
+    if overlap is None:
+        overlap = mm.spec.overlap
+    cost = CostBreakdown()
+    param_total = sum(_step_param_bytes(s, plan, mesh)
+                      for s in plan.steps if not s.is_parallel)
+    stream_frac = 1.0
+    if fused and param_total > 0:
+        stream_frac = max(0.0,
+                          1.0 - mm.spec.vmem_resident_bytes / param_total)
+    for step in plan.steps:
+        if step.is_parallel:
+            op = step.node.op
+            b = op.comm_bytes(step.in_specs[0], step.in_shardings[0], mesh)
+            cost.comm += mm.collective_time(b, getattr(op, "axes", ()), mesh)
+        else:
+            cost.compute += _step_compute_time(
+                step, mesh, mm,
+                param_bytes=_step_param_bytes(step, plan, mesh) * stream_frac,
+                fused=fused)
+    if fused:
+        cost.compute += mm.spec.step_overhead   # one dispatch a step
+    hidden = min(cost.comm + cost.grad_comm, cost.compute) * overlap
+    total_comm = cost.comm + cost.grad_comm - hidden
+    if cost.comm + cost.grad_comm > 0:
+        scale = total_comm / (cost.comm + cost.grad_comm)
+        cost.comm *= scale
+        cost.grad_comm *= scale
+    return cost

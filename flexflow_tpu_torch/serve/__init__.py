@@ -35,7 +35,12 @@ tensor-parallel serving on every path above (``LLM.compile(tp=N)``,
 ``serve_stage_split``, micro-batch interleave, ``pp x tp``; slice 9b);
 the serve planner's inputs: ``register_serve_capacities``,
 ``mark_gated_lm_head``, ``annotate_int8`` and the per-stage cost records
-of ``build_stage_plans`` (``flexflow_tpu_torch.search``; slice 10a).
+of ``build_stage_plans`` (``flexflow_tpu_torch.search``; slice 10a);
+serving under any parallel strategy, ``InferenceManager(strategy=<dict> |
+"search")`` and ``PipelinedInferenceManager(strategy=<dict>)``, planned by
+the PCG (``flexflow_tpu_torch.core.pcg``) and run by one plan executor
+(``parallel/tp.py``), with ``searched_serve_strategy`` the Unity search
+over the serve graph (slice 10b-i).
 """
 
 from . import models  # noqa: F401  (registers the model builders)
@@ -60,6 +65,7 @@ from .inference_manager import (
     pick_prefill_tile,
     register_serve_capacities,
     sample_tokens,
+    searched_serve_strategy,
 )
 from .kv_allocator import KVAllocator
 from .kv_paged import (
@@ -126,6 +132,7 @@ __all__ = [
     "build_stage_plans",
     "StageCost",
     "register_serve_capacities",
+    "searched_serve_strategy",
     "mark_gated_lm_head",
     "EXIT_NOT_IN_BATCH",
     "EXIT_RUNNING",

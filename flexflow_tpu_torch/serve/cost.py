@@ -6,9 +6,10 @@ The JAX package derives these from its compiled graph: the profiler's
 ``search/simulator.py``'s ``_step_flops`` and ``_step_param_bytes`` over
 the plan's steps, classified by ``serve_component_of``, and its
 ``publish_memory`` reads ``plan_memory_parts(plan, training=False)``
-(``simulator.py:228``).  This port has no PCG plan, so the same numbers
-are computed here, once, from the serve model's modules and the
-deployment's capacities; they equal the reference's field by field
+(``simulator.py:228``).  Here the same numbers are computed, once, from
+the serve model's (shard's) modules and the deployment's capacities
+(the port's PCG plans, ``core/pcg.py``, price the search's candidates
+through ``search/simulator.py`` instead); they equal the reference's field by field
 for every family, fp and int8 weights, int8 KV and the spec buffers
 (``tests/test_torch_profiler.py``).  Each function prices one model
 (a pipeline stage's shard-0 model, or a whole model on one device) at

@@ -29,18 +29,25 @@ device value.  ``publish_memory`` records the deployment's predicted and
 allocated bytes into the telemetry's memory ledger (reference :523).
 
 Tensor parallelism (``mesh=``; reference: one SPMD program over a
-``{"tp": n}`` mesh with ``tensor_parallel_strategy``, :42-80): ONE manager
-holds one shard-local model per mesh device (``shards``, ``parallel/tp.py``;
-on a mesh of one device, the model itself, whose layers yield nothing)
-and one allocator whose buffers are per shard, and advances the shards in
-lockstep: each step runs every shard's forward generator through
-``parallel.comm.run_shards``, which answers their collectives.  The
-logits are gathered on shard 0 and sampled there; the batch, built on
-shard 0's device, reaches another shard's device with its tokens before
-each of its steps, so the chained stretch and the joins feed every shard.
-Global parameters (a state dict, or random ones drawn at their global
-shapes from the seed, identical at every ``tp``) are sliced per shard.
-``self.model`` is shard 0's model.
+``{"tp": n}`` mesh, :363-369): the manager plans the serve graph under a
+``strategy`` (reference :259): None is ``tensor_parallel_strategy`` (the
+Megatron rule, :42-80) on a mesh of several devices and ``{}`` on one, a
+dict is any strategy (``{node name: {parallel dim: ("tp",)}}``, searched
+or written by hand), and ``"search"`` is :func:`searched_serve_strategy`'s
+Unity search (:118-150).  ``im.strategy``, ``im.pcg`` and ``im.plan`` are
+the dict, the PCG and its plan (``core/pcg.py``).  ONE manager holds one
+shard-local model per mesh device (``shards``, ``parallel/tp.py``: the
+plan executor; on a mesh of one device, the model itself) and one
+allocator whose buffers are per shard (a ``head`` attention's caches hold
+its shard's KV heads), and advances the shards in lockstep: each step
+runs every shard's forward generator through ``parallel.comm.
+run_shards``, which answers the plan's collectives.  The logits are
+gathered on shard 0 and sampled there; the batch, built on shard 0's
+device, reaches another shard's device with its tokens before each of its
+steps, so the chained stretch and the joins feed every shard.  Global
+parameters (a state dict, or random ones drawn at their global shapes
+from the seed, identical at every ``tp`` and strategy) are sliced per
+shard.  ``self.model`` is shard 0's model.
 
 Sampling: greedy is exact argmax.  Temperature/top-p draws are keyed, as
 in the reference, by (seed, request id, token index), so a request's draw
@@ -62,6 +69,7 @@ from ..ops.cuda.attention import check_page_size
 from ..parallel.comm import run_shards
 from ..parallel.mesh import make_mesh
 from ..parallel.tp import TPPlan, shard_model
+from ..search.machine_model import MachineModel
 from ..utils.platform import resolve_device, torch_dtype
 from .batch_config import BatchConfig, InferenceResult, batch_to
 from .kv_allocator import KVAllocator, padded_seq_len
@@ -140,6 +148,61 @@ def mark_gated_lm_head(model, max_requests: int) -> bool:
     return marked
 
 
+def default_machine(mesh) -> MachineModel:
+    """The machine a searched serve strategy is priced on (reference
+    ``_default_calibration`` :83-115): ``MachineModel.for_mesh`` (the
+    ``h100`` spec for CUDA devices, ``cpu`` for the CPU), the ``h100``
+    spec calibrated by ``artifacts/h100_calib.json``, the constants
+    ``scripts/calibrate_h100.py`` measured on the card."""
+    import os
+
+    mm = MachineModel.for_mesh(mesh)
+    if mm.spec.name == "h100":
+        here = os.path.dirname(os.path.abspath(__file__))
+        mm = mm.with_calibration(os.path.join(
+            here, "..", "..", "artifacts", "h100_calib.json"))
+    return mm
+
+
+def searched_serve_strategy(model, budget: int = 300, seed: int = 0,
+                            measured=None, memory_limit=None, machine=None,
+                            mesh=None) -> Dict[str, Dict]:
+    """The Unity search over a serve graph (reference :118-150):
+    ``search.graph_optimize`` with ``training=False`` (no backward factor,
+    no gradient all-reduce, inference activations), whose memory model
+    counts the KV and spec buffers the attention modules registered
+    (``register_serve_capacities``; call it first, as the managers do),
+    sharded by each candidate's own ``head`` config, and whose token axis
+    is the flat batch recorded there.  ``mesh``: the ``{"tp": n}`` mesh
+    (the port's model carries none); ``machine`` defaults to
+    :func:`default_machine`, ``memory_limit`` to its spec's
+    ``hbm_capacity``.  ``measured`` (the op-cost cache) waits for slice
+    10b-ii and must be None."""
+    from ..core.pcg import serve_graph
+    from ..search.search import graph_optimize
+    from .cost import recorded_capacities
+
+    if measured is not None:
+        raise NotImplementedError("the measured op-cost cache comes with "
+                                  "slice 10b-ii; pass measured=None")
+    if mesh is None:
+        raise ValueError("searched_serve_strategy needs the mesh to plan "
+                         "over (mesh=parallel.make_mesh({'tp': n}, ...))")
+    caps = recorded_capacities(model)
+    if caps is None or not caps.max_tokens:
+        raise ValueError("the model carries no serve capacities: call "
+                         "register_serve_capacities(model, ..., "
+                         "max_tokens_per_batch=...) first")
+    if machine is None:
+        machine = default_machine(mesh)
+    if memory_limit is None:
+        memory_limit = machine.spec.hbm_capacity
+    graph = serve_graph(model, caps.max_tokens)
+    return graph_optimize(graph, mesh, budget=budget, seed=seed,
+                          training=False, measured=None,
+                          memory_limit=memory_limit, machine=machine)
+
+
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     """``(h * c) mod 2**32`` for int64 tensors holding 32-bit values,
     split so no intermediate leaves int64."""
@@ -215,7 +278,7 @@ class InferenceManager:
                  kv_dtype: Optional[str] = None,
                  kv_page_size: Optional[int] = None,
                  gate_lm_head: bool = True, prefill_overlap: bool = True,
-                 mesh=None):
+                 mesh=None, strategy=None):
         """``model``: a serve model from ``build_model`` (parameters on
         ``meta`` until :meth:`init_operators_inference` fills them; a
         model whose parameters already lie on ``device`` keeps them, so
@@ -255,7 +318,16 @@ class InferenceManager:
         sharded here (on ``meta`` when the mesh has several devices), or
         is another manager's ``shards`` on the same mesh (shared weights).
         ``device`` builds the mesh of one device, whose one shard is
-        ``model`` itself."""
+        ``model`` itself.
+
+        ``strategy`` (reference :259, :363-369): None (the Megatron rule
+        when the mesh has several devices, ``{}`` on one), a dict
+        ``{node name: {parallel dim: mesh axes}}`` (a searched or a hand
+        strategy, ``search.load_strategy``), or ``"search"``
+        (:func:`searched_serve_strategy` at its defaults, after the
+        capacities are registered).  A config the executor cannot run
+        raises ``NotImplementedError``.  Shard models passed as ``model``
+        keep their own plan (give no strategy)."""
         if mesh is None:
             mesh = make_mesh({"tp": 1}, [resolve_device(device)])
         elif device is not None:
@@ -281,14 +353,23 @@ class InferenceManager:
         marked = gate_lm_head and mark_gated_lm_head(model, max_requests)
         if isinstance(model, (list, tuple)):
             shards = list(model)
-            if (len(shards) != mesh.size
+            if (len(shards) != mesh.size or strategy is not None
                     or any(getattr(m, "tp_plan", None) is None
                            or m.tp_plan.degree != mesh.size for m in shards)):
                 raise ValueError(f"{len(shards)} shard models do not fit "
-                                 f"{mesh}")
+                                 f"{mesh} (they keep their own strategy)")
+            plan = shards[0].tp_plan
         else:
-            plan = TPPlan(model, mesh.size)
+            if isinstance(strategy, str):
+                if strategy != "search":
+                    raise ValueError(f"strategy {strategy!r}: None, a dict "
+                                     "or 'search'")
+                strategy = searched_serve_strategy(model, mesh=mesh)
+            plan = TPPlan(model, mesh, strategy, max_tokens_per_batch)
             shards = [shard_model(model, plan, r) for r in range(mesh.size)]
+        self.strategy = plan.strategy
+        self.pcg = plan.pcg
+        self.plan = plan.plan
         for i, (m, dev) in enumerate(zip(shards, mesh.devices)):
             if any(p.is_meta for p in m.parameters()):
                 shards[i] = m.to_empty(device=dev)

@@ -21,6 +21,7 @@ import torch
 
 from ...core.graph import TOKENS, Graph, TensorSpec
 from ...core.interpreter import StepContext, dead_after, run_nodes
+from ...ops.elementwise import ElementBinary
 from ...parallel.comm import run_local
 
 MODEL_REGISTRY: Dict[str, Callable] = {}
@@ -142,16 +143,8 @@ def _position(op, ctx, x):
     return op(x, ctx.base.token_position)
 
 
-def _dense(op, ctx, x):
-    return op.gen(x)
-
-
-def _dense_local(op, ctx, x):
-    return op.gen(x, out="local")
-
-
 def _attention(op, ctx, x):
-    return op.gen(x, ctx.bc, ctx.state[op.name], ctx.pages)
+    return op(x, ctx.bc, ctx.state[op.name], ctx.pages)
 
 
 def _add(op, ctx, a, b):
@@ -161,13 +154,16 @@ def _add(op, ctx, a, b):
 def _lm_head(op, ctx, x):
     """Float32 logits of the final hidden states ``x`` [T, E]: a gated
     prefill chunk's ``logit_slots`` gather their rows first (a slot of -1
-    clamps to row 0, whose logits are never read); a vocabulary-sharded
-    head gathers on shard 0 (the other shards return None)."""
+    clamps to row 0, whose logits are never read).  A head whose rows are
+    split over ``row_shards`` shards (``sample``) gathers the token rows,
+    then computes its own block of the slots' rows."""
     slots = getattr(ctx.bc, "logit_slots", None)
     if slots is not None:
+        if op.row_shards > 1:
+            x = yield ("all_gather", x, 0)
+            slots = torch.tensor_split(slots, op.row_shards)[ctx.rank]
         x = x.index_select(0, slots.clamp(0, x.shape[0] - 1).long())
-    y = yield from op.gen(x, out="first")
-    return None if y is None else y.float()
+    return op(x).float()
 
 
 class GraphBuilder:
@@ -203,11 +199,8 @@ class GraphBuilder:
     def position_embedding(self, x, op, name):
         return self._node(op, "position_embedding", [x], name, _position)
 
-    def dense(self, x, op, name, out="full"):
-        """``out="local"``: a column-sharded output that stays a slice
-        (the row-sharded layer it feeds takes it); see ``Linear.gen``."""
-        return self._node(op, "dense", [x], name,
-                          _dense_local if out == "local" else _dense,
+    def dense(self, x, op, name):
+        return self._node(op, "dense", [x], name, _call,
                           width=op.kernel.shape[1])
 
     def norm(self, x, op, name):
@@ -226,7 +219,11 @@ class GraphBuilder:
                           width=op.embed_dim)
 
     def add(self, a, b, name):
-        return self._node(None, "add", [a, b], name, _add)
+        """A module-free node carrying its own op IR."""
+        outs = self.graph.add_node(None, "add", [a, b], name,
+                                   [self.graph.spec(a)], _add,
+                                   ElementBinary("add"))
+        return outs[0]
 
     def lm_head(self, x, op, name):
         return self._node(op, "lm_head", [x], name, _lm_head,
@@ -254,21 +251,27 @@ class GatedLMHead:
     LM head is gated, reference ``ops/linear.py:98-108``, marked by
     ``mark_gated_lm_head``, inference_manager.py:167: a batch with
     ``logit_slots`` computes ``[max_requests, vocab]`` logits instead of
-    ``[max_tokens, vocab]``), run node by node.
+    ``[max_tokens, vocab]``), run step by step as its plan says.
 
-    ``forward_gen(bc, state, pages)`` is a generator that yields at the
-    tensor-parallel collectives (``parallel/comm.py``); ``forward`` runs
-    it alone with identity collectives, and a tensor-parallel manager
-    runs one per shard in lockstep.  The model runs its ``span`` of the
-    graph: the whole graph, or a pipeline stage's nodes in a stage's
-    model (``serve/pp.py``), so one forward serves every degree and
-    every stage.  Nodes name their modules by path; the model looks them
-    up in itself, so a submodule swapped in later is the one that runs."""
+    The model runs its ``span`` of the graph (the whole graph, or a
+    pipeline stage's nodes in a stage's model, ``serve/pp.py``) through
+    the plan executor its shard was given (``parallel/tp.py:
+    shard_model``, :meth:`set_executor`); a model given none runs the
+    plan of its span on one device under the empty strategy, made at its
+    first step.  ``forward_gen(bc, state, pages)`` is a generator that
+    yields at the plan's collectives (``parallel/comm.py``); ``forward``
+    runs it alone with identity collectives, and a tensor-parallel
+    manager runs one per shard in lockstep.  Nodes name their modules by
+    path; the model looks them up in itself, so a submodule swapped in
+    later is the one that runs."""
 
     gates_lm_head = True
-    # (every (parent, key, child) on the span's module paths, the modules
-    # in node order): the lookup, kept while those entries stand; the
-    # model's own entries have parent None, so that no cycle keeps a
+    tp_rank = 0
+    # the plan executor of this model's span (parallel/tp.py)
+    _executor = None
+    # (every (parent, key, child) on the executor's module paths, the
+    # modules in step order): the lookup, kept while those entries stand;
+    # the model's own entries have parent None, so that no cycle keeps a
     # dropped model's weights alive until the collector runs
     _bound = None
 
@@ -284,29 +287,57 @@ class GatedLMHead:
 
     def set_span(self, span: StageSpan) -> None:
         self.span = span
+        self._executor = None
         self._bound = None
 
-    def span_ops(self) -> list:
-        """The module each node of the span calls (None: module-free),
-        looked up by path in this model; the lookup is kept while every
-        module on those paths is still the one registered there."""
-        bound = self._bound
-        if bound is not None and all(
-                (self if p is None else p)._modules.get(k) is c
-                for p, k, c in bound[0]):
-            return bound[1]
-        edges, ops = {}, []
-        for node in self.span.nodes:
+    def set_executor(self, executor) -> None:
+        """Run the span as ``executor`` (``parallel/tp.py:PlanExecutor``)
+        says."""
+        self._executor = executor
+        self._bound = None
+
+    def executor(self):
+        """This model's plan executor: the one it was given, or the plan
+        of its span on one device under ``{}``, made once."""
+        if self._executor is None:
+            from ...parallel.mesh import Mesh
+            from ...parallel.tp import PlanExecutor, TPPlan
+
+            dev = next((p.device for p in self.parameters()), "cpu")
+            plan = TPPlan(self, Mesh({"tp": 1}, [dev]), {})
+            self.set_executor(PlanExecutor(plan, 0))
+        return self._executor
+
+    def modules_of(self, nodes, edges=None) -> list:
+        """The module each of ``nodes`` calls (None: module-free), looked
+        up by path in this model; ``edges`` collects each (parent, key,
+        child) on the paths (the model's own with parent None)."""
+        out = []
+        for node in nodes:
             mod = None if node.module is None else self
             for key in () if mod is None else node.module.split("."):
                 child = mod._modules.get(key)
                 if child is None:
                     raise ValueError(f"node {node.name!r}: the model holds "
                                      f"no module at {node.module!r}")
-                edges[(id(mod), key)] = (None if mod is self else mod,
-                                         key, child)
+                if edges is not None:
+                    edges[(id(mod), key)] = (None if mod is self else mod,
+                                             key, child)
                 mod = child
-            ops.append(mod)
+            out.append(mod)
+        return out
+
+    def span_ops(self) -> list:
+        """The module each step of the executor calls (None: module-free
+        or a parallel step); the lookup is kept while every module on
+        those paths is still the one registered there."""
+        bound = self._bound
+        if bound is not None and all(
+                (self if p is None else p)._modules.get(k) is c
+                for p, k, c in bound[0]):
+            return bound[1]
+        edges = {}
+        ops = self.modules_of(self.executor().nodes, edges)
         self._bound = (list(edges.values()), ops)
         return ops
 
@@ -322,15 +353,17 @@ class GatedLMHead:
                     pages=None, xs: Optional[Sequence[torch.Tensor]] = None):
         """One step over the model's span, as a generator of its
         collectives.  The first span reads the batch's tokens; a later
-        stage's reads ``xs``, the tensors entering it.  Returns the
-        logits (the last span) or the list of tensors leaving the span."""
+        stage's reads ``xs``, the tensors entering it (whole).  Returns
+        the logits (the last span) or the list of tensors leaving the
+        span (shard 0's; None on the other shards)."""
         span = self.span
-        ctx = StepContext(bc, state, pages)
-        env = (dict(zip(span.entry_tids, xs)) if xs is not None
-               else {self.graph.input_tids[0]: ctx.base.tokens})
-        env = yield from run_nodes(span.nodes, self.span_ops(), span.drops,
+        ex = self.executor()
+        ctx = StepContext(bc, state, pages, self.tp_rank)
+        env = ex.enter(span.entry_tids,
+                       [ctx.base.tokens] if xs is None else xs)
+        env = yield from run_nodes(ex.nodes, self.span_ops(), ex.drops,
                                    env, ctx)
-        outs = [env[t] for t in span.exit_tids]
+        outs = yield from ex.leave(env)
         return outs[0] if span.last else outs
 
 

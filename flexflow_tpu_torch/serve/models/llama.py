@@ -67,8 +67,7 @@ class LlamaForServe(GatedLMHead, nn.Module):
         self.finish_graph()
 
     def build_graph(self, ff):
-        """The reference builder's graph (reference :17-66); the gate and
-        up projections keep their column slices for ``down_proj``."""
+        """The reference's serve graph (reference :17-66)."""
         m = self.model
         x = ff.embedding(ff.create_tensor(), m.embed_tokens,
                          "model.embed_tokens")
@@ -87,9 +86,8 @@ class LlamaForServe(GatedLMHead, nn.Module):
                 attn, residual, layer.post_attention_layernorm,
                 f"{p}.post_attention_layernorm")
             gate = ff.dense(mlp_in, layer.mlp.gate_proj,
-                            f"{p}.mlp.gate_proj", out="local")
-            up = ff.dense(mlp_in, layer.mlp.up_proj, f"{p}.mlp.up_proj",
-                          out="local")
+                            f"{p}.mlp.gate_proj")
+            up = ff.dense(mlp_in, layer.mlp.up_proj, f"{p}.mlp.up_proj")
             act = ff.sigmoid_silu_multi(gate, up, layer.mlp.act,
                                         f"{p}.mlp.act")
             mlp_out = ff.dense(act, layer.mlp.down_proj,

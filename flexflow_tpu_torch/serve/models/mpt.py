@@ -61,8 +61,7 @@ class MPTForServe(GatedLMHead, nn.Module):
         self.finish_graph()
 
     def build_graph(self, ff):
-        """The reference builder's graph (reference :15-39); ``up_proj``
-        keeps its column slice for ``down_proj``."""
+        """The reference's serve graph (reference :15-39)."""
         tr = self.transformer
         x = ff.embedding(ff.create_tensor(), tr.wte, "transformer.wte")
         for i, blk in enumerate(tr.blocks):
@@ -71,7 +70,7 @@ class MPTForServe(GatedLMHead, nn.Module):
             a = ff.attention(h, blk.attn, f"{p}.attn")
             x = ff.add(x, a, f"{p}.attn_residual")
             h = ff.norm(x, blk.norm_2, f"{p}.norm_2")
-            h = ff.dense(h, blk.ffn.up_proj, f"{p}.ffn.up_proj", out="local")
+            h = ff.dense(h, blk.ffn.up_proj, f"{p}.ffn.up_proj")
             h = ff.dense(h, blk.ffn.down_proj, f"{p}.ffn.down_proj")
             x = ff.add(x, h, f"{p}.mlp_residual")
         x = ff.norm(x, tr.norm_f, "transformer.norm_f")

@@ -71,9 +71,8 @@ class OPTForServe(GatedLMHead, nn.Module):
         self.finish_graph()
 
     def build_graph(self, ff):
-        """The reference builder's graph (reference :19-61): pre-LN or
-        post-LN blocks, ``fc1`` keeping its column slice for ``fc2``
-        (whose bias is added after its reduce)."""
+        """The reference's serve graph (reference :19-61): pre-LN or
+        post-LN blocks."""
         dec = self.model.decoder
         x = ff.embedding(ff.create_tensor(), dec.embed_tokens,
                          "model.decoder.embed_tokens")
@@ -93,7 +92,7 @@ class OPTForServe(GatedLMHead, nn.Module):
                             f"{p}.self_attn_layer_norm")
             h = ff.norm(x, layer.final_layer_norm,
                         f"{p}.final_layer_norm") if pre else x
-            h = ff.dense(h, layer.fc1, f"{p}.fc1", out="local")
+            h = ff.dense(h, layer.fc1, f"{p}.fc1")
             h = ff.dense(h, layer.fc2, f"{p}.fc2")
             x = ff.add(x, h, f"{p}.mlp_residual")
             if not pre:

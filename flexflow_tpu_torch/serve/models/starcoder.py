@@ -62,9 +62,7 @@ class StarCoderForServe(GatedLMHead, nn.Module):
         self.finish_graph()
 
     def build_graph(self, ff):
-        """The reference builder's graph (reference :15-38); ``c_fc``
-        keeps its column slice for ``c_proj`` (whose bias is added after
-        its reduce)."""
+        """The reference's serve graph (reference :15-38)."""
         tr = self.transformer
         x = ff.embedding(ff.create_tensor(), tr.wte, "transformer.wte")
         x = ff.position_embedding(x, tr.wpe, "transformer.wpe")
@@ -74,7 +72,7 @@ class StarCoderForServe(GatedLMHead, nn.Module):
             a = ff.attention(h, blk.attn, f"{p}.attn")
             x = ff.add(x, a, f"{p}.attn_residual")
             h = ff.norm(x, blk.ln_2, f"{p}.ln_2")
-            h = ff.dense(h, blk.mlp.c_fc, f"{p}.mlp.c_fc", out="local")
+            h = ff.dense(h, blk.mlp.c_fc, f"{p}.mlp.c_fc")
             h = ff.dense(h, blk.mlp.c_proj, f"{p}.mlp.c_proj")
             x = ff.add(x, h, f"{p}.mlp_residual")
         x = ff.norm(x, tr.ln_f, "transformer.ln_f")

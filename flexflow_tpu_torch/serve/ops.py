@@ -12,15 +12,16 @@ biased projections, ALiBi through the decode kernel's slopes.  A
 speculative step of an ALiBi layer takes the reference's gather path
 (:830-836, :908-958) as torch ops, as no Pallas kernel computes it there:
 the spec slots' positions in a ``spec_pos`` buffer, ALiBi biases on the
-committed and the spec keys (``_alibi_tree_attend``).  Under tensor
-parallelism (:mod:`flexflow_tpu_torch.parallel.tp`) a head-sharded layer
+committed and the spec keys (``_alibi_tree_attend``).  Under a plan
+(:mod:`flexflow_tpu_torch.parallel.tp`) a layer whose config is ``head``
 holds its shard's KV heads and their query heads and runs the kernels on
 those local shapes, as the reference's ``_head_shard_map`` (:528-556) runs
-the Pallas kernels under ``shard_map``; its ``o_proj`` product is a
-partial sum, reduced across the shards before ``o_bias`` is added once.
-A replicated layer (KV heads that do not divide) runs every head on every
-shard and its output is whole: the reference takes its gather path there
-(``_head_shard_map`` returns None), the same function.  Layouts are the
+the Pallas kernels under ``shard_map``; its output is the partial sum of
+its ``o_proj`` rows, ``o_bias`` added on rank 0 only, and the plan's
+reduction follows.  Any other config runs every head on every shard and
+the output is whole: the op IR (reference :196-239, :962-995) ignores a
+``sample`` config, its input and output are replicated, and so is what
+the layer computes.  Layouts are the
 reference's: the
 fused QKV weight is ``[E, KV, gq + 2, D]`` (per KV head, its gq query
 heads, then K, then V), ``o_proj`` is ``[QH*D, E]`` and the caches are
@@ -50,8 +51,10 @@ from ..ops.cuda.attention import (
     tree_attention,
     tree_attention_batched,
 )
+from ..core.graph import ParamSpec, TensorSpec
+from ..core.op import Op, ShardingSolution, register_op
+from ..core.sharding import TensorSharding
 from ..ops.linear import add_bias, dequant
-from ..parallel.comm import run_local
 from .batch_config import (
     BatchConfig,
     PrefillBatchConfig,
@@ -116,7 +119,8 @@ def kv_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-class IncMultiHeadSelfAttention(nn.Module):
+@register_op
+class IncMultiHeadSelfAttention(Op, nn.Module):
     """KV-cached GQA self-attention over flat token batches.
 
     ``rotary_embedding`` applies RoPE to Q and K; ``use_bias`` adds the
@@ -135,12 +139,21 @@ class IncMultiHeadSelfAttention(nn.Module):
     Head-sharded (``head_sharded``, set by ``parallel.tp.shard_model``)
     over ``head_shards`` shards, ``num_q_heads`` and ``num_kv_heads`` are
     the shard's, its first query head is global head ``head_offset``, and
-    :meth:`gen` yields its partial output for the all-reduce.
+    its output is a partial sum (``o_bias`` on the rank-0 shard only,
+    ``skip_bias`` elsewhere).
     """
 
+    type_name = "inc_multihead_self_attention"
     head_sharded = False
     head_shards = 1
     head_offset = 0
+    skip_bias = False
+    # the serve capacities register_serve_capacities records (the cost
+    # model's cache depth, rows and spec slots) and the KV dtype
+    cost_seq_len: Optional[int] = None
+    cost_max_requests: Optional[int] = None
+    cost_max_spec: int = 0
+    kv_dtype: Optional[str] = None
 
     def __init__(self, embed_dim: int, num_q_heads: int,
                  num_kv_heads: Optional[int] = None,
@@ -184,13 +197,8 @@ class IncMultiHeadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, bc, state: Dict[str, torch.Tensor],
                 pages=None) -> torch.Tensor:
-        return run_local(self.gen(x, bc, state, pages))
-
-    def gen(self, x: torch.Tensor, bc, state: Dict[str, torch.Tensor],
-            pages=None):
-        """The layer as a generator of its collectives (``parallel.comm``):
-        a head-sharded layer yields its partial ``o_proj`` product for the
-        all-reduce, then adds ``o_bias``; returns ``[T, E]``."""
+        """``[T, E]``: this shard's heads' output (a head-sharded layer's
+        is its partial sum)."""
         q, k, v = self._project(x, bc)
         if isinstance(bc, TreeVerifyBatchConfig):
             # last macro-step's accepted K/V joins the committed cache
@@ -208,9 +216,81 @@ class IncMultiHeadSelfAttention(nn.Module):
                       out.dtype)
         y = torch.matmul(out.reshape(t, self.num_q_heads * self.head_dim),
                          o_w)
-        if self.head_sharded:
-            y = yield ("all_reduce", y)
-        return add_bias(y, self.o_bias) if self.use_bias else y
+        if self.use_bias and not self.skip_bias:
+            y = add_bias(y, self.o_bias)
+        return y
+
+    # ---- op IR (reference :196-239, :962-995) ---------------------------
+    def infer_shapes(self, in_specs):
+        x = in_specs[0]
+        if x.shape[-1] != self.embed_dim:
+            raise ValueError(f"expected embed_dim {self.embed_dim}, got {x}")
+        return [TensorSpec(x.shape, self.compute_dtype)]
+
+    def params(self):
+        g, dt = self.q_per_kv + 2, self.compute_dtype
+        ps = [ParamSpec("qkv", TensorSpec((self.embed_dim, self.num_kv_heads,
+                                           g, self.head_dim), dt)),
+              ParamSpec("o_proj", TensorSpec(
+                  (self.num_q_heads * self.head_dim, self.embed_dim), dt))]
+        if self.use_bias:
+            ps.append(ParamSpec("qkv_bias", TensorSpec(
+                (self.num_kv_heads, g, self.head_dim), dt)))
+            ps.append(ParamSpec("o_bias", TensorSpec((self.embed_dim,), dt)))
+        return ps
+
+    def state_specs(self, max_requests: int, max_seq_len: int,
+                    max_spec_tokens: int = 0, head_axes=()) -> Dict:
+        """``{name: (shape, dtype, sharding)}`` of the layer's cache
+        buffers (reference :241-287), kv-head-major, the head axis dim
+        1."""
+        kv_shape = (max_requests + 1, self.num_kv_heads, max_seq_len,
+                    self.head_dim)
+        sh = TensorSharding.from_axes(4, {1: head_axes} if head_axes else {})
+        kv_dt = torch.int8 if self.kv_dtype == "int8" else self.compute_dtype
+        out = {"k": (kv_shape, kv_dt, sh), "v": (kv_shape, kv_dt, sh)}
+        if kv_dt == torch.int8:
+            sc_sh = TensorSharding.from_axes(3, {1: head_axes}
+                                             if head_axes else {})
+            out["k_scale"] = (kv_shape[:3], torch.float32, sc_sh)
+            out["v_scale"] = (kv_shape[:3], torch.float32, sc_sh)
+        if max_spec_tokens:
+            sp_shape = (max_requests + 1, self.num_kv_heads, max_spec_tokens,
+                        self.head_dim)
+            out["sk"] = (sp_shape, self.compute_dtype, sh)
+            out["sv"] = (sp_shape, self.compute_dtype, sh)
+            if self.use_alibi:
+                out["spec_pos"] = ((sp_shape[0], sp_shape[2]), torch.int32,
+                                   TensorSharding.replicated(2))
+        return out
+
+    def parallel_dims(self, in_specs):
+        return {"sample": in_specs[0].shape[0], "head": self.num_kv_heads}
+
+    def apply_config(self, config, in_specs, mesh, in_shardings=None):
+        x = in_specs[0]
+        head = tuple(config.get("head", ()))
+        x_sh = TensorSharding.replicated(x.ndim)
+        out_sh = TensorSharding.replicated(x.ndim)
+        params = {"qkv": TensorSharding.from_axes(4, {1: head} if head
+                                                  else {}),
+                  "o_proj": TensorSharding.from_axes(2, {0: head} if head
+                                                     else {})}
+        if self.use_bias:
+            params["qkv_bias"] = TensorSharding.from_axes(
+                3, {0: head} if head else {})
+        if head:
+            out_sh = out_sh.with_partial(head)
+        return ShardingSolution(inputs=[x_sh], outputs=[out_sh],
+                                params=params)
+
+    def flops(self, in_specs):
+        t = in_specs[0].shape[0]
+        e, qh, d = self.embed_dim, self.num_q_heads, self.head_dim
+        s = self.cost_seq_len or 1024
+        proj = (2 * t * e * (qh + 2 * self.num_kv_heads) * d
+                + 2 * t * qh * d * e)
+        return proj + 2 * t * qh * d * s * 2
 
     def _project(self, x, bc) -> Tuple[torch.Tensor, ...]:
         """One GEMM for Q, K and V, the bias, then RoPE (reference

@@ -37,9 +37,12 @@ its tree batches riding the chain whole).
 
 :func:`build_stage_plans` gives the serve planner (``search/
 serve_search.py``) one :class:`StageCost` record a stage, in place of the
-reference's per-stage PCG plans (the port has no PCG): the stage's
-shard-0 model priced at the capacities recorded on the model, and its
-tensor-parallel collectives.
+reference's per-stage PCG plans: the stage's shard-0 model under the
+Megatron dict priced at the capacities recorded on the model, and the
+collectives of its stage plan (``parallel/tp.py:TPPlan``, a PCG plan of
+the stage's nodes).  A pipelined manager takes any strategy dict
+(``strategy=``, reference :255, :324-330): each stage plans and runs its
+part through the same plan executor as a plain manager.
 """
 
 from __future__ import annotations
@@ -57,7 +60,13 @@ from ..obs.profiler import NULL_PROFILER
 from ..obs.telemetry import NULL_TELEMETRY
 from ..ops.cuda.attention import check_page_size
 from ..parallel.comm import run_shards
-from ..parallel.tp import Collective, TPPlan, shard_model, tp_collectives
+from ..parallel.tp import (
+    Collective,
+    TPPlan,
+    shard_model,
+    tensor_parallel_strategy,
+    tp_collectives,
+)
 from .batch_config import BatchConfig, InferenceResult, batch_to
 from .inference_manager import (
     EXIT_BUDGET,
@@ -162,7 +171,8 @@ def stage_model(model: torch.nn.Module, nodes, entry_tids, exit_tids,
     by_name = {n.name: n for n in sm.graph.nodes}
     sm.set_span(StageSpan([by_name[n.name] for n in nodes], entry_tids,
                           exit_tids, last))
-    _prune(sm, {id(op) for op in sm.span_ops() if op is not None})
+    _prune(sm, {id(op) for op in sm.modules_of(sm.span.nodes)
+                if op is not None})
     return sm
 
 
@@ -215,7 +225,7 @@ def build_stage_plans(model: torch.nn.Module, split, meshes,
         sm = (model if len(split) == 1
               else stage_model(model, nodes, entry, exit_,
                                s == len(split) - 1))
-        plan = TPPlan(sm, mesh.size)
+        plan = TPPlan(sm, mesh, None, caps.max_tokens)
         # one device's model: a sliced copy at a degree above 1, the
         # stage's model itself at 1 (left unmarked)
         shard = shard_model(sm, plan, 0) if plan.degree > 1 else sm
@@ -226,8 +236,7 @@ def build_stage_plans(model: torch.nn.Module, split, meshes,
             flops={f: fl[f] for f in ("attention", "mlp", "lm_head")},
             kv_bytes=kv_state_bytes(shard, caps, names=KV_BUFFER_NAMES),
             memory=memory_parts(shard, caps),
-            collectives=tp_collectives(model.graph, nodes, exit_, plan,
-                                       caps.max_tokens)))
+            collectives=tp_collectives(plan)))
     return out
 
 
@@ -308,7 +317,8 @@ class PipelinedInferenceManager:
                  max_spec_tokens: int = 0, topk: int = 0,
                  kv_dtype: Optional[str] = None,
                  kv_page_size: Optional[int] = None,
-                 gate_lm_head: bool = True):
+                 gate_lm_head: bool = True,
+                 strategy: Optional[Dict[str, Dict]] = None):
         if mesh is None or "pp" not in mesh.shape:
             raise ValueError("PipelinedInferenceManager needs a mesh with a "
                              "'pp' axis (use InferenceManager for pure TP)")
@@ -340,11 +350,15 @@ class PipelinedInferenceManager:
         marked = gate_lm_head and mark_gated_lm_head(model, max_requests)
         split = serve_stage_split(model.graph, self.pp)
         self.stage_meshes = mesh.stage_meshes()
+        if strategy is None:
+            strategy = (tensor_parallel_strategy(model, self.tp)
+                        if self.tp > 1 else {})
+        self.strategy = dict(strategy)
         groups = []
         for s, ((nodes, entry, exit_), smesh) in enumerate(
                 zip(split, self.stage_meshes)):
             sm = stage_model(model, nodes, entry, exit_, s == self.pp - 1)
-            plan = TPPlan(sm, self.tp)
+            plan = TPPlan(sm, smesh, self.strategy, max_tokens_per_batch)
             groups.append([shard_model(sm, plan, r).to_empty(device=dev)
                            .eval() for r, dev in enumerate(smesh.devices)])
         shards = [m for g in groups for m in g]

@@ -342,10 +342,15 @@ def test_port_never_imports_jax_or_the_reference_package():
             "bench_compare.py", "pp.py", "machine_model.py",
             "serve_search.py", "simulator.py", "measure.py"} <= {
                 f.name for f in files}
-    # the serve graph IR (core/) and the planner (search/) are scanned
-    # with the rest
-    assert {"core/graph.py", "core/interpreter.py",
-            "search/serve_search.py", "search/machine_model.py"} <= {
+    # the serve graph IR and the PCG (core/), the parallel ops and the
+    # plan executor (parallel/) and the planner and the Unity search
+    # (search/) are scanned with the rest
+    assert {"core/graph.py", "core/interpreter.py", "core/sharding.py",
+            "core/op.py", "core/pcg.py", "parallel/parallel_ops.py",
+            "parallel/tp.py", "ops/elementwise.py",
+            "search/serve_search.py", "search/machine_model.py",
+            "search/search.py", "search/strategy.py",
+            "search/simulator.py"} <= {
         f"{f.parent.name}/{f.name}" for f in files}
     for path in files:
         for mod, func in _imported_modules(path):
@@ -370,6 +375,12 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.tools.bench_compare, "
             "flexflow_tpu_torch.ops.cuda.attention, "
             "flexflow_tpu_torch.core, flexflow_tpu_torch.serve.pp, "
+            "flexflow_tpu_torch.core.sharding, flexflow_tpu_torch.core.op, "
+            "flexflow_tpu_torch.core.pcg, "
+            "flexflow_tpu_torch.parallel.parallel_ops, "
+            "flexflow_tpu_torch.parallel.tp, "
+            "flexflow_tpu_torch.search.search, "
+            "flexflow_tpu_torch.search.strategy, "
             "flexflow_tpu_torch.search, flexflow_tpu_torch.search.measure, "
             "flexflow_tpu_torch.tools.replay_report; "
             "bad = [m for m in sys.modules if m in ('jax', 'flexflow_tpu', "
