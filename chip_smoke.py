@@ -214,6 +214,24 @@ and prints no result):
    strategy="search")``, 8 requests of 64 tokens: the searched dict, its
    ``simulate`` total and ``plan_memory_bytes`` a device beside the
    Megatron dict's, and the measured TTFT and TPOT.
+21. training, through ``FFModel`` on the card in float32 (TF32 off):
+   (a) the Transformer classifier at BERT-base width (hidden 768, 12
+   heads, ff 3072), 2 layers, batch 8, sequence 128, 16 classes, 3 steps
+   of SGD (momentum 0.9) and 3 of Adam on the card and on the CPU from
+   the same seeded weights (``load_params``) and batches: losses within
+   ``rtol 1e-4`` (float32 products summed in another order at width
+   3072), parameters within ``1e-5`` under SGD and ``2 * alpha * steps``
+   under Adam (whose step on a near-zero gradient is about ``alpha``
+   whatever its rounding); (b) the same classifier at 12 layers and
+   sequence 512 trained by ``fit`` with Adam (lr 1e-4) for 4 epochs of a
+   64-sample learnable set (labels a fixed random projection of the
+   pooled input): the median step time after 2 warm-up steps (each step
+   between two ``torch.cuda.synchronize``), samples/s, tokens/s, three
+   times the ops' forward flops over the step as a share of the f32
+   rate, peak memory, and the first and last epoch's loss, which must
+   fall; (c) the MNIST MLP example (``examples/mnist_mlp.py``) with its
+   defaults, one epoch, then ``evaluate``: accuracy at least 0.99.  No
+   kernel is launched: the training path's compute is torch ops.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -3946,6 +3964,167 @@ def phase_searched_strategy(serve, att, torch, dev, card):
     return {"f32": f32, "bf16": collections.Counter(n)}
 
 
+TRAIN_STEPS = 3          # phase 21(a): steps of each optimizer
+# phase 21's classifier at BERT-base width
+BERT_BASE = dict(hidden_dim=768, num_heads=12, ff_dim=3072, num_classes=16,
+                 batch=8)
+
+
+def train_parity(ff, build, kw, opt_cls, opt_kw, x, y, dev):
+    """Phase 21(a), one optimizer: the classifier on the CPU and on the
+    card from the same seeded weights (the CPU model's, through
+    ``load_params``), ``TRAIN_STEPS`` steps through ``fit`` (one full
+    batch an epoch, unshuffled).  Returns (losses on the CPU, on the card,
+    max |param difference|, the parameters' names by that difference)."""
+    import numpy as np
+
+    runs = []
+    for device in ("cpu", dev):
+        m = build(ff.FFConfig(batch_size=kw["batch"], seed=0),
+                  device=device, **kw)
+        m.compile(optimizer=getattr(ff, opt_cls)(**opt_kw))
+        if runs:
+            m.load_params(runs[0][2])
+        init = {n: {p: v.detach().cpu().clone() for p, v in g.items()}
+                for n, g in m.params.items()}
+        hist = m.fit(x, y, epochs=TRAIN_STEPS, shuffle=False,
+                     verbose=False)
+        runs.append(([h["loss"] for h in hist], m, init))
+    (lc, cpu, _), (lg, card, _) = runs
+    diffs = {}
+    for n, g in cpu.params.items():
+        for p, v in g.items():
+            diffs[f"{n}.{p}"] = float(
+                (card.params[n][p].detach().cpu() - v.detach()).abs().max())
+    worst = sorted(diffs, key=diffs.get, reverse=True)[:3]
+    return lc, lg, max(diffs.values()), [(k, diffs[k]) for k in worst]
+
+
+def phase_training(torch, dev, card):
+    """Phase 21: training on the card through ``FFModel`` (f32, TF32
+    off).  (a) the BERT-base-width Transformer classifier (hidden 768, 12
+    heads, ff 3072), 2 layers, batch 8, sequence 128, 16 classes: 3 steps
+    of SGD (momentum 0.9) and 3 of Adam on the card against the CPU from
+    the same weights and batches; (b) the same classifier at 12 layers and
+    sequence 512 trained by ``fit`` with Adam (lr 1e-4) on a learnable
+    synthetic set, 4 epochs: step time, throughput, the flops' share of
+    the f32 rate, peak memory, the loss falling; (c) the MNIST MLP
+    example, one epoch on the card, then ``evaluate``."""
+    import contextlib
+    import gc
+    import io
+    import re
+    import statistics
+
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.examples import mnist_mlp
+    from flexflow_tpu_torch.models.transformer import \
+        build_transformer_classifier as build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    width, classes = BERT_BASE["hidden_dim"], BERT_BASE["num_classes"]
+
+    # (a) card vs CPU
+    kw = dict(BERT_BASE, seq=128, num_layers=2)
+    rng = np.random.RandomState(0)
+    x = rng.randn(kw["batch"], kw["seq"], width).astype(np.float32)
+    y = rng.randint(0, classes, kw["batch"]).astype(np.int32)
+    loss_rtol, sgd_atol = 1e-4, 1e-5
+    for opt_cls, opt_kw in (("SGDOptimizer", dict(lr=0.01, momentum=0.9)),
+                            ("AdamOptimizer", dict(alpha=1e-4))):
+        lc, lg, err, worst = train_parity(ff, build, kw, opt_cls, opt_kw,
+                                          x, y, dev)
+        rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+        # Adam's step is about alpha whatever the gradient's size, so a
+        # near-zero gradient's rounding (a key bias's, which the softmax
+        # cancels) moves a parameter by up to alpha a step on each side
+        atol = (2 * opt_kw["alpha"] * TRAIN_STEPS
+                if opt_cls == "AdamOptimizer" else sgd_atol)
+        log(f"training (a) {opt_cls} on {card}: losses cpu "
+            f"{[round(v, 6) for v in lc]} card {[round(v, 6) for v in lg]},"
+            f" max rel loss diff {rel:.3e} (tol {loss_rtol}), max abs "
+            f"param diff {err:.3e} (tol {atol:.1e}); largest {worst}")
+        if not all(np.isfinite(lg)) or rel > loss_rtol or err > atol:
+            raise RuntimeError(f"training (a) {opt_cls}: card and CPU "
+                               "differ beyond the tolerance")
+
+    # (b) full depth
+    kw = dict(BERT_BASE, seq=512, num_layers=12)
+    n_samples, epochs, warm = 64, 4, 2
+    rng = np.random.RandomState(1)
+    x = rng.randn(n_samples, kw["seq"], width).astype(np.float32)
+    proj = rng.randn(width, classes).astype(np.float32)
+    y = np.argmax(x.mean(axis=1) @ proj, axis=-1).astype(np.int32)
+    base = torch.cuda.memory_allocated()     # what earlier phases hold
+    model = build(ff.FFConfig(batch_size=kw["batch"], seed=0), device=dev,
+                  **kw)
+    model.compile(optimizer=ff.AdamOptimizer(alpha=1e-4),
+                  metrics=["accuracy"])
+    fwd_flops = sum(st.node.op.flops(st.in_specs) for st in model.plan.steps
+                    if not st.is_parallel)
+    times = []
+    inner = model._train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    model._train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = model.fit(x, y, epochs=epochs, verbose=False)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    step = statistics.median(times[warm:])
+    tokens = kw["batch"] * kw["seq"]
+    peak_rate = PEAK_FLOPS["float32"]
+    share = 3 * fwd_flops / step / peak_rate
+    losses = [h["loss"] for h in hist]
+    log(f"training (b) on {card}: 12 layers, hidden {width}, seq 512, "
+        f"batch {kw['batch']}, Adam 1e-4, {n_samples} samples x {epochs} epochs "
+        f"({len(times)} steps, fit wall {wall:.2f}s): median step "
+        f"{step * 1e3:.3f} ms after {warm} warm-up (min "
+        f"{min(times[warm:]) * 1e3:.3f}, max {max(times[warm:]) * 1e3:.3f});"
+        f" {kw['batch'] / step:.2f} samples/s, {tokens / step:.0f} tokens/s;"
+        f" 3 x forward flops {3 * fwd_flops / 1e12:.4f} TFLOP a step, "
+        f"{3 * fwd_flops / step / 1e12:.2f} TFLOP/s = {share:.4f} of "
+        f"{peak_rate / 1e12:.0f} TFLOP/s f32; peak memory "
+        f"{peak / 1e9:.2f} GB (above the {base / 1e9:.2f} GB held before "
+        "the model); epoch losses "
+        f"{[round(v, 4) for v in losses]}, accuracy "
+        f"{[round(h['accuracy'], 4) for h in hist]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"training (b): the loss did not fall: {losses}")
+    del model, inner
+    torch.cuda.empty_cache()
+
+    # (c) the MNIST MLP example's defaults
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        final = mnist_mlp.main([])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    log(text.rstrip())
+    rate = re.search(r"([0-9.]+) samples/s", text)
+    log(f"training (c) on {card}: mnist_mlp defaults (batch 64, 1 epoch, "
+        f"8192 synthetic samples): {rate.group(1) if rate else '?'} "
+        f"samples/s in the epoch, main() wall {wall:.2f}s, final accuracy "
+        f"{final['accuracy']:.4f}")
+    if final["accuracy"] < 0.99:
+        raise RuntimeError(f"training (c): accuracy {final['accuracy']} "
+                           "< 0.99")
+
+
 def tc_reports(text):
     """(kernel, "registers, shared memory, spills") of each tensor-core
     kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
@@ -4050,6 +4229,7 @@ def main():
                                            card))
     searched = timed("searched strategy", lambda: phase_searched_strategy(
         serve, att, torch, dev, card))
+    timed("training", lambda: phase_training(torch, dev, card))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)

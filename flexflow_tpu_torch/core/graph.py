@@ -1,7 +1,11 @@
-"""The serve graph: nodes over tensor ids, and the live cuts between them.
+"""The graph: nodes over tensor ids, and the live cuts between them.
 
-Port of ``flexflow_tpu/core/graph.py`` (``TensorSpec`` :21, ``Node`` :83,
-``Graph`` :97, ``live_cuts`` :177) for the serve path.  A family's model
+Port of ``flexflow_tpu/core/graph.py`` (``TensorSpec`` :21, ``Tensor``
+:53, ``Node`` :83, ``Graph`` :97, ``live_cuts`` :177).  Two kinds of node
+share it.  The ``FFModel`` builder (training, ``model.py``) appends nodes
+that hold their op (:meth:`Graph.add_op`, reference ``add_node``
+:119-137): ``op`` is the node's ``nn.Module``, ``module`` its name, and
+the output specs come from ``op.infer_shapes``.  A family's model
 records its forward here as the reference's builder records it: the same
 nodes, in the same order, with the same names and the same tensor ids.
 A node names the ``nn.Module`` it calls by its path in the model that
@@ -9,8 +13,8 @@ runs it (``module``, None for a module-free op, an elementwise add), so
 the graph holds no module and a copy or a stage of the model runs its
 own; ``kind`` says what the node does (``"attention"``, ``"dense"``...)
 and ``run`` how (``core/interpreter.py``).
-A tensor's shape names its flat token axis ``-1``: one graph serves every
-batch capacity.
+A serve tensor's shape names its flat token axis ``-1``: one graph serves
+every batch capacity.
 """
 
 from __future__ import annotations
@@ -80,7 +84,10 @@ class Node:
     yields the op's collectives and returns them.  ``op`` is the node's
     op IR (``core/op.py``) where the graph carries it: a module-free
     node's own (the add's), or the module bound by ``core/pcg.py``'s
-    view of a model; a plan's parallel step holds its parallel op."""
+    view of a model; a plan's parallel step holds its parallel op.  A
+    builder node (:meth:`Graph.add_op`) holds its module as ``op`` and
+    has no ``run``: ``core/interpreter.py:build_forward`` runs it under
+    its plan step's config."""
 
     nid: int
     name: str
@@ -95,6 +102,32 @@ class Node:
         ins = ",".join(f"t{t}" for t in self.inputs)
         outs = ",".join(f"t{t}" for t in self.outputs)
         return f"{self.name}({ins})->({outs})"
+
+
+class Tensor:
+    """Handle to a tensor of a :class:`Graph` (what the ``FFModel``
+    builder methods return, reference :53-76)."""
+
+    __slots__ = ("graph", "tid")
+
+    def __init__(self, graph: "Graph", tid: int):
+        self.graph = graph
+        self.tid = tid
+
+    @property
+    def spec(self) -> TensorSpec:
+        return self.graph.tensor_specs[self.tid]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.spec.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.spec.dtype
+
+    def __repr__(self) -> str:
+        return f"Tensor(t{self.tid}: {self.spec})"
 
 
 class Graph:
@@ -139,6 +172,30 @@ class Graph:
             self.producer[tid] = (nid, i)
         return outs
 
+    def add_op(self, op, inputs: Sequence[Tensor],
+               name: Optional[str] = None) -> List[Tensor]:
+        """Append a node holding ``op`` (an ``nn.Module`` with the op IR)
+        and reading ``inputs``, named ``unique_name(name or
+        op.type_name)``; returns its output tensors, whose specs come
+        from ``op.infer_shapes`` (reference ``add_node`` :119-137).  The
+        node's ``module`` is its name: the model keys its modules by node
+        name, so a name must not hold a ``.``."""
+        for t in inputs:
+            if t.graph is not self:
+                raise ValueError("input tensor from a different graph")
+        name = self.unique_name(name or op.type_name)
+        if "." in name:
+            raise ValueError(f"node name {name!r}: the model keys its "
+                             "modules by node name, which holds no '.'")
+        out_specs = op.infer_shapes([t.spec for t in inputs])
+        nid = len(self.nodes)
+        outs = [self._new_tensor(s) for s in out_specs]
+        self.nodes.append(Node(nid, name, name, op.type_name,
+                               [t.tid for t in inputs], outs, None, op))
+        for i, tid in enumerate(outs):
+            self.producer[tid] = (nid, i)
+        return [Tensor(self, t) for t in outs]
+
     def topo_order(self) -> List[Node]:
         return self.nodes
 
@@ -148,6 +205,16 @@ class Graph:
 
     def spec(self, tid: int) -> TensorSpec:
         return self.tensor_specs[tid]
+
+    def param_specs(self) -> Dict[str, Dict[str, ParamSpec]]:
+        """``{node name: {param name: ParamSpec}}`` of every node holding
+        a weighted op (reference :155-163)."""
+        out: Dict[str, Dict[str, ParamSpec]] = {}
+        for node in self.nodes:
+            ps = node.op.params() if node.op is not None else []
+            if ps:
+                out[node.name] = {p.name: p for p in ps}
+        return out
 
     def __str__(self) -> str:
         lines = [f"  input t{t}: {self.tensor_specs[t]}"

@@ -1,20 +1,27 @@
-"""The op IR: what the planner asks of each operator.
+"""The op IR and the context an op computes in.
 
-Port of the IR half of ``flexflow_tpu/core/op.py`` (``ShardingSolution``
-:58, ``Op`` :89-130 and its cost hints, the registry): the declarative
-description of which logical dimensions an op can be parallelized over
-(``parallel_dims``) and, for a parallel config ``{parallel dim: (mesh
-axes)}``, which shardings its inputs, parameters and outputs take
-(``apply_config``), as the SOAP dimensions of the MLSys'19 paper.  The
-PCG (``core/pcg.py``) inserts the parallel ops wherever a producer's
-sharding differs from a consumer's requirement.
+Port of ``flexflow_tpu/core/op.py``: the IR half (``ShardingSolution``
+:58, ``Op`` :89-130 and its cost hints, the registry) is the
+declarative description of which logical dimensions an op can be
+parallelized over (``parallel_dims``) and, for a parallel config
+``{parallel dim: (mesh axes)}``, which shardings its inputs, parameters
+and outputs take (``apply_config``), as the SOAP dimensions of the
+MLSys'19 paper.  The PCG (``core/pcg.py``) inserts the parallel ops
+wherever a producer's sharding differs from a consumer's requirement.
 
-The reference's ``lower``/``OpContext`` half stays out: the port's
-``nn.Module``\\ s compute, and the plan executor (``parallel/tp.py``)
-gives each one its shard.  The serve modules take :class:`Op` as a mixin
-beside ``nn.Module`` (``ops/linear.py``, ``ops/embedding.py``,
-``ops/norm.py``, ``serve/ops.py``); a module-free node carries its own
-(``ops/elementwise.py``).
+The compute half (``OpContext`` :36-56, ``Op.lower`` :80-88,
+``bias_once`` :151) takes PyTorch's idiom: an op is an ``nn.Module``
+that computes in ``forward`` and holds its parameters, and autograd
+gives the backward.  An op whose result depends on more than its inputs
+(dropout, the training attention) sets ``uses_context`` and takes an
+:class:`OpContext` as ``forward(*inputs, ctx=...)``: whether the step
+trains, the step's ``torch.Generator`` and the node's parallel config.
+The serve modules take :class:`Op` as a mixin beside ``nn.Module``
+(``ops/linear.py``, ``ops/embedding.py``, ``ops/norm.py``,
+``serve/ops.py``), and so do the training ops (``ops/elementwise.py``,
+``ops/reduction.py``, ``ops/attention.py``); the serve path's plan
+executor (``parallel/tp.py``) gives each module its shard, and
+``core/interpreter.py:build_forward`` runs a training plan.
 """
 
 from __future__ import annotations
@@ -22,10 +29,26 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 from .graph import ParamSpec, TensorSpec
 from .sharding import TensorSharding
 
 Config = Dict[str, Tuple[str, ...]]
+
+
+@dataclasses.dataclass
+class OpContext:
+    """What an op that ``uses_context`` reads besides its inputs
+    (reference :36-56): ``training`` (dropout is the identity when
+    False), the step's ``generator`` (None: an op draws from its own
+    seed, as the reference's ``PRNGKey(seed)``), the node's parallel
+    ``config`` and the shard's ``rank`` on its mesh."""
+
+    training: bool = False
+    generator: Optional[torch.Generator] = None
+    config: Optional[Config] = None
+    rank: int = 0
 
 
 @dataclasses.dataclass
@@ -45,6 +68,8 @@ class Op:
     reference op's) and implement the hooks."""
 
     type_name: str = "op"
+    # forward(*inputs, ctx=OpContext) rather than forward(*inputs)
+    uses_context: bool = False
 
     def infer_shapes(self, in_specs: List[TensorSpec]) -> List[TensorSpec]:
         raise NotImplementedError
@@ -96,6 +121,15 @@ class Op:
             if isinstance(v, (int, float, str, bool, tuple, type(None))):
                 items.append((k, v))
         return (self.type_name, tuple(items))
+
+
+def bias_once(bias: torch.Tensor, axes, ctx: OpContext) -> torch.Tensor:
+    """A bias counted once by the sum of an output that is partial over
+    ``axes`` (reference :151): whole on rank 0, zeros on the others; the
+    bias itself when the output is whole."""
+    if axes and ctx.rank != 0:
+        return torch.zeros_like(bias)
+    return bias
 
 
 # op type name -> class, for strategy and serialisation round trips

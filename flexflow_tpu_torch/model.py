@@ -1,0 +1,556 @@
+"""FFModel: the graph builder, compile, and the training loop.
+
+Port of ``flexflow_tpu/model.py`` (``FFModel`` :61-556 and :946-1204; the
+pipeline methods :561-944 come with pipeline training, ``ROADMAP.md``).
+One builder method per layer appends a node holding its op
+(``core/graph.py:Graph.add_op``) under the reference's default name, so
+parameters carry across by name.  ``compile`` resolves a strategy in the
+reference's order (the explicit dict, ``--import``, the data-parallel
+strategy; ``--export``), plans the graph (``core/pcg.py``), builds its
+forward (``core/interpreter.py:build_forward``), draws the parameters
+(``init_params``) and the optimizer state.  A train step runs the
+forward, the loss, ``backward()`` and the optimizer's update in place;
+the per-step losses and metrics stay on the device until the end of the
+epoch, where the host reads them once, as the reference does.
+
+Training runs on one device: ``FFModel(config, mesh=None, device=None)``
+trains on ``device`` (None: the CUDA card; it raises without one).  A
+mesh of more devices, a ``pp`` axis and a search budget raise
+``NotImplementedError`` naming the slice that brings them; nothing falls
+back.  Initial weights, the shuffle order and dropout masks come from
+torch generators seeded by ``FFConfig.seed``, so they match the JAX
+package's in distribution; ``load_params`` carries its weights across.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from .config import FFConfig
+from .core.graph import Graph, Tensor, TensorSpec
+from .core.interpreter import build_forward, init_params, place_inputs
+from .core.pcg import PCG, Plan
+from .ops.attention import MultiHeadAttention
+from .ops.elementwise import (Cast, Dropout, ElementBinary, ElementUnary,
+                              as_dtype)
+from .ops.linear import BatchMatmul, Linear
+from .ops.norm import LayerNorm, RMSNorm
+from .ops.reduction import Reduce, Softmax
+from .parallel.mesh import data_parallel_strategy, make_mesh
+from .search.strategy import load_strategy, save_strategy
+from .training import loss as loss_mod
+from .training import metrics as metrics_mod
+from .training.optimizer import Optimizer, SGDOptimizer
+from .utils.platform import host_to_device, resolve_device
+from .utils.profiling import maybe_profile
+from .utils.runlog import log_run
+
+SLICE_11B = ("slice 11b (data- and tensor-parallel training on the plan "
+             "executor with a gradient all-reduce)")
+SLICE_10B_II = ("slice 10b-ii (the substitution search, "
+                "graph_optimize(substitution=True))")
+SLICE_11C = ("slice 11c (the ops breadth: embedding's aggr, conv, pool, "
+             "batch norm, the shape ops, the decode heads, MoE, models/* "
+             "and frontends/*)")
+SLICE_11D = "slice 11d (pipeline and ring-attention training)"
+
+
+class FFModel:
+    def __init__(self, config: Optional[FFConfig] = None, mesh=None,
+                 device=None):
+        self.config = config or FFConfig()
+        self.mesh = mesh          # made at compile if None
+        self._device_given = mesh is not None or device is not None
+        self.device = (mesh.devices[0] if mesh is not None
+                       else resolve_device(device))
+        self.graph = Graph()
+        self.layers = nn.ModuleDict()   # node name -> its op module
+        self.pcg: Optional[PCG] = None
+        self.plan: Optional[Plan] = None
+        self.strategy = None
+        self.params: Optional[Dict[str, Dict[str, nn.Parameter]]] = None
+        self.opt_state = None
+        self.optimizer: Optional[Optimizer] = None
+        self.loss_type = None
+        self.loss_weights: Optional[List[float]] = None
+        self.metric_names: List[str] = []
+        self._forward = None
+        self._compiled_out_tids: Optional[List[int]] = None
+        # the model's own stream: init seeds, epoch seeds, shuffles
+        self._generator = torch.Generator().manual_seed(self.config.seed)
+
+    # ------------------------------------------------------------------
+    # graph building (one method per layer)
+    # ------------------------------------------------------------------
+    def create_tensor(self, shape: Sequence[int],
+                      dtype=torch.float32) -> Tensor:
+        tid = self.graph.add_input(TensorSpec(tuple(shape), as_dtype(dtype)))
+        return Tensor(self.graph, tid)
+
+    def _add(self, op, inputs: Sequence[Tensor], name=None) -> List[Tensor]:
+        outs = self.graph.add_op(op, list(inputs), name)
+        self.layers[self.graph.nodes[-1].name] = op
+        return outs
+
+    def dense(self, x, out_dim, activation=None, use_bias=True, name=None,
+              kernel_initializer=None, bias_initializer=None, dtype=None):
+        op = Linear(x.shape[-1], out_dim, as_dtype(dtype or x.dtype),
+                    device="meta", use_bias=use_bias, activation=activation,
+                    kernel_initializer=kernel_initializer,
+                    bias_initializer=bias_initializer)
+        return self._add(op, [x], name or "dense")[0]
+
+    def batch_matmul(self, a, b, a_transposed=False, b_transposed=False,
+                     name=None):
+        return self._add(BatchMatmul(a_transposed, b_transposed), [a, b],
+                         name or "batch_matmul")[0]
+
+    # elementwise unary
+    def _unary(self, fn, x, name, scalar=None):
+        return self._add(ElementUnary(fn, scalar), [x], name or fn)[0]
+
+    def relu(self, x, name=None):
+        return self._unary("relu", x, name)
+
+    def gelu(self, x, name=None):
+        return self._unary("gelu", x, name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary("sigmoid", x, name)
+
+    def tanh(self, x, name=None):
+        return self._unary("tanh", x, name)
+
+    def silu(self, x, name=None):
+        return self._unary("silu", x, name)
+
+    def elu(self, x, name=None):
+        return self._unary("elu", x, name)
+
+    def exp(self, x, name=None):
+        return self._unary("exp", x, name)
+
+    def identity(self, x, name=None):
+        return self._unary("identity", x, name)
+
+    def scalar_multiply(self, x, scalar, name=None):
+        return self._unary("scalar_multiply", x, name, scalar)
+
+    def scalar_add(self, x, scalar, name=None):
+        return self._unary("scalar_add", x, name, scalar)
+
+    def scalar_sub(self, x, scalar, name=None):
+        return self._unary("scalar_sub", x, name, scalar)
+
+    def scalar_truediv(self, x, scalar, name=None):
+        return self._unary("scalar_truediv", x, name, scalar)
+
+    def pow(self, x, exponent, name=None):
+        return self._unary("pow", x, name, exponent)
+
+    # elementwise binary
+    def _binary(self, fn, a, b, name):
+        return self._add(ElementBinary(fn), [a, b], name)[0]
+
+    def add(self, a, b, name=None):
+        return self._binary("add", a, b, name or "add")
+
+    def subtract(self, a, b, name=None):
+        return self._binary("sub", a, b, name or "subtract")
+
+    def multiply(self, a, b, name=None):
+        return self._binary("mul", a, b, name or "multiply")
+
+    def divide(self, a, b, name=None):
+        return self._binary("div", a, b, name or "divide")
+
+    def max(self, a, b, name=None):
+        return self._binary("max", a, b, name or "max")
+
+    def min(self, a, b, name=None):
+        return self._binary("min", a, b, name or "min")
+
+    def cast(self, x, dtype, name=None):
+        return self._add(Cast(dtype), [x], name or "cast")[0]
+
+    def dropout(self, x, rate, seed=0, name=None):
+        return self._add(Dropout(rate, seed), [x], name or "dropout")[0]
+
+    # normalization
+    def layer_norm(self, x, elementwise_affine=True, eps=1e-5, use_bias=True,
+                   name=None):
+        op = LayerNorm(x.shape[-1], eps, use_bias, x.dtype, device="meta",
+                       elementwise_affine=elementwise_affine)
+        return self._add(op, [x], name or "layer_norm")[0]
+
+    def rms_norm(self, x, eps=1e-6, name=None):
+        op = RMSNorm(x.shape[-1], eps, x.dtype, device="meta")
+        return self._add(op, [x], name or "rms_norm")[0]
+
+    # reductions
+    def softmax(self, x, axis=-1, name=None):
+        return self._add(Softmax(axis), [x], name or "softmax")[0]
+
+    def reduce_sum(self, x, axes, keepdims=False, name=None):
+        return self._add(Reduce("sum", axes, keepdims), [x],
+                         name or "reduce_sum")[0]
+
+    def reduce_mean(self, x, axes, keepdims=False, name=None):
+        return self._add(Reduce("mean", axes, keepdims), [x],
+                         name or "reduce_mean")[0]
+
+    # attention (training)
+    def multihead_attention(self, query, key, value, embed_dim, num_heads,
+                            kdim=None, vdim=None, dropout=0.0, use_bias=True,
+                            causal=False, name=None):
+        op = MultiHeadAttention(embed_dim, num_heads, kdim, vdim, dropout,
+                                use_bias, causal, dtype=query.dtype,
+                                device="meta")
+        return self._add(op, [query, key, value],
+                         name or "multihead_attention")[0]
+
+    # ------------------------------------------------------------------
+    # compile
+    # ------------------------------------------------------------------
+    def _training_mesh(self):
+        """The mesh training runs on: one device, or a raise."""
+        if self.mesh is not None:
+            shape = dict(self.mesh.shape)
+        else:
+            devices = ([self.device] if self._device_given
+                       else self.config.devices())
+            shape = dict(self.config.mesh_shape or {"dp": len(devices)})
+        if shape.get("pp", 1) > 1:
+            raise NotImplementedError(
+                f"mesh {shape} has a 'pp' axis: pipeline training comes "
+                f"with {SLICE_11D}")
+        n = math.prod(shape.values())
+        if n > 1:
+            raise NotImplementedError(
+                f"mesh {shape} spans {n} devices: training on more than "
+                f"one comes with {SLICE_11B}; FFConfig(num_devices=1) "
+                "trains on one")
+        if self.mesh is None:
+            self.mesh = make_mesh({"dp": 1}, [self.device])
+        self.device = self.mesh.devices[0]
+        return self.mesh
+
+    def compile(self, optimizer: Optional[Optimizer] = None,
+                loss_type=loss_mod.SPARSE_CATEGORICAL_CROSSENTROPY,
+                metrics: Sequence[str] = (),
+                strategy: Optional[Dict[str, Dict]] = None,
+                mode: str = "spmd",
+                outputs: Optional[Sequence[Tensor]] = None,
+                loss_weights: Optional[Sequence[float]] = None):
+        """Plan the graph under a strategy, build its forward, draw the
+        parameters and the optimizer state.
+
+        Strategy resolution (the reference's order): the explicit
+        ``strategy``, then the ``--import`` file, then the data-parallel
+        strategy (a search budget raises: the reference runs the
+        substitution search there); ``--export`` writes the result.
+        ``mode`` ("spmd" or "local") is the reference's lowering mode;
+        on one device both run the same computation.
+
+        Multi-output training: pass N ``outputs`` and ``loss_type`` as a
+        list of N loss names; ``fit``/``evaluate`` then take ``y`` as a
+        list of N label arrays and the step loss is the (optionally
+        ``loss_weights``-ed) sum of the per-output losses.  Metrics are
+        computed on output 0.
+        """
+        if mode not in ("spmd", "local"):
+            raise ValueError(f"unknown mode {mode!r}")
+        cfg = self.config
+        mesh = self._training_mesh()
+        out_tids = [t.tid for t in outputs] if outputs else None
+        if strategy is None and cfg.import_strategy_file:
+            strategy = load_strategy(cfg.import_strategy_file)
+        if (strategy is None and cfg.search_budget > 0
+                and not cfg.only_data_parallel):
+            raise NotImplementedError(
+                f"FFConfig.search_budget={cfg.search_budget}: the joint "
+                f"Unity search comes with {SLICE_10B_II}")
+        if strategy is None:
+            strategy = data_parallel_strategy(self.graph, mesh)
+        if cfg.export_strategy_file:
+            save_strategy(cfg.export_strategy_file, strategy)
+        self.strategy = strategy
+        self._compiled_out_tids = out_tids
+        self.pcg = PCG(self.graph, mesh, strategy, output_tids=out_tids)
+        self.plan = self.pcg.plan()
+        self._forward = build_forward(self.plan)
+        self.params = init_params(self.graph, self.plan, torch.Generator(
+            ).manual_seed(self._draw_seed()))
+
+        self.optimizer = optimizer or SGDOptimizer(lr=cfg.learning_rate)
+        self.loss_type = loss_type
+        self.loss_weights = list(loss_weights) if loss_weights else None
+        if self.loss_weights is not None:
+            if not isinstance(loss_type, (list, tuple)):
+                raise ValueError("loss_weights requires loss_type to be a "
+                                 "list of per-output losses")
+            if len(self.loss_weights) != len(loss_type):
+                raise ValueError(f"{len(self.loss_weights)} loss_weights "
+                                 f"for {len(loss_type)} losses")
+        self.metric_names = list(metrics)
+        self.opt_state = self.optimizer.init_state(self._trainable())
+        return self
+
+    def recompile(self, strategy: Optional[Dict[str, Dict]] = None,
+                  optimizer: Optional[Optimizer] = None, mode: str = "spmd",
+                  outputs: Optional[Sequence[Tensor]] = None) -> "FFModel":
+        """Re-plan the same graph under a new strategy (and optionally a
+        new optimizer), keeping the trained parameters; the optimizer
+        state carries over when the optimizer is unchanged and resets
+        otherwise (reference :946-994)."""
+        old_params = self.params
+        old_opt = self.opt_state if optimizer is None else None
+        if strategy is None:
+            strategy = self.strategy
+        if outputs is None and self._compiled_out_tids:
+            outputs = [Tensor(self.graph, t) for t in self._compiled_out_tids]
+        self.compile(optimizer=optimizer or self.optimizer,
+                     loss_type=self.loss_type, metrics=self.metric_names,
+                     strategy=strategy, mode=mode, outputs=outputs,
+                     loss_weights=self.loss_weights)
+        if old_params is not None:
+            self.load_params(old_params)
+        if old_opt is not None:
+            self.opt_state = old_opt   # one device: its tensors stay put
+        return self
+
+    def load_params(self, weights) -> "FFModel":
+        """Copy ``{node name: {param name: array}}`` (numpy arrays, as the
+        JAX package's ``model.params`` give after ``np.asarray``, or
+        tensors) into the compiled parameters, cast to their dtype, in
+        place."""
+        if self.params is None:
+            raise RuntimeError("call compile() before load_params()")
+        with torch.no_grad():
+            for name, group in weights.items():
+                if name not in self.params:
+                    raise KeyError(f"unknown param group {name!r}")
+                for p, v in group.items():
+                    cur = self.params[name][p]
+                    arr = (v.detach() if isinstance(v, torch.Tensor)
+                           else torch.tensor(np.asarray(v)))
+                    if tuple(arr.shape) != tuple(cur.shape):
+                        raise ValueError(f"{name}.{p}: shape "
+                                         f"{tuple(arr.shape)} != "
+                                         f"{tuple(cur.shape)}")
+                    cur.copy_(arr.to(cur.dtype))
+        return self
+
+    def _draw_seed(self) -> int:
+        return int(torch.randint(2 ** 62, (), generator=self._generator))
+
+    def _trainable(self) -> Dict[str, Dict[str, nn.Parameter]]:
+        out = {}
+        for name, group in self.params.items():
+            kept = {p: w for p, w in group.items() if w.requires_grad}
+            if kept:
+                out[name] = kept
+        return out
+
+    # ------------------------------------------------------------------
+    # the steps
+    # ------------------------------------------------------------------
+    def _total_loss(self, outs, labels) -> torch.Tensor:
+        lt = self.loss_type
+        if not isinstance(lt, (list, tuple)):
+            return loss_mod.compute_loss(lt, outs[0], labels)
+        labs = labels if isinstance(labels, (list, tuple)) else [labels]
+        if len(labs) != len(lt) or len(outs) < len(lt):
+            raise ValueError(
+                f"multi-output loss: {len(lt)} losses need as many outputs "
+                f"({len(outs)}) and label arrays ({len(labs)})")
+        w = self.loss_weights or [1.0] * len(lt)
+        return sum(wi * loss_mod.compute_loss(t, o, l)
+                   for wi, t, o, l in zip(w, lt, outs, labs))
+
+    def _metrics(self, logits, labels):
+        first = labels[0] if isinstance(labels, (list, tuple)) else labels
+        with torch.no_grad():
+            return metrics_mod.compute_metrics(self.metric_names,
+                                               logits.detach(), first)
+
+    def _train_step(self, batch, labels, generator):
+        """Forward, loss, backward and the optimizer's update; returns the
+        loss and the metrics of output 0, on the device."""
+        outs = self._forward(batch, training=True, generator=generator)
+        loss = self._total_loss(outs, labels)
+        mets = self._metrics(outs[0], labels)
+        loss.backward()
+        params = self._trainable()
+        grads = {n: {p: (w.grad if w.grad is not None
+                         else torch.zeros_like(w)) for p, w in g.items()}
+                 for n, g in params.items()}
+        self.optimizer.update(grads, self.opt_state, params)
+        for g in params.values():
+            for w in g.values():
+                w.grad = None
+        return loss.detach(), mets
+
+    def _eval_step(self, batch, labels):
+        with torch.no_grad():
+            outs = self._forward(batch, training=False)
+            return self._total_loss(outs, labels), self._metrics(
+                outs[0], labels)
+
+    # ------------------------------------------------------------------
+    # train / eval loops
+    # ------------------------------------------------------------------
+    def _standardize_inputs(self, x) -> Dict[int, np.ndarray]:
+        tids = self.graph.input_tids
+        if isinstance(x, dict):
+            return {t.tid if isinstance(t, Tensor) else t: v
+                    for t, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return {tid: v for tid, v in zip(tids, x)}
+        return {tids[0]: x}
+
+    def _labels(self, y, sel):
+        """The labels of rows ``sel`` on the device (a tuple of them for
+        per-output losses)."""
+        if isinstance(self.loss_type, (list, tuple)):
+            return tuple(host_to_device(v[sel], self.device) for v in y)
+        return host_to_device(y[sel], self.device)
+
+    def _host_labels(self, y):
+        """The labels as host arrays (a list of them for per-output
+        losses) and the number of samples."""
+        multi = isinstance(self.loss_type, (list, tuple))
+        y = [np.asarray(v) for v in y] if multi else np.asarray(y)
+        return y, (len(y[0]) if multi else len(y))
+
+    def fit(self, x, y, epochs: Optional[int] = None,
+            batch_size: Optional[int] = None, verbose: bool = True,
+            shuffle: bool = True):
+        if self._forward is None:
+            raise RuntimeError("call compile() first")
+        t0 = time.perf_counter()
+        with maybe_profile(self.config.profiling):
+            history = self._fit(x, y, epochs, batch_size, verbose, shuffle)
+        log_run("fit", {
+            "ops": len(self.graph.nodes),
+            "mesh": dict(self.mesh.shape) if self.mesh is not None else None,
+            "strategy_ops": len(self.strategy or {}),
+            "epochs": len(history),
+            "final": history[-1] if history else None,
+            "seconds": round(time.perf_counter() - t0, 3),
+        })
+        return history
+
+    def _fit(self, x, y, epochs, batch_size, verbose, shuffle):
+        epochs = epochs or self.config.epochs
+        bs = batch_size or self.config.batch_size
+        inputs = self._standardize_inputs(x)
+        y, n = self._host_labels(y)
+        history = []
+        for epoch in range(epochs):
+            # the epoch's dropout stream and order, from the model's own
+            # generator (not global state): training is reproducible
+            gen = torch.Generator(self.device).manual_seed(self._draw_seed())
+            idx = (torch.randperm(n, generator=self._generator).numpy()
+                   if shuffle else np.arange(n))
+
+            def batches():
+                for start in range(0, n - bs + 1, bs):
+                    sel = idx[start: start + bs]
+                    batch = place_inputs(
+                        self.plan, {t: v[sel] for t, v in inputs.items()})
+                    yield batch, self._labels(y, sel)
+
+            history.append(self._train_epoch(batches(), gen, epoch, epochs,
+                                             verbose, bs))
+        return history
+
+    def _train_epoch(self, batch_iter, gen, epoch, epochs, verbose, bs):
+        """One epoch over ``(batch, labels)`` pairs; the history entry."""
+        losses, mets_acc = [], []
+        t0 = time.perf_counter()
+        for batch, labels in batch_iter:
+            loss, mets = self._train_step(batch, labels, gen)
+            losses.append(loss)
+            mets_acc.append(mets)
+        if not losses:
+            raise ValueError("no full batches to train on — dataset "
+                             "smaller than the batch size?")
+        mean_loss = _mean(losses)      # the epoch's one host wait
+        dt = time.perf_counter() - t0
+        mean_mets = {k: _mean([m[k] for m in mets_acc])
+                     for k in mets_acc[0]}
+        if verbose:
+            steps = len(losses)
+            print(
+                f"epoch {epoch + 1}/{epochs}: loss={mean_loss:.4f} "
+                + " ".join(f"{k}={v:.4f}" for k, v in mean_mets.items())
+                + f" ({steps / dt:.1f} it/s, {steps * bs / dt:.0f} "
+                "samples/s)")
+        return {"loss": mean_loss, **mean_mets}
+
+    def evaluate(self, x, y, batch_size: Optional[int] = None):
+        if self._forward is None:
+            raise RuntimeError("call compile() first")
+        bs = batch_size or self.config.batch_size
+        inputs = self._standardize_inputs(x)
+        y, n = self._host_labels(y)
+        losses, mets_acc = [], []
+        for start in range(0, n - bs + 1, bs):
+            sel = slice(start, start + bs)
+            batch = place_inputs(self.plan,
+                                 {t: v[sel] for t, v in inputs.items()})
+            loss, mets = self._eval_step(batch, self._labels(y, sel))
+            losses.append(loss)
+            mets_acc.append(mets)
+        out = {"loss": _mean(losses)}
+        for k in self.metric_names:
+            out[k] = _mean([m[k] for m in mets_acc])
+        return out
+
+    def forward(self, x, training: bool = False):
+        """Run the compiled forward on host arrays; the outputs stay on
+        the device."""
+        if self._forward is None:
+            raise RuntimeError("call compile() first")
+        inputs = place_inputs(self.plan, self._standardize_inputs(x))
+        with torch.no_grad():
+            outs = self._forward(inputs, training=training)
+        return outs[0] if len(outs) == 1 else outs
+
+
+def _mean(values: List[torch.Tensor]) -> float:
+    """The mean of 0-d device tensors, read in one host wait and summed
+    in float64 (the reference's ``np.mean`` of Python floats)."""
+    return float(np.mean(torch.stack(values).tolist() if values else []))
+
+
+def _later(method: str, where: str):
+    def raise_later(self, *args, **kwargs):
+        raise NotImplementedError(f"FFModel.{method} comes with {where} "
+                                  "(ROADMAP.md)")
+
+    raise_later.__name__ = method
+    return raise_later
+
+
+# the builder methods of later slices
+for _method in ("embedding", "residual_layer_norm",
+                "add_bias_residual_layer_norm", "residual_rms_norm",
+                "sigmoid_silu_multi", "batch_norm", "reshape", "transpose",
+                "concat", "split", "gather", "reverse", "flat", "argmax",
+                "top_k", "arg_top_k", "sampling", "beam_top_k", "group_by",
+                "experts", "aggregate", "aggregate_spec", "moe_layer",
+                "cache", "conv2d", "pool2d"):
+    setattr(FFModel, _method, _later(_method, SLICE_11C))
+for _method in ("inc_multihead_self_attention", "position_embedding",
+                "spec_inc_multihead_self_attention",
+                "tree_inc_multihead_self_attention"):
+    setattr(FFModel, _method, _later(
+        _method, SLICE_11C + "; the port serves through serve.build_model"))

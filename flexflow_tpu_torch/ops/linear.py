@@ -1,6 +1,9 @@
-"""Dense layer with optional bias and activation.
+"""Dense layer with optional bias and activation, and BatchMatmul.
 
-Port of ``flexflow_tpu/ops/linear.py:98-127`` for the serve path.
+Port of ``flexflow_tpu/ops/linear.py`` (``Linear`` :50-127,
+``BatchMatmul`` :193-258) for the serve and the training paths; the
+builder (``model.py:dense``) passes the initializers, and
+``core/interpreter.py:init_params`` makes the weights trainable.
 ``kernel`` is ``[in, out]`` as in the reference, ``bias`` ``[out]``.  The
 product stays a ``torch.matmul``, as the reference left it to XLA: for bf16
 operands the GEMM accumulates in float32 and rounds its output once, which
@@ -9,9 +12,10 @@ by the cast back.  The reference adds the bias and applies the activation
 to the f32 product and casts once; here the bias and the activation run in
 f32 on the product as the GEMM returned it, so a bf16 layer with a bias or
 an activation rounds once more than the reference (the product, before the
-bias; float32 layers are the reference's arithmetic).  Activations follow
-``flexflow_tpu/ops/elementwise.py:28-30``: ``"relu"``, ``"gelu"`` (the tanh
-approximation) and ``"gelu_exact"`` (erf).  An int8 ``kernel``
+bias; float32 layers are the reference's arithmetic).  An activation is
+any of ``ops/elementwise.py:UNARY_FNS`` (reference :27-48): ``"relu"``,
+``"gelu"`` (the tanh approximation), ``"gelu_exact"`` (erf)...  An int8
+``kernel``
 (``serve/quant.py``) carries per-out-channel f32 scales in
 ``kernel_scale`` and is dequantized to x's dtype just before the product
 (reference :110-118); the dequantized copy lives for that product only.
@@ -38,17 +42,12 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from ..core.graph import ParamSpec, TensorSpec
 from ..core.op import Op, ShardingSolution, register_op
 from ..core.sharding import TensorSharding
-
-ACTIVATIONS = {
-    "relu": F.relu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
-    "gelu_exact": F.gelu,
-}
+from .elementwise import UNARY_FNS as ACTIVATIONS
+from .elementwise import propagate
 
 
 def dequant(w: torch.Tensor, scale, dtype: torch.dtype) -> torch.Tensor:
@@ -85,13 +84,16 @@ class Linear(Op, nn.Module):
     def __init__(self, in_dim: int, out_dim: int,
                  dtype: torch.dtype = torch.float32, device=None,
                  use_bias: bool = False,
-                 activation: Optional[str] = None):
+                 activation: Optional[str] = None,
+                 kernel_initializer=None, bias_initializer=None):
         super().__init__()
         if activation is not None and activation not in ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}; known: "
                              f"{sorted(ACTIVATIONS)}")
         self.activation = activation
         self.compute_dtype = dtype
+        self.kernel_initializer = kernel_initializer
+        self.bias_initializer = bias_initializer
         self.kernel = nn.Parameter(
             torch.empty(in_dim, out_dim, dtype=dtype, device=device),
             requires_grad=False)
@@ -138,10 +140,12 @@ class Linear(Op, nn.Module):
 
     def params(self):
         ps = [ParamSpec("kernel", TensorSpec((self.in_dim, self.out_dim),
-                                             self.compute_dtype))]
+                                             self.compute_dtype),
+                        self.kernel_initializer)]
         if self.use_bias:
             ps.append(ParamSpec("bias", TensorSpec((self.out_dim,),
-                                                   self.compute_dtype)))
+                                                   self.compute_dtype),
+                                self.bias_initializer))
         return ps
 
     def parallel_dims(self, in_specs):
@@ -193,3 +197,71 @@ class Linear(Op, nn.Module):
             # a gated LM head computes at most cost_logit_rows rows
             batch = min(batch, self.cost_logit_rows)
         return 2 * batch * x.shape[-1] * self.out_dim
+
+
+@register_op
+class BatchMatmul(Op, nn.Module):
+    """Batched matmul: (..., m, k) x (..., k, n) -> (..., m, n), either
+    operand optionally transposed in its last two dims."""
+
+    type_name = "batch_matmul"
+
+    def __init__(self, a_transposed: bool = False,
+                 b_transposed: bool = False):
+        super().__init__()
+        self.a_transposed = a_transposed
+        self.b_transposed = b_transposed
+
+    def _dims(self, a: TensorSpec, b: TensorSpec):
+        am, ak = ((a.shape[-1], a.shape[-2]) if self.a_transposed
+                  else a.shape[-2:])
+        bk, bn = ((b.shape[-1], b.shape[-2]) if self.b_transposed
+                  else b.shape[-2:])
+        if ak != bk:
+            raise ValueError(f"batch_matmul contraction mismatch: {a} x {b}")
+        return am, ak, bn
+
+    def infer_shapes(self, in_specs):
+        a, b = in_specs
+        m, _, n = self._dims(a, b)
+        batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        return [TensorSpec(tuple(batch) + (m, n), a.dtype)]
+
+    def forward(self, a, b):
+        if self.a_transposed:
+            a = a.transpose(-1, -2)
+        if self.b_transposed:
+            b = b.transpose(-1, -2)
+        return torch.matmul(a, b)
+
+    def apply_config(self, config, in_specs, mesh, in_shardings=None):
+        # the batch dims are the parallel dims: the producers' splits
+        # propagate there, the contraction and row/col dims stay whole
+        a, b = in_specs
+        sample = tuple(config.get("sample", ()))
+
+        def batch_only(sh):
+            return TensorSharding(tuple(sh.dims[:-2])
+                                  + (type(sh.dims[-2])(),) * 2, frozenset())
+
+        a_sh = batch_only(propagate(in_shardings[0] if in_shardings
+                                    else None, a))
+        b_sh = batch_only(propagate(in_shardings[1] if in_shardings
+                                    else None, b))
+        if sample:
+            a_sh = a_sh.with_dim(0, sample)
+            b_sh = b_sh.with_dim(0, sample)
+        out = self.infer_shapes([a, b])[0]
+        out_sh = TensorSharding.replicated(out.ndim)
+        for i in range(out.ndim - 2):
+            if i < len(a_sh.dims) and a_sh.dims[i].axes:
+                out_sh = out_sh.with_dim(i, a_sh.dims[i].axes)
+        return ShardingSolution(inputs=[a_sh, b_sh], outputs=[out_sh])
+
+    def flops(self, in_specs):
+        a, b = in_specs
+        m, k, n = self._dims(a, b)
+        batch = 1
+        for d in torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]):
+            batch *= d
+        return 2 * batch * m * k * n

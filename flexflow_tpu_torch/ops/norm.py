@@ -1,10 +1,13 @@
 """LayerNorm, RMSNorm, the fused residual RMSNorm, and the SwiGLU junction.
 
 Port of ``flexflow_tpu/ops/norm.py`` (``_layer_norm`` :33, ``LayerNorm``
-:57, ``_rms_norm`` :46, ``RMSNorm`` :93, ``ResidualRMSNorm`` :202,
-``SigmoidSiluMulti`` :231).  The normalisation is computed in float32 and
-cast back to the input's dtype at the same place the reference casts, so
-bf16 models round where the reference rounds.
+:57-91, ``_rms_norm`` :46, ``RMSNorm`` :93-117, ``ResidualRMSNorm``
+:202, ``SigmoidSiluMulti`` :231), for the serve and the training paths
+(``gamma`` and ``beta`` trainable once ``core/interpreter.py:init_params``
+makes them so; a LayerNorm without ``elementwise_affine`` has neither).
+The normalisation is computed in float32 and cast back to the input's
+dtype at the same place the reference casts, so bf16 models round where
+the reference rounds.
 
 The op IR (reference :27, :84-306): a normalisation reduces over the last
 (feature) dim, so that dim must be whole and not partial, and the
@@ -83,6 +86,8 @@ class _NormIR(Op):
         return [in_specs[0]] * self.n_out
 
     def params(self):
+        if getattr(self, "gamma", None) is None:
+            return []
         ps = [ParamSpec("gamma", TensorSpec((self.dim,), self.compute_dtype))]
         if getattr(self, "beta", None) is not None:
             ps.append(ParamSpec("beta", TensorSpec((self.dim,),
@@ -103,24 +108,28 @@ class _NormIR(Op):
 
 @register_op
 class LayerNorm(_NormIR, nn.Module):
-    """Affine LayerNorm with gain ``gamma`` and, with ``use_bias``, shift
-    ``beta`` (MPT's norms have none)."""
+    """LayerNorm with gain ``gamma`` and, with ``use_bias``, shift
+    ``beta`` (MPT's norms have none); neither without
+    ``elementwise_affine``."""
 
     type_name = "layer_norm"
     flops_per_element = 8
 
     def __init__(self, dim: int, eps: float = 1e-5, use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 elementwise_affine: bool = True):
         super().__init__()
         self.dim = int(dim)
         self.compute_dtype = dtype
         self.eps = float(eps)
-        self.gamma = nn.Parameter(
-            torch.ones(dim, dtype=dtype, device=device), requires_grad=False)
+        self.gamma = (nn.Parameter(torch.ones(dim, dtype=dtype,
+                                              device=device),
+                                   requires_grad=False)
+                      if elementwise_affine else None)
         self.beta = (nn.Parameter(torch.zeros(dim, dtype=dtype,
                                               device=device),
                                   requires_grad=False)
-                     if use_bias else None)
+                     if use_bias and elementwise_affine else None)
 
     def forward(self, x):
         return layer_norm(x, self.gamma, self.beta, self.eps)

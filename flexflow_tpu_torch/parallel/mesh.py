@@ -12,6 +12,9 @@ A ``{"pp": p, "tp": t}`` mesh (pipeline-parallel serving,
 ``devices[s*t:(s+1)*t]``, its own ``{"tp": t}`` mesh
 (:meth:`Mesh.stage_meshes`, reference ``serve/pp.py:316-323``); the
 stages share no collective, so such a mesh has no ``comm``.
+
+A ``{"dp": 1}`` mesh is one device, on which ``FFModel`` trains
+(``model.py``); data-parallel training over more comes with slice 11b.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ def make_mesh(shape: Dict[str, int],
 
     ``shape`` is ``{"tp": n}``, or ``{"pp": p, "tp": t}`` (``tp``
     defaults to 1; ``pp=1`` is the plain ``{"tp": t}`` mesh) over ``n =
-    p * t`` devices, pp-major; any other axis raises ``ValueError``.
+    p * t`` devices, pp-major, or ``{"dp": 1}`` (one device, training);
+    any other shape raises ``ValueError``.
     ``devices=None`` is ``cuda:0`` ... ``cuda:n-1`` and raises when the
     machine has fewer cards.  A device may appear more than once only when
     the caller lists it so (``["cuda:0", "cuda:0"]``: two shards or two
@@ -71,9 +75,15 @@ def make_mesh(shape: Dict[str, int],
     co-located silently.  The devices must all be CUDA devices, or all
     the CPU."""
     shape = {k: int(v) for k, v in shape.items()}
+    if shape == {"dp": 1}:
+        dev = resolve_device(None if devices is None else devices[0])
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return Mesh(shape, [dev])
     if not set(shape) or set(shape) - {"pp", "tp"}:
-        raise ValueError(f"mesh {shape}: the serve path's mesh is "
-                         "{'tp': n} or {'pp': p, 'tp': t}")
+        raise ValueError(f"mesh {shape}: the port's mesh is {{'tp': n}} "
+                         "or {'pp': p, 'tp': t} (serving), or {'dp': 1} "
+                         "(training on one device)")
     pp, tp = shape.get("pp", 1), shape.get("tp", 1)
     if pp < 1 or tp < 1:
         raise ValueError(f"mesh {shape}: pp and tp must be at least 1")

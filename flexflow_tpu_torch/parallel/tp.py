@@ -58,7 +58,7 @@ import torch
 from torch import nn
 
 from ..core.graph import Node
-from ..core.interpreter import dead_after
+from ..core.interpreter import dead_after, parallel_run
 from ..core.pcg import PCG, Plan, serve_graph
 from ..core.sharding import TensorSharding, mesh_coords, mesh_shape
 from ..ops.embedding import Embedding
@@ -273,13 +273,6 @@ def _sliced_copy(model: nn.Module, plan: TPPlan, rank: int) -> nn.Module:
     return shard
 
 
-def _parallel_run(pop, mesh):
-    def run(op, ctx, x):
-        return pop.run(x, ctx.rank, mesh)
-
-    return run
-
-
 class PlanExecutor:
     """The node range one shard runs for a plan: ``nodes`` (the plan's
     steps over its value ids: each op step its graph node, each parallel
@@ -300,7 +293,7 @@ class PlanExecutor:
             if st.is_parallel:
                 self.nodes.append(Node(-1, st.name, None, "parallel",
                                        list(st.in_vids), list(st.out_vids),
-                                       _parallel_run(st.node.op, self.mesh)))
+                                       parallel_run(st.node.op, self.mesh)))
             else:
                 self.nodes.append(dataclasses.replace(
                     st.node, inputs=list(st.in_vids),

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Where a training step's time goes on the card, for the PyTorch/CUDA port.
+
+    python scripts/profile_torch_train.py [--layers 12] [--seq 512]
+    python scripts/profile_torch_train.py --optimizer sgd
+
+Builds the Transformer classifier (``models/transformer.py``) at
+BERT-base width (hidden 768, 12 heads, ff 3072, 16 classes; depth and
+sequence set by ``--layers`` and ``--seq``) on the card in float32 with
+TF32 off, compiles it with Adam (lr 1e-4) or SGD with momentum 0.9, and
+runs ``FFModel``'s train step on a fixed batch of 8: the median step
+between two ``torch.cuda.synchronize`` after ``--warmup`` steps; the
+device time of the forward with its loss, of the backward and of the
+optimizer's update, each between CUDA events on the stream (a lower
+bound where the host issues slower than the device runs); then
+``--traced`` steps under ``torch.profiler``: the wall, the device time
+summed over kernels, the busy share, the device time by kernel class
+and the top kernels.  Needs a CUDA device; the card's name and power
+limit are printed first.
+"""
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=12)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--traced", type=int, default=3)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.dirname(here))
+    sys.path.insert(0, here)
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.core.interpreter import place_inputs
+    from flexflow_tpu_torch.models.transformer import \
+        build_transformer_classifier
+    from flexflow_tpu_torch.utils.platform import host_to_device
+    from profile_torch_serve import profile_window, report
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_train: needs a CUDA device")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_transformer_classifier(
+        ff.FFConfig(batch_size=args.batch), batch=args.batch, seq=args.seq,
+        num_layers=args.layers, hidden_dim=768, num_heads=12, ff_dim=3072,
+        num_classes=16)
+    opt = (ff.AdamOptimizer(alpha=1e-4) if args.optimizer == "adam"
+           else ff.SGDOptimizer(lr=0.01, momentum=0.9))
+    model.compile(optimizer=opt)
+    rng = np.random.RandomState(0)
+    x = rng.randn(args.batch, args.seq, 768).astype(np.float32)
+    batch = place_inputs(model.plan, {model.graph.input_tids[0]: x})
+    labels = host_to_device(rng.randint(0, 16, args.batch), model.device)
+    gen = torch.Generator(model.device).manual_seed(0)
+
+    def step():
+        return model._train_step(batch, labels, gen)
+
+    walls = []
+    for i in range(args.warmup + args.steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if i >= args.warmup:
+            walls.append(time.perf_counter() - t0)
+    flops = 3 * sum(st.node.op.flops(st.in_specs)
+                    for st in model.plan.steps if not st.is_parallel)
+    med = statistics.median(walls)
+    print(f"{args.layers} layers, seq {args.seq}, batch {args.batch}, "
+          f"{args.optimizer}: median step {med * 1e3:.3f} ms over "
+          f"{len(walls)} (min {min(walls) * 1e3:.3f}, max "
+          f"{max(walls) * 1e3:.3f}); 3 x forward flops "
+          f"{flops / 1e12:.4f} TFLOP, {flops / med / 1e12:.2f} TFLOP/s")
+
+    # the step's three parts, between events on the stream
+    parts = {"forward + loss": [], "backward": [], "update": []}
+    params = model._trainable()
+    for _ in range(args.steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        outs = model._forward(batch, training=True, generator=gen)
+        loss = model._total_loss(outs, labels)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        grads = {n: {p: w.grad for p, w in g.items()}
+                 for n, g in params.items()}
+        model.optimizer.update(grads, model.opt_state, params)
+        ev[3].record()
+        for g in params.values():
+            for w in g.values():
+                w.grad = None
+        torch.cuda.synchronize()
+        for i, k in enumerate(parts):
+            parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+    print("parts (median device ms between events): " + ", ".join(
+        f"{k} {statistics.median(v):.3f}" for k, v in parts.items()))
+
+    def traced():
+        for _ in range(args.traced):
+            step()
+
+    wall, kernels = profile_window(torch, traced)
+    report(f"{args.traced} traced steps", wall, kernels)
+
+
+if __name__ == "__main__":
+    main()

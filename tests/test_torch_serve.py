@@ -340,17 +340,26 @@ def test_port_never_imports_jax_or_the_reference_package():
             "calibration.py", "drift.py", "memory.py", "profiler.py",
             "plan_health.py", "report.py", "trace_report.py",
             "bench_compare.py", "pp.py", "machine_model.py",
-            "serve_search.py", "simulator.py", "measure.py"} <= {
-                f.name for f in files}
+            "serve_search.py", "simulator.py", "measure.py", "config.py",
+            "model.py", "transformer.py", "attention.py", "reduction.py",
+            "initializer.py", "loss.py", "optimizer.py", "profiling.py",
+            "runlog.py", "mnist_mlp.py"} <= {f.name for f in files}
     # the serve graph IR and the PCG (core/), the parallel ops and the
-    # plan executor (parallel/) and the planner and the Unity search
-    # (search/) are scanned with the rest
+    # plan executor (parallel/), the planner and the Unity search
+    # (search/), and training (FFModel, its ops, training/, utils/) are
+    # scanned with the rest
     assert {"core/graph.py", "core/interpreter.py", "core/sharding.py",
             "core/op.py", "core/pcg.py", "parallel/parallel_ops.py",
             "parallel/tp.py", "ops/elementwise.py",
             "search/serve_search.py", "search/machine_model.py",
             "search/search.py", "search/strategy.py",
-            "search/simulator.py"} <= {
+            "search/simulator.py", "flexflow_tpu_torch/config.py",
+            "flexflow_tpu_torch/model.py", "models/transformer.py",
+            "ops/attention.py", "ops/reduction.py",
+            "training/initializer.py", "training/loss.py",
+            "training/metrics.py", "training/optimizer.py",
+            "utils/profiling.py", "utils/runlog.py",
+            "examples/mnist_mlp.py"} <= {
         f"{f.parent.name}/{f.name}" for f in files}
     for path in files:
         for mod, func in _imported_modules(path):
@@ -382,7 +391,18 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.search.search, "
             "flexflow_tpu_torch.search.strategy, "
             "flexflow_tpu_torch.search, flexflow_tpu_torch.search.measure, "
-            "flexflow_tpu_torch.tools.replay_report; "
+            "flexflow_tpu_torch.tools.replay_report, flexflow_tpu_torch, "
+            "flexflow_tpu_torch.config, flexflow_tpu_torch.model, "
+            "flexflow_tpu_torch.models.transformer, "
+            "flexflow_tpu_torch.ops.attention, "
+            "flexflow_tpu_torch.ops.reduction, "
+            "flexflow_tpu_torch.training.initializer, "
+            "flexflow_tpu_torch.training.loss, "
+            "flexflow_tpu_torch.training.metrics, "
+            "flexflow_tpu_torch.training.optimizer, "
+            "flexflow_tpu_torch.utils.profiling, "
+            "flexflow_tpu_torch.utils.runlog, "
+            "flexflow_tpu_torch.examples.mnist_mlp; "
             "bad = [m for m in sys.modules if m in ('jax', 'flexflow_tpu', "
             "'transformers') or m.startswith(('jax.', 'flexflow_tpu.', "
             "'transformers.'))]; "
