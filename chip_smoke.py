@@ -232,6 +232,23 @@ and prints no result):
    fall; (c) the MNIST MLP example (``examples/mnist_mlp.py``) with its
    defaults, one epoch, then ``evaluate``: accuracy at least 0.99.  No
    kernel is launched: the training path's compute is torch ops.
+22. training on a mesh, every shard on the one card, float32 (TF32 off):
+   (a) phase 21(a)'s 2-layer BERT-base-width classifier on one device,
+   ``dp=2`` (``["cuda:0"] * 2``) and ``dp=2 x tp=2`` (``["cuda:0"] * 4``,
+   the Megatron dict: attention ``head``, ``ff1`` ``channel_out``,
+   ``ff2`` ``channel_in`` over ``tp``, ``sample`` over ``dp``) from the
+   same weights and batches, 3 steps of SGD (momentum 0.9) and 3 of Adam:
+   losses within ``rtol 1e-4`` of one device's, parameters within phase
+   21's tolerances, the collective calls by kind and the gradient
+   all-reduces a step; (b) phase 21(b)'s 12-layer, sequence-512
+   classifier trained by ``fit`` with Adam at ``dp=2`` for 2 epochs of
+   its synthetic set: the median step, samples/s, peak memory and the
+   loss falling, beside phase 21(b)'s one-device step (two shards on one
+   card measure the executor and the collectives, not a speed-up);
+   (c) a checkpoint written at ``dp=2 x tp=2`` restored on one device and
+   on ``dp=2`` with equal parameters, then one epoch of the MNIST MLP
+   through ``fit(DataLoader(..., native="auto"))``, whose engine must be
+   the native one.  No kernel is launched.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -4123,6 +4140,248 @@ def phase_training(torch, dev, card):
     if final["accuracy"] < 0.99:
         raise RuntimeError(f"training (c): accuracy {final['accuracy']} "
                            "< 0.99")
+    return step * 1e3
+
+
+def megatron_strategy(graph, dp=True):
+    """The classifier's Megatron dict over ``tp``: attention ``head``,
+    ``ff1`` ``channel_out``, ``ff2`` ``channel_in``; ``sample`` over
+    ``dp`` on every node (where the mesh has a ``dp`` axis)."""
+    out = {}
+    for node in graph.nodes:
+        c = {"sample": ("dp",)} if dp else {}
+        if node.name.endswith("_attn"):
+            c["head"] = ("tp",)
+        elif node.name.endswith("_ff1"):
+            c["channel_out"] = ("tp",)
+        elif node.name.endswith("_ff2"):
+            c["channel_in"] = ("tp",)
+        out[node.name] = c
+    return out
+
+
+def mesh_run(ff, build, kw, shape, dev, opt, init, x, y):
+    """Phase 22(a), one mesh and optimizer: the classifier on ``shape``
+    with every shard on ``dev``, from the global weights ``init``,
+    ``TRAIN_STEPS`` steps through ``fit`` (one full batch an epoch,
+    unshuffled).  Returns (losses, model, collective calls by kind,
+    gradient all-reduces a step)."""
+    n = 1
+    for v in shape.values():
+        n *= v
+    mesh = ff.make_mesh(shape, [dev] * n)
+    m = build(ff.FFConfig(batch_size=kw["batch"], seed=0), mesh=mesh, **kw)
+    opt_cls, opt_kw = opt
+    m.compile(optimizer=getattr(ff, opt_cls)(**opt_kw),
+              strategy=(megatron_strategy(m.graph) if "tp" in shape
+                        else None))
+    m.load_params(init)
+    calls0 = dict(mesh.comm.calls)
+    hist = m.fit(x, y, epochs=TRAIN_STEPS, shuffle=False, verbose=False)
+    calls = {k: v - calls0[k] for k, v in mesh.comm.calls.items()}
+    return ([h["loss"] for h in hist], m, calls,
+            m.grad_allreduces / TRAIN_STEPS)
+
+
+def phase_training_mesh(torch, dev, card, one_step_ms):
+    """Phase 22: training on a mesh, every shard on the one card (module
+    docstring, item 22).  ``one_step_ms`` is phase 21(b)'s median
+    one-device step."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+    import statistics
+
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.data import DataLoader, native
+    from flexflow_tpu_torch.examples import mnist_mlp
+    from flexflow_tpu_torch.models.transformer import \
+        build_transformer_classifier as build
+    from flexflow_tpu_torch.training.checkpoint import (restore_checkpoint,
+                                                        save_checkpoint)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    width, classes = BERT_BASE["hidden_dim"], BERT_BASE["num_classes"]
+
+    # (a) dp=2 and dp=2 x tp=2 against one device, all on the card
+    kw = dict(BERT_BASE, seq=128, num_layers=2)
+    rng = np.random.RandomState(0)
+    x = rng.randn(kw["batch"], kw["seq"], width).astype(np.float32)
+    y = rng.randint(0, classes, kw["batch"]).astype(np.int32)
+    seed_model = build(ff.FFConfig(batch_size=kw["batch"], seed=0),
+                       device=dev, **kw)
+    seed_model.compile()
+    init = {n: {p: v.detach().clone() for p, v in g.items()}
+            for n, g in seed_model.params.items()}
+    del seed_model
+    loss_rtol, sgd_atol = 1e-4, 1e-5
+    kept = None
+    for opt in (("SGDOptimizer", dict(lr=0.01, momentum=0.9)),
+                ("AdamOptimizer", dict(alpha=1e-4))):
+        atol = (2 * opt[1]["alpha"] * TRAIN_STEPS
+                if opt[0] == "AdamOptimizer" else sgd_atol)
+        base, one, _, _ = mesh_run(ff, build, kw, {"dp": 1}, dev, opt,
+                                   init, x, y)
+        for shape in ({"dp": 2}, {"dp": 2, "tp": 2}):
+            losses, m, calls, per_step = mesh_run(ff, build, kw, shape, dev,
+                                                  opt, init, x, y)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base))
+            err = max(float((m.params[n][p] - v).detach().abs().max())
+                      for n, g in one.params.items() for p, v in g.items())
+            gather = kw["batch"] * classes * 4
+            log(f"training on a mesh (a) {opt[0]} {shape} on {card}: "
+                f"losses {[round(v, 6) for v in losses]} against one "
+                f"device's {[round(v, 6) for v in base]}, max rel loss "
+                f"diff {rel:.3e} (tol {loss_rtol}), max abs param diff "
+                f"{err:.3e} (tol {atol:.1e}); collective calls {calls} in "
+                f"{TRAIN_STEPS} steps, {per_step:g} gradient all-reduces a "
+                f"step, exit gather {gather} bytes a step "
+                f"({kw['batch']} x {classes} f32)")
+            if (not all(np.isfinite(losses)) or rel > loss_rtol
+                    or err > atol):
+                raise RuntimeError(f"training on a mesh (a) {opt[0]} "
+                                   f"{shape}: differs from one device "
+                                   "beyond the tolerance")
+            if "tp" in shape and opt[0] == "AdamOptimizer":
+                kept = m
+            else:
+                del m
+        del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c, first half) checkpoint at dp=2 x tp=2, restore on 1 and dp=2
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "phase22_checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    save_checkpoint(ckpt, kept, step=TRAIN_STEPS)
+    want = kept.params
+    for shape in ({"dp": 1}, {"dp": 2}):
+        n = shape["dp"]
+        m = build(ff.FFConfig(batch_size=kw["batch"], seed=1),
+                  mesh=ff.make_mesh(shape, [dev] * n), **kw)
+        m.compile(optimizer=ff.AdamOptimizer(alpha=1e-4))
+        step = restore_checkpoint(ckpt, m)
+        same = all(torch.equal(m.params[k][p], v)
+                   for k, g in want.items() for p, v in g.items())
+        t = [s["t"] for s in m.shard_opt_states]
+        log(f"training on a mesh (c) checkpoint from dp=2 x tp=2 restored "
+            f"on {shape}: step {step}, parameters equal {same}, Adam "
+            f"steps {t}")
+        if not same or step != TRAIN_STEPS or t != [TRAIN_STEPS] * n:
+            raise RuntimeError(f"training on a mesh (c): the checkpoint "
+                               f"did not restore on {shape}")
+        del m
+    del kept, want
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) full depth at dp=2, both shards on the card
+    kw = dict(BERT_BASE, seq=512, num_layers=12)
+    n_samples, epochs, warm = 64, 2, 2
+    rng = np.random.RandomState(1)
+    x = rng.randn(n_samples, kw["seq"], width).astype(np.float32)
+    proj = rng.randn(width, classes).astype(np.float32)
+    y = np.argmax(x.mean(axis=1) @ proj, axis=-1).astype(np.int32)
+    base = torch.cuda.memory_allocated()
+    model = build(ff.FFConfig(batch_size=kw["batch"], seed=0),
+                  mesh=ff.make_mesh({"dp": 2}, [dev, dev]), **kw)
+    model.compile(optimizer=ff.AdamOptimizer(alpha=1e-4),
+                  metrics=["accuracy"])
+    n_params = sum(v.numel() for g in model.shard_params[0].values()
+                   for v in g.values())
+    times = []
+    inner = model._train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    model._train_step = timed_step
+    sums = []
+    inner_sum = model._sum_grads
+
+    def timed_sum(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner_sum(*args)
+        torch.cuda.synchronize()
+        sums.append(time.perf_counter() - t0)
+
+    model._sum_grads = timed_sum
+    torch.cuda.reset_peak_memory_stats()
+    calls0 = dict(model.mesh.comm.calls)
+    t0 = time.perf_counter()
+    hist = model.fit(x, y, epochs=epochs, verbose=False)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    calls = {k: v - calls0[k] for k, v in model.mesh.comm.calls.items()}
+    step = statistics.median(times[warm:])
+    losses = [h["loss"] for h in hist]
+    log(f"training on a mesh (b) on {card}: 12 layers, hidden {width}, "
+        f"seq 512, batch {kw['batch']} as dp=2 x {kw['batch'] // 2} rows, "
+        f"both shards on the one card, Adam 1e-4, {n_samples} samples x "
+        f"{epochs} epochs ({len(times)} steps, fit wall {wall:.2f}s): "
+        f"median step {step * 1e3:.3f} ms after {warm} warm-up (min "
+        f"{min(times[warm:]) * 1e3:.3f}, max "
+        f"{max(times[warm:]) * 1e3:.3f}) against phase 21(b)'s one-device "
+        f"{one_step_ms:.3f} ms; {kw['batch'] / step:.2f} samples/s; "
+        f"gradient all-reduce of {n_params} f32 parameters "
+        f"({n_params * 4 / 1e9:.3f} GB) a step, median "
+        f"{statistics.median(sums[warm:]) * 1e3:.3f} ms (between two "
+        f"synchronizes), collective calls {calls}; "
+        f"peak memory {peak / 1e9:.2f} GB (above the {base / 1e9:.2f} GB "
+        f"held before the model); epoch losses "
+        f"{[round(v, 4) for v in losses]}; two shards on one card measure "
+        "the executor and the collectives, not a speed-up")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"training on a mesh (b): the loss did not "
+                           f"fall: {losses}")
+    del model, inner, inner_sum
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c, second half) the MNIST MLP through the native DataLoader
+    x_train, y_train, source = mnist_mlp.load_mnist()
+    cfg = ff.FFConfig(batch_size=64)
+    m = ff.FFModel(cfg, device=dev)
+    t = m.create_tensor((cfg.batch_size, 784))
+    h = m.dense(t, 512, activation="relu")
+    h = m.dense(h, 512, activation="relu")
+    m.softmax(m.dense(h, 10))
+    m.compile(optimizer=ff.SGDOptimizer(lr=cfg.learning_rate, momentum=0.9),
+              metrics=["accuracy"])
+    loader = DataLoader(x_train, y_train, batch_size=cfg.batch_size,
+                        seed=0, plan=m.plan, native="auto")
+    t0 = time.perf_counter()
+    native.load()   # the engine's first use builds it: not in the epoch
+    build_s = time.perf_counter() - t0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        hist = m.fit(loader, epochs=1)
+    wall = time.perf_counter() - t0
+    final = m.evaluate(x_train, y_train)
+    log(buf.getvalue().rstrip())
+    log(f"training on a mesh (c) on {card}: mnist_mlp ({source}, "
+        f"{len(x_train)} samples) one epoch through DataLoader(native="
+        f"'auto'): engine {loader.engine} (g++ build and load "
+        f"{build_s:.2f}s before the epoch), fit wall {wall:.2f}s, loss "
+        f"{hist[0]['loss']:.4f}, evaluate accuracy {final['accuracy']:.4f}")
+    if loader.engine != "native" or final["accuracy"] < 0.99:
+        raise RuntimeError(f"training on a mesh (c): engine "
+                           f"{loader.engine}, accuracy {final['accuracy']}")
 
 
 def tc_reports(text):
@@ -4229,7 +4488,10 @@ def main():
                                            card))
     searched = timed("searched strategy", lambda: phase_searched_strategy(
         serve, att, torch, dev, card))
-    timed("training", lambda: phase_training(torch, dev, card))
+    one_step_ms = timed("training", lambda: phase_training(torch, dev,
+                                                          card))
+    timed("training on a mesh", lambda: phase_training_mesh(
+        torch, dev, card, one_step_ms))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)

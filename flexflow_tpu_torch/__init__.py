@@ -2,8 +2,10 @@
 
 The JAX package ``flexflow_tpu`` is the reference this package is held
 against; nothing here imports it or JAX.  It trains (``FFModel``: the
-graph builder, ``compile``, ``fit`` and ``evaluate`` on one device, with
-SGD and Adam) and serves Llama, OPT, Falcon, MPT and StarCoder
+graph builder, ``compile``, ``fit`` and ``evaluate`` on one device or a
+data- and tensor-parallel mesh, with SGD and Adam, checkpoints
+(``training/checkpoint.py``) and a prefetching ``data.DataLoader``) and
+serves Llama, OPT, Falcon, MPT and StarCoder
 (``serve``) on one device or tensor- and pipeline-parallel over several
 (``parallel``): prefill, decode and tree speculation through
 hand-written CUDA attention kernels (``ops/cuda``), with plain PyTorch

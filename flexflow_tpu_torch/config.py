@@ -3,8 +3,10 @@
 Port of ``flexflow_tpu/config.py`` (``FFConfig`` :18-95): every field and
 every flag of the reference (Legion-style argv: ``-ll:gpu``, ``-b``,
 ``-e``, ``--budget``, ``--only-data-parallel``, ``--import`` /
-``--export``, ``--mesh``...).  :meth:`FFConfig.devices` names torch
-devices: ``cuda:0`` ... ``cuda:n-1``, capped by ``num_devices``.
+``--export``, ``--mesh dp=2,tp=2``...).  :meth:`FFConfig.devices` names
+torch devices: ``cuda:0`` ... ``cuda:n-1``, capped by ``num_devices``;
+``FFModel`` with no mesh and no ``mesh_shape`` trains on ``{"dp": n}``
+over them, as the reference does.
 """
 
 from __future__ import annotations

@@ -11,28 +11,40 @@ shard runs its plan's steps (``parallel/tp.py:PlanExecutor``) as such a
 node range: each op step its graph node over value ids, each parallel
 step a node that yields its collective.
 
-Training (``FFModel``): :func:`build_forward` (reference :36-146, its
-one-device case) runs a ``core/pcg.py`` plan of a builder graph through
-:func:`run_nodes`, each op step's module under an ``OpContext`` holding
-the step's config; the modules hold the parameters, so autograd
-differentiates the call.  :func:`init_params` (:160-194) draws every
-parameter from one ``torch.Generator`` over the graph's nodes in order,
-and :func:`place_inputs` (:197) puts a batch on the plan's device.
+Training (``FFModel``): a ``core/pcg.py`` plan of a builder graph runs
+shard by shard on its mesh (reference :36-146, :160-208).
+:class:`PlanShards` reads the plan (``parallel/tp.py:ShardPlan``) and
+gives each rank its own copy of every op step's module (on one device,
+the node's module itself), placed as the plan says
+(``parallel/tp.py:place_module``).  :func:`build_forward` runs one
+generator a shard through ``parallel/comm.py:run_shards``: each op step's
+module on the shard's blocks under an ``OpContext`` holding the step's
+config, the shard's rank and mesh and the step's random stream, each
+parallel step's collective answered within its axes' groups, the exit
+tensors gathered whole on shard 0; autograd differentiates the whole
+lockstep run, collectives included.  :func:`init_params` draws every
+global parameter from one ``torch.Generator`` over the graph's nodes in
+order, exactly as on one device, and gives each shard its block as a
+parameter of its own; :func:`place_inputs` gives each shard its block of
+a batch.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import inspect
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..parallel.comm import run_local
+from ..parallel.comm import run_local, run_shards
 from ..training.initializer import default_initializer_for
 from ..utils.platform import host_to_device
-from .op import OpContext
+from .op import OpContext, mix_seed
+from .sharding import mesh_coords, mesh_shape
 
 
 @dataclasses.dataclass
@@ -93,12 +105,34 @@ def run_nodes(nodes: Sequence, ops: Sequence, drops: Sequence[List[int]],
 
 
 # ---- training: a plan's forward, its parameters, its inputs ----------------
-def _op_run(config):
-    """The ``run`` of an op step: its module, under ``config``."""
+def _block(rank: int, axes: Sequence[str], mesh) -> int:
+    """The index of the block shard ``rank`` holds of a tensor split over
+    ``axes`` (its coordinates on them, the first axis major)."""
+    coords = mesh_coords(rank, mesh)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + coords[a]
+    return idx
+
+
+def _op_run(st, index: int, mesh):
+    """The ``run`` of op step ``st`` (the plan's ``index``-th step): its
+    module under the step's config; a module that draws gets the step's
+    stream (the step seed mixed with ``index``) and the block the shard
+    holds of the step's tensors (their used axes), so replicas draw the
+    same mask and blocks different ones."""
+    used = set()
+    for sh in list(st.in_shardings) + list(st.out_shardings):
+        used |= sh.used_axes()
+    axes = [a for a in mesh.shape if a in used and mesh.shape[a] > 1]
+
     def run(op, ctx, *xs):
         if not op.uses_context:
             return op(*xs)
-        return op(*xs, ctx=dataclasses.replace(ctx, config=config))
+        return op(*xs, ctx=dataclasses.replace(
+            ctx, config=st.config,
+            seed=None if ctx.seed is None else mix_seed(ctx.seed, index),
+            block=_block(ctx.rank, axes, mesh)))
 
     return run
 
@@ -112,68 +146,146 @@ def parallel_run(pop, mesh):
     return run
 
 
-def _one_device(plan) -> torch.device:
-    if plan.mesh.size != 1:
-        raise NotImplementedError(
-            f"a plan over {plan.mesh.size} devices: data- and tensor-"
-            "parallel training comes with slice 11b (ROADMAP.md)")
-    return plan.mesh.devices[0]
+class PlanShards:
+    """A training plan read shard by shard: the plan's
+    ``parallel/tp.py:ShardPlan`` (``plan``), each rank's module of every
+    op step (``ops[rank][node name]``: the node's own module on one
+    device, a copy placed for the rank on a mesh, whose parameters
+    :func:`init_params` sets) and the executor of the plan's steps."""
+
+    def __init__(self, plan):
+        from ..parallel.tp import PlanExecutor, ShardPlan, place_module
+
+        self.plan = ShardPlan(plan)
+        self.mesh = plan.mesh
+        self.size = plan.mesh.size
+        index = {id(st): i for i, st in enumerate(plan.steps)}
+        self.executor = PlanExecutor(
+            self.plan, 0, lambda st: _op_run(st, index[id(st)], plan.mesh))
+        steps = [st for st in plan.steps if not st.is_parallel]
+        self.ops: List[Dict[str, nn.Module]] = []
+        for rank in range(self.size):
+            ops = {}
+            for st in steps:
+                op = st.node.op
+                if self.size > 1:
+                    op = copy.deepcopy(op, {id(p): None
+                                            for p in op.parameters()})
+                    place_module(op, st, self.plan, rank)
+                ops[st.name] = op
+            self.ops.append(ops)
+        self.step_ops = [[None if st.is_parallel else ops[st.name]
+                          for st in plan.steps] for ops in self.ops]
+
+    def run(self, rank: int, blocks: Dict[int, torch.Tensor],
+            training: bool, seed: Optional[int]):
+        """Shard ``rank``'s forward over its ``blocks`` (``{graph input
+        tid: block}``): a generator of the plan's collectives returning
+        the exit tensors (whole on shard 0)."""
+        ex = self.executor
+        env = {vid: blocks[t] for t, vid in self.plan.plan.input_vids.items()}
+        ctx = OpContext(training=training, rank=rank, seed=seed,
+                        mesh=self.mesh if self.size > 1 else None)
+        env = yield from run_nodes(ex.nodes, self.step_ops[rank], ex.drops,
+                                   env, ctx)
+        return (yield from ex.leave(env))
 
 
-def build_forward(plan) -> Callable:
-    """``fn(inputs, training=False, generator=None) -> [outputs]``:
-    ``inputs`` ``{graph input tid: tensor}`` on the plan's device, each
-    op step run by its node's module (``step.node.op``) under the step's
-    config, each parallel step (the identity on one device) by its op;
-    ``generator`` is the step's (dropout draws from it)."""
-    _one_device(plan)
-    nodes, ops = [], []
-    for st in plan.steps:
-        run = (parallel_run(st.node.op, plan.mesh) if st.is_parallel
-               else _op_run(st.config))
-        nodes.append(dataclasses.replace(
-            st.node, inputs=list(st.in_vids), outputs=list(st.out_vids),
-            run=run))
-        ops.append(st.node.op)
-    drops = dead_after(nodes, plan.output_vids)
+def plan_shards(plan) -> PlanShards:
+    """``plan``'s :class:`PlanShards`, made at the first call and kept on
+    the plan, so its forward and its parameters share the modules."""
+    shards = plan.__dict__.get("shards")
+    if shards is None:
+        shards = plan.shards = PlanShards(plan)
+    return shards
 
-    def fn(inputs: Dict[int, torch.Tensor], training: bool = False,
-           generator: Optional[torch.Generator] = None
-           ) -> List[torch.Tensor]:
-        env = {vid: inputs[t] for t, vid in plan.input_vids.items()}
-        ctx = OpContext(training=training, generator=generator)
-        env = run_local(run_nodes(nodes, ops, drops, env, ctx))
-        return [env[v] for v in plan.output_vids]
+
+def build_forward(plan, mode: str = "spmd") -> Callable:
+    """``fn(inputs, training=False, seed=None) -> [outputs]``: ``inputs``
+    ``{graph input tid: [each shard's block]}`` (:func:`place_inputs`),
+    every shard's forward run in lockstep (``run_shards``; alone with
+    identity collectives on one device), the outputs whole on shard 0;
+    ``seed`` is the step's (dropout streams derive from it).  ``mode``
+    is the reference's lowering, ``"spmd"`` (GSPMD over global arrays) or
+    ``"local"`` (``shard_map`` over blocks); both lower here to the one
+    shard-local executor, so they compute the same values."""
+    if mode not in ("spmd", "local"):
+        raise ValueError(f"unknown mode {mode!r}")
+    shards = plan_shards(plan)
+
+    def fn(inputs: Dict[int, List[torch.Tensor]], training: bool = False,
+           seed: Optional[int] = None) -> List[torch.Tensor]:
+        gens = [shards.run(r, {t: v[r] for t, v in inputs.items()},
+                           training, seed) for r in range(shards.size)]
+        if shards.size == 1:
+            return run_local(gens[0])
+        return run_shards(gens, plan.mesh.comm)[0]
 
     return fn
 
 
 def init_params(graph, plan, generator: torch.Generator
-                ) -> Dict[str, Dict[str, nn.Parameter]]:
+                ) -> List[Dict[str, Dict[str, nn.Parameter]]]:
     """Draw every parameter of ``graph``'s nodes from ``generator``, in
     graph order (reference :160-194: its key index advances over every
-    node alike), with each ``ParamSpec``'s initializer (the op's default
-    otherwise), and set it on the node's module on the plan's device,
-    ``requires_grad`` as the spec is ``trainable``.  Returns ``{node
-    name: {param name: parameter}}``."""
-    device = _one_device(plan)
-    params: Dict[str, Dict[str, nn.Parameter]] = {}
+    node alike), at its global shape with each ``ParamSpec``'s
+    initializer (the op's default otherwise), whatever the mesh; then
+    give each shard its block (``TensorSharding.local_slice``) as a
+    parameter of its own on its own device (even where shards share
+    one), ``requires_grad`` as the spec is ``trainable``, set on the
+    shard's module.  On a mesh the node's own module keeps an empty
+    ``meta`` parameter at the global shape (the planner reads it).
+    Returns each shard's ``{node name: {param name: parameter}}``."""
+    shards = plan_shards(plan)
+    devices = plan.mesh.devices
+    out: List[Dict[str, Dict[str, nn.Parameter]]] = [
+        {} for _ in range(shards.size)]
     for node in graph.nodes:
-        group = {}
         for p in node.op.params():
             init = p.initializer or default_initializer_for(node.op, p)
             value = init(generator, p.spec.shape, p.spec.dtype)
-            group[p.name] = nn.Parameter(value.to(device),
-                                         requires_grad=p.trainable)
-            setattr(node.op, p.name, group[p.name])
-        if group:
-            params[node.name] = group
-    return params
+            name = f"{node.name}.{p.name}"
+            for r, dev in enumerate(devices):
+                if shards.size == 1:
+                    block = value.to(dev)
+                else:
+                    block = shards.plan.local(name, value, r).to(
+                        dev, copy=True,
+                        memory_format=torch.contiguous_format)
+                param = nn.Parameter(block, requires_grad=p.trainable)
+                setattr(shards.ops[r][node.name], p.name, param)
+                out[r].setdefault(node.name, {})[p.name] = param
+            if shards.size > 1:
+                setattr(node.op, p.name, nn.Parameter(
+                    torch.empty(p.spec.shape, dtype=p.spec.dtype,
+                                device="meta"), requires_grad=False))
+    return out
 
 
-def place_inputs(plan, inputs: Dict[int, Any]) -> Dict[int, torch.Tensor]:
-    """A batch ``{graph input tid: host array}`` on the plan's device,
-    through :func:`~..utils.platform.host_to_device` (pinned, without a
-    host wait on a CUDA device)."""
-    device = _one_device(plan)
-    return {t: host_to_device(x, device) for t, x in inputs.items()}
+def place_inputs(plan, inputs: Dict[int, Any]
+                 ) -> Dict[int, List[torch.Tensor]]:
+    """A batch ``{graph input tid: host array}`` as each shard's block on
+    its device, ``{tid: [block of shard 0, ...]}``, under the plan's
+    input shardings, through :func:`~..utils.platform.host_to_device`
+    (pinned, without a host wait on a CUDA device).  Shards that hold the
+    same block on one device share it."""
+    mesh = plan.mesh
+    shape = mesh_shape(mesh)
+    out: Dict[int, List[torch.Tensor]] = {}
+    for t, x in inputs.items():
+        sh = plan.input_shardings.get(t)
+        whole = torch.as_tensor(np.ascontiguousarray(x)
+                                if isinstance(x, np.ndarray) else x)
+        placed: Dict[Any, torch.Tensor] = {}
+        blocks = []
+        for r, d in enumerate(mesh.devices):
+            coords = mesh_coords(r, mesh)
+            key = (d, None if sh is None else
+                   tuple(dim.index(coords, shape) for dim in sh.dims))
+            if key not in placed:
+                placed[key] = host_to_device(
+                    whole if sh is None or mesh.size == 1
+                    else sh.local_slice(whole, r, mesh), d)
+            blocks.append(placed[key])
+        out[t] = blocks
+    return out

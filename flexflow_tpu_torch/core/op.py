@@ -15,7 +15,8 @@ that computes in ``forward`` and holds its parameters, and autograd
 gives the backward.  An op whose result depends on more than its inputs
 (dropout, the training attention) sets ``uses_context`` and takes an
 :class:`OpContext` as ``forward(*inputs, ctx=...)``: whether the step
-trains, the step's ``torch.Generator`` and the node's parallel config.
+trains, the random stream its draws come from, the node's parallel
+config and the shard's place on its mesh.
 The serve modules take :class:`Op` as a mixin beside ``nn.Module``
 (``ops/linear.py``, ``ops/embedding.py``, ``ops/norm.py``,
 ``serve/ops.py``), and so do the training ops (``ops/elementwise.py``,
@@ -32,7 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .graph import ParamSpec, TensorSpec
-from .sharding import TensorSharding
+from .sharding import TensorSharding, mesh_coords
 
 Config = Dict[str, Tuple[str, ...]]
 
@@ -41,14 +42,43 @@ Config = Dict[str, Tuple[str, ...]]
 class OpContext:
     """What an op that ``uses_context`` reads besides its inputs
     (reference :36-56): ``training`` (dropout is the identity when
-    False), the step's ``generator`` (None: an op draws from its own
-    seed, as the reference's ``PRNGKey(seed)``), the node's parallel
-    ``config`` and the shard's ``rank`` on its mesh."""
+    False), the node's parallel ``config``, the shard's ``rank`` on its
+    ``mesh`` (None: one device), and where random draws come from:
+    ``generator``, or else a stream derived from the step's ``seed`` and
+    the shard's ``block`` (:meth:`stream`).  A training plan
+    (``core/interpreter.py:build_forward``) gives each op step a seed of
+    its own and each shard the index of the block it holds of the step's
+    tensors, so shards holding different blocks draw different masks and
+    replicas of one block draw the same."""
 
     training: bool = False
     generator: Optional[torch.Generator] = None
     config: Optional[Config] = None
     rank: int = 0
+    mesh: Optional[object] = None
+    seed: Optional[int] = None
+    block: int = 0
+
+    def stream(self, device) -> Optional[torch.Generator]:
+        """The generator an op draws from on ``device``: ``generator``,
+        else one seeded from ``seed`` and ``block``, else None (the op
+        falls back to its own seed, as the reference's
+        ``PRNGKey(seed)``)."""
+        if self.generator is not None:
+            return self.generator
+        if self.seed is None:
+            return None
+        return torch.Generator(device).manual_seed(
+            mix_seed(self.seed, self.block))
+
+
+def mix_seed(seed: int, salt: int) -> int:
+    """A 63-bit seed from ``seed`` and ``salt`` (splitmix64's finalizer),
+    so nearby salts give unrelated streams."""
+    z = (seed + (salt + 1) * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) >> 1
 
 
 @dataclasses.dataclass
@@ -125,10 +155,14 @@ class Op:
 
 def bias_once(bias: torch.Tensor, axes, ctx: OpContext) -> torch.Tensor:
     """A bias counted once by the sum of an output that is partial over
-    ``axes`` (reference :151): whole on rank 0, zeros on the others; the
-    bias itself when the output is whole."""
-    if axes and ctx.rank != 0:
-        return torch.zeros_like(bias)
+    ``axes`` (reference :151): whole on the shards at coordinate 0 of
+    every axis in ``axes``, zeros on the others (a ``dp x tp`` mesh's
+    rank 2 is ``dp=1, tp=0`` and adds it); the bias itself when the
+    output is whole."""
+    if axes and ctx.mesh is not None:
+        coords = mesh_coords(ctx.rank, ctx.mesh)
+        if any(coords.get(a, 0) for a in axes):
+            return torch.zeros_like(bias)
     return bias
 
 

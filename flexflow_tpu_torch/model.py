@@ -8,18 +8,32 @@ parameters carry across by name.  ``compile`` resolves a strategy in the
 reference's order (the explicit dict, ``--import``, the data-parallel
 strategy; ``--export``), plans the graph (``core/pcg.py``), builds its
 forward (``core/interpreter.py:build_forward``), draws the parameters
-(``init_params``) and the optimizer state.  A train step runs the
-forward, the loss, ``backward()`` and the optimizer's update in place;
-the per-step losses and metrics stay on the device until the end of the
-epoch, where the host reads them once, as the reference does.
+(``init_params``) and each shard's optimizer state over its blocks.
 
-Training runs on one device: ``FFModel(config, mesh=None, device=None)``
-trains on ``device`` (None: the CUDA card; it raises without one).  A
-mesh of more devices, a ``pp`` axis and a search budget raise
+Training runs on a mesh (``parallel/mesh.py``): ``FFModel(config,
+mesh=make_mesh({"dp": 2, "tp": 2}, devices))``, or ``mesh=None`` for
+``{"dp": n}`` over ``FFConfig.devices()`` (``mesh_shape`` picks another
+shape), or ``device=`` for one device.  Every shard runs its block of
+the plan in lockstep, with the collectives the plan's parallel steps
+name.  A train step runs the forward on every shard, gathers the exit
+tensors on shard 0, computes the loss and the metrics there,
+``backward()`` (through the collectives' own gradients), sums each
+parameter block's gradient over the mesh axes its sharding leaves unused
+(the all-reduce GSPMD inserts in the reference: ``dp`` replicas saw
+other rows, ``tp`` replicas computed the same rows), and runs the
+optimizer's update on each shard's blocks, in place.  The per-step
+losses and metrics stay on the device until the end of the epoch, where
+the host reads them once, as the reference does.  ``params`` and
+``opt_state`` are the reference's global trees, assembled from the
+shards; ``load_params`` and ``load_opt_state`` slice global values into
+every shard.
+
+A ``pp`` axis, the axes of later slices and a search budget raise
 ``NotImplementedError`` naming the slice that brings them; nothing falls
-back.  Initial weights, the shuffle order and dropout masks come from
-torch generators seeded by ``FFConfig.seed``, so they match the JAX
-package's in distribution; ``load_params`` carries its weights across.
+back to one device.  Initial weights, the shuffle order and dropout
+masks come from torch generators seeded by ``FFConfig.seed``, so they
+match the JAX package's in distribution; ``load_params`` carries its
+weights across.
 """
 
 from __future__ import annotations
@@ -34,15 +48,17 @@ from torch import nn
 
 from .config import FFConfig
 from .core.graph import Graph, Tensor, TensorSpec
-from .core.interpreter import build_forward, init_params, place_inputs
+from .core.interpreter import (build_forward, init_params, place_inputs,
+                               plan_shards)
 from .core.pcg import PCG, Plan
+from .data.loader import DataLoader
 from .ops.attention import MultiHeadAttention
 from .ops.elementwise import (Cast, Dropout, ElementBinary, ElementUnary,
                               as_dtype)
 from .ops.linear import BatchMatmul, Linear
 from .ops.norm import LayerNorm, RMSNorm
 from .ops.reduction import Reduce, Softmax
-from .parallel.mesh import data_parallel_strategy, make_mesh
+from .parallel.mesh import check_axes, data_parallel_strategy, make_mesh
 from .search.strategy import load_strategy, save_strategy
 from .training import loss as loss_mod
 from .training import metrics as metrics_mod
@@ -51,8 +67,6 @@ from .utils.platform import host_to_device, resolve_device
 from .utils.profiling import maybe_profile
 from .utils.runlog import log_run
 
-SLICE_11B = ("slice 11b (data- and tensor-parallel training on the plan "
-             "executor with a gradient all-reduce)")
 SLICE_10B_II = ("slice 10b-ii (the substitution search, "
                 "graph_optimize(substitution=True))")
 SLICE_11C = ("slice 11c (the ops breadth: embedding's aggr, conv, pool, "
@@ -66,7 +80,7 @@ class FFModel:
                  device=None):
         self.config = config or FFConfig()
         self.mesh = mesh          # made at compile if None
-        self._device_given = mesh is not None or device is not None
+        self._device_given = mesh is None and device is not None
         self.device = (mesh.devices[0] if mesh is not None
                        else resolve_device(device))
         self.graph = Graph()
@@ -74,14 +88,17 @@ class FFModel:
         self.pcg: Optional[PCG] = None
         self.plan: Optional[Plan] = None
         self.strategy = None
-        self.params: Optional[Dict[str, Dict[str, nn.Parameter]]] = None
-        self.opt_state = None
+        # each shard's {node: {param: block}} and optimizer state
+        self.shard_params: Optional[List[Dict[str, Dict[str,
+                                                        nn.Parameter]]]] = None
+        self.shard_opt_states: Optional[list] = None
         self.optimizer: Optional[Optimizer] = None
         self.loss_type = None
         self.loss_weights: Optional[List[float]] = None
         self.metric_names: List[str] = []
         self._forward = None
         self._compiled_out_tids: Optional[List[int]] = None
+        self.grad_allreduces = 0   # the gradient sum's Comm calls
         # the model's own stream: init seeds, epoch seeds, shuffles
         self._generator = torch.Generator().manual_seed(self.config.seed)
 
@@ -219,25 +236,26 @@ class FFModel:
     # compile
     # ------------------------------------------------------------------
     def _training_mesh(self):
-        """The mesh training runs on: one device, or a raise."""
-        if self.mesh is not None:
-            shape = dict(self.mesh.shape)
-        else:
-            devices = ([self.device] if self._device_given
-                       else self.config.devices())
-            shape = dict(self.config.mesh_shape or {"dp": len(devices)})
+        """The mesh training runs on: ``mesh``, else ``mesh_shape`` (or
+        ``{"dp": n}``) over ``FFConfig.devices()``, else the one device
+        given; a ``pp`` axis or an axis of a later slice raises."""
+        shape = (dict(self.mesh.shape) if self.mesh is not None
+                 else dict(self.config.mesh_shape or {}))
         if shape.get("pp", 1) > 1:
             raise NotImplementedError(
                 f"mesh {shape} has a 'pp' axis: pipeline training comes "
                 f"with {SLICE_11D}")
-        n = math.prod(shape.values())
-        if n > 1:
-            raise NotImplementedError(
-                f"mesh {shape} spans {n} devices: training on more than "
-                f"one comes with {SLICE_11B}; FFConfig(num_devices=1) "
-                "trains on one")
-        if self.mesh is None:
-            self.mesh = make_mesh({"dp": 1}, [self.device])
+        check_axes(shape)
+        if self.mesh is None and self._device_given:
+            if math.prod(shape.values()) > 1:
+                raise ValueError(
+                    f"mesh_shape {shape} spans several devices and "
+                    f"device={str(self.device)!r} names one: pass "
+                    "mesh=make_mesh(shape, devices) to place the shards")
+            self.mesh = make_mesh(shape or {"dp": 1}, [self.device])
+        elif self.mesh is None:
+            devices = self.config.devices()
+            self.mesh = make_mesh(shape or {"dp": len(devices)}, devices)
         self.device = self.mesh.devices[0]
         return self.mesh
 
@@ -256,7 +274,7 @@ class FFModel:
         strategy (a search budget raises: the reference runs the
         substitution search there); ``--export`` writes the result.
         ``mode`` ("spmd" or "local") is the reference's lowering mode;
-        on one device both run the same computation.
+        both run the shard-local executor here.
 
         Multi-output training: pass N ``outputs`` and ``loss_type`` as a
         list of N loss names; ``fit``/``evaluate`` then take ``y`` as a
@@ -264,8 +282,6 @@ class FFModel:
         ``loss_weights``-ed) sum of the per-output losses.  Metrics are
         computed on output 0.
         """
-        if mode not in ("spmd", "local"):
-            raise ValueError(f"unknown mode {mode!r}")
         cfg = self.config
         mesh = self._training_mesh()
         out_tids = [t.tid for t in outputs] if outputs else None
@@ -284,9 +300,10 @@ class FFModel:
         self._compiled_out_tids = out_tids
         self.pcg = PCG(self.graph, mesh, strategy, output_tids=out_tids)
         self.plan = self.pcg.plan()
-        self._forward = build_forward(self.plan)
-        self.params = init_params(self.graph, self.plan, torch.Generator(
-            ).manual_seed(self._draw_seed()))
+        self._forward = build_forward(self.plan, mode)
+        self.shard_params = init_params(
+            self.graph, self.plan,
+            torch.Generator().manual_seed(self._draw_seed()))
 
         self.optimizer = optimizer or SGDOptimizer(lr=cfg.learning_rate)
         self.loss_type = loss_type
@@ -299,16 +316,20 @@ class FFModel:
                 raise ValueError(f"{len(self.loss_weights)} loss_weights "
                                  f"for {len(loss_type)} losses")
         self.metric_names = list(metrics)
-        self.opt_state = self.optimizer.init_state(self._trainable())
+        # each shard's slots over its own blocks, on its device (the
+        # reference places the slots with the parameters, :536-553)
+        self.shard_opt_states = [self.optimizer.init_state(self._trainable(r))
+                                 for r in range(mesh.size)]
         return self
 
     def recompile(self, strategy: Optional[Dict[str, Dict]] = None,
                   optimizer: Optional[Optimizer] = None, mode: str = "spmd",
                   outputs: Optional[Sequence[Tensor]] = None) -> "FFModel":
         """Re-plan the same graph under a new strategy (and optionally a
-        new optimizer), keeping the trained parameters; the optimizer
-        state carries over when the optimizer is unchanged and resets
-        otherwise (reference :946-994)."""
+        new optimizer), keeping the trained parameters: each is taken
+        whole from the old layout and sliced into the new one; the
+        optimizer state moves the same way when the optimizer is
+        unchanged and resets otherwise (reference :946-994)."""
         old_params = self.params
         old_opt = self.opt_state if optimizer is None else None
         if strategy is None:
@@ -322,37 +343,112 @@ class FFModel:
         if old_params is not None:
             self.load_params(old_params)
         if old_opt is not None:
-            self.opt_state = old_opt   # one device: its tensors stay put
+            self.load_opt_state(old_opt)
         return self
+
+    # ------------------------------------------------------------------
+    # the global view of the shards' state
+    # ------------------------------------------------------------------
+    def _whole(self, name: str, pname: str, parts: List[torch.Tensor]
+               ) -> torch.Tensor:
+        return plan_shards(self.plan).plan.whole(f"{name}.{pname}", parts)
+
+    def _local(self, name: str, pname: str, value: torch.Tensor,
+               rank: int) -> torch.Tensor:
+        return plan_shards(self.plan).plan.local(f"{name}.{pname}", value,
+                                                 rank)
+
+    @property
+    def params(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+        """``{node name: {param name: global value}}`` (reference
+        ``model.params``): on one device the parameters themselves, on a
+        mesh each assembled from the shards' blocks on shard 0's
+        device."""
+        shards = self.shard_params
+        if shards is None or len(shards) == 1:
+            return None if shards is None else shards[0]
+        return {n: {p: self._whole(n, p, [s[n][p].detach() for s in shards])
+                    for p in g} for n, g in shards[0].items()}
+
+    @property
+    def opt_state(self):
+        """The optimizer state as the reference holds it (its slots
+        global, as :attr:`params`); on one device the state itself."""
+        states = self.shard_opt_states
+        if states is None or len(states) == 1:
+            return None if states is None else states[0]
+        return self._gather_state(states)
+
+    def _gather_state(self, states: list):
+        s0 = states[0]
+        if _is_param_tree(s0):
+            return {n: {p: self._whole(n, p, [s[n][p] for s in states])
+                        for p in g} for n, g in s0.items()}
+        if isinstance(s0, dict):
+            return {k: self._gather_state([s[k] for s in states])
+                    for k in s0}
+        return s0   # a scalar every shard keeps alike (Adam's step)
 
     def load_params(self, weights) -> "FFModel":
         """Copy ``{node name: {param name: array}}`` (numpy arrays, as the
         JAX package's ``model.params`` give after ``np.asarray``, or
-        tensors) into the compiled parameters, cast to their dtype, in
-        place."""
-        if self.params is None:
+        tensors; global values) into every shard's blocks, cast to their
+        dtype, in place."""
+        if self.shard_params is None:
             raise RuntimeError("call compile() before load_params()")
+        specs = self.graph.param_specs()
         with torch.no_grad():
             for name, group in weights.items():
-                if name not in self.params:
+                if name not in self.shard_params[0]:
                     raise KeyError(f"unknown param group {name!r}")
                 for p, v in group.items():
-                    cur = self.params[name][p]
-                    arr = (v.detach() if isinstance(v, torch.Tensor)
-                           else torch.tensor(np.asarray(v)))
-                    if tuple(arr.shape) != tuple(cur.shape):
+                    arr = _as_tensor(v)
+                    shape = tuple(specs[name][p].spec.shape)
+                    if tuple(arr.shape) != shape:
                         raise ValueError(f"{name}.{p}: shape "
-                                         f"{tuple(arr.shape)} != "
-                                         f"{tuple(cur.shape)}")
-                    cur.copy_(arr.to(cur.dtype))
+                                         f"{tuple(arr.shape)} != {shape}")
+                    for r, shard in enumerate(self.shard_params):
+                        cur = shard[name][p]
+                        cur.copy_(self._local(name, p, arr, r).to(cur.dtype))
         return self
+
+    def load_opt_state(self, state) -> "FFModel":
+        """Copy a global optimizer state (as :attr:`opt_state` gives it)
+        into every shard's, in place: each slot sliced to the shard's
+        blocks, each scalar onto every shard."""
+        if self.shard_opt_states is None:
+            raise RuntimeError("call compile() before load_opt_state()")
+        self.shard_opt_states = self._scatter_state(self.shard_opt_states,
+                                                    state)
+        return self
+
+    def _scatter_state(self, states: list, src) -> list:
+        s0 = states[0]
+        if _is_param_tree(s0):
+            with torch.no_grad():
+                for n, g in s0.items():
+                    for p in g:
+                        arr = _as_tensor(src[n][p])
+                        for r, s in enumerate(states):
+                            s[n][p].copy_(self._local(n, p, arr, r))
+            return states
+        if isinstance(s0, dict):
+            for k in s0:
+                for s, v in zip(states, self._scatter_state(
+                        [s[k] for s in states], src[k])):
+                    s[k] = v
+            return states
+        if isinstance(s0, tuple):
+            return states
+        return [type(s0)(src) for _ in states]
 
     def _draw_seed(self) -> int:
         return int(torch.randint(2 ** 62, (), generator=self._generator))
 
-    def _trainable(self) -> Dict[str, Dict[str, nn.Parameter]]:
+    def _trainable(self, rank: int = 0
+                   ) -> Dict[str, Dict[str, nn.Parameter]]:
         out = {}
-        for name, group in self.params.items():
+        for name, group in self.shard_params[rank].items():
             kept = {p: w for p, w in group.items() if w.requires_grad}
             if kept:
                 out[name] = kept
@@ -380,22 +476,60 @@ class FFModel:
             return metrics_mod.compute_metrics(self.metric_names,
                                                logits.detach(), first)
 
-    def _train_step(self, batch, labels, generator):
-        """Forward, loss, backward and the optimizer's update; returns the
-        loss and the metrics of output 0, on the device."""
-        outs = self._forward(batch, training=True, generator=generator)
+    def _train_step(self, batch, labels, seed: int):
+        """Forward on every shard, the loss and metrics on shard 0,
+        backward, the gradient sum over replicas and each shard's
+        update; returns the loss and the metrics of output 0, on shard
+        0's device."""
+        outs = self._forward(batch, training=True, seed=seed)
         loss = self._total_loss(outs, labels)
         mets = self._metrics(outs[0], labels)
         loss.backward()
-        params = self._trainable()
-        grads = {n: {p: (w.grad if w.grad is not None
-                         else torch.zeros_like(w)) for p, w in g.items()}
-                 for n, g in params.items()}
-        self.optimizer.update(grads, self.opt_state, params)
-        for g in params.values():
-            for w in g.values():
-                w.grad = None
+        params = [self._trainable(r) for r in range(self.mesh.size)]
+        self._sum_grads(params)
+        for p_r, state in zip(params, self.shard_opt_states):
+            grads = {n: {p: (w.grad if w.grad is not None
+                             else torch.zeros_like(w)) for p, w in g.items()}
+                     for n, g in p_r.items()}
+            self.optimizer.update(grads, state, p_r)
+        for p_r in params:
+            for g in p_r.values():
+                for w in g.values():
+                    w.grad = None
         return loss.detach(), mets
+
+    def _sum_grads(self, params: list) -> None:
+        """Sum each parameter block's gradient over the mesh axes its
+        sharding leaves unused, in place on every replica (a replica
+        whose ``.grad`` is None adds zeros): one all-reduce a group of
+        replicas for all the blocks that share those axes and a dtype,
+        flattened into one buffer."""
+        if len(params) == 1:
+            return
+        sp = plan_shards(self.plan).plan
+        buckets: Dict[tuple, list] = {}
+        for name, group in params[0].items():
+            for p, w in group.items():
+                axes = sp.unused_axes(f"{name}.{p}")
+                if axes:
+                    buckets.setdefault((axes, w.dtype), []).append((name, p))
+        comm = self.mesh.comm
+        for (axes, _), keys in buckets.items():
+            for ranks in comm.groups(axes):
+                flats = []
+                for r in ranks:
+                    ws = [params[r][n][p] for n, p in keys]
+                    flats.append(torch.cat([
+                        (w.grad if w.grad is not None
+                         else torch.zeros_like(w)).reshape(-1) for w in ws]))
+                summed = comm.all_reduce(flats, ranks)
+                self.grad_allreduces += 1
+                for r, flat in zip(ranks, summed):
+                    off = 0
+                    for n, p in keys:
+                        w = params[r][n][p]
+                        w.grad = flat[off: off + w.numel()].view_as(w)
+                        off += w.numel()
 
     def _eval_step(self, batch, labels):
         with torch.no_grad():
@@ -416,8 +550,8 @@ class FFModel:
         return {tids[0]: x}
 
     def _labels(self, y, sel):
-        """The labels of rows ``sel`` on the device (a tuple of them for
-        per-output losses)."""
+        """The labels of rows ``sel`` on shard 0's device (a tuple of them
+        for per-output losses)."""
         if isinstance(self.loss_type, (list, tuple)):
             return tuple(host_to_device(v[sel], self.device) for v in y)
         return host_to_device(y[sel], self.device)
@@ -429,9 +563,12 @@ class FFModel:
         y = [np.asarray(v) for v in y] if multi else np.asarray(y)
         return y, (len(y[0]) if multi else len(y))
 
-    def fit(self, x, y, epochs: Optional[int] = None,
+    def fit(self, x, y=None, epochs: Optional[int] = None,
             batch_size: Optional[int] = None, verbose: bool = True,
             shuffle: bool = True):
+        """Train on host arrays ``x``, ``y`` (the batches drawn and
+        placed here), or on a :class:`~.data.DataLoader` ``x`` (its
+        batches; ``y`` unused)."""
         if self._forward is None:
             raise RuntimeError("call compile() first")
         t0 = time.perf_counter()
@@ -449,14 +586,16 @@ class FFModel:
 
     def _fit(self, x, y, epochs, batch_size, verbose, shuffle):
         epochs = epochs or self.config.epochs
+        if isinstance(x, DataLoader):
+            return self._fit_loader(x, epochs, verbose)
         bs = batch_size or self.config.batch_size
         inputs = self._standardize_inputs(x)
         y, n = self._host_labels(y)
         history = []
         for epoch in range(epochs):
-            # the epoch's dropout stream and order, from the model's own
+            # the epoch's step seeds and order, from the model's own
             # generator (not global state): training is reproducible
-            gen = torch.Generator(self.device).manual_seed(self._draw_seed())
+            seeds = torch.Generator().manual_seed(self._draw_seed())
             idx = (torch.randperm(n, generator=self._generator).numpy()
                    if shuffle else np.arange(n))
 
@@ -467,16 +606,47 @@ class FFModel:
                         self.plan, {t: v[sel] for t, v in inputs.items()})
                     yield batch, self._labels(y, sel)
 
-            history.append(self._train_epoch(batches(), gen, epoch, epochs,
-                                             verbose, bs))
+            history.append(self._train_epoch(batches(), seeds, epoch,
+                                             epochs, verbose, bs))
         return history
 
-    def _train_epoch(self, batch_iter, gen, epoch, epochs, verbose, bs):
-        """One epoch over ``(batch, labels)`` pairs; the history entry."""
+    def _fit_loader(self, loader, epochs, verbose):
+        """The epoch loop over a :class:`~.data.DataLoader` (reference
+        :1097-1118): the loader owns the batching and, given this
+        model's plan, the placement (its prefetch overlaps the copies
+        with the steps).  Its ``{key: array}`` inputs map onto the graph's
+        input tids by position, or directly when the keys are tids."""
+        if loader.plan is not None and loader.plan is not self.plan:
+            raise ValueError("the DataLoader places its batches for another "
+                             "plan: build it with plan=model.plan (or none)")
+        tids = self.graph.input_tids
+        history = []
+        for epoch in range(epochs):
+            seeds = torch.Generator().manual_seed(self._draw_seed())
+
+            def batches():
+                for arrs, labels in loader:
+                    keys = list(arrs)
+                    batch = ({t: arrs[k] for t, k in zip(tids, keys)}
+                             if set(keys) != set(tids) else arrs)
+                    if loader.plan is None:   # host tensors: place them
+                        batch = place_inputs(self.plan, batch)
+                        labels = host_to_device(labels, self.device)
+                    yield batch, labels
+
+            history.append(self._train_epoch(batches(), seeds, epoch,
+                                             epochs, verbose,
+                                             loader.batch_size))
+        return history
+
+    def _train_epoch(self, batch_iter, seeds, epoch, epochs, verbose, bs):
+        """One epoch over ``(batch, labels)`` pairs, each step's seed drawn
+        from ``seeds``; the history entry."""
         losses, mets_acc = [], []
         t0 = time.perf_counter()
         for batch, labels in batch_iter:
-            loss, mets = self._train_step(batch, labels, gen)
+            seed = int(torch.randint(2 ** 62, (), generator=seeds))
+            loss, mets = self._train_step(batch, labels, seed)
             losses.append(loss)
             mets_acc.append(mets)
         if not losses:
@@ -516,13 +686,26 @@ class FFModel:
 
     def forward(self, x, training: bool = False):
         """Run the compiled forward on host arrays; the outputs stay on
-        the device."""
+        shard 0's device, whole."""
         if self._forward is None:
             raise RuntimeError("call compile() first")
         inputs = place_inputs(self.plan, self._standardize_inputs(x))
         with torch.no_grad():
             outs = self._forward(inputs, training=training)
         return outs[0] if len(outs) == 1 else outs
+
+
+def _is_param_tree(x) -> bool:
+    """A ``{node: {param: tensor}}`` tree (an optimizer's slots)."""
+    return bool(isinstance(x, dict) and x and all(
+        isinstance(g, dict) and all(isinstance(v, torch.Tensor)
+                                    for v in g.values())
+        for g in x.values()))
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return (v.detach() if isinstance(v, torch.Tensor)
+            else torch.tensor(np.asarray(v)))
 
 
 def _mean(values: List[torch.Tensor]) -> float:

@@ -5,14 +5,16 @@ layouts (``wq``/``wk``/``wv`` ``[e, h, hd]``, ``wo`` ``[h, hd, e]``, the
 biases ``bq``/``bk``/``bv`` ``[h, hd]`` and ``bo`` ``[e]``, :55-71), and
 its compute (:73-119): the projections, scores and values are
 ``torch.matmul`` products, the causal mask is ``-inf``, then a softmax
-and, while training with a step generator, dropout on the
-probabilities; autograd gives the backward.  No
+and, while training with a step stream (``OpContext.stream``), dropout
+on the probabilities; autograd gives the backward.  No
 ``scaled_dot_product_attention``: the reference's XLA-lowered einsums
 become ordinary products here.
 
 The op IR (:121-192): ``head`` shards the four projections' head dims
 (the output projection row-parallel, its output a partial sum whose
 ``bo`` is counted once, ``core/op.py:bias_once``), ``sample`` the batch;
+a shard computes on the heads and rows it holds, as the plan executor
+(``parallel/tp.py``) gives them;
 ``sequence`` (ring attention, reference ``parallel/ring_attention.py``)
 is planned but not run: a config that names it raises.
 """
@@ -90,8 +92,8 @@ class MultiHeadAttention(Op, nn.Module):
     def forward(self, q_in, k_in, v_in, ctx):
         if ctx.config and ctx.config.get("sequence"):
             raise NotImplementedError(
-                "sequence-parallel (ring) attention comes with ring-"
-                "attention training, after slice 11b (ROADMAP.md)")
+                "sequence-parallel (ring) attention comes with slice 11d "
+                "(pipeline and ring-attention training, ROADMAP.md)")
         bias = self.use_bias
         q = self._project(q_in, self.wq, self.bq if bias else None)
         k = self._project(k_in, self.wk, self.bk if bias else None)
@@ -104,8 +106,9 @@ class MultiHeadAttention(Op, nn.Module):
                               device=scores.device).tril()
             scores = scores.masked_fill(~mask, float("-inf"))
         probs = torch.softmax(scores, dim=-1)
-        if self.dropout > 0 and ctx.training and ctx.generator is not None:
-            probs = dropout(probs, self.dropout, ctx.generator)
+        gen = ctx.stream(probs.device) if ctx.training else None
+        if self.dropout > 0 and gen is not None:
+            probs = dropout(probs, self.dropout, gen)
         ctx_v = torch.matmul(probs.to(v.dtype), v)        # [b, h, q, hd]
         b_, h, s, hd = ctx_v.shape
         out = torch.matmul(ctx_v.transpose(1, 2).reshape(b_, s, h * hd),

@@ -216,8 +216,10 @@ class Cast(_Elementwise):
 @register_op
 class Dropout(_Elementwise):
     """Zeros each element with probability ``rate`` and scales the rest by
-    ``1 / (1 - rate)`` while training, from the step's generator (the
-    op's own ``seed`` when the step has none); the identity otherwise."""
+    ``1 / (1 - rate)`` while training, from the step's stream
+    (``OpContext.stream``: a shard draws the mask of the block it holds;
+    the op's own ``seed`` when the step has none); the identity
+    otherwise."""
 
     type_name = "dropout"
     uses_context = True
@@ -230,7 +232,7 @@ class Dropout(_Elementwise):
     def forward(self, x, ctx):
         if not ctx.training or self.rate == 0.0:
             return x
-        gen = ctx.generator
+        gen = ctx.stream(x.device)
         if gen is None:
             gen = torch.Generator(x.device).manual_seed(self.seed)
         return dropout(x, self.rate, gen)

@@ -1,20 +1,26 @@
 """A named mesh of torch devices.
 
-Port of ``flexflow_tpu/parallel/mesh.py:18-40`` (``make_mesh``) for the
-serve path's two axes.  A ``{"tp": n}`` :class:`Mesh` is the ordered list
-of devices that hold the shards of one deployment, shard ``r`` on
-``devices[r]``, and the :class:`~.comm.Comm` that joins them.  Which
+Port of ``flexflow_tpu/parallel/mesh.py:18-63`` (``make_mesh``,
+``data_parallel_strategy``).  A :class:`Mesh` is a ``{axis: size}``
+shape and the ordered list of devices that hold its shards, row-major
+over the shape's axes as the reference lays them out (shard ``r`` on
+``devices[r]``), and the :class:`~.comm.Comm` that joins them.  Which
 collective implementation the shards use is fixed here, when the mesh is
 built: NCCL across distinct CUDA devices, a local sum otherwise.
 
-A ``{"pp": p, "tp": t}`` mesh (pipeline-parallel serving,
-``serve/pp.py``) lists ``p * t`` devices pp-major: stage ``s`` holds
-``devices[s*t:(s+1)*t]``, its own ``{"tp": t}`` mesh
-(:meth:`Mesh.stage_meshes`, reference ``serve/pp.py:316-323``); the
-stages share no collective, so such a mesh has no ``comm``.
+* ``{"tp": n}``: tensor-parallel serving, and a training mesh;
+* ``{"pp": p, "tp": t}`` (pipeline-parallel serving, ``serve/pp.py``):
+  ``p * t`` devices pp-major, stage ``s`` holding
+  ``devices[s*t:(s+1)*t]``, its own ``{"tp": t}`` mesh
+  (:meth:`Mesh.stage_meshes`, reference ``serve/pp.py:316-323``); the
+  stages share no collective, so such a mesh has no ``comm``;
+* ``{"dp": d}``, ``{"tp": t}`` and ``{"dp": d, "tp": t}`` (either order):
+  the training meshes ``FFModel`` runs a plan on (``model.py``), ``dp``
+  the data-parallel axis of ``data_parallel_strategy``.
 
-A ``{"dp": 1}`` mesh is one device, on which ``FFModel`` trains
-(``model.py``); data-parallel training over more comes with slice 11b.
+The axes of later slices raise ``NotImplementedError`` naming them:
+``ep`` (experts) and ``mp`` (DLRM's model-parallel embeddings) come with
+slice 11c, ``sp`` (ring attention) with slice 11d.
 """
 
 from __future__ import annotations
@@ -32,13 +38,14 @@ Device = Union[str, torch.device]
 
 
 class Mesh:
-    """``shape`` ``{"tp": n}`` over ``n`` devices, with their collectives
-    (``comm``), or ``{"pp": p, "tp": t}`` over ``p * t`` (no ``comm``)."""
+    """``shape`` over its devices, row-major, with their collectives
+    (``comm``); a ``{"pp": p, "tp": t}`` mesh has no ``comm``."""
 
     def __init__(self, shape: Dict[str, int], devices: Sequence[Device]):
         self.shape = dict(shape)
         self.devices: List[torch.device] = [torch.device(d) for d in devices]
-        self.comm = None if "pp" in self.shape else Comm(self.devices)
+        self.comm = (None if "pp" in self.shape
+                     else Comm(self.devices, self.shape))
 
     def stage_meshes(self) -> List["Mesh"]:
         """One ``{"tp": t}`` mesh per pipeline stage, pp-major (a mesh
@@ -60,13 +67,32 @@ class Mesh:
         return f"Mesh({self.shape}, {[str(d) for d in self.devices]}{comm})"
 
 
+_LATER_AXES = {
+    "ep": "slice 11c (the ops breadth: MoE's expert parallelism)",
+    "mp": "slice 11c (the ops breadth: DLRM's model-parallel embeddings)",
+    "sp": "slice 11d (pipeline and ring-attention training)",
+}
+
+
+def check_axes(shape: Dict[str, int]) -> None:
+    """Raise ``NotImplementedError`` for an axis a later slice brings."""
+    for axis in shape:
+        if axis in _LATER_AXES:
+            raise NotImplementedError(
+                f"mesh {shape}: the {axis!r} axis comes with "
+                f"{_LATER_AXES[axis]} (ROADMAP.md)")
+
+
 def make_mesh(shape: Dict[str, int],
               devices: Optional[Sequence[Device]] = None) -> Mesh:
     """A named mesh (reference :18).
 
     ``shape`` is ``{"tp": n}``, or ``{"pp": p, "tp": t}`` (``tp``
     defaults to 1; ``pp=1`` is the plain ``{"tp": t}`` mesh) over ``n =
-    p * t`` devices, pp-major, or ``{"dp": 1}`` (one device, training);
+    p * t`` devices, pp-major (serving), or ``{"dp": d}``, ``{"tp": t}``
+    or ``{"dp": d, "tp": t}`` over ``d * t`` devices, row-major over the
+    shape's axes (training; ``{"dp": 1}`` is one device).  An axis of a
+    later slice (``ep``, ``mp``, ``sp``) raises ``NotImplementedError``;
     any other shape raises ``ValueError``.
     ``devices=None`` is ``cuda:0`` ... ``cuda:n-1`` and raises when the
     machine has fewer cards.  A device may appear more than once only when
@@ -75,19 +101,23 @@ def make_mesh(shape: Dict[str, int],
     co-located silently.  The devices must all be CUDA devices, or all
     the CPU."""
     shape = {k: int(v) for k, v in shape.items()}
+    check_axes(shape)
     if shape == {"dp": 1}:
         dev = resolve_device(None if devices is None else devices[0])
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         return Mesh(shape, [dev])
-    if not set(shape) or set(shape) - {"pp", "tp"}:
+    serve = set(shape) <= {"pp", "tp"}
+    if not shape or not (serve or set(shape) <= {"dp", "tp"}):
         raise ValueError(f"mesh {shape}: the port's mesh is {{'tp': n}} "
-                         "or {'pp': p, 'tp': t} (serving), or {'dp': 1} "
-                         "(training on one device)")
-    pp, tp = shape.get("pp", 1), shape.get("tp", 1)
-    if pp < 1 or tp < 1:
-        raise ValueError(f"mesh {shape}: pp and tp must be at least 1")
-    n = pp * tp
+                         "or {'pp': p, 'tp': t} (serving), or {'dp': d}, "
+                         "{'tp': t} or {'dp': d, 'tp': t} (training)")
+    if any(v < 1 for v in shape.values()):
+        raise ValueError(f"mesh {shape}: every axis must be at least 1")
+    if serve:
+        pp, tp = shape.get("pp", 1), shape.get("tp", 1)
+        shape = {"pp": pp, "tp": tp} if pp > 1 else {"tp": tp}
+    n = int(np.prod(list(shape.values())))
     if devices is None:
         resolve_device("cuda")   # raises without CUDA
         have = torch.cuda.device_count()
@@ -110,7 +140,7 @@ def make_mesh(shape: Dict[str, int],
         devices = [torch.device("cuda", d.index if d.index is not None
                                 else torch.cuda.current_device())
                    for d in devices]
-    return Mesh({"pp": pp, "tp": tp} if pp > 1 else {"tp": tp}, devices)
+    return Mesh(shape, devices)
 
 
 def data_parallel_strategy(graph, mesh: Mesh, axes: Sequence[str] = ("dp",)):

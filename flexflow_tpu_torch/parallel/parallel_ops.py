@@ -13,8 +13,10 @@ inserts the collective) or to the explicit ``jax.lax`` collective under
 block and returns that device's block of the result: the plan executor
 (``parallel/tp.py``) runs one generator per shard in lockstep
 (``parallel/comm.py:run_shards``), and a collective is a value the
-generator yields, ``("all_gather", x, dim)`` or ``("all_reduce", x)``,
-which ``run_shards`` answers with one ``Comm`` call:
+generator yields, ``("all_gather", x, dim, axes)`` or ``("all_reduce", x,
+axes)``, which ``run_shards`` answers with one ``Comm`` call for each
+group of shards the op's ``axes`` join (a ``tp`` collective of a ``dp x
+tp`` mesh runs within each ``dp`` row):
 
 * ``Replicate``: the identity;
 * ``Repartition``: the device's slice (no communication);
@@ -27,8 +29,6 @@ which ``run_shards`` answers with one ``Comm`` call:
 
 A split follows ``torch.tensor_split`` (the remainder on the low ranks),
 so a flat token batch of any row count splits and gathers back whole.
-The collectives run over every device of the mesh: the serve meshes'
-one ``tp`` axis.
 """
 
 from __future__ import annotations
@@ -67,20 +67,6 @@ def _local_nbytes(spec: TensorSpec, sh: TensorSharding, mesh,
             if a not in exclude_axes:
                 deg *= shape[a]
     return spec.nbytes() / deg
-
-
-def _whole_mesh(axes: Tuple[str, ...], mesh, what: str) -> int:
-    """The degree of ``axes``, which must span every device of the mesh:
-    the shards' ``Comm`` joins all of them."""
-    deg = _axes_degree(axes, mesh)
-    n = 1
-    for size in mesh_shape(mesh).values():
-        n *= size
-    if deg != n:
-        raise NotImplementedError(
-            f"{what} over {axes} of mesh {mesh_shape(mesh)}: the executor's "
-            "collectives join every device of the mesh")
-    return deg
 
 
 def _slice(x: torch.Tensor, dim: int, axes, rank: int, mesh) -> torch.Tensor:
@@ -196,8 +182,8 @@ class Combine(ParallelOp):
         return int(full * (deg - 1) / max(deg, 1))
 
     def run(self, x, rank, mesh):
-        if _whole_mesh(self.axes, mesh, "combine") > 1:
-            x = yield ("all_gather", x, self.dim)
+        if _axes_degree(self.axes, mesh) > 1:
+            x = yield ("all_gather", x, self.dim, self.axes)
         return x
 
 
@@ -225,8 +211,8 @@ class Reduction(ParallelOp):
         return int(local * (deg - 1) / max(deg, 1))
 
     def run(self, x, rank, mesh):
-        if _whole_mesh(self.axes, mesh, "reduction") > 1:
-            x = yield ("all_reduce", x)
+        if _axes_degree(self.axes, mesh) > 1:
+            x = yield ("all_reduce", x, self.axes)
         return _slice(x, self.dim, self.axes, rank, mesh)
 
 
@@ -251,8 +237,8 @@ class AllReduce(ParallelOp):
         return int(2 * local * (deg - 1) / max(deg, 1))
 
     def run(self, x, rank, mesh):
-        if _whole_mesh(self.axes, mesh, "allreduce") > 1:
-            x = yield ("all_reduce", x)
+        if _axes_degree(self.axes, mesh) > 1:
+            x = yield ("all_reduce", x, self.axes)
         return x
 
 
@@ -283,8 +269,8 @@ class AllToAll(ParallelOp):
         return int(local * (deg - 1) / max(deg, 1))
 
     def run(self, x, rank, mesh):
-        if _whole_mesh(self.axes, mesh, "all_to_all") > 1:
-            x = yield ("all_gather", x, self.src_dim)
+        if _axes_degree(self.axes, mesh) > 1:
+            x = yield ("all_gather", x, self.src_dim, self.axes)
         return _slice(x, self.dst_dim, self.axes, rank, mesh)
 
 

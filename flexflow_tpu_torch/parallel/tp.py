@@ -1,10 +1,13 @@
-"""The plan executor: shard-local serving of any PCG plan.
+"""The plan executor: shard-local execution of any PCG plan.
 
-A strategy dict ``{node name: {parallel dim: ("tp",)}}`` (the Megatron
-rule below, a searched one, ``search/search.py:graph_optimize``, or one
-written by hand) is planned by the PCG (``core/pcg.py``) over a model's
-node range and a ``{"tp": n}`` mesh; :class:`TPPlan` holds that plan, and
-the plan is the one thing shard-local execution reads:
+A strategy dict ``{node name: {parallel dim: (mesh axes)}}`` (the
+Megatron rule below, a searched one, ``search/search.py:graph_optimize``,
+the data-parallel one, or one written by hand) is planned by the PCG
+(``core/pcg.py``) over a mesh.  :class:`ShardPlan` reads any such plan
+shard by shard; the serve path's :class:`TPPlan` plans a model's node
+range on a ``{"tp": n}`` mesh, and ``FFModel`` (``core/interpreter.py``)
+plans its builder graph on a ``{"dp": d, "tp": t}`` one.  The plan is the
+one thing shard-local execution reads:
 
 * **parameters**: each node's ``ShardingSolution`` gives its parameters'
   shardings; :func:`shard_model` gives each rank's module its blocks
@@ -18,18 +21,20 @@ the plan is the one thing shard-local execution reads:
   query heads (``head_sharded``, ``head_offset``; the KV caches follow);
   an embedding split on ``entry`` answers its rows' ids
   (``entry_offset``); a node whose output is a partial sum adds its bias
-  on rank 0 only (``skip_bias`` elsewhere).  Every other config changes
-  no module: a node computes on the blocks its inputs arrive in.
+  on the shards at coordinate 0 of the partial axes only (``skip_bias``
+  elsewhere) (:func:`place_module`).  Every other config changes no
+  module: a node computes on the blocks its inputs arrive in.
 * **values**: :class:`PlanExecutor` turns the plan's steps into the node
   range a shard model runs (``core/interpreter.py:run_nodes``): each op
   step calls its node's module on its inputs' blocks, each parallel step
   runs its op (``parallel/parallel_ops.py``, ``ParallelOp.run``) on the
   rank's block and yields its collective, which ``parallel/comm.py:
-  run_shards`` answers.  The range's entry tensors are sliced to the
+  run_shards`` answers, within the groups of shards the op's axes join.
+  The range's entry tensors are sliced to the
   plan's input shardings (the token ids too: a ``sample`` split is the
   rank's rows of the flat batch, computed per step from the batch's row
   count, the remainder on the low ranks); its exit tensors leave whole on
-  shard 0 (a split one is gathered there).  The batch's metadata stays
+  shard 0 (a split one is gathered there over its split's axes).  The batch's metadata stays
   whole on every shard: the nodes that read it per row (the attention,
   the position embedding) take whole rows, as their op IR requires, and
   a gated LM head split on ``sample`` gathers its rows first.
@@ -52,7 +57,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -113,36 +118,26 @@ def _live_config(config: Dict, mesh) -> Dict:
     return out
 
 
-class TPPlan:
-    """The placement of ``model``'s node range (its ``span``: the whole
-    graph, or a pipeline stage's) over ``mesh``: the PCG plan of that
-    range under ``strategy`` (restricted to the range's nodes, reference
-    ``serve/pp.py:163``; None: :func:`tensor_parallel_strategy` at the
-    mesh's degree, ``{}`` on one device), its tensors' token axis at
-    ``rows`` rows (the flat batch, ``max_tokens_per_batch``, that a
-    ``sample`` split must divide, as the reference's graph shapes must;
-    default the mesh's size), and each parameter's sharding by
-    state-dict name."""
+class ShardPlan:
+    """A ``core/pcg.py`` :class:`~..core.pcg.Plan` read shard by shard:
+    each parameter's sharding by ``<node>.<param>`` name (the plan's
+    ``param_shardings``; a training node's module is its name, a serve
+    node's its path), a rank's block of a global value (:meth:`local`)
+    and the global value from the shards' blocks (:meth:`whole`).  It
+    needs the plan and nothing else: ``FFModel`` runs one over its
+    builder graph (``core/interpreter.py``), :class:`TPPlan` over a
+    serve model's span.  Raises ``NotImplementedError`` for a plan the
+    executor cannot run (:func:`_check_executable`)."""
 
-    def __init__(self, model: nn.Module, mesh, strategy: Optional[Dict]
-                 = None, rows: Optional[int] = None):
-        self.mesh = mesh
-        self.degree = mesh.size
-        if strategy is None:
-            strategy = (tensor_parallel_strategy(model, self.degree)
-                        if self.degree > 1 else {})
-        names = {n.name for n in model.span.nodes}
-        self.strategy = {k: {d: tuple(a) for d, a in v.items()}
-                         for k, v in strategy.items() if k in names}
-        rows = rows or self.degree
-        self.pcg = PCG(serve_graph(model, rows), mesh, self.strategy,
-                       output_tids=list(model.span.exit_tids))
-        self.plan: Plan = self.pcg.plan()
+    def __init__(self, plan: Plan):
+        self.plan = plan
+        self.mesh = plan.mesh
+        self.degree = plan.mesh.size
         self.shardings: Dict[str, TensorSharding] = {
             f"{node}.{p}": sh
-            for node, group in self.plan.param_shardings.items()
+            for node, group in plan.param_shardings.items()
             for p, sh in group.items()}
-        _check_executable(self.plan, mesh)
+        _check_executable(plan, self.mesh)
 
     def sharding(self, name: str) -> Optional[TensorSharding]:
         """Parameter ``name``'s sharding (None: whole on every shard).  An
@@ -179,16 +174,77 @@ class TPPlan:
         shape = list(shape)
         d = self.dim(name)
         if d is not None:
-            shape[d] *= self.degree
+            shape[d] *= self.sharding(name).dim_degree(d, self.mesh)
         return torch.Size(shape)
 
     def whole(self, name: str, parts: List[torch.Tensor]) -> torch.Tensor:
-        """The global parameter from the shards' parts (on the first
-        part's device)."""
-        d = self.dim(name)
-        if d is None or len(parts) == 1:
+        """The global parameter from the shards' parts, one a rank (on the
+        first part's device): each block taken from the first rank that
+        holds it, the blocks concatenated along each split dim."""
+        sh = self.sharding(name)
+        if sh is None or len(parts) == 1:
             return parts[0]
-        return torch.cat([p.to(parts[0].device) for p in parts], dim=d)
+        return assemble(sh, parts, self.mesh)
+
+    def unused_axes(self, name: str) -> Tuple[str, ...]:
+        """The mesh axes (of a degree above 1) parameter ``name``'s
+        sharding leaves unused: the shards that differ only there hold
+        replicas of one block."""
+        sh = self.sharding(name)
+        used = sh.used_axes() if sh is not None else frozenset()
+        return tuple(a for a, size in mesh_shape(self.mesh).items()
+                     if size > 1 and a not in used)
+
+
+def assemble(sh: TensorSharding, parts: Sequence[torch.Tensor], mesh
+             ) -> torch.Tensor:
+    """The global tensor of sharding ``sh`` from one block a rank of
+    ``mesh`` (``parts[r]``), on ``parts[0]``'s device."""
+    shape = mesh_shape(mesh)
+    split = [(i, d) for i, d in enumerate(sh.dims) if d.degree(shape) > 1]
+    if not split:
+        return parts[0]
+    holder: Dict[tuple, int] = {}
+    for r in range(len(parts)):
+        coords = mesh_coords(r, mesh)
+        holder.setdefault(tuple(d.index(coords, shape) for _, d in split),
+                          r)
+    dev = parts[0].device
+
+    def join(level: int, key: tuple) -> torch.Tensor:
+        i, d = split[level]
+        pieces = [parts[holder[key + (k,)]].to(dev)
+                  if level == len(split) - 1 else join(level + 1, key + (k,))
+                  for k in range(d.degree(shape))]
+        return torch.cat(pieces, dim=i)
+
+    return join(0, ())
+
+
+class TPPlan(ShardPlan):
+    """The placement of ``model``'s node range (its ``span``: the whole
+    graph, or a pipeline stage's) over ``mesh``: the PCG plan of that
+    range under ``strategy`` (restricted to the range's nodes, reference
+    ``serve/pp.py:163``; None: :func:`tensor_parallel_strategy` at the
+    mesh's degree, ``{}`` on one device), its tensors' token axis at
+    ``rows`` rows (the flat batch, ``max_tokens_per_batch``, that a
+    ``sample`` split must divide, as the reference's graph shapes must;
+    default the mesh's size), and each parameter's sharding by
+    state-dict name."""
+
+    def __init__(self, model: nn.Module, mesh, strategy: Optional[Dict]
+                 = None, rows: Optional[int] = None):
+        degree = mesh.size
+        if strategy is None:
+            strategy = (tensor_parallel_strategy(model, degree)
+                        if degree > 1 else {})
+        names = {n.name for n in model.span.nodes}
+        self.strategy = {k: {d: tuple(a) for d, a in v.items()}
+                         for k, v in strategy.items() if k in names}
+        rows = rows or degree
+        self.pcg = PCG(serve_graph(model, rows), mesh, self.strategy,
+                       output_tids=list(model.span.exit_tids))
+        super().__init__(self.pcg.plan())
 
 
 def _check_executable(plan: Plan, mesh) -> None:
@@ -239,48 +295,58 @@ def _sliced_copy(model: nn.Module, plan: TPPlan, rank: int) -> nn.Module:
     memo = {id(getattr(model, k, None)): None
             for k in ("tp_plan", "_executor")}
     shard = copy.deepcopy(model, memo)
-    mesh = plan.mesh
-    shape, coords = mesh_shape(mesh), mesh_coords(rank, mesh)
     for st in plan.plan.steps:
         if st.is_parallel or st.node.module is None:
             continue
-        path = st.node.module
-        mod = shard.get_submodule(path)
-        for pname, p in list(mod.named_parameters(recurse=False)):
-            sh = plan.sharding(f"{path}.{pname}")
-            if sh is not None and sh.used_axes():
-                setattr(mod, pname, _param(p, sh.local_shape(p.shape, mesh)))
-        partial = bool(st.out_shardings[0].partial_axes)
-        first = all(coords[a] == 0 for a in st.out_shardings[0].partial_axes)
-        live = _live_config(st.config, mesh)
-        attention = getattr(mod, "type_name", None) == ATTENTION
-        if attention and "head" in live:
-            head = TensorSharding.from_axes(1, {0: live["head"]}).dims[0]
-            deg = head.degree(shape)
-            mod.num_kv_heads //= deg
-            mod.num_q_heads //= deg
-            mod.head_sharded = True
-            mod.head_shards = deg
-            mod.head_offset = head.index(coords, shape) * mod.num_q_heads
-        if isinstance(mod, Embedding) and "entry" in live:
-            entry = TensorSharding.from_axes(1, {0: live["entry"]}).dims[0]
-            mod.entry_offset = entry.index(coords, shape) * mod.weight.shape[0]
-        if attention or isinstance(mod, Linear):
-            mod.skip_bias = partial and not first
-        if isinstance(mod, Linear) and "sample" in live:
-            mod.row_shards = TensorSharding.from_axes(
-                1, {0: live["sample"]}).dims[0].degree(shape)
+        place_module(shard.get_submodule(st.node.module), st, plan, rank)
     return shard
 
 
+def place_module(mod: nn.Module, st, plan: ShardPlan, rank: int) -> None:
+    """Give ``mod``, rank ``rank``'s copy of op step ``st``'s module (at
+    path ``st.node.module``), its placement under ``plan``: each split
+    parameter an empty one at its block's shape; a ``head`` attention its
+    shard's heads; an ``entry`` embedding its rows' offset; a partial
+    output its bias on the shards at coordinate 0 of the partial axes
+    only; a ``sample`` Linear the shards its rows split over."""
+    mesh = plan.mesh
+    shape, coords = mesh_shape(mesh), mesh_coords(rank, mesh)
+    for pname, p in list(mod.named_parameters(recurse=False)):
+        sh = plan.sharding(f"{st.node.module}.{pname}")
+        if sh is not None and sh.used_axes():
+            setattr(mod, pname, _param(p, sh.local_shape(p.shape, mesh)))
+    partial = bool(st.out_shardings[0].partial_axes)
+    first = all(coords[a] == 0 for a in st.out_shardings[0].partial_axes)
+    live = _live_config(st.config, mesh)
+    attention = getattr(mod, "type_name", None) == ATTENTION
+    if attention and "head" in live:
+        head = TensorSharding.from_axes(1, {0: live["head"]}).dims[0]
+        deg = head.degree(shape)
+        mod.num_kv_heads //= deg
+        mod.num_q_heads //= deg
+        mod.head_sharded = True
+        mod.head_shards = deg
+        mod.head_offset = head.index(coords, shape) * mod.num_q_heads
+    if isinstance(mod, Embedding) and "entry" in live:
+        entry = TensorSharding.from_axes(1, {0: live["entry"]}).dims[0]
+        mod.entry_offset = entry.index(coords, shape) * mod.weight.shape[0]
+    if attention or isinstance(mod, Linear):
+        mod.skip_bias = partial and not first
+    if isinstance(mod, Linear) and "sample" in live:
+        mod.row_shards = TensorSharding.from_axes(
+            1, {0: live["sample"]}).dims[0].degree(shape)
+
+
 class PlanExecutor:
-    """The node range one shard runs for a plan: ``nodes`` (the plan's
-    steps over its value ids: each op step its graph node, each parallel
-    step a node running its op), ``drops`` (the values each leaves dead,
+    """The node range one shard runs for a plan (a :class:`ShardPlan`):
+    ``nodes`` (the plan's steps over its value ids: each op step its
+    graph node, run by ``step_run(step)`` where given, each parallel step
+    a node running its op), ``drops`` (the values each leaves dead,
     ``core/interpreter.py:dead_after``), and how the range's tensors
     enter (:meth:`enter`) and leave (:meth:`leave`)."""
 
-    def __init__(self, plan: TPPlan, rank: int):
+    def __init__(self, plan: ShardPlan, rank: int,
+                 step_run: Optional[Callable] = None):
         p = plan.plan
         self.mesh = plan.mesh
         self.degree = plan.degree
@@ -297,7 +363,8 @@ class PlanExecutor:
             else:
                 self.nodes.append(dataclasses.replace(
                     st.node, inputs=list(st.in_vids),
-                    outputs=list(st.out_vids), op=None))
+                    outputs=list(st.out_vids), op=None,
+                    run=step_run(st) if step_run else st.node.run))
         self.drops = dead_after(self.nodes, p.output_vids)
 
     def enter(self, tids: Sequence[int], xs: Sequence[torch.Tensor]
@@ -314,8 +381,9 @@ class PlanExecutor:
 
     def leave(self, env: Dict[int, torch.Tensor]):
         """The range's exit tensors, whole on shard 0 (a split one is
-        gathered there; the other shards get None), as a generator of
-        those gathers."""
+        gathered there over the axes that split it, from the shards at
+        coordinate 0 of every other axis; the other shards get None), as
+        a generator of those gathers."""
         outs = []
         for vid, sh in self.exit:
             x = env[vid]
@@ -326,7 +394,8 @@ class PlanExecutor:
                     f"an exit tensor sharded {sh}: the executor gathers "
                     "one split dim")
             if split:
-                x = yield ("gather", x, split[0])
+                x = yield ("gather", x, split[0],
+                           tuple(sh.dims[split[0]].axes))
             outs.append(x)
         return outs
 

@@ -268,18 +268,24 @@ def test_compile_and_construction_raise_instead_of_falling_back(
     for kw, match in ((dict(search_budget=10), "10b-ii"),
                       (dict(mesh_shape={"pp": 2, "dp": 1}),
                        "pipeline training"),
-                      (dict(mesh_shape={"dp": 2}), "11b")):
+                      (dict(mesh_shape={"ep": 2}), "11c")):
         with pytest.raises(NotImplementedError, match=match):
             _mlp(T, **kw).compile()
     # a data-parallel-only config skips the search, as the reference does
     _mlp(T, search_budget=10, only_data_parallel=True).compile()
+    # a config the executor cannot run raises, naming its node
     two = T.make_mesh({"tp": 2}, ["cpu", "cpu"])
     m = T.FFModel(T.FFConfig(), mesh=two)
     m.softmax(m.create_tensor((2, 3)))
-    with pytest.raises(NotImplementedError, match="11b"):
+    with pytest.raises(NotImplementedError, match="'softmax'"):
+        m.compile(strategy={"softmax": {"channel_out": ("tp",)}})
+    # a pipeline mesh and the ring-attention axis name slice 11d
+    m = T.FFModel(T.FFConfig(), mesh=T.make_mesh({"pp": 2}, ["cpu", "cpu"]))
+    m.softmax(m.create_tensor((2, 3)))
+    with pytest.raises(NotImplementedError, match="11d"):
         m.compile()
-    with pytest.raises(ValueError, match="dp"):
-        T.make_mesh({"dp": 2}, ["cpu", "cpu"])
+    with pytest.raises(NotImplementedError, match="11d"):
+        T.make_mesh({"sp": 2}, ["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="11c"):
         _mlp(T).embedding(None, 10, 4)
     with pytest.raises(NotImplementedError, match="serve.build_model"):
