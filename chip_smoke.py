@@ -21,9 +21,10 @@ and prints no result):
    a yardstick the port never calls; no single PyTorch call dequantizes
    int8 K/V or reads through a page table inside attention, so the other
    variants have none): the kernel and the library call as device time
-   (``time_ms``: the calls queued behind a sleep kernel, so the host's
-   issue time is not counted), the kernel also back to back as the host
-   issues it (``call_ms``: the host's time where that is the longer), the
+   (``time_ms``, the port's ``search/measure.py:time_fn``: the calls
+   queued behind a sleep kernel, so the host's issue time is not counted),
+   the kernel also back to back as the host issues it (``call_ms``,
+   ``measure.event_ms``: the host's time where that is the longer), the
    plain version back to back.  Every kernel runs on the tensor cores: in
    bfloat16 as mma.sync m16n8k16 products fed by a cp.async ring, in
    float32 as error-compensated TF32 (three mma.sync m16n8k8 passes, two
@@ -249,6 +250,26 @@ and prints no result):
    on ``dp=2`` with equal parameters, then one epoch of the MNIST MLP
    through ``fit(DataLoader(..., native="auto"))``, whose engine must be
    the native one.  No kernel is launched.
+23. the training planner, float32 (TF32 off): (a) the standard op-cost
+   probes (``search/measure.py:calibrate_standard_probes``: the JAX
+   package's probe list, each op's ``forward`` as device time) into a
+   cache under ``build/``, each probe's microseconds and a linear's
+   TFLOP/s, and the ``train_step_factor`` probe (the 784-512-512-10 MLP
+   at batch 64, forward against forward, backward and SGD); (b) phase
+   21(b)'s 12-layer, sequence-512 classifier on a ``dp=2 x tp=2`` mesh
+   with every shard on the card: ``compile`` with the joint search (graph
+   rewrites and placements), ``search_budget=200`` and
+   ``search_alpha=0.001``, its
+   fused nodes by type and its searched dict; the unfused model compiled data-parallel
+   on the same mesh, its weights carried onto the fused graph through
+   ``remap_params``, 3 Adam steps on both: losses within phase 22(a)'s
+   ``rtol 1e-4``, then 4 more steps each, timed; (c) ``simulate`` of a
+   training step under the calibrated ``h100`` spec with (a)'s cache as
+   ``measured`` (equal to the roofline price where no op has a probe's
+   shape), for both plans, beside their median measured steps (not
+   comparable while four shards share one card; the f32 steps run on the
+   CUDA cores, the spec prices heavy ops at the bf16 tensor-core peak).
+   No kernel is launched.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -290,60 +311,23 @@ def log(*args):
     print(*args, flush=True)
 
 
-_SLEEP_CYCLES_PER_MS = []
-
-
 def call_ms(fn, iters):
-    """Milliseconds per call of ``fn`` run back to back: CUDA events around
-    ``iters`` calls.  Where the host takes longer to issue a call than the
-    device to run it, this is the host's time."""
-    import torch
+    """Milliseconds per call of ``fn`` run back to back as the host issues
+    them (``search/measure.py:event_ms``): where the host takes longer to
+    issue a call than the device to run it, this is the host's time."""
+    from flexflow_tpu_torch.search.measure import event_ms
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return event_ms(fn, iters, warmup=1)
 
 
 def time_ms(fn, iters):
-    """Device milliseconds per call of ``fn``: ``iters`` calls queued
-    behind a sleep kernel that holds the stream until the host has issued
-    all of them, so the events around them see the device run them back to
-    back, whatever the host's issue time.  Raises if the host could not
-    issue them within the hold."""
-    import torch
+    """Device milliseconds per call of ``fn``
+    (``search/measure.py:time_fn``): ``iters`` calls queued behind a sleep
+    kernel that holds the stream until the host has issued them all, the
+    fastest of three such timings."""
+    from flexflow_tpu_torch.search.measure import time_fn
 
-    if not _SLEEP_CYCLES_PER_MS:
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda._sleep(1000)
-        s.record()
-        torch.cuda._sleep(10 ** 7)
-        e.record()
-        torch.cuda.synchronize()
-        _SLEEP_CYCLES_PER_MS.append(1e7 / s.elapsed_time(e))
-    hold = 2 * call_ms(fn, iters) * iters + 2      # ms
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    for _ in range(3):
-        t0 = time.perf_counter()
-        torch.cuda._sleep(int(hold * _SLEEP_CYCLES_PER_MS[0]))
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        issued = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        if issued < hold:
-            return start.elapsed_time(end) / iters
-        hold *= 4
-    raise RuntimeError(f"time_ms: the host took {issued:.1f} ms to issue "
-                       f"{iters} calls, beyond a {hold / 4:.1f} ms hold")
+    return time_fn(fn, iters=iters) * 1e3
 
 
 def key_bytes(variant, d, itemsize):
@@ -3929,8 +3913,9 @@ def phase_searched_strategy(serve, att, torch, dev, card):
                             ("megatron", tensor_parallel_strategy(priced, 2)),
                             ("none", {})):
         plan = PCG(graph, mesh2, strategy).plan()
-        costs[label] = (search.simulate(plan, mm).total * 1e3,
-                        search.plan_memory_bytes(plan) / 1e9)
+        costs[label] = (search.simulate(plan, mm, training=False).total
+                        * 1e3, search.plan_memory_bytes(
+                            plan, training=False) / 1e9)
     cfgs, steps = strategy_summary(im)
     log(f"searched strategy (b): bf16 7B (32 layers, 4096 hidden, 32 "
         f"heads) searched on {mm.spec.name} (mxu_efficiency "
@@ -4384,6 +4369,158 @@ def phase_training_mesh(torch, dev, card, one_step_ms):
                            f"{loader.engine}, accuracy {final['accuracy']}")
 
 
+PLANNER_BUDGET = 200      # phase 23(b)'s search budget
+# phase 23(b)'s Metropolis temperature: at the default 0.05 the walk's
+# accepted uphill moves outweigh the rewrites' gains and its best stays
+# the start (``graph_optimize`` on a CPU mesh priced as ``h100`` shows
+# it), so the adopted model walks greedily
+PLANNER_ALPHA = 0.001
+# the op types the substitution rules emit
+FUSED_OPS = ("residual_layer_norm", "residual_rms_norm", "sigmoid_silu_multi")
+
+
+def phase_training_planner(torch, dev, card):
+    """Phase 23: the training planner on the card (module docstring, item
+    23)."""
+    import collections
+    import gc
+    import statistics
+
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.core.pcg import PCG
+    from flexflow_tpu_torch.models.transformer import \
+        build_transformer_classifier as build
+    from flexflow_tpu_torch.search import MachineModel, measure, simulate
+    from flexflow_tpu_torch.search.simulator import _measure_key
+    from flexflow_tpu_torch.search.substitution import (RewriteResult,
+                                                        remap_params)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    # (a) the standard probes and the train-step factor
+    path = os.path.join(root, "build", "phase23_costs.json")
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    costs = measure.calibrate_standard_probes(path, device=dev)
+    factor, times = measure.probe_train_step_factor(dev)
+    log(f"training planner (a) on {card}: {len(costs.data)} probes in "
+        f"{time.perf_counter() - t0:.1f}s; train_step_factor {factor:.4f} "
+        f"(train step {times['train_step_s'] * 1e6:.1f}us over forward "
+        f"{times['forward_s'] * 1e6:.1f}us, the 784-512-512-10 MLP at batch "
+        "64, f32, device time)")
+    if len(costs.data) != len(measure.standard_probes()) or not all(
+            0 < v < 1 for v in costs.data.values()):
+        raise RuntimeError(f"training planner (a): probe times {costs.data}")
+
+    # (b) the joint search at BERT-base width, 12 layers, on dp=2 x tp=2
+    kw = dict(BERT_BASE, seq=512, num_layers=12)
+    width, classes = kw["hidden_dim"], kw["num_classes"]
+    rng = np.random.RandomState(2)
+    x = rng.randn(kw["batch"], kw["seq"], width).astype(np.float32)
+    y = rng.randint(0, classes, kw["batch"]).astype(np.int32)
+    shape = {"dp": 2, "tp": 2}
+
+    def model(budget):
+        return build(ff.FFConfig(batch_size=kw["batch"], seed=0,
+                                 search_budget=budget,
+                                 search_alpha=PLANNER_ALPHA),
+                     mesh=ff.make_mesh(shape, [dev] * 4), **kw)
+
+    plain = model(0)
+    plain.compile(optimizer=ff.AdamOptimizer(alpha=1e-4))
+    fused = model(PLANNER_BUDGET)
+    n0 = len(fused.graph.nodes)
+    t0 = time.perf_counter()
+    fused.compile(optimizer=ff.AdamOptimizer(alpha=1e-4))
+    t_search = time.perf_counter() - t0
+    kinds = collections.Counter(n.op.type_name for n in fused.graph.nodes
+                                if n.op.type_name in FUSED_OPS)
+    log(f"training planner (b) on {card}: 12 layers, hidden {width}, seq "
+        f"512, batch {kw['batch']}, {shape} with every shard on the card: "
+        f"compile(search_budget={PLANNER_BUDGET}, search_alpha="
+        f"{PLANNER_ALPHA}) in {t_search:.1f}s, "
+        f"{n0} nodes -> {len(fused.graph.nodes)}; fused nodes "
+        f"{dict(kinds)}; layers {len(fused.layers)}")
+    log(f"training planner (b) searched dict: {fused.strategy}")
+    if set(fused.layers) != {n.name for n in fused.graph.nodes}:
+        raise RuntimeError("training planner (b): layers are not the "
+                           "adopted graph's modules")
+    # every rule keeps the weighted node's name and its parameters', so
+    # the rewrites' composed parameter map is the identity on names
+    carried = remap_params(plain.params, RewriteResult(fused.graph, {}, {},
+                                                      {}), fused.graph)
+    fused.load_params(carried)
+    runs = {}
+    for label, m in (("unfused, data-parallel", plain),
+                     ("fused, searched", fused)):
+        hist = m.fit(x, y, epochs=TRAIN_STEPS, shuffle=False,
+                     verbose=False)
+        steps = []
+        inner = m._train_step
+
+        def timed_step(*args, inner=inner, steps=steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            return out
+
+        m._train_step = timed_step
+        m.fit(x, y, epochs=4, shuffle=False, verbose=False)
+        m._train_step = inner
+        runs[label] = ([h["loss"] for h in hist],
+                       statistics.median(steps) * 1e3, steps)
+    (lp, step_p, _), (lf, step_f, _) = runs.values()
+    loss_rtol = 1e-4     # phase 22(a)'s
+    rel = max(abs(a - b) / abs(a) for a, b in zip(lp, lf))
+    log(f"training planner (b) Adam 1e-4, {TRAIN_STEPS} steps from the "
+        f"same weights: losses unfused {[round(v, 6) for v in lp]} fused "
+        f"{[round(v, 6) for v in lf]}, max rel diff {rel:.3e} (tol "
+        f"{loss_rtol}); then 4 steps each: median step unfused "
+        f"{step_p:.3f} ms, fused and searched {step_f:.3f} ms")
+    if not all(np.isfinite(lf)) or rel > loss_rtol:
+        raise RuntimeError("training planner (b): the fused, searched "
+                           "graph trains differently from the unfused one")
+
+    # (c) the training price beside the measured step
+    mm = MachineModel.for_mesh(plain.mesh).with_calibration(
+        os.path.join(root, "artifacts", "h100_calib.json"))
+    for label, m, step in (("searched", fused, step_f),
+                           ("data_parallel_strategy", plain, step_p)):
+        plan = PCG(m.graph, m.mesh, m.strategy).plan()
+        hits = sum(1 for st in plan.steps if not st.is_parallel
+                   and _measure_key(st, m.mesh) in costs)
+        price = simulate(plan, mm, training=True, measured=costs)
+        roof = simulate(plan, mm, training=True).total
+        if not hits and price.total != roof:
+            raise RuntimeError(f"training planner (c): {label} priced "
+                               f"{price.total} with no cache hit, "
+                               f"{roof} without the cache")
+        log(f"training planner (c) {label}: simulate(training=True) on "
+            f"{mm.spec.name} (train_step_factor "
+            f"{mm.spec.train_step_factor:.4f}, {hits} cache hits; the "
+            f"roofline price without the cache {roof * 1e3:.4f} ms) "
+            f"{price.total * 1e3:.4f} ms (compute "
+            f"{price.compute * 1e3:.4f}, comm {price.comm * 1e3:.4f}, "
+            f"grad_comm {price.grad_comm * 1e3:.4f}) beside a measured "
+            f"median step of {step:.3f} ms on {card}, measured / priced "
+            f"{step / (price.total * 1e3):.2f}; not comparable: the four "
+            "shards share one card, and the f32 steps run on the CUDA cores "
+            "while the spec prices heavy ops at the bf16 tensor-core peak")
+    del plain, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+
 def tc_reports(text):
     """(kernel, "registers, shared memory, spills") of each tensor-core
     kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
@@ -4492,6 +4629,8 @@ def main():
                                                           card))
     timed("training on a mesh", lambda: phase_training_mesh(
         torch, dev, card, one_step_ms))
+    timed("training planner", lambda: phase_training_planner(torch, dev,
+                                                              card))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)

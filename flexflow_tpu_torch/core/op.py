@@ -141,16 +141,39 @@ class Op:
     def is_parallel_op(self) -> bool:
         return False
 
+    def signature_attrs(self) -> Dict[str, object]:
+        """The attributes the reference op holds in its ``vars()``: this
+        op's own (not ``nn.Module``'s ``training`` nor a private one),
+        ``compute_dtype`` under the reference's name ``dtype``.  An op
+        that keeps a reference field under another name or outside
+        ``vars()`` (a property over its parameter's shape) adds it."""
+        out = {k: v for k, v in vars(self).items()
+               if not k.startswith("_") and k not in _MODULE_STATE}
+        if "compute_dtype" in out:
+            out["dtype"] = out.pop("compute_dtype")
+        return out
+
     def attr_signature(self) -> Tuple:
-        """A hashable signature of the op's scalar attributes (the key of
-        a measured cost)."""
+        """A hashable signature of the op's scalar attributes, the
+        reference's tuple for the same op (reference :139): the key of a
+        measured cost (``search/measure.py:CostCache``), so a cost file
+        serves both packages.  A dtype is its numpy name."""
         items = []
-        for k, v in sorted(vars(self).items()):
-            if k.startswith("_"):
-                continue
+        for k, v in sorted(self.signature_attrs().items()):
+            if isinstance(v, torch.dtype):
+                v = dtype_name(v)
             if isinstance(v, (int, float, str, bool, tuple, type(None))):
                 items.append((k, v))
         return (self.type_name, tuple(items))
+
+
+# nn.Module's instance state that is no attribute of the op
+_MODULE_STATE = frozenset({"training"})
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype as numpy names it (``"float32"``, ``"bfloat16"``)."""
+    return str(dtype).replace("torch.", "")
 
 
 def bias_once(bias: torch.Tensor, axes, ctx: OpContext) -> torch.Tensor:

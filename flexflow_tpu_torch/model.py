@@ -28,9 +28,11 @@ the host reads them once, as the reference does.  ``params`` and
 shards; ``load_params`` and ``load_opt_state`` slice global values into
 every shard.
 
-A ``pp`` axis, the axes of later slices and a search budget raise
-``NotImplementedError`` naming the slice that brings them; nothing falls
-back to one device.  Initial weights, the shuffle order and dropout
+A search budget (``FFConfig.search_budget``) runs the joint Unity search
+at ``compile`` (``search/search.py:graph_optimize(substitution=True)``):
+the model adopts the rewritten graph and its strategy.  A ``pp`` axis
+and the axes of later slices raise ``NotImplementedError`` naming the
+slice that brings them; nothing falls back to one device.  Initial weights, the shuffle order and dropout
 masks come from torch generators seeded by ``FFConfig.seed``, so they
 match the JAX package's in distribution; ``load_params`` carries its
 weights across.
@@ -56,7 +58,8 @@ from .ops.attention import MultiHeadAttention
 from .ops.elementwise import (Cast, Dropout, ElementBinary, ElementUnary,
                               as_dtype)
 from .ops.linear import BatchMatmul, Linear
-from .ops.norm import LayerNorm, RMSNorm
+from .ops.norm import (LayerNorm, ResidualLayerNorm, ResidualRMSNorm,
+                       RMSNorm, SigmoidSiluMulti)
 from .ops.reduction import Reduce, Softmax
 from .parallel.mesh import check_axes, data_parallel_strategy, make_mesh
 from .search.strategy import load_strategy, save_strategy
@@ -67,8 +70,6 @@ from .utils.platform import host_to_device, resolve_device
 from .utils.profiling import maybe_profile
 from .utils.runlog import log_run
 
-SLICE_10B_II = ("slice 10b-ii (the substitution search, "
-                "graph_optimize(substitution=True))")
 SLICE_11C = ("slice 11c (the ops breadth: embedding's aggr, conv, pool, "
              "batch norm, the shape ops, the decode heads, MoE, models/* "
              "and frontends/*)")
@@ -210,6 +211,24 @@ class FFModel:
         op = RMSNorm(x.shape[-1], eps, x.dtype, device="meta")
         return self._add(op, [x], name or "rms_norm")[0]
 
+    def residual_layer_norm(self, x, r1, r2=None, elementwise_affine=True,
+                            eps=1e-5, use_bias=True, name=None):
+        """``[x + r1 (+ r2), layer_norm of that sum]``."""
+        ins = [x, r1] + ([r2] if r2 is not None else [])
+        op = ResidualLayerNorm(x.shape[-1], r2 is not None,
+                               elementwise_affine, eps, use_bias, x.dtype,
+                               device="meta")
+        return self._add(op, ins, name or "residual_layer_norm")
+
+    def residual_rms_norm(self, x, residual, eps=1e-6, name=None):
+        """``[x + residual, rms_norm of that sum]``."""
+        op = ResidualRMSNorm(x.shape[-1], eps, x.dtype, device="meta")
+        return self._add(op, [x, residual], name or "residual_rms_norm")
+
+    def sigmoid_silu_multi(self, x1, x2, name=None):
+        return self._add(SigmoidSiluMulti(), [x1, x2],
+                         name or "sigmoid_silu_multi")[0]
+
     # reductions
     def softmax(self, x, axis=-1, name=None):
         return self._add(Softmax(axis), [x], name or "softmax")[0]
@@ -270,9 +289,10 @@ class FFModel:
         parameters and the optimizer state.
 
         Strategy resolution (the reference's order): the explicit
-        ``strategy``, then the ``--import`` file, then the data-parallel
-        strategy (a search budget raises: the reference runs the
-        substitution search there); ``--export`` writes the result.
+        ``strategy``, then the ``--import`` file, then the joint Unity
+        search when ``search_budget > 0`` (not with
+        ``only_data_parallel``; the model adopts the rewritten graph),
+        then the data-parallel strategy; ``--export`` writes the result.
         ``mode`` ("spmd" or "local") is the reference's lowering mode;
         both run the shard-local executor here.
 
@@ -289,9 +309,7 @@ class FFModel:
             strategy = load_strategy(cfg.import_strategy_file)
         if (strategy is None and cfg.search_budget > 0
                 and not cfg.only_data_parallel):
-            raise NotImplementedError(
-                f"FFConfig.search_budget={cfg.search_budget}: the joint "
-                f"Unity search comes with {SLICE_10B_II}")
+            strategy, out_tids = self._search(mesh, out_tids)
         if strategy is None:
             strategy = data_parallel_strategy(self.graph, mesh)
         if cfg.export_strategy_file:
@@ -321,6 +339,35 @@ class FFModel:
         self.shard_opt_states = [self.optimizer.init_state(self._trainable(r))
                                  for r in range(mesh.size)]
         return self
+
+    def _search(self, mesh, out_tids):
+        """The joint Unity search (reference :429-444): graph rewrites and
+        parallel configs in one walk of ``search_budget`` proposals; the
+        model adopts the rewritten graph (its parameters are drawn after,
+        so nothing migrates), ``layers`` holds exactly its nodes' modules,
+        and the outputs follow ``tid_map``.  Returns the strategy and the
+        output tids.
+
+        Not at parity with the reference without ``outputs``: the port
+        keeps the graph's own outputs (the tensors no node reads) and
+        protects them all from the rewrites, where the reference protects
+        only the last node's last output and then takes the rewritten
+        graph's default outputs, which after a fused residual norm are
+        its unread sum (the reference's ``fit`` then raises).  With
+        ``outputs`` the two agree."""
+        from .search.search import graph_optimize
+
+        cfg = self.config
+        if not out_tids:
+            read = {t for n in self.graph.nodes for t in n.inputs}
+            out_tids = [t for n in self.graph.nodes for t in n.outputs
+                        if t not in read]
+        graph, strategy, tid_map = graph_optimize(
+            self.graph, mesh, budget=cfg.search_budget,
+            alpha=cfg.search_alpha, substitution=True, output_tids=out_tids)
+        self.graph = graph
+        self.layers = nn.ModuleDict({n.name: n.op for n in graph.nodes})
+        return strategy, [tid_map[t] for t in out_tids]
 
     def recompile(self, strategy: Optional[Dict[str, Dict]] = None,
                   optimizer: Optional[Optimizer] = None, mode: str = "spmd",
@@ -724,9 +771,8 @@ def _later(method: str, where: str):
 
 
 # the builder methods of later slices
-for _method in ("embedding", "residual_layer_norm",
-                "add_bias_residual_layer_norm", "residual_rms_norm",
-                "sigmoid_silu_multi", "batch_norm", "reshape", "transpose",
+for _method in ("embedding", "add_bias_residual_layer_norm",
+                "batch_norm", "reshape", "transpose",
                 "concat", "split", "gather", "reverse", "flat", "argmax",
                 "top_k", "arg_top_k", "sampling", "beam_top_k", "group_by",
                 "experts", "aggregate", "aggregate_spec", "moe_layer",

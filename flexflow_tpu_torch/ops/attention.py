@@ -14,9 +14,14 @@ The op IR (:121-192): ``head`` shards the four projections' head dims
 (the output projection row-parallel, its output a partial sum whose
 ``bo`` is counted once, ``core/op.py:bias_once``), ``sample`` the batch;
 a shard computes on the heads and rows it holds, as the plan executor
-(``parallel/tp.py``) gives them;
-``sequence`` (ring attention, reference ``parallel/ring_attention.py``)
-is planned but not run: a config that names it raises.
+(``parallel/tp.py``) gives them.  ``sequence`` (one mesh axis) gives each
+shard a block of the sequence: the reference runs ring attention over
+the axis in its shard-local mode and GSPMD's global attention in its
+SPMD mode, the same values; here each shard gathers the projected keys
+and values whole over the axis (an ``("all_gather", t, 2, axes)``
+collective, whose backward sums and slices the gradients) and attends
+its block of queries over all of them, the causal mask offset by the
+block's first position.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from torch import nn
 
 from ..core.graph import ParamSpec, TensorSpec
 from ..core.op import Op, ShardingSolution, bias_once, register_op
-from ..core.sharding import TensorSharding
+from ..core.sharding import TensorSharding, mesh_coords
 from .elementwise import dropout
 
 
@@ -90,20 +95,39 @@ class MultiHeadAttention(Op, nn.Module):
         return y.transpose(1, 2)
 
     def forward(self, q_in, k_in, v_in, ctx):
-        if ctx.config and ctx.config.get("sequence"):
-            raise NotImplementedError(
-                "sequence-parallel (ring) attention comes with slice 11d "
-                "(pipeline and ring-attention training, ROADMAP.md)")
+        seq = tuple(ctx.config.get("sequence", ())) if ctx.config else ()
+        if seq and ctx.mesh is not None:
+            return self._sequence_forward(q_in, k_in, v_in, ctx, seq)
+        return self._attend(q_in, k_in, v_in, ctx)
+
+    def _sequence_forward(self, q_in, k_in, v_in, ctx, axes):
+        """The ``sequence`` split: a generator that gathers the keys and
+        values whole over ``axes`` and attends this shard's queries."""
         bias = self.use_bias
-        q = self._project(q_in, self.wq, self.bq if bias else None)
         k = self._project(k_in, self.wk, self.bk if bias else None)
         v = self._project(v_in, self.wv, self.bv if bias else None)
+        k = yield ("all_gather", k, 2, axes)
+        v = yield ("all_gather", v, 2, axes)
+        (axis,) = axes
+        offset = mesh_coords(ctx.rank, ctx.mesh)[axis] * q_in.shape[1]
+        return self._attend(q_in, None, None, ctx, k, v, offset)
+
+    def _attend(self, q_in, k_in, v_in, ctx, k=None, v=None,
+                offset: int = 0):
+        """The attention of ``q_in``'s rows (the first at position
+        ``offset``) over ``k_in``/``v_in`` (or keys and values already
+        projected, ``k`` and ``v``)."""
+        bias = self.use_bias
+        q = self._project(q_in, self.wq, self.bq if bias else None)
+        if k is None:
+            k = self._project(k_in, self.wk, self.bk if bias else None)
+            v = self._project(v_in, self.wv, self.bv if bias else None)
         scores = torch.matmul(q, k.transpose(-1, -2)) * (
             1.0 / math.sqrt(self.head_dim))
         if self.causal:
             qlen, klen = scores.shape[-2], scores.shape[-1]
             mask = torch.ones(qlen, klen, dtype=torch.bool,
-                              device=scores.device).tril()
+                              device=scores.device).tril(offset)
             scores = scores.masked_fill(~mask, float("-inf"))
         probs = torch.softmax(scores, dim=-1)
         gen = ctx.stream(probs.device) if ctx.training else None

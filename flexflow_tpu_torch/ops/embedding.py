@@ -57,6 +57,13 @@ class Embedding(Op, nn.Module):
     def out_dim(self) -> int:
         return self.weight.shape[1]
 
+    def signature_attrs(self):
+        # the reference's fields: the table's shape, ``aggr`` and the
+        # default initializer
+        return {**super().signature_attrs(), "num_entries": self.num_entries,
+                "out_dim": self.out_dim, "aggr": self.aggr,
+                "kernel_initializer": None}
+
     def infer_shapes(self, in_specs):
         ids = in_specs[0]
         return [TensorSpec(tuple(ids.shape) + (self.out_dim,),

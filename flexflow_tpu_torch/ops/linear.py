@@ -130,6 +130,13 @@ class Linear(Op, nn.Module):
     def use_bias(self) -> bool:
         return self.bias is not None
 
+    def signature_attrs(self):
+        # the reference's fields this layer keeps in its kernel's shape
+        # and its bias; ``quantization`` None unless int8 marked it
+        return {**super().signature_attrs(), "in_dim": self.in_dim,
+                "out_dim": self.out_dim, "use_bias": self.use_bias,
+                "quantization": getattr(self, "quantization", None)}
+
     def infer_shapes(self, in_specs):
         x = in_specs[0]
         if self.in_dim != x.shape[-1]:

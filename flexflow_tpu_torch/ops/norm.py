@@ -1,10 +1,13 @@
-"""LayerNorm, RMSNorm, the fused residual RMSNorm, and the SwiGLU junction.
+"""LayerNorm, RMSNorm, the fused residual norms, and the SwiGLU junction.
 
 Port of ``flexflow_tpu/ops/norm.py`` (``_layer_norm`` :33, ``LayerNorm``
-:57-91, ``_rms_norm`` :46, ``RMSNorm`` :93-117, ``ResidualRMSNorm``
-:202, ``SigmoidSiluMulti`` :231), for the serve and the training paths
-(``gamma`` and ``beta`` trainable once ``core/interpreter.py:init_params``
-makes them so; a LayerNorm without ``elementwise_affine`` has neither).
+:57-91, ``_rms_norm`` :46, ``RMSNorm`` :93-117, ``ResidualLayerNorm``
+:119-160, ``ResidualRMSNorm`` :202, ``SigmoidSiluMulti`` :231), for the
+serve and the training paths (``gamma`` and ``beta`` trainable once
+``core/interpreter.py:init_params`` makes them so; a LayerNorm without
+``elementwise_affine`` has neither).  The fused ops are what the
+substitution rules (``search/substitution.py``) emit; their gradients
+come from autograd through both outputs.
 The normalisation is computed in float32 and cast back to the input's
 dtype at the same place the reference casts, so bf16 models round where
 the reference rounds.
@@ -76,8 +79,8 @@ def sigmoid_silu_multi(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 
 class _NormIR(Op):
-    """The op IR the norms share: one input (the residual norm: two), its
-    sharding propagated with the feature dim whole."""
+    """The op IR the norms share: one input (the residual norms: two or
+    three), its sharding propagated with the feature dim whole."""
 
     n_out = 1
     flops_per_element = None   # None: one per output element
@@ -105,6 +108,10 @@ class _NormIR(Op):
             return super().flops(in_specs)
         return self.flops_per_element * in_specs[0].size
 
+    def signature_attrs(self):
+        return {"dim": self.dim, "eps": self.eps,
+                "dtype": self.compute_dtype}
+
 
 @register_op
 class LayerNorm(_NormIR, nn.Module):
@@ -122,6 +129,8 @@ class LayerNorm(_NormIR, nn.Module):
         self.dim = int(dim)
         self.compute_dtype = dtype
         self.eps = float(eps)
+        self.elementwise_affine = bool(elementwise_affine)
+        self.use_bias = bool(use_bias)
         self.gamma = (nn.Parameter(torch.ones(dim, dtype=dtype,
                                               device=device),
                                    requires_grad=False)
@@ -133,6 +142,40 @@ class LayerNorm(_NormIR, nn.Module):
 
     def forward(self, x):
         return layer_norm(x, self.gamma, self.beta, self.eps)
+
+    def signature_attrs(self):
+        return {**super().signature_attrs(),
+                "elementwise_affine": self.elementwise_affine,
+                "use_bias": self.use_bias}
+
+
+@register_op
+class ResidualLayerNorm(LayerNorm):
+    """``(x + r1 [+ r2], layer_norm(x + r1 [+ r2]))`` (reference
+    :119-160): the fused residual sum and its norm, two outputs, the
+    sum's gradient the sum of both outputs' (autograd)."""
+
+    type_name = "residual_layer_norm"
+    n_out = 2
+    flops_per_element = None
+
+    def __init__(self, dim: int, use_two_residuals: bool = False,
+                 elementwise_affine: bool = True, eps: float = 1e-5,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__(dim, eps, use_bias, dtype, device,
+                         elementwise_affine)
+        self.use_two_residuals = bool(use_two_residuals)
+
+    def forward(self, x, r1, r2=None):
+        s = x + r1
+        if self.use_two_residuals:
+            s = s + r2
+        return s, layer_norm(s, self.gamma, self.beta, self.eps)
+
+    def signature_attrs(self):
+        return {**super().signature_attrs(),
+                "use_two_residuals": self.use_two_residuals}
 
 
 @register_op
@@ -167,6 +210,9 @@ class ResidualRMSNorm(RMSNorm):
 
 @register_op
 class SigmoidSiluMulti(Op, nn.Module):
+    """``silu(x1) * x2``, the SwiGLU junction (reference :211-233): no
+    parameters, elementwise."""
+
     type_name = "sigmoid_silu_multi"
 
     def forward(self, x1, x2):

@@ -1,19 +1,23 @@
-"""flexflow_tpu_torch.search: the serve planner and the Unity search.
+"""flexflow_tpu_torch.search: the planner and the Unity search.
 
-Port of ``flexflow_tpu/search`` for inference: the machine model
+Port of ``flexflow_tpu/search``: the machine model
 (:mod:`.machine_model`, with the H100's constants), the simulator
 (:mod:`.simulator`: ``simulate`` and the memory estimate of a planned
-PCG, and the serve half's stage records), the Unity MCMC search over
-per-op parallel configs (:mod:`.search`: ``enumerate_op_configs``,
-``graph_optimize``), strategy files (:mod:`.strategy`), the joint ``tp x
-pp x n_micro`` serve search and its pricing (:mod:`.serve_search`:
-``search_serve_plan``, ``price_plan``, ``pp_serve_cost``), and the card's
-measured constants (:mod:`.measure`, which runs on a CUDA device only).
-Graph substitutions, the pipeline search, training-mode pricing and the
-measured op-cost cache come with slice 10b-ii.
+PCG, training steps by default, and the serve half's stage records), the
+algebraic rewrites (:mod:`.substitution`: ``GraphXfer`` rules,
+``apply_match``, ``remap_params``, ``check_equivalence``), the joint
+Unity MCMC search over per-op parallel configs and rewrites
+(:mod:`.search`: ``enumerate_op_configs``, ``graph_optimize``), strategy
+files (:mod:`.strategy`), the joint ``tp x pp x n_micro`` serve search
+and its pricing (:mod:`.serve_search`: ``search_serve_plan``,
+``price_plan``, ``pp_serve_cost``), and the card's measurements
+(:mod:`.measure`: the machine constants and the op-cost cache
+``CostCache``; they run on a CUDA device only).  The pipeline search
+comes with pipeline training (slice 11d).
 """
 
 from .machine_model import H100_SOURCES, TPU_SPECS, MachineModel, TPUSpec
+from .measure import CostCache
 from .search import enumerate_op_configs, graph_optimize
 from .serve_search import (
     pp_serve_cost,
@@ -31,15 +35,21 @@ from .simulator import (
     simulate,
 )
 from .strategy import load_strategy, save_strategy
+from .substitution import (apply_match, check_equivalence, find_all_matches,
+                           remap_params, standard_rules)
 
 __all__ = [
     "CostBreakdown",
+    "CostCache",
     "H100_SOURCES",
     "MachineModel",
     "TPUSpec",
     "TPU_SPECS",
+    "apply_match",
+    "check_equivalence",
     "compose_stage_parts",
     "enumerate_op_configs",
+    "find_all_matches",
     "graph_optimize",
     "load_strategy",
     "plan_memory_bytes",
@@ -47,9 +57,11 @@ __all__ = [
     "pp_serve_cost",
     "price_kv_swap",
     "price_plan",
+    "remap_params",
     "save_strategy",
     "search_serve_plan",
     "serve_component_of",
     "simulate",
+    "standard_rules",
     "store_component_scales",
 ]

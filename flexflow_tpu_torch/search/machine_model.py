@@ -111,7 +111,7 @@ TPU_SPECS: Dict[str, TPUSpec] = {
         mxu_efficiency=0.7,        # placeholder; measured: h100_calib.json
         vmem_resident_bytes=50e6,  # the 50 MB L2 in the VMEM's place
         step_overhead=20e-6,       # placeholder; measured: h100_calib.json
-        train_step_factor=3.0,     # placeholder, awaiting the training port
+        train_step_factor=3.0,     # placeholder; measured: h100_calib.json
         overlap=0.0,               # placeholder (none), awaiting two cards
         host_bandwidth=64e9,       # PCIe Gen5 x16, one direction;
                                    # measured: h100_calib.json
@@ -123,7 +123,7 @@ TPU_SPECS: Dict[str, TPUSpec] = {
 # where each ``h100`` constant comes from: the data sheet, or a
 # placeholder that artifacts/h100_calib.json (scripts/calibrate_h100.py)
 # replaces when the card measured it, or that awaits a run this card
-# cannot make (two cards, two hosts, training)
+# cannot make (two cards, two hosts)
 H100_SOURCES: Dict[str, str] = {
     "peak_flops_bf16": "data sheet",
     "peak_flops_f32": "data sheet (CUDA cores)",
@@ -137,7 +137,7 @@ H100_SOURCES: Dict[str, str] = {
     "mxu_efficiency": "measured (scripts/calibrate_h100.py)",
     "vmem_resident_bytes": "data sheet (L2)",
     "step_overhead": "measured (scripts/calibrate_h100.py)",
-    "train_step_factor": "placeholder (training)",
+    "train_step_factor": "measured (scripts/calibrate_h100.py)",
     "overlap": "placeholder (two cards)",
     "host_bandwidth": "measured (scripts/calibrate_h100.py)",
     "host_latency": "measured (scripts/calibrate_h100.py)",

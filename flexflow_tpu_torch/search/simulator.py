@@ -1,19 +1,29 @@
 """The simulator: the cost of a planned PCG, and the serve planner's half.
 
-Port of ``flexflow_tpu/search/simulator.py`` for inference:
-``CostBreakdown`` (:38), ``_local_size`` (:55), the fusion-aware step
-costs (:64-175), ``step_state_bytes`` (:177), ``plan_memory_bytes`` and
-``plan_memory_parts`` (:206-287) and ``simulate`` (:305) with
-``training=False``, over the port's ``core/pcg.py:Plan``.  As in the
-reference, one compiled step is a serial walk over the plan's steps:
-only the heavy ops (GEMMs, attention, embedding gathers) pay their HBM
-traffic, the elementwise and norm glue adds flops only, weights that fit
-the resident budget (``vmem_resident_bytes``: the H100 spec puts its L2
-there) stream nothing, there is one step overhead a step, and the
-parallel steps cost their ``comm_bytes`` over the machine's link.  Here
-the machine is the port's (``machine_model.py``), so the ``h100`` spec
-prices a CUDA mesh.  The measured op-cost cache (``measured``) and
-``training=True`` come with slice 10b-ii and raise.
+Port of ``flexflow_tpu/search/simulator.py``: ``CostBreakdown`` (:38),
+``_local_size`` (:55), the fusion-aware step costs (:64-175),
+``step_state_bytes`` (:177), ``plan_memory_bytes`` and
+``plan_memory_parts`` (:206-287) and ``simulate`` (:305), over the
+port's ``core/pcg.py:Plan``.  As in the reference, one compiled step is
+a serial walk over the plan's steps: only the heavy ops (GEMMs,
+attention, embedding gathers) pay their HBM traffic, the elementwise and
+norm glue adds flops only, weights that fit the resident budget
+(``vmem_resident_bytes``: the H100 spec puts its L2 there) stream
+nothing, there is one step overhead a step, and the parallel steps cost
+their ``comm_bytes`` over the machine's link.  A training step
+(``training=True``, the default as in the reference) is the forward
+times the spec's ``train_step_factor``, each parallel step twice (its
+transpose runs in the backward), plus the gradient all-reduce of every
+trainable parameter over the batch axes its sharding leaves unused
+(``grad_comm``), the overlap folded into both communication parts; its
+memory holds four copies of each trainable weight and every
+activation.  ``measured`` (a ``search/measure.py:CostCache``, or any
+mapping over the same keys) prices a heavy op by its measured time where
+it holds the op's key (``_measure_key``: the op's ``attr_signature`` and
+its local input shapes, the reference's key).  Here the machine is the
+port's (``machine_model.py``), so the ``h100`` spec prices a CUDA mesh;
+its constants are the reference's rules (the heavy ops at the bf16
+tensor-core peak, whatever their dtype), copied at parity.
 
 The serve half prices a pipeline stage's ``serve.pp.StageCost``
 record, whose numbers ``serve/cost.py`` computes: ``serve_component_of``
@@ -41,12 +51,6 @@ def serve_component_of(mod) -> str:
     (``cost_logit_rows``), else ``serve/cost.py:family_of``'s."""
     marked = getattr(mod, "cost_logit_rows", None) is not None
     return family_of(mod, mod if marked else None)
-
-
-def _not_yet(what: str):
-    return NotImplementedError(f"{what} comes with slice 10b-ii; the port "
-                               "prices inference (training=False, "
-                               "measured=None)")
 
 
 @dataclasses.dataclass
@@ -102,12 +106,21 @@ def _step_flops(step, mesh) -> float:
 
 
 def _step_compute_time(step, mesh, mm: MachineModel,
+                       measured: Optional[Dict] = None,
+                       training: bool = True,
                        param_bytes: float = 0.0, fused: bool = True) -> float:
-    """One op's share of the step's time; ``param_bytes`` its local weight
-    bytes already scaled by the residency rule."""
+    """One op's share of the step's time (times ``train_step_factor``
+    when ``training``); ``param_bytes`` its local weight bytes already
+    scaled by the residency rule; a heavy op whose key ``measured``
+    holds costs its measured time."""
     spec_hw = mm.spec
     op = step.node.op
     heavy = op.type_name in HEAVY_OPS
+    tf = spec_hw.train_step_factor if training else 1.0
+    if measured is not None and heavy:
+        key = _measure_key(step, mesh)
+        if key in measured:
+            return measured[key] * tf
     flops = _step_flops(step, mesh)
     if not (fused and not heavy):
         bytes_accessed = param_bytes
@@ -128,7 +141,7 @@ def _step_compute_time(step, mesh, mm: MachineModel,
     fwd = max(flops / peak, bytes_accessed / spec_hw.hbm_bandwidth)
     if not fused:
         fwd += spec_hw.kernel_overhead
-    return fwd
+    return fwd * tf
 
 
 def _step_param_bytes(step, plan, mesh) -> float:
@@ -140,6 +153,14 @@ def _step_param_bytes(step, plan, mesh) -> float:
         n = _local_size(p.spec, sh, mesh) if sh is not None else p.spec.size
         total += n * _itemsize(p.spec)
     return total
+
+
+def _measure_key(step, mesh):
+    """The measured-cost key of one op step (reference :169): the op's
+    ``attr_signature`` and its inputs' local shapes."""
+    local_in = tuple(sh.local_shape(spec.shape, mesh)
+                     for spec, sh in zip(step.in_specs, step.in_shardings))
+    return (step.node.op.attr_signature(), local_in)
 
 
 def step_state_bytes(step, mesh, names=None) -> float:
@@ -173,26 +194,29 @@ def _dtype_size(dt) -> int:
     return torch.empty((), dtype=dt).element_size()
 
 
-def plan_memory_bytes(plan, training: bool = False) -> float:
+def plan_memory_bytes(plan, training: bool = True) -> float:
     """Per-device peak-HBM estimate of a planned PCG (reference :206):
-    local weights, the serve-state buffers of the attention ops whose
-    capacities were registered (sharded by each plan's own ``head``
-    config), and the largest single activation.  An upper bound: the
-    search uses it to reject plans."""
+    local weights (four times each trainable one when ``training``: the
+    weight, its gradient and two optimizer slots), the serve-state
+    buffers of the attention ops whose capacities were registered
+    (sharded by each plan's own ``head`` config), and the activations
+    (every op output when training, else the largest).  An upper bound:
+    the search uses it to reject plans."""
     return plan_memory_parts(plan, training=training)["total"]
 
 
 _INT8_PARAM_NAMES = ("kernel", "qkv", "o_proj")
 
 
-def plan_memory_parts(plan, training: bool = False) -> Dict[str, float]:
+def plan_memory_parts(plan, training: bool = True) -> Dict[str, float]:
     """The predicted HBM of one device, in bytes, by component
-    (``weights``, ``kv_state``, ``transient``, ``total``; reference :228
-    with ``training=False``), of a planned PCG or of a pipeline stage's
-    ``StageCost`` record (whose parts ``serve/cost.py`` computed)."""
-    if training:
-        raise _not_yet("training memory")
+    (``weights``, ``kv_state``, ``transient``, ``total``; reference
+    :228), of a planned PCG or of a pipeline stage's ``StageCost`` record
+    (whose inference parts ``serve/cost.py`` computed)."""
     if not hasattr(plan, "steps"):
+        if training:
+            raise ValueError("a StageCost record holds inference memory; "
+                             "pass training=False")
         return dict(plan.memory)
     mesh = plan.mesh
     params, state, acts = 0.0, 0.0, []
@@ -206,28 +230,26 @@ def plan_memory_parts(plan, training: bool = False) -> Dict[str, float]:
             n = _local_size(p.spec, sh, mesh) if sh is not None else p.spec.size
             if q8 and p.name in _INT8_PARAM_NAMES and len(p.spec.shape) >= 2:
                 # int8 values and the global f32 scale count (errs high)
-                params += n + (p.spec.size // p.spec.shape[0]) * 4
+                b = n + (p.spec.size // p.spec.shape[0]) * 4
             else:
-                params += n * _itemsize(p.spec)
+                b = n * _itemsize(p.spec)
+            params += b * (4.0 if training and p.trainable else 1.0)
         for spec, sh in zip(step.out_specs, step.out_shardings):
             acts.append(_local_size(spec, sh, mesh) * _itemsize(spec))
         state += step_state_bytes(step, mesh)
-    act = max(acts, default=0)
+    act = sum(acts) if training else max(acts, default=0)
     return {"weights": params, "kv_state": state, "transient": act,
             "total": params + act + state}
 
 
 def simulate(plan, machine: Optional[MachineModel] = None,
-             training: bool = False, measured: Optional[Dict] = None,
+             training: bool = True, measured: Optional[Dict] = None,
              overlap: Optional[float] = None,
              fused: bool = True) -> CostBreakdown:
-    """One step's predicted time for ``plan`` (reference :305):
-    ``overlap`` is the share of communication hidden behind compute
+    """One step's predicted time for ``plan`` (reference :305): a
+    training step by default; ``measured`` the op-cost cache;
+    ``overlap`` the share of communication hidden behind compute
     (default the machine spec's), ``fused=False`` the per-op roofline."""
-    if training:
-        raise _not_yet("training-mode simulate")
-    if measured is not None:
-        raise _not_yet("the measured op-cost cache")
     mesh = plan.mesh
     mm = machine or MachineModel.for_mesh(mesh)
     if overlap is None:
@@ -243,14 +265,20 @@ def simulate(plan, machine: Optional[MachineModel] = None,
         if step.is_parallel:
             op = step.node.op
             b = op.comm_bytes(step.in_specs[0], step.in_shardings[0], mesh)
-            cost.comm += mm.collective_time(b, getattr(op, "axes", ()), mesh)
+            t = mm.collective_time(b, getattr(op, "axes", ()), mesh)
+            if training:
+                t *= 2.0   # the reshard's transpose runs in the backward
+            cost.comm += t
         else:
             cost.compute += _step_compute_time(
-                step, mesh, mm,
+                step, mesh, mm, measured, training,
                 param_bytes=_step_param_bytes(step, plan, mesh) * stream_frac,
                 fused=fused)
     if fused:
         cost.compute += mm.spec.step_overhead   # one dispatch a step
+    if training:
+        cost.grad_comm = _grad_comm(plan, mesh, mm)
+    # fold the hidden share into both parts, so they still sum to total
     hidden = min(cost.comm + cost.grad_comm, cost.compute) * overlap
     total_comm = cost.comm + cost.grad_comm - hidden
     if cost.comm + cost.grad_comm > 0:
@@ -258,3 +286,33 @@ def simulate(plan, machine: Optional[MachineModel] = None,
         cost.comm *= scale
         cost.grad_comm *= scale
     return cost
+
+
+def _grad_comm(plan, mesh, mm: MachineModel) -> float:
+    """The gradient all-reduce (reference :362-388): each trainable
+    parameter of an op whose config splits its batch (``sample``) is
+    summed over those batch axes its own sharding leaves unused, a ring
+    all-reduce of its local bytes."""
+    total = 0.0
+    for step in plan.steps:
+        if step.is_parallel or not step.config:
+            continue
+        batch_axes = tuple(step.config.get("sample", ()))
+        if not batch_axes:
+            continue
+        pshs = plan.param_shardings.get(step.node.name, {})
+        ps = {p.name: p for p in step.node.op.params()}
+        for pname, sh in pshs.items():
+            if not ps.get(pname) or not ps[pname].trainable:
+                continue
+            axes = tuple(a for a in batch_axes if a not in sh.used_axes())
+            if not axes:
+                continue
+            spec = ps[pname].spec
+            deg = 1
+            for a in axes:
+                deg *= mesh.shape[a]
+            local_bytes = _local_size(spec, sh, mesh) * _itemsize(spec)
+            b = 2 * local_bytes * (deg - 1) / deg
+            total += mm.collective_time(b, axes, mesh)
+    return total

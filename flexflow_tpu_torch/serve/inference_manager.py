@@ -176,15 +176,12 @@ def searched_serve_strategy(model, budget: int = 300, seed: int = 0,
     is the flat batch recorded there.  ``mesh``: the ``{"tp": n}`` mesh
     (the port's model carries none); ``machine`` defaults to
     :func:`default_machine`, ``memory_limit`` to its spec's
-    ``hbm_capacity``.  ``measured`` (the op-cost cache) waits for slice
-    10b-ii and must be None."""
+    ``hbm_capacity``; ``measured`` an op-cost cache
+    (``search/measure.py:CostCache``) or None (the roofline)."""
     from ..core.pcg import serve_graph
     from ..search.search import graph_optimize
     from .cost import recorded_capacities
 
-    if measured is not None:
-        raise NotImplementedError("the measured op-cost cache comes with "
-                                  "slice 10b-ii; pass measured=None")
     if mesh is None:
         raise ValueError("searched_serve_strategy needs the mesh to plan "
                          "over (mesh=parallel.make_mesh({'tp': n}, ...))")
@@ -199,7 +196,7 @@ def searched_serve_strategy(model, budget: int = 300, seed: int = 0,
         memory_limit = machine.spec.hbm_capacity
     graph = serve_graph(model, caps.max_tokens)
     return graph_optimize(graph, mesh, budget=budget, seed=seed,
-                          training=False, measured=None,
+                          training=False, measured=measured,
                           memory_limit=memory_limit, machine=machine)
 
 

@@ -494,9 +494,17 @@ class PipelinedInferenceManager:
             kv_gb=max(kv for _, kv in per_stage) / 1e9,
             static_gb=max(w + kv for w, kv in per_stage) / 1e9)
 
-    def stage_memory_bytes(self) -> List[float]:
-        """Each stage's predicted bytes per device (weights + KV + the
-        largest transient; reference :892-899)."""
+    def stage_memory_bytes(self, training: bool = False) -> List[float]:
+        """Each stage's predicted bytes per device (reference :892-899):
+        weights + KV + the largest transient; with ``training``, each
+        stage's PCG plan priced as a training step's
+        (``search/simulator.py:plan_memory_bytes``: four copies of each
+        trainable weight, every activation)."""
+        if training:
+            from ..search.simulator import plan_memory_bytes
+
+            return [plan_memory_bytes(st.plan.plan, training=True)
+                    for st in self.stages]
         from .cost import plan_memory_parts
 
         return [plan_memory_parts(self, g[0])["total"]

@@ -19,8 +19,8 @@ capacities and the LM head marked on both sides, priced under the same
 * ``searched_serve_strategy`` at its defaults, under a memory limit the
   replicated plan exceeds (``tests/test_serve_search.py:107-131``), and
   warning where nothing fits;
-* ``substitution=True``, training mode and a measured cache raise;
-  ``save_strategy``/``load_strategy`` round-trip, across the packages too.
+* ``save_strategy``/``load_strategy`` round-trip, across the packages
+  too.
 """
 
 import dataclasses
@@ -114,7 +114,7 @@ def test_simulate_and_memory_equal_reference(family):
             assert pparts.keys() == jparts.keys()
             for k in jparts:
                 assert close(pparts[k], jparts[k]), (name, k)
-            assert close(PSIM.plan_memory_bytes(pp),
+            assert close(PSIM.plan_memory_bytes(pp, training=False),
                          JSIM.plan_memory_bytes(jp, training=False))
             assert pparts["kv_state"] > 0
 
@@ -147,11 +147,12 @@ def test_graph_optimize_returns_reference_strategy(family, degree):
     got = PSEARCH.graph_optimize(g, pm, budget=150, seed=0,
                                  training=False, machine=pmm)
     assert got == want
-    cost = PSIM.simulate(PCG(g, pm, got).plan(), pmm).total
+    cost = PSIM.simulate(PCG(g, pm, got).plan(), pmm, training=False).total
     assert close(cost, JSIM.simulate(JPCG(ff.graph, jm, want).plan(), jmm,
                                      training=False).total)
     mega = tensor_parallel_strategy(model, degree)
-    assert cost <= PSIM.simulate(PCG(g, pm, mega).plan(), pmm).total * 1.001
+    assert cost <= PSIM.simulate(PCG(g, pm, mega).plan(), pmm,
+                                 training=False).total * 1.001
 
 
 def test_searched_serve_strategy_defaults_equal_reference():
@@ -192,14 +193,15 @@ def test_memory_limit_respected_and_warned_as_reference():
     ff, jm, model, pm = both(fields, 2, caps=caps)
     ff.mesh = jm
     g = serve_graph(model, ROWS)
-    m_repl = PSIM.plan_memory_bytes(PCG(g, pm, {}).plan())
+    m_repl = PSIM.plan_memory_bytes(PCG(g, pm, {}).plan(), training=False)
     m_tp = PSIM.plan_memory_bytes(PCG(g, pm, tensor_parallel_strategy(
-        model, 2)).plan())
+        model, 2)).plan(), training=False)
     assert m_tp < m_repl
     limit = (m_repl + m_tp) / 2
     got = PS.searched_serve_strategy(model, budget=150, seed=0,
                                      memory_limit=limit, mesh=pm)
-    assert PSIM.plan_memory_bytes(PCG(g, pm, got).plan()) <= limit
+    assert PSIM.plan_memory_bytes(PCG(g, pm, got).plan(),
+                                  training=False) <= limit
     assert got == jax_searched(ff, budget=150, seed=0, memory_limit=limit)
     with pytest.warns(UserWarning, match="memory"):
         low = PS.searched_serve_strategy(model, budget=60, seed=0,
@@ -211,24 +213,6 @@ def test_memory_limit_respected_and_warned_as_reference():
         PSEARCH.graph_optimize(g, pm, budget=20, training=False,
                                machine=machines()[1], memory_limit=1024.0,
                                on_infeasible="raise")
-
-
-def test_later_slice_paths_raise(tmp_path):
-    """Substitutions, training-mode pricing and the measured cost cache
-    (slice 10b-ii) raise rather than run without them."""
-    ff, jm, model, pm = both(dataclasses.asdict(TINY), 2)
-    g = serve_graph(model, ROWS)
-    with pytest.raises(NotImplementedError, match="10b-ii"):
-        PSEARCH.graph_optimize(g, pm, budget=5, substitution=True)
-    plan = PCG(g, pm, {}).plan()
-    with pytest.raises(NotImplementedError, match="10b-ii"):
-        PSIM.simulate(plan, training=True)
-    with pytest.raises(NotImplementedError, match="10b-ii"):
-        PSIM.simulate(plan, measured={})
-    with pytest.raises(NotImplementedError, match="10b-ii"):
-        PSIM.plan_memory_bytes(plan, training=True)
-    with pytest.raises(NotImplementedError, match="10b-ii"):
-        PS.searched_serve_strategy(model, measured={}, mesh=pm)
 
 
 def test_strategy_files_round_trip_across_packages(tmp_path):

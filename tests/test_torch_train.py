@@ -265,8 +265,7 @@ def test_strategy_import_and_export(tmp_path):
 
 def test_compile_and_construction_raise_instead_of_falling_back(
         monkeypatch):
-    for kw, match in ((dict(search_budget=10), "10b-ii"),
-                      (dict(mesh_shape={"pp": 2, "dp": 1}),
+    for kw, match in ((dict(mesh_shape={"pp": 2, "dp": 1}),
                        "pipeline training"),
                       (dict(mesh_shape={"ep": 2}), "11c")):
         with pytest.raises(NotImplementedError, match=match):

@@ -392,10 +392,15 @@ def test_attention_sequence_config_raises():
     for p in mha.params():
         setattr(mha, p.name, nn.Parameter(torch.randn(p.spec.shape)))
     x = torch.randn(2, 4, 8)
-    with pytest.raises(NotImplementedError, match="ring"):
-        mha(x, x, x, ctx=OpContext(config={"sequence": ("dp",)}))
-    # its op IR is the reference's
+    # one device holds the whole sequence: the plain attention
+    assert torch.equal(
+        mha(x, x, x, ctx=OpContext(config={"sequence": ("dp",)})),
+        mha(x, x, x, ctx=OpContext()))
+    # its op IR is the reference's, which refuses a split over two axes
     specs = [m.graph.spec(q.tid)] * 3
+    with pytest.raises(ValueError, match="exactly one mesh axis"):
+        mha.apply_config({"sequence": ("dp", "tp")}, specs,
+                         T.make_mesh({"dp": 2, "tp": 2}, ["cpu"] * 4))
     jm = J.FFModel(J.FFConfig(num_devices=1))
     jq = jm.create_tensor((2, 4, 8))
     jm.multihead_attention(jq, jq, jq, 8, 2)
