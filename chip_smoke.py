@@ -270,6 +270,35 @@ and prints no result):
    comparable while four shards share one card; the f32 steps run on the
    CUDA cores, the spec prices heavy ops at the bf16 tensor-core peak).
    No kernel is launched.
+24. the conv nets and DLRM, float32 (TF32 off for the GEMMs and cuDNN):
+   (a) every op of slice 11c-i on the card against the same module on
+   the CPU (``tools/op_parity.py``: the shape ops; ``Conv2D`` with
+   ``"SAME"`` at strides 1, 2 and 4, ``"VALID"``, an int padding and two
+   groups; ``Pool2D`` max and average, ``"SAME"`` and ``"VALID"``;
+   ``BatchNorm`` in training and outside it; ``AddBiasResidualLayerNorm``;
+   ``Embedding`` with ``aggr`` none, sum and avg), forward and gradients
+   within ``rtol 1e-4``, ``atol 1e-5``; (b) the reference's ResNet-18 at
+   ImageNet width (``(3, 224, 224)``, 1000 classes, widths 64-512), batch
+   32, SGD (lr 0.01, momentum 0.9) by ``fit``, 2 epochs of a 256-image
+   learnable set (labels a fixed random projection of the pooled input):
+   the median step after 2 warm-up steps (each between two
+   ``torch.cuda.synchronize``), images/s, three times the forward flops
+   over the step as a share of the f32 rate, peak memory, and the epoch
+   losses, which must fall; (c) the same ResNet-18 at ``dp=2``, both
+   shards on the card, 3 SGD steps from (b)'s weights and first batches:
+   losses within ``rtol 1e-4`` of one device's (BatchNorm's statistics
+   are the global batch's), the collectives a step by kind; (d) AlexNet
+   and the compact Inception at the builders' ``(3, 64, 64)``, batch 32:
+   one epoch of ``fit``, then ``evaluate``: finite losses, softmax rows
+   summing to 1 within ``1e-5``; (e) DLRM at the facebookresearch/dlrm
+   Criteo Kaggle widths (dense 13, bottom 512-256-64-16, 26 tables of
+   10^6 rows x 16, top 512-256-1; the real row counts come from the
+   dataset), batch 128, on ``{"dp": 2, "mp": 2}`` with four shards on the
+   card, the tables ``entry``-sharded over ``mp``: 3 SGD steps of
+   ``binary_crossentropy``, losses within ``rtol 1e-4`` of one device's
+   from the same weights and batches, the steps and peak memory.  No
+   kernel is launched: conv, pool and the rest are torch ops, as XLA
+   lowers them in the reference.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -3972,6 +4001,49 @@ BERT_BASE = dict(hidden_dim=768, num_heads=12, ff_dim=3072, num_classes=16,
                  batch=8)
 
 
+def step_timer(model, torch, losses=None):
+    """Wrap ``model``'s train step so each step runs between two
+    ``torch.cuda.synchronize``; returns the list its seconds go to (and
+    appends each step's loss to ``losses``, read after the second
+    synchronize)."""
+    times = []
+    inner = model._train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if losses is not None:
+            losses.append(float(out[0]))
+        return out
+
+    model._train_step = timed_step
+    return times
+
+
+def count_collectives(comm):
+    """Count ``comm``'s calls by kind (all_reduce, all_gather, gather):
+    each method wrapped on this instance; returns the counter."""
+    counts = collections.Counter()
+    for kind in ("all_reduce", "all_gather", "gather"):
+        fn = getattr(comm, kind)
+
+        def counted_call(*args, _fn=fn, _kind=kind, **kw):
+            counts[_kind] += 1
+            return _fn(*args, **kw)
+
+        setattr(comm, kind, counted_call)
+    return counts
+
+
+def forward_flops(model):
+    """The forward flops of ``model``'s op steps (each op's ``flops``)."""
+    return sum(st.node.op.flops(st.in_specs) for st in model.plan.steps
+               if not st.is_parallel)
+
+
 def train_parity(ff, build, kw, opt_cls, opt_kw, x, y, dev):
     """Phase 21(a), one optimizer: the classifier on the CPU and on the
     card from the same seeded weights (the CPU model's, through
@@ -4067,20 +4139,8 @@ def phase_training(torch, dev, card):
                   **kw)
     model.compile(optimizer=ff.AdamOptimizer(alpha=1e-4),
                   metrics=["accuracy"])
-    fwd_flops = sum(st.node.op.flops(st.in_specs) for st in model.plan.steps
-                    if not st.is_parallel)
-    times = []
-    inner = model._train_step
-
-    def timed_step(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = inner(*args)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        return out
-
-    model._train_step = timed_step
+    fwd_flops = forward_flops(model)
+    times = step_timer(model, torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hist = model.fit(x, y, epochs=epochs, verbose=False)
@@ -4106,7 +4166,7 @@ def phase_training(torch, dev, card):
         f"{[round(h['accuracy'], 4) for h in hist]}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"training (b): the loss did not fall: {losses}")
-    del model, inner
+    del model
     torch.cuda.empty_cache()
 
     # (c) the MNIST MLP example's defaults
@@ -4521,6 +4581,211 @@ def phase_training_planner(torch, dev, card):
 
 
 
+def phase_vision_dlrm(torch, dev, card):
+    """Phase 24: the conv nets and DLRM on the card (module docstring,
+    item 24), float32, TF32 off."""
+    import gc
+    import statistics
+
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.models import vision
+    from flexflow_tpu_torch.models.dlrm import build_dlrm
+    from flexflow_tpu_torch.tools import op_parity
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) every op of the slice on the card against the CPU
+    t0 = time.perf_counter()
+    worst = op_parity.check_all(dev)
+    log(f"vision and dlrm (a) on {card}: {len(worst)} op cases on the card "
+        f"== the CPU (forward and gradients, rtol {op_parity.RTOL}, atol "
+        f"{op_parity.ATOL}) in {time.perf_counter() - t0:.1f}s; max abs "
+        "diffs " + ", ".join(f"{n} {e:.2e}" for n, e in worst))
+
+    # (b) ResNet-18 at ImageNet width on one device
+    batch, classes, image = 32, 1000, (3, 224, 224)
+    n_images, epochs, warm = 256, 2, 2
+    rng = np.random.RandomState(24)
+    x = rng.randn(n_images, *image).astype(np.float32)
+    proj = rng.randn(image[0], classes).astype(np.float32)
+    y = np.argmax(x.mean(axis=(2, 3)) @ proj, axis=-1).astype(np.int32)
+    sgd = dict(lr=0.01, momentum=0.9)
+    base = torch.cuda.memory_allocated()
+    model, _, out = vision.build_resnet18(
+        ff.FFConfig(batch_size=batch, seed=0), batch=batch,
+        num_classes=classes, image=image, device=dev)
+    model.compile(optimizer=ff.SGDOptimizer(**sgd), outputs=[out],
+                  metrics=["accuracy"])
+    init = {n: {p: v.detach().clone() for p, v in g.items()}
+            for n, g in model.params.items()}
+    fwd = forward_flops(model)
+    times = step_timer(model, torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = model.fit(x, y, epochs=epochs, verbose=False)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    step = statistics.median(times[warm:])
+    share = 3 * fwd / step / PEAK_FLOPS["float32"]
+    losses = [h["loss"] for h in hist]
+    log(f"vision and dlrm (b) on {card}: ResNet-18 at {image}, "
+        f"{classes} classes, batch {batch}, SGD {sgd}, {n_images} images x "
+        f"{epochs} epochs ({len(times)} steps, fit wall {wall:.2f}s): "
+        f"median step {step * 1e3:.3f} ms after {warm} warm-up (min "
+        f"{min(times[warm:]) * 1e3:.3f}, max {max(times[warm:]) * 1e3:.3f});"
+        f" {batch / step:.1f} images/s; 3 x forward flops "
+        f"{3 * fwd / 1e12:.4f} TFLOP a step, {3 * fwd / step / 1e12:.2f} "
+        f"TFLOP/s = {share:.4f} of {PEAK_FLOPS['float32'] / 1e12:.0f} "
+        f"TFLOP/s f32; peak memory {peak / 1e9:.2f} GB (above the "
+        f"{base / 1e9:.2f} GB held before the model); epoch losses "
+        f"{[round(v, 4) for v in losses]}, accuracy "
+        f"{[round(h['accuracy'], 4) for h in hist]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"vision (b): the loss did not fall: {losses}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the same ResNet-18 at dp=2, both shards on the card, against one
+    # device from (b)'s weights and first batches
+    steps = 3
+    xs, ys = x[:steps * batch], y[:steps * batch]
+    runs = {}
+    for shape in ({"dp": 1}, {"dp": 2}):
+        mesh = ff.make_mesh(shape, [dev] * shape["dp"])
+        m, _, out = vision.build_resnet18(
+            ff.FFConfig(batch_size=batch, seed=0), mesh=mesh, batch=batch,
+            num_classes=classes, image=image)
+        m.compile(optimizer=ff.SGDOptimizer(**sgd), outputs=[out])
+        m.load_params(init)
+        kinds = count_collectives(mesh.comm)
+        step_losses = []
+        mtimes = step_timer(m, torch, step_losses)
+        m.fit(xs, ys, epochs=1, shuffle=False, verbose=False)
+        n_bn = sum(1 for st in m.plan.steps
+                   if st.node.op.type_name == "batch_norm")
+        runs[shape["dp"]] = (step_losses, dict(kinds),
+                             m.grad_allreduces / steps,
+                             statistics.median(mtimes))
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l1, _, _, s1), (l2, kinds, grads, s2) = runs[1], runs[2]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(l2, l1))
+    log(f"vision and dlrm (c) on {card}: ResNet-18 dp=2 (both shards on "
+        f"the card), {steps} SGD steps from (b)'s weights and batches: "
+        f"losses {[round(v, 6) for v in l2]} against one device's "
+        f"{[round(v, 6) for v in l1]}, max rel diff {rel:.3e} (tol 1e-4); "
+        f"collectives a step by kind "
+        f"{ {k: v / steps for k, v in sorted(kinds.items())} } ({n_bn} "
+        f"batch norms x 2 sums, forward and backward; {grads:g} gradient "
+        f"all-reduce; the exit gather); median step {s2 * 1e3:.3f} ms "
+        f"against one device's {s1 * 1e3:.3f} ms (two shards on one card)")
+    if not all(np.isfinite(l2)) or rel > 1e-4:
+        raise RuntimeError("vision (c): dp=2 differs from one device "
+                           "beyond the tolerance")
+    del x, xs, init
+    gc.collect()
+
+    # (d) AlexNet and Inception at the builders' default image
+    image, n_images = (3, 64, 64), 128
+    rng = np.random.RandomState(25)
+    x = rng.randn(n_images, *image).astype(np.float32)
+    y = rng.randint(0, 10, n_images).astype(np.int32)
+    for build in (vision.build_alexnet, vision.build_inception):
+        m, _, out = build(ff.FFConfig(batch_size=batch, seed=0),
+                          batch=batch, image=image, device=dev)
+        m.compile(optimizer=ff.SGDOptimizer(lr=0.01), outputs=[out],
+                  metrics=["accuracy"])
+        mtimes = step_timer(m, torch)
+        h = m.fit(x, y, epochs=1, verbose=False)
+        ev = m.evaluate(x, y)
+        probs = m.forward(x[:batch])
+        rows = float((probs.sum(-1) - 1).abs().max())
+        log(f"vision and dlrm (d) on {card}: {build.__name__} at {image}, "
+            f"batch {batch}: one epoch ({len(mtimes)} steps, median "
+            f"{statistics.median(mtimes) * 1e3:.3f} ms) loss "
+            f"{h[0]['loss']:.4f}, evaluate {ev}, softmax rows sum to 1 "
+            f"within {rows:.2e}")
+        if not (np.isfinite(h[0]["loss"]) and np.isfinite(ev["loss"])
+                and rows <= 1e-5):
+            raise RuntimeError(f"vision (d) {build.__name__}: loss "
+                               f"{h[0]['loss']}, {ev}, rows {rows}")
+        del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) DLRM at the Criteo Kaggle widths on dp=2 x mp=2, four shards on
+    # the card, against one device
+    kw = dict(batch=128, dense_dim=13, table_sizes=(10 ** 6,) * 26,
+              embed_dim=16, bottom_mlp=(512, 256, 64, 16),
+              top_mlp=(512, 256, 1))
+    steps, b = 3, kw["batch"]
+    rng = np.random.RandomState(26)
+    dense = rng.randn(steps * b, kw["dense_dim"]).astype(np.float32)
+    sparse = [rng.randint(0, n, size=(steps * b, 1)).astype(np.int32)
+              for n in kw["table_sizes"]]
+    w = rng.randn(kw["dense_dim"]).astype(np.float32)
+    labels = (dense @ w > 0).astype(np.float32)[:, None]
+    runs, init = {}, None
+    for shape in ({"dp": 1}, {"dp": 2, "mp": 2}):
+        n = shape.get("dp", 1) * shape.get("mp", 1)
+        mesh = ff.make_mesh(shape, [dev] * n)
+        base = torch.cuda.memory_allocated()
+        m, d_in, s_in, out, strategy = build_dlrm(
+            ff.FFConfig(batch_size=b, seed=0), mesh=mesh,
+            mp_axes=("mp",) if "mp" in shape else (),
+            dp_axes=("dp",) if shape.get("dp", 1) > 1 else (), **kw)
+        t0 = time.perf_counter()
+        m.compile(optimizer=ff.SGDOptimizer(lr=0.05), outputs=[out],
+                  strategy=strategy or None,
+                  loss_type="binary_crossentropy")
+        if init is None:
+            init = {n_: {p: v.detach().clone() for p, v in g.items()}
+                    for n_, g in m.params.items()}
+        else:
+            m.load_params(init)
+        setup = time.perf_counter() - t0
+        step_losses = []
+        mtimes = step_timer(m, torch, step_losses)
+        torch.cuda.reset_peak_memory_stats()
+        m.fit({d_in: dense, **dict(zip(s_in, sparse))}, labels, epochs=1,
+              shuffle=False, verbose=False)
+        peak = torch.cuda.max_memory_allocated() - base
+        runs[n] = (step_losses, mtimes, peak, setup,
+                   sum(1 for st in m.plan.steps if st.is_parallel))
+        if n == 1:
+            del m
+        else:
+            del m, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l1, t1, p1, u1, _), (l4, t4, p4, u4, par) = runs[1], runs[4]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(l4, l1))
+    log(f"vision and dlrm (e) on {card}: DLRM (dense {kw['dense_dim']}, "
+        f"bottom {kw['bottom_mlp']}, {len(kw['table_sizes'])} tables of "
+        f"{kw['table_sizes'][0]} x {kw['embed_dim']}, top {kw['top_mlp']}), "
+        f"batch {b}, binary_crossentropy, SGD 0.05, {steps} steps: dp=2 x "
+        f"mp=2 (four shards on the card, {par} parallel steps) losses "
+        f"{[round(v, 6) for v in l4]} against one device's "
+        f"{[round(v, 6) for v in l1]}, max rel diff {rel:.3e} (tol 1e-4); "
+        f"steps {[round(t * 1e3, 3) for t in t4]} ms (median "
+        f"{statistics.median(t4) * 1e3:.3f}) against one device's "
+        f"{[round(t * 1e3, 3) for t in t1]} (median "
+        f"{statistics.median(t1) * 1e3:.3f}); peak memory {p4 / 1e9:.2f} GB "
+        f"against {p1 / 1e9:.2f} GB; compile and weights {u4:.1f}s and "
+        f"{u1:.1f}s")
+    if not all(np.isfinite(l4)) or rel > 1e-4:
+        raise RuntimeError("dlrm (e): the mesh differs from one device "
+                           "beyond the tolerance")
+    torch.cuda.empty_cache()
+
+
 def tc_reports(text):
     """(kernel, "registers, shared memory, spills") of each tensor-core
     kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
@@ -4631,6 +4896,7 @@ def main():
         torch, dev, card, one_step_ms))
     timed("training planner", lambda: phase_training_planner(torch, dev,
                                                               card))
+    timed("vision and dlrm", lambda: phase_vision_dlrm(torch, dev, card))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)

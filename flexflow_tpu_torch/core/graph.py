@@ -178,15 +178,12 @@ class Graph:
         and reading ``inputs``, named ``unique_name(name or
         op.type_name)``; returns its output tensors, whose specs come
         from ``op.infer_shapes`` (reference ``add_node`` :119-137).  The
-        node's ``module`` is its name: the model keys its modules by node
-        name, so a name must not hold a ``.``."""
+        node's ``module`` is its name, dots included (``"layer1.0.conv1"``,
+        as the reference names it)."""
         for t in inputs:
             if t.graph is not self:
                 raise ValueError("input tensor from a different graph")
         name = self.unique_name(name or op.type_name)
-        if "." in name:
-            raise ValueError(f"node name {name!r}: the model keys its "
-                             "modules by node name, which holds no '.'")
         out_specs = op.infer_shapes([t.spec for t in inputs])
         nid = len(self.nodes)
         outs = [self._new_tensor(s) for s in out_specs]

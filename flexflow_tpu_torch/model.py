@@ -4,7 +4,10 @@ Port of ``flexflow_tpu/model.py`` (``FFModel`` :61-556 and :946-1204; the
 pipeline methods :561-944 come with pipeline training, ``ROADMAP.md``).
 One builder method per layer appends a node holding its op
 (``core/graph.py:Graph.add_op``) under the reference's default name, so
-parameters carry across by name.  ``compile`` resolves a strategy in the
+parameters carry across by name.  A node's name is the reference's, dots
+included (``"layer1.0.conv1"``): ``layers`` holds each node's module
+under its name, escaped only inside the ``nn.ModuleDict``
+(:class:`NodeModules`).  ``compile`` resolves a strategy in the
 reference's order (the explicit dict, ``--import``, the data-parallel
 strategy; ``--export``), plans the graph (``core/pcg.py``), builds its
 forward (``core/interpreter.py:build_forward``), draws the parameters
@@ -55,12 +58,17 @@ from .core.interpreter import (build_forward, init_params, place_inputs,
 from .core.pcg import PCG, Plan
 from .data.loader import DataLoader
 from .ops.attention import MultiHeadAttention
+from .ops.conv import Conv2D, Pool2D
 from .ops.elementwise import (Cast, Dropout, ElementBinary, ElementUnary,
                               as_dtype)
+from .ops.embedding import Embedding
 from .ops.linear import BatchMatmul, Linear
-from .ops.norm import (LayerNorm, ResidualLayerNorm, ResidualRMSNorm,
-                       RMSNorm, SigmoidSiluMulti)
+from .ops.norm import (AddBiasResidualLayerNorm, BatchNorm, LayerNorm,
+                       ResidualLayerNorm, ResidualRMSNorm, RMSNorm,
+                       SigmoidSiluMulti)
 from .ops.reduction import Reduce, Softmax
+from .ops.shape import (Concat, Flat, Gather, Reshape, Reverse, Split,
+                        Transpose)
 from .parallel.mesh import check_axes, data_parallel_strategy, make_mesh
 from .search.strategy import load_strategy, save_strategy
 from .training import loss as loss_mod
@@ -70,10 +78,47 @@ from .utils.platform import host_to_device, resolve_device
 from .utils.profiling import maybe_profile
 from .utils.runlog import log_run
 
-SLICE_11C = ("slice 11c (the ops breadth: embedding's aggr, conv, pool, "
-             "batch norm, the shape ops, the decode heads, MoE, models/* "
-             "and frontends/*)")
+SLICE_11C_II = "slice 11c-ii (MoE: ops/moe.py, moe_layer and the 'ep' axis)"
+SLICE_11C_III = ("slice 11c-iii (the decode heads, ops/misc.py's Cache and "
+                 "frontends/*)")
 SLICE_11D = "slice 11d (pipeline and ring-attention training)"
+
+
+def _escape(name: str) -> str:
+    return name.replace("%", "%25").replace(".", "%2E")
+
+
+def _unescape(key: str) -> str:
+    return key.replace("%2E", ".").replace("%25", "%")
+
+
+class NodeModules(nn.ModuleDict):
+    """An ``nn.ModuleDict`` keyed by node name.  A node name may hold a
+    ``.`` (the reference's ``"layer1.0.conv1"``), which a module's own
+    name may not: the key a module is registered under is the name with
+    ``%`` and ``.`` escaped, and every access takes and gives node
+    names."""
+
+    def __getitem__(self, name: str) -> nn.Module:
+        return super().__getitem__(_escape(name))
+
+    def __setitem__(self, name: str, module: nn.Module) -> None:
+        super().__setitem__(_escape(name), module)
+
+    def __delitem__(self, name: str) -> None:
+        super().__delitem__(_escape(name))
+
+    def __contains__(self, name: str) -> bool:
+        return super().__contains__(_escape(name))
+
+    def __iter__(self):
+        return (_unescape(k) for k in super().__iter__())
+
+    def keys(self):
+        return list(self)
+
+    def items(self):
+        return [(_unescape(k), m) for k, m in super().items()]
 
 
 class FFModel:
@@ -85,7 +130,7 @@ class FFModel:
         self.device = (mesh.devices[0] if mesh is not None
                        else resolve_device(device))
         self.graph = Graph()
-        self.layers = nn.ModuleDict()   # node name -> its op module
+        self.layers = NodeModules()   # node name -> its op module
         self.pcg: Optional[PCG] = None
         self.plan: Optional[Plan] = None
         self.strategy = None
@@ -123,6 +168,12 @@ class FFModel:
                     kernel_initializer=kernel_initializer,
                     bias_initializer=bias_initializer)
         return self._add(op, [x], name or "dense")[0]
+
+    def embedding(self, x, num_entries, out_dim, aggr="none", name=None,
+                  kernel_initializer=None, dtype=torch.float32):
+        op = Embedding(num_entries, out_dim, as_dtype(dtype), device="meta",
+                       aggr=aggr, kernel_initializer=kernel_initializer)
+        return self._add(op, [x], name or "embedding")[0]
 
     def batch_matmul(self, a, b, a_transposed=False, b_transposed=False,
                      name=None):
@@ -220,6 +271,15 @@ class FFModel:
                                device="meta")
         return self._add(op, ins, name or "residual_layer_norm")
 
+    def add_bias_residual_layer_norm(self, x, residual,
+                                     elementwise_affine=True, eps=1e-5,
+                                     use_bias=True, name=None):
+        """``[x + attn_bias + residual, layer_norm of that sum]``."""
+        op = AddBiasResidualLayerNorm(x.shape[-1], elementwise_affine, eps,
+                                      use_bias, x.dtype, device="meta")
+        return self._add(op, [x, residual],
+                         name or "add_bias_residual_layer_norm")
+
     def residual_rms_norm(self, x, residual, eps=1e-6, name=None):
         """``[x + residual, rms_norm of that sum]``."""
         op = ResidualRMSNorm(x.shape[-1], eps, x.dtype, device="meta")
@@ -228,6 +288,38 @@ class FFModel:
     def sigmoid_silu_multi(self, x1, x2, name=None):
         return self._add(SigmoidSiluMulti(), [x1, x2],
                          name or "sigmoid_silu_multi")[0]
+
+    def batch_norm(self, x, relu=False, eps=1e-5, momentum=0.9, name=None):
+        op = BatchNorm(x.shape[1], relu, eps, momentum, x.dtype,
+                       device="meta")
+        return self._add(op, [x], name or "batch_norm")[0]
+
+    # shape
+    def reshape(self, x, shape, name=None):
+        return self._add(Reshape(shape), [x], name or "reshape")[0]
+
+    def transpose(self, x, perm, name=None):
+        return self._add(Transpose(perm), [x], name or "transpose")[0]
+
+    def concat(self, tensors, axis, name=None):
+        return self._add(Concat(axis), list(tensors), name or "concat")[0]
+
+    def split(self, x, sizes, axis, name=None):
+        """``sizes`` a list of extents, or an int: that many equal
+        parts."""
+        if isinstance(sizes, int):
+            n = x.shape[axis % len(x.shape)] // sizes
+            sizes = [n] * sizes
+        return self._add(Split(sizes, axis), [x], name or "split")
+
+    def gather(self, x, idx, axis, name=None):
+        return self._add(Gather(axis), [x, idx], name or "gather")[0]
+
+    def reverse(self, x, axis, name=None):
+        return self._add(Reverse(axis), [x], name or "reverse")[0]
+
+    def flat(self, x, name=None):
+        return self._add(Flat(), [x], name or "flat")[0]
 
     # reductions
     def softmax(self, x, axis=-1, name=None):
@@ -250,6 +342,20 @@ class FFModel:
                                 device="meta")
         return self._add(op, [query, key, value],
                          name or "multihead_attention")[0]
+
+    # conv nets (NCHW)
+    def conv2d(self, x, out_channels, kernel=(3, 3), stride=(1, 1),
+               padding="SAME", activation=None, use_bias=True, groups=1,
+               name=None):
+        op = Conv2D(out_channels, kernel, stride, padding, activation,
+                    use_bias, groups, in_channels=x.shape[1],
+                    dtype=x.dtype, device="meta")
+        return self._add(op, [x], name or "conv2d")[0]
+
+    def pool2d(self, x, kernel=(2, 2), stride=(2, 2), padding="VALID",
+               pool_type="max", name=None):
+        op = Pool2D(kernel, stride, padding, pool_type)
+        return self._add(op, [x], name or "pool2d")[0]
 
     # ------------------------------------------------------------------
     # compile
@@ -366,7 +472,7 @@ class FFModel:
             self.graph, mesh, budget=cfg.search_budget,
             alpha=cfg.search_alpha, substitution=True, output_tids=out_tids)
         self.graph = graph
-        self.layers = nn.ModuleDict({n.name: n.op for n in graph.nodes})
+        self.layers = NodeModules({n.name: n.op for n in graph.nodes})
         return strategy, [tid_map[t] for t in out_tids]
 
     def recompile(self, strategy: Optional[Dict[str, Dict]] = None,
@@ -771,15 +877,15 @@ def _later(method: str, where: str):
 
 
 # the builder methods of later slices
-for _method in ("embedding", "add_bias_residual_layer_norm",
-                "batch_norm", "reshape", "transpose",
-                "concat", "split", "gather", "reverse", "flat", "argmax",
-                "top_k", "arg_top_k", "sampling", "beam_top_k", "group_by",
-                "experts", "aggregate", "aggregate_spec", "moe_layer",
-                "cache", "conv2d", "pool2d"):
-    setattr(FFModel, _method, _later(_method, SLICE_11C))
+for _method in ("group_by", "experts", "aggregate", "aggregate_spec",
+                "moe_layer"):
+    setattr(FFModel, _method, _later(_method, SLICE_11C_II))
+for _method in ("argmax", "top_k", "arg_top_k", "sampling", "beam_top_k",
+                "cache"):
+    setattr(FFModel, _method, _later(_method, SLICE_11C_III))
 for _method in ("inc_multihead_self_attention", "position_embedding",
                 "spec_inc_multihead_self_attention",
                 "tree_inc_multihead_self_attention"):
     setattr(FFModel, _method, _later(
-        _method, SLICE_11C + "; the port serves through serve.build_model"))
+        _method, SLICE_11C_III + "; the port serves through "
+        "serve.build_model"))

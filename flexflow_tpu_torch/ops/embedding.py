@@ -1,12 +1,24 @@
-"""Token and learned position embeddings.
+"""Token embeddings with aggregation, and learned position embeddings.
 
-Port of ``flexflow_tpu/ops/embedding.py`` for the serve path (a plain
-lookup: no aggregation, no vocabulary sharding) and of the serve graph's
-``PositionEmbedding`` (``flexflow_tpu/serve/ops.py:997-1041``).  ``weight``
-is ``[vocab, embed]``, or ``[num_positions + offset, embed]``, as in the
-reference.  The lookup comes out in the compute dtype the module was built
-with, whatever the dtype its weight was loaded in (reference
-``ops/embedding.py:87``).
+Port of ``flexflow_tpu/ops/embedding.py`` (``Embedding`` :30-120) and of
+the serve graph's ``PositionEmbedding``
+(``flexflow_tpu/serve/ops.py:997-1041``).  ``weight`` is ``[vocab,
+embed]``, or ``[num_positions + offset, embed]``, as in the reference.
+The lookup comes out in the compute dtype the module was built with,
+whatever the dtype its weight was loaded in (reference :87).  ``aggr``
+``"sum"`` or ``"avg"`` reduces the looked-up rows over axis -2 (a bag of
+ids a sample, DLRM's sparse features, :83-86); the serve path's lookups
+are ``"none"``.  The serve path builds the table frozen
+(``requires_grad=False``); ``FFModel.embedding`` builds it trainable,
+through ``core/interpreter.py:init_params``, with its
+``kernel_initializer``.
+
+Sharding (:88-120): ``sample`` splits the ids' batch, ``channel_out``
+the table's columns and the output's last dim, ``entry`` the table's
+rows: a shard answers the ids in its rows (``entry_offset``, set by
+``parallel/tp.py:place_module``) and zeros elsewhere, so the output is a
+partial sum over the ``entry`` axes, which the plan's parallel steps
+reduce (under training, with the reduction's gradient).
 """
 
 from __future__ import annotations
@@ -25,28 +37,37 @@ from ..core.sharding import TensorSharding
 @register_op
 class Embedding(Op, nn.Module):
     type_name = "embedding"
-    aggr = "none"
     # vocabulary-sharded (``entry``): the first id of this shard's rows
     # (parallel/tp.py); None: the whole table
     entry_offset: Optional[int] = None
 
     def __init__(self, num_entries: int, out_dim: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 aggr: str = "none", kernel_initializer=None):
         super().__init__()
+        if aggr not in ("none", "sum", "avg"):
+            raise ValueError(f"bad aggr {aggr!r}")
+        self.aggr = aggr
         self.compute_dtype = dtype
+        self.kernel_initializer = kernel_initializer
         self.weight = nn.Parameter(
             torch.empty(num_entries, out_dim, dtype=dtype, device=device),
             requires_grad=False)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         if self.entry_offset is None:
-            return F.embedding(ids, self.weight).to(self.compute_dtype)
-        rows = self.weight.shape[0]
-        local = ids.long() - self.entry_offset
-        hit = (local >= 0) & (local < rows)
-        emb = F.embedding(local.clamp(0, rows - 1), self.weight)
-        return torch.where(hit[..., None], emb,
-                           torch.zeros_like(emb)).to(self.compute_dtype)
+            emb = F.embedding(ids, self.weight)
+        else:
+            rows = self.weight.shape[0]
+            local = ids.long() - self.entry_offset
+            hit = (local >= 0) & (local < rows)
+            emb = F.embedding(local.clamp(0, rows - 1), self.weight)
+            emb = torch.where(hit[..., None], emb, torch.zeros_like(emb))
+        if self.aggr == "sum":
+            emb = emb.sum(dim=-2)
+        elif self.aggr == "avg":
+            emb = emb.mean(dim=-2)
+        return emb.to(self.compute_dtype)
 
     # ---- op IR (reference ops/embedding.py:51-120) -----------------------
     @property
@@ -58,20 +79,21 @@ class Embedding(Op, nn.Module):
         return self.weight.shape[1]
 
     def signature_attrs(self):
-        # the reference's fields: the table's shape, ``aggr`` and the
-        # default initializer
+        # the reference's fields: the table's shape beside ``aggr`` and
+        # ``kernel_initializer``
         return {**super().signature_attrs(), "num_entries": self.num_entries,
-                "out_dim": self.out_dim, "aggr": self.aggr,
-                "kernel_initializer": None}
+                "out_dim": self.out_dim}
 
     def infer_shapes(self, in_specs):
         ids = in_specs[0]
-        return [TensorSpec(tuple(ids.shape) + (self.out_dim,),
+        lead = ids.shape if self.aggr == "none" else ids.shape[:-1]
+        return [TensorSpec(tuple(lead) + (self.out_dim,),
                            self.compute_dtype)]
 
     def params(self):
         return [ParamSpec("weight", TensorSpec(
-            (self.num_entries, self.out_dim), self.compute_dtype))]
+            (self.num_entries, self.out_dim), self.compute_dtype),
+            self.kernel_initializer)]
 
     def parallel_dims(self, in_specs):
         return {"sample": in_specs[0].shape[0],

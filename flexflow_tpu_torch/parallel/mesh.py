@@ -14,13 +14,15 @@ built: NCCL across distinct CUDA devices, a local sum otherwise.
   ``devices[s*t:(s+1)*t]``, its own ``{"tp": t}`` mesh
   (:meth:`Mesh.stage_meshes`, reference ``serve/pp.py:316-323``); the
   stages share no collective, so such a mesh has no ``comm``;
-* ``{"dp": d}``, ``{"tp": t}`` and ``{"dp": d, "tp": t}`` (either order):
+* any shape over ``dp``, ``tp`` and ``mp`` (``{"dp": d}``, ``{"dp": d,
+  "tp": t}``, ``{"dp": d, "mp": m}``, ``{"mp": m}``..., in any order):
   the training meshes ``FFModel`` runs a plan on (``model.py``), ``dp``
-  the data-parallel axis of ``data_parallel_strategy``.
+  the data-parallel axis of ``data_parallel_strategy``, ``mp`` the axis
+  DLRM's ``entry``-sharded tables split over (``models/dlrm.py``).
 
 The axes of later slices raise ``NotImplementedError`` naming them:
-``ep`` (experts) and ``mp`` (DLRM's model-parallel embeddings) come with
-slice 11c, ``sp`` (ring attention) with slice 11d.
+``ep`` (experts) comes with slice 11c-ii, ``sp`` (ring attention) with
+slice 11d.
 """
 
 from __future__ import annotations
@@ -68,10 +70,10 @@ class Mesh:
 
 
 _LATER_AXES = {
-    "ep": "slice 11c (the ops breadth: MoE's expert parallelism)",
-    "mp": "slice 11c (the ops breadth: DLRM's model-parallel embeddings)",
+    "ep": "slice 11c-ii (MoE and its expert parallelism)",
     "sp": "slice 11d (pipeline and ring-attention training)",
 }
+TRAIN_AXES = frozenset({"dp", "tp", "mp"})
 
 
 def check_axes(shape: Dict[str, int]) -> None:
@@ -89,11 +91,11 @@ def make_mesh(shape: Dict[str, int],
 
     ``shape`` is ``{"tp": n}``, or ``{"pp": p, "tp": t}`` (``tp``
     defaults to 1; ``pp=1`` is the plain ``{"tp": t}`` mesh) over ``n =
-    p * t`` devices, pp-major (serving), or ``{"dp": d}``, ``{"tp": t}``
-    or ``{"dp": d, "tp": t}`` over ``d * t`` devices, row-major over the
+    p * t`` devices, pp-major (serving), or any shape over ``dp``,
+    ``tp`` and ``mp`` over the product of its sizes, row-major over the
     shape's axes (training; ``{"dp": 1}`` is one device).  An axis of a
-    later slice (``ep``, ``mp``, ``sp``) raises ``NotImplementedError``;
-    any other shape raises ``ValueError``.
+    later slice (``ep``, ``sp``) raises ``NotImplementedError``; any other
+    shape raises ``ValueError``.
     ``devices=None`` is ``cuda:0`` ... ``cuda:n-1`` and raises when the
     machine has fewer cards.  A device may appear more than once only when
     the caller lists it so (``["cuda:0", "cuda:0"]``: two shards or two
@@ -108,10 +110,10 @@ def make_mesh(shape: Dict[str, int],
             dev = torch.device("cuda", torch.cuda.current_device())
         return Mesh(shape, [dev])
     serve = set(shape) <= {"pp", "tp"}
-    if not shape or not (serve or set(shape) <= {"dp", "tp"}):
+    if not shape or not (serve or set(shape) <= TRAIN_AXES):
         raise ValueError(f"mesh {shape}: the port's mesh is {{'tp': n}} "
-                         "or {'pp': p, 'tp': t} (serving), or {'dp': d}, "
-                         "{'tp': t} or {'dp': d, 'tp': t} (training)")
+                         "or {'pp': p, 'tp': t} (serving), or a shape over "
+                         "'dp', 'tp' and 'mp' (training)")
     if any(v < 1 for v in shape.values()):
         raise ValueError(f"mesh {shape}: every axis must be at least 1")
     if serve:

@@ -329,7 +329,10 @@ def place_module(mod: nn.Module, st, plan: ShardPlan, rank: int) -> None:
         mod.head_offset = head.index(coords, shape) * mod.num_q_heads
     if isinstance(mod, Embedding) and "entry" in live:
         entry = TensorSharding.from_axes(1, {0: live["entry"]}).dims[0]
-        mod.entry_offset = entry.index(coords, shape) * mod.weight.shape[0]
+        # the global table's rows over the axes (a training shard's copy
+        # has no weight until init_params sets its block)
+        rows = st.node.op.num_entries // entry.degree(shape)
+        mod.entry_offset = entry.index(coords, shape) * rows
     if attention or isinstance(mod, Linear):
         mod.skip_bias = partial and not first
     if isinstance(mod, Linear) and "sample" in live:

@@ -46,6 +46,8 @@ CLASSES = (   # (class, substrings of the kernel name), first match wins
     ("attention K3 tree per-token", ("tree_token_plan_kernel",
                                      "tree_token_split_kernel",
                                      "tree_token_split_tf32_kernel")),
+    ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                     "winograd", "im2col", "col2im")),
     ("matmul", ("nvjet", "gemm", "gemv", "xmma", "cutlass", "sm90")),
     ("index / copy", ("index", "copy", "gather", "scatter", "cat")),
     ("elementwise / reduce", ("elementwise", "reduce", "softmax", "norm")),

@@ -3,20 +3,22 @@
 
     python scripts/profile_torch_train.py [--layers 12] [--seq 512]
     python scripts/profile_torch_train.py --optimizer sgd
+    python scripts/profile_torch_train.py --model resnet18 [--batch 32]
 
 Builds the Transformer classifier (``models/transformer.py``) at
 BERT-base width (hidden 768, 12 heads, ff 3072, 16 classes; depth and
-sequence set by ``--layers`` and ``--seq``) on the card in float32 with
-TF32 off, compiles it with Adam (lr 1e-4) or SGD with momentum 0.9, and
-runs ``FFModel``'s train step on a fixed batch of 8: the median step
-between two ``torch.cuda.synchronize`` after ``--warmup`` steps; the
-device time of the forward with its loss, of the backward and of the
-optimizer's update, each between CUDA events on the stream (a lower
-bound where the host issues slower than the device runs); then
-``--traced`` steps under ``torch.profiler``: the wall, the device time
-summed over kernels, the busy share, the device time by kernel class
-and the top kernels.  Needs a CUDA device; the card's name and power
-limit are printed first.
+sequence set by ``--layers`` and ``--seq``), or ResNet-18
+(``models/vision.py``) at ImageNet width (``(3, 224, 224)``, 1000
+classes), on the card in float32 with TF32 off, compiles it with Adam
+(lr 1e-4) or SGD with momentum 0.9, and runs ``FFModel``'s train step on
+a fixed batch (default 8; ``--batch``): the median step between two
+``torch.cuda.synchronize`` after ``--warmup`` steps; the device time of
+the forward with its loss, of the backward and of the optimizer's
+update, each between CUDA events on the stream (a lower bound where the
+host issues slower than the device runs); then ``--traced`` steps under
+``torch.profiler``: the wall, the device time summed over kernels, the
+busy share, the device time by kernel class and the top kernels.
+Needs a CUDA device; the card's name and power limit are printed first.
 """
 
 import argparse
@@ -31,6 +33,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--model", default="transformer",
+                    choices=["transformer", "resnet18"])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
     ap.add_argument("--warmup", type=int, default=3)
@@ -48,6 +52,7 @@ def main(argv=None):
     from flexflow_tpu_torch.core.interpreter import place_inputs
     from flexflow_tpu_torch.models.transformer import \
         build_transformer_classifier
+    from flexflow_tpu_torch.models.vision import build_resnet18
     from flexflow_tpu_torch.utils.platform import host_to_device
     from profile_torch_serve import profile_window, report
 
@@ -58,21 +63,30 @@ def main(argv=None):
                          text=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = build_transformer_classifier(
-        ff.FFConfig(batch_size=args.batch), batch=args.batch, seq=args.seq,
-        num_layers=args.layers, hidden_dim=768, num_heads=12, ff_dim=3072,
-        num_classes=16)
+    cfg = ff.FFConfig(batch_size=args.batch)
+    rng = np.random.RandomState(0)
+    if args.model == "resnet18":
+        model, _, out = build_resnet18(cfg, batch=args.batch,
+                                       num_classes=1000, image=(3, 224, 224))
+        x = rng.randn(args.batch, 3, 224, 224).astype(np.float32)
+        classes, what = 1000, "ResNet-18 at 224"
+    else:
+        model = build_transformer_classifier(
+            cfg, batch=args.batch, seq=args.seq, num_layers=args.layers,
+            hidden_dim=768, num_heads=12, ff_dim=3072, num_classes=16)
+        out = None
+        x = rng.randn(args.batch, args.seq, 768).astype(np.float32)
+        classes, what = 16, f"{args.layers} layers, seq {args.seq}"
     opt = (ff.AdamOptimizer(alpha=1e-4) if args.optimizer == "adam"
            else ff.SGDOptimizer(lr=0.01, momentum=0.9))
-    model.compile(optimizer=opt)
-    rng = np.random.RandomState(0)
-    x = rng.randn(args.batch, args.seq, 768).astype(np.float32)
+    model.compile(optimizer=opt, outputs=[out] if out is not None else None)
     batch = place_inputs(model.plan, {model.graph.input_tids[0]: x})
-    labels = host_to_device(rng.randint(0, 16, args.batch), model.device)
-    gen = torch.Generator(model.device).manual_seed(0)
+    labels = host_to_device(rng.randint(0, classes, args.batch),
+                            model.device)
+    seed = 0
 
     def step():
-        return model._train_step(batch, labels, gen)
+        return model._train_step(batch, labels, seed)
 
     walls = []
     for i in range(args.warmup + args.steps):
@@ -85,7 +99,7 @@ def main(argv=None):
     flops = 3 * sum(st.node.op.flops(st.in_specs)
                     for st in model.plan.steps if not st.is_parallel)
     med = statistics.median(walls)
-    print(f"{args.layers} layers, seq {args.seq}, batch {args.batch}, "
+    print(f"{what}, batch {args.batch}, "
           f"{args.optimizer}: median step {med * 1e3:.3f} ms over "
           f"{len(walls)} (min {min(walls) * 1e3:.3f}, max "
           f"{max(walls) * 1e3:.3f}); 3 x forward flops "
@@ -98,7 +112,7 @@ def main(argv=None):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.synchronize()
         ev[0].record()
-        outs = model._forward(batch, training=True, generator=gen)
+        outs = model._forward(batch, training=True, seed=seed)
         loss = model._total_loss(outs, labels)
         ev[1].record()
         loss.backward()

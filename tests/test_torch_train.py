@@ -285,8 +285,8 @@ def test_compile_and_construction_raise_instead_of_falling_back(
         m.compile()
     with pytest.raises(NotImplementedError, match="11d"):
         T.make_mesh({"sp": 2}, ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="11c"):
-        _mlp(T).embedding(None, 10, 4)
+    with pytest.raises(NotImplementedError, match="11c-ii"):
+        _mlp(T).group_by(None, None, 2)
     with pytest.raises(NotImplementedError, match="serve.build_model"):
         _mlp(T).inc_multihead_self_attention(None, 8, 2)
     with pytest.raises(RuntimeError, match="compile"):
