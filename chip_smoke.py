@@ -298,7 +298,36 @@ and prints no result):
    ``binary_crossentropy``, losses within ``rtol 1e-4`` of one device's
    from the same weights and batches, the steps and peak memory.  No
    kernel is launched: conv, pool and the rest are torch ops, as XLA
-   lowers them in the reference.
+   lowers them in the reference;
+25. MoE, the decode heads and the cache, float32 (TF32 off): (a) every op
+   of the slice (``tools/op_parity.py``'s ``SLICE_11C_II`` cases:
+   ``GroupBy`` with random and with tied gates, ``Experts`` with and
+   without a hidden layer, ``Aggregate``, ``AggregateSpec``, ``ArgMax``,
+   ``TopK``, ``ArgTopK``, ``BeamTopK`` on logits whose largest values
+   tie, ``Sampling``, ``Cache``) on the card against the CPU: forward and
+   gradients within ``rtol 1e-4``, ``atol 1e-5``, indices equal element
+   for element, every sampled token inside the CPU's nucleus mask and
+   one seed giving the same tokens twice; (b) one MoE layer at
+   mistralai/Mixtral-8x7B-v0.1's expert widths (hidden 4096, expert
+   hidden 14336, 8 experts, top-2; the reference's ReLU MLP with biases,
+   not Mixtral's SwiGLU) in ``build_moe_classifier``, batch 1024,
+   capacity factor 2.0 (C = 512), SGD by ``fit``, 2 warm-up and 6 timed
+   steps over 2 batches of learnable labels: the median step and its
+   spread, tokens/s, three times the forward flops over the step as a
+   share of the f32 rate, peak memory, and the loss on those batches
+   before and after, which must fall; (c) the classifier at hidden 1024,
+   expert hidden 4096, 8 experts, batch 256 on ``{"ep": 2}`` and ``{"dp":
+   2, "ep": 2}`` with every shard on the card, against one device from
+   the same weights: the forward within ``atol 1e-5``, 2 SGD steps'
+   losses within ``rtol 1e-4`` and the parameters after within ``atol
+   1e-5``, the collectives a step by kind; (d) ``dense(4096 -> 32000)``
+   (Llama-7B's vocabulary) over 64 rows into every decode head, behind a
+   cache, on one device and on ``{"tp": 2}`` (two shards on the card):
+   the outputs equal the CPU's (indices exactly), the sampled tokens
+   inside the CPU's nucleus mask, and the cache in use mode replays the
+   value it stored in refresh mode.  No kernel is launched: the MoE
+   products and the heads' selections are torch ops, as XLA lowers them
+   in the reference.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -4601,7 +4630,7 @@ def phase_vision_dlrm(torch, dev, card):
 
     # (a) every op of the slice on the card against the CPU
     t0 = time.perf_counter()
-    worst = op_parity.check_all(dev)
+    worst = op_parity.check_all(dev, op_parity.SLICE_11C_I)
     log(f"vision and dlrm (a) on {card}: {len(worst)} op cases on the card "
         f"== the CPU (forward and gradients, rtol {op_parity.RTOL}, atol "
         f"{op_parity.ATOL}) in {time.perf_counter() - t0:.1f}s; max abs "
@@ -4786,6 +4815,236 @@ def phase_vision_dlrm(torch, dev, card):
     torch.cuda.empty_cache()
 
 
+# phase 25(b): one MoE layer at mistralai/Mixtral-8x7B-v0.1's expert widths
+# (config.json: hidden_size 4096, intermediate_size 14336,
+# num_local_experts 8, num_experts_per_tok 2); the experts are the
+# reference's ReLU MLP with biases, not Mixtral's SwiGLU
+MIXTRAL_MOE = dict(batch=1024, in_dim=4096, num_experts=8,
+                   expert_hidden=14336, num_classes=16, k=2,
+                   capacity_factor=2.0)
+# phase 25(c): expert parallelism at a smaller width
+EP_MOE = dict(batch=256, in_dim=1024, num_experts=8, expert_hidden=4096,
+              num_classes=16, k=2, capacity_factor=2.0)
+# phase 25(d): the decode heads at Llama-7B's vocabulary and width
+LLAMA_VOCAB, HEAD_IN = 32000, 4096
+
+
+def moe_data(kw, n_batches, seed):
+    """``n_batches`` batches of the classifier's input and learnable
+    labels (the class of a fixed random projection)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n_batches * kw["batch"], kw["in_dim"]).astype(np.float32)
+    proj = rng.randn(kw["in_dim"], kw["num_classes"]).astype(np.float32)
+    return x, np.argmax(x @ proj, axis=-1).astype(np.int32)
+
+
+def head_net(ff, device_or_mesh, x_dim, vocab, rows):
+    """``dense(x_dim -> vocab)`` into each decode head and a cache, on one
+    device or a ``{"tp": 2}`` mesh (the vocabulary split, gathered before
+    the heads); returns the model."""
+    mesh = device_or_mesh if hasattr(device_or_mesh, "shape") else None
+    m = ff.FFModel(ff.FFConfig(batch_size=rows, seed=0), mesh=mesh,
+                   device=None if mesh else device_or_mesh)
+    x = m.create_tensor((rows, x_dim))
+    logits = m.dense(m.cache(x, name="feat_cache"), vocab, name="lm_head")
+    outs = [m.argmax(logits), *m.top_k(logits, 8),
+            *m.arg_top_k(logits, 8, speculative_decoding=True),
+            *m.beam_top_k(m.reshape(logits, (rows // 4, 4, vocab)), 8),
+            m.sampling(logits, top_p=0.9, temperature=0.8)]
+    strategy = ({"lm_head": {"channel_out": ("tp",)}} if mesh is not None
+                else {})
+    m.compile(outputs=outs, strategy=strategy, loss_type="identity")
+    return m
+
+
+def phase_moe_heads(torch, dev, card):
+    """Phase 25: MoE, the decode heads and the cache on the card (module
+    docstring, item 25), float32, TF32 off."""
+    import gc
+    import statistics
+
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.core.interpreter import (build_forward,
+                                                     place_inputs)
+    from flexflow_tpu_torch.models.moe import build_moe_classifier
+    from flexflow_tpu_torch.ops.reduction import nucleus_keep
+    from flexflow_tpu_torch.tools import op_parity
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) every op of the slice on the card against the CPU
+    t0 = time.perf_counter()
+    worst = op_parity.check_all(dev, op_parity.SLICE_11C_II)
+    log(f"moe and heads (a) on {card}: {len(worst)} op cases on the card "
+        f"== the CPU (forward and gradients, rtol {op_parity.RTOL}, atol "
+        f"{op_parity.ATOL}; indices equal, planted ties included; "
+        f"sampling inside the CPU's nucleus mask, one seed twice the same "
+        f"tokens) in {time.perf_counter() - t0:.1f}s; max abs diffs "
+        + ", ".join(f"{n} {e:.2e}" for n, e in worst))
+
+    # (b) one MoE layer at Mixtral-8x7B's expert widths, one device
+    kw = MIXTRAL_MOE
+    warm, timed = 2, 6
+    x, y = moe_data(kw, 2, 25)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    m, _, out, _ = build_moe_classifier(
+        ff.FFConfig(batch_size=kw["batch"], seed=0), device=dev, **kw)
+    m.compile(optimizer=ff.SGDOptimizer(lr=0.01), outputs=[out])
+    setup = time.perf_counter() - t0
+    n_params = sum(v.numel() for g in m.params.values() for v in g.values())
+    fwd = forward_flops(m)
+    expert_fwd = sum(st.node.op.flops(st.in_specs) for st in m.plan.steps
+                     if st.node.op.type_name == "experts")
+    before = m.evaluate(x, y)["loss"]
+    losses = []
+    times = step_timer(m, torch, losses)
+    torch.cuda.reset_peak_memory_stats()
+    m.fit(x, y, epochs=(warm + timed) // 2, shuffle=False, verbose=False)
+    peak = torch.cuda.max_memory_allocated() - base
+    after = m.evaluate(x, y)["loss"]
+    step = statistics.median(times[warm:])
+    share = 3 * fwd / step / PEAK_FLOPS["float32"]
+    log(f"moe and heads (b) on {card}: one MoE layer at "
+        f"mistralai/Mixtral-8x7B-v0.1's expert widths (hidden "
+        f"{kw['in_dim']}, expert hidden {kw['expert_hidden']}, "
+        f"{kw['num_experts']} experts, top-{kw['k']}; the reference's ReLU "
+        f"MLP with biases, not Mixtral's SwiGLU), batch {kw['batch']} "
+        f"tokens, capacity factor {kw['capacity_factor']} (C = "
+        f"{m.graph.spec(m.graph.nodes[3].outputs[0]).shape[1]}), "
+        f"{n_params / 1e9:.3f} G parameters, SGD 0.01, setup {setup:.1f}s: "
+        f"median step {step * 1e3:.3f} ms over {timed} steps after {warm} "
+        f"warm-up (min {min(times[warm:]) * 1e3:.3f}, max "
+        f"{max(times[warm:]) * 1e3:.3f}); {kw['batch'] / step:.0f} tokens/s;"
+        f" 3 x forward flops {3 * fwd / 1e12:.4f} TFLOP a step (experts' "
+        f"forward {expert_fwd / 1e12:.4f}), {3 * fwd / step / 1e12:.2f} "
+        f"TFLOP/s = {share:.4f} of {PEAK_FLOPS['float32'] / 1e12:.0f} "
+        f"TFLOP/s f32; peak memory {peak / 1e9:.2f} GB (above the "
+        f"{base / 1e9:.2f} GB held before); loss on its 2 batches "
+        f"{before:.4f} before, {after:.4f} after {len(times)} steps; step "
+        f"losses {[round(v, 4) for v in losses]}")
+    if not (np.isfinite(losses).all() and after < before):
+        raise RuntimeError(f"moe (b): the loss did not fall: {before} -> "
+                           f"{after}, steps {losses}")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) expert parallelism, every shard on the card, against one device
+    kw = EP_MOE
+    x, y = moe_data(kw, 2, 26)
+    runs, init = {}, None
+    for shape in ({"dp": 1}, {"ep": 2}, {"dp": 2, "ep": 2}):
+        n = 1
+        for v in shape.values():
+            n *= v
+        mesh = ff.make_mesh(shape, [dev] * n)
+        axes = dict(ep_axes=("ep",) if "ep" in shape else (),
+                    dp_axes=("dp",) if shape.get("dp", 1) > 1 else ())
+        mm, _, out, strategy = build_moe_classifier(
+            ff.FFConfig(batch_size=kw["batch"], seed=0), mesh=mesh, **axes,
+            **kw)
+        mm.compile(optimizer=ff.SGDOptimizer(lr=0.01), outputs=[out],
+                   strategy=strategy or None)
+        if init is None:
+            init = {k: {p: v.detach().clone() for p, v in g.items()}
+                    for k, g in mm.params.items()}
+        else:
+            mm.load_params(init)
+        first = mm.forward(x[:kw["batch"]]).cpu()
+        kinds = count_collectives(mesh.comm)
+        step_losses = []
+        mtimes = step_timer(mm, torch, step_losses)
+        mm.fit(x, y, epochs=1, shuffle=False, verbose=False)
+        params = {f"{k}.{p}": v.detach().cpu() for k, g in mm.params.items()
+                  for p, v in g.items()}
+        runs[tuple(shape.items())] = (first, step_losses, params,
+                                      dict(kinds), mm.grad_allreduces,
+                                      statistics.median(mtimes))
+        del mm
+        gc.collect()
+        torch.cuda.empty_cache()
+    one = runs[(("dp", 1),)]
+    for key, (first, ls, params, kinds, grads, st) in runs.items():
+        if key == (("dp", 1),):
+            continue
+        fdiff = float((first - one[0]).abs().max())
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ls, one[1]))
+        perr = max(float((params[k] - v).abs().max())
+                   for k, v in one[2].items())
+        log(f"moe and heads (c) on {card}: {dict(key)} (every shard on the "
+            f"card) against one device, hidden {kw['in_dim']}, expert "
+            f"hidden {kw['expert_hidden']}, {kw['num_experts']} experts, "
+            f"top-{kw['k']}, batch {kw['batch']}: forward max abs diff "
+            f"{fdiff:.3e} (tol 1e-5), 2 SGD steps' losses "
+            f"{[round(v, 6) for v in ls]} against "
+            f"{[round(v, 6) for v in one[1]]} (max rel {rel:.3e}, tol 1e-4), "
+            f"parameters after max abs diff "
+            f"{perr:.3e} (tol 1e-5); collectives a step by kind "
+            f"{ {k: v / 2 for k, v in sorted(kinds.items())} } ({grads / 2:g} "
+            f"gradient all-reduces a step); median step {st * 1e3:.3f} ms "
+            f"against one device's {one[5] * 1e3:.3f} ms")
+        if fdiff > 1e-5 or rel > 1e-4 or perr > 1e-5:
+            raise RuntimeError(f"moe (c): {dict(key)} differs from one "
+                               "device beyond the tolerance")
+
+    # (d) the decode heads at Llama-7B's vocabulary, and the cache
+    rows, x_dim = 64, HEAD_IN
+    xh = np.random.RandomState(27).randn(rows, x_dim).astype(np.float32)
+    cpu = head_net(ff, "cpu", x_dim, LLAMA_VOCAB, rows)
+    w = {k: {p: v.detach().clone() for p, v in g.items()}
+         for k, g in cpu.params.items()}
+    want = cpu.forward(xh)
+    logits = torch.tensor(xh) @ w["lm_head"]["kernel"] + w["lm_head"]["bias"]
+    keep = nucleus_keep(logits / 0.8, 0.9)
+    worst = 0.0
+    for label, where in (("one device", dev),
+                         ("tp=2", ff.make_mesh({"tp": 2}, [dev, dev]))):
+        m = head_net(ff, where, x_dim, LLAMA_VOCAB, rows).load_params(w)
+        got = [t.cpu() for t in m.forward(xh)]
+        again = [t.cpu() for t in m.forward(xh)]
+        for i, (a, b) in enumerate(zip(got[:-1], want[:-1])):
+            if a.is_floating_point():
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+                worst = max(worst, float((a - b).abs().max()))
+            elif not torch.equal(a, b):
+                raise RuntimeError(f"heads (d) {label}: output {i} differs "
+                                   "from the CPU's")
+        tok = got[-1]
+        if not (torch.equal(tok, again[-1])
+                and keep[torch.arange(rows), tok.long()].all()):
+            raise RuntimeError(f"heads (d) {label}: sampling left the "
+                               "nucleus or one seed gave two token sets")
+        # the cache: refresh with xh, use with another input
+        fwd = build_forward(m.plan)
+        tid = m.graph.input_tids[0]
+        with torch.no_grad():
+            o1, st = fwd(place_inputs(m.plan, {tid: xh}), state={},
+                         extras={})
+            o2, _ = fwd(place_inputs(m.plan, {tid: -xh}), state=st,
+                        extras={"cache_use": True})
+        if not all(torch.equal(a, b) for a, b in zip(o1[:-1], o2[:-1])):
+            raise RuntimeError(f"heads (d) {label}: the cache did not "
+                               "replay its stored value")
+        del m
+    log(f"moe and heads (d) on {card}: dense({x_dim} -> {LLAMA_VOCAB}) "
+        f"over {rows} rows into argmax, top_k(8), arg_top_k(8, with "
+        f"probabilities), beam_top_k(8) over [16, 4, {LLAMA_VOCAB}] and "
+        f"sampling (top_p 0.9, temperature 0.8), on one device and on "
+        f"tp=2 (two shards on the card): indices equal to the CPU's, "
+        f"values max abs diff {worst:.3e} (rtol 1e-4, atol 1e-5), every "
+        f"sampled token inside the CPU's nucleus, one seed twice the same "
+        f"tokens; the cache replayed its stored value in use mode")
+    torch.cuda.empty_cache()
+
+
 def tc_reports(text):
     """(kernel, "registers, shared memory, spills") of each tensor-core
     kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
@@ -4897,6 +5156,7 @@ def main():
     timed("training planner", lambda: phase_training_planner(torch, dev,
                                                               card))
     timed("vision and dlrm", lambda: phase_vision_dlrm(torch, dev, card))
+    timed("moe and heads", lambda: phase_moe_heads(torch, dev, card))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)

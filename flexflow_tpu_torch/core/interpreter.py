@@ -129,10 +129,17 @@ def _op_run(st, index: int, mesh):
     def run(op, ctx, *xs):
         if not op.uses_context:
             return op(*xs)
-        return op(*xs, ctx=dataclasses.replace(
+        states = ctx.states if op.stateful else None
+        sctx = dataclasses.replace(
             ctx, config=st.config,
             seed=None if ctx.seed is None else mix_seed(ctx.seed, index),
-            block=_block(ctx.rank, axes, mesh)))
+            block=_block(ctx.rank, axes, mesh),
+            state=None if states is None else states.get(st.name))
+        out = op(*xs, ctx=sctx)
+        if op.stateful and ctx.new_states is not None \
+                and sctx.state_out is not None:
+            ctx.new_states[st.name] = sctx.state_out
+        return out
 
     return run
 
@@ -178,14 +185,20 @@ class PlanShards:
                           for st in plan.steps] for ops in self.ops]
 
     def run(self, rank: int, blocks: Dict[int, torch.Tensor],
-            training: bool, seed: Optional[int]):
+            training: bool, seed: Optional[int],
+            states: Optional[Dict[str, Any]] = None,
+            new_states: Optional[Dict[str, Any]] = None,
+            extras: Optional[Dict[str, Any]] = None):
         """Shard ``rank``'s forward over its ``blocks`` (``{graph input
         tid: block}``): a generator of the plan's collectives returning
-        the exit tensors (whole on shard 0)."""
+        the exit tensors (whole on shard 0).  A stateful step gives the
+        shard's ``states`` by node and a ``new_states`` dict its stateful
+        ops fill."""
         ex = self.executor
         env = {vid: blocks[t] for t, vid in self.plan.plan.input_vids.items()}
         ctx = OpContext(training=training, rank=rank, seed=seed,
-                        mesh=self.mesh if self.size > 1 else None)
+                        mesh=self.mesh if self.size > 1 else None,
+                        extras=extras, states=states, new_states=new_states)
         env = yield from run_nodes(ex.nodes, self.step_ops[rank], ex.drops,
                                    env, ctx)
         return (yield from ex.leave(env))
@@ -201,25 +214,45 @@ def plan_shards(plan) -> PlanShards:
 
 
 def build_forward(plan, mode: str = "spmd") -> Callable:
-    """``fn(inputs, training=False, seed=None) -> [outputs]``: ``inputs``
-    ``{graph input tid: [each shard's block]}`` (:func:`place_inputs`),
-    every shard's forward run in lockstep (``run_shards``; alone with
-    identity collectives on one device), the outputs whole on shard 0;
-    ``seed`` is the step's (dropout streams derive from it).  ``mode``
-    is the reference's lowering, ``"spmd"`` (GSPMD over global arrays) or
-    ``"local"`` (``shard_map`` over blocks); both lower here to the one
-    shard-local executor, so they compute the same values."""
+    """``fn(inputs, training=False, seed=None, state=None, extras=None)
+    -> [outputs]``: ``inputs`` ``{graph input tid: [each shard's
+    block]}`` (:func:`place_inputs`), every shard's forward run in
+    lockstep (``run_shards``; alone with identity collectives on one
+    device), the outputs whole on shard 0; ``seed`` is the step's
+    (dropout streams derive from it).  ``mode`` is the reference's
+    lowering, ``"spmd"`` (GSPMD over global arrays) or ``"local"``
+    (``shard_map`` over blocks); both lower here to the one shard-local
+    executor, so they compute the same values.
+
+    Stateful execution (reference :44-51, :82-97): given ``state``
+    (``{node name: state}``, ``{}`` at first) and ``extras`` (values
+    every op sees, ``{"cache_use": True}``), each op marked ``stateful``
+    reads its node's state and publishes its new one, and ``fn`` returns
+    ``(outputs, new_state)``.  On a mesh a node's state is a list of
+    each shard's (its own block's)."""
     if mode not in ("spmd", "local"):
         raise ValueError(f"unknown mode {mode!r}")
     shards = plan_shards(plan)
+    n = shards.size
 
     def fn(inputs: Dict[int, List[torch.Tensor]], training: bool = False,
-           seed: Optional[int] = None) -> List[torch.Tensor]:
+           seed: Optional[int] = None, state: Optional[Dict[str, Any]] = None,
+           extras: Optional[Dict[str, Any]] = None):
+        ins = [state if state is None or n == 1 else
+               {k: v[r] for k, v in state.items()} for r in range(n)]
+        outs = [None if state is None else {} for _ in range(n)]
         gens = [shards.run(r, {t: v[r] for t, v in inputs.items()},
-                           training, seed) for r in range(shards.size)]
-        if shards.size == 1:
-            return run_local(gens[0])
-        return run_shards(gens, plan.mesh.comm)[0]
+                           training, seed, ins[r], outs[r], extras)
+                for r in range(n)]
+        if n == 1:
+            result = run_local(gens[0])
+        else:
+            result = run_shards(gens, plan.mesh.comm)[0]
+        if state is None:
+            return result
+        if n == 1:
+            return result, outs[0]
+        return result, {k: [o[k] for o in outs] for k in outs[0]}
 
     return fn
 

@@ -28,7 +28,7 @@ executor (``parallel/tp.py``) gives each module its shard, and
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -49,7 +49,13 @@ class OpContext:
     (``core/interpreter.py:build_forward``) gives each op step a seed of
     its own and each shard the index of the block it holds of the step's
     tensors, so shards holding different blocks draw different masks and
-    replicas of one block draw the same."""
+    replicas of one block draw the same.
+
+    A stateful step (``build_forward``'s ``state=``, reference :44-51)
+    also gives ``extras`` (values every op sees, e.g. ``"cache_use"``),
+    each op marked ``stateful`` its own ``state``, and takes what the op
+    puts in ``state_out`` as its new state; ``states`` and ``new_states``
+    are the shard's state by node, in and out."""
 
     training: bool = False
     generator: Optional[torch.Generator] = None
@@ -58,6 +64,11 @@ class OpContext:
     mesh: Optional[object] = None
     seed: Optional[int] = None
     block: int = 0
+    extras: Optional[Dict[str, Any]] = None
+    states: Optional[Dict[str, Any]] = None
+    new_states: Optional[Dict[str, Any]] = None
+    state: Any = None
+    state_out: Any = None
 
     def stream(self, device) -> Optional[torch.Generator]:
         """The generator an op draws from on ``device``: ``generator``,
@@ -100,6 +111,8 @@ class Op:
     type_name: str = "op"
     # forward(*inputs, ctx=OpContext) rather than forward(*inputs)
     uses_context: bool = False
+    # keeps state across steps (ops/misc.py:Cache; needs uses_context)
+    stateful: bool = False
 
     def infer_shapes(self, in_specs: List[TensorSpec]) -> List[TensorSpec]:
         raise NotImplementedError

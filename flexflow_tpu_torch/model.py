@@ -66,7 +66,10 @@ from .ops.linear import BatchMatmul, Linear
 from .ops.norm import (AddBiasResidualLayerNorm, BatchNorm, LayerNorm,
                        ResidualLayerNorm, ResidualRMSNorm, RMSNorm,
                        SigmoidSiluMulti)
-from .ops.reduction import Reduce, Softmax
+from .ops.misc import Cache
+from .ops.moe import Aggregate, AggregateSpec, Experts, GroupBy
+from .ops.reduction import (ArgMax, ArgTopK, BeamTopK, Reduce, Sampling,
+                            Softmax, TopK)
 from .ops.shape import (Concat, Flat, Gather, Reshape, Reverse, Split,
                         Transpose)
 from .parallel.mesh import check_axes, data_parallel_strategy, make_mesh
@@ -78,9 +81,8 @@ from .utils.platform import host_to_device, resolve_device
 from .utils.profiling import maybe_profile
 from .utils.runlog import log_run
 
-SLICE_11C_II = "slice 11c-ii (MoE: ops/moe.py, moe_layer and the 'ep' axis)"
-SLICE_11C_III = ("slice 11c-iii (the decode heads, ops/misc.py's Cache and "
-                 "frontends/*)")
+SLICE_11C_III = ("slice 11c-iii (the builder's serve attention methods, "
+                 "position_embedding and frontends/*)")
 SLICE_11D = "slice 11d (pipeline and ring-attention training)"
 
 
@@ -332,6 +334,67 @@ class FFModel:
     def reduce_mean(self, x, axes, keepdims=False, name=None):
         return self._add(Reduce("mean", axes, keepdims), [x],
                          name or "reduce_mean")[0]
+
+    # the decode heads (a graph that ends in one compiles with
+    # loss_type="identity" and runs forward; indices are int32)
+    def argmax(self, x, name=None):
+        return self._add(ArgMax(), [x], name or "argmax")[0]
+
+    def top_k(self, x, k, sorted=True, name=None):
+        return self._add(TopK(k, sorted), [x], name or "top_k")
+
+    def arg_top_k(self, x, k, speculative_decoding=False, name=None):
+        return self._add(ArgTopK(k, speculative_decoding), [x],
+                         name or "arg_top_k")
+
+    def sampling(self, x, top_p=1.0, temperature=1.0, name=None):
+        return self._add(Sampling(top_p, temperature), [x],
+                         name or "sampling")[0]
+
+    def beam_top_k(self, x, max_beam_width, name=None):
+        return self._add(BeamTopK(max_beam_width), [x], name or "beam_top_k")
+
+    # mixture of experts (reference :259-299)
+    def group_by(self, x, gates, num_experts, k=1, capacity_factor=1.25,
+                 name=None):
+        """``[dispatched [E, C, d], combine [N, E, C]]``."""
+        return self._add(GroupBy(num_experts, k, capacity_factor),
+                         [x, gates], name or "group_by")
+
+    def experts(self, dispatched, out_dim, hidden_dim=None, activation="relu",
+                name=None):
+        op = Experts(out_dim, hidden_dim, activation, dtype=dispatched.dtype,
+                     device="meta")
+        return self._add(op, [dispatched], name or "experts")[0]
+
+    def aggregate(self, expert_out, combine, name=None):
+        return self._add(Aggregate(), [expert_out, combine],
+                         name or "aggregate")[0]
+
+    def aggregate_spec(self, expert_out, combine, gates, k=1, name=None):
+        """Each token's ``k`` chosen experts' outputs, unweighted, ``[N,
+        k, d]``."""
+        return self._add(AggregateSpec(k), [expert_out, combine, gates],
+                         name or "aggregate_spec")[0]
+
+    def moe_layer(self, x, num_experts, out_dim, hidden_dim=None, k=1,
+                  capacity_factor=1.25, activation="relu", name=None):
+        """The router (a dense without bias, then softmax), ``group_by``,
+        ``experts`` and ``aggregate``, as nodes ``{name}.router``,
+        ``{name}.group_by``, ``{name}.experts``, ``{name}.aggregate``."""
+        name = name or "moe"
+        gates = self.softmax(self.dense(x, num_experts, use_bias=False,
+                                        name=f"{name}.router"))
+        disp, comb = self.group_by(x, gates, num_experts, k, capacity_factor,
+                                   name=f"{name}.group_by")
+        eo = self.experts(disp, out_dim, hidden_dim, activation,
+                          name=f"{name}.experts")
+        return self.aggregate(eo, comb, name=f"{name}.aggregate")
+
+    def cache(self, x, name=None):
+        """The activation cache (``ops/misc.py``): the identity, or with
+        ``extras["cache_use"]`` in a stateful step the stored value."""
+        return self._add(Cache(), [x], name or "cache")[0]
 
     # attention (training)
     def multihead_attention(self, query, key, value, embed_dim, num_heads,
@@ -876,13 +939,7 @@ def _later(method: str, where: str):
     return raise_later
 
 
-# the builder methods of later slices
-for _method in ("group_by", "experts", "aggregate", "aggregate_spec",
-                "moe_layer"):
-    setattr(FFModel, _method, _later(_method, SLICE_11C_II))
-for _method in ("argmax", "top_k", "arg_top_k", "sampling", "beam_top_k",
-                "cache"):
-    setattr(FFModel, _method, _later(_method, SLICE_11C_III))
+# the builder methods of a later slice
 for _method in ("inc_multihead_self_attention", "position_embedding",
                 "spec_inc_multihead_self_attention",
                 "tree_inc_multihead_self_attention"):

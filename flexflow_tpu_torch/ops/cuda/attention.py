@@ -307,6 +307,19 @@ def _rows_f32(cache, scale, page_table, page_size, rows):
     return x if sc is None else x * sc[..., None]
 
 
+def _distinct_rows(rows, step):
+    """The flat tokens ``rows`` in chunks of at most ``step``: for each
+    chunk its slice, its distinct cache rows and each token's index into
+    them.  The plain versions rebuild (page table, int8 scales) each
+    distinct row once a chunk and index it per token, which gives every
+    token the values a rebuild of its own row gives: a step's pads share
+    the scratch row, a request's tokens its row."""
+    for lo in range(0, rows.shape[0], step):
+        sl = slice(lo, lo + step)
+        uniq, inv = torch.unique(rows[sl], return_inverse=True)
+        yield sl, uniq, inv
+
+
 # ---------------------------------------------------------------------------
 # The row plan and split partials of the flat-token kernels
 # ---------------------------------------------------------------------------
@@ -404,10 +417,9 @@ def decode_attention_plain(q, k_cache, v_cache, rows, positions, scale,
     key_pos = torch.arange(s, device=q.device)
     out = torch.empty_like(q)
     step = max(1, _GATHER_ELEMS // (kv * s * d))
-    for lo in range(0, t, step):
-        sl = slice(lo, lo + step)
-        k_tok = _rows_f32(k_cache, k_scale, page_table, page_size, rows[sl])
-        v_tok = _rows_f32(v_cache, v_scale, page_table, page_size, rows[sl])
+    for sl, uniq, inv in _distinct_rows(rows, step):
+        k_tok = _rows_f32(k_cache, k_scale, page_table, page_size, uniq)[inv]
+        v_tok = _rows_f32(v_cache, v_scale, page_table, page_size, uniq)[inv]
         qr = q[sl].float().reshape(-1, kv, gq, d)
         scores = torch.einsum("tkgd,tksd->tkgs", qr, k_tok) * scale
         if slopes is not None:   # ALiBi: slope * (key_pos - pos), in f32
@@ -606,15 +618,13 @@ def tree_attention_plain(q, k_cache, v_cache, k_spec, v_spec, rows, clens,
     key_pos = torch.arange(s, device=q.device)
     out = torch.empty_like(q)
     step = max(1, _GATHER_ELEMS // (kv * (s + p) * d))
-    for lo in range(0, t, step):
-        sl = slice(lo, lo + step)
-        r = rows[sl]
+    for sl, uniq, inv in _distinct_rows(rows, step):
         k_tok = torch.cat([
-            _rows_f32(k_cache, k_scale, page_table, page_size, r),
-            k_spec[r].float()], dim=2)
+            _rows_f32(k_cache, k_scale, page_table, page_size, uniq),
+            k_spec[uniq].float()], dim=2)[inv]
         v_tok = torch.cat([
-            _rows_f32(v_cache, v_scale, page_table, page_size, r),
-            v_spec[r].float()], dim=2)
+            _rows_f32(v_cache, v_scale, page_table, page_size, uniq),
+            v_spec[uniq].float()], dim=2)[inv]
         live = torch.cat([key_pos[None, :] < clens[sl, None], amask[sl]],
                          dim=1)[:, None, None, :]           # [t', 1, 1, S+P]
         qr = q[sl].float().reshape(-1, kv, gq, d)

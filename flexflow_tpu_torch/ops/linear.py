@@ -53,10 +53,28 @@ from .elementwise import propagate
 def dequant(w: torch.Tensor, scale, dtype: torch.dtype) -> torch.Tensor:
     """An int8 weight times its per-out-channel scales, in ``dtype``
     (``flexflow_tpu/serve/quant.py:153``); any other weight cast to
-    ``dtype`` (a no-op when it has it)."""
+    ``dtype`` (a no-op when it has it).  On a CUDA device the product is
+    made for each use and dropped after it; on the CPU it is kept on the
+    weight (:func:`_host_dequant`)."""
     if w.dtype != torch.int8:
         return w.to(dtype)
+    if w.device.type == "cpu":
+        return _host_dequant(w, scale, dtype)
     return (w * scale).to(dtype)   # int8 * f32 promotes to f32
+
+
+def _host_dequant(w: torch.Tensor, scale, dtype: torch.dtype
+                  ) -> torch.Tensor:
+    """The dequantized copy of a CPU int8 weight, made once and kept on
+    the weight while neither it nor its scales change (their
+    ``_version``), so a CPU serve does not rebuild every weight on every
+    step; the values are the product's."""
+    key = (w._version, scale.data_ptr(), scale._version, dtype)
+    held = getattr(w, "_dequant", None)
+    if held is None or held[0] != key:
+        held = (key, (w * scale).to(dtype))
+        w._dequant = held
+    return held[1]
 
 
 def add_bias(y: torch.Tensor, bias: Optional[torch.Tensor],
@@ -97,10 +115,11 @@ class Linear(Op, nn.Module):
         self.kernel = nn.Parameter(
             torch.empty(in_dim, out_dim, dtype=dtype, device=device),
             requires_grad=False)
-        self.bias = (nn.Parameter(torch.empty(out_dim, dtype=dtype,
-                                              device=device),
-                                  requires_grad=False)
-                     if use_bias else None)
+        # a layer without bias registers None, so ``bias`` is no field of
+        # its ``vars()`` (the reference's signature has none)
+        self.register_parameter("bias", nn.Parameter(
+            torch.empty(out_dim, dtype=dtype, device=device),
+            requires_grad=False) if use_bias else None)
 
     def product(self, x: torch.Tensor) -> torch.Tensor:
         """``x @ kernel``, the kernel dequantized to x's dtype."""

@@ -14,15 +14,16 @@ built: NCCL across distinct CUDA devices, a local sum otherwise.
   ``devices[s*t:(s+1)*t]``, its own ``{"tp": t}`` mesh
   (:meth:`Mesh.stage_meshes`, reference ``serve/pp.py:316-323``); the
   stages share no collective, so such a mesh has no ``comm``;
-* any shape over ``dp``, ``tp`` and ``mp`` (``{"dp": d}``, ``{"dp": d,
-  "tp": t}``, ``{"dp": d, "mp": m}``, ``{"mp": m}``..., in any order):
-  the training meshes ``FFModel`` runs a plan on (``model.py``), ``dp``
-  the data-parallel axis of ``data_parallel_strategy``, ``mp`` the axis
-  DLRM's ``entry``-sharded tables split over (``models/dlrm.py``).
+* any shape over ``dp``, ``tp``, ``mp`` and ``ep`` (``{"dp": d}``,
+  ``{"dp": d, "tp": t}``, ``{"dp": d, "mp": m}``, ``{"ep": e}``, ``{"dp":
+  d, "ep": e}``..., in any order): the training meshes ``FFModel`` runs a
+  plan on (``model.py``), ``dp`` the data-parallel axis of
+  ``data_parallel_strategy``, ``mp`` the axis DLRM's ``entry``-sharded
+  tables split over (``models/dlrm.py``), ``ep`` the axis a MoE layer's
+  experts split over (``models/moe.py``).
 
-The axes of later slices raise ``NotImplementedError`` naming them:
-``ep`` (experts) comes with slice 11c-ii, ``sp`` (ring attention) with
-slice 11d.
+The ``sp`` axis (ring attention) comes with slice 11d and raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -70,10 +71,9 @@ class Mesh:
 
 
 _LATER_AXES = {
-    "ep": "slice 11c-ii (MoE and its expert parallelism)",
     "sp": "slice 11d (pipeline and ring-attention training)",
 }
-TRAIN_AXES = frozenset({"dp", "tp", "mp"})
+TRAIN_AXES = frozenset({"dp", "tp", "mp", "ep"})
 
 
 def check_axes(shape: Dict[str, int]) -> None:
@@ -92,10 +92,10 @@ def make_mesh(shape: Dict[str, int],
     ``shape`` is ``{"tp": n}``, or ``{"pp": p, "tp": t}`` (``tp``
     defaults to 1; ``pp=1`` is the plain ``{"tp": t}`` mesh) over ``n =
     p * t`` devices, pp-major (serving), or any shape over ``dp``,
-    ``tp`` and ``mp`` over the product of its sizes, row-major over the
-    shape's axes (training; ``{"dp": 1}`` is one device).  An axis of a
-    later slice (``ep``, ``sp``) raises ``NotImplementedError``; any other
-    shape raises ``ValueError``.
+    ``tp``, ``mp`` and ``ep`` over the product of its sizes, row-major over
+    the shape's axes (training; ``{"dp": 1}`` is one device).  The ``sp``
+    axis (a later slice) raises ``NotImplementedError``; any other shape
+    raises ``ValueError``.
     ``devices=None`` is ``cuda:0`` ... ``cuda:n-1`` and raises when the
     machine has fewer cards.  A device may appear more than once only when
     the caller lists it so (``["cuda:0", "cuda:0"]``: two shards or two
@@ -113,7 +113,7 @@ def make_mesh(shape: Dict[str, int],
     if not shape or not (serve or set(shape) <= TRAIN_AXES):
         raise ValueError(f"mesh {shape}: the port's mesh is {{'tp': n}} "
                          "or {'pp': p, 'tp': t} (serving), or a shape over "
-                         "'dp', 'tp' and 'mp' (training)")
+                         "'dp', 'tp', 'mp' and 'ep' (training)")
     if any(v < 1 for v in shape.values()):
         raise ValueError(f"mesh {shape}: every axis must be at least 1")
     if serve:

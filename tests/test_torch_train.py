@@ -267,7 +267,7 @@ def test_compile_and_construction_raise_instead_of_falling_back(
         monkeypatch):
     for kw, match in ((dict(mesh_shape={"pp": 2, "dp": 1}),
                        "pipeline training"),
-                      (dict(mesh_shape={"ep": 2}), "11c")):
+                      (dict(mesh_shape={"sp": 2}), "11d")):
         with pytest.raises(NotImplementedError, match=match):
             _mlp(T, **kw).compile()
     # a data-parallel-only config skips the search, as the reference does
@@ -285,8 +285,8 @@ def test_compile_and_construction_raise_instead_of_falling_back(
         m.compile()
     with pytest.raises(NotImplementedError, match="11d"):
         T.make_mesh({"sp": 2}, ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="11c-ii"):
-        _mlp(T).group_by(None, None, 2)
+    with pytest.raises(NotImplementedError, match="11c-iii"):
+        _mlp(T).position_embedding(None, 8, 2)
     with pytest.raises(NotImplementedError, match="serve.build_model"):
         _mlp(T).inc_multihead_self_attention(None, 8, 2)
     with pytest.raises(RuntimeError, match="compile"):
