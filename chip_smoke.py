@@ -328,6 +328,23 @@ and prints no result):
    value it stored in refresh mode.  No kernel is launched: the MoE
    products and the heads' selections are torch ops, as XLA lowers them
    in the reference.
+26. the builder's serve path and the frontends: (a) Llama-2-7B (bf16,
+   32 layers) recorded as the reference's builder calls on an ``FFModel``
+   (``build_model(ff, cfg, 512, attention=tree_inc_...)``) and served by
+   ``InferenceManager(ff)``, its weights copied on the card from the
+   family model's by node name: phase 13's 8 prompts for 16 new tokens,
+   in turns with the family model (family, builder, builder, family),
+   greedy streams equal to the family model's and K1 and K2 launched as
+   often, TTFT and TPOT beside the family's; (b) a llama-68m-shaped
+   builder draft (``spec_inc_...``) with that target through
+   ``SpecInferManager`` and ``SpecDecodeScan`` (width 2, depth 3): K3 in
+   both layouts, streams and launches equal to the family path's; (c)
+   ``from_torch`` of a BERT-base-width encoder block (hidden 768, 12
+   heads, ffn 3072, batch 8, sequence 128, f32, TF32 off): its card
+   forward within ``1e-4`` of the module's, two SGD steps (MSE) with
+   losses within ``rtol 1e-4`` of ``torch.optim.SGD``'s and parameters
+   within ``1e-5``; a Keras ``Sequential`` CNN on 4096 28x28 images: one
+   epoch of Adam, the loss falls.
 Every kernel count is set to 0 just before each path and read just after,
 per cache variant, and every plain version is counted too: each path must
 launch its kernels in its variant (K1 and K2 on the incremental paths,
@@ -345,8 +362,8 @@ the kernels at phase 17's shard-local shape with its launches over both
 shards and phase 18's ``pp=2 x tp=2`` launches: all four in float32, K1
 and K2 in bf16; suffixed ``7b-pp2``, phase 18's launches alone, beside
 the times of their shape; phase 20's launches in the fp rows, f32 for
-(a) and bf16 for (b))
-and ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
+(a) and bf16 for (b); phase 26's builder-path launches in the bf16 fp
+rows) and ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
 device.
 """
 
@@ -5045,6 +5062,262 @@ def phase_moe_heads(torch, dev, card):
     torch.cuda.empty_cache()
 
 
+# phase 26(c): a BERT-base-width encoder block for the torch.fx import, and
+# the Keras CNN's MNIST-sized data
+FX_BLOCK = dict(hidden=768, heads=12, ffn=3072, batch=8, seq=128)
+FX_LR = 4.0                 # SGD's rate on the block's MSE loss
+KERAS_CNN = dict(samples=4096, batch=64)
+TREE = "tree_inc_multihead_self_attention"
+SPEC = "spec_inc_multihead_self_attention"
+
+
+def encoder_block(torch, hidden, heads, ffn):
+    """A pre-norm transformer encoder block (``nn.MultiheadAttention``,
+    ``batch_first``), the module the torch.fx import traces."""
+    from torch import nn
+
+    class EncoderBlock(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.ln1 = nn.LayerNorm(hidden)
+            self.attn = nn.MultiheadAttention(hidden, heads,
+                                              batch_first=True)
+            self.ln2 = nn.LayerNorm(hidden)
+            self.fc1 = nn.Linear(hidden, ffn)
+            self.fc2 = nn.Linear(ffn, hidden)
+
+        def forward(self, x):
+            a = self.ln1(x)
+            att, _ = self.attn(a, a, a)
+            x = x + att
+            return x + self.fc2(torch.relu(self.fc1(self.ln2(x))))
+
+    return EncoderBlock()
+
+
+def cnn_data(n, seed=0):
+    """28x28 single-channel images and the class a fixed random linear
+    map of each image scores highest: a task one epoch learns."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    xs = rng.randn(n, 1, 28, 28).astype(np.float32)
+    ys = np.argmax(xs.reshape(n, -1) @ rng.randn(28 * 28, 10), axis=1)
+    return xs, ys.astype(np.int32)
+
+
+def builder_manager(serve, ff, cfg, dev, attention, weights, **kw):
+    """``InferenceManager(ff)`` over ``cfg``'s family recorded as builder
+    calls (each attention through ``attention``), its parameters copied
+    on the card from ``weights`` (a family model's, by node name)."""
+    model = ff.FFModel(ff.FFConfig(), device=dev)
+    serve.build_model(model, cfg, kw["max_tokens_per_batch"],
+                      attention=attention)
+    im = serve.InferenceManager(model, device=dev, **kw)
+    return im.init_operators_inference(weights)
+
+
+def phase_builder_frontends(serve, att, torch, dev, card):
+    """Phase 26: the builder's serve path and the frontends (module
+    docstring, item 26).  Returns the builder path's launches by run."""
+    import gc
+
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.frontends import from_torch, keras
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a) the builder-served Llama-2-7B beside the family model
+    cfg = serve.ServeModelConfig(dtype="bfloat16")   # Llama-2-7B defaults
+    dcfg = draft_config(serve, "bfloat16")
+    kw = dict(max_requests=8, max_tokens_per_batch=512, max_seq_len=2048,
+              max_spec_tokens=8)
+    t0 = time.perf_counter()
+    fam = serve.InferenceManager(serve.build_model(cfg), device=dev, **kw)
+    fam.init_operators_inference(seed=0)
+    fam_draft = serve.InferenceManager(serve.build_model(dcfg), topk=2,
+                                       device=dev, **kw)
+    fam_draft.init_operators_inference(seed=1)
+    torch.cuda.synchronize()
+    t_fam = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    target = builder_manager(serve, ff, cfg, dev, TREE,
+                             dict(fam.model.named_parameters()), **kw)
+    draft = builder_manager(serve, ff, dcfg, dev, SPEC,
+                            dict(fam_draft.model.named_parameters()),
+                            topk=2, **kw)
+    torch.cuda.synchronize()
+    t_builder = time.perf_counter() - t0
+    def attention_kinds(im):
+        return dict(collections.Counter(
+            type(m).type_name for m in im.model.modules()
+            if isinstance(m, serve.IncMultiHeadSelfAttention)))
+
+    kinds = attention_kinds(target)
+    log(f"builder (a): Llama-2-7B bf16 as {len(target.model.graph.nodes)} "
+        f"builder nodes ({kinds}), its weights copied on the card from the "
+        f"family model's by node name in {t_builder:.2f}s (the family's "
+        f"drawn in {t_fam:.2f}s); the draft's {attention_kinds(draft)}")
+    if kinds != {TREE: cfg.num_hidden_layers}:
+        raise AssertionError(f"builder (a): attention kinds {kinds}")
+    run = Serving(serve, att, torch, cfg.vocab_size)
+    prompts = serve_prompts(cfg.vocab_size)
+    n_new = 16
+    gen = serve.GenerationConfig(max_new_tokens=n_new)
+    # in turns (family, builder, builder, family): host times move
+    # between runs, and the first run pays the warm-up
+    runs = {"family": [], "builder": []}
+    for label, im in (("family", fam), ("builder", target),
+                      ("builder", target), ("family", fam)):
+        im.reset()
+        runs[label].append(run.generate(
+            f"{label} incremental (phase 26)", run.TimedRM(im, gen),
+            prompts, n_new=n_new))
+    want = runs["family"][0][0]
+    launches = {"incremental": runs["builder"][0][1]}
+    require_launches(launches["incremental"], "builder incremental", "fp",
+                     ("decode_attention", "prefill_attention"))
+    counts = {k: sorted({r[1][(k, "fp")] for rs in runs.values()
+                         for r in rs})
+              for k in ("decode_attention", "prefill_attention")}
+    same = all(r[0] == want for rs in runs.values() for r in rs)
+
+    def times(label, i):
+        return " ".join(f"{r[i]:.{3 if i == 2 else 2}f}"
+                        for r in runs[label])
+
+    log(f"builder (a) on {card}: greedy streams of 8 prompts x {n_new} "
+        f"tokens equal to the family model's: {same}; K1 and K2 launches "
+        f"of the four runs {counts}; mean TTFT s builder {times('builder', 2)}"
+        f" (family {times('family', 2)}), mean TPOT ms builder "
+        f"{times('builder', 3)} (family {times('family', 3)}), in the "
+        "order family, builder, builder, family")
+    if not same or any(len(c) != 1 for c in counts.values()):
+        raise AssertionError("builder (a): the builder-served 7B differs "
+                             "from the family model")
+
+    # (b) speculation on the builder path: host loop and device loop
+    fam.reset()
+    spec = {}
+    for label, llm, ssm in (("family", fam, fam_draft),
+                            ("builder", target, draft)):
+        llm.reset()
+        ssm.reset()
+        host, n_host, _, _ = run.generate(
+            f"{label} spec host (phase 26)",
+            run.TimedSpec(llm, ssm, gen, width=2, depth=3), prompts, want,
+            n_new=n_new)
+        device, n_dev = run.scan(f"{label} spec device (phase 26)", llm,
+                                 ssm, prompts, 2, 3, n_new - 1, want,
+                                 n_new=n_new)
+        spec[label] = (host, device, n_host, n_dev)
+    launches["spec host"], launches["spec device"] = spec["builder"][2:]
+    require_launches(launches["spec host"], "builder spec host", "fp",
+                     ("tree_attention",))
+    require_launches(launches["spec device"], "builder spec device", "fp",
+                     ("tree_attention_batched",))
+    same = [spec["builder"][i] == spec["family"][i] for i in range(4)]
+    log(f"builder (b) on {card}: llama-68m-shaped builder draft "
+        f"({SPEC}) and the {TREE} target, width 2, depth 3: streams equal "
+        f"to the family path's on the host loop {same[0]} and the device "
+        f"loop {same[1]}; launches equal {same[2:]}")
+    if not all(same):
+        raise AssertionError("builder (b): the builder path's speculation "
+                             "differs from the family path's")
+    del fam, fam_draft, target, draft, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the frontends: the torch.fx import of an encoder block, float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fx = FX_BLOCK
+    shape = (fx["batch"], fx["seq"], fx["hidden"])
+    torch.manual_seed(0)
+    mod = encoder_block(torch, fx["hidden"], fx["heads"], fx["ffn"]).to(dev)
+    rng = np.random.RandomState(26)
+    x = rng.randn(*shape).astype(np.float32)
+    y = rng.randn(*shape).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    model, outs, weights = from_torch(mod, [shape], device=dev)
+    model.compile(optimizer=ff.SGDOptimizer(lr=FX_LR),
+                  loss_type="mean_squared_error", outputs=outs)
+    model.load_params(weights)
+    with torch.no_grad():
+        want = mod(xt)
+        got = model.forward(x)
+    fwd_err = float((got - want).abs().max())
+    ms_import = time_ms(lambda: model.forward(x), 20)
+    with torch.no_grad():
+        ms_module = time_ms(lambda: mod(xt), 20)
+    opt = torch.optim.SGD(mod.parameters(), lr=FX_LR)
+    torch_losses = []
+    for _ in range(2):
+        loss = torch.nn.functional.mse_loss(mod(xt), yt)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        torch_losses.append(loss.item())
+    hist = model.fit(x, y, epochs=2, batch_size=fx["batch"], shuffle=False,
+                     verbose=False)
+    losses = [h["loss"] for h in hist]
+    _, _, stepped = from_torch(mod, [shape], device=dev)
+    p_err = moved = 0.0
+    for n, g in stepped.items():
+        for p, v in g.items():
+            a = model.params[n][p].detach().cpu().numpy()
+            p_err = max(p_err, float(np.abs(a - v).max()))
+            moved = max(moved, float(np.abs(v - weights[n][p]).max()))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, torch_losses))
+    log(f"frontends (c) on {card}: from_torch of a {fx['hidden']}-wide, "
+        f"{fx['heads']}-head, ffn {fx['ffn']} encoder block "
+        f"({len(model.graph.nodes)} nodes), batch {fx['batch']} x seq "
+        f"{fx['seq']}, f32, TF32 off: forward max abs diff {fwd_err:.3e} "
+        f"against the module's on the card (tol 1e-4), device ms of the "
+        f"import's forward from host arrays {ms_import:.3f}, of the "
+        f"module's {ms_module:.3f}; 2 SGD steps (lr "
+        f"{FX_LR}, MSE) losses {[round(v, 6) for v in losses]} vs "
+        f"torch.optim.SGD {[round(v, 6) for v in torch_losses]} (max rel "
+        f"{rel:.3e}, tol 1e-4), parameters after max abs diff {p_err:.3e} "
+        f"(tol 1e-5; the steps moved them by up to {moved:.3e}, at least "
+        "5e-4 required)")
+    if fwd_err > 1e-4 or rel > 1e-4 or p_err > 1e-5 or not moved > 5e-4:
+        raise RuntimeError("frontends (c): the imported block differs "
+                           "from the module beyond the tolerance")
+    del model, mod, opt
+    # the Keras CNN: one epoch of Adam on the card, the loss falls
+    xs, ys = cnn_data(KERAS_CNN["samples"])
+    bs = KERAS_CNN["batch"]
+    m = keras.Sequential([
+        keras.Conv2D(16, 3, padding="same", activation="relu",
+                     input_shape=(1, 28, 28)),
+        keras.MaxPooling2D(2),
+        keras.Conv2D(32, 3, padding="same", activation="relu"),
+        keras.MaxPooling2D(2), keras.Flatten(),
+        keras.Dense(10, activation="softmax")], device=dev)
+    m.compile(optimizer="adam", metrics=["accuracy"], batch_size=bs)
+    before = m.evaluate(xs, ys, batch_size=bs)
+    t0 = time.perf_counter()
+    m.fit(xs, ys, epochs=1, batch_size=bs, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = m.evaluate(xs, ys, batch_size=bs)
+    log(f"frontends (c) on {card}: Keras Sequential CNN (2 convs, 2 pools, "
+        f"dense) on {KERAS_CNN['samples']} 28x28 images, batch {bs}, one "
+        f"epoch of Adam in {wall:.2f}s ({KERAS_CNN['samples'] / wall:.0f} "
+        f"samples/s, first epoch, compile and warm-up included): loss "
+        f"{before['loss']:.4f} -> {after['loss']:.4f}, accuracy "
+        f"{before['accuracy']:.4f} -> {after['accuracy']:.4f}")
+    if not after["loss"] < before["loss"] or m.model.device.type != "cuda":
+        raise RuntimeError("frontends (c): the Keras CNN's loss did not "
+                           "fall on the card")
+    del m
+    torch.cuda.empty_cache()
+    return launches
+
+
 def tc_reports(text):
     """(kernel, "registers, shared memory, spills") of each tensor-core
     kernel instantiation in an ``nvcc -Xptxas=-v`` log; the shared memory
@@ -5157,6 +5430,8 @@ def main():
                                                               card))
     timed("vision and dlrm", lambda: phase_vision_dlrm(torch, dev, card))
     timed("moe and heads", lambda: phase_moe_heads(torch, dev, card))
+    builder = timed("builder and frontends", lambda: phase_builder_frontends(
+        serve, att, torch, dev, card))
 
     def plus(*counts):
         return {k: sum(c.get(k, 0) for c in counts)
@@ -5208,17 +5483,21 @@ def main():
 
     def path_counts(var):
         if var == "fp":
-            # the 7B bf16 serve path, and phase 15's first run (hooks off)
-            # and its speculative run
+            # the 7B bf16 serve path, phase 15's first run (hooks off)
+            # and its speculative run, and phase 26's builder-served 7B
             return {"decode_attention": plus(launches["incremental"],
                                              control["incremental"],
-                                             pp["bf16"], searched["bf16"]),
+                                             pp["bf16"], searched["bf16"],
+                                             builder["incremental"]),
                     "prefill_attention": plus(launches["incremental"],
                                               control["incremental"],
-                                              pp["bf16"], searched["bf16"]),
+                                              pp["bf16"], searched["bf16"],
+                                              builder["incremental"]),
                     "tree_attention": plus(launches["spec host"],
-                                           control["spec"]),
-                    "tree_attention_batched": launches["spec device"]}
+                                           control["spec"],
+                                           builder["spec host"]),
+                    "tree_attention_batched": plus(launches["spec device"],
+                                                   builder["spec device"])}
         if var == "int8+paged":
             return {"decode_attention": int8["incremental"],
                     "prefill_attention": int8["incremental"],

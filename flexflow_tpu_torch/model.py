@@ -2,6 +2,9 @@
 
 Port of ``flexflow_tpu/model.py`` (``FFModel`` :61-556 and :946-1204; the
 pipeline methods :561-944 come with pipeline training, ``ROADMAP.md``).
+The serve builder methods (the KV-cached attention, its speculative and
+tree-verifying aliases, the learned positions) record serve graphs that
+``serve.InferenceManager(ff, ...)`` serves (``serve/models/builder.py``).
 One builder method per layer appends a node holding its op
 (``core/graph.py:Graph.add_op``) under the reference's default name, so
 parameters carry across by name.  A node's name is the reference's, dots
@@ -61,7 +64,7 @@ from .ops.attention import MultiHeadAttention
 from .ops.conv import Conv2D, Pool2D
 from .ops.elementwise import (Cast, Dropout, ElementBinary, ElementUnary,
                               as_dtype)
-from .ops.embedding import Embedding
+from .ops.embedding import Embedding, PositionEmbedding
 from .ops.linear import BatchMatmul, Linear
 from .ops.norm import (AddBiasResidualLayerNorm, BatchNorm, LayerNorm,
                        ResidualLayerNorm, ResidualRMSNorm, RMSNorm,
@@ -81,8 +84,6 @@ from .utils.platform import host_to_device, resolve_device
 from .utils.profiling import maybe_profile
 from .utils.runlog import log_run
 
-SLICE_11C_III = ("slice 11c-iii (the builder's serve attention methods, "
-                 "position_embedding and frontends/*)")
 SLICE_11D = "slice 11d (pipeline and ring-attention training)"
 
 
@@ -395,6 +396,61 @@ class FFModel:
         """The activation cache (``ops/misc.py``): the identity, or with
         ``extras["cache_use"]`` in a stateful step the stored value."""
         return self._add(Cache(), [x], name or "cache")[0]
+
+    # serve attention (KV-cached, speculative, tree-verifying) and the
+    # learned positions (reference :309-354): the nodes run only under a
+    # serve manager, ``serve.InferenceManager(ff, ...)``, which gives each
+    # step its batch config and caches; under ``compile``/``fit`` they
+    # raise, as the reference's lowering does
+    def _serve_attention(self, cls, x, embed_dim, num_q_heads, num_kv_heads,
+                         head_dim, rotary_embedding, rope_theta, use_bias,
+                         scaling_factor, use_alibi, name):
+        op = cls(embed_dim, num_q_heads, num_kv_heads, head_dim,
+                 rotary_embedding, rope_theta, use_bias, scaling_factor,
+                 use_alibi, dtype=x.dtype, device="meta")
+        return self._add(op, [x], name)[0]
+
+    def inc_multihead_self_attention(self, x, embed_dim, num_q_heads,
+                                     num_kv_heads=None, head_dim=None,
+                                     rotary_embedding=True,
+                                     rope_theta=10000.0, use_bias=False,
+                                     scaling_factor=None, use_alibi=False,
+                                     name=None):
+        from .serve.ops import IncMultiHeadSelfAttention
+
+        return self._serve_attention(
+            IncMultiHeadSelfAttention, x, embed_dim, num_q_heads,
+            num_kv_heads, head_dim, rotary_embedding, rope_theta, use_bias,
+            scaling_factor, use_alibi, name or "inc_mha")
+
+    def position_embedding(self, x, num_positions, offset=0, name=None):
+        op = PositionEmbedding(num_positions, x.shape[-1], offset, x.dtype,
+                               device="meta")
+        return self._add(op, [x], name or "position_embedding")[0]
+
+    def spec_inc_multihead_self_attention(self, x, embed_dim, num_q_heads,
+                                          num_kv_heads=None, head_dim=None,
+                                          rotary_embedding=True,
+                                          rope_theta=10000.0, use_bias=False,
+                                          scaling_factor=None, name=None):
+        from .serve.ops import SpecIncMultiHeadSelfAttention
+
+        return self._serve_attention(
+            SpecIncMultiHeadSelfAttention, x, embed_dim, num_q_heads,
+            num_kv_heads, head_dim, rotary_embedding, rope_theta, use_bias,
+            scaling_factor, False, name or "spec_inc_mha")
+
+    def tree_inc_multihead_self_attention(self, x, embed_dim, num_q_heads,
+                                          num_kv_heads=None, head_dim=None,
+                                          rotary_embedding=True,
+                                          rope_theta=10000.0, use_bias=False,
+                                          scaling_factor=None, name=None):
+        from .serve.ops import TreeIncMultiHeadSelfAttention
+
+        return self._serve_attention(
+            TreeIncMultiHeadSelfAttention, x, embed_dim, num_q_heads,
+            num_kv_heads, head_dim, rotary_embedding, rope_theta, use_bias,
+            scaling_factor, False, name or "tree_inc_mha")
 
     # attention (training)
     def multihead_attention(self, query, key, value, embed_dim, num_heads,
@@ -929,20 +985,3 @@ def _mean(values: List[torch.Tensor]) -> float:
     in float64 (the reference's ``np.mean`` of Python floats)."""
     return float(np.mean(torch.stack(values).tolist() if values else []))
 
-
-def _later(method: str, where: str):
-    def raise_later(self, *args, **kwargs):
-        raise NotImplementedError(f"FFModel.{method} comes with {where} "
-                                  "(ROADMAP.md)")
-
-    raise_later.__name__ = method
-    return raise_later
-
-
-# the builder methods of a later slice
-for _method in ("inc_multihead_self_attention", "position_embedding",
-                "spec_inc_multihead_self_attention",
-                "tree_inc_multihead_self_attention"):
-    setattr(FFModel, _method, _later(
-        _method, SLICE_11C_III + "; the port serves through "
-        "serve.build_model"))

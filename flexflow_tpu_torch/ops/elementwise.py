@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -57,10 +58,13 @@ LINEAR_UNARY = {"identity", "negative", "scalar_multiply", "scalar_truediv"}
 
 
 def as_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
-    """A torch dtype, or its name as the JAX package spells it
-    (``"float32"``, ``"int32"``...)."""
+    """A torch dtype, its name as the JAX package spells it
+    (``"float32"``, ``"int32"``...), or anything numpy reads as a dtype
+    (``np.int32``, a bfloat16 dtype), as the reference's builder takes."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if not isinstance(dtype, str):
+        dtype = np.dtype(dtype).name
     out = getattr(torch, str(dtype), None)
     if not isinstance(out, torch.dtype):
         raise ValueError(f"unknown dtype {dtype!r}")

@@ -149,7 +149,9 @@ class PositionEmbedding(Op, nn.Module):
                         dtype=dtype, device=device), requires_grad=False)
 
     def forward(self, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if positions is None:   # outside a serve step (reference :1035)
+            raise ValueError("position_embedding requires a batch_config")
         idx = (positions.long() + self.offset).clamp(
             0, self.num_positions + self.offset - 1)
         return x + self.weight[idx].to(x.dtype)

@@ -69,7 +69,11 @@ from ..core.sharding import TensorSharding, mesh_coords, mesh_shape
 from ..ops.embedding import Embedding
 from ..ops.linear import Linear
 
-ATTENTION = "inc_multihead_self_attention"   # serve/ops.py's op type
+# serve/ops.py's attention op types: the base and its two aliases
+# (reference serve/inference_manager.py:62-66)
+ATTENTION = ("inc_multihead_self_attention",
+             "spec_inc_multihead_self_attention",
+             "tree_inc_multihead_self_attention")
 
 TP_AXES = ("tp",)
 COL_NAMES = ("gate_proj", "up_proj", "fc1", "c_fc")
@@ -88,7 +92,7 @@ def tensor_parallel_strategy(model: nn.Module, degree: int
     output width divides column-split."""
     strategy: Dict[str, Dict] = {}
     for name, mod in model.named_modules():
-        if getattr(mod, "type_name", None) == ATTENTION:
+        if getattr(mod, "type_name", None) in ATTENTION:
             if mod.num_kv_heads % degree == 0:
                 strategy[name] = {"head": TP_AXES}
         elif isinstance(mod, Linear):
@@ -318,7 +322,7 @@ def place_module(mod: nn.Module, st, plan: ShardPlan, rank: int) -> None:
     partial = bool(st.out_shardings[0].partial_axes)
     first = all(coords[a] == 0 for a in st.out_shardings[0].partial_axes)
     live = _live_config(st.config, mesh)
-    attention = getattr(mod, "type_name", None) == ATTENTION
+    attention = getattr(mod, "type_name", None) in ATTENTION
     if attention and "head" in live:
         head = TensorSharding.from_axes(1, {0: live["head"]}).dims[0]
         deg = head.degree(shape)

@@ -40,7 +40,9 @@ serving under any parallel strategy, ``InferenceManager(strategy=<dict> |
 "search")`` and ``PipelinedInferenceManager(strategy=<dict>)``, planned by
 the PCG (``flexflow_tpu_torch.core.pcg``) and run by one plan executor
 (``parallel/tp.py``), with ``searched_serve_strategy`` the Unity search
-over the serve graph (slice 10b-i).
+over the serve graph (slice 10b-i); graphs the ``FFModel`` builder
+recorded, served by the same managers (``InferenceManager(ff)``,
+``build_model(ff, config, max_tokens)``; slice 11c-iii).
 """
 
 from . import models  # noqa: F401  (registers the model builders)
@@ -84,7 +86,13 @@ from .migration import (
     build_deployment,
 )
 from .models.base import MODEL_REGISTRY, ServeModelConfig, build_model
-from .ops import IncMultiHeadSelfAttention, alibi_slopes, apply_rope
+from .ops import (
+    IncMultiHeadSelfAttention,
+    SpecIncMultiHeadSelfAttention,
+    TreeIncMultiHeadSelfAttention,
+    alibi_slopes,
+    apply_rope,
+)
 from .pp import (
     PipelinedInferenceManager,
     StageCost,
@@ -173,6 +181,8 @@ __all__ = [
     "build_model",
     "MODEL_REGISTRY",
     "IncMultiHeadSelfAttention",
+    "SpecIncMultiHeadSelfAttention",
+    "TreeIncMultiHeadSelfAttention",
     "alibi_slopes",
     "apply_rope",
     "params_from_jax",

@@ -69,6 +69,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from ..core.op import dtype_name
 from ..ops.embedding import Embedding, PositionEmbedding
 from ..ops.linear import Linear
 from ..utils.platform import torch_dtype
@@ -118,9 +119,16 @@ def recorded_capacities(model) -> Optional[Capacities]:
 
 
 def lm_head_of(model) -> Optional[torch.nn.Module]:
-    """The module that produces the logits (None in a pipeline stage
+    """The module that produces the logits, the node producing the serve
+    graph's output in a model that gates it (None in a pipeline stage
     that does not hold it)."""
-    return getattr(model, "lm_head", None)
+    span = getattr(model, "span", None)
+    if (span is None or not span.last
+            or not getattr(model, "gates_lm_head", False)):
+        return None
+    graph = model.graph
+    path = graph.nodes[graph.producer[span.exit_tids[0]][0]].module
+    return None if path is None else model.get_submodule(path)
 
 
 def _itemsize(dtype) -> int:
@@ -128,7 +136,14 @@ def _itemsize(dtype) -> int:
 
 
 def _model_dtype(model) -> str:
-    return getattr(getattr(model, "config", None), "dtype", "float32")
+    """The compute dtype: a family's config's, a builder model's first
+    op's."""
+    cfg = getattr(model, "config", None)
+    if cfg is not None:
+        return cfg.dtype
+    op = next((m for m in model.modules() if hasattr(m, "compute_dtype")),
+              None)
+    return "float32" if op is None else dtype_name(op.compute_dtype)
 
 
 def family_of(mod, marked_head=None) -> str:

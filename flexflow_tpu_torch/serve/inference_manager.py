@@ -74,6 +74,7 @@ from ..utils.platform import resolve_device, torch_dtype
 from .batch_config import BatchConfig, InferenceResult, batch_to
 from .kv_allocator import KVAllocator, padded_seq_len
 from .kv_paged import PagedKVAllocator, validate_page_tile
+from .models.builder import serve_model
 from .quant import int8_layout
 
 # sample = (seed, temperature, top_p, folds i32[rows, 2] of (rid, index))
@@ -127,20 +128,18 @@ def register_serve_capacities(model, max_requests: int, max_seq_len: int,
 
 
 def mark_gated_lm_head(model, max_requests: int) -> bool:
-    """Mark the Linear that produces the logits (the serve graph's last
-    node) for LM-head gating (reference :167-181): ``lm_head_gated`` and
-    ``cost_logit_rows = max_requests``, which the cost model prices the
-    head at.  ``model``: a model or a list of shard models.  Returns
-    whether a Linear was marked: the guard ``gate_lm_head`` ANDs in."""
+    """Mark the Linear that produces the logits (the node producing the
+    serve graph's output) for LM-head gating (reference :167-181):
+    ``lm_head_gated`` and ``cost_logit_rows = max_requests``, which the
+    cost model prices the head at.  ``model``: a model or a list of shard
+    models.  Returns whether a Linear was marked: the guard
+    ``gate_lm_head`` ANDs in."""
     from ..ops.linear import Linear
+    from .cost import lm_head_of
 
     marked = False
     for m in model if isinstance(model, (list, tuple)) else [model]:
-        graph = getattr(m, "graph", None)
-        if not getattr(m, "gates_lm_head", False) or graph is None:
-            continue
-        path = graph.nodes[-1].module
-        mod = None if path is None else m.get_submodule(path)
+        mod = lm_head_of(m)
         if isinstance(mod, Linear):
             mod.lm_head_gated = True
             mod.cost_logit_rows = max_requests
@@ -275,8 +274,11 @@ class InferenceManager:
                  kv_dtype: Optional[str] = None,
                  kv_page_size: Optional[int] = None,
                  gate_lm_head: bool = True, prefill_overlap: bool = True,
-                 mesh=None, strategy=None):
-        """``model``: a serve model from ``build_model`` (parameters on
+                 mesh=None, strategy=None, outputs=None):
+        """``model``: a serve model from ``build_model``, or an ``FFModel``
+        whose graph a serve builder recorded (reference :252-290; served
+        as ``models/builder.py:BuilderModel``, ``outputs`` its logits
+        Tensor(s), by default the last node's last output) (parameters on
         ``meta`` until :meth:`init_operators_inference` fills them; a
         model whose parameters already lie on ``device`` keeps them, so
         two managers can share modules: ``allocate_kv_cache`` then
@@ -325,6 +327,7 @@ class InferenceManager:
         capacities are registered).  A config the executor cannot run
         raises ``NotImplementedError``.  Shard models passed as ``model``
         keep their own plan (give no strategy)."""
+        model = serve_model(model, outputs)
         if mesh is None:
             mesh = make_mesh({"tp": 1}, [resolve_device(device)])
         elif device is not None:

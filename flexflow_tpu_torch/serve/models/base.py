@@ -377,8 +377,19 @@ def name_attention_layers(model: torch.nn.Module) -> None:
             mod.name = name
 
 
-def build_model(config: ServeModelConfig) -> torch.nn.Module:
-    """The registered family's serve model, parameters on ``meta``."""
+def build_model(config_or_ff, config: Optional[ServeModelConfig] = None,
+                max_tokens: Optional[int] = None, **kwargs):
+    """``build_model(config)``: the registered family's serve model,
+    parameters on ``meta``.  ``build_model(ff, config, max_tokens)``, the
+    reference's form: the family recorded on the ``FFModel`` ``ff`` as
+    the reference's builder calls (``builder.py:record_family``, which
+    takes ``attention`` too); returns the logits Tensor, and
+    ``InferenceManager(ff, ...)`` serves the graph."""
+    if config is not None:
+        from .builder import record_family
+
+        return record_family(config_or_ff, config, max_tokens, **kwargs)
+    config = config_or_ff
     if config.model_type not in MODEL_REGISTRY:
         raise ValueError(
             f"unknown model_type {config.model_type!r}; "

@@ -195,10 +195,17 @@ class IncMultiHeadSelfAttention(Op, nn.Module):
                 self.embed_dim, dtype=dtype, device=device),
                 requires_grad=False)
 
-    def forward(self, x: torch.Tensor, bc, state: Dict[str, torch.Tensor],
+    def forward(self, x: torch.Tensor, bc=None,
+                state: Optional[Dict[str, torch.Tensor]] = None,
                 pages=None) -> torch.Tensor:
         """``[T, E]``: this shard's heads' output (a head-sharded layer's
-        is its partial sum)."""
+        is its partial sum).  Without a batch config and caches (a serve
+        op in a training graph, ``FFModel.compile``/``fit``) it raises, as
+        the reference's lowering does (reference :291-298)."""
+        if bc is None or state is None:
+            raise ValueError(
+                f"{self.type_name} requires a batch_config and cache state "
+                "(run it through the InferenceManager)")
         q, k, v = self._project(x, bc)
         if isinstance(bc, TreeVerifyBatchConfig):
             # last macro-step's accepted K/V joins the committed cache
@@ -221,6 +228,13 @@ class IncMultiHeadSelfAttention(Op, nn.Module):
         return y
 
     # ---- op IR (reference :196-239, :962-995) ---------------------------
+    def signature_attrs(self):
+        """The reference op's attributes: ``name`` (the caches' key) is
+        the port's own."""
+        out = super().signature_attrs()
+        out.pop("name", None)
+        return out
+
     def infer_shapes(self, in_specs):
         x = in_specs[0]
         if x.shape[-1] != self.embed_dim:
@@ -539,3 +553,22 @@ class IncMultiHeadSelfAttention(Op, nn.Module):
         out = torch.where((rows < nreq)[:, None, None, None], out, 0.0)
         return out.reshape(q.shape[0], self.num_q_heads,
                            self.head_dim).to(q.dtype)
+
+
+@register_op
+class SpecIncMultiHeadSelfAttention(IncMultiHeadSelfAttention):
+    """The draft model's tree-expansion attention (reference :1051-1060,
+    ``spec_inc_multihead_self_attention.cu``): the base class computes
+    every mode, chosen by the batch config's type; the alias carries the
+    reference's type name, so graphs read like the reference's and
+    strategies can name it."""
+
+    type_name = "spec_inc_multihead_self_attention"
+
+
+@register_op
+class TreeIncMultiHeadSelfAttention(IncMultiHeadSelfAttention):
+    """The verifier's tree-mask attention (reference :1063-1071,
+    ``tree_inc_multihead_self_attention.cu``), an alias as above."""
+
+    type_name = "tree_inc_multihead_self_attention"

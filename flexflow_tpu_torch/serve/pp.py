@@ -84,6 +84,7 @@ from .inference_manager import (
 from .kv_allocator import KVAllocator, padded_seq_len
 from .kv_paged import PagedKVAllocator, validate_page_tile
 from .models.base import StageSpan
+from .models.builder import serve_model
 from ..utils.platform import torch_dtype
 
 
@@ -289,7 +290,9 @@ class PipelinedInferenceManager:
     chunked prefill (tiled and LM-head gated), the chained stretch, the
     lifecycle and the host ``SpecInferManager`` run unchanged.
 
-    ``model``: a model from ``build_model`` (on ``meta``); ``mesh``: from
+    ``model``: a model from ``build_model`` (on ``meta``), or an
+    ``FFModel`` whose graph a serve builder recorded, with ``outputs`` as
+    :class:`InferenceManager` takes them (reference :248); ``mesh``: from
     ``parallel.make_mesh({"pp": p, "tp": t}, devices)``, stage ``s`` on
     its ``s``-th slice of ``t`` devices (``["cpu"] * p * t`` in the tests,
     ``["cuda:0"] * p * t`` for every stage and shard on one card).
@@ -318,7 +321,8 @@ class PipelinedInferenceManager:
                  kv_dtype: Optional[str] = None,
                  kv_page_size: Optional[int] = None,
                  gate_lm_head: bool = True,
-                 strategy: Optional[Dict[str, Dict]] = None):
+                 strategy: Optional[Dict[str, Dict]] = None, outputs=None):
+        model = serve_model(model, outputs)
         if mesh is None or "pp" not in mesh.shape:
             raise ValueError("PipelinedInferenceManager needs a mesh with a "
                              "'pp' axis (use InferenceManager for pure TP)")
@@ -348,7 +352,10 @@ class PipelinedInferenceManager:
                                   max_spec_tokens, kv_dtype,
                                   max_tokens_per_batch)
         marked = gate_lm_head and mark_gated_lm_head(model, max_requests)
-        split = serve_stage_split(model.graph, self.pp)
+        if len(model.span.exit_tids) != 1:
+            raise ValueError("a pipelined manager serves one output")
+        split = serve_stage_split(model.graph, self.pp,
+                                  model.span.exit_tids[0])
         self.stage_meshes = mesh.stage_meshes()
         if strategy is None:
             strategy = (tensor_parallel_strategy(model, self.tp)

@@ -361,7 +361,9 @@ def test_port_never_imports_jax_or_the_reference_package():
             "utils/profiling.py", "utils/runlog.py",
             "examples/mnist_mlp.py", "parallel/comm.py",
             "parallel/mesh.py", "training/checkpoint.py",
-            "data/__init__.py", "data/loader.py", "data/native.py"} <= {
+            "data/__init__.py", "data/loader.py", "data/native.py",
+            "models/builder.py", "frontends/__init__.py",
+            "frontends/torch_fx.py", "frontends/keras.py"} <= {
         f"{f.parent.name}/{f.name}" for f in files}
     for path in files:
         for mod, func in _imported_modules(path):
@@ -408,7 +410,11 @@ def test_importing_the_port_loads_no_jax():
             "flexflow_tpu_torch.parallel.comm, "
             "flexflow_tpu_torch.training.checkpoint, "
             "flexflow_tpu_torch.data, flexflow_tpu_torch.data.loader, "
-            "flexflow_tpu_torch.data.native; "
+            "flexflow_tpu_torch.data.native, "
+            "flexflow_tpu_torch.serve.models.builder, "
+            "flexflow_tpu_torch.frontends, "
+            "flexflow_tpu_torch.frontends.torch_fx, "
+            "flexflow_tpu_torch.frontends.keras; "
             "bad = [m for m in sys.modules if m in ('jax', 'flexflow_tpu', "
             "'transformers') or m.startswith(('jax.', 'flexflow_tpu.', "
             "'transformers.'))]; "

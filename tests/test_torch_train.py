@@ -285,10 +285,16 @@ def test_compile_and_construction_raise_instead_of_falling_back(
         m.compile()
     with pytest.raises(NotImplementedError, match="11d"):
         T.make_mesh({"sp": 2}, ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="11c-iii"):
-        _mlp(T).position_embedding(None, 8, 2)
-    with pytest.raises(NotImplementedError, match="serve.build_model"):
-        _mlp(T).inc_multihead_self_attention(None, 8, 2)
+    # the serve builder methods record their nodes; outside a serve
+    # manager their ops raise, as the reference's lowering does
+    m = T.FFModel(T.FFConfig(batch_size=4), device="cpu")
+    x = m.position_embedding(m.create_tensor((4, 8)), 8, 2)
+    m.inc_multihead_self_attention(x, 8, 2)
+    assert [n.op.type_name for n in m.graph.nodes] == [
+        "position_embedding", "inc_multihead_self_attention"]
+    m.compile(loss_type="identity")
+    with pytest.raises(ValueError, match="position_embedding requires"):
+        m.forward(np.zeros((4, 8), np.float32))
     with pytest.raises(RuntimeError, match="compile"):
         _mlp(T).load_params({})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
