@@ -24,9 +24,9 @@ parallel step's collective answered within its axes' groups, the exit
 tensors gathered whole on shard 0; autograd differentiates the whole
 lockstep run, collectives included.  :func:`init_params` draws every
 global parameter from one ``torch.Generator`` over the graph's nodes in
-order, exactly as on one device, and gives each shard its block as a
-parameter of its own; :func:`place_inputs` gives each shard its block of
-a batch.
+order (:func:`draw_params`), exactly as on one device, and gives each
+shard its block as a parameter of its own; :func:`place_inputs` gives
+each shard its block of a batch.
 """
 
 from __future__ import annotations
@@ -257,41 +257,47 @@ def build_forward(plan, mode: str = "spmd") -> Callable:
     return fn
 
 
+def draw_params(graph, generator: torch.Generator):
+    """Each global parameter of ``graph``'s nodes drawn from
+    ``generator`` in graph order (reference :160-194: its key index
+    advances over every node alike), at its global shape with its
+    ``ParamSpec``'s initializer (the op's default otherwise): yields
+    ``(node, param spec, value)``."""
+    for node in graph.nodes:
+        for p in node.op.params():
+            init = p.initializer or default_initializer_for(node.op, p)
+            yield node, p, init(generator, p.spec.shape, p.spec.dtype)
+
+
 def init_params(graph, plan, generator: torch.Generator
                 ) -> List[Dict[str, Dict[str, nn.Parameter]]]:
-    """Draw every parameter of ``graph``'s nodes from ``generator``, in
-    graph order (reference :160-194: its key index advances over every
-    node alike), at its global shape with each ``ParamSpec``'s
-    initializer (the op's default otherwise), whatever the mesh; then
-    give each shard its block (``TensorSharding.local_slice``) as a
-    parameter of its own on its own device (even where shards share
-    one), ``requires_grad`` as the spec is ``trainable``, set on the
-    shard's module.  On a mesh the node's own module keeps an empty
-    ``meta`` parameter at the global shape (the planner reads it).
-    Returns each shard's ``{node name: {param name: parameter}}``."""
+    """Draw every parameter of ``graph``'s nodes (:func:`draw_params`,
+    whatever the mesh), then give each shard its block
+    (``TensorSharding.local_slice``) as a parameter of its own on its own
+    device (even where shards share one), ``requires_grad`` as the spec
+    is ``trainable``, set on the shard's module.  On a mesh the node's
+    own module keeps an empty ``meta`` parameter at the global shape (the
+    planner reads it).  Returns each shard's ``{node name: {param name:
+    parameter}}``."""
     shards = plan_shards(plan)
     devices = plan.mesh.devices
     out: List[Dict[str, Dict[str, nn.Parameter]]] = [
         {} for _ in range(shards.size)]
-    for node in graph.nodes:
-        for p in node.op.params():
-            init = p.initializer or default_initializer_for(node.op, p)
-            value = init(generator, p.spec.shape, p.spec.dtype)
-            name = f"{node.name}.{p.name}"
-            for r, dev in enumerate(devices):
-                if shards.size == 1:
-                    block = value.to(dev)
-                else:
-                    block = shards.plan.local(name, value, r).to(
-                        dev, copy=True,
-                        memory_format=torch.contiguous_format)
-                param = nn.Parameter(block, requires_grad=p.trainable)
-                setattr(shards.ops[r][node.name], p.name, param)
-                out[r].setdefault(node.name, {})[p.name] = param
-            if shards.size > 1:
-                setattr(node.op, p.name, nn.Parameter(
-                    torch.empty(p.spec.shape, dtype=p.spec.dtype,
-                                device="meta"), requires_grad=False))
+    for node, p, value in draw_params(graph, generator):
+        name = f"{node.name}.{p.name}"
+        for r, dev in enumerate(devices):
+            if shards.size == 1:
+                block = value.to(dev)
+            else:
+                block = shards.plan.local(name, value, r).to(
+                    dev, copy=True, memory_format=torch.contiguous_format)
+            param = nn.Parameter(block, requires_grad=p.trainable)
+            setattr(shards.ops[r][node.name], p.name, param)
+            out[r].setdefault(node.name, {})[p.name] = param
+        if shards.size > 1:
+            setattr(node.op, p.name, nn.Parameter(
+                torch.empty(p.spec.shape, dtype=p.spec.dtype,
+                            device="meta"), requires_grad=False))
     return out
 
 

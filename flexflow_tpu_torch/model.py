@@ -1,7 +1,7 @@
 """FFModel: the graph builder, compile, and the training loop.
 
-Port of ``flexflow_tpu/model.py`` (``FFModel`` :61-556 and :946-1204; the
-pipeline methods :561-944 come with pipeline training, ``ROADMAP.md``).
+Port of ``flexflow_tpu/model.py`` (``FFModel`` :61-556 and :946-1204, and
+the compile path's pipeline :413-428, :561-944).
 The serve builder methods (the KV-cached attention, its speculative and
 tree-verifying aliases, the learned positions) record serve graphs that
 ``serve.InferenceManager(ff, ...)`` serves (``serve/models/builder.py``).
@@ -36,9 +36,19 @@ every shard.
 
 A search budget (``FFConfig.search_budget``) runs the joint Unity search
 at ``compile`` (``search/search.py:graph_optimize(substitution=True)``):
-the model adopts the rewritten graph and its strategy.  A ``pp`` axis
-and the axes of later slices raise ``NotImplementedError`` naming the
-slice that brings them; nothing falls back to one device.  Initial weights, the shuffle order and dropout
+the model adopts the rewritten graph and its strategy.
+
+A mesh with a ``pp`` axis makes ``compile`` consult the pipeline search
+(``search/pipeline_search.py``; ``FFConfig.pipeline`` "auto", "force" or
+"off").  When the pipeline wins and the graph carves into K isomorphic
+core stages (single-entry single-exit segments, so residual blocks stay
+whole), a prefix on stage 0 and a suffix on the last stage, training
+runs the GPipe executor (``parallel/pipeline.py``): each shard holds its
+stage's core parameters (``params()["_pp_core"]["{j}.{param}"]``,
+``[K, ...]`` globally, a ``[1, ...]`` block a stage) and the prefix and
+suffix replicated; ``fit``, ``evaluate`` and ``forward`` run the
+schedule; ``_pp_meta`` names the carve.  Nothing falls back to one
+device.  Initial weights, the shuffle order and dropout
 masks come from torch generators seeded by ``FFConfig.seed``, so they
 match the JAX package's in distribution; ``load_params`` carries its
 weights across.
@@ -55,9 +65,10 @@ import torch
 from torch import nn
 
 from .config import FFConfig
-from .core.graph import Graph, Tensor, TensorSpec
-from .core.interpreter import (build_forward, init_params, place_inputs,
-                               plan_shards)
+from .core.graph import Graph, Tensor, TensorSpec, live_cuts
+from .core.interpreter import (build_forward, draw_params, init_params,
+                               place_inputs, plan_shards)
+from .core.op import OpContext
 from .core.pcg import PCG, Plan
 from .data.loader import DataLoader
 from .ops.attention import MultiHeadAttention
@@ -75,7 +86,8 @@ from .ops.reduction import (ArgMax, ArgTopK, BeamTopK, Reduce, Sampling,
                             Softmax, TopK)
 from .ops.shape import (Concat, Flat, Gather, Reshape, Reverse, Split,
                         Transpose)
-from .parallel.mesh import check_axes, data_parallel_strategy, make_mesh
+from .parallel.mesh import data_parallel_strategy, make_mesh
+from .parallel.pipeline import PipelineStep, _dp_block
 from .search.strategy import load_strategy, save_strategy
 from .training import loss as loss_mod
 from .training import metrics as metrics_mod
@@ -83,9 +95,6 @@ from .training.optimizer import Optimizer, SGDOptimizer
 from .utils.platform import host_to_device, resolve_device
 from .utils.profiling import maybe_profile
 from .utils.runlog import log_run
-
-SLICE_11D = "slice 11d (pipeline and ring-attention training)"
-
 
 def _escape(name: str) -> str:
     return name.replace("%", "%25").replace(".", "%2E")
@@ -148,6 +157,12 @@ class FFModel:
         self._forward = None
         self._compiled_out_tids: Optional[List[int]] = None
         self.grad_allreduces = 0   # the gradient sum's Comm calls
+        # the compile path's pipeline (reference :423): (strategy, carve)
+        # when training runs the GPipe executor, else None; its runtime
+        self._pipeline_ctx = None
+        self._pipeline: Optional[_Pipeline] = None
+        self._pp_meta = None
+        self.pipeline_choice = None   # the consult's kind and prices
         # the model's own stream: init seeds, epoch seeds, shuffles
         self._generator = torch.Generator().manual_seed(self.config.seed)
 
@@ -482,14 +497,9 @@ class FFModel:
     def _training_mesh(self):
         """The mesh training runs on: ``mesh``, else ``mesh_shape`` (or
         ``{"dp": n}``) over ``FFConfig.devices()``, else the one device
-        given; a ``pp`` axis or an axis of a later slice raises."""
+        given."""
         shape = (dict(self.mesh.shape) if self.mesh is not None
                  else dict(self.config.mesh_shape or {}))
-        if shape.get("pp", 1) > 1:
-            raise NotImplementedError(
-                f"mesh {shape} has a 'pp' axis: pipeline training comes "
-                f"with {SLICE_11D}")
-        check_axes(shape)
         if self.mesh is None and self._device_given:
             if math.prod(shape.values()) > 1:
                 raise ValueError(
@@ -532,6 +542,14 @@ class FFModel:
         out_tids = [t.tid for t in outputs] if outputs else None
         if strategy is None and cfg.import_strategy_file:
             strategy = load_strategy(cfg.import_strategy_file)
+        # a pp axis makes compile consult the pipeline search (reference
+        # :413-428); when the pipeline wins, training runs the GPipe
+        # executor
+        self._pipeline_ctx = self._pipeline = self._pp_meta = None
+        self.pipeline_choice = None
+        if (strategy is None and not cfg.only_data_parallel
+                and cfg.pipeline != "off" and mesh.shape.get("pp", 1) > 1):
+            strategy = self._consult_pipeline(cfg, mesh)
         if (strategy is None and cfg.search_budget > 0
                 and not cfg.only_data_parallel):
             strategy, out_tids = self._search(mesh, out_tids)
@@ -543,10 +561,7 @@ class FFModel:
         self._compiled_out_tids = out_tids
         self.pcg = PCG(self.graph, mesh, strategy, output_tids=out_tids)
         self.plan = self.pcg.plan()
-        self._forward = build_forward(self.plan, mode)
-        self.shard_params = init_params(
-            self.graph, self.plan,
-            torch.Generator().manual_seed(self._draw_seed()))
+        generator = torch.Generator().manual_seed(self._draw_seed())
 
         self.optimizer = optimizer or SGDOptimizer(lr=cfg.learning_rate)
         self.loss_type = loss_type
@@ -559,6 +574,11 @@ class FFModel:
                 raise ValueError(f"{len(self.loss_weights)} loss_weights "
                                  f"for {len(loss_type)} losses")
         self.metric_names = list(metrics)
+        if self._pipeline_ctx is not None:
+            self._setup_pipeline_training(cfg, mesh, generator)
+        else:
+            self._forward = build_forward(self.plan, mode)
+            self.shard_params = init_params(self.graph, self.plan, generator)
         # each shard's slots over its own blocks, on its device (the
         # reference places the slots with the parameters, :536-553)
         self.shard_opt_states = [self.optimizer.init_state(self._trainable(r))
@@ -594,6 +614,240 @@ class FFModel:
         self.layers = NodeModules({n.name: n.op for n in graph.nodes})
         return strategy, [tid_map[t] for t in out_tids]
 
+    # ------------------------------------------------------------------
+    # the compile path's pipeline (reference :561-944)
+    # ------------------------------------------------------------------
+    def _consult_pipeline(self, cfg, mesh):
+        """Pipeline or GSPMD on a mesh with a ``pp`` axis (reference
+        :561-622).  Under ``pipeline="auto"`` ``pipeline_or_gspmd`` prices
+        both plans (``pipeline_choice`` keeps the kind and both prices);
+        under ``"force"`` ``propose_pipeline`` partitions the chain.  When
+        the pipeline wins and the graph carves into stages, sets
+        ``_pipeline_ctx`` and returns the inner (non-pp) strategy; else
+        the GSPMD strategy, or None (the documented resolution goes on:
+        the search if budgeted, else data parallel)."""
+        import warnings
+
+        from .search.pipeline_search import (pipeline_or_gspmd,
+                                             propose_pipeline)
+
+        budget = cfg.search_budget or 120
+        # the GPipe executor drives a chain of single-entry single-exit
+        # segments: other graphs skip the pipeline machinery
+        segments, chain_err = self._pipeline_segments()
+        if chain_err is not None:
+            if cfg.pipeline == "force":
+                warnings.warn(
+                    f"pipeline=force but the graph can't drive the GPipe "
+                    f"executor ({chain_err}); falling back to GSPMD",
+                    stacklevel=3)
+            return None
+        # segments are atomic units of the partition: a residual block is
+        # never split over stages
+        groups = {n.name: gi for gi, (nodes, _, _) in enumerate(segments)
+                  for n in nodes}
+        costs: Dict[str, float] = {}
+        if cfg.pipeline == "force":
+            stage_of, costs["pipeline"] = propose_pipeline(
+                self.graph, mesh, "pp", n_micro=cfg.pipeline_microbatches,
+                strategy={}, groups=groups)
+            kind, strategy = "pipeline", {}
+        else:
+            kind, strategy, stage_of, _ = pipeline_or_gspmd(
+                self.graph, mesh, "pp", n_micro=cfg.pipeline_microbatches,
+                budget=budget, seed=cfg.seed, training=True, groups=groups,
+                candidates=costs)
+        self.pipeline_choice = {"kind": kind, "costs": costs}
+        if kind != "pipeline":
+            # with a search budget the joint search explores strictly
+            # more than the consult's GSPMD candidate
+            return None if cfg.search_budget > 0 else strategy
+        try:
+            carve = self._carve_pipeline_stages(stage_of, mesh, cfg)
+        except ValueError as e:
+            warnings.warn(
+                f"pipeline won the cost comparison but the graph can't "
+                f"drive the GPipe executor ({e}); falling back to GSPMD",
+                stacklevel=3)
+            return None
+        self._pipeline_ctx = (strategy, carve)
+        return strategy
+
+    def _pipeline_segments(self):
+        """The graph as a chain of single-entry single-exit segments
+        (reference :624-671): walking the nodes in order, a boundary where
+        exactly one tensor is live (``core/graph.py:live_cuts``) is a cut
+        all dataflow passes through, and the nodes between two cuts are a
+        segment, whatever their inner wiring (a transformer block with its
+        residual adds is one).  Returns ``(segments, None)``, each
+        ``(nodes, entry_tid, exit_tid)`` with ``exit[i] == entry[i+1]``,
+        or ``(None, reason)``."""
+        g = self.graph
+        if len(g.input_tids) != 1:
+            return None, "graph has multiple inputs"
+        nodes = g.nodes
+        if not nodes:
+            return None, "empty graph"
+        final_tid = nodes[-1].outputs[-1]
+        lives = live_cuts(g, [final_tid])
+        segments, cur = [], []
+        entry = g.input_tids[0]
+        for i, node in enumerate(nodes):
+            cur.append(node)
+            live = lives[i]
+            if i == len(nodes) - 1:
+                if set(live) != {final_tid}:
+                    return None, (
+                        "graph's final live set is not the single protected "
+                        f"output ({len(live)} tensors live at the end)")
+                segments.append((cur, entry, final_tid))
+            elif len(live) == 1:
+                exit_tid = next(iter(live))
+                segments.append((cur, entry, exit_tid))
+                cur = []
+                entry = exit_tid
+        return segments, None
+
+    def _carve_pipeline_stages(self, stage_of, mesh, cfg):
+        """Split the segment chain into a prefix, K isomorphic core stages
+        and a suffix (reference :673-769); raises ``ValueError`` where the
+        structure or the batch cannot drive the executor.  Two stage
+        chunks match when their ops' ``attr_signature()``, their
+        parameters and their wiring (each input as the chunk's entry or
+        a (producer index, output index)) are equal."""
+        k = mesh.shape["pp"]
+        segments, err = self._pipeline_segments()
+        if err is not None:
+            raise ValueError(err)
+        seg_stage = []
+        for nodes, _, _ in segments:
+            stgs = {stage_of.get(n.name) for n in nodes}
+            if None in stgs:
+                raise ValueError(f"no stage for {nodes[0].name}")
+            if len(stgs) != 1:
+                raise ValueError(f"stage partition splits the segment at "
+                                 f"{nodes[0].name}")
+            seg_stage.append(stgs.pop())
+        if seg_stage != sorted(seg_stage):
+            raise ValueError("stage assignment not contiguous on the chain")
+        stages = [[] for _ in range(k)]
+        for seg, st in zip(segments, seg_stage):
+            if not 0 <= st < k:
+                raise ValueError(f"stage {st} outside the pp axis ({k})")
+            stages[st].append(seg)
+        if any(not st for st in stages):
+            raise ValueError("partition uses fewer stages than the pp axis")
+
+        def flat_nodes(segs):
+            return [n for nodes, _, _ in segs for n in nodes]
+
+        def sig_of(segs):
+            index = {segs[0][1]: ("entry",)}
+            sig = []
+            for j, node in enumerate(flat_nodes(segs)):
+                wires = tuple(index.get(t, ("external",))
+                              for t in node.inputs)
+                sig.append((node.op.attr_signature(), tuple(sorted(
+                    (p.name, tuple(p.spec.shape), str(p.spec.dtype))
+                    for p in node.op.params())), wires))
+                for oi, t in enumerate(node.outputs):
+                    index[t] = (j, oi)
+            return tuple(sig), index.get(segs[-1][2], ("external",))
+
+        carved = None
+        for cut0 in range(len(stages[0])):
+            unit = stages[0][cut0:]
+            sig_u = sig_of(unit)
+            mid_ok = all(sig_of(stages[st]) == sig_u for st in range(1, k - 1))
+            last_ok = (len(stages[-1]) >= len(unit)
+                       and sig_of(stages[-1][:len(unit)]) == sig_u)
+            if mid_ok and last_ok:
+                core = ([flat_nodes(unit)]
+                        + [flat_nodes(stages[st]) for st in range(1, k - 1)]
+                        + [flat_nodes(stages[-1][:len(unit)])])
+                carved = (stages[0][:cut0], unit, stages[-1][len(unit):],
+                          core)
+                break
+        if carved is None:
+            raise ValueError("stages are not isomorphic after carving")
+        prefix_segs, unit, suffix_segs, core = carved
+        n_micro = cfg.pipeline_microbatches
+        dp = mesh.shape.get("dp", 1)
+        if cfg.batch_size % n_micro or (cfg.batch_size // n_micro) % dp:
+            raise ValueError(f"batch {cfg.batch_size} not divisible into "
+                             f"{n_micro} microbatches over dp={dp}")
+        last_unit = stages[-1][:len(unit)]
+        return {
+            "prefix": flat_nodes(prefix_segs), "core": core,
+            "suffix": flat_nodes(suffix_segs), "n_micro": n_micro, "k": k,
+            # the replay's wiring (the template's tensor ids)
+            "core_entry": unit[0][1], "core_exit": unit[-1][2],
+            "prefix_entry": self.graph.input_tids[0],
+            "prefix_exit": unit[0][1],
+            # the suffix runs with the last stage's own tensor ids
+            "suffix_entry": last_unit[-1][2],
+            "suffix_exit": segments[-1][2],
+        }
+
+    def _setup_pipeline_training(self, cfg, mesh, generator):
+        """Train through the GPipe executor (reference :771-944): draw the
+        parameters as the whole draw draws them (``draw_params``, so a
+        seed gives the unpipelined model's weights), each core node's onto
+        its stage's shards as that stage's ``[1, ...]`` block of
+        ``_pp_core``, the prefix and suffix onto every shard; build the
+        train and eval steps (``parallel/pipeline.py:PipelineStep``, the
+        stage replaying its unit's nodes with its parameters) and the
+        forward.  A list of losses raises ``ValueError``."""
+        if isinstance(self.loss_type, (list, tuple)):
+            raise ValueError(
+                "multi-output (list) losses are not supported with pipeline "
+                "parallelism — use a single loss or pipeline='off'")
+        carve = self._pipeline_ctx[1]
+        core, prefix, suffix = carve["core"], carve["prefix"], carve["suffix"]
+        self._pp_meta = dict(
+            core_names=[[n.name for n in st] for st in core],
+            pnames=[[p.name for p in n.op.params()] for n in core[0]],
+            prefix=[n.name for n in prefix],
+            suffix=[n.name for n in suffix])
+        dp_axis = "dp" if mesh.shape.get("dp", 1) > 1 else None
+        act_dtype = self.graph.spec(carve["core_exit"]).dtype
+
+        def pl_loss(y, lab):
+            # microbatched [n_micro, mb, ...] -> the flat batch
+            return loss_mod.compute_loss(
+                self.loss_type, y.reshape((-1,) + y.shape[2:]),
+                lab.reshape((-1,) + lab.shape[2:]))
+
+        steps = {}
+        for training in (True, False):
+            steps[training] = PipelineStep(
+                _replay(core[0], carve["core_entry"], carve["core_exit"],
+                        training),
+                pl_loss, mesh, "pp", dp_axis,
+                _replay(prefix, carve["prefix_entry"], carve["prefix_exit"],
+                        training) if prefix else None,
+                _replay(suffix, carve["suffix_entry"], carve["suffix_exit"],
+                        training) if suffix else None,
+                act_dtype=act_dtype)
+        self._pipeline = _Pipeline(self, carve, steps)
+        stage = steps[True].stage_of
+        shards: List[Dict[str, Dict[str, nn.Parameter]]] = [
+            {} for _ in mesh.devices]
+        for node, p, value in draw_params(self.graph, generator):
+            pos = self._pipeline.core_pos.get(node.name)
+            for r, dev in enumerate(mesh.devices):
+                if pos is None:
+                    shards[r].setdefault(node.name, {})[p.name] = \
+                        nn.Parameter(value.to(dev, copy=True),
+                                     requires_grad=p.trainable)
+                elif stage[r] == pos[0]:
+                    shards[r].setdefault("_pp_core", {})[
+                        f"{pos[1]}.{p.name}"] = nn.Parameter(
+                            value[None].to(dev, copy=True),
+                            requires_grad=p.trainable)
+        self.shard_params = shards
+        self._forward = self._pipeline.forward
+
     def recompile(self, strategy: Optional[Dict[str, Dict]] = None,
                   optimizer: Optional[Optimizer] = None, mode: str = "spmd",
                   outputs: Optional[Sequence[Tensor]] = None) -> "FFModel":
@@ -623,19 +877,31 @@ class FFModel:
     # ------------------------------------------------------------------
     def _whole(self, name: str, pname: str, parts: List[torch.Tensor]
                ) -> torch.Tensor:
+        if self._pipeline is not None:
+            return self._pipeline.whole(name, parts)
         return plan_shards(self.plan).plan.whole(f"{name}.{pname}", parts)
 
     def _local(self, name: str, pname: str, value: torch.Tensor,
                rank: int) -> torch.Tensor:
+        if self._pipeline is not None:
+            return self._pipeline.local(name, value, rank)
         return plan_shards(self.plan).plan.local(f"{name}.{pname}", value,
                                                  rank)
+
+    def _place(self, inputs) -> Dict[int, List[torch.Tensor]]:
+        """A host batch as each shard's blocks: the plan's
+        (``place_inputs``), or the pipeline's microbatches."""
+        if self._pipeline is not None:
+            return self._pipeline.place(inputs)
+        return place_inputs(self.plan, inputs)
 
     @property
     def params(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
         """``{node name: {param name: global value}}`` (reference
         ``model.params``): on one device the parameters themselves, on a
-        mesh each assembled from the shards' blocks on shard 0's
-        device."""
+        mesh each assembled from the shards' blocks on shard 0's device;
+        a pipelined model's core under ``"_pp_core"``, ``{"{j}.{param}":
+        [K, ...]}``."""
         shards = self.shard_params
         if shards is None or len(shards) == 1:
             return None if shards is None else shards[0]
@@ -665,23 +931,34 @@ class FFModel:
         """Copy ``{node name: {param name: array}}`` (numpy arrays, as the
         JAX package's ``model.params`` give after ``np.asarray``, or
         tensors; global values) into every shard's blocks, cast to their
-        dtype, in place."""
+        dtype, in place.  A pipelined model takes its own layout
+        (``"_pp_core"``) and a core node's own name alike."""
         if self.shard_params is None:
             raise RuntimeError("call compile() before load_params()")
         specs = self.graph.param_specs()
+        pl = self._pipeline
         with torch.no_grad():
             for name, group in weights.items():
-                if name not in self.shard_params[0]:
+                pos = None if pl is None else pl.core_pos.get(name)
+                if pos is None and name not in self.shard_params[0]:
                     raise KeyError(f"unknown param group {name!r}")
                 for p, v in group.items():
                     arr = _as_tensor(v)
-                    shape = tuple(specs[name][p].spec.shape)
+                    shape = (pl.core_shape(p, specs) if name == "_pp_core"
+                             else tuple(specs[name][p].spec.shape))
                     if tuple(arr.shape) != shape:
                         raise ValueError(f"{name}.{p}: shape "
                                          f"{tuple(arr.shape)} != {shape}")
                     for r, shard in enumerate(self.shard_params):
-                        cur = shard[name][p]
-                        cur.copy_(self._local(name, p, arr, r).to(cur.dtype))
+                        if pos is None:
+                            cur = shard[name][p]
+                            val = self._local(name, p, arr, r)
+                        elif pl.stage_of[r] == pos[0]:
+                            cur = shard["_pp_core"][f"{pos[1]}.{p}"]
+                            val = arr[None]
+                        else:
+                            continue
+                        cur.copy_(val.to(cur.dtype))
         return self
 
     def load_opt_state(self, state) -> "FFModel":
@@ -752,13 +1029,19 @@ class FFModel:
         """Forward on every shard, the loss and metrics on shard 0,
         backward, the gradient sum over replicas and each shard's
         update; returns the loss and the metrics of output 0, on shard
-        0's device."""
-        outs = self._forward(batch, training=True, seed=seed)
-        loss = self._total_loss(outs, labels)
-        mets = self._metrics(outs[0], labels)
-        loss.backward()
+        0's device.  A pipelined model runs its GPipe step
+        (``parallel/pipeline.py:PipelineStep.run``: the loss on the last
+        stage, the gradients summed there)."""
         params = [self._trainable(r) for r in range(self.mesh.size)]
-        self._sum_grads(params)
+        if self._pipeline is not None:
+            loss, logits = self._pipeline.train_step(batch, labels)
+            mets = self._metrics(logits, labels)
+        else:
+            outs = self._forward(batch, training=True, seed=seed)
+            loss = self._total_loss(outs, labels)
+            mets = self._metrics(outs[0], labels)
+            loss.backward()
+            self._sum_grads(params)
         for p_r, state in zip(params, self.shard_opt_states):
             grads = {n: {p: (w.grad if w.grad is not None
                              else torch.zeros_like(w)) for p, w in g.items()}
@@ -874,8 +1157,8 @@ class FFModel:
             def batches():
                 for start in range(0, n - bs + 1, bs):
                     sel = idx[start: start + bs]
-                    batch = place_inputs(
-                        self.plan, {t: v[sel] for t, v in inputs.items()})
+                    batch = self._place({t: v[sel]
+                                         for t, v in inputs.items()})
                     yield batch, self._labels(y, sel)
 
             history.append(self._train_epoch(batches(), seeds, epoch,
@@ -888,9 +1171,11 @@ class FFModel:
         model's plan, the placement (its prefetch overlaps the copies
         with the steps).  Its ``{key: array}`` inputs map onto the graph's
         input tids by position, or directly when the keys are tids."""
-        if loader.plan is not None and loader.plan is not self.plan:
+        if loader.plan is not None and (loader.plan is not self.plan
+                                        or self._pipeline is not None):
             raise ValueError("the DataLoader places its batches for another "
-                             "plan: build it with plan=model.plan (or none)")
+                             "plan: build it with plan=model.plan (or none;"
+                             " none for a pipelined model)")
         tids = self.graph.input_tids
         history = []
         for epoch in range(epochs):
@@ -902,7 +1187,7 @@ class FFModel:
                     batch = ({t: arrs[k] for t, k in zip(tids, keys)}
                              if set(keys) != set(tids) else arrs)
                     if loader.plan is None:   # host tensors: place them
-                        batch = place_inputs(self.plan, batch)
+                        batch = self._place(batch)
                         labels = host_to_device(labels, self.device)
                     yield batch, labels
 
@@ -946,8 +1231,7 @@ class FFModel:
         losses, mets_acc = [], []
         for start in range(0, n - bs + 1, bs):
             sel = slice(start, start + bs)
-            batch = place_inputs(self.plan,
-                                 {t: v[sel] for t, v in inputs.items()})
+            batch = self._place({t: v[sel] for t, v in inputs.items()})
             loss, mets = self._eval_step(batch, self._labels(y, sel))
             losses.append(loss)
             mets_acc.append(mets)
@@ -961,7 +1245,7 @@ class FFModel:
         shard 0's device, whole."""
         if self._forward is None:
             raise RuntimeError("call compile() first")
-        inputs = place_inputs(self.plan, self._standardize_inputs(x))
+        inputs = self._place(self._standardize_inputs(x))
         with torch.no_grad():
             outs = self._forward(inputs, training=training)
         return outs[0] if len(outs) == 1 else outs
@@ -985,3 +1269,125 @@ def _mean(values: List[torch.Tensor]) -> float:
     in float64 (the reference's ``np.mean`` of Python floats)."""
     return float(np.mean(torch.stack(values).tolist() if values else []))
 
+
+def _replay(nodes, entry_tid: int, exit_tid: int, training: bool):
+    """``f(pgroups, x)``: a chunk of nodes replayed on ``x`` (its inner
+    wiring, residual adds and fused norms included; reference :812-828),
+    each node's module run with ``pgroups``' ``{param: tensor}`` in place
+    of its own parameters (``torch.func.functional_call``), on one
+    device; returns the chunk's exit tensor."""
+    from torch.func import functional_call
+
+    nodes = list(nodes)
+
+    def f(pgroups, x):
+        ctx = OpContext(training=training)
+        env = {entry_tid: x}
+        for node, pg in zip(nodes, pgroups):
+            op = node.op
+            xs = tuple(env[t] for t in node.inputs)
+            kw = {"ctx": ctx} if op.uses_context else {}
+            out = functional_call(op, pg, xs, kw) if pg else op(*xs, **kw)
+            if len(node.outputs) == 1:
+                env[node.outputs[0]] = out
+            else:
+                env.update(zip(node.outputs, out))
+        return env[exit_tid]
+
+    return f
+
+
+class _Pipeline:
+    """A pipelined model's runtime: where its core nodes sit, its train
+    and eval steps (``steps[training]``), the batch's placement and the
+    layout of its state (``_pp_core`` blocks of ``[1, ...]`` on each
+    stage's shards, prefix and suffix on every shard)."""
+
+    def __init__(self, model: FFModel, carve: dict,
+                 steps: Dict[bool, PipelineStep]):
+        self.model, self.steps = model, steps
+        self.mesh = model.mesh
+        self.k, self.n_micro = carve["k"], carve["n_micro"]
+        meta = model._pp_meta
+        self.core_pos = {n: (s, j)
+                         for s, names in enumerate(meta["core_names"])
+                         for j, n in enumerate(names)}
+        self.act_spec = model.graph.spec(carve["core_exit"])
+        self.tid = model.graph.input_tids[0]
+        st = steps[True]
+        self.stage_of, self.dp_of, self.n_dp = st.stage_of, st.dp_of, st.n_dp
+        self.stage_homes = [st.home[(s, 0)] for s in range(self.k)]
+
+    def core_shape(self, key: str, specs) -> tuple:
+        """The global shape of ``_pp_core``'s ``"{j}.{param}"``."""
+        j, pname = key.split(".", 1)
+        node = self.model._pp_meta["core_names"][0][int(j)]
+        return (self.k,) + tuple(specs[node][pname].spec.shape)
+
+    def whole(self, name: str, parts: List[torch.Tensor]) -> torch.Tensor:
+        if name != "_pp_core":
+            return parts[0]
+        dev0 = self.mesh.devices[0]
+        return torch.cat([parts[r].to(dev0) for r in self.stage_homes])
+
+    def local(self, name: str, value: torch.Tensor, rank: int
+              ) -> torch.Tensor:
+        if name != "_pp_core":
+            return value
+        s = self.stage_of[rank]
+        return value[s:s + 1]
+
+    def trees(self) -> list:
+        """Each shard's ``(core, prefix, suffix)`` parameter trees (the
+        reference's ``to3``)."""
+        meta = self.model._pp_meta
+        out = []
+        for shard in self.model.shard_params:
+            pp = shard.get("_pp_core", {})
+            out.append((
+                [{p: pp[f"{j}.{p}"] for p in names}
+                 for j, names in enumerate(meta["pnames"])],
+                [shard.get(n, {}) for n in meta["prefix"]],
+                [shard.get(n, {}) for n in meta["suffix"]]))
+        return out
+
+    def place(self, inputs) -> Dict[int, List[torch.Tensor]]:
+        """The batch as ``[n_micro, mb / dp, ...]`` microbatch blocks, each
+        shard's dp block on its device (the reference's ``P(None,
+        "dp")``)."""
+        x = torch.as_tensor(inputs[self.tid])
+        b = x.shape[0]
+        if b % (self.n_micro * self.n_dp):
+            raise ValueError(f"batch {b} not divisible into {self.n_micro} "
+                             f"microbatches over dp={self.n_dp}")
+        xm = x.reshape((self.n_micro, b // self.n_micro) + tuple(x.shape[1:]))
+        placed: Dict[tuple, torch.Tensor] = {}
+        blocks = []
+        for r, dev in enumerate(self.mesh.devices):
+            key = (dev, self.dp_of[r])
+            if key not in placed:
+                placed[key] = host_to_device(
+                    _dp_block(xm, self.dp_of[r], self.n_dp).contiguous(), dev)
+            blocks.append(placed[key])
+        return {self.tid: blocks}
+
+    def _act_shape(self, xs) -> tuple:
+        return (xs[0].shape[1],) + tuple(self.act_spec.shape[1:])
+
+    def forward(self, batch, training: bool = False, seed=None, **_):
+        """The pipelined forward: ``[logits]`` whole on shard 0."""
+        xs = batch[self.tid]
+        _, logits = self.steps[training].run(
+            self.trees(), xs, act_shape=self._act_shape(xs))
+        return [logits.reshape((-1,) + tuple(logits.shape[2:]))]
+
+    def train_step(self, batch, labels: torch.Tensor):
+        """One GPipe step (forward, backward, the gradient sums): the
+        loss and the logits ``[batch, ...]``, on shard 0's device."""
+        xs = batch[self.tid]
+        lm = labels.reshape((self.n_micro, -1) + tuple(labels.shape[1:]))
+        ls = [_dp_block(lm, self.dp_of[r], self.n_dp).to(dev)
+              for r, dev in enumerate(self.mesh.devices)]
+        loss, logits = self.steps[True].run(
+            self.trees(), xs, ls, act_shape=self._act_shape(xs))
+        return loss, logits.reshape((-1,) + tuple(logits.shape[2:]))

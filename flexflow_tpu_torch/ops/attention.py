@@ -15,13 +15,13 @@ The op IR (:121-192): ``head`` shards the four projections' head dims
 ``bo`` is counted once, ``core/op.py:bias_once``), ``sample`` the batch;
 a shard computes on the heads and rows it holds, as the plan executor
 (``parallel/tp.py``) gives them.  ``sequence`` (one mesh axis) gives each
-shard a block of the sequence: the reference runs ring attention over
-the axis in its shard-local mode and GSPMD's global attention in its
-SPMD mode, the same values; here each shard gathers the projected keys
-and values whole over the axis (an ``("all_gather", t, 2, axes)``
-collective, whose backward sums and slices the gradients) and attends
-its block of queries over all of them, the causal mask offset by the
-block's first position.
+shard a block of the sequence, and the shard runs ring attention over
+the axis (``parallel/ring_attention.py``): its key and value blocks
+travel round the ring under an online softmax, so no shard holds more
+than one block of scores.  The reference rings in its shard-local mode
+(``"local"``) and runs GSPMD's global attention in its SPMD mode, the
+same values; the port has one shard-local executor for both modes, so
+both ring.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ from torch import nn
 
 from ..core.graph import ParamSpec, TensorSpec
 from ..core.op import Op, ShardingSolution, bias_once, register_op
-from ..core.sharding import TensorSharding, mesh_coords
+from ..core.sharding import TensorSharding
+from ..parallel.ring_attention import ring_attention
 from .elementwise import dropout
 
 
@@ -101,43 +102,45 @@ class MultiHeadAttention(Op, nn.Module):
         return self._attend(q_in, k_in, v_in, ctx)
 
     def _sequence_forward(self, q_in, k_in, v_in, ctx, axes):
-        """The ``sequence`` split: a generator that gathers the keys and
-        values whole over ``axes`` and attends this shard's queries."""
-        bias = self.use_bias
-        k = self._project(k_in, self.wk, self.bk if bias else None)
-        v = self._project(v_in, self.wv, self.bv if bias else None)
-        k = yield ("all_gather", k, 2, axes)
-        v = yield ("all_gather", v, 2, axes)
-        (axis,) = axes
-        offset = mesh_coords(ctx.rank, ctx.mesh)[axis] * q_in.shape[1]
-        return self._attend(q_in, None, None, ctx, k, v, offset)
-
-    def _attend(self, q_in, k_in, v_in, ctx, k=None, v=None,
-                offset: int = 0):
-        """The attention of ``q_in``'s rows (the first at position
-        ``offset``) over ``k_in``/``v_in`` (or keys and values already
-        projected, ``k`` and ``v``)."""
+        """The ``sequence`` split: a generator running ring attention of
+        this shard's query block over ``axes`` (reference :88-99)."""
         bias = self.use_bias
         q = self._project(q_in, self.wq, self.bq if bias else None)
-        if k is None:
-            k = self._project(k_in, self.wk, self.bk if bias else None)
-            v = self._project(v_in, self.wv, self.bv if bias else None)
+        k = self._project(k_in, self.wk, self.bk if bias else None)
+        v = self._project(v_in, self.wv, self.bv if bias else None)
+        (axis,) = axes
+        ctx_v = yield from ring_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), axis,
+            ctx.mesh.shape[axis], causal=self.causal,
+            scale=1.0 / math.sqrt(self.head_dim))
+        return self._out_project(ctx_v, ctx)
+
+    def _attend(self, q_in, k_in, v_in, ctx):
+        """The attention of ``q_in``'s rows over ``k_in``/``v_in``."""
+        bias = self.use_bias
+        q = self._project(q_in, self.wq, self.bq if bias else None)
+        k = self._project(k_in, self.wk, self.bk if bias else None)
+        v = self._project(v_in, self.wv, self.bv if bias else None)
         scores = torch.matmul(q, k.transpose(-1, -2)) * (
             1.0 / math.sqrt(self.head_dim))
         if self.causal:
             qlen, klen = scores.shape[-2], scores.shape[-1]
             mask = torch.ones(qlen, klen, dtype=torch.bool,
-                              device=scores.device).tril(offset)
+                              device=scores.device).tril()
             scores = scores.masked_fill(~mask, float("-inf"))
         probs = torch.softmax(scores, dim=-1)
         gen = ctx.stream(probs.device) if ctx.training else None
         if self.dropout > 0 and gen is not None:
             probs = dropout(probs, self.dropout, gen)
         ctx_v = torch.matmul(probs.to(v.dtype), v)        # [b, h, q, hd]
-        b_, h, s, hd = ctx_v.shape
-        out = torch.matmul(ctx_v.transpose(1, 2).reshape(b_, s, h * hd),
+        return self._out_project(ctx_v.transpose(1, 2), ctx)
+
+    def _out_project(self, ctx_v, ctx):
+        """The output projection of ``ctx_v`` ``[b, q, h, hd]``."""
+        b_, s, h, hd = ctx_v.shape
+        out = torch.matmul(ctx_v.reshape(b_, s, h * hd),
                            self.wo.reshape(h * hd, self.embed_dim))
-        if bias:
+        if self.use_bias:
             head = tuple(ctx.config.get("head", ())) if ctx.config else ()
             out = out + bias_once(self.bo, head, ctx)
         return out.to(self.compute_dtype)

@@ -25,7 +25,9 @@ Autograd: where a round's tensors require a gradient (training),
 over all of a group's tensors at once, whose backward calls the same
 ``Comm``: an all-reduce's gradient is the all-reduce of the gradients, an
 all-gather's is each shard's slice of the summed gradients, and a gather
-onto shard 0 gives each shard its slice of shard 0's gradient.  So the
+onto shard 0 gives each shard its slice of shard 0's gradient, and a
+shift's is the reverse shift of the gradients (``ppermute``'s
+transpose).  So the
 CPU tests run the backward that runs over NCCL; only the transport
 differs.
 
@@ -35,11 +37,13 @@ never swapped at run time:
 * ``"nccl"``: shards on distinct CUDA devices, single-process NCCL over
   the group's devices (``torch.cuda.nccl``), one call per collective (a
   ragged all-gather pads each block to the longest and cuts the pads
-  off after);
+  off after); a shift is a peer copy of each tensor to its receiver's
+  card (``Tensor.to(device, non_blocking=True)``: ``torch.cuda.nccl``
+  has no send or receive);
 * ``"local"``: shards that share a device, or live on the CPU: the shards'
   tensors are summed (or concatenated) in rank order on the group's first
   device, and the result is copied to each member, so every member holds
-  the same bits.
+  the same bits; a shift is a plain copy onto the receiver's device.
 """
 
 from __future__ import annotations
@@ -53,9 +57,9 @@ Ranks = Optional[Sequence[int]]
 
 
 class Comm:
-    """All-reduce and all-gather over one tensor per member of a group of
-    shards (``ranks``; None: every shard).  ``shape`` is the mesh's
-    ``{axis: size}`` (None: one axis over every device), which
+    """All-reduce, all-gather, gather and shift over one tensor per member
+    of a group of shards (``ranks``; None: every shard).  ``shape`` is
+    the mesh's ``{axis: size}`` (None: one axis over every device), which
     :meth:`groups` reads.  ``calls`` counts the calls of each
     implementation, so a run shows which one ran."""
 
@@ -158,6 +162,18 @@ class Comm:
         return [torch.cat([t.to(dev0) for t in tensors], dim=dim)] + \
             [None] * (len(tensors) - 1)
 
+    def shift(self, tensors: Sequence[torch.Tensor], offset: int = 1,
+              ranks: Ranks = None) -> List[torch.Tensor]:
+        """Member ``i``'s tensor sent to member ``(i + offset) % n``: the
+        result's ``j``-th entry is member ``(j - offset) % n``'s tensor,
+        a copy on member ``j``'s device (a peer copy between cards)."""
+        ranks = self._members(tensors, ranks)
+        self.calls[self.kind] += 1
+        n = len(ranks)
+        return [tensors[(j - offset) % n].to(
+            self.devices[r], copy=True, non_blocking=self.kind == "nccl")
+            for j, r in enumerate(ranks)]
+
     def _to_members(self, t: torch.Tensor, ranks: List[int]
                     ) -> List[torch.Tensor]:
         """``t`` (on the first member's device) for the first member, and
@@ -222,8 +238,20 @@ class _Gather(torch.autograd.Function):
                   zip(_offsets(ctx.lens), ctx.lens, ctx.devices)))
 
 
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, ranks, offset, *xs):
+        ctx.comm, ctx.ranks, ctx.offset = comm, ranks, offset
+        return tuple(comm.shift(xs, offset, ranks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None,
+                *ctx.comm.shift(grads, -ctx.offset, ctx.ranks))
+
+
 _FUNCTIONS = {"all_reduce": _AllReduce, "all_gather": _AllGather,
-              "gather": _Gather}
+              "gather": _Gather, "shift": _Shift}
 
 
 def _call(comm: Comm, op: str, xs: List[torch.Tensor], args: tuple,
@@ -240,8 +268,14 @@ def _call(comm: Comm, op: str, xs: List[torch.Tensor], args: tuple,
 
 def _parse(msg) -> Tuple[str, tuple, Optional[Tuple[str, ...]]]:
     """A message's op, its arguments after the tensor, and its axes (a
-    trailing tuple of axis names; None: every shard)."""
+    trailing tuple of axis names; None: every shard).  A shift's axes
+    come before its offset, ``("shift", t, axes, offset)``; an axis
+    index's are its last item."""
     op, rest = msg[0], tuple(msg[2:])
+    if op == "shift":
+        return op, (rest[1] if len(rest) > 1 else 1,), tuple(rest[0])
+    if op == "axis_index":
+        return op, (), tuple(rest[0])
     axes = None
     if rest and isinstance(rest[-1], tuple) and rest[-1] and all(
             isinstance(a, str) for a in rest[-1]):
@@ -267,7 +301,8 @@ def run_shards(gens: Sequence[Collectives], comm: Comm) -> list:
     """Run one forward generator per shard in lockstep: each round steps
     every shard to its next collective, checks they all asked for the same
     one, and answers it with one ``comm`` call per group of its axes (a
-    gather: the group of shard 0 only).  Returns the shards' values."""
+    gather: the group of shard 0 only; an axis index: each member's
+    place in its group, no call).  Returns the shards' values."""
     n = len(gens)
     replies: List = [None] * n
     while True:
@@ -289,6 +324,10 @@ def run_shards(gens: Sequence[Collectives], comm: Comm) -> list:
         op, args, axes = _parse(msgs[0])
         replies = [None] * n
         for ranks in comm.groups(axes):
+            if op == "axis_index":
+                for i, r in enumerate(ranks):
+                    replies[r] = i
+                continue
             if op == "gather" and 0 not in ranks:
                 continue
             outs = _call(comm, op, [msgs[r][1] for r in ranks], args, ranks)

@@ -12,18 +12,25 @@ built: NCCL across distinct CUDA devices, a local sum otherwise.
 * ``{"pp": p, "tp": t}`` (pipeline-parallel serving, ``serve/pp.py``):
   ``p * t`` devices pp-major, stage ``s`` holding
   ``devices[s*t:(s+1)*t]``, its own ``{"tp": t}`` mesh
-  (:meth:`Mesh.stage_meshes`, reference ``serve/pp.py:316-323``); the
-  stages share no collective, so such a mesh has no ``comm``;
-* any shape over ``dp``, ``tp``, ``mp`` and ``ep`` (``{"dp": d}``,
-  ``{"dp": d, "tp": t}``, ``{"dp": d, "mp": m}``, ``{"ep": e}``, ``{"dp":
-  d, "ep": e}``..., in any order): the training meshes ``FFModel`` runs a
-  plan on (``model.py``), ``dp`` the data-parallel axis of
+  (:meth:`Mesh.stage_meshes`, reference ``serve/pp.py:316-323``);
+  serving's stages run on those, and its ``comm`` joins no stages;
+* any shape over ``dp``, ``tp``, ``mp``, ``ep``, ``pp`` and ``sp``
+  (``{"dp": d}``, ``{"dp": d, "tp": t}``, ``{"dp": d, "mp": m}``,
+  ``{"ep": e}``, ``{"pp": p, "dp": d}``, ``{"dp": d, "sp": s}``..., in
+  any order): the training meshes ``FFModel`` runs a plan on
+  (``model.py``), ``dp`` the data-parallel axis of
   ``data_parallel_strategy``, ``mp`` the axis DLRM's ``entry``-sharded
   tables split over (``models/dlrm.py``), ``ep`` the axis a MoE layer's
-  experts split over (``models/moe.py``).
+  experts split over (``models/moe.py``), ``pp`` the axis the GPipe
+  executor's stages lie on (``parallel/pipeline.py``: activations shift
+  stage to stage over it) and ``sp`` the axis ring attention splits the
+  sequence over (``parallel/ring_attention.py``).
 
-The ``sp`` axis (ring attention) comes with slice 11d and raises
-``NotImplementedError`` naming it.
+Every mesh has one :class:`~.comm.Comm` over all its axes: a training
+mesh's shifts run over ``pp`` while its means and sums run over ``dp``,
+and a serving ``{"pp": p, "tp": t}`` mesh's stages use their own
+meshes' (``{"pp": p}`` alone is both: a serving shape, normalised to
+``{"pp": p, "tp": 1}``, and a training mesh).
 """
 
 from __future__ import annotations
@@ -42,13 +49,12 @@ Device = Union[str, torch.device]
 
 class Mesh:
     """``shape`` over its devices, row-major, with their collectives
-    (``comm``); a ``{"pp": p, "tp": t}`` mesh has no ``comm``."""
+    (``comm``, over all the axes)."""
 
     def __init__(self, shape: Dict[str, int], devices: Sequence[Device]):
         self.shape = dict(shape)
         self.devices: List[torch.device] = [torch.device(d) for d in devices]
-        self.comm = (None if "pp" in self.shape
-                     else Comm(self.devices, self.shape))
+        self.comm = Comm(self.devices, self.shape)
 
     def stage_meshes(self) -> List["Mesh"]:
         """One ``{"tp": t}`` mesh per pipeline stage, pp-major (a mesh
@@ -66,23 +72,11 @@ class Mesh:
         return tuple(self.shape)
 
     def __repr__(self) -> str:
-        comm = "" if self.comm is None else f", comm={self.comm.kind}"
-        return f"Mesh({self.shape}, {[str(d) for d in self.devices]}{comm})"
+        return (f"Mesh({self.shape}, {[str(d) for d in self.devices]}, "
+                f"comm={self.comm.kind})")
 
 
-_LATER_AXES = {
-    "sp": "slice 11d (pipeline and ring-attention training)",
-}
-TRAIN_AXES = frozenset({"dp", "tp", "mp", "ep"})
-
-
-def check_axes(shape: Dict[str, int]) -> None:
-    """Raise ``NotImplementedError`` for an axis a later slice brings."""
-    for axis in shape:
-        if axis in _LATER_AXES:
-            raise NotImplementedError(
-                f"mesh {shape}: the {axis!r} axis comes with "
-                f"{_LATER_AXES[axis]} (ROADMAP.md)")
+TRAIN_AXES = frozenset({"dp", "tp", "mp", "ep", "pp", "sp"})
 
 
 def make_mesh(shape: Dict[str, int],
@@ -92,10 +86,9 @@ def make_mesh(shape: Dict[str, int],
     ``shape`` is ``{"tp": n}``, or ``{"pp": p, "tp": t}`` (``tp``
     defaults to 1; ``pp=1`` is the plain ``{"tp": t}`` mesh) over ``n =
     p * t`` devices, pp-major (serving), or any shape over ``dp``,
-    ``tp``, ``mp`` and ``ep`` over the product of its sizes, row-major over
-    the shape's axes (training; ``{"dp": 1}`` is one device).  The ``sp``
-    axis (a later slice) raises ``NotImplementedError``; any other shape
-    raises ``ValueError``.
+    ``tp``, ``mp``, ``ep``, ``pp`` and ``sp`` over the product of its
+    sizes, row-major over the shape's axes (training; ``{"dp": 1}`` is one
+    device).  Any other shape raises ``ValueError``.
     ``devices=None`` is ``cuda:0`` ... ``cuda:n-1`` and raises when the
     machine has fewer cards.  A device may appear more than once only when
     the caller lists it so (``["cuda:0", "cuda:0"]``: two shards or two
@@ -103,7 +96,6 @@ def make_mesh(shape: Dict[str, int],
     co-located silently.  The devices must all be CUDA devices, or all
     the CPU."""
     shape = {k: int(v) for k, v in shape.items()}
-    check_axes(shape)
     if shape == {"dp": 1}:
         dev = resolve_device(None if devices is None else devices[0])
         if dev.type == "cuda" and dev.index is None:
@@ -113,7 +105,7 @@ def make_mesh(shape: Dict[str, int],
     if not shape or not (serve or set(shape) <= TRAIN_AXES):
         raise ValueError(f"mesh {shape}: the port's mesh is {{'tp': n}} "
                          "or {'pp': p, 'tp': t} (serving), or a shape over "
-                         "'dp', 'tp', 'mp' and 'ep' (training)")
+                         f"{sorted(TRAIN_AXES)} (training)")
     if any(v < 1 for v in shape.values()):
         raise ValueError(f"mesh {shape}: every axis must be at least 1")
     if serve:

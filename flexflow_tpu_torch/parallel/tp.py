@@ -390,19 +390,19 @@ class PlanExecutor:
         """The range's exit tensors, whole on shard 0 (a split one is
         gathered there over the axes that split it, from the shards at
         coordinate 0 of every other axis; the other shards get None), as
-        a generator of those gathers."""
+        a generator of those gathers.  A tensor split on several dims
+        (a ``sample`` and a ``sequence`` split) is all-gathered over each
+        dim's axes but the last first."""
         outs = []
         for vid, sh in self.exit:
             x = env[vid]
             split = [i for i in sh.split_dims()
                      if sh.dim_degree(i, self.mesh) > 1]
-            if len(split) > 1:
-                raise NotImplementedError(
-                    f"an exit tensor sharded {sh}: the executor gathers "
-                    "one split dim")
+            for i in split[:-1]:
+                x = yield ("all_gather", x, i, tuple(sh.dims[i].axes))
             if split:
-                x = yield ("gather", x, split[0],
-                           tuple(sh.dims[split[0]].axes))
+                x = yield ("gather", x, split[-1],
+                           tuple(sh.dims[split[-1]].axes))
             outs.append(x)
         return outs
 

@@ -12,12 +12,16 @@ files (:mod:`.strategy`), the joint ``tp x pp x n_micro`` serve search
 and its pricing (:mod:`.serve_search`: ``search_serve_plan``,
 ``price_plan``, ``pp_serve_cost``), and the card's measurements
 (:mod:`.measure`: the machine constants and the op-cost cache
-``CostCache``; they run on a CUDA device only).  The pipeline search
-comes with pipeline training (slice 11d).
+``CostCache``; they run on a CUDA device only), and the pipeline
+search (:mod:`.pipeline_search`: ``chain_partition``,
+``simulate_pipeline``, ``propose_pipeline``, ``pipeline_or_gspmd``),
+which ``FFModel.compile`` consults on a mesh with a ``pp`` axis.
 """
 
 from .machine_model import H100_SOURCES, TPU_SPECS, MachineModel, TPUSpec
 from .measure import CostCache
+from .pipeline_search import (chain_partition, pipeline_or_gspmd,
+                              propose_pipeline, simulate_pipeline)
 from .search import enumerate_op_configs, graph_optimize
 from .serve_search import (
     pp_serve_cost,
@@ -46,22 +50,26 @@ __all__ = [
     "TPUSpec",
     "TPU_SPECS",
     "apply_match",
+    "chain_partition",
     "check_equivalence",
     "compose_stage_parts",
     "enumerate_op_configs",
     "find_all_matches",
     "graph_optimize",
     "load_strategy",
+    "pipeline_or_gspmd",
     "plan_memory_bytes",
     "plan_memory_parts",
     "pp_serve_cost",
     "price_kv_swap",
     "price_plan",
+    "propose_pipeline",
     "remap_params",
     "save_strategy",
     "search_serve_plan",
     "serve_component_of",
     "simulate",
+    "simulate_pipeline",
     "standard_rules",
     "store_component_scales",
 ]

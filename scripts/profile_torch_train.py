@@ -4,6 +4,9 @@
     python scripts/profile_torch_train.py [--layers 12] [--seq 512]
     python scripts/profile_torch_train.py --optimizer sgd
     python scripts/profile_torch_train.py --model resnet18 [--batch 32]
+    python scripts/profile_torch_train.py --optimizer sgd --mesh pp=2,dp=2
+    python scripts/profile_torch_train.py --optimizer sgd --mesh sp=4 \
+        --layers 2 --seq 4096 --batch 2
 
 Builds the Transformer classifier (``models/transformer.py``) at
 BERT-base width (hidden 768, 12 heads, ff 3072, 16 classes; depth and
@@ -18,6 +21,12 @@ update, each between CUDA events on the stream (a lower bound where the
 host issues slower than the device runs); then ``--traced`` steps under
 ``torch.profiler``: the wall, the device time summed over kernels, the
 busy share, the device time by kernel class and the top kernels.
+``--mesh`` (the Transformer only) puts every shard of that mesh on the
+card: a ``pp`` axis trains through the GPipe executor
+(``pipeline="force"``, ``PP_MICRO`` microbatches as in ``chip_smoke.py``'s
+phase 27), an ``sp`` axis runs ring attention (``{"sequence": ("sp",)}``
+on every attention op, and ``sample`` over ``dp``); the step's three
+parts are then not split.
 Needs a CUDA device; the card's name and power limit are printed first.
 """
 
@@ -27,6 +36,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+PP_MICRO = 4    # GPipe microbatches a step on a pp mesh
 
 
 def main(argv=None):
@@ -40,6 +51,8 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--traced", type=int, default=3)
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. pp=2,dp=2 or sp=4: shards on the one card")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -49,10 +62,10 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(here))
     sys.path.insert(0, here)
     import flexflow_tpu_torch as ff
-    from flexflow_tpu_torch.core.interpreter import place_inputs
     from flexflow_tpu_torch.models.transformer import \
         build_transformer_classifier
     from flexflow_tpu_torch.models.vision import build_resnet18
+    from flexflow_tpu_torch.parallel.mesh import data_parallel_strategy
     from flexflow_tpu_torch.utils.platform import host_to_device
     from profile_torch_serve import profile_window, report
 
@@ -63,7 +76,16 @@ def main(argv=None):
                          text=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = ff.FFConfig(batch_size=args.batch)
+    shape = (None if args.mesh is None else
+             {k: int(v) for k, v in (a.split("=")
+                                     for a in args.mesh.split(","))})
+    mesh = None
+    if shape is not None:
+        mesh = ff.make_mesh(shape, ["cuda:0"] * int(np.prod(list(
+            shape.values()))))
+    pipeline = ({} if shape is None or "pp" not in shape else
+                dict(pipeline="force", pipeline_microbatches=PP_MICRO))
+    cfg = ff.FFConfig(batch_size=args.batch, **pipeline)
     rng = np.random.RandomState(0)
     if args.model == "resnet18":
         model, _, out = build_resnet18(cfg, batch=args.batch,
@@ -72,15 +94,28 @@ def main(argv=None):
         classes, what = 1000, "ResNet-18 at 224"
     else:
         model = build_transformer_classifier(
-            cfg, batch=args.batch, seq=args.seq, num_layers=args.layers,
-            hidden_dim=768, num_heads=12, ff_dim=3072, num_classes=16)
+            cfg, mesh=mesh, batch=args.batch, seq=args.seq,
+            num_layers=args.layers, hidden_dim=768, num_heads=12,
+            ff_dim=3072, num_classes=16)
         out = None
         x = rng.randn(args.batch, args.seq, 768).astype(np.float32)
         classes, what = 16, f"{args.layers} layers, seq {args.seq}"
     opt = (ff.AdamOptimizer(alpha=1e-4) if args.optimizer == "adam"
            else ff.SGDOptimizer(lr=0.01, momentum=0.9))
-    model.compile(optimizer=opt, outputs=[out] if out is not None else None)
-    batch = place_inputs(model.plan, {model.graph.input_tids[0]: x})
+    strategy = None
+    if shape is not None and "sp" in shape:
+        strategy = data_parallel_strategy(model.graph, mesh)
+        for node in model.graph.nodes:
+            if node.name.endswith("_attn"):
+                strategy.setdefault(node.name, {})["sequence"] = ("sp",)
+        what += f", ring attention on {shape}"
+    model.compile(optimizer=opt, outputs=[out] if out is not None else None,
+                  strategy=strategy)
+    if model._pipeline is not None:
+        what += (f", GPipe on {shape} ({PP_MICRO} microbatches, "
+                 f"{[sum(n.endswith('_attn') for n in c) for c in model._pp_meta['core_names']]}"
+                 " layers a stage)")
+    batch = model._place({model.graph.input_tids[0]: x})
     labels = host_to_device(rng.randint(0, classes, args.batch),
                             model.device)
     seed = 0
@@ -105,10 +140,12 @@ def main(argv=None):
           f"{max(walls) * 1e3:.3f}); 3 x forward flops "
           f"{flops / 1e12:.4f} TFLOP, {flops / med / 1e12:.2f} TFLOP/s")
 
-    # the step's three parts, between events on the stream
+    # the step's three parts, between events on the stream (one device)
     parts = {"forward + loss": [], "backward": [], "update": []}
+    if mesh is not None:
+        parts = {}
     params = model._trainable()
-    for _ in range(args.steps):
+    for _ in range(args.steps if parts else 0):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.synchronize()
         ev[0].record()
@@ -127,8 +164,9 @@ def main(argv=None):
         torch.cuda.synchronize()
         for i, k in enumerate(parts):
             parts[k].append(ev[i].elapsed_time(ev[i + 1]))
-    print("parts (median device ms between events): " + ", ".join(
-        f"{k} {statistics.median(v):.3f}" for k, v in parts.items()))
+    if parts:
+        print("parts (median device ms between events): " + ", ".join(
+            f"{k} {statistics.median(v):.3f}" for k, v in parts.items()))
 
     def traced():
         for _ in range(args.traced):

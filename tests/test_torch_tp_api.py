@@ -150,7 +150,7 @@ def test_pp_raises_naming_slice_9b():
     assert plan_shape("tp2_pp1_m1_spec_w2d3") == {"tp": 2, "pp": 1, "m": 1}
     assert plan_shape("tp1_pp2_m2") == {"tp": 1, "pp": 2, "m": 2}
     mesh = make_mesh({"tp": 1, "pp": 2}, CPU2)
-    assert mesh.shape == {"pp": 2, "tp": 1} and mesh.comm is None
+    assert mesh.shape == {"pp": 2, "tp": 1} and mesh.comm.kind == "local"
     assert [m.devices for m in mesh.stage_meshes()] == [
         [torch.device("cpu")]] * 2
     llm = PS.LLM(CFG).compile(device="cpu", **caps())

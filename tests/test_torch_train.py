@@ -265,11 +265,25 @@ def test_strategy_import_and_export(tmp_path):
 
 def test_compile_and_construction_raise_instead_of_falling_back(
         monkeypatch):
-    for kw, match in ((dict(mesh_shape={"pp": 2, "dp": 1}),
-                       "pipeline training"),
-                      (dict(mesh_shape={"sp": 2}), "11d")):
-        with pytest.raises(NotImplementedError, match=match):
-            _mlp(T, **kw).compile()
+    # pipeline and ring meshes compile (tests/test_torch_pipeline.py,
+    # tests/test_torch_ring_attention.py); what the reference refuses on
+    # them still raises: the sequence split with attention dropout, and a
+    # list of losses under a pipeline
+    sp = T.FFModel(T.FFConfig(batch_size=2),
+                   mesh=T.make_mesh({"sp": 2}, ["cpu", "cpu"]))
+    x = sp.create_tensor((2, 4, 8))
+    sp.multihead_attention(x, x, x, 8, 2, dropout=0.1, name="mha")
+    with pytest.raises(ValueError, match="attention dropout"):
+        sp.compile(strategy={"mha": {"sequence": ("sp",)}},
+                   loss_type="mean_squared_error")
+    pp = T.FFModel(T.FFConfig(batch_size=16, pipeline="force"),
+                   mesh=T.make_mesh({"pp": 2}, ["cpu", "cpu"]))
+    h = pp.create_tensor((16, 32))
+    for i in range(4):
+        h = pp.dense(h, 32, activation="relu", name=f"blk{i}")
+    pp.softmax(pp.dense(h, 4, name="head"))
+    with pytest.raises(ValueError, match="multi-output"):
+        pp.compile(loss_type=["sparse_categorical_crossentropy"])
     # a data-parallel-only config skips the search, as the reference does
     _mlp(T, search_budget=10, only_data_parallel=True).compile()
     # a config the executor cannot run raises, naming its node
@@ -278,13 +292,9 @@ def test_compile_and_construction_raise_instead_of_falling_back(
     m.softmax(m.create_tensor((2, 3)))
     with pytest.raises(NotImplementedError, match="'softmax'"):
         m.compile(strategy={"softmax": {"channel_out": ("tp",)}})
-    # a pipeline mesh and the ring-attention axis name slice 11d
-    m = T.FFModel(T.FFConfig(), mesh=T.make_mesh({"pp": 2}, ["cpu", "cpu"]))
-    m.softmax(m.create_tensor((2, 3)))
-    with pytest.raises(NotImplementedError, match="11d"):
-        m.compile()
-    with pytest.raises(NotImplementedError, match="11d"):
-        T.make_mesh({"sp": 2}, ["cpu", "cpu"])
+    # an axis outside the port's meshes raises
+    with pytest.raises(ValueError, match="training"):
+        T.make_mesh({"xp": 2}, ["cpu", "cpu"])
     # the serve builder methods record their nodes; outside a serve
     # manager their ops raise, as the reference's lowering does
     m = T.FFModel(T.FFConfig(batch_size=4), device="cpu")
